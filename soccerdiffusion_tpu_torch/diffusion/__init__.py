@@ -1,0 +1,22 @@
+"""Diffusion schedule, DDIM and the linear solver table, in torch / numpy."""
+
+from soccerdiffusion_tpu_torch.diffusion.ddim import ddim_sample, ddim_step, ddim_timesteps
+from soccerdiffusion_tpu_torch.diffusion.dpm_solver import (
+    parse_solver,
+    solver_coef_table,
+    solver_sample,
+    solver_timesteps,
+)
+from soccerdiffusion_tpu_torch.diffusion.schedule import DiffusionSchedule, make_schedule
+
+__all__ = [
+    "DiffusionSchedule",
+    "make_schedule",
+    "ddim_timesteps",
+    "ddim_step",
+    "ddim_sample",
+    "parse_solver",
+    "solver_coef_table",
+    "solver_sample",
+    "solver_timesteps",
+]

@@ -1,0 +1,86 @@
+"""The proprioceptive diffusion policy (counterpart of
+``soccerdiffusion_tpu/models/policy.py``, without the image pathway).
+
+Parameters live in ``cfg.compute_dtype`` (the JAX package keeps float32
+params and casts them per use; the result is the same rounding)."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from soccerdiffusion_tpu_torch.config import ModelConfig, check_supported
+from soccerdiffusion_tpu_torch.models.decoder import DiffusionActionGenerator
+from soccerdiffusion_tpu_torch.models.embeddings import StepToken
+from soccerdiffusion_tpu_torch.models.encoders import GameStateEncoder, IMUEncoder, JointEncoder
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class DiffusionPolicy(nn.Module):
+    def __init__(self, config: ModelConfig):
+        super().__init__()
+        check_supported(config)
+        cfg = self.config = config
+        E, ps = cfg.hidden_dim, cfg.encoder_patch_size
+        self.step_encoding = StepToken(E)
+        if cfg.use_action_history:
+            self.action_history_encoder = JointEncoder(
+                cfg.num_joints, E, ps, cfg.num_action_history_encoder_layers,
+                cfg.action_context_length)
+        if cfg.use_imu:
+            self.imu_encoder = IMUEncoder(cfg.imu_input_dim, E, ps, cfg.num_imu_encoder_layers,
+                                          cfg.imu_context_length)
+        if cfg.use_joint_states:
+            self.joint_states_encoder = JointEncoder(
+                cfg.num_joints, E, ps, cfg.joint_state_encoder_layers,
+                cfg.joint_state_context_length)
+        if cfg.use_gamestate:
+            self.game_state_encoder = GameStateEncoder(E)
+        self.diffusion_action_generator = DiffusionActionGenerator(
+            cfg.num_joints, E, cfg.num_decoder_layers, cfg.trajectory_prediction_length,
+            num_heads=cfg.num_decoder_heads)
+        self.to(self.dtype)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return _DTYPES[self.config.compute_dtype]
+
+    def encode_context(self, batch: dict[str, torch.Tensor], train: bool = False) -> torch.Tensor:
+        """(B, S, hidden) context tokens in canonical order: action history,
+        IMU, joint states, game state."""
+        cfg = self.config
+        context = []
+        if cfg.use_action_history:
+            context.append(self.action_history_encoder(batch["joint_command_history"].to(self.dtype)))
+        if cfg.use_imu:
+            context.append(self.imu_encoder(batch["rotation"].to(self.dtype)))
+        if cfg.use_joint_states:
+            context.append(self.joint_states_encoder(batch["joint_state"].to(self.dtype)))
+        if cfg.use_gamestate:
+            context.append(self.game_state_encoder(batch["game_state"]))
+        if not context:
+            raise ValueError("no context modality enabled")
+        return torch.cat(context, dim=1)
+
+    def denoise(self, context: torch.Tensor, noisy_chunk: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """Epsilon for the noisy chunk given context tokens; t is (B,) ints."""
+        full_context = torch.cat([context, self.step_encoding(t)], dim=1)
+        return self.diffusion_action_generator(noisy_chunk.to(self.dtype), full_context).float()
+
+    def precompute_context_kv(self, context: torch.Tensor) -> list:
+        """Per-layer cross-attention K/V of the static context tokens,
+        projected once per chunk and reused by every denoising step."""
+        return self.diffusion_action_generator.compute_context_kv(context)
+
+    def denoise_with_kv(self, context_kv: list, noisy_chunk: torch.Tensor,
+                        t: torch.Tensor) -> torch.Tensor:
+        """``denoise`` against cached context K/V; only the step token is
+        projected fresh."""
+        out = self.diffusion_action_generator(noisy_chunk.to(self.dtype),
+                                              self.step_encoding(t), context_kv)
+        return out.float()
+
+    def forward(self, batch: dict[str, torch.Tensor], noisy_chunk: torch.Tensor,
+                t: torch.Tensor) -> torch.Tensor:
+        return self.denoise(self.encode_context(batch), noisy_chunk, t)

@@ -1,0 +1,94 @@
+"""Whole-chunk fused sampler: every DDIM / DPM-Solver++ step of the
+cross-attending decoder as ONE CUDA kernel launch (``csrc/fused_chunk.cu``).
+
+Counterpart of ``soccerdiffusion_tpu/ops/fused_chunk.py`` in its default
+form ("kstat", ``group_robots=1``, unquantised context K/V). The kernel
+projects the raw context's per-layer K/V once per chunk into a global
+scratch, then loops over the T steps inside one launch with the fp32 solver
+carry on chip; per step the shared step-token K/V rows come from (T, L, E)
+tables and the update from the (T, 5) [A, B, C, P, Q] table
+(``diffusion/dpm_solver.py``), so DDIM and DPM-Solver++(2M) run the same
+kernel.
+
+Dispatch as in ``ops/fused_denoise.py``: a CUDA tensor launches the kernel
+or raises, a CPU tensor runs the plain version. ``FusedChunkSampler.launches``
+counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from soccerdiffusion_tpu_torch.config import check_serving_supported
+from soccerdiffusion_tpu_torch.diffusion.dpm_solver import solver_coef_table
+from soccerdiffusion_tpu_torch.ops import _build
+from soccerdiffusion_tpu_torch.ops.fused_denoise import FusedDenoiser, check_cuda_operand
+
+
+class FusedChunkSampler(FusedDenoiser):
+    """One kernel launch for the entire multi-step chunk; weight packing is
+    inherited from ``FusedDenoiser``, the context K/V are projected in-kernel."""
+
+    launches = 0
+
+    def __init__(self, model, group_robots: int = 1, cross_orientation: str = "kstat",
+                 context_kv_quant: str = "none"):
+        super().__init__(model)
+        check_serving_supported(group_robots=group_robots, kv_quant=context_kv_quant,
+                                cross_orientation=cross_orientation)
+        L = self.num_layers
+        # (E, 2 L E): layer l's K projection, then its V projection
+        self.ckv_w = torch.cat([torch.cat([self.ck_w[l], self.cv_w[l]], dim=1)
+                                for l in range(L)], dim=1).contiguous()
+        self.ckv_b = torch.cat([torch.cat([self.ck_b[l], self.cv_b[l]]) for l in range(L)]).contiguous()
+
+    def sample(self, context: torch.Tensor, noise: torch.Tensor, step_token_table: torch.Tensor,
+               schedule, num_inference_steps: int, solver: str = "ddim") -> torch.Tensor:
+        """context (B, S, E) raw encoded tokens; noise (B, P, J) fp32;
+        step_token_table (T, E) on the solver's timestep sequence. Returns
+        the sampled chunk (B, P, J) fp32."""
+        coefs = solver_coef_table(schedule, num_inference_steps, solver)  # (T, 5) fp32
+        stk, stv = self.step_tables(step_token_table)
+        if noise.is_cuda:
+            return self.sample_kernel(context, noise, stk, stv, coefs)
+        return self.sample_plain(context, noise, stk, stv, coefs)
+
+    def sample_plain(self, context, noise, stk, stv, coefs) -> torch.Tensor:
+        """The plain PyTorch version of the kernel, on any device: stk / stv
+        (T, L, E) step tables, coefs the (T, 5) numpy solver table."""
+        r = self._round
+        ctx = r(context)
+        ck = [r(ctx @ self.ck_w[l].float() + self.ck_b[l].float()) for l in range(self.num_layers)]
+        cv = [r(ctx @ self.cv_w[l].float() + self.cv_b[l].float()) for l in range(self.num_layers)]
+        x = noise.float()
+        x0c = torch.zeros_like(x)
+        for t, (a, b, c, p, q) in enumerate(coefs.tolist()):
+            eps = self.plain_pass(x, ck, cv, stk[t], stv[t])
+            x, x0c = a * x + b * eps + c * x0c, p * x + q * eps
+        return x
+
+    def sample_kernel(self, context, noise, stk, stv, coefs) -> torch.Tensor:
+        """The CUDA kernel (``csrc/fused_chunk.cu``) on CUDA tensors."""
+        self.check_kernel_shapes()
+        for t, name in ((context, "context"), (noise, "noise"), (stk, "step K")):
+            check_cuda_operand(t, self.emb_w, name)
+        cfg = self.cfg
+        B, S, E = context.shape
+        P, J, L = cfg.trajectory_prediction_length, cfg.num_joints, self.num_layers
+        if E != cfg.hidden_dim or tuple(noise.shape) != (B, P, J):
+            raise ValueError(f"context {tuple(context.shape)} / noise {tuple(noise.shape)} "
+                             "do not match the decoder")
+        T = coefs.shape[0]
+        dev = noise.device
+        noise = noise.float().contiguous()
+        out = torch.empty_like(noise)
+        kv = torch.empty((B, L, 2, S, E), dtype=torch.bfloat16, device=dev)
+        coef_dev = torch.as_tensor(coefs, device=dev)
+        err = _build.library().sd_fused_chunk(
+            _build.pointers(*self.weights(), self.ckv_w, self.ckv_b, noise,
+                            context.to(torch.bfloat16).contiguous(), stk, stv, coef_dev, kv, out),
+            _build.ints(L, E, self.num_heads, P, J, B, S, T),
+            _build.stream(dev))
+        _build.check("sd_fused_chunk", err)
+        FusedChunkSampler.launches += 1
+        return out
