@@ -1,4 +1,4 @@
-// Shared device helpers for the serving kernels (sm_90a).
+// Shared device helpers for the serving and training kernels (sm_90a).
 //
 // Conventions of every kernel in this directory:
 //   * weights, biases, LayerNorm params and context tokens are bf16 in
@@ -18,6 +18,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <cstddef>
 
 namespace sd {
 
@@ -78,24 +80,38 @@ struct AddTo {  // residual: out[m][n] += v
   __device__ void operator()(int m, int n, float v) const { out[m * ld + n] += v; }
 };
 
+// Four consecutive X elements as fp32 (16-byte fp32 or 8-byte bf16 load).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
 // Y[M, N] = X[M, K] . W[K, N] + bias[N], handed to epi(m, n, y).
-// X: fp32 in shared memory, row stride ldx (a multiple of 4, 16-byte
-// aligned rows). W: bf16 row-major (K, N) in global memory (L2-resident:
-// every block of the grid reads the same weights). Each thread owns MT rows
-// x NC adjacent columns per work item; the threads of a warp take adjacent
-// columns of the same rows, so X reads are shared-memory broadcasts and W
-// reads are coalesced.
-template <int MT, int NC, class Epi>
-__device__ void dense(const float* __restrict__ X, int ldx, int M, int K,
-                      const bf16* __restrict__ W, int N, const bf16* __restrict__ bias,
-                      Epi epi) {
+// X: fp32 or bf16, row stride ldx (a multiple of 4, rows aligned to 4
+// elements), in shared memory or in a global workspace the block wrote
+// earlier (so X is not __restrict__: a read-only load path would not see
+// those writes). W: bf16 row-major (K, N) in global memory (L2-resident:
+// every block of the grid reads the same weights). A `nullptr` bias
+// selects the overload without one (a runtime null check instead cost the
+// serving kernels registers and spills). Each
+// thread owns MT rows x NC adjacent columns per work item; the threads of a
+// warp take adjacent columns of the same rows, so X reads are broadcasts
+// and W reads are coalesced.
+template <int MT, int NC, bool kBias, class Epi, class XT>
+__device__ void dense_impl(const XT* X, int ldx, int M, int K, const bf16* __restrict__ W, int N,
+                           const bf16* __restrict__ bias, Epi epi) {
   const int n_groups = N / NC;
   const int n_items = n_groups * ((M + MT - 1) / MT);
   for (int item = threadIdx.x; item < n_items; item += blockDim.x) {
     const int n0 = (item % n_groups) * NC;
     const int m0 = (item / n_groups) * MT;
     const int rows = min(MT, M - m0);
-    const float* xr[MT];
+    const XT* xr[MT];
 #pragma unroll
     for (int i = 0; i < MT; ++i) xr[i] = X + (m0 + min(i, rows - 1)) * ldx;
     float acc[MT][NC];
@@ -120,7 +136,7 @@ __device__ void dense(const float* __restrict__ X, int ldx, int M, int K,
       }
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
-        const float4 xv = *reinterpret_cast<const float4*>(xr[i] + k);
+        const float4 xv = load4(xr[i] + k);
 #pragma unroll
         for (int c = 0; c < NC; ++c)
           acc[i][c] += xv.x * w[0][c] + xv.y * w[1][c] + xv.z * w[2][c] + xv.w * w[3][c];
@@ -131,17 +147,34 @@ __device__ void dense(const float* __restrict__ X, int ldx, int M, int K,
       for (int c = 0; c < NC; ++c) {
         const float wv = tof(W[(size_t)k * N + n0 + c]);
 #pragma unroll
-        for (int i = 0; i < MT; ++i) acc[i][c] += xr[i][k] * wv;
+        for (int i = 0; i < MT; ++i) acc[i][c] += tof(xr[i][k]) * wv;
       }
     }
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
       if (i < rows) {
 #pragma unroll
-        for (int c = 0; c < NC; ++c) epi(m0 + i, n0 + c, acc[i][c] + tof(bias[n0 + c]));
+        for (int c = 0; c < NC; ++c) {
+          if constexpr (kBias) {
+            epi(m0 + i, n0 + c, acc[i][c] + tof(bias[n0 + c]));
+          } else {
+            epi(m0 + i, n0 + c, acc[i][c]);
+          }
+        }
       }
     }
   }
+}
+
+template <int MT, int NC, class Epi, class XT = float>
+__device__ void dense(const XT* X, int ldx, int M, int K, const bf16* __restrict__ W, int N,
+                      const bf16* __restrict__ bias, Epi epi) {
+  dense_impl<MT, NC, true>(X, ldx, M, K, W, N, bias, epi);
+}
+template <int MT, int NC, class Epi, class XT = float>
+__device__ void dense(const XT* X, int ldx, int M, int K, const bf16* __restrict__ W, int N,
+                      std::nullptr_t, Epi epi) {
+  dense_impl<MT, NC, false>(X, ldx, M, K, W, N, nullptr, epi);
 }
 
 // out[m] = bf16-rounded LayerNorm(x[m]) * scale + bias over E features,

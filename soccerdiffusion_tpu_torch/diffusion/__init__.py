@@ -1,6 +1,6 @@
 """Diffusion schedule, DDIM and the linear solver table, in torch / numpy."""
 
-from soccerdiffusion_tpu_torch.diffusion.ddim import ddim_sample, ddim_step, ddim_timesteps
+from soccerdiffusion_tpu_torch.diffusion.ddim import add_noise, ddim_sample, ddim_step, ddim_timesteps
 from soccerdiffusion_tpu_torch.diffusion.dpm_solver import (
     parse_solver,
     solver_coef_table,
@@ -12,6 +12,7 @@ from soccerdiffusion_tpu_torch.diffusion.schedule import DiffusionSchedule, make
 __all__ = [
     "DiffusionSchedule",
     "make_schedule",
+    "add_noise",
     "ddim_timesteps",
     "ddim_step",
     "ddim_sample",

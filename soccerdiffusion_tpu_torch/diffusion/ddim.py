@@ -1,4 +1,5 @@
-"""DDIM reverse process (counterpart of ``soccerdiffusion_tpu/diffusion/ddim.py``).
+"""Forward diffusion and the DDIM reverse process (counterpart of
+``soccerdiffusion_tpu/diffusion/ddim.py``).
 
 Epsilon prediction, eta=0, diffusers' default "leading" timestep spacing,
 ``clip_sample`` off by default. All solver math is float32 whatever the
@@ -13,6 +14,17 @@ import numpy as np
 import torch
 
 from soccerdiffusion_tpu_torch.diffusion.schedule import DiffusionSchedule
+
+
+def add_noise(schedule: DiffusionSchedule, x0: torch.Tensor, noise: torch.Tensor,
+              t: torch.Tensor) -> torch.Tensor:
+    """Forward diffusion x_t = sqrt(abar_t) x0 + sqrt(1 - abar_t) eps for
+    per-element int timesteps t (B,), in float32, cast back to x0's dtype."""
+    abar = torch.as_tensor(np.asarray(schedule.alphas_cumprod, np.float32),
+                           device=x0.device)[t.long()]
+    abar = abar.reshape(abar.shape + (1,) * (x0.ndim - abar.ndim))
+    out = torch.sqrt(abar) * x0.float() + torch.sqrt(1.0 - abar) * noise.float()
+    return out.to(x0.dtype)
 
 
 def ddim_timesteps(num_train_timesteps: int, num_inference_steps: int) -> np.ndarray:

@@ -12,6 +12,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from soccerdiffusion_tpu_torch.models.layers import Linear
+
 
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T / sqrt(d)) v over (B, T, H, D) tensors."""
@@ -31,10 +33,10 @@ class MultiHeadAttention(nn.Module):
         if hidden_dim % num_heads != 0:
             raise ValueError("hidden_dim must be divisible by num_heads")
         self.hidden_dim, self.num_heads = hidden_dim, num_heads
-        self.q_proj = nn.Linear(hidden_dim, hidden_dim)
-        self.k_proj = nn.Linear(hidden_dim, hidden_dim)
-        self.v_proj = nn.Linear(hidden_dim, hidden_dim)
-        self.out_proj = nn.Linear(hidden_dim, hidden_dim)
+        self.q_proj = Linear(hidden_dim, hidden_dim)
+        self.k_proj = Linear(hidden_dim, hidden_dim)
+        self.v_proj = Linear(hidden_dim, hidden_dim)
+        self.out_proj = Linear(hidden_dim, hidden_dim)
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         return x.reshape(x.shape[0], x.shape[1], self.num_heads, -1)

@@ -8,18 +8,19 @@ import torch
 from torch import nn
 
 from soccerdiffusion_tpu_torch.models.embeddings import PositionalEncoding
+from soccerdiffusion_tpu_torch.models.layers import Linear
 from soccerdiffusion_tpu_torch.models.transformer import TransformerDecoder
 
 
 class DiffusionActionGenerator(nn.Module):
     def __init__(self, num_joints: int, hidden_dim: int, num_layers: int, max_seq_len: int,
-                 num_heads: int = 4):
+                 num_heads: int = 4, fused_block: bool = False):
         super().__init__()
         self.num_heads = num_heads
-        self.embedding = nn.Linear(num_joints, hidden_dim)
+        self.embedding = Linear(num_joints, hidden_dim)
         self.pos = PositionalEncoding(hidden_dim, max_seq_len)
-        self.decoder = TransformerDecoder(hidden_dim, num_heads, num_layers)
-        self.fc_out = nn.Linear(hidden_dim, num_joints)
+        self.decoder = TransformerDecoder(hidden_dim, num_heads, num_layers, fused_block=fused_block)
+        self.fc_out = Linear(hidden_dim, num_joints)
 
     def compute_context_kv(self, context: torch.Tensor) -> list:
         """Per-layer cross-attention K/V of the static context tokens."""

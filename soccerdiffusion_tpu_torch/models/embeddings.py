@@ -9,6 +9,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from soccerdiffusion_tpu_torch.models.layers import Conv1d
+
 
 def sinusoidal_table(max_len: int, d_model: int) -> np.ndarray:
     """(max_len, d_model) table: pe[:, 0::2] = sin(pos * w_i), pe[:, 1::2] =
@@ -35,9 +37,10 @@ class PositionalEncoding(nn.Module):
 
 
 class StepToken(nn.Module):
-    """Diffusion-timestep token (B, 1, dim): [sin(t w), cos(t w), learned
-    token (1, dim/2)] with half_dim = dim // 4 and
-    w_i = exp(-i ln(1e4) / (half_dim - 1))."""
+    """Diffusion-timestep token (B, 1, dim) in float32: [sin(t w), cos(t w),
+    learned token (1, dim/2)] with half_dim = dim // 4 and
+    w_i = exp(-i ln(1e4) / (half_dim - 1)). The caller casts it to the
+    compute dtype."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -51,7 +54,7 @@ class StepToken(nn.Module):
         ang = steps.float()[:, None] * freqs[None, :]
         tok = self.token.float().expand(steps.shape[0], self.dim // 2)
         emb = torch.cat([torch.sin(ang), torch.cos(ang), tok], dim=-1)
-        return emb[:, None, :].to(self.token.dtype)
+        return emb[:, None, :]
 
 
 class PatchConvEmbed(nn.Module):
@@ -60,7 +63,7 @@ class PatchConvEmbed(nn.Module):
 
     def __init__(self, in_dim: int, hidden_dim: int, patch_size: int):
         super().__init__()
-        self.proj = nn.Conv1d(in_dim, hidden_dim, kernel_size=patch_size, stride=patch_size)
+        self.proj = Conv1d(in_dim, hidden_dim, kernel_size=patch_size, stride=patch_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.proj(x.transpose(1, 2)).transpose(1, 2)

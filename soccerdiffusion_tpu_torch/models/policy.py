@@ -1,8 +1,12 @@
 """The proprioceptive diffusion policy (counterpart of
 ``soccerdiffusion_tpu/models/policy.py``, without the image pathway).
 
-Parameters live in ``cfg.compute_dtype`` (the JAX package keeps float32
-params and casts them per use; the result is the same rounding)."""
+Parameters are float32 masters, as in the JAX package, and are cast to
+``cfg.compute_dtype`` at use (``models/layers.py``); the inputs are cast to
+it here, at the policy's boundaries. The training knobs
+``encoder_fused_stack`` and ``decoder_fused_block`` route the encoder stacks
+and the decoder layers through the fused fwd+bwd ops
+(``ops/fused_encoder_stack.py``, ``ops/fused_decoder_layer.py``)."""
 
 from __future__ import annotations
 
@@ -23,24 +27,24 @@ class DiffusionPolicy(nn.Module):
         check_supported(config)
         cfg = self.config = config
         E, ps = cfg.hidden_dim, cfg.encoder_patch_size
+        fused = cfg.encoder_fused_stack
         self.step_encoding = StepToken(E)
         if cfg.use_action_history:
             self.action_history_encoder = JointEncoder(
                 cfg.num_joints, E, ps, cfg.num_action_history_encoder_layers,
-                cfg.action_context_length)
+                cfg.action_context_length, fused)
         if cfg.use_imu:
             self.imu_encoder = IMUEncoder(cfg.imu_input_dim, E, ps, cfg.num_imu_encoder_layers,
-                                          cfg.imu_context_length)
+                                          cfg.imu_context_length, fused)
         if cfg.use_joint_states:
             self.joint_states_encoder = JointEncoder(
                 cfg.num_joints, E, ps, cfg.joint_state_encoder_layers,
-                cfg.joint_state_context_length)
+                cfg.joint_state_context_length, fused)
         if cfg.use_gamestate:
             self.game_state_encoder = GameStateEncoder(E)
         self.diffusion_action_generator = DiffusionActionGenerator(
             cfg.num_joints, E, cfg.num_decoder_layers, cfg.trajectory_prediction_length,
-            num_heads=cfg.num_decoder_heads)
-        self.to(self.dtype)
+            num_heads=cfg.num_decoder_heads, fused_block=cfg.decoder_fused_block)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -58,14 +62,14 @@ class DiffusionPolicy(nn.Module):
         if cfg.use_joint_states:
             context.append(self.joint_states_encoder(batch["joint_state"].to(self.dtype)))
         if cfg.use_gamestate:
-            context.append(self.game_state_encoder(batch["game_state"]))
+            context.append(self.game_state_encoder(batch["game_state"]).to(self.dtype))
         if not context:
             raise ValueError("no context modality enabled")
         return torch.cat(context, dim=1)
 
     def denoise(self, context: torch.Tensor, noisy_chunk: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """Epsilon for the noisy chunk given context tokens; t is (B,) ints."""
-        full_context = torch.cat([context, self.step_encoding(t)], dim=1)
+        full_context = torch.cat([context.to(self.dtype), self.step_encoding(t).to(self.dtype)], dim=1)
         return self.diffusion_action_generator(noisy_chunk.to(self.dtype), full_context).float()
 
     def precompute_context_kv(self, context: torch.Tensor) -> list:
@@ -78,7 +82,7 @@ class DiffusionPolicy(nn.Module):
         """``denoise`` against cached context K/V; only the step token is
         projected fresh."""
         out = self.diffusion_action_generator(noisy_chunk.to(self.dtype),
-                                              self.step_encoding(t), context_kv)
+                                              self.step_encoding(t).to(self.dtype), context_kv)
         return out.float()
 
     def forward(self, batch: dict[str, torch.Tensor], noisy_chunk: torch.Tensor,

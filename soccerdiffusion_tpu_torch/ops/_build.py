@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles every ``csrc/*.cu`` for sm_90a into one shared library
-with a plain C interface, loaded with ``ctypes``. The library goes to
+``nvcc`` compiles every ``csrc/*.cu`` for sm_90a (one process per source,
+all started together) and links the objects into one shared library with a
+plain C interface, loaded with ``ctypes``. The library goes to
 ``build/kernels/<hash>/`` at the repository root, keyed by a hash of the
 sources and flags, and is built at first use (so the first kernel call, or
 ``python3 chip_smoke.py``, builds everything from the checkout).
@@ -25,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
@@ -34,6 +35,10 @@ _ENTRIES = {
     "sd_fused_encoder": [ctypes.POINTER(_P), _I, _P],
     "sd_fused_denoise": [ctypes.POINTER(_P), _I, _F, _P],
     "sd_fused_chunk": [ctypes.POINTER(_P), _I, _P],
+    "sd_encoder_stack_fwd": [ctypes.POINTER(_P), _I, _P],
+    "sd_encoder_stack_bwd": [ctypes.POINTER(_P), _I, _P],
+    "sd_decoder_layer_fwd": [ctypes.POINTER(_P), _I, _P],
+    "sd_decoder_layer_bwd": [ctypes.POINTER(_P), _I, _P],
 }
 
 
@@ -66,15 +71,26 @@ def library() -> ctypes.CDLL:
     so = out / "libsd_kernels.so"
     if not so.exists():
         out.mkdir(parents=True, exist_ok=True)
-        tmp = out / f"libsd_kernels.{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        nvcc, tag, t0 = _nvcc(), os.getpid(), time.perf_counter()
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [out / f"{src.stem}.{tag}.o" for src in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(srcs, objs)]
+        tmp = out / f"libsd_kernels.{tag}.so"
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        logs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in zip(cmds, procs)]
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+                *map(str, objs)]
+        if all(rc == 0 for _, _, rc in logs):
+            proc = subprocess.run(link, capture_output=True, text=True)
+            logs.append((link, proc.stdout + proc.stderr, proc.returncode))
         (out / "build.log").write_text(
-            f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-            f"\nexit {proc.returncode} after {time.perf_counter() - t0:.1f} s\n")
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+            "".join(f"$ {' '.join(cmd)}\n{text}exit {rc}\n" for cmd, text, rc in logs)
+            + f"built in {time.perf_counter() - t0:.1f} s\n")
+        failed = [(cmd, text, rc) for cmd, text, rc in logs if rc != 0]
+        if failed:
+            cmd, text, rc = failed[0]
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{text[-4000:]}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _ENTRIES.items():

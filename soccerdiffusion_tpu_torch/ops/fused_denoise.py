@@ -28,7 +28,7 @@ from torch.nn import functional as F
 from soccerdiffusion_tpu_torch.config import check_supported
 from soccerdiffusion_tpu_torch.diffusion.ddim import alpha_bar, ddim_timesteps
 from soccerdiffusion_tpu_torch.models.attention import plain_attention
-from soccerdiffusion_tpu_torch.models.transformer import LN_EPS
+from soccerdiffusion_tpu_torch.models.layers import LN_EPS
 from soccerdiffusion_tpu_torch.ops import _build
 
 
@@ -76,8 +76,8 @@ class FusedDenoiser:
         def kernel(lin):  # nn.Linear weight (out, in) -> Dense kernel (in, out)
             return lin.weight.detach().t()
 
-        def stack(fn):
-            return torch.stack([fn(lyr) for lyr in layers]).contiguous()
+        def stack(fn):  # float32 masters -> the compute dtype
+            return torch.stack([fn(lyr) for lyr in layers]).to(self.dtype).contiguous()
 
         sa = lambda lyr: lyr.self_attn
         ca = lambda lyr: lyr.cross_attn
@@ -102,10 +102,10 @@ class FusedDenoiser:
             self.m2_b = stack(lambda l: l.mlp.linear2.bias.detach())
             self.ln_s = stack(lambda l: torch.stack([l.norm1.weight, l.norm2.weight, l.norm3.weight]))
             self.ln_b = stack(lambda l: torch.stack([l.norm1.bias, l.norm2.bias, l.norm3.bias]))
-            self.emb_w = kernel(gen.embedding).contiguous()
-            self.emb_b = gen.embedding.bias.detach().contiguous()
-            self.fc_w = kernel(gen.fc_out).contiguous()
-            self.fc_b = gen.fc_out.bias.detach().contiguous()
+            self.emb_w = kernel(gen.embedding).to(self.dtype).contiguous()
+            self.emb_b = gen.embedding.bias.detach().to(self.dtype).contiguous()
+            self.fc_w = kernel(gen.fc_out).to(self.dtype).contiguous()
+            self.fc_b = gen.fc_out.bias.detach().to(self.dtype).contiguous()
             self.pe = gen.pos.table[: cfg.trajectory_prediction_length].to(self.dtype).contiguous()
 
     def weights(self) -> list[torch.Tensor]:

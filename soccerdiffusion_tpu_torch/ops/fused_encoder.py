@@ -58,8 +58,8 @@ class _Stack:
 
 
 class FusedContextEncoder:
-    """Packs the policy's proprioceptive encoder weights once and serves
-    ``encode(batch) -> (B, S, E)``."""
+    """Packs the policy's proprioceptive encoder weights once, cast from the
+    float32 masters to the compute dtype, and serves ``encode(batch) -> (B, S, E)``."""
 
     launches = 0
 
@@ -84,7 +84,7 @@ class FusedContextEncoder:
             raise ValueError("no sequence encoders enabled")
 
         def kernel(lin):
-            return lin.weight.detach().t()
+            return lin.weight.detach().t().to(self.dtype)
 
         self.stacks: list[_Stack] = []
         with torch.no_grad():
@@ -100,14 +100,15 @@ class FusedContextEncoder:
                 layers = seq.encoder.layers
 
                 def stack(fn):
-                    return torch.stack([fn(lyr) for lyr in layers]).contiguous()
+                    return torch.stack([fn(lyr) for lyr in layers]).to(self.dtype).contiguous()
 
                 sa = lambda lyr: lyr.self_attn
                 self.stacks.append(_Stack(
                     key=key, tokens=T // ps, in_dim=ps * C,
                     # patch element k of channel c is feature k * C + c
-                    emb_w=conv.weight.detach().permute(2, 1, 0).reshape(ps * C, E).contiguous(),
-                    emb_b=conv.bias.detach().contiguous(),
+                    emb_w=conv.weight.detach().permute(2, 1, 0).reshape(ps * C, E)
+                    .to(self.dtype).contiguous(),
+                    emb_b=conv.bias.detach().to(self.dtype).contiguous(),
                     pos=seq.pos.table[: T // ps].to(self.dtype).contiguous(),
                     qkv_w=stack(lambda l: torch.cat(
                         [kernel(sa(l).q_proj), kernel(sa(l).k_proj), kernel(sa(l).v_proj)], dim=1)),
@@ -121,7 +122,8 @@ class FusedContextEncoder:
                     m1_b=stack(lambda l: l.mlp.linear1.bias.detach()),
                     m2_w=stack(lambda l: kernel(l.mlp.linear2)),
                     m2_b=stack(lambda l: l.mlp.linear2.bias.detach())))
-            self.gs_table = (model.game_state_encoder.embedding.weight.detach().contiguous()
+            self.gs_table = (model.game_state_encoder.embedding.weight.detach().to(self.dtype)
+                             .contiguous()
                              if cfg.use_gamestate else None)
         self.num_tokens = sum(s.tokens for s in self.stacks) + (self.gs_table is not None)
 

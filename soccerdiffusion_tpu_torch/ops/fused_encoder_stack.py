@@ -1,0 +1,230 @@
+"""Fused L-layer transformer-encoder stack with a hand-written backward
+(``csrc/fused_encoder_stack.cu``), the training op behind
+``encoder_fused_stack``.
+
+Counterpart of ``soccerdiffusion_tpu/ops/fused_encoder_stack.py``
+(``make_encoder_stack_fn``): per layer, pre-norm
+``x += attn(LN1(x)); x += mlp(LN2(x))`` with exact GELU, the residual
+stream kept fp32 across all L layers and rounded to the compute dtype only
+at the output. The weights are stacked on a leading L axis in
+``STACK_WEIGHTS`` order, Dense kernels as (in, out), q | k | v concatenated.
+
+``FusedEncoderStack`` is the ``torch.autograd.Function``. It takes the
+float32 master weights and casts them to the compute dtype (the dtype of
+x) inside, so the weight gradients it returns, float32, reach the
+parameters unrounded (a bf16 input would have its float32 gradient rounded
+to bf16 by the autograd engine). A CUDA tensor launches the kernels (bf16,
+head_dim 32) or raises; a CPU tensor runs the plain versions below, which
+follow the TPU kernel's casts line by line: ``forward_plain`` is
+``_stack_core`` over the layers, ``backward_plain`` the hand-derived
+backward of ``_make_bwd_kernel`` (not autograd), so that on the card
+kernel and plain version differ by summation order only.
+``FusedEncoderStack.fwd_launches`` / ``.bwd_launches`` count kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from soccerdiffusion_tpu_torch.ops import _build
+from soccerdiffusion_tpu_torch.ops._train_math import (
+    ROWS_PER_SPLIT,
+    attention,
+    attention_bwd,
+    check_kernel_operands,
+    gelu_cdf,
+    gelu_grad,
+    ln_bwd,
+    ln_fwd,
+    r4,
+    r8,
+    rnd,
+    rsum,
+    tdot,
+)
+
+STACK_WEIGHTS = ("g1", "be1", "wqkv", "bqkv", "wo", "bo", "g2", "be2", "w1", "b1", "w2", "b2")
+
+
+def stack_weights(layers) -> list[torch.Tensor]:
+    """The float32 master parameters of ``TransformerEncoderLayer``s stacked
+    on a leading L axis, in ``STACK_WEIGHTS`` order (differentiable)."""
+    st = lambda f: torch.stack([f(lyr) for lyr in layers])
+    kernel = lambda lin: lin.weight.t()
+    sa = lambda lyr: lyr.self_attn
+    return [
+        st(lambda l: l.norm1.weight), st(lambda l: l.norm1.bias),
+        st(lambda l: torch.cat([kernel(sa(l).q_proj), kernel(sa(l).k_proj),
+                                kernel(sa(l).v_proj)], dim=1)),
+        st(lambda l: torch.cat([sa(l).q_proj.bias, sa(l).k_proj.bias, sa(l).v_proj.bias])),
+        st(lambda l: kernel(sa(l).out_proj)), st(lambda l: sa(l).out_proj.bias),
+        st(lambda l: l.norm2.weight), st(lambda l: l.norm2.bias),
+        st(lambda l: kernel(l.mlp.linear1)), st(lambda l: l.mlp.linear1.bias),
+        st(lambda l: kernel(l.mlp.linear2)), st(lambda l: l.mlp.linear2.bias),
+    ]
+
+
+def encoder_stack(x: torch.Tensor, weights: list[torch.Tensor], num_heads: int) -> torch.Tensor:
+    """y (B, T, E) in x's dtype; ``weights`` stacked (L, ...) float32 masters."""
+    return FusedEncoderStack.apply(x, num_heads, *weights)
+
+
+# ------------------------------------------------------- plain versions
+
+def _layer(x32, w, num_heads, dtype):
+    """One layer's forward with every intermediate (``_stack_core``)."""
+    g1, be1, wqkv, bqkv, wo, bo, g2, be2, w1, b1, w2, b2 = (t.float() for t in w)
+    E = x32.shape[-1]
+    n1_32, xh1, r1 = ln_fwd(x32, g1, be1)
+    n1 = rnd(n1_32, dtype)
+    qkv = rnd(n1 @ wqkv + bqkv, dtype)
+    q, k, v = qkv.split(E, dim=-1)
+    p, om = attention(q, k, v, num_heads, dtype)
+    x2 = x32 + (om @ wo + bo)
+    n2_32, xh2, r2 = ln_fwd(x2, g2, be2)
+    n2 = rnd(n2_32, dtype)
+    z = n2 @ w1 + b1
+    cdf = gelu_cdf(z)
+    hg = rnd(z * cdf, dtype)
+    y = x2 + hg @ w2 + b2
+    return dict(xh1=xh1, r1=r1, n1=n1, q=q, k=k, v=v, p=p, om=om, xh2=xh2, r2=r2, n2=n2,
+                z=z, cdf=cdf, hg=hg, y=y)
+
+
+def forward_plain(x: torch.Tensor, w: list[torch.Tensor], num_heads: int) -> torch.Tensor:
+    """The plain PyTorch version of the forward kernel, on any device."""
+    x32 = x.float()
+    for l in range(w[0].shape[0]):
+        x32 = _layer(x32, [t[l] for t in w], num_heads, x.dtype)["y"]
+    return x32.to(x.dtype)
+
+
+def backward_plain(x: torch.Tensor, dy: torch.Tensor, w: list[torch.Tensor],
+                   num_heads: int) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """The plain PyTorch version of the backward kernel: dx in x's dtype and
+    the 12 stacked float32 weight gradients."""
+    dtype, L = x.dtype, w[0].shape[0]
+    xs = [x.float()]
+    for l in range(L - 1):
+        xs.append(_layer(xs[-1], [t[l] for t in w], num_heads, dtype)["y"])
+    g = dy.float()
+    grads = [[None] * L for _ in STACK_WEIGHTS]
+    for l in reversed(range(L)):
+        wl = [t[l].float() for t in w]
+        g1, _, wqkv, _, wo, _, g2, _, w1, _, w2, _ = wl
+        c = _layer(xs[l], wl, num_heads, dtype)
+        # MLP
+        gc = rnd(g, dtype)
+        dw2, db2 = tdot(c["hg"], gc), rsum(g)
+        dz = (gc @ w2.t()) * gelu_grad(c["z"], c["cdf"])
+        dzc = rnd(dz, dtype)
+        dw1, db1 = tdot(c["n2"], dzc), rsum(dz)
+        dn2 = dzc @ w1.t()
+        dg2, dbe2 = rsum(dn2 * c["xh2"]), rsum(dn2)
+        dx2 = g + ln_bwd(dn2, c["xh2"], c["r2"], g2)
+        # attention
+        da = rnd(dx2, dtype)
+        dwo, dbo = tdot(c["om"], da), rsum(dx2)
+        dom = rnd(da @ wo.t(), dtype)
+        dq, dk, dv = attention_bwd(c["p"], c["q"], c["k"], c["v"], dom, num_heads, dtype)
+        dqkv = torch.cat([rnd(dq, dtype), rnd(dk, dtype), rnd(dv, dtype)], dim=-1)
+        dwqkv, dbqkv = tdot(c["n1"], dqkv), rsum(dqkv)
+        dn1 = dqkv @ wqkv.t()
+        dg1, dbe1 = rsum(dn1 * c["xh1"]), rsum(dn1)
+        g = dx2 + ln_bwd(dn1, c["xh1"], c["r1"], g1)
+        for i, grad in enumerate((dg1, dbe1, dwqkv, dbqkv, dwo, dbo, dg2, dbe2, dw1, db1, dw2, db2)):
+            grads[i][l] = grad
+    return g.to(dtype), [torch.stack(gs) for gs in grads]
+
+
+# --------------------------------------------------------- CUDA kernels
+
+def _ws_strides(T: int, E: int, FF: int) -> tuple[int, int]:
+    """Per-robot fp32 / bf16 workspace elements (``csrc/fused_encoder_stack.cu:carve``)."""
+    return (6 * r4(T * E) + 2 * r4(T * FF) + 2 * r4(T),
+            r8(3 * T * E) + r8(T * E))
+
+
+def forward_kernel(x: torch.Tensor, w: list[torch.Tensor],
+                   num_heads: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel on CUDA tensors: y (B, T, E) bf16 and the fp32
+    input of every layer, acts (L, B, T, E), kept for the backward."""
+    (B, T, E), L, FF = x.shape, w[0].shape[0], w[8].shape[-1]
+    check_kernel_operands(x, w, num_heads, FF, T * T)
+    dev = x.device
+    x = x.contiguous()
+    w = [t.contiguous() for t in w]
+    s32, sbf = _ws_strides(T, E, FF)
+    y = torch.empty_like(x)
+    acts = torch.empty((L, B, T, E), dtype=torch.float32, device=dev)
+    ws32 = torch.empty((B, s32), dtype=torch.float32, device=dev)
+    wsbf = torch.empty((B, sbf), dtype=torch.bfloat16, device=dev)
+    saved = torch.empty((B * T, 8 * E + 2 * FF), dtype=torch.bfloat16, device=dev)
+    err = _build.library().sd_encoder_stack_fwd(
+        _build.pointers(x, *w, y, acts, ws32, wsbf, saved),
+        _build.ints(B, T, E, num_heads, FF, L, s32, sbf), _build.stream(dev))
+    _build.check("sd_encoder_stack_fwd", err)
+    FusedEncoderStack.fwd_launches += 1
+    return y, acts
+
+
+def backward_kernel(acts: torch.Tensor, dy: torch.Tensor, w: list[torch.Tensor],
+                    num_heads: int) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """The backward kernel on CUDA tensors: dx (bf16) and the 12 stacked
+    float32 weight gradients, summed over the batch in a fixed order."""
+    L, B, T, E = acts.shape
+    FF = w[8].shape[-1]
+    check_kernel_operands(dy, w, num_heads, FF, T * T)
+    dev = dy.device
+    dy = dy.contiguous()
+    w = [t.contiguous() for t in w]
+    wt = [w[i].transpose(-1, -2).contiguous() for i in (2, 4, 8, 10)]  # wqkv, wo, w1, w2
+    s32, sbf = _ws_strides(T, E, FF)
+    V = 9 * E + FF  # g1 be1 bqkv(3E) bo g2 be2 b1(FF) b2
+    dx = torch.empty_like(dy)
+    mats = [torch.empty((L, E, 3 * E), device=dev), torch.empty((L, E, E), device=dev),
+            torch.empty((L, E, FF), device=dev), torch.empty((L, FF, E), device=dev)]
+    gvec = torch.empty((L, V), device=dev)
+    splits = -(-B * T // ROWS_PER_SPLIT)
+    tpart = torch.empty(splits * L * (E * 3 * E + E * E + 2 * E * FF), device=dev)
+    ws32 = torch.empty((B, s32), device=dev)
+    wsbf = torch.empty((B, sbf), dtype=torch.bfloat16, device=dev)
+    saved = torch.empty((L, B * T, 8 * E + 2 * FF), dtype=torch.bfloat16, device=dev)
+    vpart = torch.empty((B, L, V), device=dev)
+    err = _build.library().sd_encoder_stack_bwd(
+        _build.pointers(acts, dy, *w, *wt, dx, *mats, gvec, ws32, wsbf, saved, vpart, tpart),
+        _build.ints(B, T, E, num_heads, FF, L, s32, sbf, ROWS_PER_SPLIT), _build.stream(dev))
+    _build.check("sd_encoder_stack_bwd", err)
+    FusedEncoderStack.bwd_launches += 1
+    vec = gvec.split([E, E, 3 * E, E, E, E, FF, E], dim=1)
+    grads = [vec[0], vec[1], mats[0], vec[2], mats[1], vec[3], vec[4], vec[5], mats[2], vec[6],
+             mats[3], vec[7]]
+    return dx, grads
+
+
+class FusedEncoderStack(torch.autograd.Function):
+    """(x, num_heads, *12 stacked float32 weights) -> y."""
+
+    fwd_launches = 0
+    bwd_launches = 0
+
+    @staticmethod
+    def forward(ctx, x, num_heads, *weights):
+        w = [t.to(x.dtype) for t in weights]
+        ctx.num_heads = num_heads
+        if x.is_cuda:
+            y, acts = forward_kernel(x, w, num_heads)
+            ctx.save_for_backward(acts, *w)
+        else:
+            y = forward_plain(x, w, num_heads)
+            ctx.save_for_backward(x, *w)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        first, *w = ctx.saved_tensors
+        if dy.is_cuda:
+            dx, grads = backward_kernel(first, dy, w, ctx.num_heads)
+        else:
+            dx, grads = backward_plain(first, dy, w, ctx.num_heads)
+        return (dx, None, *grads)

@@ -1,0 +1,66 @@
+"""Checkpoints of the port, written with ``torch.save``, with the JAX
+package's embedded-hyperparameters contract: a directory holding
+
+  <path>/state.pt          params, optimizer state, EMA, normaliser, step
+  <path>/hyperparams.json  the flat hyperparameter dict and the epoch
+
+written to a temporary directory and renamed into place. The JAX package's
+msgpack checkpoints are a different format; a reader for them is not
+ported yet (see ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from pathlib import Path
+from typing import Any
+
+import torch
+
+from soccerdiffusion_tpu_torch.data.normalizer import Normalizer
+
+FORMAT = "soccerdiffusion_tpu_torch/1"
+
+
+def save_checkpoint(path: str | Path, state, normalizer: Normalizer,
+                    hyperparams: dict[str, Any], epoch: int) -> None:
+    path = Path(path)
+    tmp = path.with_name(path.name + ".tmp")
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir(parents=True)
+    cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}
+    torch.save({
+        "format": FORMAT,
+        "step": int(state.step),
+        "params": cpu(state.model.state_dict()),
+        "optimizer": state.optimizer.adamw.state_dict(),
+        "ema": cpu(state.ema),
+        "norm": {"mean": normalizer.mean.cpu(), "std": normalizer.std.cpu()},
+    }, tmp / "state.pt")
+    (tmp / "hyperparams.json").write_text(
+        json.dumps({"hyperparams": hyperparams, "current_epoch": epoch}, indent=2))
+    if path.exists():
+        shutil.rmtree(path)
+    os.replace(tmp, path)
+
+
+def load_checkpoint(path: str | Path, state=None) -> dict[str, Any]:
+    """Returns {params, optimizer, ema, step, norm: Normalizer, hyperparams,
+    current_epoch}; with ``state`` (a ``TrainState``) the params, optimizer
+    state, EMA and step are also restored into it, on its device."""
+    path = Path(path)
+    raw = torch.load(path / "state.pt", map_location="cpu", weights_only=True)
+    if raw.get("format") != FORMAT:
+        raise ValueError(f"{path} is not a {FORMAT} checkpoint")
+    meta = json.loads((path / "hyperparams.json").read_text())
+    if state is not None:
+        state.model.load_state_dict(raw["params"])
+        state.optimizer.adamw.load_state_dict(raw["optimizer"])
+        device = next(state.model.parameters()).device
+        state.ema = {k: v.to(device) for k, v in raw["ema"].items()}
+        state.step = raw["step"]
+    return {**raw, "norm": Normalizer(mean=raw["norm"]["mean"], std=raw["norm"]["std"]),
+            "hyperparams": meta["hyperparams"], "current_epoch": meta["current_epoch"]}

@@ -1,0 +1,183 @@
+"""End-to-end diffusion training (counterpart of
+``soccerdiffusion_tpu/training/train.py``):
+
+  python -m soccerdiffusion_tpu_torch.training.train -c config.yaml [-p ckpt_dir]
+      [-o out_dir] [--dummy-data] [--epochs N] [--steps-per-epoch N]
+      [--seed S] [--metrics metrics.jsonl] [--decoder-pretraining]
+
+Config-or-checkpoint hyperparameters (the config wins, with warnings for
+keys that differ), the normaliser fitted on ``num_normalization_samples``
+random target chunks, a checkpoint per epoch with the hyperparameters
+embedded, and resume restoring the model, optimizer and EMA. The model
+starts from flax's default initialisers (``flax_init_params``). ``train``
+runs the loop from a ``Config`` and needs no YAML. The log reports steps/s
+(host clock, one device sync per logging window) where the JAX package
+reports its TPU MFU meter.
+
+Only the synthetic dataset (``--dummy-data``) is ported: the SQLite
+dataset comes with ``WindowedDataset.from_sqlite`` (see ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import time
+from dataclasses import dataclass
+
+import torch
+
+from soccerdiffusion_tpu_torch.config import Config
+from soccerdiffusion_tpu_torch.data import Normalizer, WindowedDataset, generate_dummy_arrays
+from soccerdiffusion_tpu_torch.data.pipeline import prefetch_to_device
+from soccerdiffusion_tpu_torch.diffusion import make_schedule
+from soccerdiffusion_tpu_torch.models import DiffusionPolicy
+from soccerdiffusion_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
+from soccerdiffusion_tpu_torch.training.metrics import MetricsLogger
+from soccerdiffusion_tpu_torch.training.trainer import (
+    create_train_state,
+    lr_at_step,
+    make_optimizer,
+    make_train_step,
+)
+from soccerdiffusion_tpu_torch.utils.jax_params import flax_init_params, load_jax_params
+
+logger = logging.getLogger("soccerdiffusion_tpu_torch")
+
+
+@dataclass
+class RunOptions:
+    """What ``train`` takes besides the ``Config``: the CLI's flags."""
+
+    output: str = "trajectory_transformer_model.ckpt"
+    checkpoint: str | None = None
+    dummy_data: bool = True
+    epochs: int | None = None
+    steps_per_epoch: int | None = None
+    seed: int = 0
+    metrics: str | None = None
+    decoder_pretraining: bool = False
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description="Train the diffusion policy (PyTorch port)")
+    parser.add_argument("--config", "-c", type=str, default=None)
+    parser.add_argument("--checkpoint", "-p", type=str, default=None)
+    parser.add_argument("--output", "-o", type=str, default="trajectory_transformer_model.ckpt")
+    parser.add_argument("--decoder-pretraining", action="store_true")
+    parser.add_argument("--dummy-data", action="store_true",
+                        help="train on the synthetic array backend")
+    parser.add_argument("--epochs", type=int, default=None, help="override epochs")
+    parser.add_argument("--steps-per-epoch", type=int, default=None,
+                        help="cap steps per epoch (smoke runs)")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--metrics", type=str, default=None, help="metrics JSONL path")
+    return parser.parse_args(argv)
+
+
+def resolve_params(args) -> dict:
+    """Config-or-checkpoint hyperparameters; the config wins."""
+    if not (args.config or args.checkpoint):
+        raise SystemExit("either a config file (-c) or a checkpoint (-p) is required")
+    params: dict = {}
+    if args.checkpoint:
+        params = load_checkpoint(args.checkpoint)["hyperparams"]
+    if args.config:
+        import yaml
+
+        with open(args.config) as f:
+            config_params = yaml.safe_load(f)
+        for key, value in config_params.items():
+            if args.checkpoint and key in params and value != params[key]:
+                logger.warning(f"key '{key}' differs from checkpoint: {params[key]} != {value}")
+        params = config_params
+    return params
+
+
+def build_dataset(config: Config, seed: int, dummy_data: bool) -> WindowedDataset:
+    if not dummy_data:
+        raise NotImplementedError("the SQLite dataset is not ported yet (see ROADMAP.md); "
+                                  "use --dummy-data")
+    m = config.model
+    n = max(600, m.action_context_length + m.trajectory_prediction_length + 200)
+    dummy = generate_dummy_arrays(num_recordings=2, num_samples=n, num_joints=m.num_joints,
+                                  with_images=m.use_images, seed=seed, task=config.train.dummy_task)
+    return WindowedDataset.from_dummy(dummy, m)
+
+
+def train(config: Config, opts: RunOptions, hyperparams: dict | None = None):
+    """The training loop, on the GPU when there is one; returns the final
+    ``TrainState``."""
+    tc = config.train
+    epochs = opts.epochs if opts.epochs is not None else tc.epochs
+    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    dataset = build_dataset(config, opts.seed, opts.dummy_data)
+    steps_per_epoch = len(dataset) // tc.batch_size
+    if opts.steps_per_epoch:
+        steps_per_epoch = min(steps_per_epoch, opts.steps_per_epoch)
+    total_steps = max(1, epochs * steps_per_epoch)
+    logger.info(f"device {device}; dataset: {len(dataset)} windows, {steps_per_epoch} steps/epoch")
+    normalizer = Normalizer.fit(dataset.sample_targets(tc.num_normalization_samples, seed=opts.seed))
+
+    model = DiffusionPolicy(config.model)
+    model = load_jax_params(model, flax_init_params(model, opts.seed)).to(device)
+    optimizer = make_optimizer(model, tc.lr, total_steps, tc.weight_decay,
+                               flat=tc.flat_optimizer,
+                               module_lr_mults={"image_sequence_encoder": tc.image_encoder_lr_mult},
+                               grad_clip_norm=tc.grad_clip_norm)
+    state = create_train_state(model, optimizer, ema=tc.ema_decay > 0.0)
+    start_epoch = 0
+    if opts.checkpoint:
+        ckpt = load_checkpoint(opts.checkpoint, state)
+        normalizer = ckpt["norm"]
+        start_epoch = ckpt["current_epoch"] + 1
+        logger.info(f"resumed from {opts.checkpoint} at epoch {start_epoch}")
+    step_fn = make_train_step(model, make_schedule(tc.train_denoising_timesteps), optimizer,
+                              normalizer, decoder_pretraining=opts.decoder_pretraining,
+                              ema_decay=tc.ema_decay, modality_dropout=tc.modality_dropout,
+                              aux_cue_weight=tc.aux_cue_weight)
+    generator = torch.Generator(device=device).manual_seed(opts.seed)
+    metrics_logger = MetricsLogger(opts.metrics)
+    log_every = max(1, tc.log_every)
+    hyperparams = config.to_dict() if hyperparams is None else hyperparams
+    try:
+        for epoch in range(start_epoch, epochs):
+            window, t0 = 0, time.perf_counter()
+            batches = prefetch_to_device(
+                dataset.batches(tc.batch_size, shuffle=True, seed=opts.seed + epoch), device)
+            for i, batch in enumerate(batches):
+                if i >= steps_per_epoch:
+                    batches.close()
+                    break
+                metrics = step_fn(state, batch, generator)
+                window += 1
+                if state.step % log_every == 0:
+                    loss = float(metrics["loss"])  # the window's one device sync
+                    now = time.perf_counter()
+                    metrics_logger.log(state.step - 1, {
+                        "loss": loss, "grad_norm": metrics["grad_norm"],
+                        "lr": lr_at_step(tc.lr, total_steps, state.step - 1), "epoch": epoch,
+                        "steps_per_sec": window / (now - t0)},
+                        grads=metrics["grad_norms_by_layer"])
+                    window, t0 = 0, now
+            save_checkpoint(opts.output, state, normalizer, hyperparams, epoch)
+            logger.info(f"epoch {epoch} done; checkpoint -> {opts.output}")
+    finally:
+        metrics_logger.close()
+    return state
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    args = parse_args(argv)
+    params = resolve_params(args)
+    if args.epochs is not None:
+        params["epochs"] = args.epochs
+    opts = RunOptions(output=args.output, checkpoint=args.checkpoint, dummy_data=args.dummy_data,
+                      epochs=args.epochs, steps_per_epoch=args.steps_per_epoch, seed=args.seed,
+                      metrics=args.metrics, decoder_pretraining=args.decoder_pretraining)
+    return train(Config.from_dict(params), opts, hyperparams=params)
+
+
+if __name__ == "__main__":
+    main()

@@ -54,15 +54,20 @@ _LEAVES = {
 }
 
 
+def _leaves(mod: nn.Module):
+    """The leaf table of ``mod``'s type (or a base type), or None."""
+    return next((v for k, v in _LEAVES.items() if isinstance(mod, k)), None)
+
+
 @torch.no_grad()
 def load_jax_params(model: nn.Module, params) -> nn.Module:
-    """Copy flax ``params`` into ``model`` in place (cast to the model's
-    dtype and device) and return it."""
+    """Copy flax ``params`` into ``model`` in place (onto the model's
+    device; the parameters are float32) and return it."""
     flat = _flatten(params)
     used = set()
     filled = 0
     for name, mod in model.named_modules():
-        leaves = _LEAVES.get(type(mod))
+        leaves = _leaves(mod)
         if leaves is None:
             continue
         base = _flax_path(name)
@@ -89,6 +94,52 @@ def load_jax_params(model: nn.Module, params) -> nn.Module:
     return model
 
 
+def _tree_node(tree: dict, module_name: str) -> dict:
+    node = tree
+    for part in _flax_path(module_name).split("/"):
+        node = node.setdefault(part, {})
+    return node
+
+
+def flax_init_params(model: nn.Module, seed: int) -> dict:
+    """A flax-layout tree drawn from flax's default initialisers, the JAX
+    package's initial parameters in distribution (numpy float32): Dense and
+    conv kernels LeCun-normal (normal truncated at 2 std, std
+    sqrt(1 / fan_in) / 0.8796), zero biases, LayerNorm scale 1 and bias 0,
+    embedding rows normal with std sqrt(1 / E), the step token unit normal."""
+    rng = np.random.default_rng(seed)
+
+    def lecun(shape, fan_in):
+        std = np.sqrt(1.0 / fan_in) / 0.87962566103423978
+        a = rng.standard_normal(shape)
+        while (bad := np.abs(a) > 2.0).any():
+            a[bad] = rng.standard_normal(int(bad.sum()))
+        return a * std
+
+    tree: dict = {}
+    for name, mod in model.named_modules():
+        leaves = _leaves(mod)
+        if leaves is None:
+            continue
+        node = _tree_node(tree, name)
+        for attr, leaf, _ in leaves:
+            shape = tuple(getattr(mod, attr).shape)
+            if isinstance(mod, nn.Linear) and attr == "weight":
+                arr = lecun(shape[::-1], shape[1])
+            elif isinstance(mod, nn.Conv1d) and attr == "weight":
+                arr = lecun(shape[::-1], shape[1] * shape[2])
+            elif isinstance(mod, nn.LayerNorm) and attr == "weight":
+                arr = np.ones(shape)
+            elif attr == "bias":
+                arr = np.zeros(shape)
+            elif isinstance(mod, nn.Embedding):
+                arr = rng.standard_normal(shape) / np.sqrt(shape[1])
+            else:
+                arr = rng.standard_normal(shape)
+            node[leaf] = arr.astype(np.float32)
+    return tree
+
+
 def random_jax_params(model: nn.Module, seed: int) -> dict:
     """Seeded random flax-layout params for ``model`` (numpy float32):
     LeCun-normal Dense / conv kernels, small biases, LayerNorm scales near
@@ -96,12 +147,10 @@ def random_jax_params(model: nn.Module, seed: int) -> dict:
     rng = np.random.default_rng(seed)
     tree: dict = {}
     for name, mod in model.named_modules():
-        leaves = _LEAVES.get(type(mod))
+        leaves = _leaves(mod)
         if leaves is None:
             continue
-        node = tree
-        for part in _flax_path(name).split("/"):
-            node = node.setdefault(part, {})
+        node = _tree_node(tree, name)
         for attr, leaf, _ in leaves:
             shape = tuple(getattr(mod, attr).shape)
             if isinstance(mod, nn.Linear) and attr == "weight":

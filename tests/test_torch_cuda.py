@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
-shapes off the serving path (patch 2, five-dim IMU, no game state, short
-contexts, 5-step chunks, a batch that is no multiple of anything).
+shapes off the main paths (serving: patch 2, five-dim IMU, no game state,
+short contexts, 5-step chunks, a batch that is no multiple of anything;
+training: B=5, T=7, S=33).
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere. JAX-free, so it runs on a
 machine without jax: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
@@ -97,3 +98,116 @@ def test_wrapper_rejects_float32_weights(device):
     cfg, model, batch, _ = setup({"compute_dtype": "float32"}, device)
     with pytest.raises(ValueError, match="bfloat16"):
         FusedContextEncoder(model).encode(batch)
+
+
+# ------------------------------------------------------- training kernels
+# A and B: the fused decoder layer fwd / bwd; C and D: the fused encoder
+# stack fwd / bwd, at B=5, T=7 chunk / context rows, S=33 memory rows. Each
+# output and every weight gradient within TOL x max|plain|; the two
+# gradients that are zero in exact arithmetic (the key third of bqkv, bck)
+# against the largest weight gradient of the layer.
+
+def training_weights(device):
+    cfg = dataclasses.replace(CFG, num_action_history_encoder_layers=2, compute_dtype="bfloat16",
+                              encoder_fused_stack=True, decoder_fused_block=True)
+    model = DiffusionPolicy(cfg)
+    model = load_jax_params(model, random_jax_params(model, seed=4)).to(device)
+    from soccerdiffusion_tpu_torch.ops.fused_decoder_layer import layer_weights
+    from soccerdiffusion_tpu_torch.ops.fused_encoder_stack import stack_weights
+
+    enc = [t.detach().to(torch.bfloat16) for t in
+           stack_weights(model.action_history_encoder.seq.encoder.layers)]
+    dec = [t.detach().to(torch.bfloat16) for t in
+           layer_weights(model.diffusion_action_generator.decoder.layers[0])]
+    return enc, dec
+
+
+def assert_grads_close(names, got, ref, zero):
+    top = max(r.abs().max().item() for r in ref)
+    for name, g, r in zip(names, got, ref):
+        g, r = g.float(), r.float()
+        assert g.shape == r.shape and torch.isfinite(g).all(), name
+        err = (g - r).abs()
+        if name in zero:
+            cut = zero[name]
+            assert err[..., cut].max().item() <= TOL * top, name
+            err[..., cut] = 0
+        assert err.max().item() <= TOL * r.abs().max().item(), (name, err.max().item())
+
+
+def test_encoder_stack_kernels_match_plain_versions(device):
+    from soccerdiffusion_tpu_torch.ops import fused_encoder_stack as fes
+
+    w, _ = training_weights(device)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=(5, 7, 128)).astype(np.float32)).to(device, torch.bfloat16)
+    dy = torch.from_numpy(rng.normal(size=(5, 7, 128)).astype(np.float32)).to(device, torch.bfloat16)
+    n_fwd, n_bwd = fes.FusedEncoderStack.fwd_launches, fes.FusedEncoderStack.bwd_launches
+    y, acts = fes.forward_kernel(x, w, 4)
+    assert_close(y, fes.forward_plain(x, w, 4))
+    dx, grads = fes.backward_kernel(acts, dy, w, 4)
+    dx_ref, grads_ref = fes.backward_plain(x, dy, w, 4)
+    torch.cuda.synchronize()
+    assert_close(dx, dx_ref)
+    assert_grads_close(fes.STACK_WEIGHTS, grads, grads_ref, {"bqkv": slice(128, 256)})
+    assert (fes.FusedEncoderStack.fwd_launches, fes.FusedEncoderStack.bwd_launches) == (n_fwd + 1, n_bwd + 1)
+
+
+def test_decoder_layer_kernels_match_plain_versions(device):
+    from soccerdiffusion_tpu_torch.ops import fused_decoder_layer as fdl
+
+    _, w = training_weights(device)
+    rng = np.random.default_rng(2)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device, torch.bfloat16)
+    x, mem, dy = t(5, 7, 128), t(5, 33, 128), t(5, 7, 128)
+    n_fwd, n_bwd = fdl.FusedDecoderLayer.fwd_launches, fdl.FusedDecoderLayer.bwd_launches
+    assert_close(fdl.forward_kernel(x, mem, w, 4), fdl.forward_plain(x, mem, w, 4))
+    dx, dmem, grads = fdl.backward_kernel(x, mem, dy, w, 4)
+    dx_ref, dmem_ref, grads_ref = fdl.backward_plain(x, mem, dy, w, 4)
+    torch.cuda.synchronize()
+    assert_close(dx, dx_ref)
+    assert_close(dmem, dmem_ref)
+    assert_grads_close(fdl.WEIGHT_NAMES, grads, grads_ref,
+                       {"bqkv": slice(128, 256), "bck": slice(None)})
+    assert (fdl.FusedDecoderLayer.fwd_launches, fdl.FusedDecoderLayer.bwd_launches) == (n_fwd + 1, n_bwd + 1)
+
+
+def test_training_kernels_reject_head_dim_64(device):
+    from soccerdiffusion_tpu_torch.ops import fused_decoder_layer as fdl
+    from soccerdiffusion_tpu_torch.ops import fused_encoder_stack as fes
+
+    enc, dec = training_weights(device)
+    x = torch.zeros((2, 7, 128), device=device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 32"):
+        fes.forward_kernel(x, enc, 2)
+    with pytest.raises(ValueError, match="head_dim 32"):
+        fdl.forward_kernel(x, torch.zeros((2, 33, 128), device=device, dtype=torch.bfloat16), dec, 2)
+
+
+def test_decoder_layer_kernels_reject_an_mlp_width_off_8(device):
+    from soccerdiffusion_tpu_torch.ops import fused_decoder_layer as fdl
+
+    _, dec = training_weights(device)
+    ff = 12
+    dec[18], dec[19], dec[20] = (torch.zeros(s, device=device, dtype=torch.bfloat16)
+                                 for s in ((128, ff), (ff,), (ff, 128)))
+    x = torch.zeros((2, 7, 128), device=device, dtype=torch.bfloat16)
+    mem = torch.zeros((2, 33, 128), device=device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8, got 12"):
+        fdl.forward_kernel(x, mem, dec, 4)
+    with pytest.raises(ValueError, match="multiple of 8, got 12"):
+        fdl.backward_kernel(x, mem, x, dec, 4)
+
+
+def test_training_weight_grads_are_deterministic(device):
+    """The weight gradients are summed over the batch in a fixed order: two
+    backward launches on the same inputs agree bit for bit."""
+    from soccerdiffusion_tpu_torch.ops import fused_decoder_layer as fdl
+
+    _, w = training_weights(device)
+    rng = np.random.default_rng(3)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device, torch.bfloat16)
+    x, mem, dy = t(37, 10, 128), t(37, 302, 128), t(37, 10, 128)
+    first, second = (fdl.backward_kernel(x, mem, dy, w, 4) for _ in range(2))
+    for a, b in zip([first[0], first[1], *first[2]], [second[0], second[1], *second[2]]):
+        assert torch.equal(a, b)

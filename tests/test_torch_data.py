@@ -1,0 +1,55 @@
+"""The port's data modules (data/dummy.py, data/dataset.py) against the JAX
+package's: the same seed gives bit-identical arrays."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from soccerdiffusion_tpu.data import WindowedDataset as JaxDataset
+from soccerdiffusion_tpu.data import generate_dummy_arrays as jax_dummy
+from soccerdiffusion_tpu_torch.data import RobotState, WindowedDataset, generate_dummy_arrays
+from soccerdiffusion_tpu_torch.data.pipeline import prefetch_to_device, prepare_batch
+
+from tests.test_torch_jax_params import SMALL
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+@pytest.mark.parametrize("imu", ["quaternion", "five_dim"])
+def test_batches_and_targets_match_jax(seed, imu):
+    cfg = dataclasses.replace(SMALL, imu_orientation_embedding_method=imu)
+    ours = generate_dummy_arrays(num_recordings=2, num_samples=80, num_joints=6, seed=seed)
+    theirs = jax_dummy(num_recordings=2, num_samples=80, num_joints=6, seed=seed)
+    for a, b in zip(ours, theirs):
+        for name in ("joint_commands", "joint_states", "rotations", "game_states", "image_stamps"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name), err_msg=name)
+    ds, jds = WindowedDataset.from_dummy(ours, cfg), JaxDataset.from_dummy(theirs, cfg)
+    assert len(ds) == len(jds)
+    np.testing.assert_array_equal(ds.sample_targets(50, seed=seed), jds.sample_targets(50, seed=seed))
+    n = 0
+    for got, want in zip(ds.batches(8, shuffle=True, seed=seed), jds.batches(8, shuffle=True, seed=seed)):
+        assert got.keys() == want.keys()
+        for k in got:
+            assert got[k].dtype == want[k].dtype, k
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        n += 1
+    assert n == len(ds) // 8
+
+
+def test_robot_state_ids():
+    assert [int(s) for s in RobotState] == [0, 1, 2, 3]
+    assert int(RobotState.UNKNOWN) == 3
+
+
+def test_images_raise_and_cpu_prefetch_wraps():
+    with pytest.raises(NotImplementedError):
+        generate_dummy_arrays(with_images=True)
+    with pytest.raises(NotImplementedError):
+        generate_dummy_arrays(task="vision")
+    with pytest.raises(NotImplementedError):
+        prepare_batch({"image_u8": np.zeros(1)})
+    ds = WindowedDataset.from_dummy(generate_dummy_arrays(num_samples=40, num_joints=6), SMALL)
+    batches = list(prefetch_to_device(ds.batches(4, shuffle=False), "cpu"))
+    assert len(batches) == len(ds) // 4
+    np.testing.assert_array_equal(batches[0]["joint_command"].numpy(),
+                                  next(ds.batches(4, shuffle=False))["joint_command"])

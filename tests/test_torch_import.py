@@ -4,6 +4,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -56,6 +57,41 @@ def test_cpu_tensors_take_plain_versions(monkeypatch):
         assert torch.isfinite(chunks).all()
 
 
+def test_training_modules_are_covered():
+    """The subprocess check above imports every module of the package,
+    the training slice's among them."""
+    for m in ("soccerdiffusion_tpu_torch.training.train", "soccerdiffusion_tpu_torch.training.trainer",
+              "soccerdiffusion_tpu_torch.training.checkpoint", "soccerdiffusion_tpu_torch.training.metrics",
+              "soccerdiffusion_tpu_torch.data.dataset", "soccerdiffusion_tpu_torch.data.pipeline",
+              "soccerdiffusion_tpu_torch.ops.fused_encoder_stack",
+              "soccerdiffusion_tpu_torch.ops.fused_decoder_layer"):
+        assert m in MODULES, m
+
+
+def test_cpu_training_step_takes_plain_versions(monkeypatch):
+    """A training step with both fused knobs on CPU tensors builds and
+    launches no kernel."""
+    import dataclasses
+
+    from soccerdiffusion_tpu_torch.models import DiffusionPolicy
+    from soccerdiffusion_tpu_torch.training.trainer import create_train_state, make_optimizer, make_train_step
+    from tests.test_torch_jax_params import SMALL, make_batch, to_torch
+
+    def no_kernel():
+        raise AssertionError("a CPU tensor reached the CUDA kernel library")
+
+    monkeypatch.setattr(_build, "library", no_kernel)
+    cfg = dataclasses.replace(SMALL, encoder_fused_stack=True, decoder_fused_block=True,
+                              compute_dtype="bfloat16")
+    model = DiffusionPolicy(cfg)
+    opt = make_optimizer(model, 1e-3, 10)
+    step = make_train_step(model, make_schedule(100), opt, Normalizer.identity(cfg.num_joints))
+    batch = to_torch(make_batch(cfg, 2, np.random.default_rng(0)))
+    batch["joint_command"] = torch.zeros(2, cfg.trajectory_prediction_length, cfg.num_joints)
+    metrics = step(create_train_state(model, opt), batch, torch.Generator().manual_seed(0))
+    assert torch.isfinite(metrics["loss"])
+
+
 def test_cuda_device_raises_without_gpu():
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU")
@@ -72,4 +108,5 @@ def test_kernel_build_dir_is_keyed_by_sources():
     assert d.parent == REPO / "build" / "kernels"
     assert len(d.name) == 16
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-        "fused_encoder.cu", "fused_denoise.cu", "fused_chunk.cu"}
+        "fused_encoder.cu", "fused_denoise.cu", "fused_chunk.cu", "fused_encoder_stack.cu",
+        "fused_decoder_layer.cu", "weight_grads.cu"}
