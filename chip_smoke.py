@@ -4,17 +4,17 @@
 
 1. Prints the torch / CUDA versions and the card's name and power limit.
 2. Builds the CUDA kernels of soccerdiffusion_tpu_torch/csrc (nvcc, sm_90a).
-3. Holds each kernel against its plain PyTorch version on the card at the
-   serving path's shapes (h128, S=301 context tokens, 30 DDIM steps, B=64
-   and B=1024; bf16 weights from a seeded flax-layout random init) and
+3. Holds each serving kernel against its plain PyTorch version on the card
+   at the h128 serving path's shapes (S=301 context tokens, 30 DDIM steps,
+   B=64 and B=1024; bf16 weights from a seeded flax-layout random init) and
    times both with CUDA events.
-4. Drives the serving loop through RolloutEngine.make_rollout_fn at the
-   bench configuration (default.yaml architecture without images, bf16,
-   B=1024): 5 replan periods of 30-step DDIM with the fused encoder + chunk
-   kernels, then 5 of the 1-step distilled student through the fused
-   denoiser, with every launch counter zeroed just before and read just
-   after; then checks a short rollout of the kernel path against the same
-   engine's plain versions on the CPU.
+4. Drives the proprioceptive serving loop through
+   RolloutEngine.make_rollout_fn at the bench configuration (default.yaml
+   architecture without images, bf16, B=1024): 5 replan periods of 30-step
+   DDIM with the fused encoder + chunk kernels, then 5 of the 1-step
+   distilled student through the fused denoiser, with every launch counter
+   zeroed just before and read just after; then checks a short rollout of
+   the kernel path against the same engine's plain versions on the CPU.
 5. Holds the training kernels (fused encoder stack and fused decoder layer,
    forward and backward) against their plain versions at the training
    shapes (T=100 / L=2 encoder stacks, T=10 x S=302 decoder layers) at B=64
@@ -24,19 +24,36 @@
    B=64, 20 steps) with the four training counters zeroed just before and
    read just after, then the same loop with both knobs off; then 3 steps
    on the card against the same 3 steps on the CPU (plain versions).
-7. Prints one JSON line of per-kernel results, then as its last line
-   {"ok": true, "device": {...}}.
+7. The camera-conditioned flagship (vit_flagship.yaml's model, built in
+   code: h256, 4 heads of 64, the 8-block width-256 ViT over 224 px frames
+   in 64 patches of 28 px, quick GELU, bf16): holds the fused ViT block,
+   the head_dim-64 chunk, denoiser and encoder-stack-forward instances and
+   the image-frame stack's head_dim-32 forward against their plain versions
+   at B=64 and B=256 robots (2 frames per robot for the ViT), and the ViT
+   block at the raw-frame lane's 640 frames; drives 5 replan periods at
+   B=64 of each of the three lanes of the JAX package's serving benchmark
+   (30-step DDIM with the image-token cache, the same with raw frames, the
+   distilled student with the cache) with the launch counters zeroed
+   before and read after each; then 2 cached DDIM periods on the card
+   against the same engine's plain versions on the CPU.
+8. Prints one JSON line of per-kernel results, then as its last line
+   {"ok": true, "device": {...}}. Where one torch.nn layer computes the
+   same function as a kernel (the encoder-stack, ViT-block and
+   decoder-layer forwards), its time on the same inputs is the entry's
+   library_ms; the port never calls those layers.
 
 Exits non-zero, without the last line, when CUDA is unavailable or any
-phase fails. Imports nothing of JAX.
+phase fails. Imports nothing of JAX or of the JAX package.
 
     python3 chip_smoke.py --profile-training [--profile-out FILE]
+    python3 chip_smoke.py --profile-serving [--profile-out FILE]
 
-builds the kernels and instead traces the B=64 training step (fused knobs
-on, then off) with torch.profiler: per step the host wall clock, the device
-busy time (the union of the device ops' intervals), the device's idle
-share, both taken from the same trace, and the largest device ops. FILE
-receives the full tables.
+build the kernels and instead trace, with torch.profiler, the B=64 training
+step (fused knobs on, then off) or 3 replan periods of each flagship serving
+lane at B=64: per step or period the host wall clock, the device busy time
+(the union of the device ops' intervals), the device's idle share, both
+taken from the same trace, and the largest device ops. FILE receives the
+full tables. Neither prints the ok line.
 """
 
 from __future__ import annotations
@@ -62,9 +79,14 @@ import torch
 # |x| ~ 1e3, so an absolute bound would mean nothing. Measured on an H100:
 # kernel - plain ~0.5% of scale at every step count, bf16 plain - fp32
 # plain ~1.4% after 30 steps (PERF.md).
-TOL = {"fused_encoder": 2e-2, "fused_denoise": 2e-2, "fused_chunk": 2e-2}
+TOL = 2e-2
 ROLLOUT_TOL = 2e-2  # the same bound on each replan period's chunk
 BENCH_B, CHUNKS = 1024, 5
+# the flagship: kernel checks at B robots (2 frames each for the ViT), the
+# three serving lanes at FLAG_B robots for CHUNKS periods each
+FLAG_BATCHES, FLAG_B = (64, 256), 64
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor-core FLOP/s
+HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12
 # training kernels: every output and weight gradient within TRAIN_TOL x
 # max|plain| of that tensor (bf16 at the same rounding points, fp32 sums in
 # another order); the key-bias gradients, zero in exact arithmetic, within
@@ -77,6 +99,10 @@ TRAIN_LOG_EVERY = 4  # two epochs of 10 steps: syncs at steps 4, 8 | 12, 16, 20
 # step to ~lr, so entries whose gradient is float noise, such as the key
 # biases, take steps of either sign)
 STEP_LOSS_TOL, STEP_UPDATE_TOL = 2e-2, 0.1
+# torch.nn's layers against the plain version, only to show that they were
+# built from the same weights (a wrong mapping gives errors of the order of
+# the output): torch rounds the residual stream to bf16 at every sublayer
+LIBRARY_TOL = 0.1
 
 
 def log(*a):
@@ -112,6 +138,132 @@ def random_batch(cfg, b, device, rng):
     }
 
 
+# ------------------------------------------------------- bounds
+# The least time the card could take for a kernel's work: the larger of its
+# bytes (each input read once, each output written once) over the HBM rate
+# and its matmul FLOPs (bf16 operands) over the bf16 tensor-core peak.
+
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors (nested lists / tuples flattened; None skipped)."""
+    total = 0
+    for t in tensors:
+        if isinstance(t, (list, tuple)):
+            total += nbytes(*t)
+        elif t is not None:
+            total += t.numel() * t.element_size()
+    return total
+
+
+def bound(flops: float, io_bytes: int) -> dict:
+    t_bytes, t_ops = io_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+# ------------------------------------------------------- library calls
+# torch.nn's pre-norm layers compute the same functions as the fused
+# encoder-stack, ViT-block and decoder-layer forwards (with torch's own
+# rounding points: a bf16 residual stream). Built here from the kernels'
+# bf16 weights and timed for the library_ms column; the port never calls
+# them. The fused context encoder, chunk sampler and denoiser, and the
+# backward kernels, have no one-call counterpart (library_ms null).
+
+def quick_gelu(z):
+    return z * torch.sigmoid(1.702 * z)
+
+
+def torch_encoder(w, num_heads: int, activation="gelu"):
+    """nn.TransformerEncoderLayer (one layer) or nn.TransformerEncoder (L
+    layers) on stacked (L, ...) weights in STACK_WEIGHTS order."""
+    from torch import nn
+
+    L, E, FF = w[0].shape[0], w[0].shape[-1], w[8].shape[-1]
+    layers = []
+    for l in range(L):
+        g1, be1, wqkv, bqkv, wo, bo, g2, be2, w1, b1, w2, b2 = (t[l] for t in w)
+        layer = nn.TransformerEncoderLayer(
+            E, num_heads, FF, dropout=0.0, activation=activation, layer_norm_eps=1e-6,
+            batch_first=True, norm_first=True, device=wqkv.device, dtype=wqkv.dtype)
+        with torch.no_grad():
+            for dst, src in ((layer.norm1.weight, g1), (layer.norm1.bias, be1),
+                             (layer.self_attn.in_proj_weight, wqkv.t()),
+                             (layer.self_attn.in_proj_bias, bqkv),
+                             (layer.self_attn.out_proj.weight, wo.t()),
+                             (layer.self_attn.out_proj.bias, bo),
+                             (layer.norm2.weight, g2), (layer.norm2.bias, be2),
+                             (layer.linear1.weight, w1.t()), (layer.linear1.bias, b1),
+                             (layer.linear2.weight, w2.t()), (layer.linear2.bias, b2)):
+                dst.copy_(src)
+        layers.append(layer.eval())
+    if L == 1:
+        return layers[0]
+    stack = nn.TransformerEncoder(layers[0], L, enable_nested_tensor=False)
+    stack.layers = nn.ModuleList(layers)
+    return stack.eval()
+
+
+def torch_decoder_layer(w, num_heads: int):
+    """nn.TransformerDecoderLayer on weights in WEIGHT_NAMES order (the
+    memory enters the cross-attention un-normed, as in the fused layer)."""
+    from torch import nn
+
+    (g1, be1, wqkv, bqkv, wso, bso, g2, be2, wcq, bcq, wck, bck, wcv, bcv, wco, bco,
+     g3, be3, w1, b1, w2, b2) = w
+    E, FF = g1.shape[0], w1.shape[-1]
+    layer = nn.TransformerDecoderLayer(
+        E, num_heads, FF, dropout=0.0, activation="gelu", layer_norm_eps=1e-6,
+        batch_first=True, norm_first=True, device=wqkv.device, dtype=wqkv.dtype)
+    with torch.no_grad():
+        for dst, src in ((layer.norm1.weight, g1), (layer.norm1.bias, be1),
+                         (layer.self_attn.in_proj_weight, wqkv.t()),
+                         (layer.self_attn.in_proj_bias, bqkv),
+                         (layer.self_attn.out_proj.weight, wso.t()),
+                         (layer.self_attn.out_proj.bias, bso),
+                         (layer.norm2.weight, g2), (layer.norm2.bias, be2),
+                         (layer.multihead_attn.in_proj_weight, torch.cat([wcq, wck, wcv], 1).t()),
+                         (layer.multihead_attn.in_proj_bias, torch.cat([bcq, bck, bcv])),
+                         (layer.multihead_attn.out_proj.weight, wco.t()),
+                         (layer.multihead_attn.out_proj.bias, bco),
+                         (layer.norm3.weight, g3), (layer.norm3.bias, be3),
+                         (layer.linear1.weight, w1.t()), (layer.linear1.bias, b1),
+                         (layer.linear2.weight, w2.t()), (layer.linear2.bias, b2)):
+            dst.copy_(src)
+    return layer.eval()
+
+
+def library_ms(name, b, library_fn, ref) -> float:
+    """The CUDA-event time of one library call; its output must agree with
+    the plain version's ``ref`` within LIBRARY_TOL of the scale (a check that
+    the layer was built from the same weights, not a tolerance of the port)."""
+    with torch.no_grad():
+        got = library_fn().float()
+        err, scale = (got - ref.float()).abs().max().item(), ref.float().abs().max().item()
+        ms = median_ms(library_fn)
+    log(f"  {name} B={b}: torch.nn library call {ms:.3f} ms, |library - plain| {err:.4e} "
+        f"(max|plain| {scale:.4e}, tol {LIBRARY_TOL} x max|plain|)")
+    if not err <= LIBRARY_TOL * scale:
+        raise AssertionError(f"{name}: the torch.nn layers built for library_ms do not compute "
+                             "the same function")
+    return ms
+
+
+def attn_flops(tq, tk, e):  # scores and value sums over all heads
+    return 4 * tq * tk * e
+
+
+def enc_layer_flops(t, e, ff):  # pre-norm self-attention layer with an ff-wide MLP
+    return 2 * t * e * 3 * e + attn_flops(t, t, e) + 2 * t * e * e + 4 * t * e * ff
+
+
+def dec_layer_flops(p, s, e, ff):  # self-attention, cross-attention over s keys, MLP
+    return 2 * p * e * 3 * e + attn_flops(p, p, e) + 6 * p * e * e + attn_flops(p, s, e) + 4 * p * e * ff
+
+
+def decoder_pass_flops(cfg, s):  # one denoiser pass over s context keys + the step token
+    p, j, e = cfg.trajectory_prediction_length, cfg.num_joints, cfg.hidden_dim
+    return 4 * p * j * e + cfg.num_decoder_layers * dec_layer_flops(p, s + 1, e, e)
+
+
 def median_ms(fn, reps=5, warm=2):
     for _ in range(warm):
         fn()
@@ -127,7 +279,10 @@ def median_ms(fn, reps=5, warm=2):
     return statistics.median(times)
 
 
-def compare(name, kernel_fn, plain_fn, b):
+def compare(name, kernel_fn, plain_fn, b, flops, inputs, library_fn=None):
+    """Kernel vs plain version: the error, both CUDA-event times, the bound
+    (``flops`` and the bytes of ``inputs`` and the kernel's output) and the
+    time of ``library_fn``, one PyTorch call computing the same function."""
     got, ref = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     got, ref = got.float(), ref.float()
@@ -136,51 +291,77 @@ def compare(name, kernel_fn, plain_fn, b):
                              "or non-finite output")
     max_abs = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
-    ok = max_abs <= TOL[name] * scale
+    ok = max_abs <= TOL * scale
     k_ms, p_ms = median_ms(kernel_fn), median_ms(plain_fn)
+    bnd = bound(flops, nbytes(inputs, got))
     log(f"{name} B={b}: max_abs_err={max_abs:.4e} max|plain|={scale:.4e} "
-        f"(tol {TOL[name]} x max|plain|) kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
-        f"{'OK' if ok else 'FAIL'}")
+        f"(tol {TOL} x max|plain|) kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} B={b} disagrees with its plain version")
-    return max_abs, k_ms, p_ms
+    lib = None if library_fn is None else library_ms(name, b, library_fn, ref)
+    return {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms, **bnd, "library_ms": lib}
 
 
-def kernel_phase(cfg, model, device):
+def merge(results, name, r):
+    """Keep the largest error over the batch sizes and the last (largest)
+    batch's times and bound."""
+    prev = results.get(name)
+    results[name] = {**r, "max_abs_err": r["max_abs_err"] if prev is None
+                     else max(prev["max_abs_err"], r["max_abs_err"])}
+
+
+def decoder_checks(model, context, noise, device, b, suffix=""):
+    """The chunk sampler (30-step DDIM) and the denoiser (eps and in-kernel
+    DDIM forms) against their plain versions on one context."""
     from soccerdiffusion_tpu_torch.diffusion import make_schedule, solver_coef_table
     from soccerdiffusion_tpu_torch.diffusion.ddim import ddim_timesteps
     from soccerdiffusion_tpu_torch.ops.fused_chunk import FusedChunkSampler
     from soccerdiffusion_tpu_torch.ops.fused_denoise import FusedDenoiser
+
+    cfg, S = model.config, context.shape[1]
+    den, chunk = FusedDenoiser(model), FusedChunkSampler(model)
+    coefs = solver_coef_table(make_schedule(1000), 30, "ddim")
+    table = model.step_encoding(torch.as_tensor(ddim_timesteps(1000, 30).astype(np.int64),
+                                                device=device))[:, 0]
+    stk, stv = chunk.step_tables(table)
+    e, L = cfg.hidden_dim, cfg.num_decoder_layers
+    chunk_flops = b * (2 * S * e * 2 * L * e + 30 * decoder_pass_flops(cfg, S))
+    r_chunk = compare("fused_chunk" + suffix,
+                      lambda: chunk.sample_kernel(context, noise, stk, stv, coefs),
+                      lambda: chunk.sample_plain(context, noise, stk, stv, coefs), b, chunk_flops,
+                      [chunk.weights(), chunk.ckv_w, chunk.ckv_b, context, noise, stk, stv])
+    packed = den.pack_context_kv(model.precompute_context_kv(context))
+    ddim = [1.3, 0.8, 0.9, 0.4]  # eps form and in-kernel DDIM form
+    r_den = max((compare("fused_denoise" + suffix,
+                         lambda c=c: den.run_kernel(packed, noise, stk[3], stv[3], c),
+                         lambda c=c: den.run_plain(packed, noise, stk[3], stv[3], c), b,
+                         b * decoder_pass_flops(cfg, S),
+                         [den.weights(), packed, noise, stk[3], stv[3]])
+                 for c in (None, ddim)), key=lambda r: r["max_abs_err"])
+    return r_chunk, r_den
+
+
+def kernel_phase(cfg, model, device):
     from soccerdiffusion_tpu_torch.ops.fused_encoder import FusedContextEncoder
 
-    enc, den, chunk = FusedContextEncoder(model), FusedDenoiser(model), FusedChunkSampler(model)
-    schedule = make_schedule(1000)
-    ts = ddim_timesteps(1000, 30)
-    coefs = solver_coef_table(schedule, 30, "ddim")
+    enc = FusedContextEncoder(model)
     results = {}
     for b in (64, BENCH_B):
         rng = np.random.default_rng(b)
         batch = random_batch(cfg, b, device, rng)
         with torch.no_grad():
-            r_enc = compare("fused_encoder", lambda: enc.encode_kernel(batch),
-                            lambda: enc.encode_plain(batch), b)
+            e = cfg.hidden_dim
+            flops = b * sum(2 * st.tokens * st.in_dim * e + st.layers * enc_layer_flops(st.tokens, e, e)
+                            for st in enc.stacks)
+            merge(results, "fused_encoder", compare(
+                "fused_encoder", lambda: enc.encode_kernel(batch), lambda: enc.encode_plain(batch), b,
+                flops, [list(batch.values()), [st.weights() for st in enc.stacks], enc.gs_table]))
             context = enc.encode_plain(batch)
-            table = model.step_encoding(torch.as_tensor(ts.astype(np.int64), device=device))[:, 0]
-            stk, stv = chunk.step_tables(table)
             noise = torch.from_numpy(rng.normal(size=(b, 10, 20)).astype(np.float32)).to(device)
-            r_chunk = compare("fused_chunk",
-                              lambda: chunk.sample_kernel(context, noise, stk, stv, coefs),
-                              lambda: chunk.sample_plain(context, noise, stk, stv, coefs), b)
-            packed = den.pack_context_kv(model.precompute_context_kv(context))
-            ddim = [1.3, 0.8, 0.9, 0.4]  # eps form and in-kernel DDIM form
-            r_den = max(
-                (compare("fused_denoise", lambda c=c: den.run_kernel(packed, noise, stk[3], stv[3], c),
-                         lambda c=c: den.run_plain(packed, noise, stk[3], stv[3], c), b)
-                 for c in (None, ddim)), key=lambda r: r[0])
-        for name, r in (("fused_encoder", r_enc), ("fused_chunk", r_chunk), ("fused_denoise", r_den)):
-            prev = results.get(name)
-            err = r[0] if prev is None else max(prev[0], r[0])
-            results[name] = (err, r[1], r[2])  # times of the last (B=1024) shape
+            r_chunk, r_den = decoder_checks(model, context, noise, device, b)
+        merge(results, "fused_chunk", r_chunk)
+        merge(results, "fused_denoise", r_den)
     return results
 
 
@@ -194,43 +375,78 @@ def engine(model, cfg, device, **kw):
                          device=device, **kw)
 
 
-def timed_rollout(eng, device, seed):
-    run = eng.make_rollout_fn(CHUNKS)
-    carry = eng.init(BENCH_B, torch.Generator(device=device).manual_seed(seed))
+def zero_counters():
+    """Set every kernel wrapper's launch counter to 0."""
+    from soccerdiffusion_tpu_torch.ops import fused_vit_block
+    from soccerdiffusion_tpu_torch.ops.fused_chunk import FusedChunkSampler
+    from soccerdiffusion_tpu_torch.ops.fused_decoder_layer import FusedDecoderLayer
+    from soccerdiffusion_tpu_torch.ops.fused_denoise import FusedDenoiser
+    from soccerdiffusion_tpu_torch.ops.fused_encoder import FusedContextEncoder
+    from soccerdiffusion_tpu_torch.ops.fused_encoder_stack import FusedEncoderStack
+
+    for c in (FusedContextEncoder, FusedChunkSampler, FusedDenoiser):
+        c.launches = 0
+    for c in (FusedEncoderStack, FusedDecoderLayer):
+        c.fwd_launches = c.bwd_launches = 0
+    FusedEncoderStack.fwd_launches_hd64 = 0
+    fused_vit_block.forward_kernel.launches = 0
+
+
+def read_counters() -> dict:
+    from soccerdiffusion_tpu_torch.ops import fused_vit_block
+    from soccerdiffusion_tpu_torch.ops.fused_chunk import FusedChunkSampler
+    from soccerdiffusion_tpu_torch.ops.fused_decoder_layer import FusedDecoderLayer
+    from soccerdiffusion_tpu_torch.ops.fused_denoise import FusedDenoiser
+    from soccerdiffusion_tpu_torch.ops.fused_encoder import FusedContextEncoder
+    from soccerdiffusion_tpu_torch.ops.fused_encoder_stack import FusedEncoderStack
+
+    return {"fused_encoder": FusedContextEncoder.launches, "fused_chunk": FusedChunkSampler.launches,
+            "fused_denoise": FusedDenoiser.launches,
+            "fused_encoder_stack_fwd": FusedEncoderStack.fwd_launches,
+            "fused_encoder_stack_fwd_hd64": FusedEncoderStack.fwd_launches_hd64,
+            "fused_encoder_stack_bwd": FusedEncoderStack.bwd_launches,
+            "fused_decoder_layer_fwd": FusedDecoderLayer.fwd_launches,
+            "fused_decoder_layer_bwd": FusedDecoderLayer.bwd_launches,
+            "fused_vit_block_fwd": fused_vit_block.forward_kernel.launches}
+
+
+def timed_rollout(eng, device, seed, b=BENCH_B, periods=CHUNKS):
+    """ms per replan period of a ``periods``-period rollout at B=b, and the
+    launch counts of that rollout (zeroed just before, read just after)."""
+    run = eng.make_rollout_fn(periods)
+    carry = eng.init(b, torch.Generator(device=device).manual_seed(seed))
     torch.cuda.synchronize()
+    zero_counters()
     t0 = time.perf_counter()
     _, chunks = run(carry)
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / CHUNKS
-    if tuple(chunks.shape) != (CHUNKS, BENCH_B, 10, 20) or not torch.isfinite(chunks).all():
+    ms = (time.perf_counter() - t0) * 1e3 / periods
+    launches = read_counters()
+    cfg = eng.cfg
+    if (tuple(chunks.shape) != (periods, b, eng.replan_every, cfg.num_joints)
+            or not torch.isfinite(chunks).all()):
         raise AssertionError(f"bad chunks: shape {tuple(chunks.shape)}, "
                              f"finite={bool(torch.isfinite(chunks).all())}")
-    return ms
+    return ms, launches
 
 
 def main_path_phase(cfg, model, device):
-    from soccerdiffusion_tpu_torch.ops.fused_chunk import FusedChunkSampler
-    from soccerdiffusion_tpu_torch.ops.fused_denoise import FusedDenoiser
-    from soccerdiffusion_tpu_torch.ops.fused_encoder import FusedContextEncoder
-
-    counters = (FusedContextEncoder, FusedChunkSampler, FusedDenoiser)
     ddim30 = engine(model, cfg, device, fused="chunk")
     distilled = engine(model, cfg, device, distilled=True, fused=True)
     plain = engine(model, cfg, device, fused=False, fused_encoder=False)
     for eng in (ddim30, distilled, plain):  # warm-up: allocator, first launches
         eng.make_rollout_fn(1)(eng.init(BENCH_B, torch.Generator(device=device).manual_seed(0)))
-    for c in counters:
-        c.launches = 0
-    ms_ddim = timed_rollout(ddim30, device, 1)
-    ms_dist = timed_rollout(distilled, device, 2)
-    launches = {c.__name__: c.launches for c in counters}
+    ms_ddim, l_ddim = timed_rollout(ddim30, device, 1)
+    ms_dist, l_dist = timed_rollout(distilled, device, 2)
+    names = ("fused_encoder", "fused_chunk", "fused_denoise")
+    launches = {name: l_ddim[name] + l_dist[name] for name in names}
     log(f"main path B={BENCH_B}, {CHUNKS} periods each: ddim30 (fused encoder + chunk kernels) "
         f"{ms_ddim:.2f} ms/period; distilled1 (fused encoder + denoiser kernels) "
         f"{ms_dist:.2f} ms/period; launches {launches}")
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"{name} was not launched on the main path")
-    ms_plain = timed_rollout(plain, device, 1)
+    ms_plain, _ = timed_rollout(plain, device, 1)
     log(f"unfused plain-PyTorch rollout (fused=False, bf16) B={BENCH_B}: {ms_plain:.2f} ms/period")
     return launches, {"ddim30": ms_ddim, "distilled1": ms_dist, "ddim30_unfused": ms_plain}
 
@@ -238,23 +454,25 @@ def main_path_phase(cfg, model, device):
 def to_device(carry, device):
     """The rollout carry on another device, with a fresh generator there."""
     move = lambda obj: dataclasses.replace(obj, **{
-        f.name: getattr(obj, f.name).to(device) for f in dataclasses.fields(obj)})
+        f.name: getattr(obj, f.name).to(device) for f in dataclasses.fields(obj)
+        if getattr(obj, f.name) is not None})
     return dataclasses.replace(carry, controller=move(carry.controller), plant=move(carry.plant),
                                generator=torch.Generator(device=device))
 
 
-def reference_phase(cfg, model, device):
+def reference_phase(cfg, model, device, b=8, **kw):
     """Closed-loop periods of the kernel path, each held against the same
     engine's plain versions on the CPU from the same state and noise (the
     untrained model's loop is chaotic, so the states are re-synchronised
     every period)."""
-    b = 8
     rng = np.random.default_rng(5)
-    gpu = engine(model, cfg, device, fused="chunk")
-    cpu = engine(copy.deepcopy(model).cpu(), cfg, "cpu", fused="chunk")
+    kw = kw or dict(fused="chunk")
+    gpu = engine(model, cfg, device, **kw)
+    cpu = engine(copy.deepcopy(model).cpu(), cfg, "cpu", **kw)
     carry = gpu.init(b, torch.Generator(device=device).manual_seed(0))
     for period in range(2):
-        noise = torch.from_numpy(rng.normal(size=(b, 10, 20)).astype(np.float32))
+        noise = torch.from_numpy(rng.normal(size=(b, cfg.trajectory_prediction_length,
+                                                  cfg.num_joints)).astype(np.float32))
         _, ref = cpu.replan_period(to_device(carry, "cpu"), noise)
         carry, got = gpu.replan_period(carry, noise)
         err, scale = (got.cpu() - ref).abs().max().item(), ref.abs().max().item()
@@ -330,21 +548,33 @@ def training_kernel_phase(cfg, model, device):
         e_dbwd = max(err_line("dx", ddx, ddx_ref), err_line("dmem", dmem, dmem_ref),
                      grads_check(fdl.WEIGHT_NAMES, dgrads, dgrads_ref,
                                  {"bqkv": slice(E, 2 * E), "bck": slice(None)}))
+        enc_lib, dec_lib = torch_encoder(enc_w, H), torch_decoder_layer(dec_w, H)
+        enc_flops = b * 2 * enc_layer_flops(100, E, E)  # L=2
+        dec_flops = b * (dec_layer_flops(10, S, E, E) + 4 * S * E * E)  # + memory K/V
+        # backward: recompute the forward, then two products per forward product
         times = {
             "fused_encoder_stack_fwd": (e_fwd, lambda: fes.forward_kernel(x, enc_w, H),
-                                        lambda: fes.forward_plain(x, enc_w, H)),
+                                        lambda: fes.forward_plain(x, enc_w, H),
+                                        enc_flops, [x, enc_w, y, acts], lambda: enc_lib(x)),
             "fused_encoder_stack_bwd": (e_bwd, lambda: fes.backward_kernel(acts, dy, enc_w, H),
-                                        lambda: fes.backward_plain(x, dy, enc_w, H)),
+                                        lambda: fes.backward_plain(x, dy, enc_w, H),
+                                        3 * enc_flops, [acts, dy, enc_w, dx, grads], None),
             "fused_decoder_layer_fwd": (e_dfwd, lambda: fdl.forward_kernel(xd, mem, dec_w, H),
-                                        lambda: fdl.forward_plain(xd, mem, dec_w, H)),
+                                        lambda: fdl.forward_plain(xd, mem, dec_w, H),
+                                        dec_flops, [xd, mem, dec_w, xd], lambda: dec_lib(xd, mem)),
             "fused_decoder_layer_bwd": (e_dbwd, lambda: fdl.backward_kernel(xd, mem, dyd, dec_w, H),
-                                        lambda: fdl.backward_plain(xd, mem, dyd, dec_w, H)),
+                                        lambda: fdl.backward_plain(xd, mem, dyd, dec_w, H),
+                                        3 * dec_flops, [xd, mem, dyd, dec_w, ddx, dmem, dgrads],
+                                        None),
         }
-        for name, (err, kernel_fn, plain_fn) in times.items():
+        for name, (err, kernel_fn, plain_fn, flops, io, lib_fn) in times.items():
             k_ms, p_ms = median_ms(kernel_fn), median_ms(plain_fn)
-            log(f"{name} B={b}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms (max_abs_err {err:.4e})")
-            prev = results.get(name)
-            results[name] = (err if prev is None else max(prev[0], err), k_ms, p_ms)  # B=256 times
+            bnd = bound(flops, nbytes(io))
+            log(f"{name} B={b}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+                f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) (max_abs_err {err:.4e})")
+            lib = None if lib_fn is None else library_ms(name, b, lib_fn, plain_fn())
+            merge(results, name, {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **bnd,
+                                  "library_ms": lib})
     return results
 
 
@@ -388,22 +618,17 @@ def timed_training(fused: bool, tmp):
 def training_path_phase():
     import tempfile
 
-    from soccerdiffusion_tpu_torch.ops.fused_decoder_layer import FusedDecoderLayer
-    from soccerdiffusion_tpu_torch.ops.fused_encoder_stack import FusedEncoderStack
-
     with tempfile.TemporaryDirectory() as tmp:
-        for c in (FusedEncoderStack, FusedDecoderLayer):
-            c.fwd_launches = c.bwd_launches = 0
+        zero_counters()
         ms_fused, losses = timed_training(True, tmp)
-        launches = {"fused_encoder_stack_fwd": FusedEncoderStack.fwd_launches,
-                    "fused_encoder_stack_bwd": FusedEncoderStack.bwd_launches,
-                    "fused_decoder_layer_fwd": FusedDecoderLayer.fwd_launches,
-                    "fused_decoder_layer_bwd": FusedDecoderLayer.bwd_launches}
+        launches = {name: n for name, n in read_counters().items()
+                    if name.startswith(("fused_encoder_stack", "fused_decoder_layer"))}
         log(f"training main path (train.py loop, synthetic data, bf16, B={TRAIN_BATCH}, "
             f"{TRAIN_STEPS} steps, fused knobs on): {ms_fused:.3f} ms/step, "
             f"{TRAIN_BATCH * 1e3 / ms_fused:.1f} samples/s; logged losses {losses}; launches {launches}")
-        want = {"fused_encoder_stack_fwd": 3, "fused_encoder_stack_bwd": 3,
-                "fused_decoder_layer_fwd": 4, "fused_decoder_layer_bwd": 4}
+        want = {"fused_encoder_stack_fwd": 3, "fused_encoder_stack_fwd_hd64": 0,
+                "fused_encoder_stack_bwd": 3, "fused_decoder_layer_fwd": 4,
+                "fused_decoder_layer_bwd": 4}
         for name, per_step in want.items():
             if launches[name] != per_step * TRAIN_STEPS:
                 raise AssertionError(f"{name}: {launches[name]} launches on the training path, "
@@ -464,6 +689,124 @@ def training_reference_phase(device):
         raise AssertionError("the kernel training path disagrees with the plain path")
 
 
+# ------------------------------------------------------- the flagship
+
+def flagship_config():
+    from soccerdiffusion_tpu_torch.config import ModelConfig
+
+    return ModelConfig(  # soccerdiffusion_tpu/training/configs/vit_flagship.yaml's model keys
+        hidden_dim=256, action_context_length=100, trajectory_prediction_length=10,
+        image_context_length=10, imu_context_length=100, joint_state_context_length=100,
+        num_joints=20, use_action_history=True, num_action_history_encoder_layers=2, use_imu=True,
+        imu_orientation_embedding_method="quaternion", num_imu_encoder_layers=2,
+        use_joint_states=True, joint_state_encoder_layers=2, use_images=True,
+        image_sequence_encoder_type="transformer", image_encoder_type="vit",
+        image_resolution=224, image_use_final_avgpool=True, vit_patch_size=28, vit_width=256,
+        vit_depth=8, num_image_sequence_encoder_layers=1, num_decoder_layers=4,
+        use_gamestate=True, encoder_patch_size=1, compute_dtype="bfloat16",
+        vit_fused_block=True, vit_fused_block_frames=16, vit_fused_gelu="quick",
+        encoder_fused_stack=True, decoder_fused_block=True)
+
+
+def flagship_kernel_phase(model, device):
+    """At B=64 and B=256 robots, against their plain versions: the fused ViT
+    block (block 0's weights, 2 frames per robot of 64 tokens), the
+    encoder-stack forward at head_dim 64 (the action-history stack) and at
+    head_dim 32 (the image-frame stack: 10 tokens, 8 heads, 1 layer), and
+    the head_dim-64 chunk sampler and denoiser (on the context of a random
+    batch with cached image tokens); then the ViT block at the raw-frame
+    lane's 10 frames per robot at B=FLAG_B. The ViT block and the stacks
+    beside their torch.nn layers."""
+    from soccerdiffusion_tpu_torch.ops import fused_encoder_stack as fes
+    from soccerdiffusion_tpu_torch.ops import fused_vit_block as fvb
+
+    cfg = model.config
+    vit = model.image_sequence_encoder.image_encoder
+    T, W, H = (cfg.image_resolution // cfg.vit_patch_size) ** 2, cfg.vit_width, vit.num_heads
+    gelu = cfg.vit_fused_gelu
+    bf16 = lambda ts: [t.detach().to(torch.bfloat16) for t in ts]
+    vit_w = bf16(fes.encoder_layer_weights(vit.blocks.layers[0]))
+    vit_lib = torch_encoder([t[None] for t in vit_w], H, quick_gelu if gelu == "quick" else "gelu")
+    stack_w = bf16(fes.stack_weights(model.action_history_encoder.seq.encoder.layers))
+    seq_enc = model.image_sequence_encoder.seq.encoder
+    seq_w, Hs = bf16(fes.stack_weights(seq_enc.layers)), seq_enc.num_heads
+    stack_lib, seq_lib = torch_encoder(stack_w, 4), torch_encoder(seq_w, Hs)
+    E, Ts, L = cfg.hidden_dim, cfg.action_context_length, cfg.num_action_history_encoder_layers
+    Ti, Li = cfg.image_context_length, cfg.num_image_sequence_encoder_layers
+    results = {}
+
+    def vit_check(name, x, b):
+        return compare(name, lambda: fvb.forward_kernel(x, vit_w, H, gelu),
+                       lambda: fvb.forward_plain(x, vit_w, H, gelu), b,
+                       x.shape[0] * enc_layer_flops(T, W, 4 * W), [x, vit_w], lambda: vit_lib(x))
+
+    for b in FLAG_BATCHES:
+        rng = np.random.default_rng(300 + b)
+        t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+            device, torch.bfloat16)
+        x, xs, xi = t(2 * b, T, W), t(b, Ts, E), t(b, Ti, E)
+        with torch.no_grad():
+            merge(results, "fused_vit_block_fwd", vit_check("fused_vit_block_fwd", x, b))
+            merge(results, "fused_encoder_stack_fwd_hd64", compare(
+                "fused_encoder_stack_fwd_hd64", lambda: fes.forward_kernel(xs, stack_w, 4)[0],
+                lambda: fes.forward_plain(xs, stack_w, 4), b,
+                b * L * enc_layer_flops(Ts, E, E), [xs, stack_w], lambda: stack_lib(xs)))
+            merge(results, "fused_encoder_stack_fwd_imgseq", compare(
+                "fused_encoder_stack_fwd_imgseq", lambda: fes.forward_kernel(xi, seq_w, Hs)[0],
+                lambda: fes.forward_plain(xi, seq_w, Hs), b,
+                b * Li * enc_layer_flops(Ti, E, E), [xi, seq_w], lambda: seq_lib(xi)))
+            batch = random_batch(cfg, b, device, rng)
+            batch["image_tokens"] = t(b, cfg.image_context_length, E).float()
+            context = model.encode_context(batch)
+            noise = torch.from_numpy(rng.normal(size=(b, 10, 20)).astype(np.float32)).to(device)
+            r_chunk, r_den = decoder_checks(model, context, noise, device, b, "_hd64")
+        merge(results, "fused_chunk_hd64", r_chunk)
+        merge(results, "fused_denoise_hd64", r_den)
+    rng = np.random.default_rng(400)
+    x = torch.from_numpy(rng.normal(size=(10 * FLAG_B, T, W)).astype(np.float32)).to(
+        device, torch.bfloat16)
+    with torch.no_grad():
+        results["fused_vit_block_fwd_raw_frames"] = vit_check("fused_vit_block_fwd_raw_frames",
+                                                              x, FLAG_B)
+    return results
+
+
+# launches per replan period of each flagship lane: the 8 ViT blocks over the
+# frames that arrived (cache) or all 10 per robot (raw); 3 proprioceptive
+# stacks (head_dim 64) + the image-frame stack (8 heads, head_dim 32); the sampler
+FLAG_LANES = {
+    "ddim30": (dict(fused="chunk"), {"fused_vit_block_fwd": 8, "fused_encoder_stack_fwd": 4,
+                                     "fused_encoder_stack_fwd_hd64": 3, "fused_chunk": 1}),
+    "ddim30_raw_frames": (dict(fused="chunk", cache_image_tokens=False),
+                          {"fused_vit_block_fwd": 8, "fused_encoder_stack_fwd": 4,
+                           "fused_encoder_stack_fwd_hd64": 3, "fused_chunk": 1}),
+    "distilled1": (dict(distilled=True, fused="chunk"),
+                   {"fused_vit_block_fwd": 8, "fused_encoder_stack_fwd": 4,
+                    "fused_encoder_stack_fwd_hd64": 3, "fused_denoise": 1}),
+}
+
+
+def flagship_path_phase(model, device):
+    """The three serving lanes of the flagship at B=FLAG_B through
+    RolloutEngine.make_rollout_fn, CHUNKS periods each, every launch counter
+    zeroed just before each lane and read just after; each kernel of a lane
+    must run exactly its count per period and no other kernel may run.
+    Returns each lane's launches and ms per period."""
+    cfg = model.config
+    periods, launches = {}, {}
+    for lane, (kw, per_period) in FLAG_LANES.items():
+        eng = engine(model, cfg, device, fused_encoder=False, **kw)
+        eng.make_rollout_fn(1)(eng.init(FLAG_B, torch.Generator(device=device).manual_seed(0)))
+        ms, got = timed_rollout(eng, device, 1, FLAG_B, CHUNKS)
+        want = {name: per_period.get(name, 0) * CHUNKS for name in got}
+        log(f"flagship lane {lane} B={FLAG_B}, {CHUNKS} periods: {ms:.2f} ms/period, "
+            f"{FLAG_B * 1e3 / ms:.1f} chunks/s; launches {got}")
+        if got != want:
+            raise AssertionError(f"flagship lane {lane}: launches {got}, expected {want}")
+        periods[lane], launches[lane] = ms, got
+    return launches, periods
+
+
 def busy_us(intervals) -> float:
     """Length of the union of (start, end) intervals."""
     busy, reach = 0.0, float("-inf")
@@ -474,13 +817,62 @@ def busy_us(intervals) -> float:
     return busy
 
 
+def trace(label, run, steps, out):
+    """One torch.profiler trace of ``steps`` calls of ``run``: per call the
+    host wall clock, the device busy time (union of the device ops'
+    intervals) and idle share, both from this trace, and the largest device
+    ops; the full table goes to ``out``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        raise AssertionError("the trace holds no device ops: torch.profiler saw no device time")
+    busy_ms = busy_us((e.time_range.start, e.time_range.end) for e in dev) / 1e3 / steps
+    per_name: dict[str, list] = {}
+    for e in dev:
+        tot = per_name.setdefault(e.name, [0.0, 0])
+        tot[0] += (e.time_range.end - e.time_range.start) / 1e3 / steps
+        tot[1] += 1
+    launch_ms = sum(e.self_cpu_time_total for e in prof.key_averages()
+                    if e.key.startswith(("cudaLaunch", "cuLaunch"))) / 1e3 / steps
+    log(f"=== {label}, {steps} under torch.profiler: wall {wall_ms:.3f} ms each, device busy "
+        f"{busy_ms:.3f} ms ({len(dev) / steps:.0f} device ops each), device idle share "
+        f"{1 - busy_ms / wall_ms:.3f}, host in kernel-launch calls {launch_ms:.3f} ms each")
+    for op, (ms, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"  {ms:8.3f} ms each {n / steps:6.1f} each  {op[:110]}")
+    if out:
+        with open(out, "a") as f:
+            f.write(f"=== {label}\n")
+            f.write(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=60))
+            f.write("\n")
+
+
+def profile_serving(device, out, periods=3):
+    """A trace of ``periods`` replan periods of each flagship lane at B=FLAG_B."""
+    model = build_model(flagship_config(), device, seed=3)
+    for lane, (kw, _) in FLAG_LANES.items():
+        eng = engine(model, model.config, device, fused_encoder=False, **kw)
+        carry = [eng.init(FLAG_B, torch.Generator(device=device).manual_seed(0))]
+
+        def period():
+            carry[0] = eng.replan_period(carry[0])[0]
+
+        period()  # warm-up
+        trace(f"flagship lane {lane}, B={FLAG_B}, replan periods", period, periods, out)
+
+
 def profile_training(fused: bool, out, steps=5, warm=5):
     """One torch.profiler trace of ``steps`` steps of training/train.py's step
     (the training main path's configuration and data, B=64) after ``warm``
     steps outside it. Wall and device busy time both come from this trace."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from soccerdiffusion_tpu_torch.data import Normalizer
     from soccerdiffusion_tpu_torch.data.pipeline import prefetch_to_device
     from soccerdiffusion_tpu_torch.diffusion import make_schedule
@@ -504,44 +896,18 @@ def profile_training(fused: bool, out, steps=5, warm=5):
     try:
         for _ in range(warm):
             step(state, next(batches), generator)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                step(state, next(batches), generator)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        trace(f"training step {'fused' if fused else 'unfused'}, B={TRAIN_BATCH}, steps",
+              lambda: step(state, next(batches), generator), steps, out)
     finally:
         batches.close()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not dev:
-        raise AssertionError("the trace holds no device ops: torch.profiler saw no device time")
-    busy_ms = busy_us((e.time_range.start, e.time_range.end) for e in dev) / 1e3 / steps
-    per_name: dict[str, list] = {}
-    for e in dev:
-        tot = per_name.setdefault(e.name, [0.0, 0])
-        tot[0] += (e.time_range.end - e.time_range.start) / 1e3 / steps
-        tot[1] += 1
-    launch_ms = sum(e.self_cpu_time_total for e in prof.key_averages()
-                    if e.key.startswith(("cudaLaunch", "cuLaunch"))) / 1e3 / steps
-    name = "fused" if fused else "unfused"
-    log(f"=== training step {name}, B={TRAIN_BATCH}, {steps} steps under torch.profiler: "
-        f"wall {wall_ms:.3f} ms/step, device busy {busy_ms:.3f} ms/step "
-        f"({len(dev) / steps:.0f} device ops/step), device idle share {1 - busy_ms / wall_ms:.3f}, "
-        f"host in kernel-launch calls {launch_ms:.3f} ms/step")
-    for op, (ms, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]:
-        log(f"  {ms:8.3f} ms/step {n / steps:6.1f}/step  {op[:110]}")
-    if out:
-        with open(out, "a") as f:
-            f.write(f"=== {name}\n")
-            f.write(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=60))
-            f.write("\n")
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile-training", action="store_true",
                         help="trace the training step with torch.profiler instead of the smoke run")
+    parser.add_argument("--profile-serving", action="store_true",
+                        help="trace the flagship's serving lanes with torch.profiler instead")
     parser.add_argument("--profile-out", default=None, help="file for the full profiler tables")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -566,9 +932,11 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(line.strip(), file=sys.stderr)
 
-    if args.profile_training:
-        for fused in (True, False):
+    if args.profile_training or args.profile_serving:
+        for fused in (True, False) if args.profile_training else ():
             profile_training(fused, args.profile_out)
+        if args.profile_serving:
+            profile_serving(device, args.profile_out)
         return 0
     cfg = bench_config()
     model = build_model(cfg, device)
@@ -579,25 +947,50 @@ def main(argv=None) -> int:
     results.update(training_kernel_phase(cfg, train_model, device))
     train_launches, step_ms = training_path_phase()
     training_reference_phase(device)
+    del model, train_model
+    torch.cuda.empty_cache()
 
-    replaces = {
-        "fused_encoder": "soccerdiffusion_tpu/ops/fused_encoder.py:319",
-        "fused_chunk": "soccerdiffusion_tpu/ops/fused_chunk.py:518",
-        "fused_denoise": "soccerdiffusion_tpu/ops/fused_denoise.py:382",
-        "fused_encoder_stack_fwd": "soccerdiffusion_tpu/ops/fused_encoder_stack.py:274",
-        "fused_encoder_stack_bwd": "soccerdiffusion_tpu/ops/fused_encoder_stack.py:300",
-        "fused_decoder_layer_fwd": "soccerdiffusion_tpu/ops/fused_decoder_layer.py:343",
-        "fused_decoder_layer_bwd": "soccerdiffusion_tpu/ops/fused_decoder_layer.py:371",
+    flagship = build_model(flagship_config(), device, seed=3)
+    results.update(flagship_kernel_phase(flagship, device))
+    flag_launches, flag_periods = flagship_path_phase(flagship, device)
+    reference_phase(flagship.config, flagship, device, b=4, fused="chunk", fused_encoder=False)
+
+    # where each kernel instance ran: (source, the TPU kernel it replaces,
+    # its launches over the main paths that run it at the checked shapes)
+    csrc, tpu = "soccerdiffusion_tpu_torch/csrc/", "soccerdiffusion_tpu/ops/"
+    flag = lambda name, lanes=tuple(FLAG_LANES): sum(flag_launches[lane][name] for lane in lanes)
+    hd32_stack = flag("fused_encoder_stack_fwd") - flag("fused_encoder_stack_fwd_hd64")
+    table = {
+        "fused_encoder": ("fused_encoder.cu", "fused_encoder.py:319", launches["fused_encoder"]),
+        "fused_chunk": ("fused_chunk.cu", "fused_chunk.py:518", launches["fused_chunk"]),
+        "fused_denoise": ("fused_denoise.cu", "fused_denoise.py:382", launches["fused_denoise"]),
+        "fused_encoder_stack_fwd": ("fused_encoder_stack.cu", "fused_encoder_stack.py:274",
+                                    train_launches["fused_encoder_stack_fwd"]),
+        "fused_encoder_stack_bwd": ("fused_encoder_stack.cu", "fused_encoder_stack.py:300",
+                                    train_launches["fused_encoder_stack_bwd"]),
+        "fused_decoder_layer_fwd": ("fused_decoder_layer.cu", "fused_decoder_layer.py:343",
+                                    train_launches["fused_decoder_layer_fwd"]),
+        "fused_decoder_layer_bwd": ("fused_decoder_layer.cu", "fused_decoder_layer.py:371",
+                                    train_launches["fused_decoder_layer_bwd"]),
+        "fused_vit_block_fwd": ("fused_vit_block.cu", "fused_vit_block.py:703",
+                                flag("fused_vit_block_fwd", ("ddim30", "distilled1"))),
+        "fused_vit_block_fwd_raw_frames": ("fused_vit_block.cu", "fused_vit_block.py:703",
+                                           flag("fused_vit_block_fwd", ("ddim30_raw_frames",))),
+        "fused_chunk_hd64": ("fused_chunk.cu", "fused_chunk.py:518", flag("fused_chunk")),
+        "fused_denoise_hd64": ("fused_denoise.cu", "fused_denoise.py:382", flag("fused_denoise")),
+        "fused_encoder_stack_fwd_hd64": ("fused_encoder_stack.cu", "fused_encoder_stack.py:274",
+                                         flag("fused_encoder_stack_fwd_hd64")),
+        "fused_encoder_stack_fwd_imgseq": ("fused_encoder_stack.cu", "fused_encoder_stack.py:274",
+                                           hd32_stack),
     }
-    counter = {"fused_encoder": "FusedContextEncoder", "fused_chunk": "FusedChunkSampler",
-               "fused_denoise": "FusedDenoiser"}
-    launches.update(train_launches)
-    kernels = [{"name": name, "route": "cuda",
-                "source": f"soccerdiffusion_tpu_torch/csrc/{name.removesuffix('_fwd').removesuffix('_bwd')}.cu",
-                "replaces": replaces[name], "launches": launches[counter.get(name, name)],
-                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
-               for name, (err, k_ms, p_ms) in results.items()]
+    kernels = [{"name": name, "route": "cuda", "source": csrc + table[name][0],
+                "replaces": tpu + table[name][1], "launches": table[name][2], **r}
+               for name, r in results.items()]
+    missing = sorted(set(table) - set(results)) + [k["name"] for k in kernels if k["launches"] == 0]
+    if missing:
+        raise AssertionError(f"kernels not checked or not launched on a main path: {missing}")
     log(json.dumps({"kernels": kernels, "ms_per_replan_period": periods, "batch": BENCH_B,
+                    "flagship_ms_per_replan_period": flag_periods, "flagship_batch": FLAG_B,
                     "train_ms_per_step": step_ms, "train_batch": TRAIN_BATCH, "gpu": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,9 @@
 //     versions beside the kernels;
 //   * attention: fp32 scores and softmax, probabilities rounded to bf16
 //     after normalisation, fp32 value sums;
-//   * head_dim is 32 (one warp lane per head element).
+//   * the head dimension D is a template parameter, 32 or 64 (head_dim()
+//     below): a warp lane holds D / 32 elements of a head, lanes j and
+//     j + 32 apart; the attention scale is 1 / sqrt(D).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -25,11 +27,20 @@ namespace sd {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kHeadDim = 32;
 constexpr int kThreads = 256;
 constexpr float kLnEps = 1e-6f;
-// 1 / sqrt(32), the attention scale at head_dim 32
-constexpr float kAttnScale = 0.17677669529663687f;
+
+// 1 / sqrt(D), the attention scale at head_dim D
+template <int D>
+__host__ __device__ constexpr float attn_scale() {
+  static_assert(D == 32 || D == 64, "the kernels take head_dim 32 or 64");
+  return D == 32 ? 0.17677669529663687f : 0.125f;
+}
+
+// The head dimension E / H if a kernel instance exists for it (32 or 64), else 0.
+__host__ __device__ inline int head_dim(int E, int H) {
+  return (H > 0 && (E == 32 * H || E == 64 * H)) ? E / H : 0;
+}
 
 __device__ __forceinline__ float tof(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float tof(float v) { return v; }
@@ -177,12 +188,16 @@ __device__ void dense(const XT* X, int ldx, int M, int K, const bf16* __restrict
   dense_impl<MT, NC, false>(X, ldx, M, K, W, N, nullptr, epi);
 }
 
+__device__ __forceinline__ void store_rounded(float* p, float v) { *p = rbf(v); }
+__device__ __forceinline__ void store_rounded(bf16* p, float v) { *p = __float2bfloat16(v); }
+
 // out[m] = bf16-rounded LayerNorm(x[m]) * scale + bias over E features,
-// fp32 statistics (mean, then mean of squared deviations), one warp per row.
-__device__ inline void layer_norm_rows(const float* __restrict__ x, int ldx, int M, int E,
-                                       const bf16* __restrict__ scale,
-                                       const bf16* __restrict__ bias, float* __restrict__ out,
-                                       int ldo) {
+// fp32 statistics (mean, then mean of squared deviations), one warp per row;
+// out is fp32 (holding bf16 values) or bf16.
+template <class OutT>
+__device__ void layer_norm_rows(const float* __restrict__ x, int ldx, int M, int E,
+                                const bf16* __restrict__ scale, const bf16* __restrict__ bias,
+                                OutT* __restrict__ out, int ldo) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   for (int m = warp; m < M; m += nwarps) {
     const float* xr = x + m * ldx;
@@ -196,7 +211,7 @@ __device__ inline void layer_norm_rows(const float* __restrict__ x, int ldx, int
     }
     const float inv = rsqrtf(warp_sum(v) / E + kLnEps);
     for (int e = lane; e < E; e += 32)
-      out[m * ldo + e] = rbf((xr[e] - mean) * inv * tof(scale[e]) + tof(bias[e]));
+      store_rounded(out + m * ldo + e, (xr[e] - mean) * inv * tof(scale[e]) + tof(bias[e]));
   }
 }
 
@@ -204,15 +219,15 @@ __device__ inline void layer_norm_rows(const float* __restrict__ x, int ldx, int
 // memory as qkv[row][0:E | E:2E | 2E:3E] (row stride ld, an odd number of
 // 32-bit words so that lanes reading different rows hit different banks).
 // One warp per (row, head): lane j scores keys j, j+32, j+64, j+96; lane d
-// then sums the values of head element d. Writes the bf16-rounded output to
-// out[row][head * 32 + d].
-template <class T>
+// then sums the values of head elements d (and d + 32 at D = 64). Writes the
+// bf16-rounded output to out[row][head * D + d].
+template <int D, class T>
 __device__ void self_attention(const T* __restrict__ qkv, int ld, int n, int E, int H,
                                float* __restrict__ out, int ldo) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   for (int item = warp; item < n * H; item += nwarps) {
     const int i = item / H, hh = item % H;
-    const T* q = qkv + i * ld + hh * kHeadDim;
+    const T* q = qkv + i * ld + hh * D;
     float s[4];
     float mx = -INFINITY;
 #pragma unroll
@@ -220,11 +235,11 @@ __device__ void self_attention(const T* __restrict__ qkv, int ld, int n, int E, 
       const int j = lane + 32 * c;
       s[c] = -INFINITY;
       if (j < n) {
-        const T* kr = qkv + j * ld + E + hh * kHeadDim;
+        const T* kr = qkv + j * ld + E + hh * D;
         float acc = 0.f;
 #pragma unroll 8
-        for (int d = 0; d < kHeadDim; ++d) acc += tof(q[d]) * tof(kr[d]);
-        s[c] = acc * kAttnScale;
+        for (int d = 0; d < D; ++d) acc += tof(q[d]) * tof(kr[d]);
+        s[c] = acc * attn_scale<D>();
       }
       mx = fmaxf(mx, s[c]);
     }
@@ -238,18 +253,24 @@ __device__ void self_attention(const T* __restrict__ qkv, int ld, int n, int E, 
     sum = warp_sum(sum);
 #pragma unroll
     for (int c = 0; c < 4; ++c) p[c] = rbf(p[c] / sum);
-    float acc = 0.f;
-    const T* vcol = qkv + 2 * E + hh * kHeadDim + lane;
+    float acc[D / 32];
+#pragma unroll
+    for (int e = 0; e < D / 32; ++e) acc[e] = 0.f;
+    const T* vcol = qkv + 2 * E + hh * D + lane;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       if (32 * c >= n) break;
       for (int src = 0; src < 32; ++src) {
         const float pj = __shfl_sync(0xffffffffu, p[c], src);
         const int j = 32 * c + src;
-        if (j < n) acc += pj * tof(vcol[j * ld]);
+        if (j < n) {
+#pragma unroll
+          for (int e = 0; e < D / 32; ++e) acc[e] += pj * tof(vcol[j * ld + 32 * e]);
+        }
       }
     }
-    out[i * ldo + hh * kHeadDim + lane] = rbf(acc);
+#pragma unroll
+    for (int e = 0; e < D / 32; ++e) out[i * ldo + hh * D + 32 * e + lane] = rbf(acc[e]);
   }
 }
 

@@ -65,19 +65,21 @@ __device__ inline DecoderSmem carve_decoder_smem(float* base, int P, int E, int 
 // column S. ctx_k / ctx_v: (S, E) bf16 rows of this robot in global memory
 // (L2 / HBM: they do not fit on chip; not __restrict__, since the chunk
 // kernel writes them earlier in the same launch); stk / stv: (E) bf16.
-__device__ inline void cross_attention(const float* __restrict__ q, const bf16* ctx_k,
-                                       const bf16* ctx_v, const bf16* __restrict__ stk,
-                                       const bf16* __restrict__ stv, int P, int S, int E, int H,
-                                       float* __restrict__ sc, float* __restrict__ out) {
+// D is the head dimension.
+template <int D>
+__device__ void cross_attention(const float* __restrict__ q, const bf16* ctx_k, const bf16* ctx_v,
+                                const bf16* __restrict__ stk, const bf16* __restrict__ stv, int P,
+                                int S, int E, int H, float* __restrict__ sc,
+                                float* __restrict__ out) {
   const int S1 = S + 1;
-  // scores: one thread per (key, head) loads the key's 32-element head
-  // slice once (64 bytes) and scores it against all P queries
+  // scores: one thread per (key, head) loads the key's D-element head
+  // slice once (2D bytes) and scores it against all P queries
   for (int item = threadIdx.x; item < S1 * H; item += blockDim.x) {
     const int s = item % S1, hh = item / S1;
-    const bf16* kr = (s < S ? ctx_k + (size_t)s * E : stk) + hh * kHeadDim;
-    float k[kHeadDim];
+    const bf16* kr = (s < S ? ctx_k + (size_t)s * E : stk) + hh * D;
+    float k[D];
 #pragma unroll
-    for (int c = 0; c < kHeadDim / 8; ++c) {
+    for (int c = 0; c < D / 8; ++c) {
       const uint4 raw = reinterpret_cast<const uint4*>(kr)[c];
       const __nv_bfloat162* pr = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
@@ -88,14 +90,14 @@ __device__ inline void cross_attention(const float* __restrict__ q, const bf16* 
       }
     }
     for (int p = 0; p < P; ++p) {
-      const float4* qr = reinterpret_cast<const float4*>(q + p * E + hh * kHeadDim);
+      const float4* qr = reinterpret_cast<const float4*>(q + p * E + hh * D);
       float acc = 0.f;
 #pragma unroll
-      for (int d4 = 0; d4 < kHeadDim / 4; ++d4) {
+      for (int d4 = 0; d4 < D / 4; ++d4) {
         const float4 qv = qr[d4];
         acc += qv.x * k[4 * d4] + qv.y * k[4 * d4 + 1] + qv.z * k[4 * d4 + 2] + qv.w * k[4 * d4 + 3];
       }
-      sc[(hh * P + p) * S1 + s] = acc * kAttnScale;
+      sc[(hh * P + p) * S1 + s] = acc * attn_scale<D>();
     }
   }
   __syncthreads();
@@ -123,7 +125,7 @@ __device__ inline void cross_attention(const float* __restrict__ q, const bf16* 
   const int n_pc = (P + PC - 1) / PC;
   for (int item = threadIdx.x; item < E * n_pc; item += blockDim.x) {
     const int e = item % E, p0 = (item / E) * PC;
-    const int hh = e / kHeadDim;
+    const int hh = e / D;
     const int rows = min(PC, P - p0);
     const float* pr[PC];
 #pragma unroll
@@ -149,8 +151,8 @@ __device__ inline void cross_attention(const float* __restrict__ q, const bf16* 
 // eps (P, J) of the decoder for one robot: x (P, J) fp32 in shared memory
 // (the current noisy chunk), per-layer context K/V at ctx_k + l * kv_layer_stride
 // (S, E rows), per-layer step-token K/V rows at stk + l * E. Writes eps
-// through epi(p, j, eps).
-template <class Epi>
+// through epi(p, j, eps). D = E / H is the head dimension.
+template <int D, class Epi>
 __device__ void decoder_pass(const DecoderWeights& w, const DecoderSmem& sm, const float* x,
                              const bf16* ctx_k, const bf16* ctx_v, size_t kv_layer_stride,
                              const bf16* stk, const bf16* stv, int S, Epi epi) {
@@ -172,7 +174,7 @@ __device__ void decoder_pass(const DecoderWeights& w, const DecoderSmem& sm, con
     dense<5, 1>(sm.a, E, P, E, w.qkv_w + l * 3 * EE, 3 * E, w.qkv_b + (size_t)l * 3 * E,
                 StoreRound{sm.qkv, LDQ});
     __syncthreads();
-    self_attention(sm.qkv, LDQ, P, E, H, sm.a, E);
+    self_attention<D>(sm.qkv, LDQ, P, E, H, sm.a, E);
     __syncthreads();
     dense<5, 1>(sm.a, E, P, E, w.so_w + l * EE, E, w.so_b + (size_t)l * E, AddTo{sm.h, E});
     __syncthreads();
@@ -181,8 +183,8 @@ __device__ void decoder_pass(const DecoderWeights& w, const DecoderSmem& sm, con
     __syncthreads();
     dense<5, 1>(sm.a, E, P, E, w.cq_w + l * EE, E, w.cq_b + (size_t)l * E, StoreRound{sm.qkv, E});
     __syncthreads();
-    cross_attention(sm.qkv, ctx_k + l * kv_layer_stride, ctx_v + l * kv_layer_stride,
-                    stk + (size_t)l * E, stv + (size_t)l * E, P, S, E, H, sm.sc, sm.a);
+    cross_attention<D>(sm.qkv, ctx_k + l * kv_layer_stride, ctx_v + l * kv_layer_stride,
+                       stk + (size_t)l * E, stv + (size_t)l * E, P, S, E, H, sm.sc, sm.a);
     dense<5, 1>(sm.a, E, P, E, w.co_w + l * EE, E, w.co_b + (size_t)l * E, AddTo{sm.h, E});
     __syncthreads();
     // MLP

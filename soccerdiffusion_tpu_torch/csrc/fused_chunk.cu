@@ -5,15 +5,18 @@
 // (_make_chunk_kernel), its default "kstat", group_robots=1, unquantised
 // form.
 //
+// Instances for head_dim 32 (h128) and 64 (h256, the vit_flagship model).
+//
 // Bound on the H100: the context K/V of one robot (L x 2 x S x E bf16 =
-// 616 KB at L=4, S=301, E=128) do not fit in the 227 KB of shared memory
-// the TPU kernel's VMEM scratch held them in, and at B=1024 the set is
-// 631 MB, beyond the 50 MB L2. So the block projects them once per chunk
+// 616 KB at L=4, S=301, E=128; 1.27 MB at S=311, E=256) do not fit in the
+// 227 KB of shared memory the TPU kernel's VMEM scratch held them in, and at
+// B=1024 the set is 631 MB, beyond the 50 MB L2. So the block projects them once per chunk
 // into a global scratch (allocated by the wrapper) and re-reads them at
 // each step from L2 / HBM: T x 616 KB per robot, ~19 GB per B=1024 chunk,
 // a 5.6 ms floor at 3.35 TB/s. The per-step scalar fp32 math is slower and
 // bounds the kernel: 67 ms per B=1024 chunk on an H100 80GB HBM3 at 700 W,
-// ~9 TFLOP/s (PERF.md). The x / x0cache solver carry, the fp32 residual
+// ~9 TFLOP/s; at head_dim 64 and B=64 (64 blocks on 132 SMs) 36.6 ms,
+// ~3.4 TFLOP/s (PERF.md). The x / x0cache solver carry, the fp32 residual
 // and all per-step activations stay in shared memory across the T steps;
 // the (T, 5) [A, B, C, P, Q] table drives DDIM (C = 0) and DPM-Solver++(2M)
 // with one update rule.
@@ -56,6 +59,7 @@ __host__ __device__ inline size_t chunk_smem_floats(int P, int E, int H, int J, 
   return decoder_smem_floats(P, E, H, J, S) + 3 * (size_t)P * J;
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads) fused_chunk_kernel(ChunkArgs a) {
   extern __shared__ float4 smem4[];
   const DecoderWeights& w = a.w;
@@ -87,8 +91,8 @@ __global__ void __launch_bounds__(kThreads) fused_chunk_kernel(ChunkArgs a) {
   const size_t layer_stride = 2 * (size_t)S * E;
   for (int t = 0; t < a.T; ++t) {
     const size_t st = (size_t)t * L * E;
-    decoder_pass(w, sm, x, kv, kv + (size_t)S * E, layer_stride, a.stk + st, a.stv + st, S,
-                 StoreF32{eps, w.J});
+    decoder_pass<D>(w, sm, x, kv, kv + (size_t)S * E, layer_stride, a.stk + st, a.stv + st, S,
+                    StoreF32{eps, w.J});
     const float* c = a.coef + 5 * t;
     const float cA = c[0], cB = c[1], cC = c[2], cP = c[3], cQ = c[4];
     for (int i = threadIdx.x; i < PJ; i += blockDim.x) {
@@ -127,10 +131,13 @@ extern "C" int sd_fused_chunk(const void* const* ptrs, const int* ints, void* st
   a.S = ints[6];
   a.T = ints[7];
   if (a.w.H * a.w.P * (a.S + 1) < a.w.E) return (int)cudaErrorInvalidValue;  // no staging room
+  const int D = head_dim(a.w.E, a.w.H);
+  if (D == 0) return (int)cudaErrorInvalidValue;
+  auto kernel = D == 32 ? fused_chunk_kernel<32> : fused_chunk_kernel<64>;
   const size_t smem = chunk_smem_floats(a.w.P, a.w.E, a.w.H, a.w.J, a.S) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(fused_chunk_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fused_chunk_kernel<<<a.B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<a.B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

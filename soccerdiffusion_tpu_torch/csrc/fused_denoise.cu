@@ -4,7 +4,7 @@
 // Replaces soccerdiffusion_tpu/ops/fused_denoise.py: FusedDenoiser.__call__
 // and FusedDenoiser._call_with_precomputed (_make_kernel). Both call sites
 // share this kernel; `has_coefs` selects the in-kernel DDIM epilogue
-// (x_prev instead of eps).
+// (x_prev instead of eps). Instances for head_dim 32 (h128) and 64 (h256).
 //
 // Bound on the H100: per robot and pass the kernel reads the robot's
 // context K/V (L x 2 x S x E bf16 = 616 KB at L=4, S=301, E=128) from HBM
@@ -48,6 +48,7 @@ struct DenoiseEpi {
   }
 };
 
+template <int D>
 __global__ void __launch_bounds__(kThreads) fused_denoise_kernel(DenoiseArgs a) {
   extern __shared__ float4 smem4[];
   const DecoderWeights& w = a.w;
@@ -55,8 +56,8 @@ __global__ void __launch_bounds__(kThreads) fused_denoise_kernel(DenoiseArgs a) 
   const DecoderSmem sm = carve_decoder_smem(reinterpret_cast<float*>(smem4), w.P, w.E, w.H, w.J, a.S);
   const size_t PJ = (size_t)w.P * w.J, SE = (size_t)a.S * w.E;
   const float* x = a.noisy + b * PJ;
-  decoder_pass(w, sm, x, a.ctx_k + b * SE, a.ctx_v + b * SE, a.B * SE, a.stk, a.stv, a.S,
-               DenoiseEpi{a.out + b * PJ, x, a.c0, a.c1, a.c2, a.c3, w.J, a.has_coefs});
+  decoder_pass<D>(w, sm, x, a.ctx_k + b * SE, a.ctx_v + b * SE, a.B * SE, a.stk, a.stv, a.S,
+                  DenoiseEpi{a.out + b * PJ, x, a.c0, a.c1, a.c2, a.c3, w.J, a.has_coefs});
 }
 
 }  // namespace sd
@@ -86,10 +87,13 @@ extern "C" int sd_fused_denoise(const void* const* ptrs, const int* ints, const 
   a.c1 = floats[1];
   a.c2 = floats[2];
   a.c3 = floats[3];
+  const int D = head_dim(a.w.E, a.w.H);
+  if (D == 0) return (int)cudaErrorInvalidValue;
+  auto kernel = D == 32 ? fused_denoise_kernel<32> : fused_denoise_kernel<64>;
   const size_t smem = decoder_smem_floats(a.w.P, a.w.E, a.w.H, a.w.J, a.S) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(fused_denoise_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fused_denoise_kernel<<<a.B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<a.B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

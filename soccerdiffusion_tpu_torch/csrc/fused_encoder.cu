@@ -82,7 +82,7 @@ __global__ void __launch_bounds__(kThreads) fused_encoder_kernel(EncoderArgs a) 
     dense<8, 2>(act, E, T, E, st.qkv_w + l * 3 * EE, 3 * E, st.qkv_b + (size_t)l * 3 * E,
                 StoreRoundBf16{qkv, LDQ});
     __syncthreads();
-    self_attention(qkv, LDQ, T, E, a.H, act, E);
+    self_attention<32>(qkv, LDQ, T, E, a.H, act, E);
     __syncthreads();
     dense<8, 2>(act, E, T, E, st.o_w + l * EE, E, st.o_b + (size_t)l * E, AddTo{h, E});
     __syncthreads();
@@ -116,6 +116,7 @@ extern "C" int sd_fused_encoder(const void* const* ptrs, const int* ints, void* 
   a.S = ints[2];
   a.E = ints[3];
   a.H = ints[4];
+  if (a.E != 32 * a.H) return (int)cudaErrorInvalidValue;  // head_dim 32 only
   size_t smem = 0;
   for (int s = 0; s < n; ++s) {
     const bf16* const* p = reinterpret_cast<const bf16* const*>(ptrs) + 14 * s;

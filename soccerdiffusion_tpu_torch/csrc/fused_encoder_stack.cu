@@ -22,7 +22,10 @@
 //     partials of every bias / LayerNorm gradient, and weight_grads.cu sums
 //     both over the batch in a fixed order;
 //   * no 8-row padding or key masks (T rows as they are), no lane-masked
-//     head stacking (one head at a time), erff for the exact GELU.
+//     head stacking (one head at a time), erff for the exact GELU;
+//   * the forward has instances for head_dim 32 and 64 (the h256 configs'
+//     4-head proprioceptive stacks; their 8-head image-sequence stack is
+//     head_dim 32); the backward takes head_dim 32.
 #include "train_common.cuh"
 
 namespace sd {
@@ -100,7 +103,8 @@ __device__ inline EncLayer layer_weights(const EncStackArgs& a, int l) {
 
 // One layer's forward for one robot: x (T, E) fp32 -> y (T, E) fp32,
 // leaving n1 / om / n2 / hg in the saved row `sv` (stride WS) and q|k|v,
-// xhat, rstd, x2, z in the workspace for the backward.
+// xhat, rstd, x2, z in the workspace for the backward. D is the head dim.
+template <int D>
 __device__ void layer_fwd(const EncLayer& w, const EncWs& s, bf16* sv, int WS, const float* x,
                           float* y, float* P, int T, int E, int FF, int H) {
   bf16 *n1 = sv, *om = sv + 4 * E, *n2 = sv + 6 * E, *hg = sv + 7 * E + FF;
@@ -108,9 +112,9 @@ __device__ void layer_fwd(const EncLayer& w, const EncWs& s, bf16* sv, int WS, c
   dense<8, 2>(n1, WS, T, E, w.wqkv, 3 * E, w.bqkv, StoreRoundBf16{s.qkv, 3 * E});
   __syncthreads();
   for (int h = 0; h < H; ++h) {
-    const bf16* q = s.qkv + h * kHeadDim;
-    head_probs(q, 3 * E, q + E, 3 * E, T, T, P);
-    head_out(P, T, T, q + 2 * E, 3 * E, om + h * kHeadDim, WS);
+    const bf16* q = s.qkv + h * D;
+    head_probs<D>(q, 3 * E, q + E, 3 * E, T, T, P);
+    head_out<D>(P, T, T, q + 2 * E, 3 * E, om + h * D, WS);
   }
   dense<8, 2>(om, WS, T, E, w.wo, E, w.bo, AddStore{x, s.x2, E});
   __syncthreads();
@@ -169,6 +173,7 @@ __device__ inline EncWs robot_ws(const EncStackArgs& a, int b) {
   return s;
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads) encoder_stack_fwd_kernel(EncStackArgs a) {
   extern __shared__ float4 smem4[];
   float* P = reinterpret_cast<float*>(smem4);
@@ -182,7 +187,7 @@ __global__ void __launch_bounds__(kThreads) encoder_stack_fwd_kernel(EncStackArg
   for (int l = 0; l < a.L; ++l) {
     const float* in = a.acts_out + ((size_t)l * a.B + b) * te;
     float* out = l + 1 < a.L ? a.acts_out + ((size_t)(l + 1) * a.B + b) * te : s.g;
-    layer_fwd(layer_weights(a, l), s, sv, WS, in, out, P, T, E, a.FF, a.H);
+    layer_fwd<D>(layer_weights(a, l), s, sv, WS, in, out, P, T, E, a.FF, a.H);
   }
   bf16* y = a.out + b * te;
   for (int i = threadIdx.x; i < T * E; i += blockDim.x) y[i] = __float2bfloat16(s.g[i]);
@@ -201,7 +206,8 @@ __global__ void __launch_bounds__(kThreads) encoder_stack_bwd_kernel(EncStackArg
     const EncLayer w = layer_weights(a, l);
     bf16* sv = a.saved + ((size_t)l * a.B + b) * T * WS;
     // recompute the layer's internals (its output is not needed: into tmp)
-    layer_fwd(w, s, sv, WS, a.acts + ((size_t)l * a.B + b) * te, s.tmp, P, T, E, a.FF, a.H);
+    layer_fwd<kHeadDim>(w, s, sv, WS, a.acts + ((size_t)l * a.B + b) * te, s.tmp, P, T, E, a.FF,
+                        a.H);
     layer_bwd(w, s, sv, WS, P, a.vpart + ((size_t)b * a.L + l) * V, T, E, a.FF, a.H);
   }
   bf16* dx = a.out + b * te;
@@ -209,6 +215,7 @@ __global__ void __launch_bounds__(kThreads) encoder_stack_bwd_kernel(EncStackArg
 }
 
 // Common argument checks; returns the attention tile's shared memory.
+// The head dimension is checked by each entry.
 static int setup(EncStackArgs& a, const int* ints, size_t* smem) {
   a.B = ints[0];
   a.T = ints[1];
@@ -220,7 +227,7 @@ static int setup(EncStackArgs& a, const int* ints, size_t* smem) {
   a.wsbf_stride = ints[7];
   size_t n32, nbf;
   carve(a.T, a.E, a.FF, nullptr, nullptr, nullptr, &n32, &nbf);
-  if (a.E != kHeadDim * a.H || a.E % 8 || a.FF % 8 || n32 > (size_t)a.ws32_stride ||
+  if (head_dim(a.E, a.H) == 0 || a.E % 8 || a.FF % 8 || n32 > (size_t)a.ws32_stride ||
       nbf > (size_t)a.wsbf_stride)
     return (int)cudaErrorInvalidValue;
   *smem = (size_t)a.T * a.T * sizeof(float);
@@ -243,10 +250,12 @@ extern "C" int sd_encoder_stack_fwd(const void* const* ptrs, const int* ints, vo
   a.ws32 = static_cast<float*>(const_cast<void*>(ptrs[15]));
   a.wsbf = static_cast<bf16*>(const_cast<void*>(ptrs[16]));
   a.saved = static_cast<bf16*>(const_cast<void*>(ptrs[17]));
-  cudaError_t err = cudaFuncSetAttribute(encoder_stack_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel =
+      head_dim(a.E, a.H) == 32 ? encoder_stack_fwd_kernel<32> : encoder_stack_fwd_kernel<64>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
-  encoder_stack_fwd_kernel<<<a.B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<a.B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -259,6 +268,7 @@ extern "C" int sd_encoder_stack_bwd(const void* const* ptrs, const int* ints, vo
   EncStackArgs a = {};
   size_t smem;
   if (int err = setup(a, ints, &smem)) return err;
+  if (a.E != kHeadDim * a.H) return (int)cudaErrorInvalidValue;  // the backward: head_dim 32
   const int rows_per_split = ints[8];
   auto P = [&](int i) { return const_cast<void*>(ptrs[i]); };
   a.acts = static_cast<const float*>(ptrs[0]);

@@ -16,12 +16,18 @@
 // every gradient that feeds a LayerNorm backward or a bias sum in fp32;
 // LN outputs, q/k/v, attention outputs, the GELU output and every operand
 // of a backward product rounded to bf16; probabilities rounded to bf16
-// before a value sum. Head dim 32.
+// before a value sum. The forward attention helpers take the head
+// dimension D (32 or 64) as a template parameter; the backward helpers,
+// and so the backward kernels and the decoder-layer kernels, take head_dim
+// kHeadDim = 32.
 #pragma once
 
 #include "common.cuh"
 
 namespace sd {
+
+constexpr int kHeadDim = 32;
+constexpr float kAttnScale = attn_scale<kHeadDim>();
 
 // element counts rounded up to 16-byte multiples (fp32 / bf16 workspace regions)
 __host__ __device__ inline size_t r4(size_t n) { return (n + 3) & ~(size_t)3; }
@@ -49,7 +55,7 @@ __device__ __forceinline__ void load_row32(const bf16* p, float* out) {
 __device__ __forceinline__ float dot32(const float* a, const float* b) {
   float acc = 0.f;
 #pragma unroll
-  for (int d = 0; d < kHeadDim; ++d) acc += a[d] * b[d];
+  for (int d = 0; d < 32; ++d) acc += a[d] * b[d];
   return acc;
 }
 
@@ -168,21 +174,29 @@ __device__ inline void to_bf16(const float* src, int lds, int M, int N, bf16* ds
 }
 
 // ------------------------------------------------- one attention head
-// P[i][j] = softmax_j(q_i . k_j / sqrt(32)), i < nq, j < nk, fp32 scores
+// P[i][j] = softmax_j(q_i . k_j / sqrt(D)), i < nq, j < nk, fp32 scores
 // and softmax; q, k are one head's bf16 slices (row strides multiples of 8
-// elements). One warp per query row.
-__device__ inline void head_probs(const bf16* q, int ldq, const bf16* k, int ldk, int nq, int nk,
-                                  float* P) {
+// elements). One warp per query row; a key is read 32 elements at a time.
+template <int D = kHeadDim>
+__device__ void head_probs(const bf16* q, int ldq, const bf16* k, int ldk, int nq, int nk,
+                           float* P) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   for (int i = warp; i < nq; i += nwarps) {
-    float qv[kHeadDim];
-    load_row32(q + (size_t)i * ldq, qv);
+    float qv[D];
+#pragma unroll
+    for (int c = 0; c < D / 32; ++c) load_row32(q + (size_t)i * ldq + 32 * c, qv + 32 * c);
     float* pr = P + i * nk;
     float mx = -INFINITY;
     for (int j = lane; j < nk; j += 32) {
-      float kv[kHeadDim];
+      float kv[32];
       load_row32(k + (size_t)j * ldk, kv);
-      const float s = dot32(qv, kv) * kAttnScale;
+      float dot = dot32(qv, kv);
+#pragma unroll
+      for (int c = 1; c < D / 32; ++c) {
+        load_row32(k + (size_t)j * ldk + 32 * c, kv);
+        dot += dot32(qv + 32 * c, kv);
+      }
+      const float s = dot * attn_scale<D>();
       pr[j] = s;
       mx = fmaxf(mx, s);
     }
@@ -199,11 +213,12 @@ __device__ inline void head_probs(const bf16* q, int ldq, const bf16* k, int ldk
   __syncthreads();
 }
 
-// bf16 out[i][d] = sum_j bf16(P[i][j]) v[j][d], d < 32
-__device__ inline void head_out(const float* P, int nq, int nk, const bf16* v, int ldv, bf16* out,
-                                int ldo) {
-  for (int item = threadIdx.x; item < nq * kHeadDim; item += blockDim.x) {
-    const int i = item / kHeadDim, d = item % kHeadDim;
+// bf16 out[i][d] = sum_j bf16(P[i][j]) v[j][d], d < D
+template <int D = kHeadDim>
+__device__ void head_out(const float* P, int nq, int nk, const bf16* v, int ldv, bf16* out,
+                         int ldo) {
+  for (int item = threadIdx.x; item < nq * D; item += blockDim.x) {
+    const int i = item / D, d = item % D;
     const float* pr = P + i * nk;
     float acc = 0.f;
     for (int j = 0; j < nk; ++j) acc += rbf(pr[j]) * tof(v[(size_t)j * ldv + d]);

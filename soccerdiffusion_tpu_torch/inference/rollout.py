@@ -1,12 +1,20 @@
 """Batched closed-loop rollout engine (counterpart of
-``soccerdiffusion_tpu/inference/rollout.py``, proprioceptive configs).
+``soccerdiffusion_tpu/inference/rollout.py``).
 
 One replan period: build the batch from the controller buffers, encode the
 context once, sample a chunk (30-step DDIM / DPM-Solver++, or the 1-step
 distilled student), feed the executed prefix back into the action history,
 play the plant over it in closed form and observe. With ``fused="chunk"``
-and ``fused_encoder=True`` (the serving path) a period is two kernel
-launches: the fused context encoder and the whole-chunk sampler.
+and ``fused_encoder=True`` (the proprioceptive serving path) a period is two
+kernel launches: the fused context encoder and the whole-chunk sampler.
+
+Image configs add the stub camera: one frame per 5 plant ticks (10 Hz at the
+50 Hz control rate). With the image-token cache (the default for image
+configs) each period encodes only the frames that arrived through the
+per-frame image encoder (the ViT: one fused-block launch per block) and
+rolls their tokens into the controller; the context then runs only the
+frame-sequence encoder over the cached tokens. Without it the raw frames
+roll in, and every period re-encodes the whole frame stack.
 
 The plant is the JAX engine's first-order joint-tracking stub; it measures
 serving capacity, it is not a physics simulator.
@@ -55,7 +63,8 @@ class RolloutCarry:
 
 
 class RolloutEngine:
-    """Same arguments as the JAX engine, plus ``device``.
+    """Same arguments as the JAX engine, plus ``device``: the card unless the
+    caller asks for the CPU (whose tensors take the kernels' plain versions).
 
     The engine packs the model's weights for the fused kernels when it is
     built, so load the weights first. ``fused_block_robots``,
@@ -73,7 +82,7 @@ class RolloutEngine:
                  fused_kv_quant: str = "none", replan_every: int | None = None,
                  solver: str = "ddim", fused_interpret: bool = False,
                  guidance_scale: float = 1.0, guidance_null: tuple[str, ...] = ("image",),
-                 cache_image_tokens: bool | None = None, device: str | torch.device = "cpu"):
+                 cache_image_tokens: bool | None = None, device: str | torch.device = "cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device={device!r} requested but CUDA is not available")
@@ -83,8 +92,6 @@ class RolloutEngine:
                              f"device is {self.device}: move the model first")
         check_serving_supported(group_robots=fused_group_robots, kv_quant=fused_kv_quant,
                                 guidance_scale=guidance_scale)
-        if cache_image_tokens:
-            raise NotImplementedError("the image-token cache is not ported yet (see ROADMAP.md)")
         if fused not in (False, True, "step", "chunk"):
             raise ValueError(f"unknown fused mode {fused!r}")
         parse_solver(solver)
@@ -102,10 +109,23 @@ class RolloutEngine:
         self.fused = fused
         self.fused_encoder = bool(fused_encoder)
         self.solver = solver
+        # per-frame image encodings computed once per frame arrival and
+        # rolled in the controller (default on for image configs)
+        self.cache_image_tokens = (self.cfg.use_images if cache_image_tokens is None
+                                   else bool(cache_image_tokens))
         P = self.cfg.trajectory_prediction_length
         self.replan_every = P if replan_every is None else int(replan_every)
         if not 1 <= self.replan_every <= P:
             raise ValueError(f"replan_every must be in [1, pred_len={P}], got {replan_every}")
+        if self.cfg.use_images and self.replan_every % 5 != 0:
+            raise ValueError(
+                "image configs need replan_every to be a multiple of 5 ticks so the 10 Hz stub "
+                "camera (one frame per 5 ticks at 50 Hz) stays on schedule across replan "
+                f"periods; got replan_every={replan_every}")
+        if self.fused_encoder and self.cfg.use_images:
+            raise ValueError(
+                "fused_encoder covers the proprioceptive encoder stacks only; image configs "
+                "must use the model's context encoder (fused_encoder=False)")
         self._encoder_op = FusedContextEncoder(model) if self.fused_encoder else None
         if fused == "chunk" and not distilled:
             self._sampler_op = FusedChunkSampler(model)
@@ -116,15 +136,29 @@ class RolloutEngine:
 
     # ------------------------------------------------------------------ init
 
-    def init(self, batch_size: int, generator: torch.Generator) -> RolloutCarry:
-        """``generator`` draws the chunk noise; it must live on the engine's device."""
+    @torch.no_grad()
+    def init(self, batch_size: int, generator: torch.Generator,
+             prefill: bool = True) -> RolloutCarry:
+        """``generator`` draws the chunk noise; it must live on the engine's
+        device. With the image-token cache, ``prefill`` fills the token
+        buffer with the zero-frame encoding, which the raw path's zero
+        frames give from the first replan on (the JAX engine's ``init``
+        with ``variables``); without it the cache starts at zero tokens."""
         if generator.device.type != self.device.type:
             raise ValueError(f"generator on {generator.device}, engine on {self.device}")
         J = self.cfg.num_joints
         phase = torch.from_numpy(np.linspace(0.0, 2 * np.pi, batch_size, endpoint=False)
                                  .astype(np.float32)).to(self.device)
+        controller = init_controller_state(self.cfg, batch_size, device=self.device,
+                                           cache_image_tokens=self.cache_image_tokens)
+        if controller.image_tokens is not None and prefill:
+            res = self.cfg.image_resolution
+            zero = self.model.encode_image_frames(
+                torch.zeros((1, 1, res, res, 3), device=self.device))  # (1, 1, hidden)
+            controller = controller.replace(image_tokens=zero.to(torch.float32).expand_as(
+                controller.image_tokens).contiguous())
         return RolloutCarry(
-            controller=init_controller_state(self.cfg, batch_size, device=self.device),
+            controller=controller,
             plant=PlantState(positions=torch.zeros((batch_size, J), device=self.device),
                              phase=phase),
             generator=generator)
@@ -196,6 +230,20 @@ class RolloutEngine:
             imus = torch.stack([ones, z, z, torch.sin(angle), torch.cos(angle)], dim=-1)
         return PlantState(positions=positions[:, -1], phase=phases[:, -1]), positions, imus
 
+    def _camera_frames(self, plant: PlantState) -> torch.Tensor:
+        """The stub camera's frames of one period, (B, n, res, res, 3): frame i
+        of n lands on tick P-1-5(n-1-i), at that tick's phase; a cheap
+        phase-dependent gradient at ImageNet-normalised scale."""
+        n = max(1, self.replan_every // 5)
+        res = self.cfg.image_resolution
+        ramp = torch.linspace(-1.0, 1.0, res, device=self.device)
+        offsets = torch.as_tensor(0.02 * 5.0 * np.arange(n - 1, -1, -1), dtype=torch.float32,
+                                  device=self.device)
+        ph = (plant.phase[:, None] - offsets)[:, :, None, None, None]
+        base = ramp[None, None, :, None, None] + ramp[None, None, None, :, None]
+        frames = torch.sin(base + ph).expand(ph.shape[0], n, res, res, 1)
+        return frames.repeat(1, 1, 1, 1, 3)
+
     @torch.no_grad()
     def replan_period(self, carry: RolloutCarry,
                       noise: torch.Tensor | None = None) -> tuple[RolloutCarry, torch.Tensor]:
@@ -210,7 +258,14 @@ class RolloutEngine:
         executed = chunk[:, : self.replan_every]
         controller = push_action_chunk(carry.controller, executed)
         plant, js_rows, imu_rows = self._plant_play_chunk(carry.plant, executed)
-        controller = observe_many(controller, joint_states=js_rows, imus=imu_rows)
+        frames = tokens = None
+        if self.cfg.use_images:
+            frames = self._camera_frames(plant)
+            if controller.image_tokens is not None:
+                # the token cache: encode only the frames that arrived
+                tokens, frames = self.model.encode_image_frames(frames), None
+        controller = observe_many(controller, joint_states=js_rows, imus=imu_rows,
+                                  images=frames, image_tokens=tokens)
         return RolloutCarry(controller=controller, plant=plant, generator=carry.generator), executed
 
     # --------------------------------------------------------------- rollout

@@ -13,8 +13,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-# flax's LayerNorm default (torch's 1e-5 would be a silent mismatch)
-LN_EPS = 1e-6
+from soccerdiffusion_tpu_torch.ops._train_math import LN_EPS  # noqa: F401 (flax's default)
 
 
 class Linear(nn.Linear):

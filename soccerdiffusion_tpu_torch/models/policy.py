@@ -1,12 +1,17 @@
-"""The proprioceptive diffusion policy (counterpart of
-``soccerdiffusion_tpu/models/policy.py``, without the image pathway).
+"""The multimodal diffusion policy (counterpart of
+``soccerdiffusion_tpu/models/policy.py``): proprioceptive encoder stacks,
+the ViT image pathway, the game-state token and the cross-attending
+denoiser.
 
 Parameters are float32 masters, as in the JAX package, and are cast to
-``cfg.compute_dtype`` at use (``models/layers.py``); the inputs are cast to
-it here, at the policy's boundaries. The training knobs
-``encoder_fused_stack`` and ``decoder_fused_block`` route the encoder stacks
+``cfg.compute_dtype`` at use (``models/layers.py``); the inputs (frames and
+cached image tokens included) are cast to it here, at the policy's
+boundaries. The knobs ``encoder_fused_stack`` and ``decoder_fused_block``
+route the encoder stacks (the image-frame sequence encoder's among them)
 and the decoder layers through the fused fwd+bwd ops
-(``ops/fused_encoder_stack.py``, ``ops/fused_decoder_layer.py``)."""
+(``ops/fused_encoder_stack.py``, ``ops/fused_decoder_layer.py``);
+``vit_fused_block`` runs each ViT block as one fused op
+(``ops/fused_vit_block.py``)."""
 
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ from soccerdiffusion_tpu_torch.config import ModelConfig, check_supported
 from soccerdiffusion_tpu_torch.models.decoder import DiffusionActionGenerator
 from soccerdiffusion_tpu_torch.models.embeddings import StepToken
 from soccerdiffusion_tpu_torch.models.encoders import GameStateEncoder, IMUEncoder, JointEncoder
+from soccerdiffusion_tpu_torch.models.vision import ImageSequenceEncoder
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -40,6 +46,12 @@ class DiffusionPolicy(nn.Module):
             self.joint_states_encoder = JointEncoder(
                 cfg.num_joints, E, ps, cfg.joint_state_encoder_layers,
                 cfg.joint_state_context_length, fused)
+        if cfg.use_images:
+            self.image_sequence_encoder = ImageSequenceEncoder(
+                E, cfg.image_encoder_type, cfg.image_sequence_encoder_type,
+                cfg.num_image_sequence_encoder_layers, cfg.image_context_length,
+                cfg.image_resolution, (cfg.vit_patch_size, cfg.vit_width, cfg.vit_depth),
+                cfg.vit_fused_block, cfg.vit_fused_gelu, fused)
         if cfg.use_gamestate:
             self.game_state_encoder = GameStateEncoder(E)
         self.diffusion_action_generator = DiffusionActionGenerator(
@@ -52,7 +64,10 @@ class DiffusionPolicy(nn.Module):
 
     def encode_context(self, batch: dict[str, torch.Tensor], train: bool = False) -> torch.Tensor:
         """(B, S, hidden) context tokens in canonical order: action history,
-        IMU, joint states, game state."""
+        IMU, joint states, images, game state. The image tokens come from
+        ``batch["image_tokens"]`` (the serving cache of per-frame encodings,
+        (B, F, hidden): only the frame-sequence encoder runs) or from the
+        frames ``batch["image_data"]`` (B, F, H, W, 3)."""
         cfg = self.config
         context = []
         if cfg.use_action_history:
@@ -61,11 +76,31 @@ class DiffusionPolicy(nn.Module):
             context.append(self.imu_encoder(batch["rotation"].to(self.dtype)))
         if cfg.use_joint_states:
             context.append(self.joint_states_encoder(batch["joint_state"].to(self.dtype)))
+        if cfg.use_images:
+            if "image_tokens" in batch:
+                context.append(self.image_sequence_encoder(batch["image_tokens"].to(self.dtype),
+                                                           mode="sequence"))
+            elif "image_u8" in batch:
+                raise NotImplementedError("the packed uint8 image batch comes with the flagship "
+                                          "training slice (see ROADMAP.md, 'H100 port')")
+            else:
+                context.append(self.image_sequence_encoder(batch["image_data"].to(self.dtype)))
         if cfg.use_gamestate:
             context.append(self.game_state_encoder(batch["game_state"]).to(self.dtype))
         if not context:
             raise ValueError("no context modality enabled")
         return torch.cat(context, dim=1)
+
+    def encode_image_frames(self, frames: torch.Tensor,
+                            valid: torch.Tensor | None = None) -> torch.Tensor:
+        """Per-frame image tokens (B, K, hidden) of frames (B, K, H, W, 3),
+        without the frame-sequence encoder: the cacheable half of the image
+        pathway, run once per frame as it arrives."""
+        return self.image_sequence_encoder(frames.to(self.dtype), valid=valid, mode="frames")
+
+    def forward_with_cue(self, *args, **kwargs):
+        raise NotImplementedError("aux_cue_head / forward_with_cue (a training head) is not "
+                                  "ported yet (see ROADMAP.md, 'H100 port')")
 
     def denoise(self, context: torch.Tensor, noisy_chunk: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """Epsilon for the noisy chunk given context tokens; t is (B,) ints."""

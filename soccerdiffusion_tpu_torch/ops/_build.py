@@ -39,6 +39,7 @@ _ENTRIES = {
     "sd_encoder_stack_bwd": [ctypes.POINTER(_P), _I, _P],
     "sd_decoder_layer_fwd": [ctypes.POINTER(_P), _I, _P],
     "sd_decoder_layer_bwd": [ctypes.POINTER(_P), _I, _P],
+    "sd_vit_block_fwd": [ctypes.POINTER(_P), _I, _P],
 }
 
 

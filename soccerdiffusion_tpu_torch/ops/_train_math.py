@@ -3,9 +3,10 @@
 
 The plain pieces follow the TPU kernels' casts: fp32 LayerNorm, softmax and
 residual stream; ``rnd`` marks each rounding to the compute dtype before
-the next product. ``check_kernel_operands`` states what the CUDA training
-kernels take, and the sizes below mirror ``csrc/weight_grads.cu`` and the
-shared-memory budget of one H100 thread block.
+the next product. ``check_forward_operands`` / ``check_backward_operands``
+state what the CUDA training kernels take, and the sizes below mirror
+``csrc/weight_grads.cu`` and the shared-memory budget of one H100 thread
+block.
 """
 
 from __future__ import annotations
@@ -14,8 +15,9 @@ import math
 
 import torch
 
-from soccerdiffusion_tpu_torch.models.layers import LN_EPS
-
+# flax's LayerNorm default, which the kernels hard-code (torch's 1e-5 would
+# be a silent mismatch); the models' LayerNorms take it from here
+LN_EPS = 1e-6
 # rows of each chunk of the weight-gradient products (csrc/weight_grads.cu)
 ROWS_PER_SPLIT = 1024
 # shared memory of one thread block on an H100 (232,448 bytes)
@@ -97,18 +99,20 @@ def r8(n: int) -> int:
     return -(-n // 8) * 8
 
 
-def check_kernel_operands(x: torch.Tensor, w: list[torch.Tensor], num_heads: int, ff: int,
-                          tile: int) -> None:
-    """Raise for what the CUDA training kernels do not take: a non-bf16
-    dtype, head_dim other than 32, an MLP width ``ff`` that is no multiple
-    of 8, or an attention tile (``tile`` fp32 scores) over one block's
-    shared memory."""
+def check_forward_operands(x: torch.Tensor, w: list[torch.Tensor], num_heads: int, ff: int,
+                           tile: int, head_dims: tuple[int, ...] = (32, 64)) -> None:
+    """Raise ``ValueError`` for what a CUDA forward kernel of the training
+    ops does not take: a non-bf16 dtype, a head_dim outside ``head_dims``
+    (the encoder stack has instances for 32 and 64, the decoder layer for
+    32), an MLP width ``ff`` that is no multiple of 8, or an attention tile
+    (``tile`` fp32 scores) over one block's shared memory."""
     if x.dtype != torch.bfloat16:
         raise ValueError("the CUDA training kernels take bfloat16 (compute_dtype='bfloat16'); "
                          f"got {x.dtype}")
     E = x.shape[-1]
-    if E != 32 * num_heads:
-        raise ValueError(f"the CUDA training kernels take head_dim 32, got {E // num_heads}")
+    if E not in [d * num_heads for d in head_dims]:
+        raise ValueError(f"this CUDA kernel takes head_dim {' or '.join(map(str, head_dims))}, "
+                         f"got {E / num_heads:g}")
     if any(t.device != x.device for t in w):
         raise ValueError("weights and activations must be on one CUDA device")
     if ff % 8:
@@ -117,3 +121,15 @@ def check_kernel_operands(x: torch.Tensor, w: list[torch.Tensor], num_heads: int
     if 4 * tile > MAX_SMEM:
         raise ValueError(f"{tile} attention scores per head exceed one thread block's shared "
                          "memory: too many rows for the CUDA training kernels")
+
+
+def check_backward_operands(dy: torch.Tensor, w: list[torch.Tensor], num_heads: int, ff: int,
+                            tile: int) -> None:
+    """The backward kernels take head_dim 32: ``NotImplementedError`` for
+    head_dim 64 (its backward comes with the flagship training slice),
+    else ``check_forward_operands`` at head_dim 32."""
+    if dy.shape[-1] == 64 * num_heads:
+        raise NotImplementedError(
+            "the CUDA backward kernels take head_dim 32; head_dim 64 comes with the flagship "
+            "training slice (see ROADMAP.md, 'H100 port', Queue 1)")
+    check_forward_operands(dy, w, num_heads, ff, tile, head_dims=(32,))

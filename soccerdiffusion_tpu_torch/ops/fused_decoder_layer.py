@@ -25,7 +25,7 @@ from soccerdiffusion_tpu_torch.ops._train_math import (
     ROWS_PER_SPLIT,
     attention,
     attention_bwd,
-    check_kernel_operands,
+    check_forward_operands,
     gelu_cdf,
     gelu_grad,
     ln_bwd,
@@ -169,7 +169,7 @@ def _check(x, mem, w, num_heads):
         raise ValueError(f"memory {tuple(mem.shape)} {mem.dtype} does not match x "
                          f"{tuple(x.shape)} {x.dtype}")
     FF = w[18].shape[-1]
-    check_kernel_operands(x, w, num_heads, FF, T * max(T, mem.shape[1]))
+    check_forward_operands(x, w, num_heads, FF, T * max(T, mem.shape[1]), head_dims=(32,))
     return B, T, mem.shape[1], E, FF
 
 

@@ -9,8 +9,8 @@ x_prev when DDIM coefficients are given. ``FusedDenoiser.__init__`` packs the
 decoder weights once; ``FusedChunkSampler`` (``ops/fused_chunk.py``)
 inherits the packing and the plain decoder pass.
 
-Dispatch: a CUDA tensor launches the kernel (bf16 weights, head_dim 32) or
-raises; a CPU tensor runs the plain PyTorch version below, which rounds to
+Dispatch: a CUDA tensor launches the kernel (bf16 weights, head_dim 32 or
+64) or raises; a CPU tensor runs the plain PyTorch version below, which rounds to
 the compute dtype at the kernel's rounding points (``csrc/common.cuh``).
 ``FusedDenoiser.launches`` counts kernel launches.
 
@@ -207,8 +207,9 @@ class FusedDenoiser:
         if self.dtype != torch.bfloat16:
             raise ValueError("the CUDA decoder kernels take bfloat16 weights "
                              "(compute_dtype='bfloat16'); got " + str(self.dtype))
-        if self.head_dim != 32:
-            raise ValueError(f"the CUDA decoder kernels take head_dim 32, got {self.head_dim}")
+        if self.head_dim not in (32, 64):
+            raise ValueError(f"the CUDA decoder kernels take head_dim 32 or 64, got "
+                             f"{self.head_dim}")
         if self.cfg.trajectory_prediction_length > 128:
             raise ValueError("the CUDA decoder kernels take at most 128 chunk steps")
 

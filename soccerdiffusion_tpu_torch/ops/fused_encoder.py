@@ -168,7 +168,9 @@ class FusedContextEncoder:
             raise ValueError("the CUDA encoder kernel takes bfloat16 weights "
                              f"(compute_dtype='bfloat16'); got {self.dtype}")
         if self.head_dim != 32:
-            raise ValueError(f"the CUDA encoder kernel takes head_dim 32, got {self.head_dim}")
+            raise ValueError(f"the CUDA context-encoder kernel takes head_dim 32 (h128), got "
+                             f"{self.head_dim}; h256 configs use the fused encoder stack "
+                             "(encoder_fused_stack)")
         if max(s.tokens for s in self.stacks) > 128:
             raise ValueError("the CUDA encoder kernel takes at most 128 tokens per stack")
         E = self.cfg.hidden_dim

@@ -19,7 +19,8 @@ follow the TPU kernel's casts line by line: ``forward_plain`` is
 ``_stack_core`` over the layers, ``backward_plain`` the hand-derived
 backward of ``_make_bwd_kernel`` (not autograd), so that on the card
 kernel and plain version differ by summation order only.
-``FusedEncoderStack.fwd_launches`` / ``.bwd_launches`` count kernel launches.
+``FusedEncoderStack.fwd_launches`` / ``.bwd_launches`` count kernel launches;
+``.fwd_launches_hd64`` counts the forward's head_dim-64 launches among them.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ from soccerdiffusion_tpu_torch.ops._train_math import (
     ROWS_PER_SPLIT,
     attention,
     attention_bwd,
-    check_kernel_operands,
+    check_backward_operands,
+    check_forward_operands,
     gelu_cdf,
     gelu_grad,
     ln_bwd,
@@ -46,22 +48,22 @@ from soccerdiffusion_tpu_torch.ops._train_math import (
 STACK_WEIGHTS = ("g1", "be1", "wqkv", "bqkv", "wo", "bo", "g2", "be2", "w1", "b1", "w2", "b2")
 
 
-def stack_weights(layers) -> list[torch.Tensor]:
-    """The float32 master parameters of ``TransformerEncoderLayer``s stacked
-    on a leading L axis, in ``STACK_WEIGHTS`` order (differentiable)."""
-    st = lambda f: torch.stack([f(lyr) for lyr in layers])
+def encoder_layer_weights(layer) -> list[torch.Tensor]:
+    """The float32 master parameters of one ``TransformerEncoderLayer`` in
+    ``STACK_WEIGHTS`` order (differentiable), Dense kernels as (in, out)."""
     kernel = lambda lin: lin.weight.t()
-    sa = lambda lyr: lyr.self_attn
-    return [
-        st(lambda l: l.norm1.weight), st(lambda l: l.norm1.bias),
-        st(lambda l: torch.cat([kernel(sa(l).q_proj), kernel(sa(l).k_proj),
-                                kernel(sa(l).v_proj)], dim=1)),
-        st(lambda l: torch.cat([sa(l).q_proj.bias, sa(l).k_proj.bias, sa(l).v_proj.bias])),
-        st(lambda l: kernel(sa(l).out_proj)), st(lambda l: sa(l).out_proj.bias),
-        st(lambda l: l.norm2.weight), st(lambda l: l.norm2.bias),
-        st(lambda l: kernel(l.mlp.linear1)), st(lambda l: l.mlp.linear1.bias),
-        st(lambda l: kernel(l.mlp.linear2)), st(lambda l: l.mlp.linear2.bias),
-    ]
+    sa = layer.self_attn
+    return [layer.norm1.weight, layer.norm1.bias,
+            torch.cat([kernel(sa.q_proj), kernel(sa.k_proj), kernel(sa.v_proj)], dim=1),
+            torch.cat([sa.q_proj.bias, sa.k_proj.bias, sa.v_proj.bias]),
+            kernel(sa.out_proj), sa.out_proj.bias, layer.norm2.weight, layer.norm2.bias,
+            kernel(layer.mlp.linear1), layer.mlp.linear1.bias,
+            kernel(layer.mlp.linear2), layer.mlp.linear2.bias]
+
+
+def stack_weights(layers) -> list[torch.Tensor]:
+    """``encoder_layer_weights`` of each layer stacked on a leading L axis."""
+    return [torch.stack(ws) for ws in zip(*(encoder_layer_weights(lyr) for lyr in layers))]
 
 
 def encoder_stack(x: torch.Tensor, weights: list[torch.Tensor], num_heads: int) -> torch.Tensor:
@@ -150,7 +152,7 @@ def forward_kernel(x: torch.Tensor, w: list[torch.Tensor],
     """The forward kernel on CUDA tensors: y (B, T, E) bf16 and the fp32
     input of every layer, acts (L, B, T, E), kept for the backward."""
     (B, T, E), L, FF = x.shape, w[0].shape[0], w[8].shape[-1]
-    check_kernel_operands(x, w, num_heads, FF, T * T)
+    check_forward_operands(x, w, num_heads, FF, T * T)
     dev = x.device
     x = x.contiguous()
     w = [t.contiguous() for t in w]
@@ -165,6 +167,7 @@ def forward_kernel(x: torch.Tensor, w: list[torch.Tensor],
         _build.ints(B, T, E, num_heads, FF, L, s32, sbf), _build.stream(dev))
     _build.check("sd_encoder_stack_fwd", err)
     FusedEncoderStack.fwd_launches += 1
+    FusedEncoderStack.fwd_launches_hd64 += E == 64 * num_heads
     return y, acts
 
 
@@ -174,7 +177,7 @@ def backward_kernel(acts: torch.Tensor, dy: torch.Tensor, w: list[torch.Tensor],
     float32 weight gradients, summed over the batch in a fixed order."""
     L, B, T, E = acts.shape
     FF = w[8].shape[-1]
-    check_kernel_operands(dy, w, num_heads, FF, T * T)
+    check_backward_operands(dy, w, num_heads, FF, T * T)
     dev = dy.device
     dy = dy.contiguous()
     w = [t.contiguous() for t in w]
@@ -206,6 +209,7 @@ class FusedEncoderStack(torch.autograd.Function):
     """(x, num_heads, *12 stacked float32 weights) -> y."""
 
     fwd_launches = 0
+    fwd_launches_hd64 = 0
     bwd_launches = 0
 
     @staticmethod

@@ -3,7 +3,7 @@
 
   python -m soccerdiffusion_tpu_torch.training.train -c config.yaml [-p ckpt_dir]
       [-o out_dir] [--dummy-data] [--epochs N] [--steps-per-epoch N]
-      [--seed S] [--metrics metrics.jsonl] [--decoder-pretraining]
+      [--seed S] [--metrics metrics.jsonl] [--decoder-pretraining] [--device cuda|cpu]
 
 Config-or-checkpoint hyperparameters (the config wins, with warnings for
 keys that differ), the normaliser fitted on ``num_normalization_samples``
@@ -57,6 +57,7 @@ class RunOptions:
     seed: int = 0
     metrics: str | None = None
     decoder_pretraining: bool = False
+    device: str = "cuda"  # the card unless the caller asks for the CPU
 
 
 def parse_args(argv=None):
@@ -72,6 +73,8 @@ def parse_args(argv=None):
                         help="cap steps per epoch (smoke runs)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--metrics", type=str, default=None, help="metrics JSONL path")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device to train on (default: cuda; 'cpu' runs the plain versions)")
     return parser.parse_args(argv)
 
 
@@ -106,11 +109,13 @@ def build_dataset(config: Config, seed: int, dummy_data: bool) -> WindowedDatase
 
 
 def train(config: Config, opts: RunOptions, hyperparams: dict | None = None):
-    """The training loop, on the GPU when there is one; returns the final
-    ``TrainState``."""
+    """The training loop on ``opts.device``; returns the final ``TrainState``."""
     tc = config.train
     epochs = opts.epochs if opts.epochs is not None else tc.epochs
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = torch.device(opts.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={opts.device!r} requested but CUDA is not available "
+                           "(pass device='cpu' / --device cpu for the CPU)")
     dataset = build_dataset(config, opts.seed, opts.dummy_data)
     steps_per_epoch = len(dataset) // tc.batch_size
     if opts.steps_per_epoch:
@@ -175,7 +180,8 @@ def main(argv=None):
         params["epochs"] = args.epochs
     opts = RunOptions(output=args.output, checkpoint=args.checkpoint, dummy_data=args.dummy_data,
                       epochs=args.epochs, steps_per_epoch=args.steps_per_epoch, seed=args.seed,
-                      metrics=args.metrics, decoder_pretraining=args.decoder_pretraining)
+                      metrics=args.metrics, decoder_pretraining=args.decoder_pretraining,
+                      device=args.device)
     return train(Config.from_dict(params), opts, hyperparams=params)
 
 

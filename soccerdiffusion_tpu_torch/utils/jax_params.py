@@ -11,6 +11,8 @@ port's ``layers.i``. Per leaf module:
   nn.Conv1d     kernel (ps, C, E)    -> weight (E, C, ps), bias
   nn.Embedding  embedding (N, E)     -> weight
   StepToken     token (1, E/2)       -> token
+  ViTImageEncoder  patch_kernel (P*P*C, W), patch_bias -> the same (params of
+                the image encoder itself, not of a Dense)
 
 Every leaf is used exactly once and every shape is checked: a missing or a
 leftover leaf raises ``KeyError``, a wrong shape ``ValueError``.
@@ -27,6 +29,7 @@ import torch
 from torch import nn
 
 from soccerdiffusion_tpu_torch.models.embeddings import StepToken
+from soccerdiffusion_tpu_torch.models.vision import ViTImageEncoder
 
 
 def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -51,6 +54,7 @@ _LEAVES = {
     nn.Conv1d: (("weight", "kernel", lambda a: a.transpose(2, 1, 0)), ("bias", "bias", None)),
     nn.Embedding: (("weight", "embedding", None),),
     StepToken: (("token", "token", None),),
+    ViTImageEncoder: (("patch_kernel", "patch_kernel", None), ("patch_bias", "patch_bias", None)),
 }
 
 
@@ -72,7 +76,7 @@ def load_jax_params(model: nn.Module, params) -> nn.Module:
             continue
         base = _flax_path(name)
         for attr, leaf, transform in leaves:
-            path = f"{base}/{leaf}"
+            path = f"{base}/{leaf}" if base else leaf  # a leaf of the root module itself
             if path not in flat:
                 raise KeyError(f"flax params have no leaf {path!r} for {name}.{attr}")
             arr = flat[path]
@@ -106,7 +110,8 @@ def flax_init_params(model: nn.Module, seed: int) -> dict:
     package's initial parameters in distribution (numpy float32): Dense and
     conv kernels LeCun-normal (normal truncated at 2 std, std
     sqrt(1 / fan_in) / 0.8796), zero biases, LayerNorm scale 1 and bias 0,
-    embedding rows normal with std sqrt(1 / E), the step token unit normal."""
+    embedding rows normal with std sqrt(1 / E), the step token unit normal;
+    the ViT's patch kernel like a Dense kernel over its P*P*C inputs."""
     rng = np.random.default_rng(seed)
 
     def lecun(shape, fan_in):
@@ -128,9 +133,11 @@ def flax_init_params(model: nn.Module, seed: int) -> dict:
                 arr = lecun(shape[::-1], shape[1])
             elif isinstance(mod, nn.Conv1d) and attr == "weight":
                 arr = lecun(shape[::-1], shape[1] * shape[2])
+            elif attr == "patch_kernel":
+                arr = lecun(shape, shape[0])
             elif isinstance(mod, nn.LayerNorm) and attr == "weight":
                 arr = np.ones(shape)
-            elif attr == "bias":
+            elif attr.endswith("bias"):
                 arr = np.zeros(shape)
             elif isinstance(mod, nn.Embedding):
                 arr = rng.standard_normal(shape) / np.sqrt(shape[1])
@@ -142,8 +149,8 @@ def flax_init_params(model: nn.Module, seed: int) -> dict:
 
 def random_jax_params(model: nn.Module, seed: int) -> dict:
     """Seeded random flax-layout params for ``model`` (numpy float32):
-    LeCun-normal Dense / conv kernels, small biases, LayerNorm scales near
-    1, unit-normal embeddings and step token."""
+    LeCun-normal Dense / conv / patch kernels, small biases, LayerNorm scales
+    near 1, unit-normal embeddings and step token."""
     rng = np.random.default_rng(seed)
     tree: dict = {}
     for name, mod in model.named_modules():
@@ -157,9 +164,11 @@ def random_jax_params(model: nn.Module, seed: int) -> dict:
                 arr = rng.normal(size=shape[::-1]) / np.sqrt(shape[1])
             elif isinstance(mod, nn.Conv1d) and attr == "weight":
                 arr = rng.normal(size=shape[::-1]) / np.sqrt(shape[1] * shape[2])
+            elif attr == "patch_kernel":
+                arr = rng.normal(size=shape) / np.sqrt(shape[0])
             elif isinstance(mod, nn.LayerNorm) and attr == "weight":
                 arr = 1.0 + 0.1 * rng.normal(size=shape)
-            elif attr == "bias":
+            elif attr.endswith("bias"):
                 arr = 0.1 * rng.normal(size=shape)
             else:
                 arr = rng.normal(size=shape)

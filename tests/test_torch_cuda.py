@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
 shapes off the main paths (serving: patch 2, five-dim IMU, no game state,
-short contexts, 5-step chunks, a batch that is no multiple of anything;
-training: B=5, T=7, S=33).
+short contexts, 5-step chunks, a batch that is no multiple of anything,
+decoder head_dim 64 at h128; training: B=5, T=7, S=33; the ViT block: T=49
+tokens, N=7 frames, exact GELU, head_dim 64 and 32).
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere. JAX-free, so it runs on a
 machine without jax: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
@@ -15,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from soccerdiffusion_tpu.config import ModelConfig
+from soccerdiffusion_tpu_torch.config import ModelConfig
 from soccerdiffusion_tpu_torch.diffusion import make_schedule, solver_coef_table, solver_timesteps
 from soccerdiffusion_tpu_torch.models import DiffusionPolicy
 from soccerdiffusion_tpu_torch.ops.fused_chunk import FusedChunkSampler
@@ -36,6 +37,7 @@ VARIANTS = [
     {},
     {"encoder_patch_size": 2, "imu_orientation_embedding_method": "five_dim",
      "use_gamestate": False},
+    {"num_decoder_heads": 2},  # the chunk and denoiser kernels at head_dim 64
 ]
 
 
@@ -173,13 +175,18 @@ def test_decoder_layer_kernels_match_plain_versions(device):
 
 
 def test_training_kernels_reject_head_dim_64(device):
+    """The backward kernels and the decoder layer take head_dim 32; the
+    encoder-stack forward takes 64 too (the flagship's serving path)."""
     from soccerdiffusion_tpu_torch.ops import fused_decoder_layer as fdl
     from soccerdiffusion_tpu_torch.ops import fused_encoder_stack as fes
 
     enc, dec = training_weights(device)
     x = torch.zeros((2, 7, 128), device=device, dtype=torch.bfloat16)
+    _, acts = fes.forward_kernel(x, enc, 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fes.backward_kernel(acts, x, enc, 2)
     with pytest.raises(ValueError, match="head_dim 32"):
-        fes.forward_kernel(x, enc, 2)
+        fes.forward_kernel(x, enc, 8)  # head_dim 16
     with pytest.raises(ValueError, match="head_dim 32"):
         fdl.forward_kernel(x, torch.zeros((2, 33, 128), device=device, dtype=torch.bfloat16), dec, 2)
 
@@ -211,3 +218,56 @@ def test_training_weight_grads_are_deterministic(device):
     first, second = (fdl.backward_kernel(x, mem, dy, w, 4) for _ in range(2))
     for a, b in zip([first[0], first[1], *first[2]], [second[0], second[1], *second[2]]):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------------------ ViT block
+def vit_weights(device, W, FF, seed=6):
+    rng = np.random.default_rng(seed)
+    shapes = [(W,), (W,), (W, 3 * W), (3 * W,), (W, W), (W,), (W,), (W,), (W, FF), (FF,), (FF, W),
+              (W,)]
+    w = []
+    for i, s in enumerate(shapes):
+        a = rng.normal(size=s) / np.sqrt(s[0]) if len(s) == 2 else 0.1 * rng.normal(size=s)
+        w.append(torch.from_numpy((a + (1.0 if i in (0, 6) else 0.0)).astype(np.float32)).to(device))
+    return w
+
+
+@pytest.mark.parametrize("W,H,gelu", [(256, 4, "exact"), (128, 4, "quick")])
+def test_vit_block_kernel_matches_plain_version(W, H, gelu, device):
+    from soccerdiffusion_tpu_torch.ops import fused_vit_block as fvb
+
+    w = [t.to(torch.bfloat16) for t in vit_weights(device, W, 4 * W)]
+    x = torch.from_numpy(np.random.default_rng(7).normal(size=(7, 49, W)).astype(np.float32))
+    x = x.to(device, torch.bfloat16)
+    n0 = fvb.forward_kernel.launches
+    with torch.no_grad():
+        got = fvb.vit_block(x, w, H, gelu)
+    torch.cuda.synchronize()
+    assert fvb.forward_kernel.launches == n0 + 1
+    assert_close(got, fvb.forward_plain(x, w, H, gelu))
+
+
+def test_vit_block_with_grad_raises(device):
+    from soccerdiffusion_tpu_torch.ops import fused_vit_block as fvb
+
+    w = vit_weights(device, 256, 1024)
+    w[2].requires_grad_(True)
+    x = torch.zeros((2, 49, 256), device=device, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fvb.vit_block(x, w, 4, "quick")
+
+
+def test_encoder_stack_head_dim_64(device):
+    """The forward at head_dim 64 against its plain version; its backward
+    raises until the flagship training slice."""
+    from soccerdiffusion_tpu_torch.ops import fused_encoder_stack as fes
+
+    enc, _ = training_weights(device)
+    x = torch.from_numpy(np.random.default_rng(8).normal(size=(5, 7, 128)).astype(np.float32))
+    x = x.to(device, torch.bfloat16)
+    y, _ = fes.forward_kernel(x, enc, 2)
+    assert_close(y, fes.forward_plain(x, enc, 2))
+    masters = [t.float().requires_grad_(True) for t in enc]
+    out = fes.encoder_stack(x, masters, 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        out.float().sum().backward()

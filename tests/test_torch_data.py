@@ -11,7 +11,7 @@ from soccerdiffusion_tpu.data import generate_dummy_arrays as jax_dummy
 from soccerdiffusion_tpu_torch.data import RobotState, WindowedDataset, generate_dummy_arrays
 from soccerdiffusion_tpu_torch.data.pipeline import prefetch_to_device, prepare_batch
 
-from tests.test_torch_jax_params import SMALL
+from tests.test_torch_jax_params import SMALL, port_config
 
 
 @pytest.mark.parametrize("seed", [0, 7])
@@ -23,7 +23,7 @@ def test_batches_and_targets_match_jax(seed, imu):
     for a, b in zip(ours, theirs):
         for name in ("joint_commands", "joint_states", "rotations", "game_states", "image_stamps"):
             np.testing.assert_array_equal(getattr(a, name), getattr(b, name), err_msg=name)
-    ds, jds = WindowedDataset.from_dummy(ours, cfg), JaxDataset.from_dummy(theirs, cfg)
+    ds, jds = WindowedDataset.from_dummy(ours, port_config(cfg)), JaxDataset.from_dummy(theirs, cfg)
     assert len(ds) == len(jds)
     np.testing.assert_array_equal(ds.sample_targets(50, seed=seed), jds.sample_targets(50, seed=seed))
     n = 0
@@ -48,7 +48,8 @@ def test_images_raise_and_cpu_prefetch_wraps():
         generate_dummy_arrays(task="vision")
     with pytest.raises(NotImplementedError):
         prepare_batch({"image_u8": np.zeros(1)})
-    ds = WindowedDataset.from_dummy(generate_dummy_arrays(num_samples=40, num_joints=6), SMALL)
+    ds = WindowedDataset.from_dummy(generate_dummy_arrays(num_samples=40, num_joints=6),
+                                    port_config(SMALL))
     batches = list(prefetch_to_device(ds.batches(4, shuffle=False), "cpu"))
     assert len(batches) == len(ds) // 4
     np.testing.assert_array_equal(batches[0]["joint_command"].numpy(),

@@ -25,9 +25,9 @@ from soccerdiffusion_tpu_torch.ops.fused_encoder import FusedContextEncoder
 from soccerdiffusion_tpu_torch.ops.fused_encoder_stack import encoder_stack
 from soccerdiffusion_tpu_torch.utils.jax_params import load_jax_params, random_jax_params
 
-from tests.test_torch_jax_params import SMALL, make_batch, to_torch
+from tests.test_torch_jax_params import SMALL, make_batch, port_config, to_torch
 
-BF16 = dataclasses.replace(SMALL, compute_dtype="bfloat16")
+BF16 = port_config(SMALL, compute_dtype="bfloat16")
 
 
 def models():
@@ -62,7 +62,7 @@ def test_bf16_serving_is_bit_identical_to_rounded_weights():
             sampled = chunk.sample_plain(ctx, noise, stk, stv, solver_coef_table(make_schedule(100), 3, "ddim"))
             eps = chunk.run_plain(chunk.pack_context_kv(m.precompute_context_kv(ctx)), noise, stk[0], stv[0])
             engine = RolloutEngine(m, make_schedule(100), Normalizer.identity(6), num_inference_steps=3,
-                                   fused="chunk", fused_encoder=True)
+                                   fused="chunk", fused_encoder=True, device="cpu")
             _, executed = engine.replan_period(engine.init(3, torch.Generator().manual_seed(0)), noise)
         outs.append((ctx, sampled, eps, executed))
     for a, b in zip(*outs):

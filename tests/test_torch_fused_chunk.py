@@ -1,6 +1,7 @@
 """Plain version of the port's FusedChunkSampler (the CPU path of
 ops/fused_chunk.py) against the JAX FusedChunkSampler in interpret mode,
-DDIM and DPM-Solver++(2M), float32. Tolerance 1e-4 absolute: float32
+DDIM and DPM-Solver++(2M), float32, at 4 heads x 16 and 2 heads x 64.
+Tolerance 1e-4 absolute: float32
 summation order through a 4-step chunk, where 1/sqrt(abar) amplifies the
 per-pass eps differences."""
 
@@ -15,15 +16,15 @@ from soccerdiffusion_tpu.diffusion import solver_timesteps as jax_solver_timeste
 from soccerdiffusion_tpu.ops.fused_chunk import FusedChunkSampler as JaxFusedChunk
 from soccerdiffusion_tpu_torch.diffusion import make_schedule
 from soccerdiffusion_tpu_torch.ops.fused_chunk import FusedChunkSampler
-from tests.test_torch_jax_params import SMALL, build_pair, to_jax, to_torch
+from tests.test_torch_jax_params import SMALL, SMALL_HD64, build_pair, to_jax, to_torch
 
 
 @pytest.mark.parametrize("solver", ["ddim", "dpmpp"])
-def test_plain_chunk_matches_jax_kernel(solver):
+def test_plain_chunk_matches_jax_kernel(solver, cfg=SMALL):
     b, steps = 4, 4
-    jmodel, variables, model, batch, rng = build_pair(SMALL, b=b)
-    noise = rng.standard_normal((b, SMALL.trajectory_prediction_length,
-                                 SMALL.num_joints)).astype(np.float32)
+    jmodel, variables, model, batch, rng = build_pair(cfg, b=b)
+    noise = rng.standard_normal((b, cfg.trajectory_prediction_length,
+                                 cfg.num_joints)).astype(np.float32)
     jsched = jax_make_schedule(100)
     ts = jax_solver_timesteps(jsched, steps, jax_parse_solver(solver)[1])
     jctx = jmodel.apply(variables, to_jax(batch), False, method=jmodel.encode_context)
@@ -38,6 +39,11 @@ def test_plain_chunk_matches_jax_kernel(solver):
                                               make_schedule(100), steps, solver=solver).numpy()
     assert FusedChunkSampler.launches == before
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("solver", ["ddim", "dpmpp"])
+def test_plain_chunk_head_dim_64_matches_jax_kernel(solver):
+    test_plain_chunk_matches_jax_kernel(solver, SMALL_HD64)
 
 
 def test_unported_options_raise():

@@ -11,7 +11,7 @@ import torch
 from soccerdiffusion_tpu.config import ModelConfig
 from soccerdiffusion_tpu.ops.fused_encoder import FusedContextEncoder as JaxFusedEncoder
 from soccerdiffusion_tpu_torch.ops.fused_encoder import FusedContextEncoder
-from tests.test_torch_jax_params import F32_ATOL, SMALL, build_pair, to_jax, to_torch
+from tests.test_torch_jax_params import F32_ATOL, SMALL, build_pair, port_config, to_jax, to_torch
 
 
 @pytest.mark.parametrize("patch,imu_method,gamestate", [
@@ -45,7 +45,7 @@ def test_bf16_plain_close_to_float32():
     from soccerdiffusion_tpu_torch.models import DiffusionPolicy
     from soccerdiffusion_tpu_torch.utils import load_jax_params
 
-    model32 = load_jax_params(DiffusionPolicy(SMALL), jax.tree.map(np.asarray, variables["params"]))
+    model32 = load_jax_params(DiffusionPolicy(port_config(SMALL)), jax.tree.map(np.asarray, variables["params"]))
     with torch.no_grad():
         got16 = FusedContextEncoder(model16).encode(to_torch(batch))
         got32 = FusedContextEncoder(model32).encode(to_torch(batch))

@@ -5,7 +5,8 @@ through the JAX custom_vjp, and against torch autograd of the plain
 forward; in float32 and in bfloat16.
 
 E=64, H=2 (head_dim 32), B=4, T=10 (no multiple of 8: the JAX side pads),
-L=2. Tolerances as in tests/test_torch_fused_decoder_layer.py: float32
+L=2; the forward also at 2 heads x 64 (the CUDA kernel's other instance)
+and 4 heads x 16. Tolerances as in tests/test_torch_fused_decoder_layer.py: float32
 forward 2e-4, backward 2e-3 absolute; bfloat16 2e-2 x max|JAX| of each
 tensor, the query-key bias's key third (zero in exact arithmetic) held
 against the largest gradient of the stack's weights.
@@ -34,12 +35,12 @@ E, H, B, T, L = 64, 2, 4, 10, 2
 BF16_TOL = 2e-2
 
 
-def setup(seed=0):
+def setup(seed=0, e=E, h=H):
     """Numpy inputs, stacked weights (with nonzero biases / LN offsets) and
     the flax params of a plain JAX encoder holding the same values."""
     rng = np.random.default_rng(seed)
-    x = rng.standard_normal((B, T, E)).astype(np.float32)
-    params = JaxEncoder(E, H, L).init(jax.random.key(seed), jnp.asarray(x))["params"]
+    x = rng.standard_normal((B, T, e)).astype(np.float32)
+    params = JaxEncoder(e, h, L).init(jax.random.key(seed), jnp.asarray(x))["params"]
     params = jax.tree.map(lambda a: np.asarray(a) + 0.1 * rng.standard_normal(a.shape).astype(np.float32),
                           params)
     layers = [params[f"layer_{i}"] for i in range(L)]
@@ -52,12 +53,12 @@ def setup(seed=0):
          st(lambda p: p["norm2"]["scale"]), st(lambda p: p["norm2"]["bias"]),
          st(lambda p: p["mlp"]["linear1"]["kernel"]), st(lambda p: p["mlp"]["linear1"]["bias"]),
          st(lambda p: p["mlp"]["linear2"]["kernel"]), st(lambda p: p["mlp"]["linear2"]["bias"])]
-    dy = rng.standard_normal((B, T, E)).astype(np.float32)
+    dy = rng.standard_normal((B, T, e)).astype(np.float32)
     return x, w, dy, params
 
 
-def jax_run(x, w, dy, dtype):
-    fn = make_encoder_stack_fn(H, L, block_rows=2, interpret=True)
+def jax_run(x, w, dy, dtype, h=H):
+    fn = make_encoder_stack_fn(h, L, block_rows=2, interpret=True)
     c = lambda a: jnp.asarray(a, dtype)
 
     def loss(ws, xx):
@@ -83,6 +84,27 @@ def test_forward_matches_jax_float32():
     y_j, _, _ = jax_run(x, w, dy, jnp.float32)
     y_p = forward_plain(torch.from_numpy(x), [torch.from_numpy(a) for a in w], H)
     np.testing.assert_allclose(y_p.numpy(), y_j, atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("e,h", [(128, 2), (64, 4)])
+def test_forward_head_dims_match_jax(e, h):
+    """2 heads x 64 (the flagship's head dim) and 4 heads x 16."""
+    x, w, dy, _ = setup(6, e, h)
+    y_j, _, _ = jax_run(x, w, dy, jnp.float32, h)
+    y_p = forward_plain(torch.from_numpy(x), [torch.from_numpy(a) for a in w], h)
+    np.testing.assert_allclose(y_p.numpy(), y_j, atol=2e-4, rtol=0)
+
+
+def test_head_dim_64_backward_kernel_raises():
+    """The CUDA backward takes head_dim 32; head_dim 64 raises before any
+    launch (so on CPU tensors too), naming the training slice."""
+    from soccerdiffusion_tpu_torch.ops.fused_encoder_stack import backward_kernel
+
+    x, w, dy, _ = setup(7, 128, 2)
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    acts = torch.zeros((L, B, T, 128))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        backward_kernel(acts, bf(dy), [bf(a) for a in w], 2)
 
 
 def test_backward_matches_jax_grad_float32():

@@ -1,5 +1,7 @@
-"""The port stands without JAX, and its dispatch follows the tensor's device."""
+"""The port stands without JAX and without the JAX package, and its
+dispatch follows the tensor's device."""
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -20,24 +22,72 @@ MODULES = sorted(
     for p in PACKAGE.rglob("*.py"))
 
 
-def test_port_imports_without_jax():
-    code = ("import importlib, sys\n"
-            f"for m in {MODULES!r}: importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'jaxlib'))\n"
-            "assert not bad, bad\n"
-            "jax_pkg = sorted(m for m in sys.modules if m.startswith('soccerdiffusion_tpu.'))\n"
-            "assert jax_pkg == ['soccerdiffusion_tpu.config'], jax_pkg\n")
+FORBIDDEN = ("jax", "flax", "jaxlib", "soccerdiffusion_tpu")
+
+
+def import_statements(path: Path) -> list:
+    """Every import statement of ``path``, at its top or inside a function."""
+    tree = ast.parse(path.read_text())
+    return [n for n in ast.walk(tree) if isinstance(n, (ast.Import, ast.ImportFrom))
+            and getattr(n, "module", None) != "__future__"]
+
+
+def imported_roots(node) -> list:
+    """The top-level package of each module an import statement names
+    (relative imports name the port itself)."""
+    if isinstance(node, ast.ImportFrom):
+        return [node.module.split(".")[0]] if node.level == 0 else ["soccerdiffusion_tpu_torch"]
+    return [alias.name.split(".")[0] for alias in node.names]
+
+
+def _imports_nothing_of_jax(statements):
+    """Run the import ``statements`` in a fresh interpreter; no module of
+    jax, flax or the JAX package (its root included) may be loaded after."""
+    code = "\n".join(["import sys", *statements,
+                       "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+                       "('jax', 'flax', 'jaxlib', 'soccerdiffusion_tpu'))",
+                       "assert not bad, bad"])
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
 
 
+def test_port_imports_without_jax():
+    _imports_nothing_of_jax([f"import {m}" for m in MODULES])
+
+
+def test_each_module_imports_first():
+    """Every module of the port imports as the first of the package in a
+    process (no import cycle between the ops and the models)."""
+    code = ("import importlib, sys\n"
+            f"for m in {MODULES!r}:\n"
+            "    for name in [n for n in sys.modules if n.startswith('soccerdiffusion_tpu_torch')]:\n"
+            "        del sys.modules[name]\n"
+            "    importlib.import_module(m)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
 def test_no_jax_import_in_sources():
-    for src in PACKAGE.rglob("*.py"):
-        for line in src.read_text().splitlines():
-            words = line.split()
-            assert not (words[:1] in (["import"], ["from"]) and len(words) > 1
-                        and words[1].split(".")[0] in ("jax", "flax")), f"{src}: {line}"
+    """No import statement anywhere in the port's sources, inside function
+    bodies too (which importing a module does not run), names jax, flax,
+    jaxlib or the JAX package."""
+    for src in sorted(PACKAGE.rglob("*.py")):
+        for node in import_statements(src):
+            assert not set(imported_roots(node)) & set(FORBIDDEN), f"{src}: {ast.unparse(node)}"
+    # the walk reaches an import inside a function body (Config.from_yaml's)
+    assert "import yaml" in [ast.unparse(n) for n in import_statements(PACKAGE / "config.py")]
+
+
+def test_chip_smoke_imports_without_jax():
+    """Every import statement of chip_smoke.py, at its top or inside a function."""
+    nodes = import_statements(REPO / "chip_smoke.py")
+    for node in nodes:
+        assert not set(imported_roots(node)) & set(FORBIDDEN), ast.unparse(node)
+    statements = [ast.unparse(n) for n in nodes]
+    assert "from soccerdiffusion_tpu_torch.ops import fused_vit_block" in statements
+    _imports_nothing_of_jax(["import chip_smoke", *statements])
 
 
 def test_cpu_tensors_take_plain_versions(monkeypatch):
@@ -52,7 +102,7 @@ def test_cpu_tensors_take_plain_versions(monkeypatch):
     for kw in (dict(fused="chunk", fused_encoder=True), dict(fused="step"),
                dict(distilled=True, fused=True)):
         engine = RolloutEngine(model, make_schedule(100), Normalizer.identity(SMALL.num_joints),
-                               num_inference_steps=2, **kw)
+                               num_inference_steps=2, device="cpu", **kw)
         _, chunks = engine.make_rollout_fn(1)(engine.init(2, torch.Generator().manual_seed(0)))
         assert torch.isfinite(chunks).all()
 
@@ -71,18 +121,16 @@ def test_training_modules_are_covered():
 def test_cpu_training_step_takes_plain_versions(monkeypatch):
     """A training step with both fused knobs on CPU tensors builds and
     launches no kernel."""
-    import dataclasses
-
     from soccerdiffusion_tpu_torch.models import DiffusionPolicy
     from soccerdiffusion_tpu_torch.training.trainer import create_train_state, make_optimizer, make_train_step
-    from tests.test_torch_jax_params import SMALL, make_batch, to_torch
+    from tests.test_torch_jax_params import SMALL, make_batch, port_config, to_torch
 
     def no_kernel():
         raise AssertionError("a CPU tensor reached the CUDA kernel library")
 
     monkeypatch.setattr(_build, "library", no_kernel)
-    cfg = dataclasses.replace(SMALL, encoder_fused_stack=True, decoder_fused_block=True,
-                              compute_dtype="bfloat16")
+    cfg = port_config(SMALL, encoder_fused_stack=True, decoder_fused_block=True,
+                      compute_dtype="bfloat16")
     model = DiffusionPolicy(cfg)
     opt = make_optimizer(model, 1e-3, 10)
     step = make_train_step(model, make_schedule(100), opt, Normalizer.identity(cfg.num_joints))
@@ -93,14 +141,21 @@ def test_cpu_training_step_takes_plain_versions(monkeypatch):
 
 
 def test_cuda_device_raises_without_gpu():
+    """The entry points run on the card unless the caller passes the CPU:
+    asked for CUDA, explicitly or by default, they raise without one."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU")
-    from tests.test_torch_jax_params import SMALL, build_pair
+    from soccerdiffusion_tpu_torch.inference.controller import init_controller_state
+    from tests.test_torch_jax_params import SMALL, build_pair, port_config
 
     _, _, model, _, _ = build_pair(SMALL, b=2)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        RolloutEngine(model, make_schedule(100), Normalizer.identity(SMALL.num_joints),
-                      fused="chunk", fused_encoder=True, device="cuda")
+    for kw in (dict(device="cuda"), {}):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            RolloutEngine(model, make_schedule(100), Normalizer.identity(SMALL.num_joints),
+                          fused="chunk", fused_encoder=True, **kw)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            init_controller_state(port_config(SMALL), 2, **kw)
+    assert init_controller_state(port_config(SMALL), 2, device="cpu").game_state.device.type == "cpu"
 
 
 def test_kernel_build_dir_is_keyed_by_sources():
@@ -109,4 +164,4 @@ def test_kernel_build_dir_is_keyed_by_sources():
     assert len(d.name) == 16
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "fused_encoder.cu", "fused_denoise.cu", "fused_chunk.cu", "fused_encoder_stack.cu",
-        "fused_decoder_layer.cu", "weight_grads.cu"}
+        "fused_decoder_layer.cu", "weight_grads.cu", "fused_vit_block.cu"}

@@ -2,10 +2,13 @@
 and its unfused forward against the JAX model.
 
 Shared helpers of the tests/test_torch_*.py parity tests live here too:
-inputs are made with numpy from a seed and handed to both packages.
+inputs are made with numpy from a seed and handed to both packages, and
+``port_config`` builds the port's own config from a JAX config's fields.
 Comparisons are float32; 2e-5 absolute covers float32 summation-order
 differences through a few layers at unit-scale activations.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +18,7 @@ import torch
 
 from soccerdiffusion_tpu.config import ModelConfig
 from soccerdiffusion_tpu.models import DiffusionPolicy as JaxPolicy
+from soccerdiffusion_tpu_torch import config as port
 from soccerdiffusion_tpu_torch.models import DiffusionPolicy
 from soccerdiffusion_tpu_torch.utils import load_jax_params
 from soccerdiffusion_tpu_torch.utils.jax_params import _flatten, random_jax_params
@@ -30,9 +34,19 @@ SMALL = ModelConfig(
 )
 
 
+# the decoder at 2 heads x 64, the CUDA decoder kernels' h256 instance
+SMALL_HD64 = ModelConfig(**{**SMALL.__dict__, "hidden_dim": 128, "num_decoder_heads": 2})
+
+
+def port_config(cfg: ModelConfig, **changes) -> port.ModelConfig:
+    """The port's ModelConfig with the JAX config's fields (and ``changes``)."""
+    return port.ModelConfig(**{**dataclasses.asdict(cfg), **changes})
+
+
 def make_batch(cfg, b, rng):
-    """A numpy controller-style batch for ``cfg``: [0, 2 pi) joints, unit IMU."""
-    return {
+    """A numpy controller-style batch for ``cfg``: [0, 2 pi) joints, unit IMU
+    (and unit-normal NHWC frames for an image config)."""
+    batch = {
         "joint_command_history": rng.uniform(0, 2 * np.pi, (b, cfg.action_context_length,
                                                             cfg.num_joints)).astype(np.float32),
         "rotation": rng.normal(size=(b, cfg.imu_context_length, cfg.imu_input_dim)).astype(np.float32),
@@ -40,6 +54,11 @@ def make_batch(cfg, b, rng):
                                                   cfg.num_joints)).astype(np.float32),
         "game_state": rng.integers(0, 4, (b,)).astype(np.int32),
     }
+    if cfg.use_images:
+        res = cfg.image_resolution
+        batch["image_data"] = rng.standard_normal(
+            (b, cfg.image_context_length, res, res, 3)).astype(np.float32)
+    return batch
 
 
 def build_pair(cfg, b=4, seed=0):
@@ -52,7 +71,7 @@ def build_pair(cfg, b=4, seed=0):
         jnp.zeros((b, cfg.trajectory_prediction_length, cfg.num_joints)),
         jnp.zeros((b,), jnp.int32))
     params = jax.tree.map(np.asarray, variables["params"])
-    return jmodel, variables, load_jax_params(DiffusionPolicy(cfg), params), batch, rng
+    return jmodel, variables, load_jax_params(DiffusionPolicy(port_config(cfg)), params), batch, rng
 
 
 def to_jax(batch):
@@ -75,7 +94,7 @@ def test_random_params_have_the_flax_layout():
     want = {k: v.shape for k, v in _flatten(jax.tree.map(np.asarray, variables["params"])).items()}
     tree = random_jax_params(model, seed=3)
     assert {k: v.shape for k, v in _flatten(tree).items()} == want
-    load_jax_params(DiffusionPolicy(SMALL), tree)
+    load_jax_params(DiffusionPolicy(port_config(SMALL)), tree)
 
 
 def test_wrong_shape_raises():
@@ -84,7 +103,7 @@ def test_wrong_shape_raises():
     q = params["diffusion_action_generator"]["decoder"]["layer_0"]["self_attn"]["q_proj"]
     q["kernel"] = np.zeros((64, 32), np.float32)
     with pytest.raises(ValueError, match="q_proj/kernel"):
-        load_jax_params(DiffusionPolicy(SMALL), params)
+        load_jax_params(DiffusionPolicy(port_config(SMALL)), params)
 
 
 def test_missing_and_leftover_leaves_raise():
@@ -92,11 +111,11 @@ def test_missing_and_leftover_leaves_raise():
     params = jax.tree.map(np.asarray, variables["params"])
     params["extra"] = {"kernel": np.zeros((2, 2), np.float32)}
     with pytest.raises(KeyError, match="extra/kernel"):
-        load_jax_params(DiffusionPolicy(SMALL), params)
+        load_jax_params(DiffusionPolicy(port_config(SMALL)), params)
     del params["extra"]
     del params["step_encoding"]
     with pytest.raises(KeyError, match="step_encoding/token"):
-        load_jax_params(DiffusionPolicy(SMALL), params)
+        load_jax_params(DiffusionPolicy(port_config(SMALL)), params)
 
 
 @pytest.mark.parametrize("patch", [1, 2])
@@ -119,6 +138,8 @@ def test_unfused_forward_matches_jax(patch):
 
 def test_non_xla_attention_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DiffusionPolicy(ModelConfig(**{**SMALL.__dict__, "attention_impl": "pallas"}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DiffusionPolicy(ModelConfig(**{**SMALL.__dict__, "use_images": True}))
+        DiffusionPolicy(port_config(SMALL, attention_impl="pallas"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):  # ResNet18, the default encoder
+        DiffusionPolicy(port_config(SMALL, use_images=True))
+    with pytest.raises(TypeError, match="soccerdiffusion_tpu_torch.config.ModelConfig"):
+        DiffusionPolicy(SMALL)  # the JAX package's config

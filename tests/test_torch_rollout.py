@@ -27,13 +27,13 @@ from tests.test_torch_jax_params import SMALL, build_pair
 B, STEPS, PERIODS = 4, 3, 2
 
 
-def jax_noise(cfg, key, periods):
+def jax_noise(cfg, key, periods, b=B):
     """The per-period chunk noise of the JAX engine's replan_period."""
     out = []
     for _ in range(periods):
         key, sub = jax.random.split(key)
         out.append(np.array(jax.random.normal(
-            sub, (B, cfg.trajectory_prediction_length, cfg.num_joints), dtype=jnp.float32)))
+            sub, (b, cfg.trajectory_prediction_length, cfg.num_joints), dtype=jnp.float32)))
     return out
 
 
@@ -46,7 +46,7 @@ def run_pair(jax_kw, port_kw, replan_every=None, solver="ddim"):
     _, ref = j_engine.make_rollout_fn(PERIODS, jit=False)(variables, j_engine.init(B, key))
     engine = RolloutEngine(model, make_schedule(100), Normalizer.identity(SMALL.num_joints),
                            num_inference_steps=STEPS, replan_every=replan_every, solver=solver,
-                           **port_kw)
+                           device="cpu", **port_kw)
     carry = engine.init(B, torch.Generator().manual_seed(0))
     chunks = []
     for noise in jax_noise(SMALL, key, PERIODS):
@@ -89,7 +89,8 @@ def test_other_sampler_paths_match_unfused_jax(port_kw):
 def test_own_generator_draws_and_rollout_fn():
     _, _, model, _, _ = build_pair(SMALL, b=B)
     engine = RolloutEngine(model, make_schedule(100), Normalizer.identity(SMALL.num_joints),
-                           num_inference_steps=STEPS, fused="chunk", fused_encoder=True)
+                           num_inference_steps=STEPS, fused="chunk", fused_encoder=True,
+                           device="cpu")
     run = engine.make_rollout_fn(3)
     _, a = run(engine.init(B, torch.Generator().manual_seed(3)))
     _, b = run(engine.init(B, torch.Generator().manual_seed(3)))

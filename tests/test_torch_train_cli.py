@@ -28,7 +28,7 @@ def run(tmp_path):
     def go(*extra):
         return train.main(["-c", str(cfg), "--dummy-data", "--steps-per-epoch", "3",
                            "-o", str(tmp_path / "ckpt"), "--metrics", str(tmp_path / "m.jsonl"),
-                           *extra])
+                           "--device", "cpu", *extra])
 
     return go, tmp_path
 
@@ -62,4 +62,14 @@ def test_resume_continues_from_the_checkpoint(run):
 def test_sqlite_data_is_not_ported(run):
     go, tmp = run
     with pytest.raises(NotImplementedError, match="dummy-data"):
-        train.main(["-c", str(tmp / "small.yaml"), "-o", str(tmp / "x")])
+        train.main(["-c", str(tmp / "small.yaml"), "-o", str(tmp / "x"), "--device", "cpu"])
+
+
+def test_default_device_is_the_card(run):
+    """Without --device the CLI trains on CUDA, and raises where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU")
+    _, tmp = run
+    assert train.RunOptions().device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["-c", str(tmp / "small.yaml"), "--dummy-data", "-o", str(tmp / "x")])
