@@ -36,7 +36,19 @@
    distilled student with the cache) with the launch counters zeroed
    before and read after each; then 2 cached DDIM periods on the card
    against the same engine's plain versions on the CPU.
-8. Prints one JSON line of per-kernel results, then as its last line
+8. The flagship's training (soccerdiffusion_tpu_torch/training/configs/
+   vit_flagship.yaml): holds the ViT block's backward (N=128 and N=640
+   frames), the head_dim-64 encoder-stack backward (T=100, L=2), the
+   image-frame stack's backward (head_dim 32, 8 heads, T=10, L=1) and the
+   head_dim-64 decoder layer's forward and backward (T=10 over S=312 memory
+   rows) against their plain versions at B=64 and B=256 robots (every
+   output, input gradient and weight gradient); trains 20 steps through
+   training/train.py on packed dummy data (uint8 frames, pre-patchified) at
+   B=64 with every launch counter zeroed before and read after (exact
+   launches per step checked), then 3 steps at the YAML's own B=256 (ms of
+   the last step, peak device memory); then 3 steps on the card against the
+   same 3 steps on the CPU (plain versions) at B=2.
+9. Prints one JSON line of per-kernel results, then as its last line
    {"ok": true, "device": {...}}. Where one torch.nn layer computes the
    same function as a kernel (the encoder-stack, ViT-block and
    decoder-layer forwards), its time on the same inputs is the entry's
@@ -45,15 +57,16 @@
 Exits non-zero, without the last line, when CUDA is unavailable or any
 phase fails. Imports nothing of JAX or of the JAX package.
 
-    python3 chip_smoke.py --profile-training [--profile-out FILE]
+    python3 chip_smoke.py --profile-training [--flagship] [--profile-out FILE]
     python3 chip_smoke.py --profile-serving [--profile-out FILE]
 
-build the kernels and instead trace, with torch.profiler, the B=64 training
-step (fused knobs on, then off) or 3 replan periods of each flagship serving
-lane at B=64: per step or period the host wall clock, the device busy time
-(the union of the device ops' intervals), the device's idle share, both
-taken from the same trace, and the largest device ops. FILE receives the
-full tables. Neither prints the ok line.
+build the kernels and instead trace, with torch.profiler, the h128 B=64
+training step (fused knobs on, then off), with --flagship the flagship's
+B=64 training step (packed data), or 3 replan periods of each flagship
+serving lane at B=64: per step or period the host wall clock, the device
+busy time (the union of the device ops' intervals), the device's idle
+share, both taken from the same trace, and the largest device ops. FILE
+receives the full tables. None prints the ok line.
 """
 
 from __future__ import annotations
@@ -61,11 +74,14 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -99,6 +115,20 @@ TRAIN_LOG_EVERY = 4  # two epochs of 10 steps: syncs at steps 4, 8 | 12, 16, 20
 # step to ~lr, so entries whose gradient is float noise, such as the key
 # biases, take steps of either sign)
 STEP_LOSS_TOL, STEP_UPDATE_TOL = 2e-2, 0.1
+# the flagship's training: the ViT backward's frames (2 and 10 per robot at
+# B=64), the training path's batch (the benchmark's cell) and the YAML's own
+FLAG_VIT_FRAMES, FLAG_TRAIN_B, FLAG_TRAIN_FULL_B = (128, 640), 64, 256
+FLAG_YAML = (Path(__file__).resolve().parent / "soccerdiffusion_tpu_torch" / "training" / "configs"
+             / "vit_flagship.yaml")
+# kernel launches per flagship training step: 8 ViT blocks, 3 proprioceptive
+# stacks (head_dim 64) + the image-frame stack (head_dim 32), 4 decoder
+# layers (head_dim 64), each forward and backward
+FLAG_TRAIN_LAUNCHES = {
+    "fused_vit_block_fwd": 8, "fused_vit_block_bwd": 8,
+    "fused_encoder_stack_fwd": 4, "fused_encoder_stack_fwd_hd64": 3,
+    "fused_encoder_stack_bwd": 4, "fused_encoder_stack_bwd_hd64": 3,
+    "fused_decoder_layer_fwd": 4, "fused_decoder_layer_fwd_hd64": 4,
+    "fused_decoder_layer_bwd": 4, "fused_decoder_layer_bwd_hd64": 4}
 # torch.nn's layers against the plain version, only to show that they were
 # built from the same weights (a wrong mapping gives errors of the order of
 # the output): torch rounds the residual stream to bf16 at every sublayer
@@ -231,7 +261,7 @@ def torch_decoder_layer(w, num_heads: int):
     return layer.eval()
 
 
-def library_ms(name, b, library_fn, ref) -> float:
+def library_ms(name, label, library_fn, ref) -> float:
     """The CUDA-event time of one library call; its output must agree with
     the plain version's ``ref`` within LIBRARY_TOL of the scale (a check that
     the layer was built from the same weights, not a tolerance of the port)."""
@@ -239,7 +269,7 @@ def library_ms(name, b, library_fn, ref) -> float:
         got = library_fn().float()
         err, scale = (got - ref.float()).abs().max().item(), ref.float().abs().max().item()
         ms = median_ms(library_fn)
-    log(f"  {name} B={b}: torch.nn library call {ms:.3f} ms, |library - plain| {err:.4e} "
+    log(f"  {name} {label}: torch.nn library call {ms:.3f} ms, |library - plain| {err:.4e} "
         f"(max|plain| {scale:.4e}, tol {LIBRARY_TOL} x max|plain|)")
     if not err <= LIBRARY_TOL * scale:
         raise AssertionError(f"{name}: the torch.nn layers built for library_ms do not compute "
@@ -299,7 +329,7 @@ def compare(name, kernel_fn, plain_fn, b, flops, inputs, library_fn=None):
         f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} B={b} disagrees with its plain version")
-    lib = None if library_fn is None else library_ms(name, b, library_fn, ref)
+    lib = None if library_fn is None else library_ms(name, f"B={b}", library_fn, ref)
     return {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms, **bnd, "library_ms": lib}
 
 
@@ -387,9 +417,8 @@ def zero_counters():
     for c in (FusedContextEncoder, FusedChunkSampler, FusedDenoiser):
         c.launches = 0
     for c in (FusedEncoderStack, FusedDecoderLayer):
-        c.fwd_launches = c.bwd_launches = 0
-    FusedEncoderStack.fwd_launches_hd64 = 0
-    fused_vit_block.forward_kernel.launches = 0
+        c.fwd_launches = c.bwd_launches = c.fwd_launches_hd64 = c.bwd_launches_hd64 = 0
+    fused_vit_block.forward_kernel.launches = fused_vit_block.backward_kernel.launches = 0
 
 
 def read_counters() -> dict:
@@ -405,9 +434,13 @@ def read_counters() -> dict:
             "fused_encoder_stack_fwd": FusedEncoderStack.fwd_launches,
             "fused_encoder_stack_fwd_hd64": FusedEncoderStack.fwd_launches_hd64,
             "fused_encoder_stack_bwd": FusedEncoderStack.bwd_launches,
+            "fused_encoder_stack_bwd_hd64": FusedEncoderStack.bwd_launches_hd64,
             "fused_decoder_layer_fwd": FusedDecoderLayer.fwd_launches,
+            "fused_decoder_layer_fwd_hd64": FusedDecoderLayer.fwd_launches_hd64,
             "fused_decoder_layer_bwd": FusedDecoderLayer.bwd_launches,
-            "fused_vit_block_fwd": fused_vit_block.forward_kernel.launches}
+            "fused_decoder_layer_bwd_hd64": FusedDecoderLayer.bwd_launches_hd64,
+            "fused_vit_block_fwd": fused_vit_block.forward_kernel.launches,
+            "fused_vit_block_bwd": fused_vit_block.backward_kernel.launches}
 
 
 def timed_rollout(eng, device, seed, b=BENCH_B, periods=CHUNKS):
@@ -567,15 +600,23 @@ def training_kernel_phase(cfg, model, device):
                                         3 * dec_flops, [xd, mem, dyd, dec_w, ddx, dmem, dgrads],
                                         None),
         }
-        for name, (err, kernel_fn, plain_fn, flops, io, lib_fn) in times.items():
-            k_ms, p_ms = median_ms(kernel_fn), median_ms(plain_fn)
-            bnd = bound(flops, nbytes(io))
-            log(f"{name} B={b}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
-                f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) (max_abs_err {err:.4e})")
-            lib = None if lib_fn is None else library_ms(name, b, lib_fn, plain_fn())
-            merge(results, name, {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **bnd,
-                                  "library_ms": lib})
+        time_checked(results, f"B={b}", times)
     return results
+
+
+def time_checked(results, label, times):
+    """Time each checked kernel beside its plain version (and its library
+    call), with its bound: ``times`` maps a name to (max_abs_err, kernel_fn,
+    plain_fn, flops, the tensors it reads and writes, library_fn or None);
+    merged into ``results``."""
+    for name, (err, kernel_fn, plain_fn, flops, io, lib_fn) in times.items():
+        k_ms, p_ms = median_ms(kernel_fn), median_ms(plain_fn)
+        bnd = bound(flops, nbytes(io))
+        log(f"{name} {label}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) (max_abs_err {err:.4e})")
+        lib = None if lib_fn is None else library_ms(name, label, lib_fn, plain_fn())
+        merge(results, name, {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **bnd,
+                              "library_ms": lib})
 
 
 def train_config(fused: bool):
@@ -587,7 +628,7 @@ def train_config(fused: bool):
                                                  ema_decay=0.999))
 
 
-def timed_training(fused: bool, tmp):
+def timed_training(config, tmp, label, packed=False):
     """training/train.py's loop on synthetic data for TRAIN_STEPS steps in two
     epochs. ms/step is the host clock from the second epoch's first logging
     window's end to the last window's end, over the steps between: each
@@ -596,10 +637,10 @@ def timed_training(fused: bool, tmp):
     prefetch thread's start) and the warm-up of the first epoch."""
     from soccerdiffusion_tpu_torch.training.train import RunOptions, train
 
-    metrics = f"{tmp}/metrics_{'fused' if fused else 'plain'}.jsonl"
-    state = train(train_config(fused), RunOptions(
-        output=f"{tmp}/ckpt", dummy_data=True, epochs=2, steps_per_epoch=TRAIN_STEPS // 2, seed=0,
-        metrics=metrics))
+    metrics = f"{tmp}/metrics_{label}.jsonl"
+    state = train(config, RunOptions(
+        output=f"{tmp}/ckpt_{label}", dummy_data=True, packed=packed, epochs=2,
+        steps_per_epoch=TRAIN_STEPS // 2, seed=0, metrics=metrics))
     torch.cuda.synchronize()
     records = [json.loads(line) for line in open(metrics)]
     losses = [r["loss"] for r in records]
@@ -616,40 +657,40 @@ def timed_training(fused: bool, tmp):
 
 
 def training_path_phase():
-    import tempfile
-
     with tempfile.TemporaryDirectory() as tmp:
         zero_counters()
-        ms_fused, losses = timed_training(True, tmp)
+        ms_fused, losses = timed_training(train_config(True), tmp, "fused")
         launches = {name: n for name, n in read_counters().items()
                     if name.startswith(("fused_encoder_stack", "fused_decoder_layer"))}
         log(f"training main path (train.py loop, synthetic data, bf16, B={TRAIN_BATCH}, "
             f"{TRAIN_STEPS} steps, fused knobs on): {ms_fused:.3f} ms/step, "
             f"{TRAIN_BATCH * 1e3 / ms_fused:.1f} samples/s; logged losses {losses}; launches {launches}")
         want = {"fused_encoder_stack_fwd": 3, "fused_encoder_stack_fwd_hd64": 0,
-                "fused_encoder_stack_bwd": 3, "fused_decoder_layer_fwd": 4,
-                "fused_decoder_layer_bwd": 4}
+                "fused_encoder_stack_bwd": 3, "fused_encoder_stack_bwd_hd64": 0,
+                "fused_decoder_layer_fwd": 4, "fused_decoder_layer_fwd_hd64": 0,
+                "fused_decoder_layer_bwd": 4, "fused_decoder_layer_bwd_hd64": 0}
         for name, per_step in want.items():
             if launches[name] != per_step * TRAIN_STEPS:
                 raise AssertionError(f"{name}: {launches[name]} launches on the training path, "
                                      f"expected {per_step} per step")
-        ms_plain, _ = timed_training(False, tmp)
+        ms_plain, _ = timed_training(train_config(False), tmp, "plain")
         log(f"unfused training step (knobs off, bf16 cuBLAS + torch ops), same loop: "
             f"{ms_plain:.3f} ms/step, {TRAIN_BATCH * 1e3 / ms_plain:.1f} samples/s")
     return launches, {"fused": ms_fused, "unfused": ms_plain}
 
 
-def training_reference_phase(device):
-    """3 steps of the kernel path on the card against the same 3 steps of the
-    plain versions on the CPU, from the same init, batches, t and noise."""
+def training_reference_phase(device, cfg, batches, seed):
+    """The kernel path's training steps on the card against the same steps of
+    the plain versions on the CPU, one per batch of ``batches`` (dicts of CPU
+    tensors with the target ``joint_command``), from the same init, t and
+    noise."""
     from soccerdiffusion_tpu_torch.data import Normalizer
     from soccerdiffusion_tpu_torch.diffusion import make_schedule
     from soccerdiffusion_tpu_torch.models import DiffusionPolicy
     from soccerdiffusion_tpu_torch.training.trainer import create_train_state, make_optimizer, make_train_step
     from soccerdiffusion_tpu_torch.utils.jax_params import flax_init_params, load_jax_params
 
-    cfg = train_config(True).model
-    b, rng = 8, np.random.default_rng(11)
+    rng = np.random.default_rng(seed)
     base = DiffusionPolicy(cfg)
     base = load_jax_params(base, flax_init_params(base, 3))
     runs = {}
@@ -657,12 +698,12 @@ def training_reference_phase(device):
         model = copy.deepcopy(base).to(dev)
         opt = make_optimizer(model, 1e-3, 10, grad_clip_norm=1.0)
         runs[dev] = (model, create_train_state(model, opt),
-                     make_train_step(model, make_schedule(1000), opt, Normalizer.identity(20)), [])
-    for _ in range(3):
-        batch = random_batch(cfg, b, "cpu", rng)
-        batch["joint_command"] = torch.from_numpy(rng.uniform(0, 2 * np.pi, (b, 10, 20)).astype(np.float32))
-        t = torch.from_numpy(rng.integers(0, 1000, (b,)))
-        noise = torch.from_numpy(rng.normal(size=(b, 10, 20)).astype(np.float32))
+                     make_train_step(model, make_schedule(1000), opt,
+                                     Normalizer.identity(cfg.num_joints)), [])
+    for batch in batches:
+        target = batch["joint_command"]
+        t = torch.from_numpy(rng.integers(0, 1000, (target.shape[0],)))
+        noise = torch.from_numpy(rng.normal(size=tuple(target.shape)).astype(np.float32))
         for dev, (model, state, step, losses) in runs.items():
             on = lambda x: x.to(dev)
             metrics = step.apply(state, {k: on(v) for k, v in batch.items()}, on(t), on(noise))
@@ -683,29 +724,40 @@ def training_reference_phase(device):
         max_diff, scale = max(max_diff, (pg - pc).abs().max().item()), max(scale, pc.abs().max().item())
     upd = (num / den) ** 0.5
     ok &= upd <= STEP_UPDATE_TOL
-    log(f"after 3 steps: |params(card) - params(cpu)| / |update(cpu)| = {upd:.3e} "
+    log(f"after {len(batches)} steps: |params(card) - params(cpu)| / |update(cpu)| = {upd:.3e} "
         f"(tol {STEP_UPDATE_TOL}); max |param difference| / max|param| = {max_diff / scale:.3e}")
     if not ok:
         raise AssertionError("the kernel training path disagrees with the plain path")
 
 
+def h128_reference_batches(b=8, steps=3):
+    """Random h128 batches (CPU tensors) with their targets."""
+    cfg, rng = train_config(True).model, np.random.default_rng(11)
+    batches = []
+    for _ in range(steps):
+        batch = random_batch(cfg, b, "cpu", rng)
+        target = rng.uniform(0, 2 * np.pi, (b, 10, 20)).astype(np.float32)
+        batch["joint_command"] = torch.from_numpy(target)
+        batches.append(batch)
+    return batches
+
+
 # ------------------------------------------------------- the flagship
 
 def flagship_config():
-    from soccerdiffusion_tpu_torch.config import ModelConfig
+    """vit_flagship.yaml's model (the port's copy of the JAX package's YAML)."""
+    from soccerdiffusion_tpu_torch.config import Config
 
-    return ModelConfig(  # soccerdiffusion_tpu/training/configs/vit_flagship.yaml's model keys
-        hidden_dim=256, action_context_length=100, trajectory_prediction_length=10,
-        image_context_length=10, imu_context_length=100, joint_state_context_length=100,
-        num_joints=20, use_action_history=True, num_action_history_encoder_layers=2, use_imu=True,
-        imu_orientation_embedding_method="quaternion", num_imu_encoder_layers=2,
-        use_joint_states=True, joint_state_encoder_layers=2, use_images=True,
-        image_sequence_encoder_type="transformer", image_encoder_type="vit",
-        image_resolution=224, image_use_final_avgpool=True, vit_patch_size=28, vit_width=256,
-        vit_depth=8, num_image_sequence_encoder_layers=1, num_decoder_layers=4,
-        use_gamestate=True, encoder_patch_size=1, compute_dtype="bfloat16",
-        vit_fused_block=True, vit_fused_block_frames=16, vit_fused_gelu="quick",
-        encoder_fused_stack=True, decoder_fused_block=True)
+    return Config.from_yaml(str(FLAG_YAML)).model
+
+
+def flagship_train_config(batch: int):
+    """vit_flagship.yaml at ``batch`` robots, logging every TRAIN_LOG_EVERY steps."""
+    from soccerdiffusion_tpu_torch.config import Config
+
+    config = Config.from_yaml(str(FLAG_YAML))
+    return dataclasses.replace(config, train=dataclasses.replace(
+        config.train, batch_size=batch, log_every=TRAIN_LOG_EVERY))
 
 
 def flagship_kernel_phase(model, device):
@@ -807,6 +859,139 @@ def flagship_path_phase(model, device):
     return launches, periods
 
 
+def flagship_training_kernel_phase(model, device):
+    """The flagship training step's kernels against their plain versions:
+    the ViT block's backward (block 0's weights, quick GELU) at
+    FLAG_VIT_FRAMES frames; at B=64 and B=256 robots the head_dim-64
+    encoder-stack backward (the action-history stack, T=100, L=2), the
+    image-frame stack's backward (head_dim 32, 8 heads, T=10, L=1) and the
+    head_dim-64 decoder layer (layer 0) forward and backward over the
+    training memory: the 311 context tokens and the step token. Every
+    output, input gradient and weight gradient within TRAIN_TOL of scale."""
+    from soccerdiffusion_tpu_torch.ops import fused_decoder_layer as fdl
+    from soccerdiffusion_tpu_torch.ops import fused_encoder_stack as fes
+    from soccerdiffusion_tpu_torch.ops import fused_vit_block as fvb
+
+    cfg = model.config
+    vit = model.image_sequence_encoder.image_encoder
+    T, W, H = (cfg.image_resolution // cfg.vit_patch_size) ** 2, cfg.vit_width, vit.num_heads
+    gelu, E = cfg.vit_fused_gelu, cfg.hidden_dim
+    bf16 = lambda ts: [t.detach().to(torch.bfloat16) for t in ts]
+    vit_w = bf16(fes.encoder_layer_weights(vit.blocks.layers[0]))
+    stack_w = bf16(fes.stack_weights(model.action_history_encoder.seq.encoder.layers))
+    seq_enc = model.image_sequence_encoder.seq.encoder
+    seq_w, Hs = bf16(fes.stack_weights(seq_enc.layers)), seq_enc.num_heads
+    layer = model.diffusion_action_generator.decoder.layers[0]
+    dec_w, Hd, FF = bf16(fdl.layer_weights(layer)), layer.num_heads, layer.mlp.linear1.out_features
+    Ts, L = cfg.action_context_length, cfg.num_action_history_encoder_layers
+    Ti, Li = cfg.image_context_length, cfg.num_image_sequence_encoder_layers
+    S = Ts + cfg.imu_context_length + cfg.joint_state_context_length + Ti + 2
+    dec_lib = torch_decoder_layer(dec_w, Hd)
+    rng = np.random.default_rng(500)
+    t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        device, torch.bfloat16)
+    results = {}
+    for n in FLAG_VIT_FRAMES:
+        x, dy = t(n, T, W), t(n, T, W)
+        log(f"fused ViT block backward N={n} frames T={T} W={W} ({gelu} GELU):")
+        dx, grads = fvb.backward_kernel(x, dy, vit_w, H, gelu)
+        dx_ref, grads_ref = fvb.backward_plain(x, dy, vit_w, H, gelu)
+        err = max(err_line("dx", dx, dx_ref),
+                  grads_check(fes.STACK_WEIGHTS, grads, grads_ref, {"bqkv": slice(W, 2 * W)}))
+        # backward: recompute the forward, then two products per forward product
+        time_checked(results, f"N={n} frames", {"fused_vit_block_bwd": (
+            err, lambda: fvb.backward_kernel(x, dy, vit_w, H, gelu),
+            lambda: fvb.backward_plain(x, dy, vit_w, H, gelu),
+            3 * n * enc_layer_flops(T, W, 4 * W), [x, dy, vit_w, dx, grads], None)})
+    for b in FLAG_BATCHES:
+        xs, dys, xi, dyi = t(b, Ts, E), t(b, Ts, E), t(b, Ti, E), t(b, Ti, E)
+        xd, mem, dyd = t(b, 10, E), t(b, S, E), t(b, 10, E)
+        times = {}
+        for name, x, dy, w, heads, layers in (
+                ("fused_encoder_stack_bwd_hd64", xs, dys, stack_w, 4, L),
+                ("fused_encoder_stack_bwd_imgseq", xi, dyi, seq_w, Hs, Li)):
+            log(f"{name} B={b} T={x.shape[1]} L={layers} {heads} heads:")
+            _, acts = fes.forward_kernel(x, w, heads)
+            dx, grads = fes.backward_kernel(acts, dy, w, heads)
+            dx_ref, grads_ref = fes.backward_plain(x, dy, w, heads)
+            err = max(err_line("dx", dx, dx_ref),
+                      grads_check(fes.STACK_WEIGHTS, grads, grads_ref, {"bqkv": slice(E, 2 * E)}))
+            times[name] = (err,
+                           lambda a=acts, dy=dy, w=w, h=heads: fes.backward_kernel(a, dy, w, h),
+                           lambda x=x, dy=dy, w=w, h=heads: fes.backward_plain(x, dy, w, h),
+                           3 * b * layers * enc_layer_flops(x.shape[1], E, E),
+                           [acts, dy, w, dx, grads], None)
+        log(f"decoder layer B={b} T=10 S={S} E={E} {Hd} heads:")
+        y = fdl.forward_kernel(xd, mem, dec_w, Hd)
+        e_fwd = err_line("y", y, fdl.forward_plain(xd, mem, dec_w, Hd))
+        ddx, dmem, dgrads = fdl.backward_kernel(xd, mem, dyd, dec_w, Hd)
+        ddx_ref, dmem_ref, dgrads_ref = fdl.backward_plain(xd, mem, dyd, dec_w, Hd)
+        e_bwd = max(err_line("dx", ddx, ddx_ref), err_line("dmem", dmem, dmem_ref),
+                    grads_check(fdl.WEIGHT_NAMES, dgrads, dgrads_ref,
+                                {"bqkv": slice(E, 2 * E), "bck": slice(None)}))
+        dec_flops = b * (dec_layer_flops(10, S, E, FF) + 4 * S * E * E)  # + memory K/V
+        times["fused_decoder_layer_fwd_hd64"] = (
+            e_fwd, lambda: fdl.forward_kernel(xd, mem, dec_w, Hd),
+            lambda: fdl.forward_plain(xd, mem, dec_w, Hd), dec_flops, [xd, mem, dec_w, y],
+            lambda: dec_lib(xd, mem))
+        times["fused_decoder_layer_bwd_hd64"] = (
+            e_bwd, lambda: fdl.backward_kernel(xd, mem, dyd, dec_w, Hd),
+            lambda: fdl.backward_plain(xd, mem, dyd, dec_w, Hd), 3 * dec_flops,
+            [xd, mem, dyd, dec_w, ddx, dmem, dgrads], None)
+        time_checked(results, f"B={b}", times)
+    return results
+
+
+def flagship_training_path_phase():
+    """training/train.py on vit_flagship.yaml with packed dummy data: TRAIN_STEPS
+    steps at FLAG_TRAIN_B with every launch counter zeroed just before and
+    read just after (each kernel exactly its FLAG_TRAIN_LAUNCHES per step, no
+    other kernel), then 3 steps at the YAML's FLAG_TRAIN_FULL_B: the last
+    step's host time between device syncs and the peak device memory.
+    Returns the launches, ms per step at both batches and the peak bytes."""
+    from soccerdiffusion_tpu_torch.training.train import RunOptions, train
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        zero_counters()
+        ms, losses = timed_training(flagship_train_config(FLAG_TRAIN_B), tmp, "flagship",
+                                    packed=True)
+        launches = read_counters()
+        want = {name: FLAG_TRAIN_LAUNCHES.get(name, 0) * TRAIN_STEPS for name in launches}
+        log(f"flagship training main path (train.py, vit_flagship.yaml, --packed dummy data, "
+            f"B={FLAG_TRAIN_B}, {TRAIN_STEPS} steps): {ms:.3f} ms/step, "
+            f"{FLAG_TRAIN_B * 1e3 / ms:.1f} samples/s; logged losses {losses}; launches {launches}")
+        if launches != want:
+            raise AssertionError(f"flagship training: launches {launches}, expected {want}")
+        config = flagship_train_config(FLAG_TRAIN_FULL_B)
+        config = dataclasses.replace(config, train=dataclasses.replace(config.train, log_every=1))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        metrics = f"{tmp}/metrics_full.jsonl"
+        state = train(config, RunOptions(output=f"{tmp}/ckpt_full", dummy_data=True, packed=True,
+                                         epochs=1, steps_per_epoch=3, seed=1, metrics=metrics))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        last = [json.loads(line) for line in open(metrics)][-1]
+        ms_full = 1e3 / last["steps_per_sec"]
+        if state.step != 3 or not np.isfinite(last["loss"]):
+            raise AssertionError(f"B={FLAG_TRAIN_FULL_B}: {state.step} steps, "
+                                 f"last loss {last['loss']}")
+        log(f"flagship training at the YAML's B={FLAG_TRAIN_FULL_B}, 3 steps: the last "
+            f"{ms_full:.3f} ms, {FLAG_TRAIN_FULL_B * 1e3 / ms_full:.1f} samples/s, loss "
+            f"{last['loss']:.6f}; peak device memory {peak / 2**30:.2f} GiB")
+    return launches, {f"B{FLAG_TRAIN_B}": ms, f"B{FLAG_TRAIN_FULL_B}": ms_full}, peak
+
+
+def flagship_reference_batches(b=2, steps=3):
+    """The first shuffled packed batches of the flagship's dummy data at B=b."""
+    from soccerdiffusion_tpu_torch.data.pipeline import to_tensors
+    from soccerdiffusion_tpu_torch.training.train import build_dataset
+
+    dataset = build_dataset(flagship_train_config(b), 0, True, packed=True)
+    return [to_tensors(batch) for batch in itertools.islice(dataset.batches(b, seed=0), steps)]
+
+
 def busy_us(intervals) -> float:
     """Length of the union of (start, end) intervals."""
     busy, reach = 0.0, float("-inf")
@@ -869,10 +1054,10 @@ def profile_serving(device, out, periods=3):
         trace(f"flagship lane {lane}, B={FLAG_B}, replan periods", period, periods, out)
 
 
-def profile_training(fused: bool, out, steps=5, warm=5):
+def profile_training(config, label, out, packed=False, steps=5, warm=5):
     """One torch.profiler trace of ``steps`` steps of training/train.py's step
-    (the training main path's configuration and data, B=64) after ``warm``
-    steps outside it. Wall and device busy time both come from this trace."""
+    (its dataset and data path for ``config``) after ``warm`` steps outside
+    it. Wall and device busy time both come from this trace."""
     from soccerdiffusion_tpu_torch.data import Normalizer
     from soccerdiffusion_tpu_torch.data.pipeline import prefetch_to_device
     from soccerdiffusion_tpu_torch.diffusion import make_schedule
@@ -881,9 +1066,8 @@ def profile_training(fused: bool, out, steps=5, warm=5):
     from soccerdiffusion_tpu_torch.training.trainer import create_train_state, make_optimizer, make_train_step
     from soccerdiffusion_tpu_torch.utils.jax_params import flax_init_params, load_jax_params
 
-    config = train_config(fused)
     tc, device = config.train, torch.device("cuda")
-    dataset = build_dataset(config, 0, True)
+    dataset = build_dataset(config, 0, True, packed)
     normalizer = Normalizer.fit(dataset.sample_targets(tc.num_normalization_samples, seed=0))
     model = DiffusionPolicy(config.model)
     model = load_jax_params(model, flax_init_params(model, 0)).to(device)
@@ -896,7 +1080,7 @@ def profile_training(fused: bool, out, steps=5, warm=5):
     try:
         for _ in range(warm):
             step(state, next(batches), generator)
-        trace(f"training step {'fused' if fused else 'unfused'}, B={TRAIN_BATCH}, steps",
+        trace(f"training step {label}, B={tc.batch_size}, steps",
               lambda: step(state, next(batches), generator), steps, out)
     finally:
         batches.close()
@@ -906,6 +1090,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile-training", action="store_true",
                         help="trace the training step with torch.profiler instead of the smoke run")
+    parser.add_argument("--flagship", action="store_true",
+                        help="with --profile-training: trace the flagship's training step instead")
     parser.add_argument("--profile-serving", action="store_true",
                         help="trace the flagship's serving lanes with torch.profiler instead")
     parser.add_argument("--profile-out", default=None, help="file for the full profiler tables")
@@ -933,8 +1119,13 @@ def main(argv=None) -> int:
                 print(line.strip(), file=sys.stderr)
 
     if args.profile_training or args.profile_serving:
-        for fused in (True, False) if args.profile_training else ():
-            profile_training(fused, args.profile_out)
+        if args.profile_training and args.flagship:
+            profile_training(flagship_train_config(FLAG_TRAIN_B), "flagship (vit_flagship.yaml, "
+                             "packed dummy data)", args.profile_out, packed=True)
+        elif args.profile_training:
+            for fused in (True, False):
+                profile_training(train_config(fused), "fused" if fused else "unfused",
+                                 args.profile_out)
         if args.profile_serving:
             profile_serving(device, args.profile_out)
         return 0
@@ -946,7 +1137,7 @@ def main(argv=None) -> int:
     train_model = build_model(train_config(True).model, device, seed=2)
     results.update(training_kernel_phase(cfg, train_model, device))
     train_launches, step_ms = training_path_phase()
-    training_reference_phase(device)
+    training_reference_phase(device, train_config(True).model, h128_reference_batches(), 11)
     del model, train_model
     torch.cuda.empty_cache()
 
@@ -954,6 +1145,11 @@ def main(argv=None) -> int:
     results.update(flagship_kernel_phase(flagship, device))
     flag_launches, flag_periods = flagship_path_phase(flagship, device)
     reference_phase(flagship.config, flagship, device, b=4, fused="chunk", fused_encoder=False)
+    results.update(flagship_training_kernel_phase(flagship, device))
+    del flagship
+    torch.cuda.empty_cache()
+    flag_train_launches, flag_train_ms, flag_train_peak = flagship_training_path_phase()
+    training_reference_phase(device, flagship_config(), flagship_reference_batches(), 12)
 
     # where each kernel instance ran: (source, the TPU kernel it replaces,
     # its launches over the main paths that run it at the checked shapes)
@@ -982,6 +1178,18 @@ def main(argv=None) -> int:
                                          flag("fused_encoder_stack_fwd_hd64")),
         "fused_encoder_stack_fwd_imgseq": ("fused_encoder_stack.cu", "fused_encoder_stack.py:274",
                                            hd32_stack),
+        # the flagship's training path
+        "fused_vit_block_bwd": ("fused_vit_block.cu", "fused_vit_block.py:722",
+                                flag_train_launches["fused_vit_block_bwd"]),
+        "fused_encoder_stack_bwd_hd64": ("fused_encoder_stack.cu", "fused_encoder_stack.py:300",
+                                         flag_train_launches["fused_encoder_stack_bwd_hd64"]),
+        "fused_encoder_stack_bwd_imgseq": ("fused_encoder_stack.cu", "fused_encoder_stack.py:300",
+                                           flag_train_launches["fused_encoder_stack_bwd"]
+                                           - flag_train_launches["fused_encoder_stack_bwd_hd64"]),
+        "fused_decoder_layer_fwd_hd64": ("fused_decoder_layer.cu", "fused_decoder_layer.py:343",
+                                         flag_train_launches["fused_decoder_layer_fwd_hd64"]),
+        "fused_decoder_layer_bwd_hd64": ("fused_decoder_layer.cu", "fused_decoder_layer.py:371",
+                                         flag_train_launches["fused_decoder_layer_bwd_hd64"]),
     }
     kernels = [{"name": name, "route": "cuda", "source": csrc + table[name][0],
                 "replaces": tpu + table[name][1], "launches": table[name][2], **r}
@@ -991,7 +1199,10 @@ def main(argv=None) -> int:
         raise AssertionError(f"kernels not checked or not launched on a main path: {missing}")
     log(json.dumps({"kernels": kernels, "ms_per_replan_period": periods, "batch": BENCH_B,
                     "flagship_ms_per_replan_period": flag_periods, "flagship_batch": FLAG_B,
-                    "train_ms_per_step": step_ms, "train_batch": TRAIN_BATCH, "gpu": smi}))
+                    "train_ms_per_step": step_ms, "train_batch": TRAIN_BATCH,
+                    "flagship_train_ms_per_step": flag_train_ms,
+                    "flagship_train_batch": FLAG_TRAIN_B,
+                    "flagship_train_peak_bytes": flag_train_peak, "gpu": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -22,7 +22,11 @@
 //     writes, summed over the batch in a fixed order by weight_grads.cu, as
 //     are the per-robot bias / LayerNorm partials (no race, no atomics);
 //   * no 8-row padding or key-column mask (T rows as they are), no
-//     lane-masked head stacking, erff for the exact GELU.
+//     lane-masked head stacking, erff for the exact GELU;
+//   * forward and backward have instances for head_dim 32 (h128) and 64
+//     (the flagship: E=256, 4 heads, S=311 memory rows; its (T x S)
+//     probability tile is 12 KB of shared memory, its per-robot workspace
+//     grows with S x E).
 #include "train_common.cuh"
 
 namespace sd {
@@ -107,6 +111,7 @@ struct DecCols {
 // The layer's forward for one robot: x (T, E) and mem (S, E) bf16 -> y32
 // (T, E) fp32, leaving every intermediate the backward needs in the saved
 // row and the workspace.
+template <int D>
 __device__ void dec_fwd(const DecLayer& w, const DecWs& s, bf16* sv, const bf16* x,
                         const bf16* mem, float* y32, float* P, int T, int S, int E, int FF, int H) {
   const DecCols c(E, FF);
@@ -118,9 +123,9 @@ __device__ void dec_fwd(const DecLayer& w, const DecWs& s, bf16* sv, const bf16*
   dense<5, 2>(sv + c.n1, W, T, E, w.wqkv, 3 * E, w.bqkv, StoreRoundBf16{s.qkv, 3 * E});
   __syncthreads();
   for (int h = 0; h < H; ++h) {
-    const bf16* q = s.qkv + h * kHeadDim;
-    head_probs(q, 3 * E, q + E, 3 * E, T, T, P);
-    head_out(P, T, T, q + 2 * E, 3 * E, sv + c.om1 + h * kHeadDim, W);
+    const bf16* q = s.qkv + h * D;
+    head_probs<D>(q, 3 * E, q + E, 3 * E, T, T, P);
+    head_out<D>(P, T, T, q + 2 * E, 3 * E, sv + c.om1 + h * D, W);
   }
   dense<5, 2>(sv + c.om1, W, T, E, w.wso, E, w.bso, AddStore{s.x, s.x2, E});
   __syncthreads();
@@ -131,15 +136,15 @@ __device__ void dec_fwd(const DecLayer& w, const DecWs& s, bf16* sv, const bf16*
   dense<8, 2>(mem, E, S, E, w.wcv, E, w.bcv, StoreRoundBf16{s.v2, E});
   __syncthreads();
   for (int h = 0; h < H; ++h) {
-    const int o = h * kHeadDim;
-    head_probs(s.q2 + o, E, s.k2 + o, E, T, S, P);
-    head_out(P, T, S, s.v2 + o, E, sv + c.om2 + o, W);
+    const int o = h * D;
+    head_probs<D>(s.q2 + o, E, s.k2 + o, E, T, S, P);
+    head_out<D>(P, T, S, s.v2 + o, E, sv + c.om2 + o, W);
   }
   dense<5, 2>(sv + c.om2, W, T, E, w.wco, E, w.bco, AddStore{s.x2, s.x3, E});
   __syncthreads();
   // MLP
   ln_rows(s.x3, T, E, w.g3, w.be3, sv + c.n3, W, s.xh3, s.r3);
-  dense<5, 2>(sv + c.n3, W, T, E, w.w1, FF, w.b1, GeluStore{s.z, FF, sv + c.hg, W});
+  dense<5, 2>(sv + c.n3, W, T, E, w.w1, FF, w.b1, GeluStore<>{s.z, FF, sv + c.hg, W});
   __syncthreads();
   dense<5, 2>(sv + c.hg, W, T, FF, w.w2, E, w.b2, AddStore{s.x3, y32, E});
   __syncthreads();
@@ -150,6 +155,7 @@ __device__ void dec_fwd(const DecLayer& w, const DecWs& s, bf16* sv, const bf16*
 // robot's (S, 2E) dk2c | dv2c rows; vp its bias / LN partials (g1 0, be1 E,
 // bqkv 2E, bso 5E, g2 6E, be2 7E, bcq 8E, bck 9E, bcv 10E, bco 11E, g3 12E,
 // be3 13E, b1 14E, b2 14E + FF).
+template <int D>
 __device__ void dec_bwd(const DecLayer& w, const DecWs& s, bf16* sv, bf16* sm, bf16* dmem,
                         float* P, float* vp, int T, int S, int E, int FF, int H) {
   const DecCols c(E, FF);
@@ -158,7 +164,7 @@ __device__ void dec_bwd(const DecLayer& w, const DecWs& s, bf16* sv, bf16* sm, b
   to_bf16(s.g, E, T, E, sv + c.gc, W);
   colsum(s.g, E, T, E, nullptr, 0, vp + 14 * E + FF);
   __syncthreads();
-  dense<5, 2>(sv + c.gc, W, T, E, w.w2_t, FF, nullptr, GeluBwd{s.z, s.dz, FF, sv + c.dzc, W});
+  dense<5, 2>(sv + c.gc, W, T, E, w.w2_t, FF, nullptr, GeluBwd<>{s.z, s.dz, FF, sv + c.dzc, W});
   __syncthreads();
   colsum(s.dz, FF, T, FF, nullptr, 0, vp + 14 * E);
   dense<5, 2>(sv + c.dzc, W, T, FF, w.w1_t, E, nullptr, StoreF32{s.tmp, E});
@@ -173,10 +179,10 @@ __device__ void dec_bwd(const DecLayer& w, const DecWs& s, bf16* sv, bf16* sm, b
   dense<5, 2>(sv + c.da2, W, T, E, w.wco_t, E, nullptr, StoreRoundBf16{s.dom, E});
   __syncthreads();
   for (int h = 0; h < H; ++h) {
-    const int o = h * kHeadDim;
-    head_probs(s.q2 + o, E, s.k2 + o, E, T, S, P);
-    head_bwd(P, T, S, s.q2 + o, E, s.k2 + o, E, s.v2 + o, E, s.dom + o, E, sv + c.dq2c + o, W,
-             sm + o, 2 * E, sm + E + o, 2 * E, s.dk32 + o, s.dv32 + o, E);
+    const int o = h * D;
+    head_probs<D>(s.q2 + o, E, s.k2 + o, E, T, S, P);
+    head_bwd<D>(P, T, S, s.q2 + o, E, s.k2 + o, E, s.v2 + o, E, s.dom + o, E, sv + c.dq2c + o, W,
+                sm + o, 2 * E, sm + E + o, 2 * E, s.dk32 + o, s.dv32 + o, E);
   }
   colsum(sv + c.dq2c, W, T, E, nullptr, 0, vp + 8 * E);
   colsum(s.dk32, E, S, E, nullptr, 0, vp + 9 * E);
@@ -198,11 +204,11 @@ __device__ void dec_bwd(const DecLayer& w, const DecWs& s, bf16* sv, bf16* sm, b
   __syncthreads();
   bf16* dqkv = sv + c.dqkv;
   for (int h = 0; h < H; ++h) {
-    const int o = h * kHeadDim;
+    const int o = h * D;
     const bf16* q = s.qkv + o;
-    head_probs(q, 3 * E, q + E, 3 * E, T, T, P);
-    head_bwd(P, T, T, q, 3 * E, q + E, 3 * E, q + 2 * E, 3 * E, s.dom + o, E, dqkv + o, W,
-             dqkv + E + o, W, dqkv + 2 * E + o, W, nullptr, nullptr, 0);
+    head_probs<D>(q, 3 * E, q + E, 3 * E, T, T, P);
+    head_bwd<D>(P, T, T, q, 3 * E, q + E, 3 * E, q + 2 * E, 3 * E, s.dom + o, E, dqkv + o, W,
+                dqkv + E + o, W, dqkv + 2 * E + o, W, nullptr, nullptr, 0);
   }
   colsum(dqkv, W, T, 3 * E, nullptr, 0, vp + 2 * E);
   dense<5, 2>(dqkv, W, T, 3 * E, w.wqkv_t, E, nullptr, StoreF32{s.tmp, E});  // dn1
@@ -220,6 +226,7 @@ __device__ inline DecWs dec_robot_ws(const DecArgs& a, int b) {
   return s;
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads) decoder_layer_fwd_kernel(DecArgs a) {
   extern __shared__ float4 smem4[];
   float* P = reinterpret_cast<float*>(smem4);
@@ -227,12 +234,13 @@ __global__ void __launch_bounds__(kThreads) decoder_layer_fwd_kernel(DecArgs a) 
   const DecWs s = dec_robot_ws(a, b);
   const size_t te = (size_t)T * E;
   bf16* sv = a.saved + (size_t)b * T * DecCols(E, a.FF).W;
-  dec_fwd(dec_weights(a), s, sv, a.x + b * te, a.mem + (size_t)b * a.S * E, s.g, P, T, a.S, E,
+  dec_fwd<D>(dec_weights(a), s, sv, a.x + b * te, a.mem + (size_t)b * a.S * E, s.g, P, T, a.S, E,
           a.FF, a.H);
   bf16* y = a.out + b * te;
   for (int i = threadIdx.x; i < T * E; i += blockDim.x) y[i] = __float2bfloat16(s.g[i]);
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads) decoder_layer_bwd_kernel(DecArgs a) {
   extern __shared__ float4 smem4[];
   float* P = reinterpret_cast<float*>(smem4);
@@ -244,8 +252,8 @@ __global__ void __launch_bounds__(kThreads) decoder_layer_bwd_kernel(DecArgs a) 
   const bf16* dy = a.dy + b * te;
   for (int i = threadIdx.x; i < T * E; i += blockDim.x) s.g[i] = tof(dy[i]);
   __syncthreads();
-  dec_fwd(w, s, sv, a.x + b * te, a.mem + b * se, s.tmp, P, T, S, E, a.FF, a.H);
-  dec_bwd(w, s, sv, a.saved_mem + (size_t)b * S * 2 * E, a.dmem + b * se, P,
+  dec_fwd<D>(w, s, sv, a.x + b * te, a.mem + b * se, s.tmp, P, T, S, E, a.FF, a.H);
+  dec_bwd<D>(w, s, sv, a.saved_mem + (size_t)b * S * 2 * E, a.dmem + b * se, P,
           a.vpart + (size_t)b * (15 * E + a.FF), T, S, E, a.FF, a.H);
   bf16* dx = a.out + b * te;
   for (int i = threadIdx.x; i < T * E; i += blockDim.x) dx[i] = __float2bfloat16(s.g[i]);
@@ -262,7 +270,7 @@ static int dec_setup(DecArgs& a, const int* ints, size_t* smem) {
   a.wsbf_stride = ints[7];
   size_t n32, nbf;
   dec_carve(a.T, a.S, a.E, a.FF, nullptr, nullptr, nullptr, &n32, &nbf);
-  if (a.E != kHeadDim * a.H || a.E % 8 || a.FF % 8 || n32 > (size_t)a.ws32_stride ||
+  if (head_dim(a.E, a.H) == 0 || a.E % 8 || a.FF % 8 || n32 > (size_t)a.ws32_stride ||
       nbf > (size_t)a.wsbf_stride)
     return (int)cudaErrorInvalidValue;
   *smem = (size_t)a.T * (a.S > a.T ? a.S : a.T) * sizeof(float);
@@ -285,10 +293,12 @@ extern "C" int sd_decoder_layer_fwd(const void* const* ptrs, const int* ints, vo
   a.ws32 = static_cast<float*>(const_cast<void*>(ptrs[25]));
   a.wsbf = static_cast<bf16*>(const_cast<void*>(ptrs[26]));
   a.saved = static_cast<bf16*>(const_cast<void*>(ptrs[27]));
-  cudaError_t err = cudaFuncSetAttribute(decoder_layer_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel =
+      head_dim(a.E, a.H) == 32 ? decoder_layer_fwd_kernel<32> : decoder_layer_fwd_kernel<64>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
-  decoder_layer_fwd_kernel<<<a.B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<a.B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -320,10 +330,12 @@ extern "C" int sd_decoder_layer_bwd(const void* const* ptrs, const int* ints, vo
   a.vpart = static_cast<float*>(P(48));
   float* tpart = static_cast<float*>(P(49));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(decoder_layer_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel =
+      head_dim(a.E, a.H) == 32 ? decoder_layer_bwd_kernel<32> : decoder_layer_bwd_kernel<64>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
-  decoder_layer_bwd_kernel<<<a.B, kThreads, smem, st>>>(a);
+  kernel<<<a.B, kThreads, smem, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 

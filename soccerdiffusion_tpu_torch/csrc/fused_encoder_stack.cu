@@ -7,8 +7,9 @@
 //
 // Bound on the H100: per robot and layer at T=100 tokens, E=FF=128 the
 // forward is ~25 MFLOP and the backward (recompute included) ~75 MFLOP of
-// scalar fp32 FMAs against a per-robot workspace of ~0.6 MB -- compute-
-// and latency-bound, like the serving encoder (PERF.md). Design:
+// scalar fp32 FMAs against a per-robot workspace of ~0.6 MB (at E=FF=256,
+// head_dim 64: ~89 and ~267 MFLOP, ~1.0 MB) -- compute- and latency-bound,
+// like the serving encoder (PERF.md). Design:
 //   * the TPU kernel keeps a 16-robot block and all intermediates in 110 MB
 //     of VMEM; here every intermediate of a robot's layer lives in a
 //     per-robot global workspace (L1/L2-resident while the block runs) and
@@ -23,10 +24,12 @@
 //     both over the batch in a fixed order;
 //   * no 8-row padding or key masks (T rows as they are), no lane-masked
 //     head stacking (one head at a time), erff for the exact GELU;
-//   * the forward has instances for head_dim 32 and 64 (the h256 configs'
-//     4-head proprioceptive stacks; their 8-head image-sequence stack is
-//     head_dim 32); the backward takes head_dim 32.
-#include "train_common.cuh"
+//   * forward and backward have instances for head_dim 32 and 64 (the h256
+//     configs' 4-head proprioceptive stacks; their 8-head image-sequence
+//     stack is head_dim 32);
+//   * the layer itself (layer_fwd / layer_bwd) is encoder_layer.cuh, which
+//     the fused ViT block's backward shares.
+#include "encoder_layer.cuh"
 
 namespace sd {
 
@@ -45,38 +48,6 @@ struct EncStackArgs {
   bf16* saved;      // (L, B*T, 8E + 2FF) rows: n1 dqkv om da n2 dzc hg gc
   float* vpart;     // bwd: (B, L, 9E + FF) per-robot bias / LN gradient partials
   int B, T, E, H, FF, L, ws32_stride, wsbf_stride;
-};
-
-struct EncWs {  // one robot's workspace
-  float *g, *x2, *xh1, *xh2, *tmp, *dx2, *z, *dz, *r1, *r2;
-  bf16 *qkv, *dom;
-};
-
-// Carves one robot's workspace (when f / h are given) and returns the fp32
-// and bf16 elements it needs (ops/fused_encoder_stack.py:_ws_strides).
-__host__ __device__ inline void carve(int T, int E, int FF, float* f, bf16* h, EncWs* w,
-                                      size_t* n32, size_t* nbf) {
-  const size_t te = r4((size_t)T * E), tf = r4((size_t)T * FF), t = r4(T);
-  *n32 = 6 * te + 2 * tf + 2 * t;
-  *nbf = r8((size_t)3 * T * E) + r8((size_t)T * E);
-  if (w == nullptr) return;
-  w->g = f;
-  w->x2 = f + te;
-  w->xh1 = f + 2 * te;
-  w->xh2 = f + 3 * te;
-  w->tmp = f + 4 * te;
-  w->dx2 = f + 5 * te;
-  w->z = f + 6 * te;
-  w->dz = f + 6 * te + tf;
-  w->r1 = f + 6 * te + 2 * tf;
-  w->r2 = f + 6 * te + 2 * tf + t;
-  w->qkv = h;
-  w->dom = h + r8((size_t)3 * T * E);
-}
-
-struct EncLayer {
-  const bf16 *g1, *be1, *wqkv, *bqkv, *wo, *bo, *g2, *be2, *w1, *b1, *w2, *b2;
-  const bf16 *wqkv_t, *wo_t, *w1_t, *w2_t;
 };
 
 __device__ inline EncLayer layer_weights(const EncStackArgs& a, int l) {
@@ -101,70 +72,6 @@ __device__ inline EncLayer layer_weights(const EncStackArgs& a, int l) {
   return w;
 }
 
-// One layer's forward for one robot: x (T, E) fp32 -> y (T, E) fp32,
-// leaving n1 / om / n2 / hg in the saved row `sv` (stride WS) and q|k|v,
-// xhat, rstd, x2, z in the workspace for the backward. D is the head dim.
-template <int D>
-__device__ void layer_fwd(const EncLayer& w, const EncWs& s, bf16* sv, int WS, const float* x,
-                          float* y, float* P, int T, int E, int FF, int H) {
-  bf16 *n1 = sv, *om = sv + 4 * E, *n2 = sv + 6 * E, *hg = sv + 7 * E + FF;
-  ln_rows(x, T, E, w.g1, w.be1, n1, WS, s.xh1, s.r1);
-  dense<8, 2>(n1, WS, T, E, w.wqkv, 3 * E, w.bqkv, StoreRoundBf16{s.qkv, 3 * E});
-  __syncthreads();
-  for (int h = 0; h < H; ++h) {
-    const bf16* q = s.qkv + h * D;
-    head_probs<D>(q, 3 * E, q + E, 3 * E, T, T, P);
-    head_out<D>(P, T, T, q + 2 * E, 3 * E, om + h * D, WS);
-  }
-  dense<8, 2>(om, WS, T, E, w.wo, E, w.bo, AddStore{x, s.x2, E});
-  __syncthreads();
-  ln_rows(s.x2, T, E, w.g2, w.be2, n2, WS, s.xh2, s.r2);
-  dense<8, 2>(n2, WS, T, E, w.w1, FF, w.b1, GeluStore{s.z, FF, hg, WS});
-  __syncthreads();
-  dense<8, 2>(hg, WS, T, FF, w.w2, E, w.b2, AddStore{s.x2, y, E});
-  __syncthreads();
-}
-
-// One layer's backward for one robot after layer_fwd: s.g holds dL/dy on
-// entry and dL/dx on exit. Writes the bf16 operands of the weight-gradient
-// products into the saved row and this robot's bias / LN partials to vp
-// (g1 0, be1 E, bqkv 2E, bo 5E, g2 6E, be2 7E, b1 8E, b2 8E + FF).
-__device__ void layer_bwd(const EncLayer& w, const EncWs& s, bf16* sv, int WS, float* P,
-                          float* vp, int T, int E, int FF, int H) {
-  bf16 *dqkv = sv + E, *da = sv + 5 * E, *dzc = sv + 7 * E, *gc = sv + 7 * E + 2 * FF;
-  // MLP: dhg = g w2^T; dz = dhg GELU'(z); dn2 = dz w1^T
-  to_bf16(s.g, E, T, E, gc, WS);
-  colsum(s.g, E, T, E, nullptr, 0, vp + 8 * E + FF);
-  __syncthreads();
-  dense<8, 2>(gc, WS, T, E, w.w2_t, FF, nullptr, GeluBwd{s.z, s.dz, FF, dzc, WS});
-  __syncthreads();
-  colsum(s.dz, FF, T, FF, nullptr, 0, vp + 8 * E);
-  dense<8, 2>(dzc, WS, T, FF, w.w1_t, E, nullptr, StoreF32{s.tmp, E});
-  __syncthreads();
-  colsum(s.tmp, E, T, E, s.xh2, E, vp + 6 * E);
-  colsum(s.tmp, E, T, E, nullptr, 0, vp + 7 * E);
-  ln_bwd_rows(s.tmp, s.xh2, s.r2, w.g2, T, E, s.g, s.dx2);
-  to_bf16(s.dx2, E, T, E, da, WS);
-  colsum(s.dx2, E, T, E, nullptr, 0, vp + 5 * E);
-  __syncthreads();
-  // attention: dom = da wo^T, then one head at a time
-  dense<8, 2>(da, WS, T, E, w.wo_t, E, nullptr, StoreRoundBf16{s.dom, E});
-  __syncthreads();
-  for (int h = 0; h < H; ++h) {
-    const int o = h * kHeadDim;
-    const bf16* q = s.qkv + o;
-    head_probs(q, 3 * E, q + E, 3 * E, T, T, P);
-    head_bwd(P, T, T, q, 3 * E, q + E, 3 * E, q + 2 * E, 3 * E, s.dom + o, E, dqkv + o, WS,
-             dqkv + E + o, WS, dqkv + 2 * E + o, WS, nullptr, nullptr, 0);
-  }
-  colsum(dqkv, WS, T, 3 * E, nullptr, 0, vp + 2 * E);
-  dense<8, 2>(dqkv, WS, T, 3 * E, w.wqkv_t, E, nullptr, StoreF32{s.tmp, E});
-  __syncthreads();
-  colsum(s.tmp, E, T, E, s.xh1, E, vp);
-  colsum(s.tmp, E, T, E, nullptr, 0, vp + E);
-  ln_bwd_rows(s.tmp, s.xh1, s.r1, w.g1, T, E, s.dx2, s.g);
-}
-
 __device__ inline EncWs robot_ws(const EncStackArgs& a, int b) {
   EncWs s;
   size_t n32, nbf;
@@ -187,12 +94,13 @@ __global__ void __launch_bounds__(kThreads) encoder_stack_fwd_kernel(EncStackArg
   for (int l = 0; l < a.L; ++l) {
     const float* in = a.acts_out + ((size_t)l * a.B + b) * te;
     float* out = l + 1 < a.L ? a.acts_out + ((size_t)(l + 1) * a.B + b) * te : s.g;
-    layer_fwd<D>(layer_weights(a, l), s, sv, WS, in, out, P, T, E, a.FF, a.H);
+    layer_fwd<D, false>(layer_weights(a, l), s, sv, WS, in, out, P, T, E, a.FF, a.H);
   }
   bf16* y = a.out + b * te;
   for (int i = threadIdx.x; i < T * E; i += blockDim.x) y[i] = __float2bfloat16(s.g[i]);
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads) encoder_stack_bwd_kernel(EncStackArgs a) {
   extern __shared__ float4 smem4[];
   float* P = reinterpret_cast<float*>(smem4);
@@ -206,16 +114,16 @@ __global__ void __launch_bounds__(kThreads) encoder_stack_bwd_kernel(EncStackArg
     const EncLayer w = layer_weights(a, l);
     bf16* sv = a.saved + ((size_t)l * a.B + b) * T * WS;
     // recompute the layer's internals (its output is not needed: into tmp)
-    layer_fwd<kHeadDim>(w, s, sv, WS, a.acts + ((size_t)l * a.B + b) * te, s.tmp, P, T, E, a.FF,
+    layer_fwd<D, false>(w, s, sv, WS, a.acts + ((size_t)l * a.B + b) * te, s.tmp, P, T, E, a.FF,
                         a.H);
-    layer_bwd(w, s, sv, WS, P, a.vpart + ((size_t)b * a.L + l) * V, T, E, a.FF, a.H);
+    layer_bwd<D, false>(w, s, sv, WS, P, a.vpart + ((size_t)b * a.L + l) * V, T, E, a.FF, a.H);
   }
   bf16* dx = a.out + b * te;
   for (int i = threadIdx.x; i < T * E; i += blockDim.x) dx[i] = __float2bfloat16(s.g[i]);
 }
 
-// Common argument checks; returns the attention tile's shared memory.
-// The head dimension is checked by each entry.
+// Common argument checks (head_dim 32 or 64, widths multiples of 8, the
+// workspace strides); returns the attention tile's shared memory.
 static int setup(EncStackArgs& a, const int* ints, size_t* smem) {
   a.B = ints[0];
   a.T = ints[1];
@@ -268,7 +176,6 @@ extern "C" int sd_encoder_stack_bwd(const void* const* ptrs, const int* ints, vo
   EncStackArgs a = {};
   size_t smem;
   if (int err = setup(a, ints, &smem)) return err;
-  if (a.E != kHeadDim * a.H) return (int)cudaErrorInvalidValue;  // the backward: head_dim 32
   const int rows_per_split = ints[8];
   auto P = [&](int i) { return const_cast<void*>(ptrs[i]); };
   a.acts = static_cast<const float*>(ptrs[0]);
@@ -285,28 +192,25 @@ extern "C" int sd_encoder_stack_bwd(const void* const* ptrs, const int* ints, vo
   a.vpart = static_cast<float*>(P(27));
   float* tpart = static_cast<float*>(P(28));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(encoder_stack_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel =
+      head_dim(a.E, a.H) == 32 ? encoder_stack_bwd_kernel<32> : encoder_stack_bwd_kernel<64>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
-  encoder_stack_bwd_kernel<<<a.B, kThreads, smem, st>>>(a);
+  kernel<<<a.B, kThreads, smem, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   // weight gradients: per layer (n1, dqkv) (om, da) (n2, dzc) (hg, gc)
-  const int E = a.E, FF = a.FF, WS = 8 * E + 2 * FF, R = a.B * a.T;
-  const int cols[4][2] = {{0, E}, {4 * E, 5 * E}, {6 * E, 7 * E}, {7 * E + FF, 7 * E + 2 * FF}};
-  const int KN[4][2] = {{E, 3 * E}, {E, E}, {E, FF}, {FF, E}};
+  const int E = a.E, FF = a.FF, R = a.B * a.T;
   TdotJob jobs[32];
   if (4 * a.L > 32) return (int)cudaErrorInvalidValue;
   size_t off = 0;
   for (int l = 0; l < a.L; ++l) {
-    const bf16* rows = a.saved + (size_t)l * R * WS;
-    for (int j = 0; j < 4; ++j) {
-      const int K = KN[j][0], N = KN[j][1];
-      jobs[4 * l + j] = TdotJob{rows + cols[j][0], rows + cols[j][1], tpart + off,
-                                mats[j] + (size_t)l * K * N, WS, WS, K, N, R};
-      off += (size_t)tdot_splits(R, rows_per_split) * K * N;
-    }
+    float* lm[4] = {mats[0] + (size_t)l * E * 3 * E, mats[1] + (size_t)l * E * E,
+                    mats[2] + (size_t)l * E * FF, mats[3] + (size_t)l * FF * E};
+    off += layer_tdot_jobs(a.saved + (size_t)l * R * (8 * E + 2 * FF), R, E, FF, lm, tpart + off,
+                           rows_per_split, jobs + 4 * l);
   }
   const SumJob vec{a.vpart, gvec, a.B, a.L * (9 * E + FF)};
   // launch_weight_grads takes at most 16 products per call

@@ -1,9 +1,11 @@
-// Fused pre-norm ViT block, forward: one thread block per frame.
+// Fused pre-norm ViT block, forward and backward: one thread block per frame.
 //
 // Replaces soccerdiffusion_tpu/ops/fused_vit_block.py: make_vit_block_fn's
 // forward (_fwd_impl; _make_fwd_kernel over _block_core, or the
-// "headloop" layout's kernel, which computes the same function). The
-// backward kernel (_bwd_impl) comes with the training slice.
+// "headloop" layout's kernel, which computes the same function) and its
+// backward (_bwd_impl; _make_bwd_kernel / _make_headloop_bwd_kernel).
+//
+// FORWARD (vit_block_fwd_kernel)
 //
 // Per frame of T tokens and width W, with H heads of D = W / H and an MLP of
 // width FF:
@@ -35,7 +37,7 @@
 // carried over from the TPU kernel: the lane-masked head stacking
 // (_masks/_mask4) and the (F, HT, T) score layout (one head at a time
 // instead), the frame-block grid (one block per frame), the polynomial erf.
-#include "train_common.cuh"
+#include "encoder_layer.cuh"
 
 namespace sd {
 
@@ -54,8 +56,7 @@ struct GeluBf16 {  // bf16 out[m][n] = z * cdf(z) of the fp32 sum z
   bf16* out;
   int ld;
   __device__ void operator()(int m, int n, float z) const {
-    const float cdf = kQuick ? 1.f / (1.f + expf(-1.702f * z)) : gelu_cdf(z);
-    out[m * ld + n] = __float2bfloat16(z * cdf);
+    out[m * ld + n] = __float2bfloat16(z * gelu_gate<kQuick>(z));
   }
 };
 
@@ -109,6 +110,70 @@ __global__ void __launch_bounds__(kVitThreads) vit_block_fwd_kernel(VitArgs a) {
   for (int i = threadIdx.x; i < T * W; i += blockDim.x) y[i] = __float2bfloat16(h[i]);
 }
 
+// BACKWARD (vit_block_bwd_kernel)
+//
+// The block is one pre-norm encoder layer, so the backward is the encoder
+// stack's layer (encoder_layer.cuh) at L = 1 with the block's GELU: one
+// thread block per frame recomputes the frame's forward internals from x
+// (the only residual, as in the JAX custom_vjp) and runs the hand-derived
+// backward at the TPU kernel's rounding points -- dhg and the GELU gradient
+// (erff, or quick-GELU's s (1 + 1.702 z (1 - s))) in fp32, dzc, dq / dk /
+// dv and dom rounded to bf16, fp32 LayerNorm backwards, dx rounded once.
+// Its intermediates (the (T, FF) MLP hidden does not fit shared memory
+// beside the rest: 256 KB fp32 at the flagship shape) live in a per-frame
+// global workspace that stays L2-resident while the block runs; one head's
+// (T x T) fp32 probabilities sit in shared memory. It writes dx, the bf16
+// operands of the four weight-gradient products per row, (n1, dqkv) (om,
+// da) (n2, dzc) (hg, gc), and per-frame fp32 partials of the eight vector
+// gradients; weight_grads.cu then sums both over the N T rows and N frames
+// in a fixed order (no atomics: the TPU kernel's `+=` into the weight
+// gradients across its sequential grid would race across thread blocks).
+//
+// Bound on the H100: the recompute, the input gradients and the four
+// weight-gradient products are ~3x the forward's FLOPs, ~315 MFLOP per frame
+// at T=64, W=256, FF=1024 (202 GFLOP at N=640 frames): compute-bound at the
+// bf16 tensor-core peak (0.2 ms). Done here, like the forward, as scalar
+// fp32 FMAs; tensor-core products are later work (PERF.md).
+struct VitBwdArgs {
+  const bf16* x;   // (N, T, W)
+  const bf16* dy;  // (N, T, W)
+  const bf16* w[12];
+  const bf16* wt[4];  // transposed wqkv (3W, W), wo (W, W), w1 (FF, W), w2 (W, FF)
+  bf16* dx;           // (N, T, W)
+  float* ws32;        // (N, ws32_stride) per-frame fp32 workspace
+  bf16* wsbf;         // (N, wsbf_stride) per-frame bf16 workspace
+  bf16* saved;        // (N T, 8W + 2FF) weight-gradient operand rows
+  float* vpart;       // (N, 9W + FF) per-frame vector-gradient partials
+  int N, T, W, H, FF, ws32_stride, wsbf_stride;
+};
+
+template <int D, bool kQuick>
+__global__ void __launch_bounds__(kThreads) vit_block_bwd_kernel(VitBwdArgs a) {
+  extern __shared__ float4 smem4[];
+  float* P = reinterpret_cast<float*>(smem4);
+  const int f = blockIdx.x, T = a.T, W = a.W, FF = a.FF, WS = 8 * W + 2 * FF;
+  EncWs s;
+  size_t n32, nbf;
+  carve(T, W, FF, a.ws32 + (size_t)f * a.ws32_stride, a.wsbf + (size_t)f * a.wsbf_stride, &s,
+        &n32, &nbf);
+  const size_t tw = (size_t)T * W;
+  const bf16 *x = a.x + f * tw, *dy = a.dy + f * tw;
+  // the frame's fp32 input goes to dx2, which the backward writes only after
+  // its last read; dL/dy to g
+  for (int i = threadIdx.x; i < T * W; i += blockDim.x) {
+    s.dx2[i] = tof(x[i]);
+    s.g[i] = tof(dy[i]);
+  }
+  __syncthreads();
+  const EncLayer w{a.w[0], a.w[1], a.w[2],  a.w[3],  a.w[4],  a.w[5],  a.w[6],  a.w[7],
+                   a.w[8], a.w[9], a.w[10], a.w[11], a.wt[0], a.wt[1], a.wt[2], a.wt[3]};
+  bf16* sv = a.saved + (size_t)f * T * WS;
+  layer_fwd<D, kQuick>(w, s, sv, WS, s.dx2, s.tmp, P, T, W, FF, a.H);
+  layer_bwd<D, kQuick>(w, s, sv, WS, P, a.vpart + (size_t)f * (9 * W + FF), T, W, FF, a.H);
+  bf16* dx = a.dx + f * tw;
+  for (int i = threadIdx.x; i < T * W; i += blockDim.x) dx[i] = __float2bfloat16(s.g[i]);
+}
+
 }  // namespace sd
 
 // ptrs: x, 12 weights (VitArgs order), y
@@ -140,4 +205,58 @@ extern "C" int sd_vit_block_fwd(const void* const* ptrs, const int* ints, void* 
   if (err != cudaSuccess) return (int)err;
   kernel<<<a.N, kVitThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
+}
+
+// ptrs: x, dy, 12 weights, 4 transposed (wqkv, wo, w1, w2), dx,
+//       dwqkv (W,3W), dwo (W,W), dw1 (W,FF), dw2 (FF,W), gvec (9W+FF),
+//       ws32, wsbf, saved (N*T, 8W+2FF), vpart (N, 9W+FF), tpart
+// ints: N, T, W, H, FF, quick, ws32_stride, wsbf_stride, rows_per_split
+extern "C" int sd_vit_block_bwd(const void* const* ptrs, const int* ints, void* stream) {
+  using namespace sd;
+  VitBwdArgs a = {};
+  auto P = [&](int i) { return const_cast<void*>(ptrs[i]); };
+  a.x = static_cast<const bf16*>(ptrs[0]);
+  a.dy = static_cast<const bf16*>(ptrs[1]);
+  for (int i = 0; i < 12; ++i) a.w[i] = static_cast<const bf16*>(ptrs[2 + i]);
+  for (int i = 0; i < 4; ++i) a.wt[i] = static_cast<const bf16*>(ptrs[14 + i]);
+  a.dx = static_cast<bf16*>(P(18));
+  float* mats[4] = {static_cast<float*>(P(19)), static_cast<float*>(P(20)),
+                    static_cast<float*>(P(21)), static_cast<float*>(P(22))};
+  float* gvec = static_cast<float*>(P(23));
+  a.ws32 = static_cast<float*>(P(24));
+  a.wsbf = static_cast<bf16*>(P(25));
+  a.saved = static_cast<bf16*>(P(26));
+  a.vpart = static_cast<float*>(P(27));
+  float* tpart = static_cast<float*>(P(28));
+  a.N = ints[0];
+  a.T = ints[1];
+  a.W = ints[2];
+  a.H = ints[3];
+  a.FF = ints[4];
+  const bool quick = ints[5] != 0;
+  a.ws32_stride = ints[6];
+  a.wsbf_stride = ints[7];
+  const int rows_per_split = ints[8];
+  const int D = head_dim(a.W, a.H);
+  size_t n32, nbf;
+  carve(a.T, a.W, a.FF, nullptr, nullptr, nullptr, &n32, &nbf);
+  if (D == 0 || a.T < 1 || a.W % 8 || a.FF % 8 || n32 > (size_t)a.ws32_stride ||
+      nbf > (size_t)a.wsbf_stride)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = D == 32
+                    ? (quick ? vit_block_bwd_kernel<32, true> : vit_block_bwd_kernel<32, false>)
+                    : (quick ? vit_block_bwd_kernel<64, true> : vit_block_bwd_kernel<64, false>);
+  const size_t smem = (size_t)a.T * a.T * sizeof(float);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<a.N, kThreads, smem, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // weight gradients: (n1, dqkv) (om, da) (n2, dzc) (hg, gc) over the N T rows
+  TdotJob jobs[4];
+  layer_tdot_jobs(a.saved, a.N * a.T, a.W, a.FF, mats, tpart, rows_per_split, jobs);
+  const SumJob vec{a.vpart, gvec, a.N, 9 * a.W + a.FF};
+  return launch_weight_grads(jobs, 4, &vec, 1, rows_per_split, st);
 }

@@ -16,18 +16,14 @@
 // every gradient that feeds a LayerNorm backward or a bias sum in fp32;
 // LN outputs, q/k/v, attention outputs, the GELU output and every operand
 // of a backward product rounded to bf16; probabilities rounded to bf16
-// before a value sum. The forward attention helpers take the head
-// dimension D (32 or 64) as a template parameter; the backward helpers,
-// and so the backward kernels and the decoder-layer kernels, take head_dim
-// kHeadDim = 32.
+// before a value sum. The attention helpers take the head dimension D (32
+// or 64) as a template parameter, the GELU epilogues the activation (exact,
+// or quick-GELU z * sigmoid(1.702 z) for the ViT block).
 #pragma once
 
 #include "common.cuh"
 
 namespace sd {
-
-constexpr int kHeadDim = 32;
-constexpr float kAttnScale = attn_scale<kHeadDim>();
 
 // element counts rounded up to 16-byte multiples (fp32 / bf16 workspace regions)
 __host__ __device__ inline size_t r4(size_t n) { return (n + 3) & ~(size_t)3; }
@@ -59,6 +55,32 @@ __device__ __forceinline__ float dot32(const float* a, const float* b) {
   return acc;
 }
 
+// a (D fp32 values) . b (D consecutive bf16), read 32 elements at a time
+template <int D>
+__device__ __forceinline__ float dot_row(const float* a, const bf16* b) {
+  float bv[32];
+  load_row32(b, bv);
+  float dot = dot32(a, bv);
+#pragma unroll
+  for (int c = 1; c < D / 32; ++c) {
+    load_row32(b + 32 * c, bv);
+    dot += dot32(a + 32 * c, bv);
+  }
+  return dot;
+}
+
+// cdf(z) of GELU(z) = z * cdf(z): the normal CDF, or sigmoid(1.702 z) for
+// quick-GELU; and d GELU / dz given cdf(z)
+template <bool kQuick>
+__device__ __forceinline__ float gelu_gate(float z) {
+  return kQuick ? 1.f / (1.f + expf(-1.702f * z)) : gelu_cdf(z);
+}
+template <bool kQuick>
+__device__ __forceinline__ float gelu_slope(float z, float cdf) {
+  return kQuick ? cdf * (1.f + 1.702f * z * (1.f - cdf))
+                : cdf + z * (expf(-0.5f * z * z) * 0.3989422804014327f);
+}
+
 // ---------------------------------------------------------------- epilogues
 struct StoreF32 {  // out[m][n] = v
   float* out;
@@ -80,16 +102,18 @@ struct AddRoundBf16 {  // bf16 out[m][n] = base[m][n] + v
     out[m * ldo + n] = __float2bfloat16(base[m * ldb + n] + v);
   }
 };
-struct GeluStore {  // z = v (fp32), bf16 hg = z * Phi(z)
+template <bool kQuick = false>
+struct GeluStore {  // z = v (fp32), bf16 hg = z * cdf(z)
   float* z;
   int ldz;
   bf16* hg;
   int ldh;
   __device__ void operator()(int m, int n, float v) const {
     z[m * ldz + n] = v;
-    hg[m * ldh + n] = __float2bfloat16(v * gelu_cdf(v));
+    hg[m * ldh + n] = __float2bfloat16(v * gelu_gate<kQuick>(v));
   }
 };
+template <bool kQuick = false>
 struct GeluBwd {  // dz = v * GELU'(z) (fp32) and its bf16 copy
   const float* z;
   float* dz;
@@ -98,8 +122,7 @@ struct GeluBwd {  // dz = v * GELU'(z) (fp32) and its bf16 copy
   int ldc;
   __device__ void operator()(int m, int n, float v) const {
     const float zz = z[m * ld + n];
-    const float phi = expf(-0.5f * zz * zz) * 0.3989422804014327f;
-    const float d = v * (gelu_cdf(zz) + zz * phi);
+    const float d = v * gelu_slope<kQuick>(zz, gelu_gate<kQuick>(zz));
     dz[m * ld + n] = d;
     dzc[m * ldc + n] = __float2bfloat16(d);
   }
@@ -177,7 +200,7 @@ __device__ inline void to_bf16(const float* src, int lds, int M, int N, bf16* ds
 // P[i][j] = softmax_j(q_i . k_j / sqrt(D)), i < nq, j < nk, fp32 scores
 // and softmax; q, k are one head's bf16 slices (row strides multiples of 8
 // elements). One warp per query row; a key is read 32 elements at a time.
-template <int D = kHeadDim>
+template <int D>
 __device__ void head_probs(const bf16* q, int ldq, const bf16* k, int ldk, int nq, int nk,
                            float* P) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
@@ -214,7 +237,7 @@ __device__ void head_probs(const bf16* q, int ldq, const bf16* k, int ldk, int n
 }
 
 // bf16 out[i][d] = sum_j bf16(P[i][j]) v[j][d], d < D
-template <int D = kHeadDim>
+template <int D>
 __device__ void head_out(const float* P, int nq, int nk, const bf16* v, int ldv, bf16* out,
                          int ldo) {
   for (int item = threadIdx.x; item < nq * D; item += blockDim.x) {
@@ -228,17 +251,20 @@ __device__ void head_out(const float* P, int nq, int nk, const bf16* v, int ldv,
 }
 
 // Backward of one head given its probabilities P (overwritten by ds) and
-// the bf16 gradient of its output, dom (nq, 32):
-//   dv = bf16(P)^T dom;  dp = dom v^T;  ds = bf16(P (dp - rowsum(dp P)) / sqrt(32));
+// the bf16 gradient of its output, dom (nq, D):
+//   dv = bf16(P)^T dom;  dp = dom v^T;  ds = bf16(P (dp - rowsum(dp P)) / sqrt(D));
 //   dq = ds k;  dk = ds^T q
 // dq, dk, dv are written bf16-rounded; dk32 / dv32 (may be null) receive
-// the unrounded fp32 dk / dv (for the key / value bias gradients).
-__device__ inline void head_bwd(float* P, int nq, int nk, const bf16* q, int ldq, const bf16* k,
-                                int ldk, const bf16* v, int ldv, const bf16* dom, int ldd,
-                                bf16* dq, int lddq, bf16* dk, int lddk, bf16* dv, int lddv,
-                                float* dk32, float* dv32, int ld32) {
-  for (int item = threadIdx.x; item < nk * kHeadDim; item += blockDim.x) {
-    const int j = item / kHeadDim, d = item % kHeadDim;
+// the unrounded fp32 dk / dv (for the key / value bias gradients). One
+// warp per query row for ds: a lane holds the row's D-element dom slice
+// and reads a value row 32 elements at a time.
+template <int D>
+__device__ void head_bwd(float* P, int nq, int nk, const bf16* q, int ldq, const bf16* k, int ldk,
+                         const bf16* v, int ldv, const bf16* dom, int ldd, bf16* dq, int lddq,
+                         bf16* dk, int lddk, bf16* dv, int lddv, float* dk32, float* dv32,
+                         int ld32) {
+  for (int item = threadIdx.x; item < nk * D; item += blockDim.x) {
+    const int j = item / D, d = item % D;
     float acc = 0.f;
     for (int i = 0; i < nq; ++i) acc += rbf(P[i * nk + j]) * tof(dom[(size_t)i * ldd + d]);
     dv[(size_t)j * lddv + d] = __float2bfloat16(acc);
@@ -247,32 +273,26 @@ __device__ inline void head_bwd(float* P, int nq, int nk, const bf16* q, int ldq
   __syncthreads();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   for (int i = warp; i < nq; i += nwarps) {
-    float dov[kHeadDim];
-    load_row32(dom + (size_t)i * ldd, dov);
+    float dov[D];
+#pragma unroll
+    for (int c = 0; c < D / 32; ++c) load_row32(dom + (size_t)i * ldd + 32 * c, dov + 32 * c);
     float* pr = P + i * nk;
     float rs = 0.f;
-    for (int j = lane; j < nk; j += 32) {
-      float vv[kHeadDim];
-      load_row32(v + (size_t)j * ldv, vv);
-      rs += dot32(dov, vv) * pr[j];
-    }
+    for (int j = lane; j < nk; j += 32) rs += dot_row<D>(dov, v + (size_t)j * ldv) * pr[j];
     rs = warp_sum(rs);
-    for (int j = lane; j < nk; j += 32) {
-      float vv[kHeadDim];
-      load_row32(v + (size_t)j * ldv, vv);
-      pr[j] = rbf(pr[j] * (dot32(dov, vv) - rs) * kAttnScale);
-    }
+    for (int j = lane; j < nk; j += 32)
+      pr[j] = rbf(pr[j] * (dot_row<D>(dov, v + (size_t)j * ldv) - rs) * attn_scale<D>());
   }
   __syncthreads();
-  for (int item = threadIdx.x; item < nq * kHeadDim; item += blockDim.x) {
-    const int i = item / kHeadDim, d = item % kHeadDim;
+  for (int item = threadIdx.x; item < nq * D; item += blockDim.x) {
+    const int i = item / D, d = item % D;
     const float* pr = P + i * nk;
     float acc = 0.f;
     for (int j = 0; j < nk; ++j) acc += pr[j] * tof(k[(size_t)j * ldk + d]);
     dq[(size_t)i * lddq + d] = __float2bfloat16(acc);
   }
-  for (int item = threadIdx.x; item < nk * kHeadDim; item += blockDim.x) {
-    const int j = item / kHeadDim, d = item % kHeadDim;
+  for (int item = threadIdx.x; item < nk * D; item += blockDim.x) {
+    const int j = item / D, d = item % D;
     float acc = 0.f;
     for (int i = 0; i < nq; ++i) acc += P[i * nk + j] * tof(q[(size_t)i * ldq + d]);
     dk[(size_t)j * lddk + d] = __float2bfloat16(acc);

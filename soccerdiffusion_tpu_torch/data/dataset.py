@@ -1,5 +1,5 @@
 """Windowed training dataset over in-memory recording arrays (counterpart of
-``soccerdiffusion_tpu/data/dataset.py``, proprioceptive configs).
+``soccerdiffusion_tpu/data/dataset.py``).
 
 Each recording's time series are held as contiguous numpy arrays and
 windows are gathered by slicing, with the JAX package's (and the
@@ -7,12 +7,17 @@ reference's) padding semantics:
 
   * history windows are left-padded with zeros;
   * IMU windows are left-padded with the identity quaternion;
+  * image windows keep the last <= F frames within (stamp - (F + 1) /
+    max_fps_video, stamp], right-aligned, normalised with the ImageNet
+    statistics, left-padded with zero images stamped at the context start;
   * the game state is the last state at or before the stamp, UNKNOWN if none.
 
 Index space: per recording (n_commands - future_len) / stride windows,
-concatenated. Given the same seed, ``batches`` and ``sample_targets`` give
-the same arrays as the JAX package. Image windows and ``from_sqlite`` are
-not ported yet.
+concatenated. Given the same seed, ``batches``, ``sample_targets``,
+``image_boundary_indices`` and ``oversampled_order`` give the same arrays as
+the JAX package. Frames must already be at ``image_resolution`` (the
+resize needs cv2, which the port does not use); ``from_sqlite`` is not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ import numpy as np
 from soccerdiffusion_tpu_torch.config import ModelConfig
 from soccerdiffusion_tpu_torch.data.schema import RobotState
 
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
 IDENTITY_QUAT = np.array([0.0, 0.0, 0.0, 1.0], dtype=np.float32)
 
 
@@ -43,6 +50,17 @@ def np_quats_to_5d(quats_xyzw: np.ndarray) -> np.ndarray:
                           axis=-1).astype(np.float32)
 
 
+def preprocess_image(raw_rgb8: np.ndarray, resolution: int) -> np.ndarray:
+    """uint8 (H, W, 3) RGB at ``resolution`` -> float32 scaled to [0, 1] and
+    normalised with the ImageNet statistics. A frame of another size would
+    need the JAX package's cv2 INTER_AREA resize, which is not ported."""
+    if raw_rgb8.shape[0] != resolution or raw_rgb8.shape[1] != resolution:
+        raise NotImplementedError(
+            f"a {raw_rgb8.shape[1]}x{raw_rgb8.shape[0]} frame needs a resize to {resolution} px, "
+            "which is not ported (cv2 INTER_AREA; see ROADMAP.md, 'H100 port')")
+    return (raw_rgb8.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
+
+
 @dataclass
 class RecordingArrays:
     """One recording's synchronized time series, in canonical joint order."""
@@ -52,20 +70,22 @@ class RecordingArrays:
     rotations: np.ndarray  # (n, 4) xyzw
     game_states: np.ndarray  # (m,) int32, sorted by stamp
     game_state_stamps: np.ndarray  # (m,) float32
+    image_stamps: np.ndarray | None = None  # (k,) float32, sorted
+    images: np.ndarray | None = None  # (k, H, W, 3) uint8
+    # the "vision" dummy task's cue latent per frame (data/dummy.py)
+    vision_u: np.ndarray | None = None
 
 
 class WindowedDataset:
     def __init__(self, recordings: list[RecordingArrays], config: ModelConfig,
-                 trajectory_stride: int = 1, sampling_rate: int = 100):
-        if config.use_images:
-            raise NotImplementedError("image windows come with the image path, which is not "
-                                      "ported yet (see ROADMAP.md)")
+                 trajectory_stride: int = 1, sampling_rate: int = 100, max_fps_video: int = 10):
         if not recordings:
             raise ValueError("no recordings")
         self.recordings = recordings
         self.cfg = config
         self.stride = trajectory_stride
         self.sampling_rate = sampling_rate
+        self.max_fps_video = max_fps_video
         future = config.trajectory_prediction_length
         self.sample_boundaries: list[tuple[int, int, int]] = []
         total = 0
@@ -86,7 +106,8 @@ class WindowedDataset:
             joint_states=d.joint_states[:, : config.num_joints],
             rotations=d.rotations,
             game_states=d.game_states,
-            game_state_stamps=(np.arange(len(d.game_states)) / 100).astype(np.float32))
+            game_state_stamps=(np.arange(len(d.game_states)) / 100).astype(np.float32),
+            image_stamps=d.image_stamps, images=d.images, vision_u=d.vision_u)
             for d in dummy_recordings]
         return cls(recs, config, **kwargs)
 
@@ -121,10 +142,66 @@ class WindowedDataset:
                                       IDENTITY_QUAT[None])
             out["rotation"] = (np_quats_to_5d(quats)
                                if cfg.imu_orientation_embedding_method == "five_dim" else quats)
+        if cfg.use_images:
+            out["image_data"], out["image_stamps"] = self._image_window(rec, stamp)
+            if rec.vision_u is not None:
+                # the latent of the newest visible frame (the window's visibility rule)
+                hi = np.searchsorted(rec.image_stamps, stamp, side="right")
+                out["vision_u"] = np.float32(rec.vision_u[hi - 1] if hi > 0 else 0.0)
+                out["vision_u_valid"] = np.float32(1.0 if hi > 0 else 0.0)
         if cfg.use_gamestate:
             gi = np.searchsorted(rec.game_state_stamps, stamp, side="right") - 1
             out["game_state"] = np.int32(rec.game_states[gi] if gi >= 0 else int(RobotState.UNKNOWN))
         return out
+
+    def _image_window(self, rec: RecordingArrays, stamp: float) -> tuple[np.ndarray, np.ndarray]:
+        """The last <= F frames within (stamp - (F + 1) / max_fps_video,
+        stamp], normalised, right-aligned; zero frames before them, stamped
+        at the context start."""
+        num_frames, res = self.cfg.image_context_length, self.cfg.image_resolution
+        context_len = (num_frames + 1) / self.max_fps_video
+        frames = np.zeros((num_frames, res, res, 3), dtype=np.float32)
+        stamps = np.full((num_frames,), stamp - context_len, dtype=np.float32)
+        if rec.images is None or rec.image_stamps is None:
+            return frames, stamps
+        lo = np.searchsorted(rec.image_stamps, stamp - context_len, side="left")
+        hi = np.searchsorted(rec.image_stamps, stamp, side="right")
+        sel = np.arange(lo, hi)[-num_frames:]
+        for j, k in enumerate(sel):
+            frames[num_frames - len(sel) + j] = preprocess_image(rec.images[k], res)
+        stamps[num_frames - len(sel):] = rec.image_stamps[sel]
+        return frames, stamps
+
+    @staticmethod
+    def oversampled_order(n: int, special: np.ndarray, frac: float,
+                          rng: np.random.Generator) -> np.ndarray:
+        """An epoch's window order: a uniform permutation with ``frac`` of
+        its slots re-drawn (with replacement) from ``special``."""
+        order = rng.permutation(n)
+        if frac <= 0.0 or len(special) == 0:
+            return order
+        k = int(round(frac * n))
+        slots = rng.choice(n, size=k, replace=False)
+        order[slots] = rng.choice(special, size=k, replace=True)
+        return order
+
+    def image_boundary_indices(self) -> np.ndarray:
+        """Window indices whose stamp coincides with an image stamp: the
+        windows where a camera frame has just become visible."""
+        out = []
+        if not self.cfg.use_images:
+            return np.asarray(out, dtype=np.int64)
+        half_tick = 0.5 / self.sampling_rate
+        for start_sample, end_sample, ri in self.sample_boundaries:
+            rec = self.recordings[ri]
+            if rec.images is None or rec.image_stamps is None or not len(rec.image_stamps):
+                continue
+            for idx in range(start_sample, end_sample):
+                stamp = (idx - start_sample) * self.stride / self.sampling_rate
+                k = np.searchsorted(rec.image_stamps, stamp + half_tick) - 1
+                if k >= 0 and abs(float(rec.image_stamps[k]) - stamp) < half_tick:
+                    out.append(idx)
+        return np.asarray(out, dtype=np.int64)
 
     def sample_targets(self, num_samples: int, seed: int = 0) -> np.ndarray:
         """Random target chunks stacked along time, for ``Normalizer.fit``."""
@@ -132,11 +209,13 @@ class WindowedDataset:
         return np.concatenate([self[int(i)]["joint_command"] for i in idx], axis=0)
 
     def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0,
-                drop_remainder: bool = True):
-        """Yield stacked numpy batch dicts for one epoch."""
-        order = np.arange(len(self))
-        if shuffle:
-            np.random.default_rng(seed).shuffle(order)
+                drop_remainder: bool = True, order: np.ndarray | None = None):
+        """Yield stacked numpy batch dicts for one epoch; an explicit window
+        ``order`` (``oversampled_order``) overrides ``shuffle`` / ``seed``."""
+        if order is None:
+            order = np.arange(len(self))
+            if shuffle:
+                np.random.default_rng(seed).shuffle(order)
         limit = len(order) - (len(order) % batch_size if drop_remainder else 0)
         for i in range(0, limit, batch_size):
             chunk = [self[int(j)] for j in order[i: i + batch_size]]

@@ -1,7 +1,11 @@
-"""Host-side batch preparation and the host -> device prefetch (counterpart
-of ``prepare_batch`` and ``prefetch_to_device`` in
-``soccerdiffusion_tpu/data/pipeline.py``, proprioceptive batches).
+"""Batch preparation, the ViT patch layout and the host -> device prefetch
+(counterpart of ``prepare_batch``, ``device_normalize_images``,
+``patchify_frames`` and ``prefetch_to_device`` in
+``soccerdiffusion_tpu/data/pipeline.py``).
 
+Packed batches carry frames as uint8 (``image_u8``, whole frames or
+pre-patchified) with an ``image_valid`` mask; they stay uint8 through
+pinning and the host -> device copy, and are normalised on the device.
 ``DeviceResidentData`` and ``dropout_modalities`` are not ported yet.
 """
 
@@ -15,12 +19,45 @@ import numpy as np
 import torch
 
 
-def prepare_batch(batch: dict) -> dict:
-    """The JAX package materialises normalised images from a packed uint8
-    batch here; proprioceptive batches pass through unchanged."""
-    if "image_u8" in batch or "image_data" in batch:
-        raise NotImplementedError("image batches come with the image path, which is not ported "
-                                  "yet (see ROADMAP.md)")
+def device_normalize_images(u8: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """uint8 frame windows (..., H, W, 3) or pre-patchified (..., patches,
+    P*P*3) and their validity mask (...) -> float32 frames scaled to [0, 1],
+    normalised with the ImageNet statistics, padded frames zeroed."""
+    from soccerdiffusion_tpu_torch.data.dataset import IMAGENET_MEAN, IMAGENET_STD
+
+    mean = torch.as_tensor(IMAGENET_MEAN, device=u8.device)
+    std = torch.as_tensor(IMAGENET_STD, device=u8.device)
+    if u8.shape[-1] != 3:  # pre-patchified: the channels repeat every 3 along the last axis
+        reps = u8.shape[-1] // 3
+        x = (u8.float() / 255.0 - mean.repeat(reps)) / std.repeat(reps)
+        return x * valid[..., None, None]
+    x = (u8.float() / 255.0 - mean) / std
+    return x * valid[..., None, None, None]
+
+
+def patchify_frames(frames, patch: int):
+    """(..., H, W, C) -> (..., (H // P) (W // P), P*P*C), numpy or torch, any
+    dtype: the ViT's patch layout (patches row-major, each patch's pixels
+    row-major with channels last)."""
+    *lead, h, w, c = frames.shape
+    p = patch
+    x = frames.reshape(*lead, h // p, p, w // p, p, c)
+    n = x.ndim
+    perm = (*range(n - 5), n - 5, n - 3, n - 4, n - 2, n - 1)
+    x = x.transpose(perm) if isinstance(x, np.ndarray) else x.permute(perm)
+    return x.reshape(*lead, (h // p) * (w // p), p * p * c)
+
+
+def prepare_batch(batch: dict, keep_u8: bool = False) -> dict:
+    """Materialise normalised ``image_data`` from a packed uint8 batch
+    (``image_u8`` + ``image_valid``); float batches pass through. With
+    ``keep_u8`` the uint8 frames stay for a model that takes them raw (the
+    ViT folds the normalisation into its patch embedding)."""
+    if "image_u8" not in batch or keep_u8:
+        return batch
+    batch = dict(batch)
+    u8, valid = batch.pop("image_u8"), batch.pop("image_valid")
+    batch["image_data"] = device_normalize_images(u8, valid)
     return batch
 
 

@@ -51,7 +51,7 @@ class DiffusionPolicy(nn.Module):
                 E, cfg.image_encoder_type, cfg.image_sequence_encoder_type,
                 cfg.num_image_sequence_encoder_layers, cfg.image_context_length,
                 cfg.image_resolution, (cfg.vit_patch_size, cfg.vit_width, cfg.vit_depth),
-                cfg.vit_fused_block, cfg.vit_fused_gelu, fused)
+                cfg.vit_fused_block, cfg.vit_fused_gelu, fused, _DTYPES[cfg.compute_dtype])
         if cfg.use_gamestate:
             self.game_state_encoder = GameStateEncoder(E)
         self.diffusion_action_generator = DiffusionActionGenerator(
@@ -66,8 +66,11 @@ class DiffusionPolicy(nn.Module):
         """(B, S, hidden) context tokens in canonical order: action history,
         IMU, joint states, images, game state. The image tokens come from
         ``batch["image_tokens"]`` (the serving cache of per-frame encodings,
-        (B, F, hidden): only the frame-sequence encoder runs) or from the
-        frames ``batch["image_data"]`` (B, F, H, W, 3)."""
+        (B, F, hidden): only the frame-sequence encoder runs), from the packed
+        raw uint8 frames ``batch["image_u8"]`` (B, F, H, W, 3) or
+        pre-patchified (B, F, patches, P*P*3) with ``batch["image_valid"]``
+        (B, F) (the ViT folds their normalisation), or from the normalised
+        frames ``batch["image_data"]``."""
         cfg = self.config
         context = []
         if cfg.use_action_history:
@@ -81,8 +84,8 @@ class DiffusionPolicy(nn.Module):
                 context.append(self.image_sequence_encoder(batch["image_tokens"].to(self.dtype),
                                                            mode="sequence"))
             elif "image_u8" in batch:
-                raise NotImplementedError("the packed uint8 image batch comes with the flagship "
-                                          "training slice (see ROADMAP.md, 'H100 port')")
+                context.append(self.image_sequence_encoder(batch["image_u8"],
+                                                           valid=batch["image_valid"]))
             else:
                 context.append(self.image_sequence_encoder(batch["image_data"].to(self.dtype)))
         if cfg.use_gamestate:
@@ -96,7 +99,8 @@ class DiffusionPolicy(nn.Module):
         """Per-frame image tokens (B, K, hidden) of frames (B, K, H, W, 3),
         without the frame-sequence encoder: the cacheable half of the image
         pathway, run once per frame as it arrives."""
-        return self.image_sequence_encoder(frames.to(self.dtype), valid=valid, mode="frames")
+        frames = frames if valid is not None else frames.to(self.dtype)  # raw uint8 with valid
+        return self.image_sequence_encoder(frames, valid=valid, mode="frames")
 
     def forward_with_cue(self, *args, **kwargs):
         raise NotImplementedError("aux_cue_head / forward_with_cue (a training head) is not "

@@ -40,6 +40,7 @@ _ENTRIES = {
     "sd_decoder_layer_fwd": [ctypes.POINTER(_P), _I, _P],
     "sd_decoder_layer_bwd": [ctypes.POINTER(_P), _I, _P],
     "sd_vit_block_fwd": [ctypes.POINTER(_P), _I, _P],
+    "sd_vit_block_bwd": [ctypes.POINTER(_P), _I, _P],
 }
 
 

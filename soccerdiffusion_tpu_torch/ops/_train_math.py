@@ -1,12 +1,12 @@
-"""Math and operand checks shared by the two training ops
-(``ops/fused_encoder_stack.py`` and ``ops/fused_decoder_layer.py``).
+"""Math and operand checks shared by the training ops
+(``ops/fused_encoder_stack.py``, ``ops/fused_decoder_layer.py`` and
+``ops/fused_vit_block.py``).
 
 The plain pieces follow the TPU kernels' casts: fp32 LayerNorm, softmax and
 residual stream; ``rnd`` marks each rounding to the compute dtype before
-the next product. ``check_forward_operands`` / ``check_backward_operands``
-state what the CUDA training kernels take, and the sizes below mirror
-``csrc/weight_grads.cu`` and the shared-memory budget of one H100 thread
-block.
+the next product. ``check_operands`` states what the CUDA training kernels
+take, and the sizes below mirror ``csrc/weight_grads.cu`` and the
+shared-memory budget of one H100 thread block.
 """
 
 from __future__ import annotations
@@ -46,11 +46,22 @@ def ln_bwd(dn, xhat, rstd, g):
     return rstd * (dxhat - m1 - xhat * m2)
 
 
-def gelu_cdf(z):
+GELUS = ("exact", "quick")
+
+
+def gelu_gate(z, gelu="exact"):
+    """cdf(z) of GELU(z) = z * cdf(z), fp32: the normal CDF Phi(z), or
+    sigmoid(1.702 z) for quick-GELU."""
+    if gelu == "quick":
+        return 1.0 / (1.0 + torch.exp(-1.702 * z))
     return 0.5 * (1.0 + torch.erf(z * (1.0 / math.sqrt(2.0))))
 
 
-def gelu_grad(z, cdf):
+def gelu_grad(z, cdf, gelu="exact"):
+    """d GELU(z) / dz given ``cdf`` = gelu_gate(z): Phi(z) + z phi(z), or
+    s (1 + 1.702 z (1 - s)) for quick-GELU."""
+    if gelu == "quick":
+        return cdf * (1.0 + 1.702 * z * (1.0 - cdf))
     return cdf + z * torch.exp(-0.5 * z * z) * (1.0 / math.sqrt(2.0 * math.pi))
 
 
@@ -99,20 +110,18 @@ def r8(n: int) -> int:
     return -(-n // 8) * 8
 
 
-def check_forward_operands(x: torch.Tensor, w: list[torch.Tensor], num_heads: int, ff: int,
-                           tile: int, head_dims: tuple[int, ...] = (32, 64)) -> None:
-    """Raise ``ValueError`` for what a CUDA forward kernel of the training
-    ops does not take: a non-bf16 dtype, a head_dim outside ``head_dims``
-    (the encoder stack has instances for 32 and 64, the decoder layer for
-    32), an MLP width ``ff`` that is no multiple of 8, or an attention tile
-    (``tile`` fp32 scores) over one block's shared memory."""
+def check_operands(x: torch.Tensor, w: list[torch.Tensor], num_heads: int, ff: int,
+                   tile: int) -> None:
+    """Raise ``ValueError`` for what a CUDA kernel of the training ops does
+    not take: a non-bf16 dtype, a head_dim other than 32 or 64, an MLP width
+    ``ff`` that is no multiple of 8, or an attention tile (``tile`` fp32
+    scores) over one block's shared memory."""
     if x.dtype != torch.bfloat16:
         raise ValueError("the CUDA training kernels take bfloat16 (compute_dtype='bfloat16'); "
                          f"got {x.dtype}")
     E = x.shape[-1]
-    if E not in [d * num_heads for d in head_dims]:
-        raise ValueError(f"this CUDA kernel takes head_dim {' or '.join(map(str, head_dims))}, "
-                         f"got {E / num_heads:g}")
+    if E not in (32 * num_heads, 64 * num_heads):
+        raise ValueError(f"the CUDA training kernels take head_dim 32 or 64, got {E / num_heads:g}")
     if any(t.device != x.device for t in w):
         raise ValueError("weights and activations must be on one CUDA device")
     if ff % 8:
@@ -121,15 +130,3 @@ def check_forward_operands(x: torch.Tensor, w: list[torch.Tensor], num_heads: in
     if 4 * tile > MAX_SMEM:
         raise ValueError(f"{tile} attention scores per head exceed one thread block's shared "
                          "memory: too many rows for the CUDA training kernels")
-
-
-def check_backward_operands(dy: torch.Tensor, w: list[torch.Tensor], num_heads: int, ff: int,
-                            tile: int) -> None:
-    """The backward kernels take head_dim 32: ``NotImplementedError`` for
-    head_dim 64 (its backward comes with the flagship training slice),
-    else ``check_forward_operands`` at head_dim 32."""
-    if dy.shape[-1] == 64 * num_heads:
-        raise NotImplementedError(
-            "the CUDA backward kernels take head_dim 32; head_dim 64 comes with the flagship "
-            "training slice (see ROADMAP.md, 'H100 port', Queue 1)")
-    check_forward_operands(dy, w, num_heads, ff, tile, head_dims=(32,))

@@ -13,7 +13,9 @@ Dense kernels as (in, out), self-attention q | k | v concatenated.
 ``ops/fused_encoder_stack.py`` for the float32-master convention and the
 dispatch). ``forward_plain`` follows ``_decoder_core`` line by line,
 ``backward_plain`` the hand-derived backward of ``_make_bwd_kernel``.
-``FusedDecoderLayer.fwd_launches`` / ``.bwd_launches`` count kernel launches.
+A CUDA tensor launches the kernels (bf16, head_dim 32 or 64) or raises.
+``FusedDecoderLayer.fwd_launches`` / ``.bwd_launches`` count kernel launches,
+``.fwd_launches_hd64`` / ``.bwd_launches_hd64`` the head_dim-64 ones among them.
 """
 
 from __future__ import annotations
@@ -25,8 +27,8 @@ from soccerdiffusion_tpu_torch.ops._train_math import (
     ROWS_PER_SPLIT,
     attention,
     attention_bwd,
-    check_forward_operands,
-    gelu_cdf,
+    check_operands,
+    gelu_gate,
     gelu_grad,
     ln_bwd,
     ln_fwd,
@@ -95,7 +97,7 @@ def _core(x, mem, w, num_heads):
     n3_32, xh3, r3 = ln_fwd(x3, g3, be3)
     n3 = rnd(n3_32, dtype)
     z = n3 @ w1 + b1
-    cdf = gelu_cdf(z)
+    cdf = gelu_gate(z)
     hg = rnd(z * cdf, dtype)
     y = x3 + hg @ w2 + b2
     return dict(xh1=xh1, r1=r1, n1=n1, q=q, k=k, v=v, p1=p1, om1=om1, xh2=xh2, r2=r2, n2=n2,
@@ -169,7 +171,7 @@ def _check(x, mem, w, num_heads):
         raise ValueError(f"memory {tuple(mem.shape)} {mem.dtype} does not match x "
                          f"{tuple(x.shape)} {x.dtype}")
     FF = w[18].shape[-1]
-    check_forward_operands(x, w, num_heads, FF, T * max(T, mem.shape[1]), head_dims=(32,))
+    check_operands(x, w, num_heads, FF, T * max(T, mem.shape[1]))
     return B, T, mem.shape[1], E, FF
 
 
@@ -188,6 +190,7 @@ def forward_kernel(x, mem, w, num_heads) -> torch.Tensor:
         _build.ints(B, T, S, E, num_heads, FF, s32, sbf), _build.stream(dev))
     _build.check("sd_decoder_layer_fwd", err)
     FusedDecoderLayer.fwd_launches += 1
+    FusedDecoderLayer.fwd_launches_hd64 += E == 64 * num_heads
     return y
 
 
@@ -219,6 +222,7 @@ def backward_kernel(x, mem, dy, w, num_heads):
         _build.ints(B, T, S, E, num_heads, FF, s32, sbf, ROWS_PER_SPLIT), _build.stream(dev))
     _build.check("sd_decoder_layer_bwd", err)
     FusedDecoderLayer.bwd_launches += 1
+    FusedDecoderLayer.bwd_launches_hd64 += E == 64 * num_heads
     (dg1, dbe1, dbqkv, dbso, dg2, dbe2, dbcq, dbck, dbcv, dbco, dg3, dbe3, db1,
      db2) = gvec.split([E, E, 3 * E, E, E, E, E, E, E, E, E, E, FF, E])
     dwqkv, dwso, dwcq, dwck, dwcv, dwco, dw1, dw2 = mats
@@ -231,7 +235,9 @@ class FusedDecoderLayer(torch.autograd.Function):
     """(x, mem, num_heads, *22 float32 weights) -> y."""
 
     fwd_launches = 0
+    fwd_launches_hd64 = 0
     bwd_launches = 0
+    bwd_launches_hd64 = 0
 
     @staticmethod
     def forward(ctx, x, mem, num_heads, *weights):

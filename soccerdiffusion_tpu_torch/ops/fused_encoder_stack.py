@@ -14,13 +14,16 @@ float32 master weights and casts them to the compute dtype (the dtype of
 x) inside, so the weight gradients it returns, float32, reach the
 parameters unrounded (a bf16 input would have its float32 gradient rounded
 to bf16 by the autograd engine). A CUDA tensor launches the kernels (bf16,
-head_dim 32) or raises; a CPU tensor runs the plain versions below, which
-follow the TPU kernel's casts line by line: ``forward_plain`` is
+head_dim 32 or 64) or raises; a CPU tensor runs the plain versions below,
+which follow the TPU kernel's casts line by line: ``forward_plain`` is
 ``_stack_core`` over the layers, ``backward_plain`` the hand-derived
 backward of ``_make_bwd_kernel`` (not autograd), so that on the card
-kernel and plain version differ by summation order only.
+kernel and plain version differ by summation order only. Both take the
+GELU as an argument for the fused ViT block (``ops/fused_vit_block.py``),
+which is one such layer; the stack itself is exact GELU.
 ``FusedEncoderStack.fwd_launches`` / ``.bwd_launches`` count kernel launches;
-``.fwd_launches_hd64`` counts the forward's head_dim-64 launches among them.
+``.fwd_launches_hd64`` / ``.bwd_launches_hd64`` count the head_dim-64
+launches among them.
 """
 
 from __future__ import annotations
@@ -32,9 +35,8 @@ from soccerdiffusion_tpu_torch.ops._train_math import (
     ROWS_PER_SPLIT,
     attention,
     attention_bwd,
-    check_backward_operands,
-    check_forward_operands,
-    gelu_cdf,
+    check_operands,
+    gelu_gate,
     gelu_grad,
     ln_bwd,
     ln_fwd,
@@ -73,7 +75,7 @@ def encoder_stack(x: torch.Tensor, weights: list[torch.Tensor], num_heads: int) 
 
 # ------------------------------------------------------- plain versions
 
-def _layer(x32, w, num_heads, dtype):
+def _layer(x32, w, num_heads, dtype, gelu="exact"):
     """One layer's forward with every intermediate (``_stack_core``)."""
     g1, be1, wqkv, bqkv, wo, bo, g2, be2, w1, b1, w2, b2 = (t.float() for t in w)
     E = x32.shape[-1]
@@ -86,39 +88,40 @@ def _layer(x32, w, num_heads, dtype):
     n2_32, xh2, r2 = ln_fwd(x2, g2, be2)
     n2 = rnd(n2_32, dtype)
     z = n2 @ w1 + b1
-    cdf = gelu_cdf(z)
+    cdf = gelu_gate(z, gelu)
     hg = rnd(z * cdf, dtype)
     y = x2 + hg @ w2 + b2
     return dict(xh1=xh1, r1=r1, n1=n1, q=q, k=k, v=v, p=p, om=om, xh2=xh2, r2=r2, n2=n2,
                 z=z, cdf=cdf, hg=hg, y=y)
 
 
-def forward_plain(x: torch.Tensor, w: list[torch.Tensor], num_heads: int) -> torch.Tensor:
+def forward_plain(x: torch.Tensor, w: list[torch.Tensor], num_heads: int,
+                  gelu: str = "exact") -> torch.Tensor:
     """The plain PyTorch version of the forward kernel, on any device."""
     x32 = x.float()
     for l in range(w[0].shape[0]):
-        x32 = _layer(x32, [t[l] for t in w], num_heads, x.dtype)["y"]
+        x32 = _layer(x32, [t[l] for t in w], num_heads, x.dtype, gelu)["y"]
     return x32.to(x.dtype)
 
 
-def backward_plain(x: torch.Tensor, dy: torch.Tensor, w: list[torch.Tensor],
-                   num_heads: int) -> tuple[torch.Tensor, list[torch.Tensor]]:
+def backward_plain(x: torch.Tensor, dy: torch.Tensor, w: list[torch.Tensor], num_heads: int,
+                   gelu: str = "exact") -> tuple[torch.Tensor, list[torch.Tensor]]:
     """The plain PyTorch version of the backward kernel: dx in x's dtype and
     the 12 stacked float32 weight gradients."""
     dtype, L = x.dtype, w[0].shape[0]
     xs = [x.float()]
     for l in range(L - 1):
-        xs.append(_layer(xs[-1], [t[l] for t in w], num_heads, dtype)["y"])
+        xs.append(_layer(xs[-1], [t[l] for t in w], num_heads, dtype, gelu)["y"])
     g = dy.float()
     grads = [[None] * L for _ in STACK_WEIGHTS]
     for l in reversed(range(L)):
         wl = [t[l].float() for t in w]
         g1, _, wqkv, _, wo, _, g2, _, w1, _, w2, _ = wl
-        c = _layer(xs[l], wl, num_heads, dtype)
+        c = _layer(xs[l], wl, num_heads, dtype, gelu)
         # MLP
         gc = rnd(g, dtype)
         dw2, db2 = tdot(c["hg"], gc), rsum(g)
-        dz = (gc @ w2.t()) * gelu_grad(c["z"], c["cdf"])
+        dz = (gc @ w2.t()) * gelu_grad(c["z"], c["cdf"], gelu)
         dzc = rnd(dz, dtype)
         dw1, db1 = tdot(c["n2"], dzc), rsum(dz)
         dn2 = dzc @ w1.t()
@@ -152,7 +155,7 @@ def forward_kernel(x: torch.Tensor, w: list[torch.Tensor],
     """The forward kernel on CUDA tensors: y (B, T, E) bf16 and the fp32
     input of every layer, acts (L, B, T, E), kept for the backward."""
     (B, T, E), L, FF = x.shape, w[0].shape[0], w[8].shape[-1]
-    check_forward_operands(x, w, num_heads, FF, T * T)
+    check_operands(x, w, num_heads, FF, T * T)
     dev = x.device
     x = x.contiguous()
     w = [t.contiguous() for t in w]
@@ -171,38 +174,51 @@ def forward_kernel(x: torch.Tensor, w: list[torch.Tensor],
     return y, acts
 
 
+def backward_buffers(L: int, B: int, T: int, E: int, FF: int, dev) -> tuple[list, list, tuple]:
+    """What a backward kernel over B blocks of T rows and L layers writes:
+    the 4 stacked weight-matrix gradients and the (L, 9E + FF) vector
+    gradients, the scratch (ws32, wsbf, saved, vpart, tpart), and the
+    workspace strides."""
+    s32, sbf = _ws_strides(T, E, FF)
+    V = 9 * E + FF  # g1 be1 bqkv(3E) bo g2 be2 b1(FF) b2
+    mats = [torch.empty((L, E, 3 * E), device=dev), torch.empty((L, E, E), device=dev),
+            torch.empty((L, E, FF), device=dev), torch.empty((L, FF, E), device=dev)]
+    splits = -(-B * T // ROWS_PER_SPLIT)
+    scratch = [torch.empty((B, s32), device=dev),
+               torch.empty((B, sbf), dtype=torch.bfloat16, device=dev),
+               torch.empty((L, B * T, 8 * E + 2 * FF), dtype=torch.bfloat16, device=dev),
+               torch.empty((B, L, V), device=dev),
+               torch.empty(splits * L * (E * 3 * E + E * E + 2 * E * FF), device=dev)]
+    return [*mats, torch.empty((L, V), device=dev)], scratch, (s32, sbf)
+
+
+def stacked_grads(outs: list[torch.Tensor], E: int, FF: int) -> list[torch.Tensor]:
+    """``backward_buffers``' outputs as the 12 gradients in STACK_WEIGHTS order."""
+    *mats, gvec = outs
+    vec = gvec.split([E, E, 3 * E, E, E, E, FF, E], dim=1)
+    return [vec[0], vec[1], mats[0], vec[2], mats[1], vec[3], vec[4], vec[5], mats[2], vec[6],
+            mats[3], vec[7]]
+
+
 def backward_kernel(acts: torch.Tensor, dy: torch.Tensor, w: list[torch.Tensor],
                     num_heads: int) -> tuple[torch.Tensor, list[torch.Tensor]]:
     """The backward kernel on CUDA tensors: dx (bf16) and the 12 stacked
     float32 weight gradients, summed over the batch in a fixed order."""
     L, B, T, E = acts.shape
     FF = w[8].shape[-1]
-    check_backward_operands(dy, w, num_heads, FF, T * T)
-    dev = dy.device
+    check_operands(dy, w, num_heads, FF, T * T)
     dy = dy.contiguous()
     w = [t.contiguous() for t in w]
     wt = [w[i].transpose(-1, -2).contiguous() for i in (2, 4, 8, 10)]  # wqkv, wo, w1, w2
-    s32, sbf = _ws_strides(T, E, FF)
-    V = 9 * E + FF  # g1 be1 bqkv(3E) bo g2 be2 b1(FF) b2
+    outs, scratch, (s32, sbf) = backward_buffers(L, B, T, E, FF, dy.device)
     dx = torch.empty_like(dy)
-    mats = [torch.empty((L, E, 3 * E), device=dev), torch.empty((L, E, E), device=dev),
-            torch.empty((L, E, FF), device=dev), torch.empty((L, FF, E), device=dev)]
-    gvec = torch.empty((L, V), device=dev)
-    splits = -(-B * T // ROWS_PER_SPLIT)
-    tpart = torch.empty(splits * L * (E * 3 * E + E * E + 2 * E * FF), device=dev)
-    ws32 = torch.empty((B, s32), device=dev)
-    wsbf = torch.empty((B, sbf), dtype=torch.bfloat16, device=dev)
-    saved = torch.empty((L, B * T, 8 * E + 2 * FF), dtype=torch.bfloat16, device=dev)
-    vpart = torch.empty((B, L, V), device=dev)
     err = _build.library().sd_encoder_stack_bwd(
-        _build.pointers(acts, dy, *w, *wt, dx, *mats, gvec, ws32, wsbf, saved, vpart, tpart),
-        _build.ints(B, T, E, num_heads, FF, L, s32, sbf, ROWS_PER_SPLIT), _build.stream(dev))
+        _build.pointers(acts, dy, *w, *wt, dx, *outs, *scratch),
+        _build.ints(B, T, E, num_heads, FF, L, s32, sbf, ROWS_PER_SPLIT), _build.stream(dy.device))
     _build.check("sd_encoder_stack_bwd", err)
     FusedEncoderStack.bwd_launches += 1
-    vec = gvec.split([E, E, 3 * E, E, E, E, FF, E], dim=1)
-    grads = [vec[0], vec[1], mats[0], vec[2], mats[1], vec[3], vec[4], vec[5], mats[2], vec[6],
-             mats[3], vec[7]]
-    return dx, grads
+    FusedEncoderStack.bwd_launches_hd64 += E == 64 * num_heads
+    return dx, stacked_grads(outs, E, FF)
 
 
 class FusedEncoderStack(torch.autograd.Function):
@@ -211,6 +227,7 @@ class FusedEncoderStack(torch.autograd.Function):
     fwd_launches = 0
     fwd_launches_hd64 = 0
     bwd_launches = 0
+    bwd_launches_hd64 = 0
 
     @staticmethod
     def forward(ctx, x, num_heads, *weights):

@@ -2,7 +2,7 @@
 ``soccerdiffusion_tpu/training/train.py``):
 
   python -m soccerdiffusion_tpu_torch.training.train -c config.yaml [-p ckpt_dir]
-      [-o out_dir] [--dummy-data] [--epochs N] [--steps-per-epoch N]
+      [-o out_dir] [--dummy-data] [--packed] [--epochs N] [--steps-per-epoch N]
       [--seed S] [--metrics metrics.jsonl] [--decoder-pretraining] [--device cuda|cpu]
 
 Config-or-checkpoint hyperparameters (the config wins, with warnings for
@@ -14,8 +14,12 @@ runs the loop from a ``Config`` and needs no YAML. The log reports steps/s
 (host clock, one device sync per logging window) where the JAX package
 reports its TPU MFU meter.
 
-Only the synthetic dataset (``--dummy-data``) is ported: the SQLite
-dataset comes with ``WindowedDataset.from_sqlite`` (see ROADMAP.md).
+Only the synthetic dataset (``--dummy-data``, frames drawn at the config's
+``image_resolution``) is ported: the SQLite dataset comes with
+``WindowedDataset.from_sqlite`` (see ROADMAP.md). ``--packed`` trains from a
+``PackedDataset`` (uint8 frames, pre-patchified for the ViT);
+``boundary_oversample`` re-draws that share of each epoch's windows from
+those where a camera frame has just arrived, as the JAX trainer does.
 """
 
 from __future__ import annotations
@@ -25,10 +29,12 @@ import logging
 import time
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from soccerdiffusion_tpu_torch.config import Config
 from soccerdiffusion_tpu_torch.data import Normalizer, WindowedDataset, generate_dummy_arrays
+from soccerdiffusion_tpu_torch.data.packed import PackedDataset
 from soccerdiffusion_tpu_torch.data.pipeline import prefetch_to_device
 from soccerdiffusion_tpu_torch.diffusion import make_schedule
 from soccerdiffusion_tpu_torch.models import DiffusionPolicy
@@ -52,6 +58,7 @@ class RunOptions:
     output: str = "trajectory_transformer_model.ckpt"
     checkpoint: str | None = None
     dummy_data: bool = True
+    packed: bool = False
     epochs: int | None = None
     steps_per_epoch: int | None = None
     seed: int = 0
@@ -68,6 +75,8 @@ def parse_args(argv=None):
     parser.add_argument("--decoder-pretraining", action="store_true")
     parser.add_argument("--dummy-data", action="store_true",
                         help="train on the synthetic array backend")
+    parser.add_argument("--packed", action="store_true",
+                        help="train from the packed dataset (uint8 frames, pre-patchified for the ViT)")
     parser.add_argument("--epochs", type=int, default=None, help="override epochs")
     parser.add_argument("--steps-per-epoch", type=int, default=None,
                         help="cap steps per epoch (smoke runs)")
@@ -97,15 +106,31 @@ def resolve_params(args) -> dict:
     return params
 
 
-def build_dataset(config: Config, seed: int, dummy_data: bool) -> WindowedDataset:
+def build_dataset(config: Config, seed: int, dummy_data: bool,
+                  packed: bool = False) -> WindowedDataset | PackedDataset:
     if not dummy_data:
         raise NotImplementedError("the SQLite dataset is not ported yet (see ROADMAP.md); "
                                   "use --dummy-data")
     m = config.model
     n = max(600, m.action_context_length + m.trajectory_prediction_length + 200)
     dummy = generate_dummy_arrays(num_recordings=2, num_samples=n, num_joints=m.num_joints,
-                                  with_images=m.use_images, seed=seed, task=config.train.dummy_task)
-    return WindowedDataset.from_dummy(dummy, m)
+                                  with_images=m.use_images, image_size=m.image_resolution,
+                                  seed=seed, task=config.train.dummy_task)
+    dataset = WindowedDataset.from_dummy(dummy, m)
+    if packed:
+        dataset = PackedDataset.from_windowed(dataset)
+        if m.use_images and m.image_encoder_type == "vit":
+            dataset.prepatchify_images(m.vit_patch_size)  # batches in the patch layout
+    return dataset
+
+
+def epoch_order(dataset, boundary: np.ndarray | None, frac: float, seed: int) -> np.ndarray | None:
+    """The epoch's window order under boundary oversampling, or None (the
+    dataset's own shuffle) when there is nothing to oversample."""
+    if boundary is None or not len(boundary):
+        return None
+    return WindowedDataset.oversampled_order(len(dataset), boundary, frac,
+                                             np.random.default_rng(seed))
 
 
 def train(config: Config, opts: RunOptions, hyperparams: dict | None = None):
@@ -116,7 +141,7 @@ def train(config: Config, opts: RunOptions, hyperparams: dict | None = None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device={opts.device!r} requested but CUDA is not available "
                            "(pass device='cpu' / --device cpu for the CPU)")
-    dataset = build_dataset(config, opts.seed, opts.dummy_data)
+    dataset = build_dataset(config, opts.seed, opts.dummy_data, opts.packed)
     steps_per_epoch = len(dataset) // tc.batch_size
     if opts.steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, opts.steps_per_epoch)
@@ -141,6 +166,11 @@ def train(config: Config, opts: RunOptions, hyperparams: dict | None = None):
                               normalizer, decoder_pretraining=opts.decoder_pretraining,
                               ema_decay=tc.ema_decay, modality_dropout=tc.modality_dropout,
                               aux_cue_weight=tc.aux_cue_weight)
+    boundary = None
+    if tc.boundary_oversample > 0.0:
+        boundary = dataset.image_boundary_indices()
+        logger.info(f"boundary oversampling {tc.boundary_oversample:g}: {len(boundary)} boundary "
+                    f"windows of {len(dataset)}")
     generator = torch.Generator(device=device).manual_seed(opts.seed)
     metrics_logger = MetricsLogger(opts.metrics)
     log_every = max(1, tc.log_every)
@@ -148,8 +178,10 @@ def train(config: Config, opts: RunOptions, hyperparams: dict | None = None):
     try:
         for epoch in range(start_epoch, epochs):
             window, t0 = 0, time.perf_counter()
+            order = epoch_order(dataset, boundary, tc.boundary_oversample, opts.seed + epoch)
             batches = prefetch_to_device(
-                dataset.batches(tc.batch_size, shuffle=True, seed=opts.seed + epoch), device)
+                dataset.batches(tc.batch_size, shuffle=True, seed=opts.seed + epoch, order=order),
+                device)
             for i, batch in enumerate(batches):
                 if i >= steps_per_epoch:
                     batches.close()
@@ -179,7 +211,8 @@ def main(argv=None):
     if args.epochs is not None:
         params["epochs"] = args.epochs
     opts = RunOptions(output=args.output, checkpoint=args.checkpoint, dummy_data=args.dummy_data,
-                      epochs=args.epochs, steps_per_epoch=args.steps_per_epoch, seed=args.seed,
+                      packed=args.packed, epochs=args.epochs,
+                      steps_per_epoch=args.steps_per_epoch, seed=args.seed,
                       metrics=args.metrics, decoder_pretraining=args.decoder_pretraining,
                       device=args.device)
     return train(Config.from_dict(params), opts, hyperparams=params)

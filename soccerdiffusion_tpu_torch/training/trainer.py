@@ -154,7 +154,7 @@ class TrainStep:
         random context tokens."""
         model = self.model
         model.train()
-        batch = prepare_batch(batch)
+        batch = prepare_batch(batch, keep_u8=model.config.use_images)
         targets = self.normalizer.normalize(batch["joint_command"].float())
         noisy = add_noise(self.schedule, targets, noise, t)
         if self.decoder_pretraining:

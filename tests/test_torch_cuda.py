@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
 shapes off the main paths (serving: patch 2, five-dim IMU, no game state,
 short contexts, 5-step chunks, a batch that is no multiple of anything,
-decoder head_dim 64 at h128; training: B=5, T=7, S=33; the ViT block: T=49
-tokens, N=7 frames, exact GELU, head_dim 64 and 32).
+decoder head_dim 64 at h128; training: B=5, T=7, S=33, head_dim 32 and 64;
+the ViT block forward and backward: T=49 tokens, N=7 frames, exact GELU at
+head_dim 64, quick GELU at head_dim 32).
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere. JAX-free, so it runs on a
 machine without jax: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
@@ -174,21 +175,39 @@ def test_decoder_layer_kernels_match_plain_versions(device):
     assert (fdl.FusedDecoderLayer.fwd_launches, fdl.FusedDecoderLayer.bwd_launches) == (n_fwd + 1, n_bwd + 1)
 
 
-def test_training_kernels_reject_head_dim_64(device):
-    """The backward kernels and the decoder layer take head_dim 32; the
-    encoder-stack forward takes 64 too (the flagship's serving path)."""
+def test_training_kernels_at_head_dim_64(device):
+    """The training kernels take head_dim 32 and 64 (the flagship's): at 64
+    the encoder-stack backward and the decoder layer's forward and backward
+    agree with their plain versions; head_dim 16 is refused."""
     from soccerdiffusion_tpu_torch.ops import fused_decoder_layer as fdl
     from soccerdiffusion_tpu_torch.ops import fused_encoder_stack as fes
 
     enc, dec = training_weights(device)
-    x = torch.zeros((2, 7, 128), device=device, dtype=torch.bfloat16)
+    rng = np.random.default_rng(9)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device, torch.bfloat16)
+    x, dy, mem = t(5, 7, 128), t(5, 7, 128), t(5, 33, 128)
+    n = (fes.FusedEncoderStack.bwd_launches_hd64, fdl.FusedDecoderLayer.fwd_launches_hd64,
+         fdl.FusedDecoderLayer.bwd_launches_hd64)
     _, acts = fes.forward_kernel(x, enc, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fes.backward_kernel(acts, x, enc, 2)
+    dx, grads = fes.backward_kernel(acts, dy, enc, 2)
+    dx_ref, grads_ref = fes.backward_plain(x, dy, enc, 2)
+    torch.cuda.synchronize()
+    assert_close(dx, dx_ref)
+    assert_grads_close(fes.STACK_WEIGHTS, grads, grads_ref, {"bqkv": slice(128, 256)})
+    assert_close(fdl.forward_kernel(x, mem, dec, 2), fdl.forward_plain(x, mem, dec, 2))
+    ddx, dmem, dgrads = fdl.backward_kernel(x, mem, dy, dec, 2)
+    ddx_ref, dmem_ref, dgrads_ref = fdl.backward_plain(x, mem, dy, dec, 2)
+    torch.cuda.synchronize()
+    assert_close(ddx, ddx_ref)
+    assert_close(dmem, dmem_ref)
+    assert_grads_close(fdl.WEIGHT_NAMES, dgrads, dgrads_ref,
+                       {"bqkv": slice(128, 256), "bck": slice(None)})
+    assert (fes.FusedEncoderStack.bwd_launches_hd64, fdl.FusedDecoderLayer.fwd_launches_hd64,
+            fdl.FusedDecoderLayer.bwd_launches_hd64) == tuple(k + 1 for k in n)
     with pytest.raises(ValueError, match="head_dim 32"):
         fes.forward_kernel(x, enc, 8)  # head_dim 16
     with pytest.raises(ValueError, match="head_dim 32"):
-        fdl.forward_kernel(x, torch.zeros((2, 33, 128), device=device, dtype=torch.bfloat16), dec, 2)
+        fdl.forward_kernel(x, mem, dec, 8)
 
 
 def test_decoder_layer_kernels_reject_an_mlp_width_off_8(device):
@@ -247,19 +266,31 @@ def test_vit_block_kernel_matches_plain_version(W, H, gelu, device):
     assert_close(got, fvb.forward_plain(x, w, H, gelu))
 
 
-def test_vit_block_with_grad_raises(device):
+@pytest.mark.parametrize("W,H,gelu", [(256, 4, "exact"), (128, 4, "quick")])
+def test_vit_block_backward_kernel_matches_plain_version(W, H, gelu, device):
+    """The backward kernel through FusedVitBlock (float32 masters, as in
+    training): dx and every weight gradient against backward_plain."""
+    from soccerdiffusion_tpu_torch.ops import fused_encoder_stack as fes
     from soccerdiffusion_tpu_torch.ops import fused_vit_block as fvb
 
-    w = vit_weights(device, 256, 1024)
-    w[2].requires_grad_(True)
-    x = torch.zeros((2, 49, 256), device=device, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fvb.vit_block(x, w, 4, "quick")
+    masters = [t.requires_grad_(True) for t in vit_weights(device, W, 4 * W, seed=8)]
+    rng = np.random.default_rng(10)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device, torch.bfloat16)
+    x, dy = t(7, 49, W).requires_grad_(True), t(7, 49, W)
+    n0 = fvb.backward_kernel.launches
+    fvb.vit_block(x, masters, H, gelu).backward(dy)
+    w = [m.detach().to(torch.bfloat16) for m in masters]
+    dx_ref, grads_ref = fvb.backward_plain(x.detach(), dy, w, H, gelu)
+    torch.cuda.synchronize()
+    assert fvb.backward_kernel.launches == n0 + 1
+    assert_close(x.grad, dx_ref)
+    assert_grads_close(fes.STACK_WEIGHTS, [m.grad for m in masters], grads_ref,
+                       {"bqkv": slice(W, 2 * W)})
 
 
 def test_encoder_stack_head_dim_64(device):
-    """The forward at head_dim 64 against its plain version; its backward
-    raises until the flagship training slice."""
+    """The forward at head_dim 64 against its plain version, and a backward
+    through the autograd function on the float32 masters."""
     from soccerdiffusion_tpu_torch.ops import fused_encoder_stack as fes
 
     enc, _ = training_weights(device)
@@ -268,6 +299,8 @@ def test_encoder_stack_head_dim_64(device):
     y, _ = fes.forward_kernel(x, enc, 2)
     assert_close(y, fes.forward_plain(x, enc, 2))
     masters = [t.float().requires_grad_(True) for t in enc]
-    out = fes.encoder_stack(x, masters, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        out.float().sum().backward()
+    n0 = fes.FusedEncoderStack.bwd_launches_hd64
+    fes.encoder_stack(x, masters, 2).float().sum().backward()
+    torch.cuda.synchronize()
+    assert fes.FusedEncoderStack.bwd_launches_hd64 == n0 + 1
+    assert all(torch.isfinite(m.grad).all() for m in masters)

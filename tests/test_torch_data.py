@@ -42,12 +42,18 @@ def test_robot_state_ids():
 
 
 def test_images_raise_and_cpu_prefetch_wraps():
-    with pytest.raises(NotImplementedError):
-        generate_dummy_arrays(with_images=True)
-    with pytest.raises(NotImplementedError):
-        generate_dummy_arrays(task="vision")
-    with pytest.raises(NotImplementedError):
-        prepare_batch({"image_u8": np.zeros(1)})
+    """Images are ported (tests/test_torch_flagship_data.py); what still
+    raises is an unknown dummy task and a frame that would need a resize."""
+    from soccerdiffusion_tpu_torch.data.dataset import preprocess_image
+
+    with pytest.raises(ValueError, match="unknown dummy task"):
+        generate_dummy_arrays(task="bogus")
+    with pytest.raises(NotImplementedError, match="resize"):
+        preprocess_image(np.zeros((48, 48, 3), np.uint8), 32)
+    frames = generate_dummy_arrays(num_samples=30, with_images=True, image_size=8)[0].images
+    assert frames.shape == (3, 8, 8, 3)
+    batch = {"image_u8": np.zeros(1)}
+    assert prepare_batch(batch, keep_u8=True) is batch
     ds = WindowedDataset.from_dummy(generate_dummy_arrays(num_samples=40, num_joints=6),
                                     port_config(SMALL))
     batches = list(prefetch_to_device(ds.batches(4, shuffle=False), "cpu"))

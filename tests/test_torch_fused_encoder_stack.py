@@ -95,16 +95,25 @@ def test_forward_head_dims_match_jax(e, h):
     np.testing.assert_allclose(y_p.numpy(), y_j, atol=2e-4, rtol=0)
 
 
-def test_head_dim_64_backward_kernel_raises():
-    """The CUDA backward takes head_dim 32; head_dim 64 raises before any
-    launch (so on CPU tensors too), naming the training slice."""
+def test_head_dim_64_backward_kernel_raises(monkeypatch):
+    """The CUDA backward takes head_dim 32 and 64: at 64 its operand check
+    passes and the call goes on to the kernel library (stubbed here to
+    raise); head_dim 16 raises ValueError before any build or launch (so on
+    CPU tensors too)."""
+    from soccerdiffusion_tpu_torch.ops import _build
     from soccerdiffusion_tpu_torch.ops.fused_encoder_stack import backward_kernel
 
+    def library():
+        raise LookupError("reached the kernel library")
+
+    monkeypatch.setattr(_build, "library", library)
     x, w, dy, _ = setup(7, 128, 2)
     bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)
     acts = torch.zeros((L, B, T, 128))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(LookupError, match="kernel library"):
         backward_kernel(acts, bf(dy), [bf(a) for a in w], 2)
+    with pytest.raises(ValueError, match="head_dim 32 or 64, got 16"):
+        backward_kernel(acts, bf(dy), [bf(a) for a in w], 8)
 
 
 def test_backward_matches_jax_grad_float32():

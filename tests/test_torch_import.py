@@ -113,6 +113,7 @@ def test_training_modules_are_covered():
     for m in ("soccerdiffusion_tpu_torch.training.train", "soccerdiffusion_tpu_torch.training.trainer",
               "soccerdiffusion_tpu_torch.training.checkpoint", "soccerdiffusion_tpu_torch.training.metrics",
               "soccerdiffusion_tpu_torch.data.dataset", "soccerdiffusion_tpu_torch.data.pipeline",
+              "soccerdiffusion_tpu_torch.data.packed",
               "soccerdiffusion_tpu_torch.ops.fused_encoder_stack",
               "soccerdiffusion_tpu_torch.ops.fused_decoder_layer"):
         assert m in MODULES, m

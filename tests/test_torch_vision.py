@@ -95,8 +95,6 @@ def test_frames_then_sequence_equals_full():
 
 def test_unported_inputs_raise():
     _, _, enc, x = seq_pair("none", False, np.random.default_rng(4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        enc(torch.from_numpy(x), valid=torch.ones(2, FRAMES, dtype=torch.bool))
     with pytest.raises(ValueError, match="unknown mode"):
         enc(torch.from_numpy(x), mode="tokens")
     for kind in ("resnet18", "resnet50", "swin_transformer_tiny"):
