@@ -48,25 +48,44 @@
    launches per step checked), then 3 steps at the YAML's own B=256 (ms of
    the last step, peak device memory); then 3 steps on the card against the
    same 3 steps on the CPU (plain versions) at B=2.
-9. Prints one JSON line of per-kernel results, then as its last line
+9. Flash attention (ops/flash_attention.py): holds the kernel's forward
+   and backward (o, dq, dk, dv) against their plain versions in fp32 and
+   bf16 at the flash flagship's shapes at B=64 robots (the ViT over 640
+   frames, the image-frame stack, the proprioceptive stacks, the decoder's
+   self- and cross-attention), the h128 stacks' head_dim 32, the "auto"
+   threshold (Tq = Tk = 256), Tk = 1536, an unaligned shape and head_dim
+   48, each timed beside F.scaled_dot_product_attention (library_ms; the
+   port never calls it). Then the flash flagship, vit_flagship.yaml's
+   model with attention_impl="pallas" and the three fused knobs off, so
+   that every attention runs the kernel: 5 replan periods of 30-step DDIM
+   with the image-token cache at B=64 through RolloutEngine(fused=False)
+   and 2 periods on the card against the CPU; 20 training steps through
+   training/train.py on packed dummy data at B=64 and 3 card-vs-CPU steps
+   at B=2; exact flash launches per period and per step, and no fused
+   kernel. Phase 6 also trains the unfused h128 step with "pallas" (the
+   head_dim-32 T=100 shape); every earlier path, which runs "auto" at
+   shapes under its threshold, launches no flash kernel.
+10. Prints one JSON line of per-kernel results, then as its last line
    {"ok": true, "device": {...}}. Where one torch.nn layer computes the
    same function as a kernel (the encoder-stack, ViT-block and
-   decoder-layer forwards), its time on the same inputs is the entry's
-   library_ms; the port never calls those layers.
+   decoder-layer forwards; scaled_dot_product_attention for the flash
+   forward), its time on the same inputs is the entry's library_ms; the
+   port never calls those layers.
 
 Exits non-zero, without the last line, when CUDA is unavailable or any
 phase fails. Imports nothing of JAX or of the JAX package.
 
-    python3 chip_smoke.py --profile-training [--flagship] [--profile-out FILE]
-    python3 chip_smoke.py --profile-serving [--profile-out FILE]
+    python3 chip_smoke.py --profile-training [--flagship [--flash]] [--profile-out FILE]
+    python3 chip_smoke.py --profile-serving [--flash] [--profile-out FILE]
 
 build the kernels and instead trace, with torch.profiler, the h128 B=64
 training step (fused knobs on, then off), with --flagship the flagship's
-B=64 training step (packed data), or 3 replan periods of each flagship
-serving lane at B=64: per step or period the host wall clock, the device
-busy time (the union of the device ops' intervals), the device's idle
-share, both taken from the same trace, and the largest device ops. FILE
-receives the full tables. None prints the ok line.
+B=64 training step (packed data; with --flash the flash flagship's), or 3
+replan periods of each flagship serving lane at B=64 (with --flash the
+flash flagship's cached ddim30 lane): per step or period the host wall
+clock, the device busy time (the union of the device ops' intervals), the
+device's idle share, both taken from the same trace, and the largest device
+ops. FILE receives the full tables. None prints the ok line.
 """
 
 from __future__ import annotations
@@ -133,6 +152,26 @@ FLAG_TRAIN_LAUNCHES = {
 # built from the same weights (a wrong mapping gives errors of the order of
 # the output): torch rounds the residual stream to bf16 at every sublayer
 LIBRARY_TOL = 0.1
+# H100 SXM fp32 peak outside the tensor cores (NVIDIA data sheet): the bound
+# of the flash kernel's fp32 instances
+FP32_FLOPS = 67e12
+# the flash kernel against its plain version, (B, Tq, Tk, H, D): the flash
+# flagship's shapes at B=64 robots (the ViT over 10 frames per robot), the
+# h128 stacks' head_dim 32, the "auto" threshold, the TPU kernel's streamed
+# regime (Tk > 1024), an unaligned shape and head_dim 48; the first is the
+# one the JSON line's flash entries time
+FLASH_SHAPES = {
+    "vit_640_frames": (640, 64, 64, 4, 64),
+    "frame_stack": (64, 10, 10, 8, 32),
+    "stacks": (64, 100, 100, 4, 64),
+    "decoder_self": (64, 10, 10, 4, 64),
+    "decoder_cross": (64, 10, 312, 4, 64),
+    "h128_stacks": (64, 100, 100, 4, 32),
+    "auto_threshold": (16, 256, 256, 4, 64),
+    "tk_1536": (8, 64, 1536, 4, 64),
+    "unaligned": (3, 7, 13, 2, 8),
+    "head_dim_48": (2, 196, 196, 4, 48),
+}
 
 
 def log(*a):
@@ -184,8 +223,8 @@ def nbytes(*tensors) -> int:
     return total
 
 
-def bound(flops: float, io_bytes: int) -> dict:
-    t_bytes, t_ops = io_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def bound(flops: float, io_bytes: int, peak: float = BF16_FLOPS) -> dict:
+    t_bytes, t_ops = io_bytes / HBM_BYTES_PER_S, flops / peak
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -413,12 +452,14 @@ def zero_counters():
     from soccerdiffusion_tpu_torch.ops.fused_denoise import FusedDenoiser
     from soccerdiffusion_tpu_torch.ops.fused_encoder import FusedContextEncoder
     from soccerdiffusion_tpu_torch.ops.fused_encoder_stack import FusedEncoderStack
+    from soccerdiffusion_tpu_torch.ops.flash_attention import FlashAttention
 
     for c in (FusedContextEncoder, FusedChunkSampler, FusedDenoiser):
         c.launches = 0
     for c in (FusedEncoderStack, FusedDecoderLayer):
         c.fwd_launches = c.bwd_launches = c.fwd_launches_hd64 = c.bwd_launches_hd64 = 0
     fused_vit_block.forward_kernel.launches = fused_vit_block.backward_kernel.launches = 0
+    FlashAttention.launches = FlashAttention.backward_launches = 0
 
 
 def read_counters() -> dict:
@@ -428,6 +469,7 @@ def read_counters() -> dict:
     from soccerdiffusion_tpu_torch.ops.fused_denoise import FusedDenoiser
     from soccerdiffusion_tpu_torch.ops.fused_encoder import FusedContextEncoder
     from soccerdiffusion_tpu_torch.ops.fused_encoder_stack import FusedEncoderStack
+    from soccerdiffusion_tpu_torch.ops.flash_attention import FlashAttention
 
     return {"fused_encoder": FusedContextEncoder.launches, "fused_chunk": FusedChunkSampler.launches,
             "fused_denoise": FusedDenoiser.launches,
@@ -440,7 +482,17 @@ def read_counters() -> dict:
             "fused_decoder_layer_bwd": FusedDecoderLayer.bwd_launches,
             "fused_decoder_layer_bwd_hd64": FusedDecoderLayer.bwd_launches_hd64,
             "fused_vit_block_fwd": fused_vit_block.forward_kernel.launches,
-            "fused_vit_block_bwd": fused_vit_block.backward_kernel.launches}
+            "fused_vit_block_bwd": fused_vit_block.backward_kernel.launches,
+            "flash_attention_fwd": FlashAttention.launches,
+            "flash_attention_bwd": FlashAttention.backward_launches}
+
+
+def no_flash(*launches):
+    """The paths that run attention_impl="auto" (every path but the flash
+    ones) stay under its threshold: no flash kernel may have run."""
+    for got in launches:
+        if got["flash_attention_fwd"] or got["flash_attention_bwd"]:
+            raise AssertionError(f"a flash kernel ran on an \"auto\" path: {got}")
 
 
 def timed_rollout(eng, device, seed, b=BENCH_B, periods=CHUNKS):
@@ -479,7 +531,9 @@ def main_path_phase(cfg, model, device):
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"{name} was not launched on the main path")
-    ms_plain, _ = timed_rollout(plain, device, 1)
+    no_flash(l_ddim, l_dist)
+    ms_plain, l_plain = timed_rollout(plain, device, 1)
+    no_flash(l_plain)
     log(f"unfused plain-PyTorch rollout (fused=False, bf16) B={BENCH_B}: {ms_plain:.2f} ms/period")
     return launches, {"ddim30": ms_ddim, "distilled1": ms_dist, "ddim30_unfused": ms_plain}
 
@@ -619,10 +673,11 @@ def time_checked(results, label, times):
                               "library_ms": lib})
 
 
-def train_config(fused: bool):
+def train_config(fused: bool, attention_impl: str = "auto"):
     from soccerdiffusion_tpu_torch.config import Config, TrainConfig
 
-    model = dataclasses.replace(bench_config(), encoder_fused_stack=fused, decoder_fused_block=fused)
+    model = dataclasses.replace(bench_config(), encoder_fused_stack=fused, decoder_fused_block=fused,
+                                attention_impl=attention_impl)
     return Config(model=model, train=TrainConfig(batch_size=TRAIN_BATCH, lr=1e-4,
                                                  log_every=TRAIN_LOG_EVERY,
                                                  ema_decay=0.999))
@@ -660,7 +715,9 @@ def training_path_phase():
     with tempfile.TemporaryDirectory() as tmp:
         zero_counters()
         ms_fused, losses = timed_training(train_config(True), tmp, "fused")
-        launches = {name: n for name, n in read_counters().items()
+        counts = read_counters()
+        no_flash(counts)
+        launches = {name: n for name, n in counts.items()
                     if name.startswith(("fused_encoder_stack", "fused_decoder_layer"))}
         log(f"training main path (train.py loop, synthetic data, bf16, B={TRAIN_BATCH}, "
             f"{TRAIN_STEPS} steps, fused knobs on): {ms_fused:.3f} ms/step, "
@@ -673,10 +730,21 @@ def training_path_phase():
             if launches[name] != per_step * TRAIN_STEPS:
                 raise AssertionError(f"{name}: {launches[name]} launches on the training path, "
                                      f"expected {per_step} per step")
+        zero_counters()
         ms_plain, _ = timed_training(train_config(False), tmp, "plain")
+        no_flash(read_counters())
         log(f"unfused training step (knobs off, bf16 cuBLAS + torch ops), same loop: "
             f"{ms_plain:.3f} ms/step, {TRAIN_BATCH * 1e3 / ms_plain:.1f} samples/s")
-    return launches, {"fused": ms_fused, "unfused": ms_plain}
+        # the same unfused step with every attention through the flash kernel (head_dim 32)
+        config = train_config(False, "pallas")
+        zero_counters()
+        ms_flash, _ = timed_training(config, tmp, "flash")
+        flash = check_flash_launches("h128 unfused training, attention_impl=\"pallas\"",
+                                     read_counters(), flash_per_pass(config.model) * TRAIN_STEPS,
+                                     flash_per_pass(config.model) * TRAIN_STEPS)
+        log(f"unfused training step with attention_impl=\"pallas\", same loop: {ms_flash:.3f} "
+            f"ms/step, {TRAIN_BATCH * 1e3 / ms_flash:.1f} samples/s; launches {flash}")
+    return launches, {"fused": ms_fused, "unfused": ms_plain, "unfused_pallas": ms_flash}, flash
 
 
 def training_reference_phase(device, cfg, batches, seed):
@@ -992,6 +1060,136 @@ def flagship_reference_batches(b=2, steps=3):
     return [to_tensors(batch) for batch in itertools.islice(dataset.batches(b, seed=0), steps)]
 
 
+# ------------------------------------------------------- flash attention
+
+def flash_flagship_config():
+    """vit_flagship.yaml's model with every attention through the flash
+    kernel: attention_impl="pallas" and the three fused knobs off."""
+    return dataclasses.replace(flagship_config(), attention_impl="pallas", vit_fused_block=False,
+                               encoder_fused_stack=False, decoder_fused_block=False)
+
+
+def flash_train_config(batch: int):
+    return dataclasses.replace(flagship_train_config(batch), model=flash_flagship_config())
+
+
+def flash_per_pass(cfg) -> int:
+    """Attention calls of one forward of ``cfg``'s model with every layer
+    unfused: the proprioceptive stacks' layers, the ViT blocks and the
+    image-frame stack's layers, each decoder layer's self- and
+    cross-attention."""
+    n = (cfg.num_action_history_encoder_layers + cfg.num_imu_encoder_layers
+         + cfg.joint_state_encoder_layers + 2 * cfg.num_decoder_layers)
+    if cfg.use_images:
+        n += cfg.vit_depth + cfg.num_image_sequence_encoder_layers
+    return n
+
+
+def check_flash_launches(label, got, fwd, bwd) -> dict:
+    """Exactly ``fwd`` / ``bwd`` flash launches and no other kernel's."""
+    want = {name: 0 for name in got}
+    want.update(flash_attention_fwd=fwd, flash_attention_bwd=bwd)
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+    return {"flash_attention_fwd": fwd, "flash_attention_bwd": bwd}
+
+
+def flash_kernel_phase(device):
+    """The flash kernel's forward (o) and backward (dq, dk, dv) against the
+    plain versions on the same inputs (the backward on the plain forward's
+    o and log-sum-exp) at every FLASH_SHAPES entry in fp32 and bf16, with
+    CUDA-event times of both, of F.scaled_dot_product_attention's forward
+    on the same inputs and the bound (bf16: the tensor-core peak; fp32: the
+    fp32 peak). Returns the JSON entries (errors: the largest over every
+    check; times: the first shape's in bf16) and every shape's numbers."""
+    from torch.nn import functional as F
+
+    from soccerdiffusion_tpu_torch.ops import flash_attention as fa
+
+    shapes = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+        for label, (B, Tq, Tk, H, D) in FLASH_SHAPES.items():
+            rng = np.random.default_rng(len(shapes))
+            t = lambda T: torch.from_numpy(rng.normal(size=(B, T, H, D)).astype(np.float32)).to(
+                device, dtype)
+            q, k, v, do = t(Tq), t(Tk), t(Tk), t(Tq)
+            name = f"{label} {str(dtype).removeprefix('torch.')}"
+            log(f"flash attention {name} (B={B}, Tq={Tq}, Tk={Tk}, H={H}, D={D}):")
+            o, lse = fa.forward_kernel(q, k, v)
+            o_ref, lse_ref = fa.plain_forward(q, k, v)
+            grads = fa.backward_kernel(q, k, v, o_ref, lse_ref, do)
+            grads_ref = fa.plain_backward(q, k, v, o_ref, lse_ref, do)
+            torch.cuda.synchronize()
+            e_fwd = err_line("o", o, o_ref)  # TRAIN_TOL = TOL x max|plain|
+            e_bwd = max(err_line(f"d{n}", g, r) for n, g, r in zip("qkv", grads, grads_ref))
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, H, T, D) views
+            lib = library_ms("flash_attention_fwd", name,
+                             lambda: F.scaled_dot_product_attention(qt, kt, vt).transpose(1, 2),
+                             o_ref)
+            flops = 4 * B * H * Tq * Tk * D
+            row = {}
+            for key, err, kernel_fn, plain_fn, fl, io, lib_ms in (
+                    ("fwd", e_fwd, lambda: fa.forward_kernel(q, k, v),
+                     lambda: fa.plain_forward(q, k, v), flops, [q, k, v, o, lse], lib),
+                    ("bwd", e_bwd, lambda: fa.backward_kernel(q, k, v, o_ref, lse_ref, do),
+                     lambda: fa.plain_backward(q, k, v, o_ref, lse_ref, do), 3 * flops,
+                     [q, k, v, o_ref, lse_ref, do, grads], None)):
+                k_ms, p_ms = median_ms(kernel_fn), median_ms(plain_fn)
+                bnd = bound(fl, nbytes(io), peak)
+                log(f"  {key}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, library "
+                    f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'}, bound "
+                    f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+                row[key] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **bnd,
+                            "library_ms": lib_ms}
+            shapes[name] = row
+    first = f"{next(iter(FLASH_SHAPES))} bfloat16"
+    results = {f"flash_attention_{key}": {
+        **shapes[first][key], "max_abs_err": max(r[key]["max_abs_err"] for r in shapes.values())}
+        for key in ("fwd", "bwd")}
+    return results, shapes
+
+
+def flash_serving_phase(model, device):
+    """The flash flagship's cached 30-step DDIM lane at B=FLAG_B through
+    RolloutEngine(fused=False), CHUNKS periods with every counter zeroed
+    before and read after (exactly the model's attention calls per period
+    on the flash kernel, no other kernel), then 2 periods on the card
+    against the same engine on the CPU."""
+    cfg = model.config
+    eng = engine(model, cfg, device, fused=False, fused_encoder=False)
+    eng.make_rollout_fn(1)(eng.init(FLAG_B, torch.Generator(device=device).manual_seed(0)))
+    ms, got = timed_rollout(eng, device, 1, FLAG_B, CHUNKS)
+    # encoders once per period (the ViT on the arrived frames), the decoder at every step
+    per_period = flash_per_pass(cfg) + (eng.num_inference_steps - 1) * 2 * cfg.num_decoder_layers
+    launches = check_flash_launches("flash flagship serving", got, per_period * CHUNKS, 0)
+    log(f"flash flagship lane ddim30 (attention_impl=\"pallas\", fused=False) B={FLAG_B}, "
+        f"{CHUNKS} periods: {ms:.2f} ms/period, {FLAG_B * 1e3 / ms:.1f} chunks/s; {per_period} "
+        f"flash launches per period")
+    reference_phase(cfg, model, device, b=4, fused=False, fused_encoder=False)
+    return launches, ms
+
+
+def flash_training_path_phase():
+    """training/train.py on the flash flagship with packed dummy data:
+    TRAIN_STEPS steps at FLAG_TRAIN_B, every counter zeroed before and read
+    after (exactly flash_per_pass forward and backward launches per step,
+    no other kernel). Returns the launches and ms per step."""
+    config = flash_train_config(FLAG_TRAIN_B)
+    per_step = flash_per_pass(config.model)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        zero_counters()
+        ms, losses = timed_training(config, tmp, "flash_flagship", packed=True)
+        launches = check_flash_launches("flash flagship training", read_counters(),
+                                        per_step * TRAIN_STEPS, per_step * TRAIN_STEPS)
+    log(f"flash flagship training (train.py, attention_impl=\"pallas\", fused knobs off, --packed "
+        f"dummy data, B={FLAG_TRAIN_B}, {TRAIN_STEPS} steps): {ms:.3f} ms/step, "
+        f"{FLAG_TRAIN_B * 1e3 / ms:.1f} samples/s; logged losses {losses}; {per_step} flash "
+        f"launches per step, forward and backward")
+    return launches, ms
+
+
 def busy_us(intervals) -> float:
     """Length of the union of (start, end) intervals."""
     busy, reach = 0.0, float("-inf")
@@ -1040,10 +1238,16 @@ def trace(label, run, steps, out):
             f.write("\n")
 
 
-def profile_serving(device, out, periods=3):
-    """A trace of ``periods`` replan periods of each flagship lane at B=FLAG_B."""
-    model = build_model(flagship_config(), device, seed=3)
-    for lane, (kw, _) in FLAG_LANES.items():
+def profile_serving(device, out, periods=3, flash=False):
+    """A trace of ``periods`` replan periods of each flagship lane at
+    B=FLAG_B, or (``flash``) of the flash flagship's cached ddim30 lane."""
+    if flash:
+        model = build_model(flash_flagship_config(), device, seed=3)
+        lanes = {"ddim30 flash (fused=False)": dict(fused=False)}
+    else:
+        model = build_model(flagship_config(), device, seed=3)
+        lanes = {lane: kw for lane, (kw, _) in FLAG_LANES.items()}
+    for lane, kw in lanes.items():
         eng = engine(model, model.config, device, fused_encoder=False, **kw)
         carry = [eng.init(FLAG_B, torch.Generator(device=device).manual_seed(0))]
 
@@ -1092,6 +1296,9 @@ def main(argv=None) -> int:
                         help="trace the training step with torch.profiler instead of the smoke run")
     parser.add_argument("--flagship", action="store_true",
                         help="with --profile-training: trace the flagship's training step instead")
+    parser.add_argument("--flash", action="store_true",
+                        help="with --profile-training --flagship or --profile-serving: the "
+                             "flash flagship (every attention through the flash kernel)")
     parser.add_argument("--profile-serving", action="store_true",
                         help="trace the flagship's serving lanes with torch.profiler instead")
     parser.add_argument("--profile-out", default=None, help="file for the full profiler tables")
@@ -1119,7 +1326,11 @@ def main(argv=None) -> int:
                 print(line.strip(), file=sys.stderr)
 
     if args.profile_training or args.profile_serving:
-        if args.profile_training and args.flagship:
+        if args.profile_training and args.flagship and args.flash:
+            profile_training(flash_train_config(FLAG_TRAIN_B), "flash flagship (vit_flagship.yaml, "
+                             "attention_impl=pallas, fused knobs off, packed dummy data)",
+                             args.profile_out, packed=True)
+        elif args.profile_training and args.flagship:
             profile_training(flagship_train_config(FLAG_TRAIN_B), "flagship (vit_flagship.yaml, "
                              "packed dummy data)", args.profile_out, packed=True)
         elif args.profile_training:
@@ -1127,7 +1338,7 @@ def main(argv=None) -> int:
                 profile_training(train_config(fused), "fused" if fused else "unfused",
                                  args.profile_out)
         if args.profile_serving:
-            profile_serving(device, args.profile_out)
+            profile_serving(device, args.profile_out, flash=args.flash)
         return 0
     cfg = bench_config()
     model = build_model(cfg, device)
@@ -1136,7 +1347,7 @@ def main(argv=None) -> int:
     reference_phase(cfg, model, device)
     train_model = build_model(train_config(True).model, device, seed=2)
     results.update(training_kernel_phase(cfg, train_model, device))
-    train_launches, step_ms = training_path_phase()
+    train_launches, step_ms, h128_flash = training_path_phase()
     training_reference_phase(device, train_config(True).model, h128_reference_batches(), 11)
     del model, train_model
     torch.cuda.empty_cache()
@@ -1150,6 +1361,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     flag_train_launches, flag_train_ms, flag_train_peak = flagship_training_path_phase()
     training_reference_phase(device, flagship_config(), flagship_reference_batches(), 12)
+
+    flash_results, flash_shapes = flash_kernel_phase(device)
+    results.update(flash_results)
+    flash = build_model(flash_flagship_config(), device, seed=3)
+    flash_serve, flash_period_ms = flash_serving_phase(flash, device)
+    del flash
+    torch.cuda.empty_cache()
+    flash_train, flash_train_ms = flash_training_path_phase()
+    training_reference_phase(device, flash_flagship_config(), flagship_reference_batches(), 13)
 
     # where each kernel instance ran: (source, the TPU kernel it replaces,
     # its launches over the main paths that run it at the checked shapes)
@@ -1190,6 +1410,13 @@ def main(argv=None) -> int:
                                          flag_train_launches["fused_decoder_layer_fwd_hd64"]),
         "fused_decoder_layer_bwd_hd64": ("fused_decoder_layer.cu", "fused_decoder_layer.py:371",
                                          flag_train_launches["fused_decoder_layer_bwd_hd64"]),
+        # the flash paths: flagship serving and training, the h128 unfused step
+        "flash_attention_fwd": ("flash_attention.cu", "flash_attention.py:228",
+                                sum(p["flash_attention_fwd"] for p in (flash_serve, flash_train,
+                                                                       h128_flash))),
+        "flash_attention_bwd": ("flash_attention.cu", "flash_attention.py:284",
+                                sum(p["flash_attention_bwd"] for p in (flash_serve, flash_train,
+                                                                       h128_flash))),
     }
     kernels = [{"name": name, "route": "cuda", "source": csrc + table[name][0],
                 "replaces": tpu + table[name][1], "launches": table[name][2], **r}
@@ -1202,7 +1429,12 @@ def main(argv=None) -> int:
                     "train_ms_per_step": step_ms, "train_batch": TRAIN_BATCH,
                     "flagship_train_ms_per_step": flag_train_ms,
                     "flagship_train_batch": FLAG_TRAIN_B,
-                    "flagship_train_peak_bytes": flag_train_peak, "gpu": smi}))
+                    "flagship_train_peak_bytes": flag_train_peak,
+                    "flash_flagship_ms_per_replan_period": flash_period_ms,
+                    "flash_flagship_train_ms_per_step": flash_train_ms,
+                    "flash_launches": {"flagship_serving": flash_serve,
+                                       "flagship_training": flash_train, "h128_training": h128_flash},
+                    "flash_shapes": flash_shapes, "gpu": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -182,8 +182,14 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a setting outside the ported slices
     (``TypeError`` for a config that is not this package's ``ModelConfig``).
 
-    ``attention_impl="auto"`` is accepted: the JAX package resolves it to
-    the plain (xla) attention everywhere but on a TPU.
+    ``attention_impl``: "xla" (``plain_attention``), "pallas" (the
+    hand-written flash kernel, ``ops/flash_attention.py``) and "auto" are
+    accepted; "ring" (sequence parallelism, ``parallel/``) is not ported.
+    The port's "auto" takes the flash kernel for CUDA tensors with
+    Tq * Tk >= 256^2 scores per head and ``plain_attention`` otherwise (the
+    JAX package's rule with the TPU read as the card), so every shipped
+    shape (at most 100 x 100) stays on the plain path. The fused stacks and
+    blocks ignore ``attention_impl``, as in the JAX package.
 
     Images: the ViT image encoder (``image_encoder_type="vit"``) with the
     fused block on or off and exact or quick GELU. ``vit_fused_block_frames``
@@ -201,9 +207,11 @@ def check_supported(cfg: ModelConfig) -> None:
     if not (cfg.use_action_history or cfg.use_imu or cfg.use_joint_states or cfg.use_images
             or cfg.use_gamestate):
         raise NotImplementedError(f"the decoder-only tier (no context modality) is {_SEE}")
-    if cfg.attention_impl not in ("xla", "auto"):
+    if cfg.attention_impl == "ring":
         raise NotImplementedError(
-            f"attention_impl={cfg.attention_impl!r}: flash/ring attention is {_SEE}")
+            f"attention_impl='ring': sequence-parallel ring attention (parallel/) is {_SEE}")
+    if cfg.attention_impl not in ("xla", "pallas", "auto"):
+        raise ValueError(f"unknown attention_impl: {cfg.attention_impl!r}")
     if cfg.encoder_fused_block:
         raise NotImplementedError(f"encoder_fused_block: the proprioceptive fused block is {_SEE}")
     if cfg.use_images:

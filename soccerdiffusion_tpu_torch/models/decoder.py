@@ -14,12 +14,13 @@ from soccerdiffusion_tpu_torch.models.transformer import TransformerDecoder
 
 class DiffusionActionGenerator(nn.Module):
     def __init__(self, num_joints: int, hidden_dim: int, num_layers: int, max_seq_len: int,
-                 num_heads: int = 4, fused_block: bool = False):
+                 num_heads: int = 4, fused_block: bool = False, attention_impl: str = "xla"):
         super().__init__()
         self.num_heads = num_heads
         self.embedding = Linear(num_joints, hidden_dim)
         self.pos = PositionalEncoding(hidden_dim, max_seq_len)
-        self.decoder = TransformerDecoder(hidden_dim, num_heads, num_layers, fused_block=fused_block)
+        self.decoder = TransformerDecoder(hidden_dim, num_heads, num_layers, fused_block=fused_block,
+                                          attention_impl=attention_impl)
         self.fc_out = Linear(hidden_dim, num_joints)
 
     def compute_context_kv(self, context: torch.Tensor) -> list:

@@ -19,11 +19,13 @@ class SequenceEncoder(nn.Module):
     """(B, T, input_dim) -> (B, T // patch_size, hidden_dim) context tokens."""
 
     def __init__(self, input_dim: int, hidden_dim: int, patch_size: int, num_layers: int,
-                 num_heads: int, max_seq_len: int, fused_stack: bool = False):
+                 num_heads: int, max_seq_len: int, fused_stack: bool = False,
+                 attention_impl: str = "xla"):
         super().__init__()
         self.embedding = PatchConvEmbed(input_dim, hidden_dim, patch_size)
         self.pos = PositionalEncoding(hidden_dim, max_seq_len)
-        self.encoder = TransformerEncoder(hidden_dim, num_heads, num_layers, fused_stack=fused_stack)
+        self.encoder = TransformerEncoder(hidden_dim, num_heads, num_layers, fused_stack=fused_stack,
+                                          attention_impl=attention_impl)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.encoder(self.pos(self.embedding(x)))
@@ -35,11 +37,11 @@ class JointEncoder(nn.Module):
     num_heads = 4
 
     def __init__(self, num_joints: int, hidden_dim: int, patch_size: int, num_layers: int,
-                 max_seq_len: int, fused_stack: bool = False):
+                 max_seq_len: int, fused_stack: bool = False, attention_impl: str = "xla"):
         super().__init__()
         self.num_joints = num_joints
         self.seq = SequenceEncoder(num_joints, hidden_dim, patch_size, num_layers,
-                                   self.num_heads, max_seq_len, fused_stack)
+                                   self.num_heads, max_seq_len, fused_stack, attention_impl)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[-1] != self.num_joints:
@@ -53,11 +55,11 @@ class IMUEncoder(nn.Module):
     num_heads = 4
 
     def __init__(self, input_dim: int, hidden_dim: int, patch_size: int, num_layers: int,
-                 max_seq_len: int, fused_stack: bool = False):
+                 max_seq_len: int, fused_stack: bool = False, attention_impl: str = "xla"):
         super().__init__()
         self.input_dim = input_dim
         self.seq = SequenceEncoder(input_dim, hidden_dim, patch_size, num_layers,
-                                   self.num_heads, max_seq_len, fused_stack)
+                                   self.num_heads, max_seq_len, fused_stack, attention_impl)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[-1] != self.input_dim:

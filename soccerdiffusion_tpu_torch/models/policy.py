@@ -11,7 +11,10 @@ route the encoder stacks (the image-frame sequence encoder's among them)
 and the decoder layers through the fused fwd+bwd ops
 (``ops/fused_encoder_stack.py``, ``ops/fused_decoder_layer.py``);
 ``vit_fused_block`` runs each ViT block as one fused op
-(``ops/fused_vit_block.py``)."""
+(``ops/fused_vit_block.py``). ``attention_impl`` picks the attention
+backend of every unfused layer (``models/attention.py``): with all three
+knobs off and "pallas", every attention of the model runs the flash
+kernel (``ops/flash_attention.py``)."""
 
 from __future__ import annotations
 
@@ -33,30 +36,31 @@ class DiffusionPolicy(nn.Module):
         check_supported(config)
         cfg = self.config = config
         E, ps = cfg.hidden_dim, cfg.encoder_patch_size
-        fused = cfg.encoder_fused_stack
+        fused, attn = cfg.encoder_fused_stack, cfg.attention_impl
         self.step_encoding = StepToken(E)
         if cfg.use_action_history:
             self.action_history_encoder = JointEncoder(
                 cfg.num_joints, E, ps, cfg.num_action_history_encoder_layers,
-                cfg.action_context_length, fused)
+                cfg.action_context_length, fused, attn)
         if cfg.use_imu:
             self.imu_encoder = IMUEncoder(cfg.imu_input_dim, E, ps, cfg.num_imu_encoder_layers,
-                                          cfg.imu_context_length, fused)
+                                          cfg.imu_context_length, fused, attn)
         if cfg.use_joint_states:
             self.joint_states_encoder = JointEncoder(
                 cfg.num_joints, E, ps, cfg.joint_state_encoder_layers,
-                cfg.joint_state_context_length, fused)
+                cfg.joint_state_context_length, fused, attn)
         if cfg.use_images:
             self.image_sequence_encoder = ImageSequenceEncoder(
                 E, cfg.image_encoder_type, cfg.image_sequence_encoder_type,
                 cfg.num_image_sequence_encoder_layers, cfg.image_context_length,
                 cfg.image_resolution, (cfg.vit_patch_size, cfg.vit_width, cfg.vit_depth),
-                cfg.vit_fused_block, cfg.vit_fused_gelu, fused, _DTYPES[cfg.compute_dtype])
+                cfg.vit_fused_block, cfg.vit_fused_gelu, fused, _DTYPES[cfg.compute_dtype], attn)
         if cfg.use_gamestate:
             self.game_state_encoder = GameStateEncoder(E)
         self.diffusion_action_generator = DiffusionActionGenerator(
             cfg.num_joints, E, cfg.num_decoder_layers, cfg.trajectory_prediction_length,
-            num_heads=cfg.num_decoder_heads, fused_block=cfg.decoder_fused_block)
+            num_heads=cfg.num_decoder_heads, fused_block=cfg.decoder_fused_block,
+            attention_impl=attn)
 
     @property
     def dtype(self) -> torch.dtype:

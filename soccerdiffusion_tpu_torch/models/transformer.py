@@ -18,7 +18,9 @@ True)`` (``ops/fused_encoder_stack.py``, config ``encoder_fused_stack``),
 launch per layer, config ``vit_fused_block``) and
 ``TransformerDecoder(fused_block=True)`` (``ops/fused_decoder_layer.py``,
 config ``decoder_fused_block``). Without grad (serving) the encoder ops take
-their weights packed once in the compute dtype (``packed_weights``)."""
+their weights packed once in the compute dtype (``packed_weights``).
+``attention_impl`` (``models/attention.py``) is the attention backend of the
+unfused layers; the fused ones ignore it, as in the JAX package."""
 
 from __future__ import annotations
 
@@ -74,12 +76,12 @@ class Mlp(nn.Module):
 
 class TransformerEncoderLayer(nn.Module):
     def __init__(self, hidden_dim: int, num_heads: int, ff_dim: int | None = None,
-                 activation: str = "gelu"):
+                 activation: str = "gelu", attention_impl: str = "xla"):
         super().__init__()
         self.num_heads = num_heads
         self.norm1 = LayerNorm(hidden_dim, eps=LN_EPS)
         self.norm2 = LayerNorm(hidden_dim, eps=LN_EPS)
-        self.self_attn = MultiHeadAttention(hidden_dim, num_heads)
+        self.self_attn = MultiHeadAttention(hidden_dim, num_heads, attention_impl)
         self.mlp = Mlp(hidden_dim, ff_dim or hidden_dim, activation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -104,11 +106,11 @@ class FusedTransformerEncoderLayer(TransformerEncoderLayer):
 
 
 class TransformerDecoderLayer(nn.Module):
-    def __init__(self, hidden_dim: int, num_heads: int):
+    def __init__(self, hidden_dim: int, num_heads: int, attention_impl: str = "xla"):
         super().__init__()
         self.num_heads = num_heads
-        self.self_attn = MultiHeadAttention(hidden_dim, num_heads)
-        self.cross_attn = MultiHeadAttention(hidden_dim, num_heads)
+        self.self_attn = MultiHeadAttention(hidden_dim, num_heads, attention_impl)
+        self.cross_attn = MultiHeadAttention(hidden_dim, num_heads, attention_impl)
         self.mlp = Mlp(hidden_dim, hidden_dim)
         self.norm1 = LayerNorm(hidden_dim, eps=LN_EPS)
         self.norm2 = LayerNorm(hidden_dim, eps=LN_EPS)
@@ -130,7 +132,9 @@ class FusedTransformerDecoderLayer(TransformerDecoderLayer):
     """The decoder layer through the fused fwd+bwd decoder-layer op, on the
     plain layer's parameters. With cached ``memory_kv`` or without a memory
     it runs the plain math, as the JAX layer does: the kernel projects the
-    memory K/V itself, which is what it saves in training."""
+    memory K/V itself, which is what it saves in training. Like every fused
+    layer it ignores ``attention_impl``: its plain math attends with
+    ``plain_attention``, as the JAX layer's with ``xla_attention``."""
 
     def forward(self, x: torch.Tensor, memory: torch.Tensor | None = None,
                 memory_kv=None) -> torch.Tensor:
@@ -144,11 +148,13 @@ class TransformerEncoder(nn.Module):
     hand-written backward (exact GELU only); ``fused_block=True`` runs each
     layer as one fused ViT block. ``fused_gelu`` is the JAX package's
     ``vit_fused_gelu``: "exact" or "quick" (the unfused layers honour it
-    too, so a checkpoint serves the same either way)."""
+    too, so a checkpoint serves the same either way). ``attention_impl``
+    (``models/attention.py``) is the unfused layers' attention backend; the
+    fused stack and blocks ignore it, as in the JAX package."""
 
     def __init__(self, hidden_dim: int, num_heads: int, num_layers: int,
                  ff_dim: int | None = None, fused_stack: bool = False, fused_block: bool = False,
-                 fused_gelu: str = "exact"):
+                 fused_gelu: str = "exact", attention_impl: str = "xla"):
         super().__init__()
         if fused_stack and fused_gelu != "exact":
             raise ValueError(f"fused_stack computes exact GELU; fused_gelu={fused_gelu!r} is "
@@ -161,7 +167,8 @@ class TransformerEncoder(nn.Module):
             make = lambda: FusedTransformerEncoderLayer(hidden_dim, num_heads, ff_dim, fused_gelu)
         else:
             activation = "quick_gelu" if fused_gelu == "quick" else "gelu"
-            make = lambda: TransformerEncoderLayer(hidden_dim, num_heads, ff_dim, activation)
+            make = lambda: TransformerEncoderLayer(hidden_dim, num_heads, ff_dim, activation,
+                                                   attention_impl)
         self.layers = nn.ModuleList([make() for _ in range(num_layers)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -175,11 +182,13 @@ class TransformerEncoder(nn.Module):
 
 class TransformerDecoder(nn.Module):
     def __init__(self, hidden_dim: int, num_heads: int, num_layers: int,
-                 fused_block: bool = False):
+                 fused_block: bool = False, attention_impl: str = "xla"):
         super().__init__()
-        layer_cls = FusedTransformerDecoderLayer if fused_block else TransformerDecoderLayer
-        self.layers = nn.ModuleList(
-            [layer_cls(hidden_dim, num_heads) for _ in range(num_layers)])
+        if fused_block:
+            make = lambda: FusedTransformerDecoderLayer(hidden_dim, num_heads)
+        else:
+            make = lambda: TransformerDecoderLayer(hidden_dim, num_heads, attention_impl)
+        self.layers = nn.ModuleList([make() for _ in range(num_layers)])
 
     def compute_memory_kv(self, memory: torch.Tensor) -> list:
         return [layer.compute_memory_kv(memory) for layer in self.layers]

@@ -41,7 +41,8 @@ class ViTImageEncoder(nn.Module):
 
     def __init__(self, hidden_dim: int, image_resolution: int, patch_size: int = 16,
                  width: int = 192, depth: int = 6, fused_block: bool = False,
-                 fused_gelu: str = "exact", dtype: torch.dtype = torch.float32):
+                 fused_gelu: str = "exact", dtype: torch.dtype = torch.float32,
+                 attention_impl: str = "xla"):
         super().__init__()
         self.dtype = dtype
         self.patch_size = patch_size
@@ -50,7 +51,8 @@ class ViTImageEncoder(nn.Module):
         self.patch_bias = nn.Parameter(torch.zeros(width))
         self.pos = PositionalEncoding(width, num_patches)
         self.blocks = TransformerEncoder(width, self.num_heads, depth, ff_dim=4 * width,
-                                         fused_block=fused_block, fused_gelu=fused_gelu)
+                                         fused_block=fused_block, fused_gelu=fused_gelu,
+                                         attention_impl=attention_impl)
         self.norm = LayerNorm(width, eps=LN_EPS)
         self.fc = Linear(width, hidden_dim)
 
@@ -78,13 +80,15 @@ class ViTImageEncoder(nn.Module):
 
 def make_image_encoder(encoder_type: str, hidden_dim: int, image_resolution: int,
                        vit_geometry: tuple = (16, 192, 6), vit_fused_block: bool = False,
-                       vit_fused_gelu: str = "exact", dtype: torch.dtype = torch.float32) -> nn.Module:
+                       vit_fused_gelu: str = "exact", dtype: torch.dtype = torch.float32,
+                       attention_impl: str = "xla") -> nn.Module:
     """The per-frame encoder of ``encoder_type``: "vit" only so far."""
     if encoder_type == "vit":
         patch, width, depth = vit_geometry
         return ViTImageEncoder(hidden_dim, image_resolution, patch_size=patch, width=width,
                                depth=depth, fused_block=vit_fused_block,
-                               fused_gelu=vit_fused_gelu, dtype=dtype)
+                               fused_gelu=vit_fused_gelu, dtype=dtype,
+                               attention_impl=attention_impl)
     if encoder_type in ("resnet18", "resnet50", "swin_transformer_tiny", "swin_transformer_small"):
         raise NotImplementedError(f"image_encoder_type={encoder_type!r} is not ported yet "
                                   "(see ROADMAP.md, 'H100 port')")
@@ -110,15 +114,15 @@ class ImageSequenceEncoder(nn.Module):
                  num_layers: int, max_seq_len: int, image_resolution: int,
                  vit_geometry: tuple = (16, 192, 6), vit_fused_block: bool = False,
                  vit_fused_gelu: str = "exact", seq_fused_stack: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, attention_impl: str = "xla"):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.image_encoder = make_image_encoder(encoder_type, hidden_dim, image_resolution,
                                                 vit_geometry, vit_fused_block, vit_fused_gelu,
-                                                dtype)
+                                                dtype, attention_impl)
         if sequence_encoder_type == "transformer":
             self.seq = SequenceEncoder(hidden_dim, hidden_dim, 1, num_layers, 8, max_seq_len,
-                                       seq_fused_stack)
+                                       seq_fused_stack, attention_impl)
         elif sequence_encoder_type == "none":
             self.seq = None
         else:

@@ -41,6 +41,8 @@ _ENTRIES = {
     "sd_decoder_layer_bwd": [ctypes.POINTER(_P), _I, _P],
     "sd_vit_block_fwd": [ctypes.POINTER(_P), _I, _P],
     "sd_vit_block_bwd": [ctypes.POINTER(_P), _I, _P],
+    "sd_flash_attention_fwd": [ctypes.POINTER(_P), _I, _P],
+    "sd_flash_attention_bwd": [ctypes.POINTER(_P), _I, _P],
 }
 
 

@@ -304,3 +304,48 @@ def test_encoder_stack_head_dim_64(device):
     torch.cuda.synchronize()
     assert fes.FusedEncoderStack.bwd_launches_hd64 == n0 + 1
     assert all(torch.isfinite(m.grad).all() for m in masters)
+
+
+# ------------------------------------------------------- flash attention
+# Off the main path: unaligned lengths, head_dim 8 / 48 / 128 (the 32-, 64-
+# and 128-lane instances with masked lanes), the TPU kernel's streamed
+# regime (Tk = 1536), one row and one key; fp32 and bf16; forward and
+# backward through the autograd function. q, k, v arrive as (B, H, T, D)
+# transposes, so the kernels read them through their strides.
+
+FLASH_SHAPES = [(3, 7, 13, 2, 8), (2, 196, 196, 4, 48), (1, 16, 1536, 2, 16), (2, 65, 130, 3, 128),
+                (2, 1, 3, 1, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_attention_kernels_match_plain_versions(shape, dtype, device):
+    from soccerdiffusion_tpu_torch.ops import flash_attention as fa
+
+    b, tq, tk, h, d = shape
+    rng = np.random.default_rng(11)
+    t = lambda T: torch.from_numpy(rng.normal(size=(b, h, T, d)).astype(np.float32)).to(
+        device, dtype).transpose(1, 2)
+    q, k, v, do = t(tq), t(tk), t(tk), t(tq)
+    o_ref, lse_ref = fa.plain_forward(q, k, v)
+    grads_ref = fa.plain_backward(q, k, v, o_ref, lse_ref, do)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    n = fa.FlashAttention.launches, fa.FlashAttention.backward_launches
+    o = fa.flash_attention(*leaves)
+    _, lse = fa.forward_kernel(q, k, v)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert (fa.FlashAttention.launches, fa.FlashAttention.backward_launches) == (n[0] + 2, n[1] + 1)
+    assert o.dtype == dtype
+    assert_close(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-4)
+    for leaf, ref in zip(leaves, grads_ref):
+        assert_close(leaf.grad, ref)
+
+
+def test_flash_attention_refuses_head_dim_over_128(device):
+    from soccerdiffusion_tpu_torch.ops import flash_attention as fa
+
+    x = torch.zeros((1, 4, 2, 129), device=device)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.forward_kernel(x, x, x)

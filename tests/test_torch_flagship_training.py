@@ -56,32 +56,39 @@ FLAG = ModelConfig(
 B, STEPS = 2, 3
 
 
-def packed_batches():
+def packed_batches(cfg):
     """The first STEPS shuffled packed batches (pre-patchified uint8 frames)
-    of the "vision" dummy task, from the JAX package and from the port."""
-    kw = dict(num_recordings=2, num_samples=40, num_joints=FLAG.num_joints,
-              image_size=FLAG.image_resolution, seed=2, task="vision")
-    jp = JaxPacked.from_windowed(JaxWindowed.from_dummy(jax_dummy(**kw), FLAG))
+    of the "vision" dummy task for ``cfg``, from the JAX package and from the
+    port."""
+    kw = dict(num_recordings=2, num_samples=40, num_joints=cfg.num_joints,
+              image_size=cfg.image_resolution, seed=2, task="vision")
+    jp = JaxPacked.from_windowed(JaxWindowed.from_dummy(jax_dummy(**kw), cfg))
     pp = PackedDataset.from_windowed(WindowedDataset.from_dummy(generate_dummy_arrays(**kw),
-                                                                port_config(FLAG)))
+                                                                port_config(cfg)))
     for ds in (jp, pp):
-        ds.prepatchify_images(FLAG.vit_patch_size)
+        ds.prepatchify_images(cfg.vit_patch_size)
     return [list(ds.batches(B, seed=1))[:STEPS] for ds in (jp, pp)]
 
 
 def test_three_flagship_steps_match_the_jax_trainer():
-    jbatches, pbatches = packed_batches()
+    three_steps_match_the_jax_trainer(FLAG)
+
+
+def three_steps_match_the_jax_trainer(cfg):
+    """STEPS AdamW steps of ``cfg`` on the port's trainer against the JAX
+    model + optax, parameters compared after each step."""
+    jbatches, pbatches = packed_batches(cfg)
     for j, p in zip(jbatches, pbatches):
         assert j.keys() == p.keys() and "image_u8" in p
         for k in j:
             np.testing.assert_array_equal(p[k], j[k], err_msg=k)
     rng = np.random.default_rng(0)
-    jmodel = JaxPolicy(FLAG)
+    jmodel = JaxPolicy(cfg)
     batch0 = jbatches[0]
     variables = jmodel.init(jax.random.key(0), to_jax(batch0),
                             jnp.zeros(batch0["joint_command"].shape), jnp.zeros((B,), jnp.int32))
     params = jax.tree.map(np.asarray, variables["params"])
-    model = load_jax_params(DiffusionPolicy(port_config(FLAG)), params)
+    model = load_jax_params(DiffusionPolicy(port_config(cfg)), params)
     lr, total = 1e-3, 10
     jschedule = jax_make_schedule(100)
 
@@ -95,7 +102,7 @@ def test_three_flagship_steps_match_the_jax_trainer():
     opt_state = jopt.init(params)
     opt = make_optimizer(model, lr, total, weight_decay=1e-2, grad_clip_norm=0.5)
     state = create_train_state(model, opt)
-    step = make_train_step(model, make_schedule(100), opt, Normalizer.identity(FLAG.num_joints))
+    step = make_train_step(model, make_schedule(100), opt, Normalizer.identity(cfg.num_joints))
     for i, (jb, pb) in enumerate(zip(jbatches, pbatches)):
         t = rng.integers(0, 100, (B,)).astype(np.int32)
         noise = rng.standard_normal(jb["joint_command"].shape).astype(np.float32)

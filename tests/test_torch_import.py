@@ -165,4 +165,4 @@ def test_kernel_build_dir_is_keyed_by_sources():
     assert len(d.name) == 16
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "fused_encoder.cu", "fused_denoise.cu", "fused_chunk.cu", "fused_encoder_stack.cu",
-        "fused_decoder_layer.cu", "weight_grads.cu", "fused_vit_block.cu"}
+        "fused_decoder_layer.cu", "weight_grads.cu", "fused_vit_block.cu", "flash_attention.cu"}

@@ -138,7 +138,7 @@ def test_unfused_forward_matches_jax(patch):
 
 def test_non_xla_attention_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DiffusionPolicy(port_config(SMALL, attention_impl="pallas"))
+        DiffusionPolicy(port_config(SMALL, attention_impl="ring"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):  # ResNet18, the default encoder
         DiffusionPolicy(port_config(SMALL, use_images=True))
     with pytest.raises(TypeError, match="soccerdiffusion_tpu_torch.config.ModelConfig"):
