@@ -3,7 +3,10 @@
     python3 chip_smoke.py
 
 1. Prints the torch / CUDA versions and the card's name and power limit.
-2. Builds the CUDA kernels of soccerdiffusion_tpu_torch/csrc (nvcc, sm_90a).
+2. Builds the CUDA kernels of soccerdiffusion_tpu_torch/csrc (nvcc, sm_90a)
+   and reads the library's SASS (cuobjdump -sass): every instance of the
+   ViT-block, encoder-stack and tdot kernels must hold tensor-core
+   instructions (HMMA / HGMMA).
 3. Holds each serving kernel against its plain PyTorch version on the card
    at the h128 serving path's shapes (S=301 context tokens, 30 DDIM steps,
    B=64 and B=1024; bf16 weights from a seeded flax-layout random init) and
@@ -66,11 +69,12 @@
    head_dim-32 T=100 shape); every earlier path, which runs "auto" at
    shapes under its threshold, launches no flash kernel.
 10. Prints one JSON line of per-kernel results, then as its last line
-   {"ok": true, "device": {...}}. Where one torch.nn layer computes the
+   {"ok": true, "device": {...}}. Where one torch.nn call computes the
    same function as a kernel (the encoder-stack, ViT-block and
-   decoder-layer forwards; scaled_dot_product_attention for the flash
-   forward), its time on the same inputs is the entry's library_ms; the
-   port never calls those layers.
+   decoder-layer forwards; one torch.autograd.grad through the same layers
+   for their backwards, checked against the plain backward;
+   scaled_dot_product_attention for the flash forward), its time on the
+   same inputs is the entry's library_ms; the port never calls those.
 
 Exits non-zero, without the last line, when CUDA is unavailable or any
 phase fails. Imports nothing of JAX or of the JAX package.
@@ -95,6 +99,8 @@ import copy
 import dataclasses
 import itertools
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -152,6 +158,10 @@ FLAG_TRAIN_LAUNCHES = {
 # built from the same weights (a wrong mapping gives errors of the order of
 # the output): torch rounds the residual stream to bf16 at every sublayer
 LIBRARY_TOL = 0.1
+# kernels that must run on the tensor cores: every instance's SASS holds
+# HMMA (mma.sync) or HGMMA (wgmma) instructions
+TENSOR_CORE_KERNELS = ("vit_block_fwd_kernel", "vit_block_bwd_kernel", "encoder_stack_fwd_kernel",
+                       "encoder_stack_bwd_kernel", "tdot_kernel")
 # H100 SXM fp32 peak outside the tensor cores (NVIDIA data sheet): the bound
 # of the flash kernel's fp32 instances
 FP32_FLOPS = 67e12
@@ -313,6 +323,96 @@ def library_ms(name, label, library_fn, ref) -> float:
     if not err <= LIBRARY_TOL * scale:
         raise AssertionError(f"{name}: the torch.nn layers built for library_ms do not compute "
                              "the same function")
+    return ms
+
+
+def dec_zero(E: int) -> dict:
+    """The decoder layer's gradients that are zero in exact arithmetic: the
+    key third of the self-attention's q|k|v bias, the cross-attention's key
+    bias."""
+    return {"bqkv": slice(E, 2 * E), "bck": slice(None)}
+
+
+def _encoder_params(layer):
+    """A torch.nn encoder layer's parameters in STACK_WEIGHTS order."""
+    sa = layer.self_attn
+    return [layer.norm1.weight, layer.norm1.bias, sa.in_proj_weight, sa.in_proj_bias,
+            sa.out_proj.weight, sa.out_proj.bias, layer.norm2.weight, layer.norm2.bias,
+            layer.linear1.weight, layer.linear1.bias, layer.linear2.weight, layer.linear2.bias]
+
+
+def encoder_grad_fn(w, num_heads: int, x, dy, activation="gelu", stacked=True):
+    """One torch.autograd.grad through torch_encoder's layers (train mode,
+    dropout 0) built from ``w`` (stacked (L, ...)), with respect to x and
+    every parameter: a function returning [dx, *the 12 weight gradients in
+    STACK_WEIGHTS order, stacked on L unless ``stacked`` is False (one
+    layer), Dense kernels as (in, out)]."""
+    mod = torch_encoder(w, num_heads, activation).train()
+    layers = [mod] if w[0].shape[0] == 1 else list(mod.layers)
+    params = [p for layer in layers for p in _encoder_params(layer)]
+    x = x.detach().requires_grad_(True)
+
+    def run():
+        dx, *g = torch.autograd.grad(mod(x), [x, *params], dy)
+        per = [g[12 * l:12 * (l + 1)] for l in range(len(layers))]
+        # (out, in) weights back to the kernels' (in, out)
+        grads = [torch.stack([p[i].t() if p[i].dim() == 2 else p[i] for p in per])
+                 for i in range(12)]
+        return [dx] + (grads if stacked else [g[0] for g in grads])
+
+    return run
+
+
+def decoder_grad_fn(w, num_heads: int, x, mem, dy):
+    """One torch.autograd.grad through torch_decoder_layer (train mode,
+    dropout 0) with respect to x, mem and every parameter: a function
+    returning [dx, dmem, *the 22 weight gradients in WEIGHT_NAMES order]."""
+    layer = torch_decoder_layer(w, num_heads).train()
+    sa, ca = layer.self_attn, layer.multihead_attn
+    params = [layer.norm1.weight, layer.norm1.bias, sa.in_proj_weight, sa.in_proj_bias,
+              sa.out_proj.weight, sa.out_proj.bias, layer.norm2.weight, layer.norm2.bias,
+              ca.in_proj_weight, ca.in_proj_bias, ca.out_proj.weight, ca.out_proj.bias,
+              layer.norm3.weight, layer.norm3.bias, layer.linear1.weight, layer.linear1.bias,
+              layer.linear2.weight, layer.linear2.bias]
+    x, mem = x.detach().requires_grad_(True), mem.detach().requires_grad_(True)
+
+    def run():
+        (dx, dmem, g1, be1, wqkv, bqkv, wso, bso, g2, be2, wc, bc, wco, bco, g3, be3, w1, b1, w2,
+         b2) = torch.autograd.grad(layer(x, mem), [x, mem, *params], dy)
+        wcq, wck, wcv = (t.t() for t in wc.chunk(3, 0))
+        bcq, bck, bcv = bc.chunk(3)
+        return [dx, dmem, g1, be1, wqkv.t(), bqkv, wso.t(), bso, g2, be2, wcq, bcq, wck, bck, wcv,
+                bcv, wco.t(), bco, g3, be3, w1.t(), b1, w2.t(), b2]
+
+    return run
+
+
+def library_bwd_ms(name, label, grad_fn, ref, names, zero) -> float:
+    """The CUDA-event time of ``grad_fn`` (one torch.autograd.grad through
+    the torch.nn layer); each of its gradients must agree with the plain
+    backward's (``ref``: the input gradient(s), then the weight gradients
+    named ``names``) within LIBRARY_TOL of that gradient's scale, the parts
+    in ``zero`` (zero in exact arithmetic) within LIBRARY_TOL of the layer's
+    largest weight gradient: a check that the layer was built from the same
+    weights."""
+    got = grad_fn()
+    n_in = len(ref) - len(names)
+    top = max(r.float().abs().max().item() for r in ref[n_in:])
+    worst = 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        g, r = g.float(), r.float()
+        key = names[i - n_in] if i >= n_in else None
+        err = (g - r).abs()
+        if key in zero:
+            worst = max(worst, err[..., zero[key]].max().item() / top)
+            err[..., zero[key]] = 0
+        worst = max(worst, err.max().item() / max(r.abs().max().item(), 1e-30))
+    ms = median_ms(grad_fn)
+    log(f"  {name} {label}: torch.nn autograd.grad {ms:.3f} ms, max |library - plain| / scale "
+        f"{worst:.4e} (tol {LIBRARY_TOL})")
+    if not worst <= LIBRARY_TOL:
+        raise AssertionError(f"{name}: the torch.nn layers built for library_ms do not compute "
+                             "the same gradients")
     return ms
 
 
@@ -645,30 +745,49 @@ def training_kernel_phase(cfg, model, device):
                                         enc_flops, [x, enc_w, y, acts], lambda: enc_lib(x)),
             "fused_encoder_stack_bwd": (e_bwd, lambda: fes.backward_kernel(acts, dy, enc_w, H),
                                         lambda: fes.backward_plain(x, dy, enc_w, H),
-                                        3 * enc_flops, [acts, dy, enc_w, dx, grads], None),
+                                        3 * enc_flops, [acts, dy, enc_w, dx, grads],
+                                        LibraryGrad(encoder_grad_fn(enc_w, H, x, dy),
+                                                    fes.STACK_WEIGHTS, {"bqkv": slice(E, 2 * E)})),
             "fused_decoder_layer_fwd": (e_dfwd, lambda: fdl.forward_kernel(xd, mem, dec_w, H),
                                         lambda: fdl.forward_plain(xd, mem, dec_w, H),
                                         dec_flops, [xd, mem, dec_w, xd], lambda: dec_lib(xd, mem)),
             "fused_decoder_layer_bwd": (e_dbwd, lambda: fdl.backward_kernel(xd, mem, dyd, dec_w, H),
                                         lambda: fdl.backward_plain(xd, mem, dyd, dec_w, H),
                                         3 * dec_flops, [xd, mem, dyd, dec_w, ddx, dmem, dgrads],
-                                        None),
+                                        LibraryGrad(decoder_grad_fn(dec_w, H, xd, mem, dyd),
+                                                    fdl.WEIGHT_NAMES, dec_zero(E))),
         }
         time_checked(results, f"B={b}", times)
     return results
 
 
+@dataclasses.dataclass(frozen=True)
+class LibraryGrad:
+    """A backward kernel's library call for time_checked: ``fn`` returns the
+    torch.nn layer's input and weight gradients (encoder_grad_fn /
+    decoder_grad_fn), ``names`` names the weight gradients and ``zero`` maps
+    those that are zero in exact arithmetic to their slice."""
+    fn: object
+    names: tuple
+    zero: dict
+
+
 def time_checked(results, label, times):
     """Time each checked kernel beside its plain version (and its library
     call), with its bound: ``times`` maps a name to (max_abs_err, kernel_fn,
-    plain_fn, flops, the tensors it reads and writes, library_fn or None);
-    merged into ``results``."""
+    plain_fn, flops, the tensors it reads and writes, library_fn, a
+    LibraryGrad for a backward, or None); merged into ``results``."""
     for name, (err, kernel_fn, plain_fn, flops, io, lib_fn) in times.items():
         k_ms, p_ms = median_ms(kernel_fn), median_ms(plain_fn)
         bnd = bound(flops, nbytes(io))
         log(f"{name} {label}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
             f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) (max_abs_err {err:.4e})")
-        lib = None if lib_fn is None else library_ms(name, label, lib_fn, plain_fn())
+        if isinstance(lib_fn, LibraryGrad):  # a backward: (dx[, dmem], grads) of the plain version
+            *inputs, grads = plain_fn()
+            lib = library_bwd_ms(name, label, lib_fn.fn, [*inputs, *grads], lib_fn.names,
+                                 lib_fn.zero)
+        else:
+            lib = None if lib_fn is None else library_ms(name, label, lib_fn, plain_fn())
         merge(results, name, {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **bnd,
                               "library_ms": lib})
 
@@ -944,6 +1063,7 @@ def flagship_training_kernel_phase(model, device):
     vit = model.image_sequence_encoder.image_encoder
     T, W, H = (cfg.image_resolution // cfg.vit_patch_size) ** 2, cfg.vit_width, vit.num_heads
     gelu, E = cfg.vit_fused_gelu, cfg.hidden_dim
+    act = quick_gelu if gelu == "quick" else "gelu"
     bf16 = lambda ts: [t.detach().to(torch.bfloat16) for t in ts]
     vit_w = bf16(fes.encoder_layer_weights(vit.blocks.layers[0]))
     stack_w = bf16(fes.stack_weights(model.action_history_encoder.seq.encoder.layers))
@@ -970,7 +1090,9 @@ def flagship_training_kernel_phase(model, device):
         time_checked(results, f"N={n} frames", {"fused_vit_block_bwd": (
             err, lambda: fvb.backward_kernel(x, dy, vit_w, H, gelu),
             lambda: fvb.backward_plain(x, dy, vit_w, H, gelu),
-            3 * n * enc_layer_flops(T, W, 4 * W), [x, dy, vit_w, dx, grads], None)})
+            3 * n * enc_layer_flops(T, W, 4 * W), [x, dy, vit_w, dx, grads],
+            LibraryGrad(encoder_grad_fn([t[None] for t in vit_w], H, x, dy, act, stacked=False),
+                        fes.STACK_WEIGHTS, {"bqkv": slice(W, 2 * W)}))})
     for b in FLAG_BATCHES:
         xs, dys, xi, dyi = t(b, Ts, E), t(b, Ts, E), t(b, Ti, E), t(b, Ti, E)
         xd, mem, dyd = t(b, 10, E), t(b, S, E), t(b, 10, E)
@@ -988,7 +1110,9 @@ def flagship_training_kernel_phase(model, device):
                            lambda a=acts, dy=dy, w=w, h=heads: fes.backward_kernel(a, dy, w, h),
                            lambda x=x, dy=dy, w=w, h=heads: fes.backward_plain(x, dy, w, h),
                            3 * b * layers * enc_layer_flops(x.shape[1], E, E),
-                           [acts, dy, w, dx, grads], None)
+                           [acts, dy, w, dx, grads],
+                           LibraryGrad(encoder_grad_fn(w, heads, x, dy), fes.STACK_WEIGHTS,
+                                       {"bqkv": slice(E, 2 * E)}))
         log(f"decoder layer B={b} T=10 S={S} E={E} {Hd} heads:")
         y = fdl.forward_kernel(xd, mem, dec_w, Hd)
         e_fwd = err_line("y", y, fdl.forward_plain(xd, mem, dec_w, Hd))
@@ -1005,7 +1129,8 @@ def flagship_training_kernel_phase(model, device):
         times["fused_decoder_layer_bwd_hd64"] = (
             e_bwd, lambda: fdl.backward_kernel(xd, mem, dyd, dec_w, Hd),
             lambda: fdl.backward_plain(xd, mem, dyd, dec_w, Hd), 3 * dec_flops,
-            [xd, mem, dyd, dec_w, ddx, dmem, dgrads], None)
+            [xd, mem, dyd, dec_w, ddx, dmem, dgrads],
+            LibraryGrad(decoder_grad_fn(dec_w, Hd, xd, mem, dyd), fdl.WEIGHT_NAMES, dec_zero(E)))
         time_checked(results, f"B={b}", times)
     return results
 
@@ -1190,6 +1315,33 @@ def flash_training_path_phase():
     return launches, ms
 
 
+def sass_phase() -> dict:
+    """cuobjdump -sass of the built kernel library: every instance of each
+    TENSOR_CORE_KERNELS kernel must hold tensor-core instructions. Returns
+    per kernel its instances and the fewest HMMA / HGMMA instructions of
+    one."""
+    from soccerdiffusion_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        raise AssertionError("cuobjdump not found: the tensor-core check needs the CUDA toolkit's")
+    lib = _build.build_dir() / "libsd_kernels.so"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts = {}
+    for chunk in sass.split("Function : ")[1:]:
+        counts[chunk.split(None, 1)[0]] = len(re.findall(r"\bHG?MMA\b", chunk))
+    found = {}
+    for kernel in TENSOR_CORE_KERNELS:
+        n = [c for fn, c in counts.items() if kernel in fn]
+        log(f"SASS {kernel}: {len(n)} instance(s), HMMA/HGMMA instructions {n}")
+        if not n or min(n) == 0:
+            raise AssertionError(f"{kernel}: an instance without tensor-core instructions "
+                                 f"(HMMA/HGMMA counts {n})")
+        found[kernel] = {"instances": len(n), "min_mma_instructions": min(n)}
+    return found
+
+
 def busy_us(intervals) -> float:
     """Length of the union of (start, end) intervals."""
     busy, reach = 0.0, float("-inf")
@@ -1340,6 +1492,7 @@ def main(argv=None) -> int:
         if args.profile_serving:
             profile_serving(device, args.profile_out, flash=args.flash)
         return 0
+    tensor_cores = sass_phase()
     cfg = bench_config()
     model = build_model(cfg, device)
     results = kernel_phase(cfg, model, device)
@@ -1434,7 +1587,8 @@ def main(argv=None) -> int:
                     "flash_flagship_train_ms_per_step": flash_train_ms,
                     "flash_launches": {"flagship_serving": flash_serve,
                                        "flagship_training": flash_train, "h128_training": h128_flash},
-                    "flash_shapes": flash_shapes, "gpu": smi}))
+                    "flash_shapes": flash_shapes, "tensor_core_sass": tensor_cores,
+                    "gpu": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -5,15 +5,26 @@
 // make_encoder_stack_fn (_fwd_impl, _make_fwd_kernel / _stack_core; and
 // _bwd_impl, _make_bwd_kernel).
 //
-// Bound on the H100: per robot and layer at T=100 tokens, E=FF=128 the
-// forward is ~25 MFLOP and the backward (recompute included) ~75 MFLOP of
-// scalar fp32 FMAs against a per-robot workspace of ~0.6 MB (at E=FF=256,
-// head_dim 64: ~89 and ~267 MFLOP, ~1.0 MB) -- compute- and latency-bound,
-// like the serving encoder (PERF.md). Design:
+// Bound on the H100: per robot and layer at T=100 tokens, E=FF=256
+// (head_dim 64) the forward is ~89 MFLOP and the backward (recompute
+// included) ~267 MFLOP: compute-bound at the 989 TFLOP/s bf16 tensor-core
+// peak (0.046 ms forward at B=256, L=2; PERF.md). The first port did every
+// product as scalar fp32 FMAs (~14 TFLOP/s); every product is now an
+// mma.sync tensor-core product (encoder_layer.cuh, mma.cuh). What bounds the
+// forward now: one robot per block at 16 warps (203 KB of shared memory at
+// T=100, E=256), B fragments read from L2 with 32-bit loads, the fp32
+// residual kept in global memory, the scalar LayerNorm passes. What bounds
+// the backward: the per-robot workspace traffic (written and read back
+// through L2 between the products), the scalar LayerNorm and column-sum row
+// passes and one block per robot (B=64 fills 64 of 132 SMs). Design:
 //   * the TPU kernel keeps a 16-robot block and all intermediates in 110 MB
-//     of VMEM; here every intermediate of a robot's layer lives in a
-//     per-robot global workspace (L1/L2-resident while the block runs) and
-//     only one head's (T x T) fp32 probability tile is in shared memory;
+//     of VMEM. Here the forward keeps a robot's bf16 operands (LayerNorm /
+//     attention output, q|k|v, one MLP chunk) in shared memory and its fp32
+//     residual in `acts` (encoder_layer.cuh:layer_fwd_smem, which the ViT
+//     block's forward shares); the backward keeps every intermediate of a
+//     robot's layer in a per-robot global workspace (L1/L2-resident while
+//     the block runs) and 3 floats of softmax statistics per (head, row) in
+//     shared memory; the attention scores stay in registers throughout;
 //   * the forward writes each layer's fp32 input to `acts`, so the
 //     backward recomputes one layer's internals at a time from its input
 //     (the TPU kernel recomputes the L+1 inter-layer activations);
@@ -22,13 +33,14 @@
 //     writes the bf16 operands of every `tdot` product and per-robot fp32
 //     partials of every bias / LayerNorm gradient, and weight_grads.cu sums
 //     both over the batch in a fixed order;
-//   * no 8-row padding or key masks (T rows as they are), no lane-masked
-//     head stacking (one head at a time), erff for the exact GELU;
+//   * no 8-row padding or key masks (T rows as they are, masked at the mma
+//     tile edges), no lane-masked head stacking, erff for the exact GELU;
 //   * forward and backward have instances for head_dim 32 and 64 (the h256
 //     configs' 4-head proprioceptive stacks; their 8-head image-sequence
 //     stack is head_dim 32);
-//   * the layer itself (layer_fwd / layer_bwd) is encoder_layer.cuh, which
-//     the fused ViT block's backward shares.
+//   * the products of the forward and of the recompute read the weights
+//     transposed, (out, in) (wt, made by the wrapper), the input-gradient
+//     products the (in, out) originals: the reduction axis is contiguous.
 #include "encoder_layer.cuh"
 
 namespace sd {
@@ -41,9 +53,9 @@ struct EncStackArgs {
   bf16* out;          // fwd: y; bwd: dx (B, T, E)
   // stacked (L, ...) bf16 weights: g1 be1 wqkv bqkv wo bo g2 be2 w1 b1 w2 b2
   const bf16* w[12];
-  // bwd: transposed wqkv (L, 3E, E), wo (L, E, E), w1 (L, FF, E), w2 (L, E, FF)
+  // transposed wqkv (L, 3E, E), wo (L, E, E), w1 (L, FF, E), w2 (L, E, FF)
   const bf16* wt[4];
-  float* ws32;      // (B, ws32_stride) per-robot fp32 workspace
+  float* ws32;      // (B, ws32_stride) per-robot fp32 workspace (fwd: the last layer's output)
   bf16* wsbf;       // (B, wsbf_stride) per-robot bf16 workspace
   bf16* saved;      // (L, B*T, 8E + 2FF) rows: n1 dqkv om da n2 dzc hg gc
   float* vpart;     // bwd: (B, L, 9E + FF) per-robot bias / LN gradient partials
@@ -65,10 +77,10 @@ __device__ inline EncLayer layer_weights(const EncStackArgs& a, int l) {
   w.b1 = a.w[9] + l * FF;
   w.w2 = a.w[10] + l * FF * E;
   w.b2 = a.w[11] + l * E;
-  w.wqkv_t = a.wt[0] == nullptr ? nullptr : a.wt[0] + l * 3 * E * E;
-  w.wo_t = a.wt[1] == nullptr ? nullptr : a.wt[1] + l * E * E;
-  w.w1_t = a.wt[2] == nullptr ? nullptr : a.wt[2] + l * FF * E;
-  w.w2_t = a.wt[3] == nullptr ? nullptr : a.wt[3] + l * E * FF;
+  w.wqkv_t = a.wt[0] + l * 3 * E * E;
+  w.wo_t = a.wt[1] + l * E * E;
+  w.w1_t = a.wt[2] + l * FF * E;
+  w.w2_t = a.wt[3] + l * E * FF;
   return w;
 }
 
@@ -81,29 +93,30 @@ __device__ inline EncWs robot_ws(const EncStackArgs& a, int b) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) encoder_stack_fwd_kernel(EncStackArgs a) {
+__global__ void __launch_bounds__(kFwdThreads) encoder_stack_fwd_kernel(EncStackArgs a) {
   extern __shared__ float4 smem4[];
-  float* P = reinterpret_cast<float*>(smem4);
-  const int b = blockIdx.x, T = a.T, E = a.E, WS = 8 * a.E + 2 * a.FF;
-  const EncWs s = robot_ws(a, b);
+  const int b = blockIdx.x, T = a.T, E = a.E;
+  bf16* act = reinterpret_cast<bf16*>(smem4);  // (T, E + 8)
+  bf16* qkv = act + T * (E + 8);               // (T, 3E + 8)
   const size_t te = (size_t)T * E;
   const bf16* x = a.x + b * te;
-  for (int i = threadIdx.x; i < T * E; i += blockDim.x) a.acts_out[b * te + i] = tof(x[i]);
+  float* x0 = a.acts_out + b * te;
+  for (int i = threadIdx.x; i < T * E; i += blockDim.x) x0[i] = tof(x[i]);
   __syncthreads();
-  bf16* sv = a.saved + (size_t)b * T * WS;
+  float* last = a.ws32 + (size_t)b * a.ws32_stride;  // the last layer's fp32 output
   for (int l = 0; l < a.L; ++l) {
     const float* in = a.acts_out + ((size_t)l * a.B + b) * te;
-    float* out = l + 1 < a.L ? a.acts_out + ((size_t)(l + 1) * a.B + b) * te : s.g;
-    layer_fwd<D, false>(layer_weights(a, l), s, sv, WS, in, out, P, T, E, a.FF, a.H);
+    float* out = l + 1 < a.L ? a.acts_out + ((size_t)(l + 1) * a.B + b) * te : last;
+    layer_fwd_smem<D, false>(layer_weights(a, l), in, out, act, qkv, T, E, a.FF, a.H);
   }
   bf16* y = a.out + b * te;
-  for (int i = threadIdx.x; i < T * E; i += blockDim.x) y[i] = __float2bfloat16(s.g[i]);
+  for (int i = threadIdx.x; i < T * E; i += blockDim.x) y[i] = __float2bfloat16(last[i]);
 }
 
 template <int D>
 __global__ void __launch_bounds__(kThreads) encoder_stack_bwd_kernel(EncStackArgs a) {
   extern __shared__ float4 smem4[];
-  float* P = reinterpret_cast<float*>(smem4);
+  float* stats = reinterpret_cast<float*>(smem4);
   const int b = blockIdx.x, T = a.T, E = a.E, WS = 8 * a.E + 2 * a.FF, V = 9 * a.E + a.FF;
   const EncWs s = robot_ws(a, b);
   const size_t te = (size_t)T * E;
@@ -114,16 +127,16 @@ __global__ void __launch_bounds__(kThreads) encoder_stack_bwd_kernel(EncStackArg
     const EncLayer w = layer_weights(a, l);
     bf16* sv = a.saved + ((size_t)l * a.B + b) * T * WS;
     // recompute the layer's internals (its output is not needed: into tmp)
-    layer_fwd<D, false>(w, s, sv, WS, a.acts + ((size_t)l * a.B + b) * te, s.tmp, P, T, E, a.FF,
+    layer_fwd<D, false>(w, s, sv, WS, a.acts + ((size_t)l * a.B + b) * te, s.tmp, T, E, a.FF,
                         a.H);
-    layer_bwd<D, false>(w, s, sv, WS, P, a.vpart + ((size_t)b * a.L + l) * V, T, E, a.FF, a.H);
+    layer_bwd<D, false>(w, s, sv, WS, stats, a.vpart + ((size_t)b * a.L + l) * V, T, E, a.FF, a.H);
   }
   bf16* dx = a.out + b * te;
   for (int i = threadIdx.x; i < T * E; i += blockDim.x) dx[i] = __float2bfloat16(s.g[i]);
 }
 
-// Common argument checks (head_dim 32 or 64, widths multiples of 8, the
-// workspace strides); returns the attention tile's shared memory.
+// The backward's argument checks (head_dim 32 or 64, widths multiples of 8,
+// the workspace strides); returns its shared memory (softmax stats).
 static int setup(EncStackArgs& a, const int* ints, size_t* smem) {
   a.B = ints[0];
   a.T = ints[1];
@@ -138,32 +151,42 @@ static int setup(EncStackArgs& a, const int* ints, size_t* smem) {
   if (head_dim(a.E, a.H) == 0 || a.E % 8 || a.FF % 8 || n32 > (size_t)a.ws32_stride ||
       nbf > (size_t)a.wsbf_stride)
     return (int)cudaErrorInvalidValue;
-  *smem = (size_t)a.T * a.T * sizeof(float);
+  *smem = (size_t)3 * a.H * a.T * sizeof(float);
   return 0;
 }
 
 }  // namespace sd
 
-// ptrs: x, 12 stacked weights, y, acts (L, B, T, E) fp32, ws32, wsbf, saved (B*T, 8E+2FF)
+// ptrs: x, 12 stacked weights, y, acts (L, B, T, E) fp32, ws32 (B, ws32_stride >= T E),
+//       wsbf, saved (unused by the forward), 4 transposed (wqkv, wo, w1, w2)
 // ints: B, T, E, H, FF, L, ws32_stride, wsbf_stride
 extern "C" int sd_encoder_stack_fwd(const void* const* ptrs, const int* ints, void* stream) {
   using namespace sd;
   EncStackArgs a = {};
-  size_t smem;
-  if (int err = setup(a, ints, &smem)) return err;
+  a.B = ints[0];
+  a.T = ints[1];
+  a.E = ints[2];
+  a.H = ints[3];
+  a.FF = ints[4];
+  a.L = ints[5];
+  a.ws32_stride = ints[6];
+  if (head_dim(a.E, a.H) == 0 || a.T < 1 || a.E % 8 || a.FF % 8 ||
+      (size_t)a.T * a.E > (size_t)a.ws32_stride)
+    return (int)cudaErrorInvalidValue;
   a.x = static_cast<const bf16*>(ptrs[0]);
   for (int i = 0; i < 12; ++i) a.w[i] = static_cast<const bf16*>(ptrs[1 + i]);
   a.out = static_cast<bf16*>(const_cast<void*>(ptrs[13]));
   a.acts_out = static_cast<float*>(const_cast<void*>(ptrs[14]));
   a.ws32 = static_cast<float*>(const_cast<void*>(ptrs[15]));
-  a.wsbf = static_cast<bf16*>(const_cast<void*>(ptrs[16]));
-  a.saved = static_cast<bf16*>(const_cast<void*>(ptrs[17]));
+  for (int i = 0; i < 4; ++i) a.wt[i] = static_cast<const bf16*>(ptrs[18 + i]);
   auto kernel =
       head_dim(a.E, a.H) == 32 ? encoder_stack_fwd_kernel<32> : encoder_stack_fwd_kernel<64>;
+  // refused when a robot's operands do not fit one block's shared memory
+  const size_t smem = fwd_smem_bytes(a.T, a.E);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<a.B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<a.B, kFwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -19,93 +19,67 @@
 // sigmoid(1.702 z); the output rounded once.
 //
 // Bound on the H100: 2 T (3 W^2 + W^2 + 2 W FF) + 4 T^2 W FLOP per frame =
-// 105 MFLOP at T=64, W=256, FF=1024 (13.4 GFLOP per launch at N=128
-// frames), against 2 x 32 KB of frame bytes and 1.5 MB of weights that stay
-// L2-resident: compute-bound, 13.6 us at the 989 TFLOP/s bf16 tensor-core
-// peak. This first kernel does its products as scalar fp32 FMAs (dense()
-// of common.cuh), as the other kernels of this directory do: 0.97-0.99 ms per
-// N=128 launch on an H100 80GB HBM3 at 700 W, ~14 TFLOP/s (PERF.md);
-// tensor-core products are later work.
+// 105 MFLOP at T=64, W=256, FF=1024 (67 GFLOP per launch at N=640 frames),
+// against 2 x 32 KB of frame bytes and 1.5 MB of weights that stay
+// L2-resident: compute-bound, 0.068 ms at the 989 TFLOP/s bf16 tensor-core
+// peak. The first port did its products as scalar fp32 FMAs (~14 TFLOP/s,
+// 4.676 ms at N=640 on an H100 80GB HBM3 at 700 W; PERF.md); every product
+// now runs on the tensor cores (mma.sync m16n8k16 bf16, mma.cuh). What bounds
+// it now: one frame per block (16 warps a SM, 194 KB of shared memory), B
+// fragments read from L2 with 32-bit loads (each weight once per frame), and
+// the scalar LayerNorm passes.
 //
 // Design: the whole frame lives in shared memory -- the fp32 residual
-// (T, W), the bf16 LayerNorm / attention output (T, W), bf16 q|k|v (T,
-// 3W + 8) and one head's fp32 probability tile (T, T): 209 KB at the
-// flagship shape. The MLP hidden of a frame (T x FF bf16, 128 KB) does not
-// fit beside them, so the MLP runs over tiles of `mlp_rows` token rows whose
-// hidden reuses the q|k|v region. The q|k|v rows are padded by 8 elements
-// so that lanes reading different key rows hit different banks. Not
-// carried over from the TPU kernel: the lane-masked head stacking
-// (_masks/_mask4) and the (F, HT, T) score layout (one head at a time
-// instead), the frame-block grid (one block per frame), the polynomial erf.
+// (T, W) here, and the bf16 operands of encoder_layer.cuh:layer_fwd_smem,
+// which the encoder stack's forward shares: the LayerNorm / attention output
+// (T, W + 8) and q|k|v (T, 3W + 8); 194 KB at the flagship shape. Rows are
+// padded by 8 elements so that the 8 rows of an ldmatrix hit 8 different
+// bank quads. The products are mma_dense over 64-row x 16-column warp items
+// (the frame's 64 rows are 4 m16 tiles, the block's 16 warps split the
+// output columns, so each weight is read from L2 once per frame), A read
+// with ldmatrix; the weights are read transposed, (out, in), so that a B
+// fragment is two adjacent bf16. Attention runs per (head, 16-query tile)
+// warp item with the scores in registers: row max and sum by quad shuffles,
+// the probabilities normalised, rounded to bf16 and fed as the A fragment of
+// the value product (the rounding point of the scalar kernel, no (T, T)
+// tile in shared memory); k and v^T fragments by ldmatrix. The MLP runs over
+// FF-column chunks of 256: hidden chunk -> GELU -> bf16 into the q|k|v
+// region -> its share of the second product added into the fp32 residual
+// (b2 with the first chunk). Not carried over from the TPU kernel: the
+// lane-masked head stacking (_masks/_mask4), the (F, HT, T) score layout,
+// the frame-block grid (one block per frame), the polynomial erf.
 #include "encoder_layer.cuh"
 
 namespace sd {
-
-constexpr int kVitThreads = 512;
 
 struct VitArgs {
   const bf16* x;  // (N, T, W)
   // g1 be1 wqkv (W, 3W) bqkv wo (W, W) bo g2 be2 w1 (W, FF) b1 w2 (FF, W) b2
   const bf16* w[12];
-  bf16* y;  // (N, T, W)
-  int N, T, W, H, FF, mlp_rows;
+  const bf16* wt[4];  // transposed wqkv (3W, W), wo (W, W), w1 (FF, W), w2 (W, FF)
+  bf16* y;            // (N, T, W)
+  int N, T, W, H, FF;
 };
 
-template <bool kQuick>
-struct GeluBf16 {  // bf16 out[m][n] = z * cdf(z) of the fp32 sum z
-  bf16* out;
-  int ld;
-  __device__ void operator()(int m, int n, float z) const {
-    out[m * ld + n] = __float2bfloat16(z * gelu_gate<kQuick>(z));
-  }
-};
-
-__host__ __device__ inline int vit_qkv_ld(int W) { return 3 * W + 8; }
-
-// shared-memory bytes of one frame (the layout of vit_block_fwd_kernel)
+// shared-memory bytes of one frame: the fp32 residual and layer_fwd_smem's
+// bf16 operands
 __host__ __device__ inline size_t vit_smem_bytes(int T, int W) {
-  const size_t f32 = (size_t)T * W + r4((size_t)T * T);                // h, P
-  const size_t b16 = (size_t)T * W + (size_t)T * (size_t)vit_qkv_ld(W);  // act, q|k|v
-  return 4 * f32 + 2 * b16;
+  return 4 * (size_t)T * W + fwd_smem_bytes(T, W);
 }
 
 template <int D, bool kQuick>
-__global__ void __launch_bounds__(kVitThreads) vit_block_fwd_kernel(VitArgs a) {
+__global__ void __launch_bounds__(kFwdThreads) vit_block_fwd_kernel(VitArgs a) {
   extern __shared__ float4 smem4[];
-  const int T = a.T, W = a.W, FF = a.FF, LDQ = vit_qkv_ld(W);
-  const bf16 *g1 = a.w[0], *be1 = a.w[1], *wqkv = a.w[2], *bqkv = a.w[3], *wo = a.w[4],
-             *bo = a.w[5], *g2 = a.w[6], *be2 = a.w[7], *w1 = a.w[8], *b1 = a.w[9],
-             *w2 = a.w[10], *b2 = a.w[11];
-  float* h = reinterpret_cast<float*>(smem4);           // (T, W) fp32 residual
-  float* P = h + T * W;                                  // (T, T) one head's probabilities
-  bf16* act = reinterpret_cast<bf16*>(P + r4(T * T));   // (T, W) LayerNorm / attention output
-  bf16* qkv = act + T * W;                               // (T, LDQ) q|k|v, then the MLP hidden
-
+  const int T = a.T, W = a.W;
+  float* h = reinterpret_cast<float*>(smem4);      // (T, W) fp32 residual
+  bf16* act = reinterpret_cast<bf16*>(h + T * W);  // (T, W + 8)
+  bf16* qkv = act + T * (W + 8);                   // (T, 3W + 8)
   const bf16* x = a.x + (size_t)blockIdx.x * T * W;
   for (int i = threadIdx.x; i < T * W; i += blockDim.x) h[i] = tof(x[i]);
   __syncthreads();
-  // attention sublayer
-  layer_norm_rows(h, W, T, W, g1, be1, act, W);
-  __syncthreads();
-  dense<8, 2>(act, W, T, W, wqkv, 3 * W, bqkv, StoreRoundBf16{qkv, LDQ});
-  __syncthreads();
-  for (int hh = 0; hh < a.H; ++hh) {  // head hh's output into act[:, hh D : (hh + 1) D]
-    const bf16* q = qkv + hh * D;
-    head_probs<D>(q, LDQ, q + W, LDQ, T, T, P);
-    head_out<D>(P, T, T, q + 2 * W, LDQ, act + hh * D, W);
-  }
-  dense<8, 2>(act, W, T, W, wo, W, bo, AddTo{h, W});
-  __syncthreads();
-  // MLP sublayer, mlp_rows token rows at a time
-  layer_norm_rows(h, W, T, W, g2, be2, act, W);
-  __syncthreads();
-  for (int r0 = 0; r0 < T; r0 += a.mlp_rows) {
-    const int rows = min(a.mlp_rows, T - r0);
-    dense<8, 2>(act + r0 * W, W, rows, W, w1, FF, b1, GeluBf16<kQuick>{qkv, FF});
-    __syncthreads();
-    dense<8, 2>(qkv, FF, rows, FF, w2, W, b2, AddTo{h + r0 * W, W});
-    __syncthreads();
-  }
+  const EncLayer w{a.w[0], a.w[1], a.w[2],  a.w[3],  a.w[4],  a.w[5],  a.w[6],  a.w[7],
+                   a.w[8], a.w[9], a.w[10], a.w[11], a.wt[0], a.wt[1], a.wt[2], a.wt[3]};
+  layer_fwd_smem<D, kQuick>(w, h, h, act, qkv, T, W, a.FF, a.H);
   bf16* y = a.y + (size_t)blockIdx.x * T * W;
   for (int i = threadIdx.x; i < T * W; i += blockDim.x) y[i] = __float2bfloat16(h[i]);
 }
@@ -121,8 +95,9 @@ __global__ void __launch_bounds__(kVitThreads) vit_block_fwd_kernel(VitArgs a) {
 // dv and dom rounded to bf16, fp32 LayerNorm backwards, dx rounded once.
 // Its intermediates (the (T, FF) MLP hidden does not fit shared memory
 // beside the rest: 256 KB fp32 at the flagship shape) live in a per-frame
-// global workspace that stays L2-resident while the block runs; one head's
-// (T x T) fp32 probabilities sit in shared memory. It writes dx, the bf16
+// global workspace that stays L2-resident while the block runs; the
+// attention backward's softmax statistics (3 H T floats) sit in shared
+// memory. It writes dx, the bf16
 // operands of the four weight-gradient products per row, (n1, dqkv) (om,
 // da) (n2, dzc) (hg, gc), and per-frame fp32 partials of the eight vector
 // gradients; weight_grads.cu then sums both over the N T rows and N frames
@@ -132,8 +107,12 @@ __global__ void __launch_bounds__(kVitThreads) vit_block_fwd_kernel(VitArgs a) {
 // Bound on the H100: the recompute, the input gradients and the four
 // weight-gradient products are ~3x the forward's FLOPs, ~315 MFLOP per frame
 // at T=64, W=256, FF=1024 (202 GFLOP at N=640 frames): compute-bound at the
-// bf16 tensor-core peak (0.2 ms). Done here, like the forward, as scalar
-// fp32 FMAs; tensor-core products are later work (PERF.md).
+// bf16 tensor-core peak (0.2 ms). Every product now runs on the tensor cores
+// (encoder_layer.cuh's mma products and attention, weight_grads.cu's
+// tdot_kernel); what bounds it now is the ~1 MB per frame of workspace and
+// saved rows written and read back through L2 by one 8-warp block per SM
+// (255 registers a thread for the attention tiles), and the scalar
+// LayerNorm and column-sum passes (PERF.md).
 struct VitBwdArgs {
   const bf16* x;   // (N, T, W)
   const bf16* dy;  // (N, T, W)
@@ -150,7 +129,7 @@ struct VitBwdArgs {
 template <int D, bool kQuick>
 __global__ void __launch_bounds__(kThreads) vit_block_bwd_kernel(VitBwdArgs a) {
   extern __shared__ float4 smem4[];
-  float* P = reinterpret_cast<float*>(smem4);
+  float* stats = reinterpret_cast<float*>(smem4);
   const int f = blockIdx.x, T = a.T, W = a.W, FF = a.FF, WS = 8 * W + 2 * FF;
   EncWs s;
   size_t n32, nbf;
@@ -168,15 +147,15 @@ __global__ void __launch_bounds__(kThreads) vit_block_bwd_kernel(VitBwdArgs a) {
   const EncLayer w{a.w[0], a.w[1], a.w[2],  a.w[3],  a.w[4],  a.w[5],  a.w[6],  a.w[7],
                    a.w[8], a.w[9], a.w[10], a.w[11], a.wt[0], a.wt[1], a.wt[2], a.wt[3]};
   bf16* sv = a.saved + (size_t)f * T * WS;
-  layer_fwd<D, kQuick>(w, s, sv, WS, s.dx2, s.tmp, P, T, W, FF, a.H);
-  layer_bwd<D, kQuick>(w, s, sv, WS, P, a.vpart + (size_t)f * (9 * W + FF), T, W, FF, a.H);
+  layer_fwd<D, kQuick>(w, s, sv, WS, s.dx2, s.tmp, T, W, FF, a.H);
+  layer_bwd<D, kQuick>(w, s, sv, WS, stats, a.vpart + (size_t)f * (9 * W + FF), T, W, FF, a.H);
   bf16* dx = a.dx + f * tw;
   for (int i = threadIdx.x; i < T * W; i += blockDim.x) dx[i] = __float2bfloat16(s.g[i]);
 }
 
 }  // namespace sd
 
-// ptrs: x, 12 weights (VitArgs order), y
+// ptrs: x, 12 weights (VitArgs order), y, 4 transposed (wqkv, wo, w1, w2)
 // ints: N, T, W, H, FF, quick (0: exact GELU, 1: quick-GELU)
 extern "C" int sd_vit_block_fwd(const void* const* ptrs, const int* ints, void* stream) {
   using namespace sd;
@@ -184,6 +163,7 @@ extern "C" int sd_vit_block_fwd(const void* const* ptrs, const int* ints, void* 
   a.x = static_cast<const bf16*>(ptrs[0]);
   for (int i = 0; i < 12; ++i) a.w[i] = static_cast<const bf16*>(ptrs[1 + i]);
   a.y = static_cast<bf16*>(const_cast<void*>(ptrs[13]));
+  for (int i = 0; i < 4; ++i) a.wt[i] = static_cast<const bf16*>(ptrs[14 + i]);
   a.N = ints[0];
   a.T = ints[1];
   a.W = ints[2];
@@ -192,9 +172,6 @@ extern "C" int sd_vit_block_fwd(const void* const* ptrs, const int* ints, void* 
   const bool quick = ints[5] != 0;
   const int D = head_dim(a.W, a.H);
   if (D == 0 || a.T < 1 || a.W % 8 || a.FF % 8) return (int)cudaErrorInvalidValue;
-  const int fit = a.T * vit_qkv_ld(a.W) / a.FF;  // hidden rows that fit the q|k|v region
-  a.mlp_rows = fit < a.T ? fit : a.T;
-  if (a.mlp_rows < 1) return (int)cudaErrorInvalidValue;
   auto kernel = D == 32
                      ? (quick ? vit_block_fwd_kernel<32, true> : vit_block_fwd_kernel<32, false>)
                      : (quick ? vit_block_fwd_kernel<64, true> : vit_block_fwd_kernel<64, false>);
@@ -203,7 +180,7 @@ extern "C" int sd_vit_block_fwd(const void* const* ptrs, const int* ints, void* 
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<a.N, kVitThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<a.N, kFwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -246,7 +223,7 @@ extern "C" int sd_vit_block_bwd(const void* const* ptrs, const int* ints, void* 
   auto kernel = D == 32
                     ? (quick ? vit_block_bwd_kernel<32, true> : vit_block_bwd_kernel<32, false>)
                     : (quick ? vit_block_bwd_kernel<64, true> : vit_block_bwd_kernel<64, false>);
-  const size_t smem = (size_t)a.T * a.T * sizeof(float);
+  const size_t smem = (size_t)3 * a.H * a.T * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);

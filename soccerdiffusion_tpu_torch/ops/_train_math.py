@@ -110,12 +110,20 @@ def r8(n: int) -> int:
     return -(-n // 8) * 8
 
 
+def transposed_weights(w: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The Dense kernels of ``STACK_WEIGHTS`` (wqkv, wo, w1, w2; stacked or
+    not) transposed to (..., out, in), contiguous: the layout in which the
+    encoder-layer and ViT-block kernels read the weights of their forward
+    products, with the reduction axis contiguous (``csrc/mma.cuh``)."""
+    return [w[i].transpose(-1, -2).contiguous() for i in (2, 4, 8, 10)]
+
+
 def check_operands(x: torch.Tensor, w: list[torch.Tensor], num_heads: int, ff: int,
                    tile: int) -> None:
     """Raise ``ValueError`` for what a CUDA kernel of the training ops does
     not take: a non-bf16 dtype, a head_dim other than 32 or 64, an MLP width
-    ``ff`` that is no multiple of 8, or an attention tile (``tile`` fp32
-    scores) over one block's shared memory."""
+    ``ff`` that is no multiple of 8, or attention state (``tile`` fp32
+    values: scores, or softmax statistics) over one block's shared memory."""
     if x.dtype != torch.bfloat16:
         raise ValueError("the CUDA training kernels take bfloat16 (compute_dtype='bfloat16'); "
                          f"got {x.dtype}")
@@ -128,5 +136,5 @@ def check_operands(x: torch.Tensor, w: list[torch.Tensor], num_heads: int, ff: i
         raise ValueError(f"the CUDA training kernels take an MLP width that is a multiple of 8, "
                          f"got {ff}")
     if 4 * tile > MAX_SMEM:
-        raise ValueError(f"{tile} attention scores per head exceed one thread block's shared "
+        raise ValueError(f"{tile} fp32 attention values exceed one thread block's shared "
                          "memory: too many rows for the CUDA training kernels")

@@ -32,6 +32,7 @@ import torch
 
 from soccerdiffusion_tpu_torch.ops import _build
 from soccerdiffusion_tpu_torch.ops._train_math import (
+    MAX_SMEM,
     ROWS_PER_SPLIT,
     attention,
     attention_bwd,
@@ -45,6 +46,7 @@ from soccerdiffusion_tpu_torch.ops._train_math import (
     rnd,
     rsum,
     tdot,
+    transposed_weights,
 )
 
 STACK_WEIGHTS = ("g1", "be1", "wqkv", "bqkv", "wo", "bo", "g2", "be2", "w1", "b1", "w2", "b2")
@@ -150,24 +152,32 @@ def _ws_strides(T: int, E: int, FF: int) -> tuple[int, int]:
             r8(3 * T * E) + r8(T * E))
 
 
+def fwd_smem_bytes(T: int, E: int) -> int:
+    """Shared memory of one robot's forward thread block
+    (``csrc/encoder_layer.cuh:fwd_smem_bytes``): the bf16 LayerNorm /
+    attention output and q|k|v, rows padded by 8."""
+    return 2 * T * ((E + 8) + (3 * E + 8))
+
+
 def forward_kernel(x: torch.Tensor, w: list[torch.Tensor],
                    num_heads: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel on CUDA tensors: y (B, T, E) bf16 and the fp32
     input of every layer, acts (L, B, T, E), kept for the backward."""
     (B, T, E), L, FF = x.shape, w[0].shape[0], w[8].shape[-1]
-    check_operands(x, w, num_heads, FF, T * T)
+    check_operands(x, w, num_heads, FF, 3 * num_heads * T)
+    if fwd_smem_bytes(T, E) > MAX_SMEM:
+        raise ValueError(f"a robot's {T} tokens x {E} do not fit one thread block's shared "
+                         "memory")
     dev = x.device
     x = x.contiguous()
     w = [t.contiguous() for t in w]
-    s32, sbf = _ws_strides(T, E, FF)
+    wt = transposed_weights(w)
     y = torch.empty_like(x)
     acts = torch.empty((L, B, T, E), dtype=torch.float32, device=dev)
-    ws32 = torch.empty((B, s32), dtype=torch.float32, device=dev)
-    wsbf = torch.empty((B, sbf), dtype=torch.bfloat16, device=dev)
-    saved = torch.empty((B * T, 8 * E + 2 * FF), dtype=torch.bfloat16, device=dev)
+    last = torch.empty((B, r4(T * E)), dtype=torch.float32, device=dev)  # the last layer's output
     err = _build.library().sd_encoder_stack_fwd(
-        _build.pointers(x, *w, y, acts, ws32, wsbf, saved),
-        _build.ints(B, T, E, num_heads, FF, L, s32, sbf), _build.stream(dev))
+        _build.pointers(x, *w, y, acts, last, None, None, *wt),
+        _build.ints(B, T, E, num_heads, FF, L, r4(T * E), 0), _build.stream(dev))
     _build.check("sd_encoder_stack_fwd", err)
     FusedEncoderStack.fwd_launches += 1
     FusedEncoderStack.fwd_launches_hd64 += E == 64 * num_heads
@@ -206,10 +216,10 @@ def backward_kernel(acts: torch.Tensor, dy: torch.Tensor, w: list[torch.Tensor],
     float32 weight gradients, summed over the batch in a fixed order."""
     L, B, T, E = acts.shape
     FF = w[8].shape[-1]
-    check_operands(dy, w, num_heads, FF, T * T)
+    check_operands(dy, w, num_heads, FF, 3 * num_heads * T)
     dy = dy.contiguous()
     w = [t.contiguous() for t in w]
-    wt = [w[i].transpose(-1, -2).contiguous() for i in (2, 4, 8, 10)]  # wqkv, wo, w1, w2
+    wt = transposed_weights(w)
     outs, scratch, (s32, sbf) = backward_buffers(L, B, T, E, FF, dy.device)
     dx = torch.empty_like(dy)
     err = _build.library().sd_encoder_stack_bwd(

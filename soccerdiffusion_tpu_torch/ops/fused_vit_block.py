@@ -37,6 +37,7 @@ from soccerdiffusion_tpu_torch.ops._train_math import (
     MAX_SMEM,
     ROWS_PER_SPLIT,
     check_operands,
+    transposed_weights,
 )
 
 
@@ -65,8 +66,9 @@ def backward_plain(x: torch.Tensor, dy: torch.Tensor, w: list[torch.Tensor], num
 
 def smem_bytes(T: int, W: int) -> int:
     """Shared memory of one frame's forward thread block
-    (``csrc/fused_vit_block.cu:vit_smem_bytes``)."""
-    return 4 * (T * W + -(-T * T // 4) * 4) + 2 * (T * W + T * (3 * W + 8))
+    (``csrc/fused_vit_block.cu:vit_smem_bytes``): the fp32 residual, the
+    bf16 LayerNorm / attention output and q|k|v, rows padded by 8."""
+    return 4 * T * W + fes.fwd_smem_bytes(T, W)
 
 
 def _check(x: torch.Tensor, w: list[torch.Tensor], num_heads: int, gelu: str) -> None:
@@ -74,7 +76,7 @@ def _check(x: torch.Tensor, w: list[torch.Tensor], num_heads: int, gelu: str) ->
     if x.dtype != torch.bfloat16 or any(t.dtype != torch.bfloat16 for t in w):
         raise ValueError("the CUDA ViT-block kernels take bfloat16 (compute_dtype='bfloat16'); "
                          f"got {x.dtype}")
-    check_operands(x, w, num_heads, w[8].shape[-1], x.shape[1] ** 2)
+    check_operands(x, w, num_heads, w[8].shape[-1], 3 * num_heads * x.shape[1])
 
 
 def forward_kernel(x: torch.Tensor, w: list[torch.Tensor], num_heads: int,
@@ -89,7 +91,7 @@ def forward_kernel(x: torch.Tensor, w: list[torch.Tensor], num_heads: int,
     w = [t.contiguous() for t in w]
     y = torch.empty_like(x)
     err = _build.library().sd_vit_block_fwd(
-        _build.pointers(x, *w, y),
+        _build.pointers(x, *w, y, *transposed_weights(w)),
         _build.ints(N, T, W, num_heads, w[8].shape[-1], int(gelu == "quick")),
         _build.stream(x.device))
     _build.check("sd_vit_block_fwd", err)
@@ -106,7 +108,7 @@ def backward_kernel(x: torch.Tensor, dy: torch.Tensor, w: list[torch.Tensor], nu
     FF = w[8].shape[-1]
     x, dy = x.contiguous(), dy.contiguous()
     w = [t.contiguous() for t in w]
-    wt = [w[i].t().contiguous() for i in (2, 4, 8, 10)]  # wqkv, wo, w1, w2
+    wt = transposed_weights(w)
     outs, scratch, (s32, sbf) = fes.backward_buffers(1, N, T, W, FF, x.device)
     dx = torch.empty_like(x)
     err = _build.library().sd_vit_block_bwd(

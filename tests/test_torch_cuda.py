@@ -3,7 +3,10 @@ shapes off the main paths (serving: patch 2, five-dim IMU, no game state,
 short contexts, 5-step chunks, a batch that is no multiple of anything,
 decoder head_dim 64 at h128; training: B=5, T=7, S=33, head_dim 32 and 64;
 the ViT block forward and backward: T=49 tokens, N=7 frames, exact GELU at
-head_dim 64, quick GELU at head_dim 32).
+head_dim 64, quick GELU at head_dim 32; the tensor-core layer code of the
+ViT block and the encoder stack at ragged T = 1, 10, 49, 64, 100 with one
+and odd counts of frames or robots, and their backwards bit-identical over
+two launches).
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere. JAX-free, so it runs on a
 machine without jax: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
@@ -304,6 +307,78 @@ def test_encoder_stack_head_dim_64(device):
     torch.cuda.synchronize()
     assert fes.FusedEncoderStack.bwd_launches_hd64 == n0 + 1
     assert all(torch.isfinite(m.grad).all() for m in masters)
+
+
+# ------------------------------------------ tensor-core layer code, ragged
+# encoder_layer.cuh / mma.cuh mask T at the m16 / n8 / k16 tile edges and
+# loop over key blocks past 64 (ViT forward) or 32 keys (backwards); T=1
+# makes dk exactly zero. (T, frames or robots); the ViT forward of a
+# 256-wide frame fits shared memory up to T=74.
+RAGGED = [(1, 1), (10, 5), (49, 7), (64, 1), (100, 3)]
+VIT_CASES = [(W, H, gelu, T, n) for W, H, gelu in ((128, 4, "quick"), (128, 4, "exact"),
+                                                   (256, 4, "exact"), (256, 4, "quick"))
+             for T, n in RAGGED if W * T <= 256 * 74]
+
+
+@pytest.mark.parametrize("W,H,gelu,T,n", VIT_CASES)
+def test_vit_block_kernels_at_ragged_shapes(W, H, gelu, T, n, device):
+    from soccerdiffusion_tpu_torch.ops import fused_encoder_stack as fes
+    from soccerdiffusion_tpu_torch.ops import fused_vit_block as fvb
+
+    w = [t.to(torch.bfloat16) for t in vit_weights(device, W, 4 * W, seed=T)]
+    rng = np.random.default_rng(T + n)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device, torch.bfloat16)
+    x, dy = t(n, T, W), t(n, T, W)
+    assert_close(fvb.forward_kernel(x, w, H, gelu), fvb.forward_plain(x, w, H, gelu))
+    dx, grads = fvb.backward_kernel(x, dy, w, H, gelu)
+    dx_ref, grads_ref = fvb.backward_plain(x, dy, w, H, gelu)
+    torch.cuda.synchronize()
+    assert_close(dx, dx_ref)
+    assert_grads_close(fes.STACK_WEIGHTS, grads, grads_ref, {"bqkv": slice(W, 2 * W)})
+
+
+@pytest.mark.parametrize("T,b", RAGGED)
+@pytest.mark.parametrize("H", [4, 2])  # head_dim 32, 64 at E=128
+def test_encoder_stack_kernels_at_ragged_shapes(T, b, H, device):
+    from soccerdiffusion_tpu_torch.ops import fused_encoder_stack as fes
+
+    w, _ = training_weights(device)
+    rng = np.random.default_rng(T + b)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device, torch.bfloat16)
+    x, dy = t(b, T, 128), t(b, T, 128)
+    y, acts = fes.forward_kernel(x, w, H)
+    assert_close(y, fes.forward_plain(x, w, H))
+    dx, grads = fes.backward_kernel(acts, dy, w, H)
+    dx_ref, grads_ref = fes.backward_plain(x, dy, w, H)
+    torch.cuda.synchronize()
+    assert_close(dx, dx_ref)
+    assert_grads_close(fes.STACK_WEIGHTS, grads, grads_ref, {"bqkv": slice(128, 256)})
+
+
+@pytest.mark.parametrize("op", ["vit_block", "encoder_stack"])
+def test_layer_backward_is_deterministic(op, device):
+    """Two backward launches on the same inputs agree bit for bit (the
+    attention backward owns query and key rows by warp, the weight
+    gradients are summed in a fixed order): the ViT block at the flagship's
+    frame (T=64, W=256, quick GELU), the encoder stack at T=100, head_dim 64."""
+    from soccerdiffusion_tpu_torch.ops import fused_encoder_stack as fes
+    from soccerdiffusion_tpu_torch.ops import fused_vit_block as fvb
+
+    rng = np.random.default_rng(12)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device, torch.bfloat16)
+    if op == "vit_block":
+        w = [m.to(torch.bfloat16) for m in vit_weights(device, 256, 1024)]
+        x, dy = t(37, 64, 256), t(37, 64, 256)
+        run = lambda: fvb.backward_kernel(x, dy, w, 4, "quick")
+    else:
+        w, _ = training_weights(device)
+        x, dy = t(37, 100, 128), t(37, 100, 128)
+        _, acts = fes.forward_kernel(x, w, 2)
+        run = lambda: fes.backward_kernel(acts, dy, w, 2)
+    (dx1, g1), (dx2, g2) = run(), run()
+    torch.cuda.synchronize()
+    for a, b in zip([dx1, *g1], [dx2, *g2]):
+        assert torch.equal(a, b)
 
 
 # ------------------------------------------------------- flash attention

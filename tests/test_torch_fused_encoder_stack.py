@@ -180,3 +180,25 @@ def test_kernel_wrapper_rejects_an_mlp_width_off_8():
     bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 8, got 12"):
         forward_kernel(bf(x), [bf(a) for a in w], H)
+
+
+def test_forward_kernel_checks_shared_memory(monkeypatch):
+    """The forward kernel keeps a robot's bf16 operands in shared memory:
+    the flagship's T=100 x 256 fits and goes on to the kernel library
+    (stubbed here to raise), 128 x 256 raises ValueError before any build or
+    launch (so on CPU tensors too)."""
+    from soccerdiffusion_tpu_torch.ops import _build
+    from soccerdiffusion_tpu_torch.ops.fused_encoder_stack import forward_kernel, fwd_smem_bytes
+
+    def library():
+        raise LookupError("reached the kernel library")
+
+    monkeypatch.setattr(_build, "library", library)
+    assert fwd_smem_bytes(100, 256) == 208000  # 203 KB of 227 KB
+    shapes = [(1, 256), (1, 256), (1, 256, 768), (1, 768), (1, 256, 256), (1, 256), (1, 256),
+              (1, 256), (1, 256, 256), (1, 256), (1, 256, 256), (1, 256)]
+    w = [torch.zeros(s, dtype=torch.bfloat16) for s in shapes]
+    with pytest.raises(LookupError, match="kernel library"):
+        forward_kernel(torch.zeros(2, 100, 256, dtype=torch.bfloat16), w, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        forward_kernel(torch.zeros(2, 128, 256, dtype=torch.bfloat16), w, 4)

@@ -112,7 +112,7 @@ def test_kernel_wrapper_checks_before_launch():
         fvb.forward_kernel(x, w, 8)  # head_dim 8
     with pytest.raises(ValueError, match="bfloat16"):
         fvb.forward_kernel(x.float(), w, H)
-    assert fvb.smem_bytes(64, 256) == 214016  # the flagship frame: 209 KB of 227 KB
+    assert fvb.smem_bytes(64, 256) == 198656  # the flagship frame: 194 KB of 227 KB
     shapes = [(256,), (256,), (256, 768), (768,), (256, 256), (256,), (256,), (256,), (256, 1024),
               (1024,), (1024, 256), (256,)]
     with pytest.raises(ValueError, match="shared memory"):  # 128 tokens x 256
