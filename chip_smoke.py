@@ -5,8 +5,9 @@
 1. Prints the torch / CUDA versions and the card's name and power limit.
 2. Builds the CUDA kernels of soccerdiffusion_tpu_torch/csrc (nvcc, sm_90a)
    and reads the library's SASS (cuobjdump -sass): every instance of the
-   ViT-block, encoder-stack and tdot kernels must hold tensor-core
-   instructions (HMMA / HGMMA).
+   ViT-block, encoder-stack, decoder-layer and tdot kernels and every bf16
+   instance of the flash kernels must hold tensor-core instructions (HMMA /
+   HGMMA); the fp32 flash instances are logged as scalar.
 3. Holds each serving kernel against its plain PyTorch version on the card
    at the h128 serving path's shapes (S=301 context tokens, 30 DDIM steps,
    B=64 and B=1024; bf16 weights from a seeded flax-layout random init) and
@@ -57,8 +58,8 @@
    frames, the image-frame stack, the proprioceptive stacks, the decoder's
    self- and cross-attention), the h128 stacks' head_dim 32, the "auto"
    threshold (Tq = Tk = 256), Tk = 1536, an unaligned shape and head_dim
-   48, each timed beside F.scaled_dot_product_attention (library_ms; the
-   port never calls it). Then the flash flagship, vit_flagship.yaml's
+   48, each timed beside F.scaled_dot_product_attention's forward and one
+   torch.autograd.grad through it (library_ms; the port never calls it). Then the flash flagship, vit_flagship.yaml's
    model with attention_impl="pallas" and the three fused knobs off, so
    that every attention runs the kernel: 5 replan periods of 30-step DDIM
    with the image-token cache at B=64 through RolloutEngine(fused=False)
@@ -73,8 +74,9 @@
    same function as a kernel (the encoder-stack, ViT-block and
    decoder-layer forwards; one torch.autograd.grad through the same layers
    for their backwards, checked against the plain backward;
-   scaled_dot_product_attention for the flash forward), its time on the
-   same inputs is the entry's library_ms; the port never calls those.
+   scaled_dot_product_attention for the flash forward, one autograd.grad
+   through it for the flash backward), its time on the same inputs is the
+   entry's library_ms; the port never calls those.
 
 Exits non-zero, without the last line, when CUDA is unavailable or any
 phase fails. Imports nothing of JAX or of the JAX package.
@@ -158,10 +160,16 @@ FLAG_TRAIN_LAUNCHES = {
 # built from the same weights (a wrong mapping gives errors of the order of
 # the output): torch rounds the residual stream to bf16 at every sublayer
 LIBRARY_TOL = 0.1
-# kernels that must run on the tensor cores: every instance's SASS holds
-# HMMA (mma.sync) or HGMMA (wgmma) instructions
-TENSOR_CORE_KERNELS = ("vit_block_fwd_kernel", "vit_block_bwd_kernel", "encoder_stack_fwd_kernel",
-                       "encoder_stack_bwd_kernel", "tdot_kernel")
+# kernels that must run on the tensor cores: every instance whose mangled
+# name holds the second string (the bf16 flash instances; the others: every
+# instance) has HMMA (mma.sync) or HGMMA (wgmma) instructions in its SASS
+TENSOR_CORE_KERNELS = (
+    ("vit_block_fwd_kernel", ""), ("vit_block_bwd_kernel", ""), ("encoder_stack_fwd_kernel", ""),
+    ("encoder_stack_bwd_kernel", ""), ("tdot_kernel", ""), ("decoder_layer_fwd_kernel", ""),
+    ("decoder_layer_bwd_kernel", ""), ("flash_fwd_kernel", "__nv_bfloat16"),
+    ("flash_bwd_dq_kernel", "__nv_bfloat16"), ("flash_bwd_dkdv_kernel", "__nv_bfloat16"))
+# kernel instances that stay scalar fp32 FMAs (logged with their counts)
+SCALAR_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
 # H100 SXM fp32 peak outside the tensor cores (NVIDIA data sheet): the bound
 # of the flash kernel's fp32 instances
 FP32_FLOPS = 67e12
@@ -413,6 +421,33 @@ def library_bwd_ms(name, label, grad_fn, ref, names, zero) -> float:
     if not worst <= LIBRARY_TOL:
         raise AssertionError(f"{name}: the torch.nn layers built for library_ms do not compute "
                              "the same gradients")
+    return ms
+
+
+def sdpa_bwd_ms(name, label, q, k, v, do, ref) -> float:
+    """The CUDA-event time of one torch.autograd.grad through
+    F.scaled_dot_product_attention's output with respect to q, k and v (the
+    forward run once, outside the timed call: the backward alone, as the
+    flash backward kernels compute it). Its gradients must agree with the
+    plain backward's (``ref``: dq, dk, dv) within LIBRARY_TOL of each one's
+    scale: a check that the call computes the same function, not a
+    tolerance of the port."""
+    from torch.nn import functional as F
+
+    leaves = [x.detach().transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves)
+    dout = do.transpose(1, 2)
+    run = lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    worst = 0.0
+    for g, r in zip(run(), ref):
+        g, r = g.transpose(1, 2).float(), r.float()
+        worst = max(worst, (g - r).abs().max().item() / max(r.abs().max().item(), 1e-30))
+    ms = median_ms(run)
+    log(f"  {name} {label}: SDPA autograd.grad {ms:.3f} ms, max |library - plain| / scale "
+        f"{worst:.4e} (tol {LIBRARY_TOL})")
+    if not worst <= LIBRARY_TOL:
+        raise AssertionError(f"{name}: scaled_dot_product_attention's gradients do not match the "
+                             "plain backward")
     return ms
 
 
@@ -1224,8 +1259,8 @@ def flash_kernel_phase(device):
     plain versions on the same inputs (the backward on the plain forward's
     o and log-sum-exp) at every FLASH_SHAPES entry in fp32 and bf16, with
     CUDA-event times of both, of F.scaled_dot_product_attention's forward
-    on the same inputs and the bound (bf16: the tensor-core peak; fp32: the
-    fp32 peak). Returns the JSON entries (errors: the largest over every
+    and of one autograd.grad through it on the same inputs, and the bound
+    (bf16: the tensor-core peak; fp32: the fp32 peak). Returns the JSON entries (errors: the largest over every
     check; times: the first shape's in bf16) and every shape's numbers."""
     from torch.nn import functional as F
 
@@ -1252,6 +1287,7 @@ def flash_kernel_phase(device):
             lib = library_ms("flash_attention_fwd", name,
                              lambda: F.scaled_dot_product_attention(qt, kt, vt).transpose(1, 2),
                              o_ref)
+            lib_bwd = sdpa_bwd_ms("flash_attention_bwd", name, q, k, v, do, grads_ref)
             flops = 4 * B * H * Tq * Tk * D
             row = {}
             for key, err, kernel_fn, plain_fn, fl, io, lib_ms in (
@@ -1259,7 +1295,7 @@ def flash_kernel_phase(device):
                      lambda: fa.plain_forward(q, k, v), flops, [q, k, v, o, lse], lib),
                     ("bwd", e_bwd, lambda: fa.backward_kernel(q, k, v, o_ref, lse_ref, do),
                      lambda: fa.plain_backward(q, k, v, o_ref, lse_ref, do), 3 * flops,
-                     [q, k, v, o_ref, lse_ref, do, grads], None)):
+                     [q, k, v, o_ref, lse_ref, do, grads], lib_bwd)):
                 k_ms, p_ms = median_ms(kernel_fn), median_ms(plain_fn)
                 bnd = bound(fl, nbytes(io), peak)
                 log(f"  {key}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, library "
@@ -1317,9 +1353,10 @@ def flash_training_path_phase():
 
 def sass_phase() -> dict:
     """cuobjdump -sass of the built kernel library: every instance of each
-    TENSOR_CORE_KERNELS kernel must hold tensor-core instructions. Returns
-    per kernel its instances and the fewest HMMA / HGMMA instructions of
-    one."""
+    TENSOR_CORE_KERNELS kernel (bf16 only where it says so) must hold
+    tensor-core instructions; the fp32 flash instances, which stay scalar,
+    are logged. Returns per kernel its instances and the fewest HMMA / HGMMA
+    instructions of one."""
     from soccerdiffusion_tpu_torch.ops import _build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -1332,13 +1369,18 @@ def sass_phase() -> dict:
     for chunk in sass.split("Function : ")[1:]:
         counts[chunk.split(None, 1)[0]] = len(re.findall(r"\bHG?MMA\b", chunk))
     found = {}
-    for kernel in TENSOR_CORE_KERNELS:
-        n = [c for fn, c in counts.items() if kernel in fn]
-        log(f"SASS {kernel}: {len(n)} instance(s), HMMA/HGMMA instructions {n}")
+    for kernel, only in TENSOR_CORE_KERNELS:
+        n = [c for fn, c in counts.items() if kernel in fn and only in fn]
+        label = f"{kernel} ({only} instances)" if only else kernel
+        log(f"SASS {label}: {len(n)} instance(s), HMMA/HGMMA instructions {n}")
         if not n or min(n) == 0:
-            raise AssertionError(f"{kernel}: an instance without tensor-core instructions "
+            raise AssertionError(f"{label}: an instance without tensor-core instructions "
                                  f"(HMMA/HGMMA counts {n})")
-        found[kernel] = {"instances": len(n), "min_mma_instructions": min(n)}
+        found[label] = {"instances": len(n), "min_mma_instructions": min(n)}
+    for kernel in SCALAR_KERNELS:
+        n = {fn: c for fn, c in counts.items() if kernel in fn and "__nv_bfloat16" not in fn}
+        log(f"SASS {kernel} (float instances, scalar fp32): {len(n)} instance(s), HMMA/HGMMA "
+            f"instructions {sorted(n.values())}")
     return found
 
 

@@ -1,6 +1,7 @@
 // Warp-level bf16 tensor-core products (mma.sync m16n8k16, fp32
 // accumulators) for the fused ViT block and the encoder layer
-// (encoder_layer.cuh), forward and backward.
+// (encoder_layer.cuh), the decoder layer (fused_decoder_layer.cu) and the
+// bf16 flash-attention kernels (flash_attention.cu), forward and backward.
 //
 // Fragments follow the PTX ISA's m16n8k16 .bf16 layout: with g = lane / 4
 // and c = lane % 4, A register 0 holds (row g, cols 2c, 2c+1), 1 (row g+8,
@@ -10,7 +11,8 @@
 // operand is already bf16 at the plain versions' rounding points (LayerNorm
 // outputs, q/k/v, head outputs, the GELU output, bf16(P), every backward
 // operand), so a product here differs from the scalar one by the order of
-// its fp32 sums only.
+// its fp32 sums only; the flash kernel's fp32 P (and ds) is a sum of two
+// bf16 operands (pv_step).
 //
 // Operands in shared memory are read with ldmatrix (rows padded so that its
 // 8 row addresses hit 8 different bank quads); in global memory with 16-byte
@@ -124,7 +126,9 @@ __device__ __forceinline__ void acc_to_a(uint32_t* a, const float* lo, const flo
 // them: a B fragment serves MT products, an A fragment NT. Two forms:
 //   * mma_dense (kSmemA): X in shared memory, A fragments by ldmatrix and B
 //     by 32-bit loads, 16 columns of K at a time;
-//   * mma_dense_rows: X in global memory (a workspace this block wrote);
+//   * mma_dense_rows: X in global memory (a workspace this block wrote) or
+//     in shared memory (generic loads: where MT = 1, the 16-byte B loads
+//     below move 4x the bytes of the 32-bit ones per L1 wavefront);
 //     lane c reads columns 8c .. 8c + 7 of its two A rows and of its B row
 //     as one 16-byte load each, 32 columns of K at a time (X and Wt 16-byte
 //     aligned, 8-element strides), and feeds them to the two k16 products
@@ -239,10 +243,12 @@ __device__ void mma_dense_rows(const bf16* X, int ldx, int M, int K, const bf16*
 }
 
 // ------------------------------------------------------------- attention
-// One head's slices of q, k, v (and of dom, the output gradient) are T rows
-// of D bf16 at a row stride; a warp owns 16 query (or key) rows and keeps
-// its scores in registers, KB keys (or queries) at a time, with the row max
-// and sum taken by quad shuffles. Keys past T score -inf; queries past T are
+// One head's slices: q (and dom, the output gradient) are Tq rows of D bf16
+// at a row stride, k and v Tk rows at another (self-attention: Tq = Tk, all
+// three in one q | k | v row; cross-attention and flash attention: separate
+// buffers, Tq != Tk). A warp owns 16 query (or key) rows and keeps its
+// scores in registers, KB keys (or queries) at a time, with the row max and
+// sum taken by quad shuffles. Keys past Tk score -inf; queries past Tq are
 // neither stored nor counted.
 
 // quad (the 4 lanes of one accumulator row) reductions
@@ -256,13 +262,13 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // s[j] = A . (Bt rows j0 + 8 j ..)^T over D for NB n8 tiles: with kScaled,
-// times 1 / sqrt(D) and -inf in the columns at or past nvalid (scores);
-// else the plain products with 0 there (dp = dom v^T)
+// times `scale` (1 / sqrt(D) unless given) and -inf in the columns at or
+// past nvalid (scores); else the plain products with 0 there (dp = dom v^T)
 // (kSm: Bt in shared memory, read with ldmatrix; rows past nvalid read row
 // nvalid - 1 and are masked as above)
 template <int D, int NB, bool kScaled = true, bool kSm = false>
-__device__ __forceinline__ void scores(float (*s)[4], uint32_t (*a)[4], const bf16* Bt,
-                                       int ld, int j0, int nvalid) {
+__device__ __forceinline__ void scores(float (*s)[4], uint32_t (*a)[4], const bf16* Bt, int ld,
+                                       int j0, int nvalid, float scale = attn_scale<D>()) {
   const int lane = threadIdx.x & 31, c = lane & 3;
 #pragma unroll
   for (int j = 0; j < NB; ++j) {
@@ -290,7 +296,7 @@ __device__ __forceinline__ void scores(float (*s)[4], uint32_t (*a)[4], const bf
     for (int e = 0; e < 4; ++e) {
       const bool in = j0 + 8 * j + 2 * c + (e & 1) < nvalid;
       if constexpr (kScaled) {
-        s[j][e] = in ? s[j][e] * attn_scale<D>() : -INFINITY;
+        s[j][e] = in ? s[j][e] * scale : -INFINITY;
       } else {
         s[j][e] = in ? s[j][e] : 0.f;
       }
@@ -298,16 +304,73 @@ __device__ __forceinline__ void scores(float (*s)[4], uint32_t (*a)[4], const bf
   }
 }
 
-// Row max and sum of exp over all T keys for the warp's rows g and g + 8
+// o (16 x D: D / 8 accumulator tiles) += P . V over the 16 rows key0 ..
+// key0 + 15 of V (row-major (key, D), row stride ld: the values, or k / q /
+// dom in the backward products), P's 16 columns in two accumulator tiles
+// (columns 0-7 in plo, 8-15 in phi). Rows at or past nkeys read row nkeys
+// - 1 (kSm: V in shared memory, read with ldmatrix.trans) or 0; their P
+// columns must be 0. Two numerics of the product:
+//   * rounded (kFp32P false): one product of bf16(P), the layer kernels'
+//     (their plain versions round the normalised probabilities, and ds,
+//     before the value sum);
+//   * fp32 P (kFp32P true): the flash kernel's. Its TPU kernel never rounds
+//     P (or ds), and the tensor cores take bf16 operands only, so P is split
+//     into hi = bf16(P) and lo = bf16(P - hi) and both are multiplied by V:
+//     hi + lo keeps 16 of P's 24 mantissa bits (|P - hi - lo| <= 2^-17 |P|),
+//     against 8 for bf16(P). The second product is cheap where the kernel
+//     is bound by bytes.
+__device__ __forceinline__ uint32_t pack_lo(float a, float b) {  // bf16(x - bf16(x)) of a pair
+  return pack_round(a - __bfloat162float(__float2bfloat16(a)),
+                    b - __bfloat162float(__float2bfloat16(b)));
+}
+template <int D, bool kSm, bool kFp32P = false>
+__device__ __forceinline__ void pv_step(float (*o)[4], const float* plo, const float* phi,
+                                        const bf16* v, int ld, int key0, int nkeys) {
+  constexpr int NP = kFp32P ? 2 : 1;
+  const int lane = threadIdx.x & 31;
+  uint32_t pa[NP][4];
+  acc_to_a(pa[0], plo, phi);
+  if constexpr (kFp32P) {
+    pa[1][0] = pack_lo(plo[0], plo[1]);
+    pa[1][1] = pack_lo(plo[2], plo[3]);
+    pa[1][2] = pack_lo(phi[0], phi[1]);
+    pa[1][3] = pack_lo(phi[2], phi[3]);
+  }
+  if constexpr (kSm) {
+    // v^T fragments of the 16 keys, two n8 tiles a load
+    const int key = min(key0 + (lane & 7) + 8 * ((lane >> 3) & 1), nkeys - 1);
+#pragma unroll
+    for (int d = 0; d < D / 16; ++d) {
+      uint32_t r[4];
+      ldsm_x4_trans(r, v + (size_t)key * ld + 16 * d + 8 * (lane >> 4));
+      const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        mma_bf16(o[2 * d], pa[p], b0);
+        mma_bf16(o[2 * d + 1], pa[p], b1);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d) {
+      uint32_t b[2];
+      load_b_n(b, v, ld, 8 * d, key0, D, nkeys);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) mma_bf16(o[d], pa[p], b);
+    }
+  }
+}
+
+// Row max and sum of exp over all Tk keys for the warp's rows g and g + 8
 // (the online form across key blocks; within a block the exact one).
 template <int D, int KB, bool kSm = false>
-__device__ __forceinline__ void softmax_stats(uint32_t (*qa)[4], const bf16* k, int ld, int T,
+__device__ __forceinline__ void softmax_stats(uint32_t (*qa)[4], const bf16* k, int ldk, int Tk,
                                               float* mx, float* sum) {
   mx[0] = mx[1] = -INFINITY;
   float part[2] = {0.f, 0.f};
-  for (int j0 = 0; j0 < T; j0 += KB) {
+  for (int j0 = 0; j0 < Tk; j0 += KB) {
     float s[KB / 8][4];
-    scores<D, KB / 8, true, kSm>(s, qa, k, ld, j0, T);
+    scores<D, KB / 8, true, kSm>(s, qa, k, ldk, j0, Tk);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float bm = -INFINITY;
@@ -324,84 +387,184 @@ __device__ __forceinline__ void softmax_stats(uint32_t (*qa)[4], const bf16* k, 
   sum[1] = quad_sum(part[1]);
 }
 
-// Forward of one head for query rows m0 .. m0 + 15:
-//   out = bf16( bf16(softmax(q k^T / sqrt(D))) v )
-// (kSm: q, k, v in shared memory, read with ldmatrix; keys past T read key
-// T - 1, whose probability is exactly 0)
+// the q fragments of query rows m0 .. m0 + 15 (kSm: q in shared memory)
 template <int D, bool kSm>
-__device__ void attn_fwd_tile(const bf16* q, const bf16* k, const bf16* v, int ld, int T, int m0,
-                              bf16* out, int ldo) {
-  constexpr int KB = 64;
-  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
-  uint32_t qa[D / 16][4];
+__device__ __forceinline__ void load_q(uint32_t (*qa)[4], const bf16* q, int ldq, int m0, int Tq) {
 #pragma unroll
   for (int kd = 0; kd < D / 16; ++kd) {
     if constexpr (kSm) {
-      load_a_sm(qa[kd], q, ld, m0, 16 * kd, T, D);
+      load_a_sm(qa[kd], q, ldq, m0, 16 * kd, Tq, D);
     } else {
-      load_a(qa[kd], q, ld, m0, 16 * kd, T, D);
+      load_a(qa[kd], q, ldq, m0, 16 * kd, Tq, D);
     }
   }
+}
+
+// the warp's rows g and g + 8 of a 16 x D accumulator into bf16 out (rows
+// m0 + r < M)
+template <int D>
+__device__ __forceinline__ void store_rows(const float (*acc)[4], int m0, int M, bf16* out,
+                                           int ldo) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = m0 + g + 8 * h;
+    if (r >= M) continue;
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d)
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * ldo + 8 * d + 2 * c) =
+          __floats2bfloat162_rn(acc[d][2 * h], acc[d][2 * h + 1]);
+  }
+}
+
+// Forward of one head for query rows m0 .. m0 + 15:
+//   out = bf16( bf16(softmax(q k^T / sqrt(D))) v )
+// (kSm: q, k, v in shared memory, read with ldmatrix; keys past Tk read key
+// Tk - 1, whose probability is exactly 0)
+template <int D, bool kSm>
+__device__ void attn_fwd_tile(const bf16* q, int ldq, int Tq, const bf16* k, const bf16* v,
+                              int ldk, int Tk, int m0, bf16* out, int ldo) {
+  constexpr int KB = 64;
+  uint32_t qa[D / 16][4];
+  load_q<D, kSm>(qa, q, ldq, m0, Tq);
   float mx[2], sum[2];
-  softmax_stats<D, KB, kSm>(qa, k, ld, T, mx, sum);
+  softmax_stats<D, KB, kSm>(qa, k, ldk, Tk, mx, sum);
   float o[D / 8][4];
 #pragma unroll
   for (int d = 0; d < D / 8; ++d)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
-  for (int j0 = 0; j0 < T; j0 += KB) {
+  for (int j0 = 0; j0 < Tk; j0 += KB) {
     float s[KB / 8][4];
-    scores<D, KB / 8, true, kSm>(s, qa, k, ld, j0, T);
+    scores<D, KB / 8, true, kSm>(s, qa, k, ldk, j0, Tk);
 #pragma unroll
     for (int j = 0; j < KB / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = expf(s[j][e] - mx[e >> 1]) / sum[e >> 1];
 #pragma unroll
-    for (int kk = 0; kk < KB / 16; ++kk) {
-      uint32_t pa[4];
-      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-      if constexpr (kSm) {
-        // v^T fragments of keys j0 + 16 kk .. + 15, two n8 tiles a load
-        const int key = min(j0 + 16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1), T - 1);
-#pragma unroll
-        for (int d = 0; d < D / 16; ++d) {
-          uint32_t r[4];
-          ldsm_x4_trans(r, v + (size_t)key * ld + 16 * d + 8 * (lane >> 4));
-          const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-          mma_bf16(o[2 * d], pa, b0);
-          mma_bf16(o[2 * d + 1], pa, b1);
-        }
-      } else {
-#pragma unroll
-        for (int d = 0; d < D / 8; ++d) {
-          uint32_t b[2];
-          load_b_n(b, v, ld, 8 * d, j0 + 16 * kk, D, T);
-          mma_bf16(o[d], pa, b);
-        }
-      }
-    }
+    for (int kk = 0; kk < KB / 16; ++kk)
+      pv_step<D, kSm>(o, s[2 * kk], s[2 * kk + 1], v, ldk, j0 + 16 * kk, Tk);
   }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = m0 + g + 8 * h;
-    if (r >= T) continue;
-#pragma unroll
-    for (int d = 0; d < D / 8; ++d)
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * ldo + 8 * d + 2 * c) =
-          __floats2bfloat162_rn(o[d][2 * h], o[d][2 * h + 1]);
+  store_rows<D>(o, m0, Tq, out, ldo);
+}
+
+// Every head's forward: warps take (head, 16-row tile) items; head h's
+// slices start at column h D of q, k, v and out.
+template <int D, bool kSm = false>
+__device__ void attention_fwd(const bf16* q, int ldq, int Tq, const bf16* k, const bf16* v,
+                              int ldk, int Tk, int H, bf16* out, int ldo) {
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5, tiles = (Tq + 15) / 16;
+  for (int item = warp; item < H * tiles; item += nwarps) {
+    const int h = item / tiles, m0 = (item % tiles) * 16;
+    attn_fwd_tile<D, kSm>(q + h * D, ldq, Tq, k + h * D, v + h * D, ldk, Tk, m0, out + h * D, ldo);
   }
 }
 
-// Every head's forward over T rows: warps take (head, 16-row tile) items.
-// qkv rows hold q | k | v (E = H D columns each), out rows the heads' outputs;
-// kSm: qkv in shared memory.
+// Self-attention over T rows: qkv rows hold q | k | v (E = H D columns
+// each), out rows the heads' outputs; kSm: qkv in shared memory.
 template <int D, bool kSm = false>
 __device__ void attention_fwd(const bf16* qkv, int ld, int T, int E, int H, bf16* out, int ldo) {
-  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5, tiles = (T + 15) / 16;
-  for (int item = warp; item < H * tiles; item += nwarps) {
-    const int h = item / tiles, m0 = (item % tiles) * 16;
-    const bf16* q = qkv + h * D;
-    attn_fwd_tile<D, kSm>(q, q + E, q + 2 * E, ld, T, m0, out + h * D, ldo);
+  attention_fwd<D, kSm>(qkv, ld, T, qkv + E, qkv + 2 * E, ld, T, H, out, ldo);
+}
+
+// keys per chunk of attn_fwd_split
+constexpr int kSplitKeys = 32;
+
+// Floats of attn_fwd_split's reduction buffer for Tk keys over nwarps warps
+__host__ __device__ inline int split_red_floats(int D, int Tk, int nwarps) {
+  const int nch = (Tk + kSplitKeys - 1) / kSplitKeys;
+  return 32 * nch + 16 * D * (nch < nwarps ? nch : nwarps);
+}
+
+// Forward of one head with its q, k and v in shared memory, the same
+// function as attn_fwd_tile, for few queries over many keys (the decoder's
+// cross-attention, Tq = 10 over Tk = 312): attn_fwd_tile's (head, 16-row
+// tile) items would leave one warp at work. Here every warp takes 32-key
+// chunks: (1) each chunk's row max and sum of exp into `red`; (2) every
+// warp combines them in chunk order into the rows' max and sum, then adds
+// bf16(P) v of its chunks into its own 16 x D fp32 partial; (3) the
+// partials are summed in warp order and rounded once. Deterministic; red
+// holds split_red_floats(D, Tk, nwarps) floats of shared memory. Ends with
+// __syncthreads.
+template <int D>
+__device__ void attn_fwd_split(const bf16* q, int ldq, int Tq, const bf16* k, const bf16* v,
+                               int ldk, int Tk, bf16* out, int ldo, float* red) {
+  constexpr int KC = kSplitKeys;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const int nch = (Tk + KC - 1) / KC, nslot = min(nch, nwarps);
+  float* st = red;              // [nch][16][2]: a chunk's row max and sum of exp(s - max)
+  float* part = red + 32 * nch;  // [nslot][16][D]
+  for (int m0 = 0; m0 < Tq; m0 += 16) {
+    uint32_t qa[D / 16][4];
+    load_q<D, true>(qa, q, ldq, m0, Tq);
+    for (int ch = warp; ch < nch; ch += nwarps) {
+      float s[KC / 8][4];
+      scores<D, KC / 8, true, true>(s, qa, k, ldk, ch * KC, Tk);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float bm = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < KC / 8; ++j) bm = fmaxf(bm, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+        const float m = quad_max(bm);  // finite: key ch * KC < Tk is in the chunk
+        float e = 0.f;
+#pragma unroll
+        for (int j = 0; j < KC / 8; ++j) e += expf(s[j][2 * h] - m) + expf(s[j][2 * h + 1] - m);
+        e = quad_sum(e);
+        if (c == 0) {
+          st[2 * (ch * 16 + g + 8 * h)] = m;
+          st[2 * (ch * 16 + g + 8 * h) + 1] = e;
+        }
+      }
+    }
+    __syncthreads();
+    float mx[2], sum[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = g + 8 * h;
+      float m = -INFINITY;
+      for (int ch = 0; ch < nch; ++ch) m = fmaxf(m, st[2 * (ch * 16 + r)]);
+      float l = 0.f;
+      for (int ch = 0; ch < nch; ++ch)
+        l += st[2 * (ch * 16 + r) + 1] * expf(st[2 * (ch * 16 + r)] - m);
+      mx[h] = m;
+      sum[h] = l;
+    }
+    float o[D / 8][4];
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
+    for (int ch = warp; ch < nch; ch += nwarps) {
+      float s[KC / 8][4];
+      scores<D, KC / 8, true, true>(s, qa, k, ldk, ch * KC, Tk);
+#pragma unroll
+      for (int j = 0; j < KC / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = expf(s[j][e] - mx[e >> 1]) / sum[e >> 1];
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk)
+        pv_step<D, true>(o, s[2 * kk], s[2 * kk + 1], v, ldk, ch * KC + 16 * kk, Tk);
+    }
+    if (warp < nslot) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int d = 0; d < D / 8; ++d) {
+          float* p = part + (size_t)(warp * 16 + g + 8 * h) * D + 8 * d + 2 * c;
+          p[0] = o[d][2 * h];
+          p[1] = o[d][2 * h + 1];
+        }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < 16 * D; i += blockDim.x) {
+      const int r = i / D, d = i % D;
+      if (m0 + r >= Tq) continue;
+      float acc = 0.f;
+      for (int w = 0; w < nslot; ++w) acc += part[(size_t)(w * 16 + r) * D + d];
+      out[(size_t)(m0 + r) * ldo + d] = __float2bfloat16(acc);
+    }
+    __syncthreads();
   }
 }
 
@@ -412,30 +575,30 @@ __device__ void attention_fwd(const bf16* qkv, int ld, int T, int E, int H, bf16
 // and the rows' softmax max, sum and rs into stats (3 floats a row) for the
 // second half.
 template <int D>
-__device__ void attn_bwd_dq_tile(const bf16* q, const bf16* k, const bf16* v, int ld,
-                                 const bf16* dom, int ldd, int T, int m0, bf16* dq, int lddq,
-                                 float* stats) {
+__device__ void attn_bwd_dq_tile(const bf16* q, int ldq, int Tq, const bf16* k, const bf16* v,
+                                 int ldk, int Tk, const bf16* dom, int ldd, int m0, bf16* dq,
+                                 int lddq, float* stats) {
   constexpr int KB = 32, NB = KB / 8;
   const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
   uint32_t qa[D / 16][4], da[D / 16][4];
 #pragma unroll
   for (int kd = 0; kd < D / 16; ++kd) {
-    load_a(qa[kd], q, ld, m0, 16 * kd, T, D);
-    load_a(da[kd], dom, ldd, m0, 16 * kd, T, D);
+    load_a(qa[kd], q, ldq, m0, 16 * kd, Tq, D);
+    load_a(da[kd], dom, ldd, m0, 16 * kd, Tq, D);
   }
   float mx[2], sum[2];
-  softmax_stats<D, KB>(qa, k, ld, T, mx, sum);
+  softmax_stats<D, KB>(qa, k, ldk, Tk, mx, sum);
   // P and dp of one key block (fp32)
   auto block = [&](int j0, float (*p)[4], float (*dp)[4]) {
-    scores<D, NB>(p, qa, k, ld, j0, T);
+    scores<D, NB>(p, qa, k, ldk, j0, Tk);
 #pragma unroll
     for (int j = 0; j < NB; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) p[j][e] = expf(p[j][e] - mx[e >> 1]) / sum[e >> 1];
-    scores<D, NB, false>(dp, da, v, ld, j0, T);
+    scores<D, NB, false>(dp, da, v, ldk, j0, Tk);
   };
   float part[2] = {0.f, 0.f};
-  for (int j0 = 0; j0 < T; j0 += KB) {
+  for (int j0 = 0; j0 < Tk; j0 += KB) {
     float p[NB][4], dp[NB][4];
     block(j0, p, dp);
 #pragma unroll
@@ -449,7 +612,7 @@ __device__ void attn_bwd_dq_tile(const bf16* q, const bf16* k, const bf16* v, in
   for (int d = 0; d < D / 8; ++d)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
-  for (int j0 = 0; j0 < T; j0 += KB) {
+  for (int j0 = 0; j0 < Tk; j0 += KB) {
     float p[NB][4], dp[NB][4];
     block(j0, p, dp);
 #pragma unroll
@@ -457,21 +620,13 @@ __device__ void attn_bwd_dq_tile(const bf16* q, const bf16* k, const bf16* v, in
 #pragma unroll
       for (int e = 0; e < 4; ++e) p[j][e] = p[j][e] * (dp[j][e] - rs[e >> 1]) * attn_scale<D>();
 #pragma unroll
-    for (int kk = 0; kk < NB / 2; ++kk) {
-      uint32_t sa[4];
-      acc_to_a(sa, p[2 * kk], p[2 * kk + 1]);  // ds, rounded to bf16
-#pragma unroll
-      for (int d = 0; d < D / 8; ++d) {
-        uint32_t b[2];
-        load_b_n(b, k, ld, 8 * d, j0 + 16 * kk, D, T);
-        mma_bf16(acc[d], sa, b);
-      }
-    }
+    for (int kk = 0; kk < NB / 2; ++kk)  // ds, rounded to bf16, times k
+      pv_step<D, false>(acc, p[2 * kk], p[2 * kk + 1], k, ldk, j0 + 16 * kk, Tk);
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = m0 + g + 8 * h;
-    if (r >= T) continue;
+    if (r >= Tq) continue;
 #pragma unroll
     for (int d = 0; d < D / 8; ++d)
       *reinterpret_cast<__nv_bfloat162*>(dq + (size_t)r * lddq + 8 * d + 2 * c) =
@@ -488,33 +643,38 @@ __device__ void attn_bwd_dq_tile(const bf16* q, const bf16* k, const bf16* v, in
 // query (P^T and ds^T recomputed from k q^T, v dom^T and the stats of the
 // first half):
 //   dv = bf16(bf16(P)^T dom);  dk = bf16(ds^T q)
-template <int D>
-__device__ void attn_bwd_dkv_tile(const bf16* q, const bf16* k, const bf16* v, int ld,
-                                  const bf16* dom, int ldd, int T, int j0, const float* stats,
-                                  bf16* dk, int lddk, bf16* dv, int lddv) {
+// With kSums also the fp32 (unrounded) column sums of the tile's dk and dv
+// rows into ksum[0 .. D) / vsum[0 .. D) (the key / value bias gradients);
+// with kSmQ, q and dom in shared memory (ldmatrix; the decoder's
+// cross-attention, whose 10 query rows every key tile reads).
+template <int D, bool kSums = false, bool kSmQ = false>
+__device__ void attn_bwd_dkv_tile(const bf16* q, int ldq, int Tq, const bf16* k, const bf16* v,
+                                  int ldk, int Tk, const bf16* dom, int ldd, int j0,
+                                  const float* stats, bf16* dk, int lddk, bf16* dv, int lddv,
+                                  float* ksum = nullptr, float* vsum = nullptr) {
   constexpr int QB = 32, NB = QB / 8;
   const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
   uint32_t ka[D / 16][4], va[D / 16][4];
 #pragma unroll
   for (int kd = 0; kd < D / 16; ++kd) {
-    load_a(ka[kd], k, ld, j0, 16 * kd, T, D);
-    load_a(va[kd], v, ld, j0, 16 * kd, T, D);
+    load_a(ka[kd], k, ldk, j0, 16 * kd, Tk, D);
+    load_a(va[kd], v, ldk, j0, 16 * kd, Tk, D);
   }
   float ak[D / 8][4], av[D / 8][4];
 #pragma unroll
   for (int d = 0; d < D / 8; ++d)
 #pragma unroll
     for (int e = 0; e < 4; ++e) ak[d][e] = av[d][e] = 0.f;
-  for (int i0 = 0; i0 < T; i0 += QB) {
+  for (int i0 = 0; i0 < Tq; i0 += QB) {
     float p[NB][4], ds[NB][4];
-    scores<D, NB>(p, ka, q, ld, i0, T);            // s^T / sqrt(D)
-    scores<D, NB, false>(ds, va, dom, ldd, i0, T);  // dp^T = v dom^T
+    scores<D, NB, true, kSmQ>(p, ka, q, ldq, i0, Tq);      // s^T / sqrt(D)
+    scores<D, NB, false, kSmQ>(ds, va, dom, ldd, i0, Tq);  // dp^T = v dom^T
 #pragma unroll
     for (int j = 0; j < NB; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = i0 + 8 * j + 2 * c + (e & 1);
-        if (i < T) {
+        if (i < Tq) {
           const float* st = stats + 3 * i;
           p[j][e] = expf(p[j][e] - st[0]) / st[1];
           ds[j][e] = p[j][e] * (ds[j][e] - st[2]) * attn_scale<D>();
@@ -524,23 +684,28 @@ __device__ void attn_bwd_dkv_tile(const bf16* q, const bf16* k, const bf16* v, i
       }
 #pragma unroll
     for (int kk = 0; kk < NB / 2; ++kk) {
-      uint32_t pa[4], sa[4];
-      acc_to_a(pa, p[2 * kk], p[2 * kk + 1]);   // bf16(P)^T
-      acc_to_a(sa, ds[2 * kk], ds[2 * kk + 1]); // ds^T, rounded to bf16
+      if constexpr (kSmQ) {
+        pv_step<D, true>(av, p[2 * kk], p[2 * kk + 1], dom, ldd, i0 + 16 * kk, Tq);  // bf16(P)^T dom
+        pv_step<D, true>(ak, ds[2 * kk], ds[2 * kk + 1], q, ldq, i0 + 16 * kk, Tq);  // ds^T q
+      } else {
+        uint32_t pa[4], sa[4];
+        acc_to_a(pa, p[2 * kk], p[2 * kk + 1]);   // bf16(P)^T
+        acc_to_a(sa, ds[2 * kk], ds[2 * kk + 1]); // ds^T, rounded to bf16
 #pragma unroll
-      for (int d = 0; d < D / 8; ++d) {
-        uint32_t b[2];
-        load_b_n(b, dom, ldd, 8 * d, i0 + 16 * kk, D, T);
-        mma_bf16(av[d], pa, b);
-        load_b_n(b, q, ld, 8 * d, i0 + 16 * kk, D, T);
-        mma_bf16(ak[d], sa, b);
+        for (int d = 0; d < D / 8; ++d) {
+          uint32_t b[2];
+          load_b_n(b, dom, ldd, 8 * d, i0 + 16 * kk, D, Tq);
+          mma_bf16(av[d], pa, b);
+          load_b_n(b, q, ldq, 8 * d, i0 + 16 * kk, D, Tq);
+          mma_bf16(ak[d], sa, b);
+        }
       }
     }
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = j0 + g + 8 * h;
-    if (r >= T) continue;
+    if (r >= Tk) continue;
 #pragma unroll
     for (int d = 0; d < D / 8; ++d) {
       *reinterpret_cast<__nv_bfloat162*>(dk + (size_t)r * lddk + 8 * d + 2 * c) =
@@ -549,30 +714,74 @@ __device__ void attn_bwd_dkv_tile(const bf16* q, const bf16* k, const bf16* v, i
           __floats2bfloat162_rn(av[d][2 * h], av[d][2 * h + 1]);
     }
   }
+  if constexpr (kSums) {
+    const bool in0 = j0 + g < Tk, in1 = j0 + g + 8 < Tk;
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float sk = (in0 ? ak[d][e] : 0.f) + (in1 ? ak[d][2 + e] : 0.f);
+        float sv = (in0 ? av[d][e] : 0.f) + (in1 ? av[d][2 + e] : 0.f);
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          sk += __shfl_xor_sync(0xffffffffu, sk, o);
+          sv += __shfl_xor_sync(0xffffffffu, sv, o);
+        }
+        if (g == 0) {
+          ksum[8 * d + 2 * c + e] = sk;
+          vsum[8 * d + 2 * c + e] = sv;
+        }
+      }
+  }
 }
 
-// Every head's backward over T rows given q | k | v rows (row stride ld)
-// and dom (E columns, row stride ldd): dq | dk | dv into dqkv (row stride
-// lddq). Two passes over (head, 16-row tile) items with a block barrier
-// between; stats: 3 H T floats of shared memory. Ends with __syncthreads.
+// Every head's backward (head h's slices at column h D of every operand),
+// in two passes over (head, 16-row tile) items with a block barrier after
+// each; stats: 3 H Tq floats of shared memory. The first writes dq (row
+// stride lddq) and the rows' stats:
+template <int D>
+__device__ void attention_bwd_dq(const bf16* q, int ldq, int Tq, const bf16* k, const bf16* v,
+                                 int ldk, int Tk, const bf16* dom, int ldd, int H, bf16* dq,
+                                 int lddq, float* stats) {
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5, qtiles = (Tq + 15) / 16;
+  for (int item = warp; item < H * qtiles; item += nwarps) {
+    const int h = item / qtiles, m0 = (item % qtiles) * 16, o = h * D;
+    attn_bwd_dq_tile<D>(q + o, ldq, Tq, k + o, v + o, ldk, Tk, dom + o, ldd, m0, dq + o, lddq,
+                        stats + 3 * h * Tq);
+  }
+  __syncthreads();
+}
+
+// The second writes dk and dv (row stride lddkv), and with kSums the fp32
+// column sums of every 16-key tile's dk / dv rows into row j0 / 16 of ksum
+// / vsum (row stride ldsum, head h at column h D); kSmQ: q and dom in
+// shared memory.
+template <int D, bool kSums = false, bool kSmQ = false>
+__device__ void attention_bwd_dkv(const bf16* q, int ldq, int Tq, const bf16* k, const bf16* v,
+                                  int ldk, int Tk, const bf16* dom, int ldd, int H, bf16* dk,
+                                  bf16* dv, int lddkv, const float* stats, float* ksum = nullptr,
+                                  float* vsum = nullptr, int ldsum = 0) {
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5, ktiles = (Tk + 15) / 16;
+  for (int item = warp; item < H * ktiles; item += nwarps) {
+    const int h = item / ktiles, j0 = (item % ktiles) * 16, o = h * D;
+    const size_t so = (size_t)(j0 / 16) * ldsum + o;
+    attn_bwd_dkv_tile<D, kSums, kSmQ>(q + o, ldq, Tq, k + o, v + o, ldk, Tk, dom + o, ldd, j0,
+                                      stats + 3 * h * Tq, dk + o, lddkv, dv + o, lddkv,
+                                      kSums ? ksum + so : nullptr, kSums ? vsum + so : nullptr);
+  }
+  __syncthreads();
+}
+
+// Self-attention's backward over T rows given q | k | v rows (row stride
+// ld) and dom (E columns, row stride ldd): dq | dk | dv into dqkv (row
+// stride lddq). stats: 3 H T floats of shared memory. Ends with
+// __syncthreads.
 template <int D>
 __device__ void attention_bwd(const bf16* qkv, int ld, const bf16* dom, int ldd, int T, int E,
                               int H, bf16* dqkv, int lddq, float* stats) {
-  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5, tiles = (T + 15) / 16;
-  for (int item = warp; item < H * tiles; item += nwarps) {
-    const int h = item / tiles, m0 = (item % tiles) * 16;
-    const bf16* q = qkv + h * D;
-    attn_bwd_dq_tile<D>(q, q + E, q + 2 * E, ld, dom + h * D, ldd, T, m0, dqkv + h * D, lddq,
-                        stats + 3 * h * T);
-  }
-  __syncthreads();
-  for (int item = warp; item < H * tiles; item += nwarps) {
-    const int h = item / tiles, j0 = (item % tiles) * 16;
-    const bf16* q = qkv + h * D;
-    attn_bwd_dkv_tile<D>(q, q + E, q + 2 * E, ld, dom + h * D, ldd, T, j0, stats + 3 * h * T,
-                         dqkv + E + h * D, lddq, dqkv + 2 * E + h * D, lddq);
-  }
-  __syncthreads();
+  attention_bwd_dq<D>(qkv, ld, T, qkv + E, qkv + 2 * E, ld, T, dom, ldd, H, dqkv, lddq, stats);
+  attention_bwd_dkv<D>(qkv, ld, T, qkv + E, qkv + 2 * E, ld, T, dom, ldd, H, dqkv + E,
+                       dqkv + 2 * E, lddq, stats);
 }
 
 }  // namespace sd

@@ -2,11 +2,11 @@
 // fused_decoder_layer.cu) and the deterministic weight-gradient products
 // (weight_grads.cu).
 //
-// The training kernels run one thread block per robot. Every intermediate a
-// robot's layer needs lives in a per-robot global workspace that the block
-// writes and reads itself (L1/L2-resident while the block runs); only one
-// attention head's (rows x keys) fp32 probability tile sits in shared
-// memory. Block-scope __syncthreads() orders those global writes and reads,
+// The training kernels run one thread block per robot (or frame). Their
+// forwards keep a robot's operands in shared memory; their backwards keep
+// every intermediate of a robot's layer in a per-robot global workspace
+// that the block writes and reads itself (L1/L2-resident while the block
+// runs). Block-scope __syncthreads() orders those global writes and reads,
 // so no pointer into a workspace is __restrict__ (a read-only load path
 // would not see writes of the same launch).
 //
@@ -16,9 +16,9 @@
 // every gradient that feeds a LayerNorm backward or a bias sum in fp32;
 // LN outputs, q/k/v, attention outputs, the GELU output and every operand
 // of a backward product rounded to bf16; probabilities rounded to bf16
-// before a value sum. The attention helpers take the head dimension D (32
-// or 64) as a template parameter, the GELU epilogues the activation (exact,
-// or quick-GELU z * sigmoid(1.702 z) for the ViT block).
+// before a value sum. The GELU epilogues take the activation (exact, or
+// quick-GELU z * sigmoid(1.702 z) for the ViT block); the products and the
+// attention tiles are mma.cuh's.
 #pragma once
 
 #include "common.cuh"
@@ -31,42 +31,6 @@ __host__ __device__ inline size_t r8(size_t n) { return (n + 7) & ~(size_t)7; }
 
 __device__ __forceinline__ float gelu_cdf(float z) {
   return 0.5f * (1.0f + erff(z * 0.7071067811865476f));
-}
-
-// 32 consecutive bf16 (one head's slice of a row; 16-byte aligned) as fp32
-__device__ __forceinline__ void load_row32(const bf16* p, float* out) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const uint4 raw = reinterpret_cast<const uint4*>(p)[c];
-    const __nv_bfloat162* pr = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(pr[j]);
-      out[c * 8 + 2 * j] = f.x;
-      out[c * 8 + 2 * j + 1] = f.y;
-    }
-  }
-}
-
-__device__ __forceinline__ float dot32(const float* a, const float* b) {
-  float acc = 0.f;
-#pragma unroll
-  for (int d = 0; d < 32; ++d) acc += a[d] * b[d];
-  return acc;
-}
-
-// a (D fp32 values) . b (D consecutive bf16), read 32 elements at a time
-template <int D>
-__device__ __forceinline__ float dot_row(const float* a, const bf16* b) {
-  float bv[32];
-  load_row32(b, bv);
-  float dot = dot32(a, bv);
-#pragma unroll
-  for (int c = 1; c < D / 32; ++c) {
-    load_row32(b + 32 * c, bv);
-    dot += dot32(a + 32 * c, bv);
-  }
-  return dot;
 }
 
 // cdf(z) of GELU(z) = z * cdf(z): the normal CDF, or sigmoid(1.702 z) for
@@ -194,111 +158,6 @@ __device__ void colsum(const T* x, int ldx, int M, int N, const float* y, int ld
 __device__ inline void to_bf16(const float* src, int lds, int M, int N, bf16* dst, int ldd) {
   for (int i = threadIdx.x; i < M * N; i += blockDim.x)
     dst[(i / N) * ldd + i % N] = __float2bfloat16(src[(i / N) * lds + i % N]);
-}
-
-// ------------------------------------------------- one attention head
-// P[i][j] = softmax_j(q_i . k_j / sqrt(D)), i < nq, j < nk, fp32 scores
-// and softmax; q, k are one head's bf16 slices (row strides multiples of 8
-// elements). One warp per query row; a key is read 32 elements at a time.
-template <int D>
-__device__ void head_probs(const bf16* q, int ldq, const bf16* k, int ldk, int nq, int nk,
-                           float* P) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  for (int i = warp; i < nq; i += nwarps) {
-    float qv[D];
-#pragma unroll
-    for (int c = 0; c < D / 32; ++c) load_row32(q + (size_t)i * ldq + 32 * c, qv + 32 * c);
-    float* pr = P + i * nk;
-    float mx = -INFINITY;
-    for (int j = lane; j < nk; j += 32) {
-      float kv[32];
-      load_row32(k + (size_t)j * ldk, kv);
-      float dot = dot32(qv, kv);
-#pragma unroll
-      for (int c = 1; c < D / 32; ++c) {
-        load_row32(k + (size_t)j * ldk + 32 * c, kv);
-        dot += dot32(qv + 32 * c, kv);
-      }
-      const float s = dot * attn_scale<D>();
-      pr[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < nk; j += 32) {
-      const float e = expf(pr[j] - mx);
-      pr[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < nk; j += 32) pr[j] = pr[j] / sum;
-  }
-  __syncthreads();
-}
-
-// bf16 out[i][d] = sum_j bf16(P[i][j]) v[j][d], d < D
-template <int D>
-__device__ void head_out(const float* P, int nq, int nk, const bf16* v, int ldv, bf16* out,
-                         int ldo) {
-  for (int item = threadIdx.x; item < nq * D; item += blockDim.x) {
-    const int i = item / D, d = item % D;
-    const float* pr = P + i * nk;
-    float acc = 0.f;
-    for (int j = 0; j < nk; ++j) acc += rbf(pr[j]) * tof(v[(size_t)j * ldv + d]);
-    out[(size_t)i * ldo + d] = __float2bfloat16(acc);
-  }
-  __syncthreads();
-}
-
-// Backward of one head given its probabilities P (overwritten by ds) and
-// the bf16 gradient of its output, dom (nq, D):
-//   dv = bf16(P)^T dom;  dp = dom v^T;  ds = bf16(P (dp - rowsum(dp P)) / sqrt(D));
-//   dq = ds k;  dk = ds^T q
-// dq, dk, dv are written bf16-rounded; dk32 / dv32 (may be null) receive
-// the unrounded fp32 dk / dv (for the key / value bias gradients). One
-// warp per query row for ds: a lane holds the row's D-element dom slice
-// and reads a value row 32 elements at a time.
-template <int D>
-__device__ void head_bwd(float* P, int nq, int nk, const bf16* q, int ldq, const bf16* k, int ldk,
-                         const bf16* v, int ldv, const bf16* dom, int ldd, bf16* dq, int lddq,
-                         bf16* dk, int lddk, bf16* dv, int lddv, float* dk32, float* dv32,
-                         int ld32) {
-  for (int item = threadIdx.x; item < nk * D; item += blockDim.x) {
-    const int j = item / D, d = item % D;
-    float acc = 0.f;
-    for (int i = 0; i < nq; ++i) acc += rbf(P[i * nk + j]) * tof(dom[(size_t)i * ldd + d]);
-    dv[(size_t)j * lddv + d] = __float2bfloat16(acc);
-    if (dv32 != nullptr) dv32[(size_t)j * ld32 + d] = acc;
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  for (int i = warp; i < nq; i += nwarps) {
-    float dov[D];
-#pragma unroll
-    for (int c = 0; c < D / 32; ++c) load_row32(dom + (size_t)i * ldd + 32 * c, dov + 32 * c);
-    float* pr = P + i * nk;
-    float rs = 0.f;
-    for (int j = lane; j < nk; j += 32) rs += dot_row<D>(dov, v + (size_t)j * ldv) * pr[j];
-    rs = warp_sum(rs);
-    for (int j = lane; j < nk; j += 32)
-      pr[j] = rbf(pr[j] * (dot_row<D>(dov, v + (size_t)j * ldv) - rs) * attn_scale<D>());
-  }
-  __syncthreads();
-  for (int item = threadIdx.x; item < nq * D; item += blockDim.x) {
-    const int i = item / D, d = item % D;
-    const float* pr = P + i * nk;
-    float acc = 0.f;
-    for (int j = 0; j < nk; ++j) acc += pr[j] * tof(k[(size_t)j * ldk + d]);
-    dq[(size_t)i * lddq + d] = __float2bfloat16(acc);
-  }
-  for (int item = threadIdx.x; item < nk * D; item += blockDim.x) {
-    const int j = item / D, d = item % D;
-    float acc = 0.f;
-    for (int i = 0; i < nq; ++i) acc += P[i * nk + j] * tof(q[(size_t)i * ldq + d]);
-    dk[(size_t)j * lddk + d] = __float2bfloat16(acc);
-    if (dk32 != nullptr) dk32[(size_t)j * ld32 + d] = acc;
-  }
-  __syncthreads();
 }
 
 // ------------------------------------------- deterministic weight grads

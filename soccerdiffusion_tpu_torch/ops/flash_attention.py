@@ -13,7 +13,10 @@ sum divided by the denominator after the product, the output in q's dtype.
 and the fp32 row log-sum-exp (B, H, Tq). The plain versions
 (``plain_forward``, ``plain_backward``) are the spec and run on CPU
 tensors; a CUDA tensor launches the kernels (fp32 or bf16, head_dim 1 to
-128) or raises. ``FlashAttention.launches`` / ``.backward_launches`` count
+128) or raises. The kernel library dispatches by dtype, never on a
+failure: bf16 operands (every model path, which computes in bf16) run the
+tensor-core instances (mma.sync; the fp32 probabilities multiplied as two
+bf16 halves), float32 operands the scalar fp32 instances. ``FlashAttention.launches`` / ``.backward_launches`` count
 kernel launches (a backward is two kernels, counted once).
 """
 
@@ -129,7 +132,7 @@ def backward_kernel(q, k, v, o, lse, do) -> tuple[torch.Tensor, torch.Tensor, to
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
     delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     err = _build.library().sd_flash_attention_bwd(
-        _build.pointers(q, k, v, o, lse, do, dq, dk, dv, delta),
+        _build.pointers(q, k, v, o, do, dq, dk, dv, lse, delta),
         _build.ints(B, H, Tq, k.shape[1], D, _DTYPE_CODES[q.dtype],
                     *_strides(q, k, v, o, do, dq, dk, dv)),
         _build.stream(q.device))

@@ -13,7 +13,11 @@ Dense kernels as (in, out), self-attention q | k | v concatenated.
 ``ops/fused_encoder_stack.py`` for the float32-master convention and the
 dispatch). ``forward_plain`` follows ``_decoder_core`` line by line,
 ``backward_plain`` the hand-derived backward of ``_make_bwd_kernel``.
-A CUDA tensor launches the kernels (bf16, head_dim 32 or 64) or raises.
+A CUDA tensor launches the kernels (bf16, head_dim 32 or 64; every product
+on the tensor cores) or raises. The wrappers hand the kernels the weights
+of their forward products transposed to (out, in) and the memory's K/V
+projection ordered by head (``kernel_weights``), made once per call of the
+op.
 ``FusedDecoderLayer.fwd_launches`` / ``.bwd_launches`` count kernel launches,
 ``.fwd_launches_hd64`` / ``.bwd_launches_hd64`` the head_dim-64 ones among them.
 """
@@ -24,6 +28,7 @@ import torch
 
 from soccerdiffusion_tpu_torch.ops import _build
 from soccerdiffusion_tpu_torch.ops._train_math import (
+    MAX_SMEM,
     ROWS_PER_SPLIT,
     attention,
     attention_bwd,
@@ -160,9 +165,30 @@ def backward_plain(x, mem, dy, w, num_heads):
 # --------------------------------------------------------- CUDA kernels
 
 def _ws_strides(T: int, S: int, E: int, FF: int) -> tuple[int, int]:
-    """Per-robot fp32 / bf16 workspace elements (``csrc/fused_decoder_layer.cu:carve``)."""
-    return (10 * r4(T * E) + 2 * r4(T * FF) + 3 * r4(T) + 3 * r4(S * E),
+    """Per-robot fp32 / bf16 workspace elements of the backward
+    (``csrc/fused_decoder_layer.cu:dec_carve``)."""
+    key_tiles = -(-S // 16)
+    return (10 * r4(T * E) + 2 * r4(T * FF) + 3 * r4(T) + 2 * r4(key_tiles * E),
             r8(3 * T * E) + 2 * r8(T * E) + 2 * r8(S * E))
+
+
+# keys per chunk of the forward's split cross-attention, warps of its block
+# (csrc/mma.cuh:kSplitKeys, csrc/encoder_layer.cuh:kFwdThreads / 32)
+_SPLIT_KEYS, _FWD_WARPS = 32, 16
+
+
+def _split_red(D: int, S: int, warps: int) -> int:
+    """fp32 values of the split attention's reduction buffer
+    (``csrc/mma.cuh:split_red_floats``)."""
+    chunks = -(-S // _SPLIT_KEYS)
+    return 32 * chunks + 16 * D * min(chunks, warps)
+
+
+def _fwd_smem(T: int, S: int, E: int, FF: int, D: int) -> int:
+    """Shared-memory bytes of the forward kernel
+    (``csrc/fused_decoder_layer.cu:dec_fwd_smem_bytes``)."""
+    return (4 * (T * E + _split_red(D, S, _FWD_WARPS))
+            + 2 * (T * (E + 8) + T * (max(3 * E, FF) + 8) + 2 * S * (D + 8)))
 
 
 def _check(x, mem, w, num_heads):
@@ -171,37 +197,59 @@ def _check(x, mem, w, num_heads):
         raise ValueError(f"memory {tuple(mem.shape)} {mem.dtype} does not match x "
                          f"{tuple(x.shape)} {x.dtype}")
     FF = w[18].shape[-1]
-    check_operands(x, w, num_heads, FF, T * max(T, mem.shape[1]))
-    return B, T, mem.shape[1], E, FF
+    S, D = mem.shape[1], E // num_heads
+    # the backward's shared memory, in fp32 values: softmax stats, q2 | dom
+    check_operands(x, w, num_heads, FF, r4(3 * num_heads * T) + T * (E + 4))
+    if _fwd_smem(T, S, E, FF, D) > MAX_SMEM:
+        raise ValueError(f"T={T} chunk rows over S={S} memory rows at E={E} exceed one thread "
+                         "block's shared memory in the CUDA decoder-layer forward")
+    return B, T, S, E, FF
 
 
-def forward_kernel(x, mem, w, num_heads) -> torch.Tensor:
-    """The forward kernel on CUDA tensors: y (B, T, E) bf16."""
+def kernel_weights(w, num_heads) -> list[torch.Tensor]:
+    """The layouts the kernels read besides the 22 (contiguous) weights
+    ``w``, made once per call of the op and shared by its forward and
+    backward: the forward products' weights transposed to (out, in) (the
+    reduction axis contiguous, ``csrc/mma.cuh``) -- wqkv, wso, wcq, wco, w1,
+    w2 -- then the memory's K/V projection by head, wkv_t (2E, E) with rows
+    h 2D .. h 2D + D - 1 the key columns of head h and the next D its value
+    columns, its bias bkv (2E) in the same order (a head's K | V is one
+    product), and wkvc = [wck | wcv] (E, 2E) for the backward's dmem. Six
+    copies: the weights with E inputs side by side, transposed at once."""
+    E, FF = w[0].shape[0], w[18].shape[1]
+    H, D = num_heads, w[0].shape[0] // num_heads
+    wkv = torch.cat([w[10].view(E, H, D), w[12].view(E, H, D)], dim=2).view(E, 2 * E)
+    wide_t = torch.cat([w[2], w[4], w[8], w[14], w[18], wkv], dim=1).t().contiguous()
+    wqkv_t, wso_t, wcq_t, wco_t, w1_t, wkv_t = wide_t.split([3 * E, E, E, E, FF, 2 * E])
+    bkv = torch.cat([w[11].view(H, D), w[13].view(H, D)], dim=1).view(2 * E)
+    wkvc = torch.cat([w[10], w[12]], dim=1)
+    return [wqkv_t, wso_t, wcq_t, wco_t, w1_t, w[20].t().contiguous(), wkv_t, bkv, wkvc]
+
+
+def forward_kernel(x, mem, w, num_heads, kw=None) -> torch.Tensor:
+    """The forward kernel on CUDA tensors: y (B, T, E) bf16 (``kw``: the
+    weights' kernel_weights, made here if not given)."""
     B, T, S, E, FF = _check(x, mem, w, num_heads)
-    dev = x.device
-    s32, sbf = _ws_strides(T, S, E, FF)
+    w = [t.contiguous() for t in w]
+    kw = kernel_weights(w, num_heads) if kw is None else kw
     y = torch.empty_like(x)
-    ws32 = torch.empty((B, s32), device=dev)
-    wsbf = torch.empty((B, sbf), dtype=torch.bfloat16, device=dev)
-    saved = torch.empty((B * T, 12 * E + 2 * FF), dtype=torch.bfloat16, device=dev)
     err = _build.library().sd_decoder_layer_fwd(
-        _build.pointers(x.contiguous(), mem.contiguous(), *[t.contiguous() for t in w], y,
-                        ws32, wsbf, saved),
-        _build.ints(B, T, S, E, num_heads, FF, s32, sbf), _build.stream(dev))
+        _build.pointers(x.contiguous(), mem.contiguous(), *w, *kw[:8], y),
+        _build.ints(B, T, S, E, num_heads, FF), _build.stream(x.device))
     _build.check("sd_decoder_layer_fwd", err)
     FusedDecoderLayer.fwd_launches += 1
     FusedDecoderLayer.fwd_launches_hd64 += E == 64 * num_heads
     return y
 
 
-def backward_kernel(x, mem, dy, w, num_heads):
+def backward_kernel(x, mem, dy, w, num_heads, kw=None):
     """The backward kernel on CUDA tensors: dx, dmem (bf16) and the 22
-    float32 weight gradients, summed over the batch in a fixed order."""
+    float32 weight gradients, summed over the batch in a fixed order
+    (``kw``: the weights' kernel_weights, made here if not given)."""
     B, T, S, E, FF = _check(x, mem, w, num_heads)
     dev = x.device
     w = [t.contiguous() for t in w]
-    # transposed wqkv, wso, wcq, wck, wcv, wco, w1, w2 for the input-gradient products
-    wt = [w[i].t().contiguous() for i in (2, 4, 8, 10, 12, 14, 18, 20)]
+    kw = kernel_weights(w, num_heads) if kw is None else kw
     s32, sbf = _ws_strides(T, S, E, FF)
     V = 15 * E + FF  # g1 be1 bqkv(3E) bso g2 be2 bcq bck bcv bco g3 be3 b1(FF) b2
     dx, dmem = torch.empty_like(x), torch.empty_like(mem)
@@ -217,7 +265,7 @@ def backward_kernel(x, mem, dy, w, num_heads):
     saved_mem = torch.empty((B * S, 2 * E), dtype=torch.bfloat16, device=dev)
     vpart = torch.empty((B, V), device=dev)
     err = _build.library().sd_decoder_layer_bwd(
-        _build.pointers(x.contiguous(), mem.contiguous(), dy.contiguous(), *w, *wt, dx, dmem,
+        _build.pointers(x.contiguous(), mem.contiguous(), dy.contiguous(), *w, *kw, dx, dmem,
                         *mats, gvec, ws32, wsbf, saved, saved_mem, vpart, tpart),
         _build.ints(B, T, S, E, num_heads, FF, s32, sbf, ROWS_PER_SPLIT), _build.stream(dev))
     _build.check("sd_decoder_layer_bwd", err)
@@ -241,18 +289,19 @@ class FusedDecoderLayer(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, mem, num_heads, *weights):
-        w = [t.to(x.dtype) for t in weights]
+        w = [t.to(x.dtype).contiguous() for t in weights]
         ctx.num_heads = num_heads
         ctx.save_for_backward(x, mem, *w)
         if x.is_cuda:
-            return forward_kernel(x, mem, w, num_heads)
+            ctx.kw = kernel_weights(w, num_heads)  # shared with the backward
+            return forward_kernel(x, mem, w, num_heads, ctx.kw)
         return forward_plain(x, mem, w, num_heads)
 
     @staticmethod
     def backward(ctx, dy):
         x, mem, *w = ctx.saved_tensors
         if dy.is_cuda:
-            dx, dmem, grads = backward_kernel(x, mem, dy, w, ctx.num_heads)
+            dx, dmem, grads = backward_kernel(x, mem, dy, w, ctx.num_heads, ctx.kw)
         else:
             dx, dmem, grads = backward_plain(x, mem, dy, w, ctx.num_heads)
         return (dx, dmem, None, *grads)

@@ -1,12 +1,14 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
 shapes off the main paths (serving: patch 2, five-dim IMU, no game state,
 short contexts, 5-step chunks, a batch that is no multiple of anything,
-decoder head_dim 64 at h128; training: B=5, T=7, S=33, head_dim 32 and 64;
+decoder head_dim 64 at h128; training: B=5, T=7, S=33, head_dim 32 and 64,
+the decoder layer at T = 7 / 10 / 13 over S = 19 / 302 / 312 memory rows;
 the ViT block forward and backward: T=49 tokens, N=7 frames, exact GELU at
 head_dim 64, quick GELU at head_dim 32; the tensor-core layer code of the
 ViT block and the encoder stack at ragged T = 1, 10, 49, 64, 100 with one
 and odd counts of frames or robots, and their backwards bit-identical over
-two launches).
+two launches and to tests/data/layer_kernels_golden.json; the decoder-layer
+and flash backwards bit-identical over two launches).
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere. JAX-free, so it runs on a
 machine without jax: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
@@ -384,12 +386,14 @@ def test_layer_backward_is_deterministic(op, device):
 # ------------------------------------------------------- flash attention
 # Off the main path: unaligned lengths, head_dim 8 / 48 / 128 (the 32-, 64-
 # and 128-lane instances with masked lanes), the TPU kernel's streamed
-# regime (Tk = 1536), one row and one key; fp32 and bf16; forward and
-# backward through the autograd function. q, k, v arrive as (B, H, T, D)
-# transposes, so the kernels read them through their strides.
+# regime (Tk = 1536), one row and one key, Tq != Tk with Tk no multiple of
+# 64 (the decoder's cross-attention, Tq = 10 over Tk = 312), head_dim 1 and
+# 12 (the bf16 kernels' element copies instead of 16-byte ones); fp32 and
+# bf16; forward and backward through the autograd function. q, k, v arrive
+# as (B, H, T, D) transposes, so the kernels read them through their strides.
 
 FLASH_SHAPES = [(3, 7, 13, 2, 8), (2, 196, 196, 4, 48), (1, 16, 1536, 2, 16), (2, 65, 130, 3, 128),
-                (2, 1, 3, 1, 1)]
+                (2, 1, 3, 1, 1), (2, 10, 312, 4, 64), (3, 13, 100, 2, 32), (2, 20, 70, 3, 12)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -424,3 +428,94 @@ def test_flash_attention_refuses_head_dim_over_128(device):
     x = torch.zeros((1, 4, 2, 129), device=device)
     with pytest.raises(ValueError, match="head_dim"):
         fa.forward_kernel(x, x, x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_is_deterministic(dtype, device):
+    """Two backward launches agree bit for bit (dq and dk / dv are owned by
+    query and key rows, no atomics), at Tq != Tk."""
+    from soccerdiffusion_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(13)
+    t = lambda T: torch.from_numpy(rng.normal(size=(4, T, 4, 64)).astype(np.float32)).to(
+        device, dtype)
+    q, k, v, do = t(64), t(130), t(130), t(64)
+    o, lse = fa.forward_kernel(q, k, v)
+    first, second = (fa.backward_kernel(q, k, v, o, lse, do) for _ in range(2))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+# ------------------------------------------ the decoder layer, ragged
+# The tensor-core decoder layer: T = 7 / 10 / 13 chunk rows (one m16 tile,
+# and a second one) over S = 19 (one 32-key chunk of the forward's split
+# cross-attention), 302 (h128) and 312 (the flagship) memory rows, head_dim
+# 32 and 64 at E = 128, and the flagship's E = 256 with 4 heads of 64.
+
+def decoder_weights(device, E, FF, seed):
+    """The 22 bf16 weights in WEIGHT_NAMES order: Dense kernels ~ 1/sqrt(fan_in),
+    LayerNorm gains near 1, small biases."""
+    rng = np.random.default_rng(seed)
+    shapes = [(E,), (E,), (E, 3 * E), (3 * E,), (E, E), (E,), (E,), (E,), (E, E), (E,), (E, E),
+              (E,), (E, E), (E,), (E, E), (E,), (E,), (E,), (E, FF), (FF,), (FF, E), (E,)]
+    w = []
+    for i, s in enumerate(shapes):
+        a = rng.normal(size=s) / np.sqrt(s[0]) if len(s) == 2 else 0.1 * rng.normal(size=s)
+        a = a + (1.0 if i in (0, 6, 16) else 0.0)
+        w.append(torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16))
+    return w
+
+
+DEC_RAGGED = [(T, S, E, H) for T, S in ((7, 19), (10, 302), (13, 312))
+              for E, H in ((128, 4), (128, 2))] + [(10, 312, 256, 4)]
+
+
+@pytest.mark.parametrize("T,S,E,H", DEC_RAGGED)
+def test_decoder_layer_kernels_at_ragged_shapes(T, S, E, H, device):
+    from soccerdiffusion_tpu_torch.ops import fused_decoder_layer as fdl
+
+    w = decoder_weights(device, E, E, seed=T + S)
+    rng = np.random.default_rng(T * S)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device, torch.bfloat16)
+    x, mem, dy = t(3, T, E), t(3, S, E), t(3, T, E)
+    assert_close(fdl.forward_kernel(x, mem, w, H), fdl.forward_plain(x, mem, w, H))
+    dx, dmem, grads = fdl.backward_kernel(x, mem, dy, w, H)
+    dx_ref, dmem_ref, grads_ref = fdl.backward_plain(x, mem, dy, w, H)
+    torch.cuda.synchronize()
+    assert_close(dx, dx_ref)
+    assert_close(dmem, dmem_ref)
+    assert_grads_close(fdl.WEIGHT_NAMES, grads, grads_ref,
+                       {"bqkv": slice(E, 2 * E), "bck": slice(None)})
+
+
+def test_decoder_layer_backward_is_deterministic_at_head_dim_64(device):
+    """The flagship's shape (E=256, 4 heads of 64, T=10 over S=312): two
+    backward launches agree bit for bit."""
+    from soccerdiffusion_tpu_torch.ops import fused_decoder_layer as fdl
+
+    w = decoder_weights(device, 256, 256, seed=5)
+    rng = np.random.default_rng(14)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device, torch.bfloat16)
+    x, mem, dy = t(9, 10, 256), t(9, 312, 256), t(9, 10, 256)
+    first, second = (fdl.backward_kernel(x, mem, dy, w, 4) for _ in range(2))
+    torch.cuda.synchronize()
+    for a, b in zip([first[0], first[1], *first[2]], [second[0], second[1], *second[2]]):
+        assert torch.equal(a, b)
+
+
+def test_layer_kernels_bit_identical_to_record(device):
+    """The ViT-block and encoder-stack kernels, forward and backward, give
+    the outputs recorded before their shared attention tiles
+    (csrc/mma.cuh) took separate q and k / v operands for the decoder layer
+    and flash attention, bit for bit (tests/cuda_golden.py)."""
+    import importlib.util
+    import json
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    spec = importlib.util.spec_from_file_location("cuda_golden", here / "cuda_golden.py")
+    golden = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(golden)
+    record = json.loads((here / "data" / "layer_kernels_golden.json").read_text())
+    assert golden.fingerprints(device) == record["fingerprints"]

@@ -199,3 +199,57 @@ def test_flash_flagship_forward_matches_jax(dtype, jax_interpret, no_kernel):
 
 def test_three_flash_flagship_steps_match_the_jax_trainer(jax_interpret, no_kernel):
     three_steps_match_the_jax_trainer(FLASH)
+
+
+# ------------------------------------------------ the P split, emulated
+# The bf16 flash kernels keep the TPU kernel's fp32 probabilities (and ds)
+# on bf16 tensor cores by splitting each into hi = bf16(x) and lo = bf16(x -
+# hi) and summing two products against the bf16 operand in fp32
+# (csrc/mma.cuh:pv_step). Emulated here in plain torch at the flash shapes
+# of chip_smoke.py (batch cut to 1-3): the split product stays within
+# SPLIT_BOUND of the exact product, relative to max(|x| |B|) (hi + lo keeps
+# 16 of x's 24 mantissa bits: 2^-18 per element, plus the fp32 sums), while
+# one product of bf16(x) is at least 16x further off.
+SPLIT_BOUND = 2.0 ** -16
+SPLIT_SHAPES = [  # (b, tq, tk, h, d)
+    (2, 64, 64, 4, 64), (2, 10, 10, 8, 32), (2, 100, 100, 4, 64), (2, 10, 10, 4, 64),
+    (2, 10, 312, 4, 64), (2, 100, 100, 4, 32), (1, 256, 256, 4, 64), (1, 64, 1536, 4, 64),
+    (3, 7, 13, 2, 8), (2, 196, 196, 4, 48),
+]
+
+
+def split_product(x, b):
+    """x @ b with x as two bf16 halves and fp32 sums, as the kernels do."""
+    hi = x.to(torch.bfloat16).float()
+    lo = (x - hi).to(torch.bfloat16).float()
+    return hi @ b + lo @ b
+
+
+def _split_errors(x, b):
+    exact = x.double() @ b.double()
+    scale = (x.double().abs() @ b.double().abs()).amax()
+    err = lambda got: ((got.double() - exact).abs().amax() / scale).item()
+    return err(split_product(x, b)), err(x.to(torch.bfloat16).float() @ b)
+
+
+@pytest.mark.parametrize("operand", ["p_v", "ds_k"])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_p_split_product_keeps_fp32_probabilities(shape, operand):
+    """P v (the forward's unnormalised probabilities against bf16 values)
+    and ds k (the backward's signed ds against bf16 keys)."""
+    b, tq, tk, h, d = shape
+    rng = np.random.default_rng(tq * tk + d)
+    bf = lambda t: torch.from_numpy(rng.normal(size=(b, h, t, d)).astype(np.float32)).to(
+        torch.bfloat16).float()
+    q, k, v, do = bf(tq), bf(tk), bf(tk), bf(tq)
+    s = q @ k.transpose(-1, -2) / np.sqrt(d)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    if operand == "p_v":
+        split, rounded = _split_errors(p, v)
+    else:
+        pn = p / p.sum(-1, keepdim=True)
+        dp = do @ v.transpose(-1, -2)
+        ds = pn * (dp - (dp * pn).sum(-1, keepdim=True)) / np.sqrt(d)
+        split, rounded = _split_errors(ds, k)
+    assert split <= SPLIT_BOUND, split
+    assert rounded >= 16 * split, (rounded, split)

@@ -187,3 +187,28 @@ def test_kernel_wrapper_rejects_an_mlp_width_off_8():
     bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 8, got 12"):
         forward_kernel(bf(x), bf(mem), [bf(a) for a in w], H)
+
+
+@pytest.mark.parametrize("heads,ff", [(2, 64), (4, 96)])
+def test_kernel_weights_are_the_layouts_the_kernels_read(heads, ff):
+    """kernel_weights (the CUDA kernels' extra layouts, made on the CPU here):
+    the six forward-product weights transposed, and the memory's K/V
+    projection ordered by head -- rows h 2D .. h 2D + D - 1 of wkv_t with
+    bias bkv give head h's keys, the next D its values -- and [wck | wcv]."""
+    from soccerdiffusion_tpu_torch.ops.fused_decoder_layer import kernel_weights
+
+    rng = np.random.default_rng(heads)
+    shapes = [(E,), (E,), (E, 3 * E), (3 * E,), (E, E), (E,), (E,), (E,), (E, E), (E,), (E, E),
+              (E,), (E, E), (E,), (E, E), (E,), (E,), (E,), (E, ff), (ff,), (ff, E), (E,)]
+    w = [torch.from_numpy(rng.normal(size=s).astype(np.float32)) for s in shapes]
+    kw = kernel_weights(w, heads)
+    for got, i in zip(kw[:6], (2, 4, 8, 14, 18, 20)):
+        assert got.is_contiguous() and torch.equal(got, w[i].t())
+    wkv_t, bkv, wkvc = kw[6:]
+    assert wkv_t.is_contiguous() and torch.equal(wkvc, torch.cat([w[10], w[12]], dim=1))
+    mem = torch.from_numpy(rng.normal(size=(S, E)).astype(np.float32))
+    kv = mem @ wkv_t.t() + bkv
+    k, v, D = mem @ w[10] + w[11], mem @ w[12] + w[13], E // heads
+    for h in range(heads):
+        torch.testing.assert_close(kv[:, 2 * h * D:2 * h * D + D], k[:, h * D:(h + 1) * D])
+        torch.testing.assert_close(kv[:, 2 * h * D + D:2 * (h + 1) * D], v[:, h * D:(h + 1) * D])
