@@ -5,9 +5,10 @@
 1. Prints the torch / CUDA versions and the card's name and power limit.
 2. Builds the CUDA kernels of soccerdiffusion_tpu_torch/csrc (nvcc, sm_90a)
    and reads the library's SASS (cuobjdump -sass): every instance of the
-   ViT-block, encoder-stack, decoder-layer and tdot kernels and every bf16
-   instance of the flash kernels must hold tensor-core instructions (HMMA /
-   HGMMA); the fp32 flash instances are logged as scalar.
+   ViT-block, encoder-stack, decoder-layer, tdot, chunk-sampler and
+   context-encoder kernels and every bf16 instance of the flash kernels
+   must hold tensor-core instructions (HMMA / HGMMA); the fp32 flash
+   instances are logged as scalar.
 3. Holds each serving kernel against its plain PyTorch version on the card
    at the h128 serving path's shapes (S=301 context tokens, 30 DDIM steps,
    B=64 and B=1024; bf16 weights from a seeded flax-layout random init) and
@@ -166,7 +167,8 @@ LIBRARY_TOL = 0.1
 TENSOR_CORE_KERNELS = (
     ("vit_block_fwd_kernel", ""), ("vit_block_bwd_kernel", ""), ("encoder_stack_fwd_kernel", ""),
     ("encoder_stack_bwd_kernel", ""), ("tdot_kernel", ""), ("decoder_layer_fwd_kernel", ""),
-    ("decoder_layer_bwd_kernel", ""), ("flash_fwd_kernel", "__nv_bfloat16"),
+    ("decoder_layer_bwd_kernel", ""), ("fused_chunk_kernel", ""), ("fused_encoder_kernel", ""),
+    ("flash_fwd_kernel", "__nv_bfloat16"),
     ("flash_bwd_dq_kernel", "__nv_bfloat16"), ("flash_bwd_dkdv_kernel", "__nv_bfloat16"))
 # kernel instances that stay scalar fp32 FMAs (logged with their counts)
 SCALAR_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
@@ -534,7 +536,7 @@ def decoder_checks(model, context, noise, device, b, suffix=""):
     r_chunk = compare("fused_chunk" + suffix,
                       lambda: chunk.sample_kernel(context, noise, stk, stv, coefs),
                       lambda: chunk.sample_plain(context, noise, stk, stv, coefs), b, chunk_flops,
-                      [chunk.weights(), chunk.ckv_w, chunk.ckv_b, context, noise, stk, stv])
+                      [chunk.kernel_weights, context, noise, stk, stv])
     packed = den.pack_context_kv(model.precompute_context_kv(context))
     ddim = [1.3, 0.8, 0.9, 0.4]  # eps form and in-kernel DDIM form
     r_den = max((compare("fused_denoise" + suffix,

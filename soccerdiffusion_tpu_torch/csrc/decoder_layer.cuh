@@ -1,7 +1,7 @@
-// One denoiser pass of the cross-attending decoder for one robot, shared by
-// the per-step denoiser (fused_denoise.cu) and the whole-chunk sampler
-// (fused_chunk.cu). One thread block per robot; everything but the context
-// K/V lives in shared memory.
+// One denoiser pass of the cross-attending decoder for one robot, the
+// per-step denoiser's (fused_denoise.cu; the whole-chunk sampler ran it too
+// before its pass moved onto the tensor cores in fused_chunk.cu). One thread
+// block per robot; everything but the context K/V lives in shared memory.
 #pragma once
 
 #include "common.cuh"

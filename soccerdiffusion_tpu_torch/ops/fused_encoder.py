@@ -8,6 +8,10 @@ gather of its embedding table; the result is the (B, S, E) context in
 canonical order (action history, IMU, joint states, game state), the
 contract of ``DiffusionPolicy.encode_context``.
 
+The kernel reads the Dense kernels transposed, (out, in), and the
+patch-conv kernel transposed with its input columns padded by zeros to a
+multiple of 8 (``_Stack.pack_kernel_weights``), packed once per encoder.
+
 Dispatch as in ``ops/fused_denoise.py``: a CUDA tensor launches the kernel
 (bf16 weights, head_dim 32, at most 128 tokens per stack) or raises, a CPU
 tensor runs the plain version. ``FusedContextEncoder.launches`` counts
@@ -55,6 +59,21 @@ class _Stack:
     def weights(self) -> list[torch.Tensor]:
         return [self.emb_w, self.emb_b, self.pos, self.qkv_w, self.qkv_b, self.o_w, self.o_b,
                 self.ln_s, self.ln_b, self.m1_w, self.m1_b, self.m2_w, self.m2_b]
+
+    @property
+    def in_pad(self) -> int:
+        """The embedding's reduction width in the kernel: in_dim rounded up to 8."""
+        return -(-self.in_dim // 8) * 8
+
+    def pack_kernel_weights(self) -> list[torch.Tensor]:
+        """The 13 weights in ``csrc/fused_encoder.cu:EncoderStack`` order:
+        every Dense kernel transposed to (out, in), the patch-conv kernel as
+        (E, in_pad) with zero columns in_dim .. in_pad - 1."""
+        t = lambda w: w.transpose(-1, -2).contiguous()
+        emb_t = self.emb_w.new_zeros((self.emb_w.shape[1], self.in_pad))
+        emb_t[:, : self.in_dim] = self.emb_w.t()
+        return [emb_t, self.emb_b, self.pos, t(self.qkv_w), self.qkv_b, t(self.o_w), self.o_b,
+                self.ln_s, self.ln_b, t(self.m1_w), self.m1_b, t(self.m2_w), self.m2_b]
 
 
 class FusedContextEncoder:
@@ -122,6 +141,7 @@ class FusedContextEncoder:
                     m1_b=stack(lambda l: l.mlp.linear1.bias.detach()),
                     m2_w=stack(lambda l: kernel(l.mlp.linear2)),
                     m2_b=stack(lambda l: l.mlp.linear2.bias.detach())))
+            self.kernel_weights = [st.pack_kernel_weights() for st in self.stacks]
             self.gs_table = (model.game_state_encoder.embedding.weight.detach().to(self.dtype)
                              .contiguous()
                              if cfg.use_gamestate else None)
@@ -183,9 +203,9 @@ class FusedContextEncoder:
             gs = self._game_state(batch).to(device=dev, dtype=torch.int32).contiguous()
         out = torch.empty((B, self.num_tokens, E), dtype=torch.bfloat16, device=dev)
         ptrs, meta, offset = [], [], 0
-        for st, x in zip(self.stacks, xs):
-            ptrs += [x, *st.weights()]
-            meta += [st.tokens, st.in_dim, st.layers, offset]
+        for st, x, w in zip(self.stacks, xs, self.kernel_weights):
+            ptrs += [x, *w]
+            meta += [st.tokens, st.in_dim, st.in_pad, st.layers, offset]
             offset += st.tokens
         err = _build.library().sd_fused_encoder(
             _build.pointers(*ptrs, gs, self.gs_table, out),

@@ -1,13 +1,19 @@
 """Bit-level fingerprints of the encoder-layer kernels (the fused ViT block
-and the fused encoder stack, forward and backward) on fixed seeded inputs.
+and the fused encoder stack, forward and backward) and of the serving
+denoiser (head_dim 32 and 64, eps and in-kernel DDIM forms) on fixed seeded
+inputs.
 
-Their device code (``csrc/encoder_layer.cuh`` over ``csrc/mma.cuh``) is
-shared with the decoder layer and flash attention; a change to the shared
-attention tiles must leave these kernels' outputs bit for bit as they were.
+The encoder layer's device code (``csrc/encoder_layer.cuh`` over
+``csrc/mma.cuh``) is shared with the decoder layer, flash attention and the
+context encoder, the denoiser's (``csrc/decoder_layer.cuh``,
+``csrc/common.cuh``) was shared with the chunk sampler; a change to shared
+code must leave these kernels' outputs bit for bit as they were.
 ``tests/test_torch_cuda.py::test_layer_kernels_bit_identical_to_record``
 holds them to ``tests/data/layer_kernels_golden.json``, which this script
-wrote on an NVIDIA H100 from the kernels before the attention tiles took
-separate q and k / v operands:
+wrote on an NVIDIA H100: the layer kernels' entries from the kernels before
+the attention tiles took separate q and k / v operands, the denoiser's from
+the kernels before the chunk sampler and the context encoder moved onto the
+tensor cores:
 
     python tests/cuda_golden.py OUT.json
 
@@ -51,6 +57,44 @@ def _digest(t: torch.Tensor) -> str:
     return hashlib.sha256(t.view(as_int).cpu().numpy().tobytes()).hexdigest()
 
 
+# (label, hidden width, decoder heads, in-kernel DDIM coefficients or None)
+DENOISE_CASES = [
+    ("denoise_hd32_eps", 128, 4, None),
+    ("denoise_hd32_ddim", 128, 4, [1.3, 0.8, 0.9, 0.4]),
+    ("denoise_hd64_eps", 256, 4, None),
+    ("denoise_hd64_ddim", 256, 4, [1.3, 0.8, 0.9, 0.4]),
+]
+
+
+def denoise_fingerprints(device="cuda") -> dict:
+    """label -> {"out": sha256} of one denoiser pass for every DENOISE_CASES
+    entry: a seeded random h128-shaped policy (P=10, J=20, 4 decoder layers)
+    at the case's width, 13 robots over S=301 context K/V rows."""
+    from soccerdiffusion_tpu_torch.config import ModelConfig
+    from soccerdiffusion_tpu_torch.models import DiffusionPolicy
+    from soccerdiffusion_tpu_torch.ops.fused_denoise import FusedDenoiser
+    from soccerdiffusion_tpu_torch.utils.jax_params import load_jax_params, random_jax_params
+
+    out = {}
+    for label, E, H, coefs in DENOISE_CASES:
+        cfg = ModelConfig(num_joints=20, hidden_dim=E, num_decoder_heads=H,
+                          trajectory_prediction_length=10, use_images=False,
+                          compute_dtype="bfloat16", attention_impl="xla")
+        model = DiffusionPolicy(cfg)
+        model = load_jax_params(model, random_jax_params(model, seed=E)).to(device)
+        den = FusedDenoiser(model)
+        rng = np.random.default_rng(E + H)
+        t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)
+        L, b, S = cfg.num_decoder_layers, 13, 301
+        packed = (t(L, b, S, E).to(torch.bfloat16), t(L, b, S, E).to(torch.bfloat16))
+        noisy, stk, stv = t(b, 10, 20), t(L, E).to(torch.bfloat16), t(L, E).to(torch.bfloat16)
+        with torch.no_grad():
+            y = den.run_kernel(packed, noisy, stk, stv, coefs)
+        torch.cuda.synchronize()
+        out[label] = {"out": _digest(y)}
+    return out
+
+
 def fingerprints(device="cuda") -> dict:
     """label -> {output name: sha256 of its bytes} for every case."""
     from soccerdiffusion_tpu_torch.ops import fused_encoder_stack as fes
@@ -72,7 +116,7 @@ def fingerprints(device="cuda") -> dict:
         torch.cuda.synchronize()
         out[label] = {"y": _digest(y), "dx": _digest(dx),
                       **{f"d{name}": _digest(g) for name, g in zip(fes.STACK_WEIGHTS, grads)}}
-    return out
+    return {**out, **denoise_fingerprints(device)}
 
 
 if __name__ == "__main__":

@@ -7,8 +7,13 @@ the ViT block forward and backward: T=49 tokens, N=7 frames, exact GELU at
 head_dim 64, quick GELU at head_dim 32; the tensor-core layer code of the
 ViT block and the encoder stack at ragged T = 1, 10, 49, 64, 100 with one
 and odd counts of frames or robots, and their backwards bit-identical over
-two launches and to tests/data/layer_kernels_golden.json; the decoder-layer
-and flash backwards bit-identical over two launches).
+two launches and to tests/data/layer_kernels_golden.json with the serving
+denoiser; the decoder-layer and flash backwards bit-identical over two
+launches; the tensor-core chunk sampler over S = 17 / 301 / 311 / 312 at
+head_dim 32 and 64, DDIM and DPM-Solver++, B = 1 / 13 / 133, a robot in
+one block or in a 2-block cluster over an odd layer count, and the
+context encoder at T = 24 / 100 / 128, patch 1 and 2, with and without the
+game state, both bit-identical over two launches).
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere. JAX-free, so it runs on a
 machine without jax: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
@@ -508,7 +513,9 @@ def test_layer_kernels_bit_identical_to_record(device):
     """The ViT-block and encoder-stack kernels, forward and backward, give
     the outputs recorded before their shared attention tiles
     (csrc/mma.cuh) took separate q and k / v operands for the decoder layer
-    and flash attention, bit for bit (tests/cuda_golden.py)."""
+    and flash attention, and the serving denoiser the outputs recorded
+    before the chunk sampler and the context encoder moved onto the tensor
+    cores, bit for bit (tests/cuda_golden.py)."""
     import importlib.util
     import json
     from pathlib import Path
@@ -519,3 +526,132 @@ def test_layer_kernels_bit_identical_to_record(device):
     spec.loader.exec_module(golden)
     record = json.loads((here / "data" / "layer_kernels_golden.json").read_text())
     assert golden.fingerprints(device) == record["fingerprints"]
+
+
+# ------------------------------------- the serving kernels on tensor cores
+# The chunk sampler over S = 17 (one 32-key chunk with the step token), 301
+# (h128), 311 (the flagship) and 312 context tokens (a chunk of one key),
+# head_dim 32 (E=128) and 64 (E=256, the flagship's widths), DDIM and
+# DPM-Solver++, B = 1, 13 and 133 (past the 132 SMs; below 67 a robot's
+# heads split over a 2-block cluster), P=10, J=20, 5 steps; a robot in one
+# block and in a cluster at B=13 over 3 layers;
+# the context encoder at T = 24, 100 and 128 tokens per stack, patch 1 and
+# 2, with and without the game-state token. Both bit-identical over two
+# launches.
+
+SERVING_WIDTHS = {32: (128, 4), 64: (256, 4)}
+
+
+def serving_model(device, head_dim, **changes):
+    E, H = SERVING_WIDTHS[head_dim]
+    cfg = dataclasses.replace(CFG, hidden_dim=E, num_decoder_heads=H, num_joints=20,
+                              trajectory_prediction_length=10, **changes)
+    model = DiffusionPolicy(cfg)
+    return cfg, load_jax_params(model, random_jax_params(model, seed=head_dim)).to(device)
+
+
+def chunk_inputs(cfg, model, device, b, S, solver, seed):
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)
+    chunk = FusedChunkSampler(model)
+    stk, stv = chunk.step_tables(t(5, cfg.hidden_dim))
+    coefs = solver_coef_table(make_schedule(100), 5, solver)
+    return chunk, (t(b, S, cfg.hidden_dim).to(torch.bfloat16), t(b, 10, 20), stk, stv, coefs)
+
+
+@pytest.mark.parametrize("b", [1, 13, 133])
+@pytest.mark.parametrize("solver", ["ddim", "dpmpp"])
+@pytest.mark.parametrize("head_dim", [32, 64])
+@pytest.mark.parametrize("S", [17, 301, 311, 312])
+def test_chunk_kernel_matches_plain_version(S, head_dim, solver, b, device):
+    cfg, model = serving_model(device, head_dim)
+    chunk, args = chunk_inputs(cfg, model, device, b, S, solver, seed=S + b)
+    n = FusedChunkSampler.launches
+    with torch.no_grad():
+        got = chunk.sample_kernel(*args)
+        assert FusedChunkSampler.launches == n + 1
+        assert_close(got, chunk.sample_plain(*args))
+
+
+@pytest.mark.parametrize("head_dim,b", [(32, 13), (32, 64), (32, 133), (64, 13), (64, 64)])
+def test_chunk_kernel_is_deterministic(head_dim, b, device):
+    """Bit-identical over two launches, at both block sizes (B=133 runs two
+    head_dim-32 robots an SM) and with a robot's heads split over a 2-block
+    cluster (B <= 66)."""
+    cfg, model = serving_model(device, head_dim)
+    chunk, args = chunk_inputs(cfg, model, device, b, 311, "dpmpp", seed=7)
+    with torch.no_grad():
+        first, second = chunk.sample_kernel(*args), chunk.sample_kernel(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("cluster", [1, 2])
+@pytest.mark.parametrize("head_dim", [32, 64])
+@pytest.mark.parametrize("S", [17, 312])
+def test_chunk_kernel_block_split_matches_plain_version(S, head_dim, cluster, device):
+    """A robot in one block, or its heads split over a 2-block cluster,
+    whatever the batch, over an odd layer count (the cluster's two output
+    buffers taken in turn across the steps)."""
+    cfg, model = serving_model(device, head_dim, num_decoder_layers=3)
+    chunk, args = chunk_inputs(cfg, model, device, 13, S, "dpmpp", seed=S + cluster)
+    chunk.cluster_size = lambda batch, device: cluster
+    with torch.no_grad():
+        assert_close(chunk.sample_kernel(*args), chunk.sample_plain(*args))
+
+
+@pytest.mark.parametrize("head_dim,b", [(64, 2), (32, 133)])
+def test_chunk_kernel_refuses_contexts_past_its_registers(head_dim, b, device):
+    """Only the 16-warp block's limit refuses a context: past the SMs at
+    head_dim 32 too, where a short context runs two 8-warp blocks an SM."""
+    cfg, model = serving_model(device, head_dim)
+    chunk, args = chunk_inputs(cfg, model, device, b, 1024, "ddim", seed=1)
+    with pytest.raises(ValueError, match="at most 1023 context tokens"):
+        chunk.sample_kernel(*args)
+
+
+def test_chunk_kernel_takes_long_contexts_past_the_sms(device):
+    """S=600 outgrows the 8-warp block's 511 tokens: at B=133 the kernel
+    then runs a robot a 16-warp block, as it does at B=64."""
+    cfg, model = serving_model(device, 32)
+    chunk, args = chunk_inputs(cfg, model, device, 133, 600, "ddim", seed=3)
+    assert chunk.block_threads(133, 600, device) == 512
+    with torch.no_grad():
+        assert_close(chunk.sample_kernel(*args), chunk.sample_plain(*args))
+
+
+def encoder_case(device, tokens, patch, gamestate, b=13):
+    length = tokens * patch
+    cfg, model = serving_model(device, 32, action_context_length=length,
+                               joint_state_context_length=length, imu_context_length=length,
+                               encoder_patch_size=patch, use_gamestate=gamestate,
+                               num_action_history_encoder_layers=2)
+    rng = np.random.default_rng(tokens + patch)
+    t = lambda a: torch.from_numpy(a).to(device)
+    batch = {
+        "joint_command_history": t(rng.uniform(0, 6.28, (b, length, 20)).astype(np.float32)),
+        "rotation": t(rng.normal(size=(b, length, cfg.imu_input_dim)).astype(np.float32)),
+        "joint_state": t(rng.uniform(0, 6.28, (b, length, 20)).astype(np.float32)),
+        "game_state": t(rng.integers(0, 4, (b,))),
+    }
+    return FusedContextEncoder(model), batch
+
+
+@pytest.mark.parametrize("gamestate", [True, False])
+@pytest.mark.parametrize("patch", [1, 2])
+@pytest.mark.parametrize("tokens", [24, 100, 128])
+def test_encoder_kernel_matches_plain_version(tokens, patch, gamestate, device):
+    enc, batch = encoder_case(device, tokens, patch, gamestate)
+    n = FusedContextEncoder.launches
+    with torch.no_grad():
+        got = enc.encode_kernel(batch)
+        assert FusedContextEncoder.launches == n + 1
+        assert_close(got, enc.encode_plain(batch))
+
+
+def test_encoder_kernel_is_deterministic(device):
+    enc, batch = encoder_case(device, 100, 1, True)
+    with torch.no_grad():
+        first, second = enc.encode_kernel(batch), enc.encode_kernel(batch)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)

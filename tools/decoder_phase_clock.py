@@ -17,10 +17,7 @@ the kernel's time.
 
 from __future__ import annotations
 
-import ctypes
 import re
-import shutil
-import subprocess
 import sys
 from pathlib import Path
 
@@ -32,23 +29,10 @@ sys.path.insert(0, str(ROOT))
 
 from soccerdiffusion_tpu_torch.ops import _build  # noqa: E402
 from soccerdiffusion_tpu_torch.ops import fused_decoder_layer as fdl  # noqa: E402
+from tools import _phase_clock  # noqa: E402
 from tools.kernel_device_times import decoder_weights  # noqa: E402
 
 OUT = ROOT / "build" / "decoder_phase_clock"
-COUNTERS = 256
-PRELUDE = f"""
-__device__ unsigned long long sd_phase_sum[{COUNTERS}];
-extern "C" int sd_phase_read(unsigned long long* out) {{
-  return (int)cudaMemcpyFromSymbol(out, sd_phase_sum, sizeof(sd_phase_sum));
-}}
-extern "C" int sd_phase_zero() {{
-  static unsigned long long z[{COUNTERS}];
-  return (int)cudaMemcpyToSymbol(sd_phase_sum, z, sizeof(z));
-}}
-#define PT_BEGIN() long long _t0 = clock64()
-#define PT(id) do {{ if (threadIdx.x == 0) {{ const long long _t = clock64(); \\
-  atomicAdd(&sd_phase_sum[id], (unsigned long long)(_t - _t0)); _t0 = _t; }} }} while (0)
-"""
 # calls whose own barriers are inside them: a marker after each
 AFTER = ("attn_fwd_split<D>(", "attention_bwd_dq<D>(", "attention_bwd_dkv<D, true, true>(",
          "mma_dense_rows<2, 4>(sm,", "attention_bwd<D>(s.qkv")
@@ -89,41 +73,14 @@ def instrument(src: str) -> tuple[str, dict]:
     for name in ("dec_fwd_smem", "dec_fwd_ws", "dec_bwd"):  # each clock starts at entry
         head = re.search(rf"__device__ void {name}\([^{{]*\{{", text)
         text = text[:head.end()] + "\n  PT_BEGIN();" + text[head.end():]
-    include = '#include "encoder_layer.cuh"\n'
-    return text.replace(include, include + PRELUDE), labels
-
-
-def build(labels_out: dict) -> ctypes.CDLL:
-    shutil.rmtree(OUT, ignore_errors=True)
-    shutil.copytree(_build.CSRC, OUT / "csrc")
-    path = OUT / "csrc" / "fused_decoder_layer.cu"
-    text, labels = instrument(path.read_text())
-    path.write_text(text)
-    labels_out.update(labels)
-    srcs = sorted((OUT / "csrc").glob("*.cu"))
-    nvcc = _build._nvcc()
-    procs = [subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-c", "-o", str(OUT / f"{s.stem}.o"),
-                               str(s)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for s in srcs]
-    for proc in procs:
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed:\n{log[-4000:]}")
-    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o",
-                    str(OUT / "lib.so"), *[str(OUT / f"{s.stem}.o") for s in srcs]], check=True)
-    lib = ctypes.CDLL(str(OUT / "lib.so"))
-    for name, argtypes in _build._ENTRIES.items():
-        getattr(lib, name).argtypes = argtypes
-        getattr(lib, name).restype = ctypes.c_int
-    return lib
+    return text, labels
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("decoder_phase_clock: needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    labels = {}
-    lib = build(labels)
+    lib, labels = _phase_clock.build(OUT, "fused_decoder_layer.cu", instrument)
     _build.library = lambda: lib  # the wrappers launch the instrumented kernels
     rng = np.random.default_rng(0)
     t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda().to(torch.bfloat16)
@@ -133,14 +90,7 @@ def main() -> int:
         x, mem, dy = t(B, 10, E), t(B, S, E), t(B, 10, E)
         for label, fn in (("forward", lambda: fdl.forward_kernel(x, mem, w, H)),
                           ("backward", lambda: fdl.backward_kernel(x, mem, dy, w, H))):
-            fn()
-            torch.cuda.synchronize()
-            lib.sd_phase_zero()
-            fn()
-            torch.cuda.synchronize()
-            buf = (ctypes.c_ulonglong * COUNTERS)()
-            lib.sd_phase_read(buf)
-            cycles = np.array(buf[:], dtype=np.float64) / B
+            cycles = _phase_clock.cycles_per_block(lib, fn, B)
             print(f"== decoder {label} E={E} S={S} T=10 B={B}: {cycles.sum():.0f} cycles per block",
                   flush=True)
             for i in np.nonzero(cycles)[0]:

@@ -1,18 +1,25 @@
-"""Device time of the decoder-layer and flash-attention kernels, read from
-torch.profiler, beside the CUDA-event time of the wrapper call (which adds
-the host's launch work): the decoder layer (forward and backward, head_dim
-64 at E=256 over S=312 memory rows and head_dim 32 at E=128 over S=302, T=10,
+"""Device time of the kernels, read from torch.profiler, beside the
+CUDA-event time of the wrapper call (which adds the host's launch work):
+the serving kernels at chip_smoke.py's main-path shapes (the context
+encoder at h128 B=64 and 1024; the 30-step DDIM chunk sampler at h128 over
+S=301 at B=64 and 1024, and at head_dim 64 (vit_flagship's decoder) over
+S=311 at B=64 and 256), the decoder layer (forward and backward, head_dim 64
+at E=256 over S=312 memory rows and head_dim 32 at E=128 over S=302, T=10,
 B=64 and 256) and flash attention at four of chip_smoke.py's bf16 shapes.
 
-    python tools/kernel_device_times.py
+    python tools/kernel_device_times.py [--only serving|training] [--tree DIR]
+        [--chunk-threads auto,512,256] [--chunk-clusters auto,1,2]
 
+``--tree`` imports the port from another checkout (a `git archive` of a
+parent commit, say), so that two trees' kernels are timed by one script.
 Needs an NVIDIA GPU; builds the kernels like chip_smoke.py. Seeded random
-bf16 operands; prints per call the wrapper's event time, the device ops'
-total and the largest device ops.
+weights and operands; prints per call the wrapper's event time, the device
+ops' total and the largest device ops.
 """
 
 from __future__ import annotations
 
+import argparse
 import sys
 from pathlib import Path
 
@@ -20,11 +27,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-
-from soccerdiffusion_tpu_torch.ops import flash_attention as fa  # noqa: E402
-from soccerdiffusion_tpu_torch.ops import fused_decoder_layer as fdl  # noqa: E402
-
+ROOT = Path(__file__).resolve().parents[1]
 CALLS = 10
 
 
@@ -63,10 +66,52 @@ def report(label, fn):
         print(f"    {t:9.1f} us  {key[:100]}", flush=True)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("kernel_device_times: needs an NVIDIA GPU", file=sys.stderr)
-        return 1
+def serving(chunk_threads, chunk_clusters):
+    import chip_smoke as cs
+    from soccerdiffusion_tpu_torch.diffusion import make_schedule, solver_coef_table
+    from soccerdiffusion_tpu_torch.diffusion.ddim import ddim_timesteps
+    from soccerdiffusion_tpu_torch.ops.fused_chunk import FusedChunkSampler
+    from soccerdiffusion_tpu_torch.ops.fused_encoder import FusedContextEncoder
+
+    coefs = solver_coef_table(make_schedule(1000), 30, "ddim")
+    steps = torch.as_tensor(ddim_timesteps(1000, 30).astype(np.int64), device="cuda")
+    h128 = cs.build_model(cs.bench_config(), "cuda")
+    enc = FusedContextEncoder(h128)
+    with torch.no_grad():
+        for B in (64, 1024):
+            batch = cs.random_batch(h128.config, B, "cuda", np.random.default_rng(B))
+            report(f"context encoder h128 B={B}", lambda: enc.encode_kernel(batch))
+        flagship = cs.build_model(cs.flagship_config(), "cuda", seed=3)
+        for model, label, S, batches in ((h128, "h128 (head_dim 32)", 301, (64, 1024)),
+                                         (flagship, "flagship (head_dim 64)", 311, (64, 256))):
+            chunk = FusedChunkSampler(model)
+            stk, stv = chunk.step_tables(model.step_encoding(steps)[:, 0])
+            E = model.config.hidden_dim
+            for B in batches:
+                rng = np.random.default_rng(B + S)
+                context = torch.from_numpy(rng.normal(size=(B, S, E)).astype(np.float32)).to(
+                    "cuda", torch.bfloat16)
+                noise = torch.from_numpy(rng.normal(size=(B, 10, 20)).astype(np.float32)).cuda()
+                launches = [(None, None)]  # the wrapper's own choice, or given ones
+                if hasattr(chunk, "cluster_size"):
+                    launches = [(t, c) for t in chunk_threads for c in chunk_clusters]
+                for threads, clusters in launches:
+                    vars(chunk).pop("block_threads", None)
+                    vars(chunk).pop("cluster_size", None)
+                    if threads is not None:
+                        chunk.block_threads = lambda batch, context_len, device, n=threads: n
+                    if clusters is not None:
+                        chunk.cluster_size = lambda batch, device, n=clusters: n
+                    report(f"chunk ddim30 {label} S={S} B={B}"
+                           + ("" if threads is None else f" threads={threads}")
+                           + ("" if clusters is None else f" cluster={clusters}"),
+                           lambda: chunk.sample_kernel(context, noise, stk, stv, coefs))
+
+
+def training():
+    from soccerdiffusion_tpu_torch.ops import flash_attention as fa
+    from soccerdiffusion_tpu_torch.ops import fused_decoder_layer as fdl
+
     rng = np.random.default_rng(0)
     t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda().to(torch.bfloat16)
     for E, H, S in ((256, 4, 312), (128, 4, 302)):
@@ -83,6 +128,29 @@ def main() -> int:
         shape = f"(B={B}, Tq={Tq}, Tk={Tk}, H={H}, D={D})"
         report(f"flash fwd {shape}", lambda: fa.forward_kernel(q, k, v))
         report(f"flash bwd {shape}", lambda: fa.backward_kernel(q, k, v, o, lse, do))
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--only", choices=("serving", "training"), default=None)
+    parser.add_argument("--tree", default=str(ROOT), help="checkout whose port is timed")
+    parser.add_argument("--chunk-threads", default="auto",
+                        help="comma-separated block sizes of the chunk kernel to time "
+                             "(auto: the wrapper's choice)")
+    parser.add_argument("--chunk-clusters", default="auto",
+                        help="comma-separated blocks a robot (1 or 2) of the chunk kernel to "
+                             "time (auto: the wrapper's choice)")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_device_times: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path[:0] = [str(Path(args.tree).resolve()), str(ROOT)]
+    print(f"port from {Path(args.tree).resolve()}", flush=True)
+    if args.only in (None, "serving"):
+        given = lambda arg: [None if t == "auto" else int(t) for t in arg.split(",")]
+        serving(given(args.chunk_threads), given(args.chunk_clusters))
+    if args.only in (None, "training"):
+        training()
     return 0
 
 
