@@ -5,21 +5,24 @@
 1. Prints the torch / CUDA versions and the card's name and power limit.
 2. Builds the CUDA kernels of soccerdiffusion_tpu_torch/csrc (nvcc, sm_90a)
    and reads the library's SASS (cuobjdump -sass): every instance of the
-   ViT-block, encoder-stack, decoder-layer, tdot, chunk-sampler and
-   context-encoder kernels and every bf16 instance of the flash kernels
+   ViT-block, encoder-stack, decoder-layer, tdot, chunk-sampler, denoiser
+   and context-encoder kernels and every bf16 instance of the flash kernels
    must hold tensor-core instructions (HMMA / HGMMA); the fp32 flash
    instances are logged as scalar.
 3. Holds each serving kernel against its plain PyTorch version on the card
    at the h128 serving path's shapes (S=301 context tokens, 30 DDIM steps,
    B=64 and B=1024; bf16 weights from a seeded flax-layout random init) and
-   times both with CUDA events.
+   times both with CUDA events; the denoiser's context K/V pack kernel
+   (pack_context_kv) too, bit for bit its plain version.
 4. Drives the proprioceptive serving loop through
    RolloutEngine.make_rollout_fn at the bench configuration (default.yaml
    architecture without images, bf16, B=1024): 5 replan periods of 30-step
-   DDIM with the fused encoder + chunk kernels, then 5 of the 1-step
-   distilled student through the fused denoiser, with every launch counter
-   zeroed just before and read just after; then checks a short rollout of
-   the kernel path against the same engine's plain versions on the CPU.
+   DDIM with the fused encoder + chunk kernels, 5 of the 1-step distilled
+   student through the fused denoiser, then 5 of 30-step DDIM through the
+   per-step denoiser (fused=True: 30 denoiser launches a period), with
+   every launch counter zeroed just before and read just after each; then
+   checks a short rollout of the kernel path against the same engine's
+   plain versions on the CPU.
 5. Holds the training kernels (fused encoder stack and fused decoder layer,
    forward and backward) against their plain versions at the training
    shapes (T=100 / L=2 encoder stacks, T=10 x S=302 decoder layers) at B=64
@@ -167,8 +170,8 @@ LIBRARY_TOL = 0.1
 TENSOR_CORE_KERNELS = (
     ("vit_block_fwd_kernel", ""), ("vit_block_bwd_kernel", ""), ("encoder_stack_fwd_kernel", ""),
     ("encoder_stack_bwd_kernel", ""), ("tdot_kernel", ""), ("decoder_layer_fwd_kernel", ""),
-    ("decoder_layer_bwd_kernel", ""), ("fused_chunk_kernel", ""), ("fused_encoder_kernel", ""),
-    ("flash_fwd_kernel", "__nv_bfloat16"),
+    ("decoder_layer_bwd_kernel", ""), ("fused_chunk_kernel", ""), ("fused_denoise_kernel", ""),
+    ("fused_encoder_kernel", ""), ("flash_fwd_kernel", "__nv_bfloat16"),
     ("flash_bwd_dq_kernel", "__nv_bfloat16"), ("flash_bwd_dkdv_kernel", "__nv_bfloat16"))
 # kernel instances that stay scalar fp32 FMAs (logged with their counts)
 SCALAR_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
@@ -491,6 +494,7 @@ def compare(name, kernel_fn, plain_fn, b, flops, inputs, library_fn=None):
     time of ``library_fn``, one PyTorch call computing the same function."""
     got, ref = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
+    out_bytes = nbytes(got)  # the output as the kernel writes it (bf16 or fp32)
     got, ref = got.float(), ref.float()
     if got.shape != ref.shape or not torch.isfinite(got).all():
         raise AssertionError(f"{name} B={b}: shape {tuple(got.shape)} vs {tuple(ref.shape)} "
@@ -499,7 +503,7 @@ def compare(name, kernel_fn, plain_fn, b, flops, inputs, library_fn=None):
     scale = ref.abs().max().item()
     ok = max_abs <= TOL * scale
     k_ms, p_ms = median_ms(kernel_fn), median_ms(plain_fn)
-    bnd = bound(flops, nbytes(inputs, got))
+    bnd = bound(flops, nbytes(inputs) + out_bytes)
     log(f"{name} B={b}: max_abs_err={max_abs:.4e} max|plain|={scale:.4e} "
         f"(tol {TOL} x max|plain|) kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
         f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) {'OK' if ok else 'FAIL'}")
@@ -518,8 +522,9 @@ def merge(results, name, r):
 
 
 def decoder_checks(model, context, noise, device, b, suffix=""):
-    """The chunk sampler (30-step DDIM) and the denoiser (eps and in-kernel
-    DDIM forms) against their plain versions on one context."""
+    """The chunk sampler (30-step DDIM), the denoiser's K/V pack and the
+    denoiser (eps and in-kernel DDIM forms) against their plain versions on
+    one context."""
     from soccerdiffusion_tpu_torch.diffusion import make_schedule, solver_coef_table
     from soccerdiffusion_tpu_torch.diffusion.ddim import ddim_timesteps
     from soccerdiffusion_tpu_torch.ops.fused_chunk import FusedChunkSampler
@@ -537,15 +542,21 @@ def decoder_checks(model, context, noise, device, b, suffix=""):
                       lambda: chunk.sample_kernel(context, noise, stk, stv, coefs),
                       lambda: chunk.sample_plain(context, noise, stk, stv, coefs), b, chunk_flops,
                       [chunk.kernel_weights, context, noise, stk, stv])
-    packed = den.pack_context_kv(model.precompute_context_kv(context))
+    context_kv = model.precompute_context_kv(context)
+    # the pack: a permutation, bit for bit the plain pack's (max_abs_err 0)
+    r_pack = compare("fused_denoise_pack" + suffix, lambda: den.pack_kernel(context_kv).kv,
+                     lambda: den.pack_plain(context_kv).kv, b, 0, [context_kv])
+    if r_pack["max_abs_err"] != 0:
+        raise AssertionError(f"the pack kernel B={b} is not the plain pack")
+    packed = den.pack_context_kv(context_kv)
     ddim = [1.3, 0.8, 0.9, 0.4]  # eps form and in-kernel DDIM form
     r_den = max((compare("fused_denoise" + suffix,
                          lambda c=c: den.run_kernel(packed, noise, stk[3], stv[3], c),
                          lambda c=c: den.run_plain(packed, noise, stk[3], stv[3], c), b,
                          b * decoder_pass_flops(cfg, S),
-                         [den.weights(), packed, noise, stk[3], stv[3]])
+                         [den.kernel_weights, context_kv, noise, stk[3], stv[3]])
                  for c in (None, ddim)), key=lambda r: r["max_abs_err"])
-    return r_chunk, r_den
+    return r_chunk, r_den, r_pack
 
 
 def kernel_phase(cfg, model, device):
@@ -565,9 +576,10 @@ def kernel_phase(cfg, model, device):
                 flops, [list(batch.values()), [st.weights() for st in enc.stacks], enc.gs_table]))
             context = enc.encode_plain(batch)
             noise = torch.from_numpy(rng.normal(size=(b, 10, 20)).astype(np.float32)).to(device)
-            r_chunk, r_den = decoder_checks(model, context, noise, device, b)
+            r_chunk, r_den, r_pack = decoder_checks(model, context, noise, device, b)
         merge(results, "fused_chunk", r_chunk)
         merge(results, "fused_denoise", r_den)
+        merge(results, "fused_denoise_pack", r_pack)
     return results
 
 
@@ -593,6 +605,7 @@ def zero_counters():
 
     for c in (FusedContextEncoder, FusedChunkSampler, FusedDenoiser):
         c.launches = 0
+    FusedDenoiser.pack_launches = 0
     for c in (FusedEncoderStack, FusedDecoderLayer):
         c.fwd_launches = c.bwd_launches = c.fwd_launches_hd64 = c.bwd_launches_hd64 = 0
     fused_vit_block.forward_kernel.launches = fused_vit_block.backward_kernel.launches = 0
@@ -610,6 +623,7 @@ def read_counters() -> dict:
 
     return {"fused_encoder": FusedContextEncoder.launches, "fused_chunk": FusedChunkSampler.launches,
             "fused_denoise": FusedDenoiser.launches,
+            "fused_denoise_pack": FusedDenoiser.pack_launches,
             "fused_encoder_stack_fwd": FusedEncoderStack.fwd_launches,
             "fused_encoder_stack_fwd_hd64": FusedEncoderStack.fwd_launches_hd64,
             "fused_encoder_stack_bwd": FusedEncoderStack.bwd_launches,
@@ -655,24 +669,32 @@ def timed_rollout(eng, device, seed, b=BENCH_B, periods=CHUNKS):
 def main_path_phase(cfg, model, device):
     ddim30 = engine(model, cfg, device, fused="chunk")
     distilled = engine(model, cfg, device, distilled=True, fused=True)
+    per_step = engine(model, cfg, device, fused=True)
     plain = engine(model, cfg, device, fused=False, fused_encoder=False)
-    for eng in (ddim30, distilled, plain):  # warm-up: allocator, first launches
+    for eng in (ddim30, distilled, per_step, plain):  # warm-up: allocator, first launches
         eng.make_rollout_fn(1)(eng.init(BENCH_B, torch.Generator(device=device).manual_seed(0)))
     ms_ddim, l_ddim = timed_rollout(ddim30, device, 1)
     ms_dist, l_dist = timed_rollout(distilled, device, 2)
-    names = ("fused_encoder", "fused_chunk", "fused_denoise")
-    launches = {name: l_ddim[name] + l_dist[name] for name in names}
+    ms_step, l_step = timed_rollout(per_step, device, 3)
+    names = ("fused_encoder", "fused_chunk", "fused_denoise", "fused_denoise_pack")
+    launches = {name: l_ddim[name] + l_dist[name] + l_step[name] for name in names}
     log(f"main path B={BENCH_B}, {CHUNKS} periods each: ddim30 (fused encoder + chunk kernels) "
         f"{ms_ddim:.2f} ms/period; distilled1 (fused encoder + denoiser kernels) "
-        f"{ms_dist:.2f} ms/period; launches {launches}")
+        f"{ms_dist:.2f} ms/period; ddim30 per-step (fused encoder + 30 denoiser launches) "
+        f"{ms_step:.2f} ms/period; launches {launches}")
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"{name} was not launched on the main path")
-    no_flash(l_ddim, l_dist)
+    want = {"fused_encoder": CHUNKS, "fused_chunk": 0, "fused_denoise": 30 * CHUNKS,
+            "fused_denoise_pack": cfg.num_decoder_layers * CHUNKS}  # a pack launch a layer
+    if {name: l_step[name] for name in names} != want:
+        raise AssertionError(f"per-step ddim30 launches {l_step}, expected {want}")
+    no_flash(l_ddim, l_dist, l_step)
     ms_plain, l_plain = timed_rollout(plain, device, 1)
     no_flash(l_plain)
     log(f"unfused plain-PyTorch rollout (fused=False, bf16) B={BENCH_B}: {ms_plain:.2f} ms/period")
-    return launches, {"ddim30": ms_ddim, "distilled1": ms_dist, "ddim30_unfused": ms_plain}
+    return launches, {"ddim30": ms_ddim, "distilled1": ms_dist, "ddim30_per_step": ms_step,
+                      "ddim30_unfused": ms_plain}
 
 
 def to_device(carry, device):
@@ -1035,9 +1057,10 @@ def flagship_kernel_phase(model, device):
             batch["image_tokens"] = t(b, cfg.image_context_length, E).float()
             context = model.encode_context(batch)
             noise = torch.from_numpy(rng.normal(size=(b, 10, 20)).astype(np.float32)).to(device)
-            r_chunk, r_den = decoder_checks(model, context, noise, device, b, "_hd64")
+            r_chunk, r_den, r_pack = decoder_checks(model, context, noise, device, b, "_hd64")
         merge(results, "fused_chunk_hd64", r_chunk)
         merge(results, "fused_denoise_hd64", r_den)
+        merge(results, "fused_denoise_pack_hd64", r_pack)
     rng = np.random.default_rng(400)
     x = torch.from_numpy(rng.normal(size=(10 * FLAG_B, T, W)).astype(np.float32)).to(
         device, torch.bfloat16)
@@ -1058,7 +1081,8 @@ FLAG_LANES = {
                            "fused_encoder_stack_fwd_hd64": 3, "fused_chunk": 1}),
     "distilled1": (dict(distilled=True, fused="chunk"),
                    {"fused_vit_block_fwd": 8, "fused_encoder_stack_fwd": 4,
-                    "fused_encoder_stack_fwd_hd64": 3, "fused_denoise": 1}),
+                    "fused_encoder_stack_fwd_hd64": 3, "fused_denoise": 1,
+                    "fused_denoise_pack": 4}),  # the K/V pack: a launch per decoder layer
 }
 
 
@@ -1568,8 +1592,10 @@ def main(argv=None) -> int:
     flash_train, flash_train_ms = flash_training_path_phase()
     training_reference_phase(device, flash_flagship_config(), flagship_reference_batches(), 13)
 
-    # where each kernel instance ran: (source, the TPU kernel it replaces,
-    # its launches over the main paths that run it at the checked shapes)
+    # where each kernel instance ran: (source, the TPU kernel it replaces (the
+    # pack: the JAX denoiser's pack_context_kv, whose layout the kernel's
+    # K/V stream needs), its launches over the main paths that run it at the
+    # checked shapes)
     csrc, tpu = "soccerdiffusion_tpu_torch/csrc/", "soccerdiffusion_tpu/ops/"
     flag = lambda name, lanes=tuple(FLAG_LANES): sum(flag_launches[lane][name] for lane in lanes)
     hd32_stack = flag("fused_encoder_stack_fwd") - flag("fused_encoder_stack_fwd_hd64")
@@ -1577,6 +1603,8 @@ def main(argv=None) -> int:
         "fused_encoder": ("fused_encoder.cu", "fused_encoder.py:319", launches["fused_encoder"]),
         "fused_chunk": ("fused_chunk.cu", "fused_chunk.py:518", launches["fused_chunk"]),
         "fused_denoise": ("fused_denoise.cu", "fused_denoise.py:382", launches["fused_denoise"]),
+        "fused_denoise_pack": ("fused_denoise.cu", "fused_denoise.py:310",
+                               launches["fused_denoise_pack"]),
         "fused_encoder_stack_fwd": ("fused_encoder_stack.cu", "fused_encoder_stack.py:274",
                                     train_launches["fused_encoder_stack_fwd"]),
         "fused_encoder_stack_bwd": ("fused_encoder_stack.cu", "fused_encoder_stack.py:300",
@@ -1591,6 +1619,8 @@ def main(argv=None) -> int:
                                            flag("fused_vit_block_fwd", ("ddim30_raw_frames",))),
         "fused_chunk_hd64": ("fused_chunk.cu", "fused_chunk.py:518", flag("fused_chunk")),
         "fused_denoise_hd64": ("fused_denoise.cu", "fused_denoise.py:382", flag("fused_denoise")),
+        "fused_denoise_pack_hd64": ("fused_denoise.cu", "fused_denoise.py:310",
+                                    flag("fused_denoise_pack")),
         "fused_encoder_stack_fwd_hd64": ("fused_encoder_stack.cu", "fused_encoder_stack.py:274",
                                          flag("fused_encoder_stack_fwd_hd64")),
         "fused_encoder_stack_fwd_imgseq": ("fused_encoder_stack.cu", "fused_encoder_stack.py:274",

@@ -34,6 +34,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctype
 _ENTRIES = {
     "sd_fused_encoder": [ctypes.POINTER(_P), _I, _P],
     "sd_fused_denoise": [ctypes.POINTER(_P), _I, _F, _P],
+    "sd_pack_context_kv": [ctypes.POINTER(_P), _I, _P],
     "sd_fused_chunk": [ctypes.POINTER(_P), _I, _P],
     "sd_encoder_stack_fwd": [ctypes.POINTER(_P), _I, _P],
     "sd_encoder_stack_bwd": [ctypes.POINTER(_P), _I, _P],

@@ -11,12 +11,15 @@ and the update from the (T, 5) [A, B, C, P, Q] table
 (``diffusion/dpm_solver.py``), so DDIM and DPM-Solver++(2M) run the same
 kernel.
 
-The serving weights are packed for the kernel once per sampler
-(``kernel_weights``): the Dense kernels transposed to (out, in), the
-embedding's input columns padded with zeros to a multiple of 32, and the
-context K/V projection ordered by (layer, head, K | V). While the card has
-two SMs for each robot, a robot runs on a cluster of two thread blocks that
-split its heads (``cluster_size``).
+Each step is one decoder pass of the code the serving denoiser runs
+(``csrc/decoder_pass.cuh``), with its launch shapes and shape limits
+(``ops/fused_denoise.py``: ``block_threads``, ``cluster_size``,
+``check_kernel_shapes``). The serving weights are packed for the kernel
+once per sampler (``kernel_weights``): the denoiser's (the Dense kernels
+transposed to (out, in), the embedding's input columns padded with zeros to
+a multiple of 32) and the context K/V projection ordered by (layer, head,
+K | V). While the card has two SMs for each robot, a robot runs on a
+cluster of two thread blocks that split its heads (``cluster_size``).
 
 Dispatch as in ``ops/fused_denoise.py``: a CUDA tensor launches the kernel
 or raises, a CPU tensor runs the plain version. ``FusedChunkSampler.launches``
@@ -30,25 +33,8 @@ import torch
 from soccerdiffusion_tpu_torch.config import check_serving_supported
 from soccerdiffusion_tpu_torch.diffusion.dpm_solver import solver_coef_table
 from soccerdiffusion_tpu_torch.ops import _build
-from soccerdiffusion_tpu_torch.ops.fused_denoise import FusedDenoiser, check_cuda_operand
-
-def max_context(threads: int) -> int:
-    """Most context tokens of the kernel at a block size: 32-key chunks, at
-    most 2 for each warp (csrc/fused_chunk.cu:kMaxChunks), hold the S keys
-    and the step token."""
-    return 32 * 2 * (threads // 32) - 1
-
-
-def padded_joints(j: int) -> int:
-    """The embedding's input width in the kernel: J rounded up to 32 (its
-    product reads the reduction in 32-column blocks)."""
-    return -(-j // 32) * 32
-
-
-def padded_keys(s: int) -> int:
-    """Keys per (layer, head) in the kernel's scratch: the S context keys and
-    the step token, rounded up to 32-key chunks."""
-    return -(-(s + 1) // 32) * 32
+from soccerdiffusion_tpu_torch.ops.fused_denoise import (FusedDenoiser, check_cuda_operand,
+                                                         padded_joints, padded_keys)
 
 
 class FusedChunkSampler(FusedDenoiser):
@@ -63,28 +49,22 @@ class FusedChunkSampler(FusedDenoiser):
         super().__init__(model)
         check_serving_supported(group_robots=group_robots, kv_quant=context_kv_quant,
                                 cross_orientation=cross_orientation)
-        self.kernel_weights = self.pack_kernel_weights()
 
     def pack_kernel_weights(self) -> list[torch.Tensor]:
         """The 21 tensors ``csrc/fused_chunk.cu:ChunkArgs`` reads, in its
-        order, packed once per sampler into ``kernel_weights``: the Dense
-        kernels transposed to (out, in) (the reduction axis contiguous),
-        ``emb_t`` (E, Jp) with zero columns J .. Jp - 1, and ``kv_t`` (2 L E,
-        E) / ``kv_b`` whose row ((l H + h) 2 + sel) D + d is output column
-        h D + d of layer l's context K (sel 0) or V (sel 1) projection."""
-        L, H, D = self.num_layers, self.num_heads, self.head_dim
-        E, J = self.cfg.hidden_dim, self.cfg.num_joints
-        t = lambda w: w.transpose(-1, -2).contiguous()
-        emb_t = self.emb_w.new_zeros((E, padded_joints(J)))
-        emb_t[:, :J] = self.emb_w.t()
+        order, packed once per sampler into ``kernel_weights``: the
+        denoiser's (``FusedDenoiser.pack_kernel_weights``), then ``kv_t``
+        (2 L E, E) / ``kv_b`` whose row ((l H + h) 2 + sel) D + d is output
+        column h D + d of layer l's context K (sel 0) or V (sel 1)
+        projection."""
+        L, E = self.num_layers, self.cfg.hidden_dim
+        H, D = self.num_heads, self.head_dim
         by_head = lambda k, v: torch.stack([k.reshape(*k.shape[:-1], H, D),
                                             v.reshape(*v.shape[:-1], H, D)], dim=-2)
         kv_w = by_head(self.ck_w, self.cv_w)  # (L, E, H, 2, D)
         kv_t = kv_w.permute(0, 2, 3, 4, 1).reshape(2 * L * E, E).contiguous()
         kv_b = by_head(self.ck_b, self.cv_b).reshape(2 * L * E).contiguous()
-        return [emb_t, self.emb_b, self.pe, t(self.qkv_w), self.qkv_b, t(self.so_w), self.so_b,
-                t(self.cq_w), self.cq_b, t(self.co_w), self.co_b, t(self.m1_w), self.m1_b,
-                t(self.m2_w), self.m2_b, self.ln_s, self.ln_b, t(self.fc_w), self.fc_b, kv_t, kv_b]
+        return super().pack_kernel_weights() + [kv_t, kv_b]
 
     def sample(self, context: torch.Tensor, noise: torch.Tensor, step_token_table: torch.Tensor,
                schedule, num_inference_steps: int, solver: str = "ddim") -> torch.Tensor:
@@ -111,31 +91,9 @@ class FusedChunkSampler(FusedDenoiser):
             x, x0c = a * x + b * eps + c * x0c, p * x + q * eps
         return x
 
-    def block_threads(self, batch: int, context_len: int, device) -> int:
-        """The kernel's threads per block for ``batch`` robots over
-        ``context_len`` tokens: a robot per block of 16 warps while the card
-        has an SM for each; past that, at head_dim 32, blocks of 8 warps, two
-        on an SM (their shared memory fits twice), so that one robot's
-        barrier waits hide behind the other's work (measured on an H100 80GB
-        HBM3 at 700 W: h128 B=1024 21.0 against 26.1 ms, B=64 4.49 against
-        3.61 ms; PERF.md), unless the context outgrows the 8 warps' scores
-        (``max_context``)."""
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        two_an_sm = self.head_dim == 32 and batch > sms and context_len <= max_context(256)
-        return 256 if two_an_sm else 512
-
-    def cluster_size(self, batch: int, device) -> int:
-        """Thread blocks a robot: 2 (a cluster that splits the heads of
-        the cross-attention and of the context K/V projection, and shares
-        the rest of each pass) while the card has two SMs for each robot,
-        else 1 (measured on an H100 80GB HBM3 at 700 W: h128 B=64 3.00
-        against 3.85 ms, head_dim 64 B=64 6.92 against 7.73 ms; PERF.md)."""
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        return 2 if 2 * batch <= sms and self.num_heads % 2 == 0 else 1
-
     def sample_kernel(self, context, noise, stk, stv, coefs) -> torch.Tensor:
         """The CUDA kernel (``csrc/fused_chunk.cu``) on CUDA tensors."""
-        self.check_kernel_shapes()
+        self.check_kernel_shapes(context.shape[1])
         for t, name in ((context, "context"), (noise, "noise"), (stk, "step K")):
             check_cuda_operand(t, self.emb_w, name)
         cfg = self.cfg
@@ -146,18 +104,7 @@ class FusedChunkSampler(FusedDenoiser):
                              "do not match the decoder")
         T = coefs.shape[0]
         dev = noise.device
-        H, D, Jp = self.num_heads, self.head_dim, padded_joints(J)
-        if P > 16 or J % 2 or J > 64:
-            raise ValueError(f"the CUDA chunk kernel takes at most 16 chunk steps and an even joint "
-                             f"count of at most 64; got {P} steps, {J} joints")
-        if E not in (128, 256) or (D == 32 and E != 128):
-            raise ValueError(f"the CUDA chunk kernel takes hidden_dim 128 (head_dim 32 or 64) or "
-                             f"256 (head_dim 64); got {E} at head_dim {D}")
-        threads = self.block_threads(B, S, noise.device)
-        most = max_context(threads)
-        if S > most:
-            raise ValueError(f"the CUDA chunk kernel takes at most {most} context tokens; got {S}")
-        Sp = padded_keys(S)
+        H, D, Jp, Sp = self.num_heads, self.head_dim, padded_joints(J), padded_keys(S)
         noise = noise.float().contiguous()
         out = torch.empty_like(noise)
         kv = torch.empty((B, L, H, 2, Sp * D), dtype=torch.bfloat16, device=dev)
@@ -165,7 +112,8 @@ class FusedChunkSampler(FusedDenoiser):
         err = _build.library().sd_fused_chunk(
             _build.pointers(*self.kernel_weights, noise, context.to(torch.bfloat16).contiguous(),
                             stk, stv, coef_dev, kv, out),
-            _build.ints(L, E, H, P, J, Jp, B, S, Sp, T, threads, self.cluster_size(B, dev)),
+            _build.ints(L, E, H, P, J, Jp, B, S, Sp, T, self.block_threads(B, S, dev),
+                        self.cluster_size(B, dev)),
             _build.stream(dev))
         _build.check("sd_fused_chunk", err)
         FusedChunkSampler.launches += 1

@@ -5,14 +5,27 @@ Counterpart of ``soccerdiffusion_tpu/ops/fused_denoise.py``: the kernel runs
 embedding -> posenc -> L x [self-attention, cross-attention against the
 pre-projected context K/V plus the shared step-token K/V in one softmax,
 exact-GELU MLP] -> output projection for each robot, and returns eps, or
-x_prev when DDIM coefficients are given. ``FusedDenoiser.__init__`` packs the
-decoder weights once; ``FusedChunkSampler`` (``ops/fused_chunk.py``)
-inherits the packing and the plain decoder pass.
+x_prev when DDIM coefficients are given. It runs the whole-chunk sampler's
+decoder pass (``csrc/decoder_pass.cuh``) with the sampler's launch shapes
+(``block_threads``, ``cluster_size``) and shape limits
+(``check_kernel_shapes``). ``FusedDenoiser.__init__`` packs the decoder
+weights once, for the plain version and, transposed, for the kernel;
+``FusedChunkSampler`` (``ops/fused_chunk.py``) inherits the packing, the
+launch shapes, the limits and the plain decoder pass.
 
-Dispatch: a CUDA tensor launches the kernel (bf16 weights, head_dim 32 or
-64) or raises; a CPU tensor runs the plain PyTorch version below, which rounds to
+``pack_context_kv`` writes the per-layer context K/V in the order the
+kernel reads them, the chunk kernel's scratch layout (B, L, H, 2, Sp D):
+per (layer, head) its K in score-fragment order (``kfrag``) and its V in
+value-fragment order (``vfrag``), Sp = ``padded_keys(S)`` keys of which key
+S is the step token's slot and the rest past S are zero. On the card a
+kernel of ``csrc/fused_denoise.cu`` packs them, a launch per layer
+(``pack_kernel``); ``pack_plain`` is its plain version (index copies).
+
+Dispatch: a CUDA tensor launches the kernels (bf16 weights, head_dim 32 or
+64) or raises; a CPU tensor runs the plain PyTorch versions below, which round to
 the compute dtype at the kernel's rounding points (``csrc/common.cuh``).
-``FusedDenoiser.launches`` counts kernel launches.
+``FusedDenoiser.launches`` counts the denoiser's kernel launches,
+``FusedDenoiser.pack_launches`` the pack's.
 
 Noise precision: the carry x is fp32 throughout (the TPU kernel rounds it
 to bf16 on entry); only the embedding matmul's input is rounded, as the
@@ -20,6 +33,8 @@ unfused path's per-step cast does.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -46,6 +61,56 @@ def heads_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads
     return out.reshape(q.shape[0], q.shape[1], -1)
 
 
+def max_context(threads: int) -> int:
+    """Most context tokens of the decoder kernels at a block size: 32-key
+    chunks, at most 2 for each warp (csrc/decoder_pass.cuh:kMaxChunks), hold
+    the S keys and the step token."""
+    return 32 * 2 * (threads // 32) - 1
+
+
+def padded_joints(j: int) -> int:
+    """The embedding's input width in the kernels: J rounded up to 32 (its
+    product reads the reduction in 32-column blocks)."""
+    return -(-j // 32) * 32
+
+
+def padded_keys(s: int) -> int:
+    """Keys per (layer, head) of the kernels' context K/V: the S context keys
+    and the step token, rounded up to 32-key chunks."""
+    return -(-(s + 1) // 32) * 32
+
+
+def kfrag(s, d, D: int):
+    """Index of element (key s, dim d) of a head's K in score-fragment order
+    (the mirror of csrc/decoder_pass.cuh:kfrag; ints or integer arrays)."""
+    dd = d & 15
+    lane = 4 * (s & 7) + ((dd & 7) >> 1)
+    reg = 2 * (d >> 4) + (dd >> 3)
+    return (((s >> 3) * 32 + lane) * (D // 8) + reg) * 2 + (dd & 1)
+
+
+def vfrag(s, d, D: int):
+    """Index of element (key s, dim d) of a head's V in value-fragment order
+    (the mirror of csrc/decoder_pass.cuh:vfrag)."""
+    kk = s & 15
+    lane = 4 * (d & 7) + ((kk & 7) >> 1)
+    reg = 2 * (d >> 3) + (kk >> 3)
+    return (((s >> 4) * 32 + lane) * (D // 4) + reg) * 2 + (kk & 1)
+
+
+# the weight tensors of one decoder pass (csrc/decoder_pass.cuh:kPassWeights),
+# the first entries of ``kernel_weights``
+PASS_WEIGHTS = 19
+
+
+class PackedKV(NamedTuple):
+    """Context K/V packed for the denoiser kernel: ``kv`` (B, L, H, 2, Sp D)
+    over ``context_len`` = S context keys (``FusedDenoiser.pack_context_kv``)."""
+
+    kv: torch.Tensor
+    context_len: int
+
+
 def check_cuda_operand(t: torch.Tensor, like: torch.Tensor, name: str) -> None:
     """Raise unless the CUDA operand ``t`` lives on ``like``'s device."""
     if t.device != like.device:
@@ -57,6 +122,7 @@ class FusedDenoiser:
     ``denoise(packed_kv, noisy, step_token)``."""
 
     launches = 0
+    pack_launches = 0
 
     def __init__(self, model):
         cfg = model.config
@@ -107,21 +173,107 @@ class FusedDenoiser:
             self.fc_w = kernel(gen.fc_out).to(self.dtype).contiguous()
             self.fc_b = gen.fc_out.bias.detach().to(self.dtype).contiguous()
             self.pe = gen.pos.table[: cfg.trajectory_prediction_length].to(self.dtype).contiguous()
+            self.kernel_weights = self.pack_kernel_weights()
+        self._kv_index = {}  # (S, device) -> pack_index
 
-    def weights(self) -> list[torch.Tensor]:
-        """The 19 packed tensors in ``csrc/decoder_layer.cuh:DecoderWeights`` order."""
-        return [self.emb_w, self.emb_b, self.pe, self.qkv_w, self.qkv_b, self.so_w, self.so_b,
-                self.cq_w, self.cq_b, self.co_w, self.co_b, self.m1_w, self.m1_b, self.m2_w,
-                self.m2_b, self.ln_s, self.ln_b, self.fc_w, self.fc_b]
+    def pack_kernel_weights(self) -> list[torch.Tensor]:
+        """The PASS_WEIGHTS tensors ``csrc/decoder_pass.cuh:PassArgs`` reads, in
+        its order, packed once into ``kernel_weights``: the Dense kernels
+        transposed to (out, in) (the reduction axis contiguous) and ``emb_t``
+        (E, Jp) with zero columns J .. Jp - 1."""
+        E, J = self.cfg.hidden_dim, self.cfg.num_joints
+        t = lambda w: w.transpose(-1, -2).contiguous()
+        emb_t = self.emb_w.new_zeros((E, padded_joints(J)))
+        emb_t[:, :J] = self.emb_w.t()
+        return [emb_t, self.emb_b, self.pe, t(self.qkv_w), self.qkv_b, t(self.so_w), self.so_b,
+                t(self.cq_w), self.cq_b, t(self.co_w), self.co_b, t(self.m1_w), self.m1_b,
+                t(self.m2_w), self.m2_b, self.ln_s, self.ln_b, t(self.fc_w), self.fc_b]
 
     def _round(self, t: torch.Tensor) -> torch.Tensor:
         return t.to(self.dtype).float()
 
-    def pack_context_kv(self, context_kv: list) -> tuple[torch.Tensor, torch.Tensor]:
-        """Per-layer [(k, v)] of (B, S, H, D) -> stacked (L, B, S, E) k and v."""
-        ks = torch.stack([k.reshape(k.shape[0], k.shape[1], -1) for k, _ in context_kv])
-        vs = torch.stack([v.reshape(v.shape[0], v.shape[1], -1) for _, v in context_kv])
-        return ks.to(self.dtype).contiguous(), vs.to(self.dtype).contiguous()
+    def pack_index(self, S: int, device) -> dict:
+        """The index tensors of the plain pack for S context keys, built once per
+        (S, device) from the mirrors of kfrag / vfrag: ``dst`` [l][sel]
+        (S E,) the offset in a robot's (L H 2 Sp D) block of each element
+        (key s, head h, dim d) of layer l's K (sel 0) or V (sel 1); ``pad``
+        the offsets of keys S .. Sp - 1 in a (layer, head)'s (2 Sp D); ``src``
+        [sel] (S D,) the offset in a K or V unit of each (key s, dim d)."""
+        key = (S, str(device))
+        if key not in self._kv_index:
+            L, H, D = self.num_layers, self.num_heads, self.head_dim
+            Sp = padded_keys(S)
+            s, d = np.meshgrid(np.arange(Sp), np.arange(D), indexing="ij")
+            pos = [kfrag(s, d, D), Sp * D + vfrag(s, d, D)]  # (Sp, D) in a head's (2 Sp D)
+            dst = [[((l * H + np.arange(H))[None, :, None] * 2 * Sp * D + p[:S, None, :]).reshape(-1)
+                    for p in pos] for l in range(L)]
+            as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int64,
+                                             device=device)
+            self._kv_index[key] = {
+                "dst": [[as_t(i) for i in layer] for layer in dst],
+                "pad": as_t(np.concatenate([p[S:].reshape(-1) for p in pos])),
+                "src": [as_t(p[:S].reshape(-1) - sel * Sp * D) for sel, p in enumerate(pos)]}
+        return self._kv_index[key]
+
+    def pack_context_kv(self, context_kv: list) -> PackedKV:
+        """Per-layer [(k, v)] of (B, S, H, D) -> the kernel's layout (B, L, H,
+        2, Sp D), keys past S zero, the step token's slot S among them: the
+        pack kernel for CUDA tensors, the plain version for CPU tensors.
+        Each denoiser launch writes its step token's key and value into slot
+        S of its robots' (layer, head) units: the buffer is the launch's
+        scratch as well as its input."""
+        if context_kv[0][0].is_cuda:
+            return self.pack_kernel(context_kv)
+        return self.pack_plain(context_kv)
+
+    def pack_plain(self, context_kv: list) -> PackedKV:
+        """The plain version of the pack, on any device: an index copy per
+        layer and K | V, and zeros in the keys past S."""
+        k0 = context_kv[0][0]
+        B, S = k0.shape[:2]
+        H, D, E = self.num_heads, self.head_dim, self.cfg.hidden_dim
+        idx = self.pack_index(S, k0.device)
+        Sp = padded_keys(S)
+        kv = torch.empty((B, self.num_layers * H * 2 * Sp * D), dtype=self.dtype, device=k0.device)
+        for l, pair in enumerate(context_kv):
+            for sel, t in enumerate(pair):
+                kv.index_copy_(1, idx["dst"][l][sel], t.reshape(B, S * E).to(self.dtype))
+        kv.view(B * self.num_layers * H, 2 * Sp * D).index_fill_(1, idx["pad"], 0)
+        return PackedKV(kv.view(B, self.num_layers, H, 2, Sp * D), S)
+
+    def pack_kernel(self, context_kv: list) -> PackedKV:
+        """The pack kernel (``csrc/fused_denoise.cu:pack_context_kv_kernel``,
+        a launch per layer) on CUDA tensors."""
+        k0 = context_kv[0][0]
+        B, S = k0.shape[:2]
+        self.check_kernel_shapes(S)
+        L, H, D, Sp = self.num_layers, self.num_heads, self.head_dim, padded_keys(S)
+        if len(context_kv) != L:
+            raise ValueError(f"{len(context_kv)} layers of context K/V for a {L}-layer decoder")
+        kv = torch.empty((B, L, H, 2, Sp * D), dtype=torch.bfloat16, device=k0.device)
+        lib = _build.library()
+        for l, (k, v) in enumerate(context_kv):
+            for t, name in ((k, "context K"), (v, "context V")):
+                check_cuda_operand(t, self.emb_w, name)
+                if tuple(t.shape) != (B, S, H, D) or t.dtype != torch.bfloat16:
+                    raise ValueError(f"{name} of layer {l}: {tuple(t.shape)} {t.dtype}, expected "
+                                     f"({B}, {S}, {H}, {D}) bfloat16")
+            err = lib.sd_pack_context_kv(_build.pointers(k.contiguous(), v.contiguous(), kv),
+                                         _build.ints(B, L, l, H, D, S, Sp),
+                                         _build.stream(k0.device))
+            _build.check("sd_pack_context_kv", err)
+            FusedDenoiser.pack_launches += 1
+        return PackedKV(kv, S)
+
+    def unpack_context_kv(self, packed: PackedKV) -> list:
+        """The inverse of ``pack_context_kv``: per-layer [(k, v)] of (B, S,
+        H, D) (the step token's slot and the padding dropped)."""
+        kv, S = packed
+        B = kv.shape[0]
+        src = self.pack_index(S, kv.device)["src"]
+        unit = lambda l, sel: (kv[:, l, :, sel].index_select(-1, src[sel])
+                               .view(B, self.num_heads, S, self.head_dim).transpose(1, 2))
+        return [(unit(l, 0), unit(l, 1)) for l in range(self.num_layers)]
 
     def step_tables(self, step_tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """(T, E) step tokens -> per-step, per-layer cross K / V rows (T, L, E),
@@ -170,10 +322,13 @@ class FusedDenoiser:
         return self.run_plain(packed_kv, noisy, stk, stv, coefs)
 
     def run_plain(self, packed_kv, noisy, stk, stv, coefs=None) -> torch.Tensor:
-        """The plain PyTorch version of the kernel, on any device."""
-        ck, cv = packed_kv
+        """The plain PyTorch version of the kernel, on any device: the context
+        K/V read back through the inverse of the pack, the step token from
+        stk / stv."""
+        kv = self.unpack_context_kv(packed_kv)
         x = noisy.float()
-        eps = self.plain_pass(x, ck, cv, stk, stv)
+        eps = self.plain_pass(x, [k.flatten(2) for k, _ in kv], [v.flatten(2) for _, v in kv],
+                              stk, stv)
         if coefs is None:
             return eps
         c0, c1, c2, c3 = coefs
@@ -202,39 +357,80 @@ class FusedDenoiser:
             h = h + (m1 @ f(self.m2_w[l]) + f(self.m2_b[l]))
         return r(h) @ f(self.fc_w) + f(self.fc_b)
 
-    def check_kernel_shapes(self) -> None:
-        """Raise for what the CUDA decoder kernels do not take."""
+    def block_threads(self, batch: int, context_len: int, device) -> int:
+        """The decoder kernels' threads per block for ``batch`` robots over
+        ``context_len`` tokens: a robot per block of 16 warps while the card
+        has an SM for each; past that, at head_dim 32, blocks of 8 warps, two
+        on an SM (their shared memory fits twice), so that one robot's
+        barrier waits hide behind the other's work (measured on the chunk
+        sampler, an H100 80GB HBM3 at 700 W: h128 B=1024 21.0 against 26.1
+        ms, B=64 4.49 against 3.61 ms; PERF.md), unless the context outgrows
+        the 8 warps' scores (``max_context``)."""
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        two_an_sm = self.head_dim == 32 and batch > sms and context_len <= max_context(256)
+        return 256 if two_an_sm else 512
+
+    def cluster_size(self, batch: int, device) -> int:
+        """Thread blocks a robot: 2 (a cluster that splits the heads of
+        the cross-attention, and in the chunk sampler of the context K/V
+        projection, and shares the rest of each pass) while the card has two
+        SMs for each robot, else 1 (measured on the chunk sampler, an H100
+        80GB HBM3 at 700 W: h128 B=64 3.00 against 3.85 ms, head_dim 64 B=64
+        6.92 against 7.73 ms; PERF.md)."""
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        return 2 if 2 * batch <= sms and self.num_heads % 2 == 0 else 1
+
+    def check_kernel_shapes(self, context_len: int) -> None:
+        """Raise for what the CUDA decoder kernels (the denoiser's and the
+        chunk sampler's, one pass: csrc/decoder_pass.cuh) do not take:
+        weights other than bf16, head_dim other than 32 or 64 (32 only at
+        hidden 128), hidden other than 128 or 256, more than 16 chunk steps,
+        an odd joint count or more than 64, more than ``max_context(512)``
+        context tokens."""
+        cfg, D = self.cfg, self.head_dim
+        P, J, E = cfg.trajectory_prediction_length, cfg.num_joints, cfg.hidden_dim
         if self.dtype != torch.bfloat16:
             raise ValueError("the CUDA decoder kernels take bfloat16 weights "
                              "(compute_dtype='bfloat16'); got " + str(self.dtype))
-        if self.head_dim not in (32, 64):
-            raise ValueError(f"the CUDA decoder kernels take head_dim 32 or 64, got "
-                             f"{self.head_dim}")
-        if self.cfg.trajectory_prediction_length > 128:
-            raise ValueError("the CUDA decoder kernels take at most 128 chunk steps")
+        if D not in (32, 64):
+            raise ValueError(f"the CUDA decoder kernels take head_dim 32 or 64, got {D}")
+        if P > 16 or J % 2 or J > 64:
+            raise ValueError(f"the CUDA decoder kernels take at most 16 chunk steps and an even "
+                             f"joint count of at most 64; got {P} steps, {J} joints")
+        if E not in (128, 256) or (D == 32 and E != 128):
+            raise ValueError(f"the CUDA decoder kernels take hidden_dim 128 (head_dim 32 or 64) or "
+                             f"256 (head_dim 64); got {E} at head_dim {D}")
+        most = max_context(512)
+        if context_len > most:
+            raise ValueError(f"the CUDA decoder kernels take at most {most} context tokens; got "
+                             f"{context_len}")
 
-    def run_kernel(self, packed_kv, noisy, stk, stv, coefs=None) -> torch.Tensor:
-        """The CUDA kernel (``csrc/fused_denoise.cu``) on CUDA tensors."""
-        self.check_kernel_shapes()
-        ck, cv = packed_kv
-        for t, name in ((noisy, "noisy"), (ck, "context K"), (cv, "context V"), (stk, "step K")):
+    def run_kernel(self, packed_kv: PackedKV, noisy, stk, stv, coefs=None) -> torch.Tensor:
+        """The CUDA kernel (``csrc/fused_denoise.cu``) on CUDA tensors; it
+        writes the step token into slot S of ``packed_kv`` (see
+        ``pack_context_kv``)."""
+        kv, S = packed_kv
+        self.check_kernel_shapes(S)
+        for t, name in ((noisy, "noisy"), (kv, "context K/V"), (stk, "step K")):
             check_cuda_operand(t, self.emb_w, name)
-        L, B, S, E = ck.shape
         cfg = self.cfg
-        if (L, E) != (self.num_layers, cfg.hidden_dim) or cv.shape != ck.shape:
-            raise ValueError(f"packed context K/V of shape {tuple(ck.shape)} do not match the decoder")
-        if ck.dtype != torch.bfloat16 or cv.dtype != torch.bfloat16:
-            raise ValueError("packed context K/V must be bfloat16")
+        L, H, D, E = self.num_layers, self.num_heads, self.head_dim, cfg.hidden_dim
+        P, J, B, Sp = cfg.trajectory_prediction_length, cfg.num_joints, kv.shape[0], padded_keys(S)
+        if tuple(kv.shape) != (B, L, H, 2, Sp * D) or tuple(noisy.shape) != (B, P, J):
+            raise ValueError(f"packed context K/V {tuple(kv.shape)} over {S} keys / noisy "
+                             f"{tuple(noisy.shape)} do not match the decoder")
+        if kv.dtype != torch.bfloat16 or not kv.is_contiguous():
+            raise ValueError("packed context K/V must be contiguous bfloat16 (pack_context_kv)")
+        dev = noisy.device
         noisy = noisy.float().contiguous()
         out = torch.empty_like(noisy)
-        lib = _build.library()
-        err = lib.sd_fused_denoise(
-            _build.pointers(*self.weights(), noisy, ck.contiguous(), cv.contiguous(),
+        err = _build.library().sd_fused_denoise(
+            _build.pointers(*self.kernel_weights[:PASS_WEIGHTS], noisy, kv,
                             stk.to(self.dtype).contiguous(), stv.to(self.dtype).contiguous(), out),
-            _build.ints(L, E, self.num_heads, cfg.trajectory_prediction_length, cfg.num_joints,
-                        B, S, int(coefs is not None)),
+            _build.ints(L, E, H, P, J, padded_joints(J), B, S, Sp, int(coefs is not None),
+                        self.block_threads(B, S, dev), self.cluster_size(B, dev)),
             _build.floats(*(coefs if coefs is not None else (0.0,) * 4)),
-            _build.stream(noisy.device))
+            _build.stream(dev))
         _build.check("sd_fused_denoise", err)
         FusedDenoiser.launches += 1
         return out

@@ -1,19 +1,20 @@
 """Bit-level fingerprints of the encoder-layer kernels (the fused ViT block
-and the fused encoder stack, forward and backward) and of the serving
-denoiser (head_dim 32 and 64, eps and in-kernel DDIM forms) on fixed seeded
-inputs.
+and the fused encoder stack, forward and backward), of the whole-chunk
+sampler (head_dim 32 and 64, DDIM and DPM-Solver++, a robot in a 2-block
+cluster and two robots an SM) and of the serving denoiser (head_dim 32 and
+64, eps and in-kernel DDIM forms) on fixed seeded inputs.
 
 The encoder layer's device code (``csrc/encoder_layer.cuh`` over
 ``csrc/mma.cuh``) is shared with the decoder layer, flash attention and the
-context encoder, the denoiser's (``csrc/decoder_layer.cuh``,
-``csrc/common.cuh``) was shared with the chunk sampler; a change to shared
-code must leave these kernels' outputs bit for bit as they were.
+context encoder; the decoder pass (``csrc/decoder_pass.cuh``) is shared by
+the chunk sampler and the denoiser. A change to shared code must leave
+these kernels' outputs bit for bit as they were.
 ``tests/test_torch_cuda.py::test_layer_kernels_bit_identical_to_record``
 holds them to ``tests/data/layer_kernels_golden.json``, which this script
 wrote on an NVIDIA H100: the layer kernels' entries from the kernels before
-the attention tiles took separate q and k / v operands, the denoiser's from
-the kernels before the chunk sampler and the context encoder moved onto the
-tensor cores:
+the attention tiles took separate q and k / v operands, the chunk sampler's
+from its kernel before its pass moved into ``decoder_pass.cuh``, the
+denoiser's from its kernel on that shared pass:
 
     python tests/cuda_golden.py OUT.json
 
@@ -66,30 +67,69 @@ DENOISE_CASES = [
 ]
 
 
-def denoise_fingerprints(device="cuda") -> dict:
-    """label -> {"out": sha256} of one denoiser pass for every DENOISE_CASES
-    entry: a seeded random h128-shaped policy (P=10, J=20, 4 decoder layers)
-    at the case's width, 13 robots over S=301 context K/V rows."""
+def _serving_model(E, H, device):
+    """A seeded random h128-shaped policy (P=10, J=20, 4 decoder layers) at
+    hidden width E with H decoder heads, bf16."""
     from soccerdiffusion_tpu_torch.config import ModelConfig
     from soccerdiffusion_tpu_torch.models import DiffusionPolicy
-    from soccerdiffusion_tpu_torch.ops.fused_denoise import FusedDenoiser
     from soccerdiffusion_tpu_torch.utils.jax_params import load_jax_params, random_jax_params
+
+    cfg = ModelConfig(num_joints=20, hidden_dim=E, num_decoder_heads=H,
+                      trajectory_prediction_length=10, use_images=False,
+                      compute_dtype="bfloat16", attention_impl="xla")
+    model = DiffusionPolicy(cfg)
+    return cfg, load_jax_params(model, random_jax_params(model, seed=E)).to(device)
+
+
+def denoise_fingerprints(device="cuda") -> dict:
+    """label -> {"out": sha256} of one denoiser pass for every DENOISE_CASES
+    entry: 13 robots over S=301 context K/V rows, packed by the denoiser's
+    own ``pack_context_kv``."""
+    from soccerdiffusion_tpu_torch.ops.fused_denoise import FusedDenoiser
 
     out = {}
     for label, E, H, coefs in DENOISE_CASES:
-        cfg = ModelConfig(num_joints=20, hidden_dim=E, num_decoder_heads=H,
-                          trajectory_prediction_length=10, use_images=False,
-                          compute_dtype="bfloat16", attention_impl="xla")
-        model = DiffusionPolicy(cfg)
-        model = load_jax_params(model, random_jax_params(model, seed=E)).to(device)
+        cfg, model = _serving_model(E, H, device)
         den = FusedDenoiser(model)
         rng = np.random.default_rng(E + H)
         t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)
         L, b, S = cfg.num_decoder_layers, 13, 301
-        packed = (t(L, b, S, E).to(torch.bfloat16), t(L, b, S, E).to(torch.bfloat16))
+        ck, cv = t(L, b, S, E).to(torch.bfloat16), t(L, b, S, E).to(torch.bfloat16)
         noisy, stk, stv = t(b, 10, 20), t(L, E).to(torch.bfloat16), t(L, E).to(torch.bfloat16)
+        heads = lambda x: x.reshape(b, S, H, E // H)
+        packed = den.pack_context_kv([(heads(ck[l]), heads(cv[l])) for l in range(L)])
         with torch.no_grad():
             y = den.run_kernel(packed, noisy, stk, stv, coefs)
+        torch.cuda.synchronize()
+        out[label] = {"out": _digest(y)}
+    return out
+
+
+# (label, hidden width, decoder heads, solver, robots, context tokens): a
+# robot in a 2-block cluster (B <= 66) and, at head_dim 32, two 8-warp
+# blocks an SM (B > 132); the h128 and flagship contexts
+CHUNK_CASES = [
+    (f"chunk_hd{E // 4}_{solver}_b{b}", E, 4, solver, b, S)
+    for E, S in ((128, 301), (256, 311)) for solver in ("ddim", "dpmpp") for b in (13, 133)
+]
+
+
+def chunk_fingerprints(device="cuda") -> dict:
+    """label -> {"out": sha256} of one 30-step chunk for every CHUNK_CASES entry."""
+    from soccerdiffusion_tpu_torch.diffusion import make_schedule, solver_coef_table
+    from soccerdiffusion_tpu_torch.ops.fused_chunk import FusedChunkSampler
+
+    out = {}
+    for label, E, H, solver, b, S in CHUNK_CASES:
+        _, model = _serving_model(E, H, device)
+        chunk = FusedChunkSampler(model)
+        rng = np.random.default_rng(b + S)
+        t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)
+        context, noise = t(b, S, E).to(torch.bfloat16), t(b, 10, 20)
+        with torch.no_grad():
+            stk, stv = chunk.step_tables(t(30, E))
+            y = chunk.sample_kernel(context, noise, stk, stv,
+                                    solver_coef_table(make_schedule(1000), 30, solver))
         torch.cuda.synchronize()
         out[label] = {"out": _digest(y)}
     return out
@@ -116,7 +156,7 @@ def fingerprints(device="cuda") -> dict:
         torch.cuda.synchronize()
         out[label] = {"y": _digest(y), "dx": _digest(dx),
                       **{f"d{name}": _digest(g) for name, g in zip(fes.STACK_WEIGHTS, grads)}}
-    return {**out, **denoise_fingerprints(device)}
+    return {**out, **chunk_fingerprints(device), **denoise_fingerprints(device)}
 
 
 if __name__ == "__main__":

@@ -11,9 +11,11 @@ two launches and to tests/data/layer_kernels_golden.json with the serving
 denoiser; the decoder-layer and flash backwards bit-identical over two
 launches; the tensor-core chunk sampler over S = 17 / 301 / 311 / 312 at
 head_dim 32 and 64, DDIM and DPM-Solver++, B = 1 / 13 / 133, a robot in
-one block or in a 2-block cluster over an odd layer count, and the
-context encoder at T = 24 / 100 / 128, patch 1 and 2, with and without the
-game state, both bit-identical over two launches).
+one block or in a 2-block cluster over an odd layer count, the serving
+denoiser on the same pass at the same shapes in its eps and DDIM forms and
+its per-step sampler, and the context encoder at T = 24 / 100 / 128, patch
+1 and 2, with and without the game state, all bit-identical over two
+launches).
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere. JAX-free, so it runs on a
 machine without jax: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
@@ -21,6 +23,7 @@ Tolerance: max |kernel - plain| <= 2e-2 x max |plain| (both round to bf16 at
 the same points; see chip_smoke.py).
 """
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -513,9 +516,10 @@ def test_layer_kernels_bit_identical_to_record(device):
     """The ViT-block and encoder-stack kernels, forward and backward, give
     the outputs recorded before their shared attention tiles
     (csrc/mma.cuh) took separate q and k / v operands for the decoder layer
-    and flash attention, and the serving denoiser the outputs recorded
-    before the chunk sampler and the context encoder moved onto the tensor
-    cores, bit for bit (tests/cuda_golden.py)."""
+    and flash attention, the chunk sampler the outputs recorded before its
+    pass moved into csrc/decoder_pass.cuh, and the serving denoiser those
+    recorded from its kernel on that pass, bit for bit
+    (tests/cuda_golden.py)."""
     import importlib.util
     import json
     from pathlib import Path
@@ -655,3 +659,129 @@ def test_encoder_kernel_is_deterministic(device):
         first, second = enc.encode_kernel(batch), enc.encode_kernel(batch)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+# ------------------------------------------- the denoiser on the chunk's pass
+# One pass against the packed context K/V (pack_context_kv) at the chunk
+# sampler's shapes: S = 17 / 301 / 311 / 312, head_dim 32 (E=128) and 64
+# (E=256), B = 1 / 13 / 133, eps and in-kernel DDIM forms; a robot in one
+# block and in a 2-block cluster over 3 layers; bit-identical over two
+# launches; the context limit; the per-step sampler over 5 steps, each
+# launch writing its step token into key S of the packed K/V; the pack
+# kernel bit for bit the plain pack.
+
+DDIM_COEFS = [1.3, 0.8, 0.9, 0.4]
+
+
+def denoise_inputs(cfg, model, device, b, S, seed):
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)
+    den = FusedDenoiser(model)
+    H, D = den.num_heads, den.head_dim
+    kv = [(t(b, S, H, D).to(torch.bfloat16), t(b, S, H, D).to(torch.bfloat16))
+          for _ in range(cfg.num_decoder_layers)]
+    stk, stv = den.step_tables(t(5, cfg.hidden_dim))
+    return den, den.pack_context_kv(kv), t(b, 10, 20), stk, stv
+
+
+@pytest.mark.parametrize("b", [1, 13])
+@pytest.mark.parametrize("head_dim", [32, 64])
+@pytest.mark.parametrize("S", [17, 31, 301, 311, 312])
+def test_pack_kernel_is_the_plain_pack(S, head_dim, b, device):
+    cfg, model = serving_model(device, head_dim)
+    rng = np.random.default_rng(S * b)
+    den = FusedDenoiser(model)
+    kv = [tuple(torch.from_numpy(rng.normal(size=(b, S, den.num_heads, head_dim)).astype(
+        np.float32)).to(device, torch.bfloat16) for _ in range(2))
+        for _ in range(cfg.num_decoder_layers)]
+    n = FusedDenoiser.pack_launches
+    got = den.pack_kernel(kv)
+    assert FusedDenoiser.pack_launches == n + cfg.num_decoder_layers
+    ref = den.pack_plain(kv)
+    assert got.context_len == S and torch.equal(got.kv, ref.kv)
+
+
+@pytest.mark.parametrize("coefs", [None, DDIM_COEFS], ids=["eps", "ddim"])
+@pytest.mark.parametrize("b", [1, 13, 133])
+@pytest.mark.parametrize("head_dim", [32, 64])
+@pytest.mark.parametrize("S", [17, 301, 311, 312])
+def test_denoise_kernel_matches_plain_version(S, head_dim, b, coefs, device):
+    cfg, model = serving_model(device, head_dim)
+    den, packed, noisy, stk, stv = denoise_inputs(cfg, model, device, b, S, seed=S + b)
+    n = FusedDenoiser.launches
+    with torch.no_grad():
+        got = den.run_kernel(packed, noisy, stk[2], stv[2], coefs)
+        assert FusedDenoiser.launches == n + 1
+        assert_close(got, den.run_plain(packed, noisy, stk[2], stv[2], coefs))
+
+
+@pytest.mark.parametrize("coefs", [None, DDIM_COEFS], ids=["eps", "ddim"])
+@pytest.mark.parametrize("cluster", [1, 2])
+@pytest.mark.parametrize("head_dim", [32, 64])
+def test_denoise_kernel_block_split_matches_plain_version(head_dim, cluster, coefs, device):
+    """A robot in one block, or its heads split over a 2-block cluster, over
+    an odd layer count (the cluster's two output buffers taken in turn)."""
+    cfg, model = serving_model(device, head_dim, num_decoder_layers=3)
+    den, packed, noisy, stk, stv = denoise_inputs(cfg, model, device, 13, 301, seed=cluster)
+    den.cluster_size = lambda batch, device: cluster
+    with torch.no_grad():
+        assert_close(den.run_kernel(packed, noisy, stk[0], stv[0], coefs),
+                     den.run_plain(packed, noisy, stk[0], stv[0], coefs))
+
+
+@pytest.mark.parametrize("head_dim,b", [(32, 13), (32, 64), (32, 133), (64, 13), (64, 133)])
+def test_denoise_kernel_is_deterministic(head_dim, b, device):
+    cfg, model = serving_model(device, head_dim)
+    den, packed, noisy, stk, stv = denoise_inputs(cfg, model, device, b, 311, seed=9)
+    with torch.no_grad():
+        first = den.run_kernel(packed, noisy, stk[1], stv[1], DDIM_COEFS)
+        second = den.run_kernel(packed, noisy, stk[1], stv[1], DDIM_COEFS)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("head_dim,b", [(64, 2), (32, 133)])
+def test_denoise_kernel_refuses_contexts_past_its_registers(head_dim, b, device):
+    """The pack kernel and the denoiser both refuse S=1024 (a 16-warp
+    block's 32-key chunks hold 1023 keys and the step token)."""
+    cfg, model = serving_model(device, head_dim)
+    den = FusedDenoiser(model)
+    rng = np.random.default_rng(1)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)
+    kv = [(t(b, 1024, den.num_heads, head_dim).to(torch.bfloat16),
+           t(b, 1024, den.num_heads, head_dim).to(torch.bfloat16))
+          for _ in range(cfg.num_decoder_layers)]
+    stk, stv = den.step_tables(t(1, cfg.hidden_dim))
+    with pytest.raises(ValueError, match="at most 1023 context tokens"):
+        den.pack_context_kv(kv)
+    with pytest.raises(ValueError, match="at most 1023 context tokens"):
+        den.run_kernel(den.pack_plain(kv), t(b, 10, 20), stk[0], stv[0])
+
+
+@pytest.mark.parametrize("head_dim", [32, 64])
+def test_denoise_per_step_sampler_matches_plain_version(head_dim, device):
+    """FusedDenoiser.sample over 5 DDIM steps, one launch a step, against
+    the same loop over the plain pass; each launch rewrites key S of the
+    packed K/V with its step's token (the last step's is left there)."""
+    from soccerdiffusion_tpu_torch.ops.fused_denoise import kfrag, vfrag
+
+    cfg, model = serving_model(device, head_dim)
+    den, packed, noisy, _, _ = denoise_inputs(cfg, model, device, 13, 301, seed=4)
+    rng = np.random.default_rng(5)
+    table = torch.from_numpy(rng.normal(size=(5, cfg.hidden_dim)).astype(np.float32)).to(device)
+    plain = copy.copy(den)
+    plain.run = plain.run_plain
+    n = FusedDenoiser.launches
+    with torch.no_grad():
+        got = den.sample(packed, noisy, table, make_schedule(100), 5)
+        assert FusedDenoiser.launches == n + 5
+        assert_close(got, plain.sample(packed, noisy, table, make_schedule(100), 5))
+        stk, stv = den.step_tables(table)
+    S, H, D = 301, den.num_heads, den.head_dim
+    d = torch.arange(D)
+    for l in range(cfg.num_decoder_layers):
+        for h in range(H):
+            assert torch.equal(packed.kv[:, l, h, 0, kfrag(S, d, D)],
+                               stk[4, l, h * D:(h + 1) * D].expand(13, D))
+            assert torch.equal(packed.kv[:, l, h, 1, vfrag(S, d, D)],
+                               stv[4, l, h * D:(h + 1) * D].expand(13, D))

@@ -1,19 +1,29 @@
 """Plain version of the port's FusedDenoiser (the CPU path of
 ops/fused_denoise.py) against the JAX FusedDenoiser in interpret mode, in
 the eps form, the in-kernel DDIM-coefficient form and the per-step sampler,
-float32, at 4 heads x 16 and 2 heads x 64. Tolerances: float32 summation order (2e-5 absolute per pass; 1e-4
-after a 4-step sample, where 1/sqrt(abar) amplifies eps differences)."""
+float32, at 4 heads x 16 and 2 heads x 64, each side over its own
+``pack_context_kv``. Tolerances: float32 summation order (2e-5 absolute per
+pass; 1e-4 after a 4-step sample, where 1/sqrt(abar) amplifies eps
+differences). Then, without JAX: the pack into the CUDA kernel's
+fragment-ordered layout and its inverse, bit for bit, and the shape limits
+the denoiser shares with the chunk sampler."""
+
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from soccerdiffusion_tpu.diffusion import ddim_timesteps as jax_ddim_timesteps
 from soccerdiffusion_tpu.diffusion import make_schedule as jax_make_schedule
 from soccerdiffusion_tpu.ops.fused_denoise import FusedDenoiser as JaxFusedDenoiser
 from soccerdiffusion_tpu_torch.diffusion import make_schedule
-from soccerdiffusion_tpu_torch.ops.fused_denoise import FusedDenoiser
-from tests.test_torch_jax_params import F32_ATOL, SMALL, SMALL_HD64, build_pair, to_jax, to_torch
+from soccerdiffusion_tpu_torch.models import DiffusionPolicy
+from soccerdiffusion_tpu_torch.ops.fused_chunk import FusedChunkSampler
+from soccerdiffusion_tpu_torch.ops.fused_denoise import (FusedDenoiser, kfrag, padded_keys,
+                                                         vfrag)
+from tests.test_torch_jax_params import (F32_ATOL, SMALL, SMALL_HD64, build_pair, port_config,
+                                         to_jax, to_torch)
 
 
 def setup(b=4, cfg=SMALL):
@@ -73,3 +83,75 @@ def test_per_step_sampler_matches_jax_kernel():
         got = fused.sample(packed, torch.from_numpy(noisy), table, sched, steps).numpy()
     assert FusedDenoiser.launches == before
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+
+
+# ------------------------------------------------ the kernel's K/V layout
+
+@pytest.mark.parametrize("D", [16, 32, 64])
+def test_fragment_orders_are_permutations(D):
+    """kfrag / vfrag map the (Sp, D) keys x dims of a head one to one onto
+    its Sp D slots (Sp a multiple of 32)."""
+    s, d = np.meshgrid(np.arange(64), np.arange(D), indexing="ij")
+    for frag in (kfrag, vfrag):
+        assert np.array_equal(np.sort(frag(s, d, D).ravel()), np.arange(64 * D))
+
+
+@pytest.mark.parametrize("head_dim", [32, 64])
+@pytest.mark.parametrize("S", [17, 31, 301, 311])
+def test_pack_round_trips(S, head_dim):
+    """pack_context_kv writes element (key s, dim d) of layer l, head h's K
+    at kfrag(s, d) and its V at vfrag(s, d) of unit (l, h, K | V), zeros
+    at keys S (the step token's slot) .. Sp - 1; unpack_context_kv gives the
+    per-layer K/V back bit for bit."""
+    cfg = port_config(SMALL, hidden_dim=128, num_decoder_heads=128 // head_dim,
+                      compute_dtype="bfloat16")
+    den = FusedDenoiser(DiffusionPolicy(cfg))
+    L, H, D, b = cfg.num_decoder_layers, den.num_heads, den.head_dim, 3
+    rng = np.random.default_rng(S + D)
+    kv = [tuple(torch.from_numpy(rng.normal(size=(b, S, H, D)).astype(np.float32)).to(
+        torch.bfloat16) for _ in range(2)) for _ in range(L)]
+    packed = den.pack_context_kv(kv)
+    Sp = padded_keys(S)
+    assert packed.context_len == S and tuple(packed.kv.shape) == (b, L, H, 2, Sp * D)
+    want = torch.zeros((b, L, H, 2, Sp * D), dtype=torch.bfloat16)
+    s, d = np.meshgrid(np.arange(S), np.arange(D), indexing="ij")
+    for l, pair in enumerate(kv):
+        for sel, (t, frag) in enumerate(zip(pair, (kfrag, vfrag))):
+            want[:, l, :, sel, torch.from_numpy(frag(s, d, D).ravel())] = (
+                t.permute(0, 2, 1, 3).reshape(b, H, S * D))
+    assert torch.equal(packed.kv, want)
+    for (k, v), (k2, v2) in zip(kv, den.unpack_context_kv(packed)):
+        assert torch.equal(k2, k) and torch.equal(v2, v)
+
+
+# (config changes, context tokens, the message): every shape past the limits
+# of the decoder pass the denoiser and the chunk sampler share
+BAD_SHAPES = [
+    ({"compute_dtype": "float32"}, 301, "bfloat16"),
+    ({"num_decoder_heads": 8}, 301, "head_dim 32 or 64"),
+    ({"trajectory_prediction_length": 17}, 301, "at most 16 chunk steps"),
+    ({"num_joints": 21}, 301, "an even joint count"),
+    ({"num_joints": 66}, 301, "an even joint count"),
+    ({"hidden_dim": 64, "num_decoder_heads": 2}, 301, "hidden_dim 128"),
+    ({"hidden_dim": 256, "num_decoder_heads": 8}, 301, "256 \\(head_dim 64\\)"),
+    ({}, 1024, "at most 1023 context tokens"),
+]
+
+
+@pytest.mark.parametrize("cls", [FusedDenoiser, FusedChunkSampler])
+@pytest.mark.parametrize("changes,S,message", BAD_SHAPES)
+def test_denoiser_and_chunk_refuse_the_same_shapes(changes, S, message, cls):
+    cfg = port_config(SMALL, **{"hidden_dim": 128, "num_decoder_heads": 4, "num_joints": 20,
+                                "trajectory_prediction_length": 10,
+                                "compute_dtype": "bfloat16", **changes})
+    with pytest.raises(ValueError, match=message):
+        cls(DiffusionPolicy(cfg)).check_kernel_shapes(S)
+
+
+@pytest.mark.parametrize("cls", [FusedDenoiser, FusedChunkSampler])
+@pytest.mark.parametrize("E,H,S", [(128, 4, 301), (256, 4, 311), (128, 2, 1023)],
+                         ids=["h128", "flagship", "longest"])
+def test_ported_serving_shapes_fit_the_kernels(E, H, S, cls):
+    cfg = port_config(SMALL, hidden_dim=E, num_decoder_heads=H, num_joints=20,
+                      trajectory_prediction_length=10, compute_dtype="bfloat16")
+    cls(DiffusionPolicy(cfg)).check_kernel_shapes(S)

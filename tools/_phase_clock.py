@@ -3,9 +3,13 @@ tools/decoder_phase_clock.py) share: the cycle counters and timestamp
 macros of an instrumented copy of csrc/, its build with the port's nvcc
 flags and C entries, and a read of the counters per block.
 
-A tool's instrument(source) -> (source, labels) puts ``PT_BEGIN();`` where
-a clock starts and ``PT(id);`` after each phase: thread 0 of each block
-adds the clock64 cycles since the previous timestamp to counter id.
+A tool's instrument(sources) edits the copy's sources (file name -> text)
+in place and returns the labels of its counters: ``PT_BEGIN();`` where a
+clock starts and ``PT(id);`` after each phase, where thread 0 of each block
+adds the clock64 cycles since the previous timestamp to counter id. The
+counters live in one translation unit, the measured kernel's; in every
+other one (which may include an instrumented header) the two macros do
+nothing.
 """
 
 from __future__ import annotations
@@ -36,20 +40,33 @@ __shared__ long long sd_t0;
 #define PT(id) do {{ if (threadIdx.x == 0) {{ const long long _t = clock64(); \\
   atomicAdd(&sd_phase_sum[id], (unsigned long long)(_t - sd_t0)); sd_t0 = _t; }} }} while (0)
 """
-INCLUDE = '#include "encoder_layer.cuh"\n'
+NO_CLOCK = "#define PT_BEGIN() do {} while (0)\n#define PT(id) do {} while (0)\n"
+
+
+def one_file(name: str, instrument: Callable[[str], tuple[str, dict]]) -> Callable[[dict], dict]:
+    """An instrument(sources) that edits the one source ``name`` with
+    ``instrument(text) -> (text, labels)``."""
+    def run(sources: dict) -> dict:
+        sources[name], labels = instrument(sources[name])
+        return labels
+    return run
 
 
 def build(out: Path, file_name: str,
-          instrument: Callable[[str], tuple[str, dict]]) -> tuple[ctypes.CDLL, dict]:
-    """Copy csrc/ into out, instrument file_name (the counters declared after
-    its include of encoder_layer.cuh), compile every source in parallel and
-    link them; returns the library, its C entries bound as _build binds
-    them, and the instrumentation's labels."""
+          instrument: Callable[[dict], dict]) -> tuple[ctypes.CDLL, dict]:
+    """Copy csrc/ into out, instrument its sources (the counters declared at
+    the head of file_name, the macros no-ops in every other .cu file),
+    compile every source in parallel and link them; returns the library,
+    its C entries bound as _build binds them, and the instrumentation's
+    labels."""
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(_build.CSRC, out / "csrc")
-    path = out / "csrc" / file_name
-    text, labels = instrument(path.read_text())
-    path.write_text(text.replace(INCLUDE, INCLUDE + PRELUDE, 1))
+    sources = {path.name: path.read_text() for path in (out / "csrc").iterdir()}
+    labels = instrument(sources)
+    for name, text in sources.items():
+        if name.endswith(".cu"):
+            text = (PRELUDE if name == file_name else NO_CLOCK) + text
+        (out / "csrc" / name).write_text(text)
     srcs = sorted((out / "csrc").glob("*.cu"))
     nvcc = _build._nvcc()
     procs = [subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-c", "-o", str(out / f"{s.stem}.o"),

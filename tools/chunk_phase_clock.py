@@ -1,15 +1,18 @@
-"""Where the chunk sampler's kernel spends its time, phase by phase: builds
-an instrumented copy of csrc/ (into build/chunk_phase_clock/) in which every
-statement of fused_chunk_kernel's step loop and layer loop, and every
-statement of its cross-attention's loop over the heads (chunk_cross_attention), is
-followed by a block barrier and a timestamp (thread 0 of each block adds the
-clock64 cycles since the previous one to that statement's counter), and the
-once-per-chunk prologue is timed as a whole. Prints the cycles per block of
-each phase, per chunk and labelled by the statement, for the h128 head_dim-32
-sampler over S=301 and the flagship's head_dim-64 sampler over S=311, 30
-DDIM steps at B=64 (one block per SM) or another batch.
+"""Where the decoder pass of the chunk sampler's kernel, or of the
+denoiser's, spends its time, phase by phase: builds an instrumented copy of
+csrc/ (into build/chunk_phase_clock/) in which every statement of the
+shared pass (csrc/decoder_pass.cuh: decoder_pass's body and its layer loop,
+and chunk_cross_attention's loop over the heads) and of the chunk kernel's
+step loop is followed by a block barrier and a timestamp (thread 0 of each
+block adds the clock64 cycles since the previous one to that statement's
+counter), and the kernel's prologue (the chunk's K/V projection, the
+denoiser's staging of its parameters and step token) is timed as a whole.
+Prints the cycles per block of each phase, per launch and labelled by the
+statement, for the h128 head_dim-32 kernel over S=301 and the flagship's
+head_dim-64 kernel over S=311 (the chunk: 30 DDIM steps) at B=64 (a robot
+on a 2-block cluster) or another batch.
 
-    python tools/chunk_phase_clock.py [--batch B] [--h128-only]
+    python tools/chunk_phase_clock.py [--kernel chunk|denoise] [--batch B] [--h128-only]
 
 Needs an NVIDIA GPU and nvcc. The instrumentation adds a barrier and an
 atomic add per statement; compare phases with each other, not the total
@@ -33,77 +36,80 @@ from soccerdiffusion_tpu_torch.ops import _build  # noqa: E402
 from tools import _phase_clock  # noqa: E402
 
 OUT = ROOT / "build" / "chunk_phase_clock"
-KERNEL = "fused_chunk_kernel(ChunkArgs a) {"
-CROSS = "__device__ void chunk_cross_attention("
+# kernel -> (source file, its first line, the body statement the prologue ends before)
+KERNELS = {
+    "chunk": ("fused_chunk.cu", "fused_chunk_kernel(ChunkArgs a) {", "for (int t = 0;"),
+    "denoise": ("fused_denoise.cu", "fused_denoise_kernel(DenoiseArgs a) {", "decoder_pass<"),
+}
+PASS = "decoder_pass.cuh"
 
 
-def top(line: str) -> bool:
-    """A line directly inside the cross-attention's loop over the heads."""
-    return line.startswith("    ") and not line.startswith("     ")
-LOOPS = ("for (int t = 0;", "for (int l = 0;")
-
-
-def instrument(src: str) -> tuple[str, dict]:
-    """The source with a barrier and a marker after every statement directly
-    inside the kernel's step and layer loops, and one before the step loop;
-    marker id -> the first line of the statement before it."""
-    labels, out = {}, []
-    stack, stmt, starts, inside = [], "", True, False
+def mark_statements(src: str, signature: str, labels: dict, prefix: str = "",
+                    loops: tuple = (), body: bool = False, prologue: str | None = None) -> str:
+    """``src`` with a barrier and a marker after every statement directly
+    inside the function whose declaration starts on the line holding
+    ``signature``: in its body if ``body``, and in each loop whose header
+    starts with one of ``loops``. With ``prologue``, the clock starts at the
+    function's entry and a marker before the body statement starting with
+    it times everything before. Adds marker id -> ``prefix`` + the first
+    line of the statement to ``labels``."""
+    out, scopes, inside, depth, starts, stmt, closed = [], [], False, 0, True, "", ""
 
     def marker(label) -> str:
-        labels[len(labels)] = label
-        return f" __syncthreads(); PT({len(labels) - 1});"
+        labels[len(labels)] = prefix + label
+        return f"__syncthreads(); PT({len(labels) - 1});"
 
-    in_cross = False
     for line in src.split("\n"):
-        stripped = line.strip()
-        if line.startswith(CROSS):
-            in_cross, stmt, starts = True, "", False
-        if in_cross:
-            if line == "}":
-                in_cross = False
-            elif starts and top(line) and not stripped.startswith(("//", "#", "}")):
-                stmt = "cross: " + stripped[:80]
-            if top(line) and stripped:
-                starts = stripped.endswith((";", "{", "}"))
-            ends = top(line) and (stripped.endswith(";") or stripped == "}")
-            out.append(line + (marker(stmt) if in_cross and ends and stmt else ""))
-            continue
-        if KERNEL in line:
-            inside, stack = True, []
-            out.append(line + "\n  PT_BEGIN();")
-            continue
-        if not inside:
+        if not inside and signature in line:
+            inside, depth, scopes, starts = True, 0, [], True
+        code = line.split("//")[0].strip()
+        if not inside or not code or code.startswith("#"):
             out.append(line)
             continue
-        if stripped.startswith(LOOPS[0]) and not stack:
-            out.append("  __syncthreads();" + marker("once per chunk: K/V projection, carry").strip())
-        if not stripped or stripped.startswith("//"):
-            out.append(line)
-            continue
-        timed = bool(stack) and stack[-1]
-        if starts and not stripped.startswith("}"):
-            stmt = stripped[:90]
-        starts = stripped.endswith((";", "{", "}"))
-        if stripped.endswith("{"):
-            stack.append(stripped.startswith(LOOPS))
-            out.append(line)
-            continue
-        if stripped.startswith("}"):
-            if not stack:
-                inside = False
-            else:
-                stack.pop()
-            out.append(line)
-            continue
-        out.append(line + (marker(stmt) if timed and stripped.endswith(";") else ""))
-    return "\n".join(out), labels
+        at, net = depth, code.count("{") - code.count("}")
+        if at >= 1 and starts and not code.startswith("}"):
+            stmt = code[:90]
+            if prologue and at == 1 and code.startswith(prologue):
+                out.append("  " + marker("prologue"))
+        for _ in range(net):  # a scope's statements are timed, and its header
+            scopes.append((body if at == 0 else code.startswith(loops), stmt))
+        for _ in range(-net):
+            closed = scopes.pop()[1]
+        depth = at + net
+        label = stmt if code.endswith(";") and net == 0 else closed if code == "}" else None
+        if at == 0 and net > 0 and prologue:
+            line += "\n  PT_BEGIN();"
+        timed = label is not None and depth >= 1 and scopes[depth - 1][0]
+        out.append(line + (" " + marker(label) if timed else ""))
+        starts = code.endswith((";", "{", "}"))
+        if at > 0 and depth == 0:
+            inside = False
+    return "\n".join(out)
+
+
+def instrument(kernel: str):
+    """An instrument(sources) for the phase clock of ``kernel``."""
+    file_name, first, prologue = KERNELS[kernel]
+
+    def run(sources: dict) -> dict:
+        labels: dict = {}
+        sources[file_name] = mark_statements(sources[file_name], first, labels,
+                                             loops=("for (int t = 0;",), prologue=prologue)
+        text = mark_statements(sources[PASS], "__device__ __forceinline__ void decoder_pass(",
+                               labels, loops=("for (int l = 0;",), body=True)
+        sources[PASS] = mark_statements(text, "__device__ void chunk_cross_attention(", labels,
+                                        prefix="cross: ", loops=("for (int h0 = 0;",))
+        return labels
+
+    return run
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--kernel", choices=tuple(KERNELS), default="chunk",
+                        help="the whole-chunk sampler (default) or the denoiser")
     parser.add_argument("--batch", type=int, default=64, help="robots (default 64)")
-    parser.add_argument("--h128-only", action="store_true", help="skip the flagship's sampler")
+    parser.add_argument("--h128-only", action="store_true", help="skip the flagship's kernel")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chunk_phase_clock: needs an NVIDIA GPU", file=sys.stderr)
@@ -112,7 +118,7 @@ def main() -> int:
     from soccerdiffusion_tpu_torch.diffusion.ddim import ddim_timesteps
     from soccerdiffusion_tpu_torch.ops.fused_chunk import FusedChunkSampler
 
-    lib, labels = _phase_clock.build(OUT, "fused_chunk.cu", instrument)
+    lib, labels = _phase_clock.build(OUT, KERNELS[args.kernel][0], instrument(args.kernel))
     _build.library = lambda: lib  # the wrapper launches the instrumented kernel
     coefs = solver_coef_table(make_schedule(1000), 30, "ddim")
     steps = torch.as_tensor(ddim_timesteps(1000, 30).astype(np.int64), device="cuda")
@@ -127,10 +133,16 @@ def main() -> int:
             context = torch.from_numpy(rng.normal(size=(B, S, cfg.hidden_dim)).astype(
                 np.float32)).to("cuda", torch.bfloat16)
             noise = torch.from_numpy(rng.normal(size=(B, 10, 20)).astype(np.float32)).cuda()
-            run = lambda: chunk.sample_kernel(context, noise, stk, stv, coefs)
-            cycles = _phase_clock.cycles_per_block(lib, run, B * chunk.cluster_size(B, "cuda"))
-        print(f"== chunk E={cfg.hidden_dim} S={S} B={B} ({chunk.cluster_size(B, 'cuda')} blocks a "
-              f"robot), 30 steps: {cycles.sum():.0f} cycles per block", flush=True)
+            if args.kernel == "chunk":
+                run = lambda: chunk.sample_kernel(context, noise, stk, stv, coefs)
+            else:
+                packed = chunk.pack_context_kv(model.precompute_context_kv(context))
+                run = lambda: chunk.run_kernel(packed, noise, stk[3], stv[3])
+            blocks = chunk.cluster_size(B, "cuda")
+            cycles = _phase_clock.cycles_per_block(lib, run, B * blocks)
+        print(f"== {args.kernel} E={cfg.hidden_dim} S={S} B={B} ({blocks} blocks a robot"
+              f"{', 30 steps' if args.kernel == 'chunk' else ''}): {cycles.sum():.0f} cycles per "
+              "block", flush=True)
         for i in np.nonzero(cycles)[0]:
             print(f"  {cycles[i]:11.0f}  {labels[int(i)]}", flush=True)
     return 0

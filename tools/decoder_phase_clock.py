@@ -80,7 +80,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("decoder_phase_clock: needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    lib, labels = _phase_clock.build(OUT, "fused_decoder_layer.cu", instrument)
+    lib, labels = _phase_clock.build(OUT, "fused_decoder_layer.cu",
+                                     _phase_clock.one_file("fused_decoder_layer.cu", instrument))
     _build.library = lambda: lib  # the wrappers launch the instrumented kernels
     rng = np.random.default_rng(0)
     t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda().to(torch.bfloat16)

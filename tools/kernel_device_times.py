@@ -1,14 +1,17 @@
 """Device time of the kernels, read from torch.profiler, beside the
 CUDA-event time of the wrapper call (which adds the host's launch work):
 the serving kernels at chip_smoke.py's main-path shapes (the context
-encoder at h128 B=64 and 1024; the 30-step DDIM chunk sampler at h128 over
-S=301 at B=64 and 1024, and at head_dim 64 (vit_flagship's decoder) over
-S=311 at B=64 and 256), the decoder layer (forward and backward, head_dim 64
+encoder at h128 B=64 and 1024; the 30-step DDIM chunk sampler and the
+denoiser, beside the denoiser's context K/V pack, at h128 over S=301 at
+B=64 and 1024, and at head_dim 64 (vit_flagship's decoder) over S=311 at
+B=64 and 256), the decoder layer (forward and backward, head_dim 64
 at E=256 over S=312 memory rows and head_dim 32 at E=128 over S=302, T=10,
 B=64 and 256) and flash attention at four of chip_smoke.py's bf16 shapes.
 
     python tools/kernel_device_times.py [--only serving|training] [--tree DIR]
         [--chunk-threads auto,512,256] [--chunk-clusters auto,1,2]
+
+(the launch shapes given apply to the chunk sampler and the denoiser alike).
 
 ``--tree`` imports the port from another checkout (a `git archive` of a
 parent commit, say), so that two trees' kernels are timed by one script.
@@ -66,11 +69,30 @@ def report(label, fn):
         print(f"    {t:9.1f} us  {key[:100]}", flush=True)
 
 
+def launch_shapes(op, threads_list, clusters_list):
+    """Yield a label for each launch shape of ``op`` to time, with ``op``
+    set to launch it: the wrapper's own choice, or the given block sizes
+    and blocks a robot (a tree whose op has no such choice: its own)."""
+    shapes = [(None, None)]
+    if hasattr(op, "cluster_size"):
+        shapes = [(t, c) for t in threads_list for c in clusters_list]
+    for threads, clusters in shapes:
+        vars(op).pop("block_threads", None)
+        vars(op).pop("cluster_size", None)
+        if threads is not None:
+            op.block_threads = lambda batch, context_len, device, n=threads: n
+        if clusters is not None:
+            op.cluster_size = lambda batch, device, n=clusters: n
+        yield (("" if threads is None else f" threads={threads}")
+               + ("" if clusters is None else f" cluster={clusters}"))
+
+
 def serving(chunk_threads, chunk_clusters):
     import chip_smoke as cs
     from soccerdiffusion_tpu_torch.diffusion import make_schedule, solver_coef_table
     from soccerdiffusion_tpu_torch.diffusion.ddim import ddim_timesteps
     from soccerdiffusion_tpu_torch.ops.fused_chunk import FusedChunkSampler
+    from soccerdiffusion_tpu_torch.ops.fused_denoise import FusedDenoiser
     from soccerdiffusion_tpu_torch.ops.fused_encoder import FusedContextEncoder
 
     coefs = solver_coef_table(make_schedule(1000), 30, "ddim")
@@ -84,7 +106,7 @@ def serving(chunk_threads, chunk_clusters):
         flagship = cs.build_model(cs.flagship_config(), "cuda", seed=3)
         for model, label, S, batches in ((h128, "h128 (head_dim 32)", 301, (64, 1024)),
                                          (flagship, "flagship (head_dim 64)", 311, (64, 256))):
-            chunk = FusedChunkSampler(model)
+            chunk, den = FusedChunkSampler(model), FusedDenoiser(model)
             stk, stv = chunk.step_tables(model.step_encoding(steps)[:, 0])
             E = model.config.hidden_dim
             for B in batches:
@@ -92,20 +114,16 @@ def serving(chunk_threads, chunk_clusters):
                 context = torch.from_numpy(rng.normal(size=(B, S, E)).astype(np.float32)).to(
                     "cuda", torch.bfloat16)
                 noise = torch.from_numpy(rng.normal(size=(B, 10, 20)).astype(np.float32)).cuda()
-                launches = [(None, None)]  # the wrapper's own choice, or given ones
-                if hasattr(chunk, "cluster_size"):
-                    launches = [(t, c) for t in chunk_threads for c in chunk_clusters]
-                for threads, clusters in launches:
-                    vars(chunk).pop("block_threads", None)
-                    vars(chunk).pop("cluster_size", None)
-                    if threads is not None:
-                        chunk.block_threads = lambda batch, context_len, device, n=threads: n
-                    if clusters is not None:
-                        chunk.cluster_size = lambda batch, device, n=clusters: n
-                    report(f"chunk ddim30 {label} S={S} B={B}"
-                           + ("" if threads is None else f" threads={threads}")
-                           + ("" if clusters is None else f" cluster={clusters}"),
+                for shape in launch_shapes(chunk, chunk_threads, chunk_clusters):
+                    report(f"chunk ddim30 {label} S={S} B={B}{shape}",
                            lambda: chunk.sample_kernel(context, noise, stk, stv, coefs))
+                context_kv = model.precompute_context_kv(context)
+                report(f"denoiser pack_context_kv {label} S={S} B={B}",
+                       lambda: den.pack_context_kv(context_kv))
+                packed = den.pack_context_kv(context_kv)
+                for shape in launch_shapes(den, chunk_threads, chunk_clusters):
+                    report(f"denoiser {label} S={S} B={B}{shape}",
+                           lambda: den.run_kernel(packed, noise, stk[3], stv[3]))
 
 
 def training():
@@ -135,11 +153,11 @@ def main() -> int:
     parser.add_argument("--only", choices=("serving", "training"), default=None)
     parser.add_argument("--tree", default=str(ROOT), help="checkout whose port is timed")
     parser.add_argument("--chunk-threads", default="auto",
-                        help="comma-separated block sizes of the chunk kernel to time "
-                             "(auto: the wrapper's choice)")
+                        help="comma-separated block sizes of the chunk and denoiser kernels "
+                             "to time (auto: the wrapper's choice)")
     parser.add_argument("--chunk-clusters", default="auto",
-                        help="comma-separated blocks a robot (1 or 2) of the chunk kernel to "
-                             "time (auto: the wrapper's choice)")
+                        help="comma-separated blocks a robot (1 or 2) of the chunk and "
+                             "denoiser kernels to time (auto: the wrapper's choice)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("kernel_device_times: needs an NVIDIA GPU", file=sys.stderr)
