@@ -73,7 +73,27 @@
    kernel. Phase 6 also trains the unfused h128 step with "pallas" (the
    head_dim-32 T=100 shape); every earlier path, which runs "auto" at
    shapes under its threshold, launches no flash kernel.
-10. Prints one JSON line of per-kernel results, then as its last line
+10. The ResNet / Swin slice. default_tpu.yaml's model (ResNet18 at 224 px
+   with the spatial head, h128, bf16, remat_image_encoder "conv_only"):
+   the per-frame encoder timed over 128 and 640 frames (FLOPs per ms
+   against the bf16 peak); the chunk sampler, the K/V pack and the
+   denoiser against their plain versions at its lanes' shape (head_dim 32,
+   S=311, B=64); 5 replan periods at B=64 of each serving lane
+   (cached 30-step DDIM through the chunk sampler, the same with raw
+   frames, the distilled student through the denoiser and its K/V pack;
+   exact launches per period, no fused encoder) and 2 cached periods on
+   the card against the CPU at B=4; 20 training steps through
+   training/train.py on packed whole-frame uint8 data at B=64 (no kernel
+   of the port runs there: the ResNet is cuDNN's convolutions, the layers
+   unfused), 3 at the YAML's B=128 with "conv_only" and with remat off
+   (peak device memory of each), 3 card-vs-CPU steps at B=2 (losses,
+   update norm, BatchNorm running statistics). ResNet50 and Swin-T
+   forwards on the card against the CPU (float32, TF32 off) and timed in
+   bf16. decoder_only.yaml's model in bf16: the chunk sampler, the K/V pack
+   and the denoiser against their plain versions at S=0 context tokens
+   (B=64 and 256), its two serving lanes at B=64 (exact launches) and 20
+   training steps.
+11. Prints one JSON line of per-kernel results, then as its last line
    {"ok": true, "device": {...}}. Where one torch.nn call computes the
    same function as a kernel (the encoder-stack, ViT-block and
    decoder-layer forwards; one torch.autograd.grad through the same layers
@@ -86,13 +106,15 @@ Exits non-zero, without the last line, when CUDA is unavailable or any
 phase fails. Imports nothing of JAX or of the JAX package.
 
     python3 chip_smoke.py --profile-training [--flagship [--flash]] [--profile-out FILE]
-    python3 chip_smoke.py --profile-serving [--flash] [--profile-out FILE]
+    python3 chip_smoke.py --profile-serving [--flash | --resnet] [--profile-out FILE]
+    python3 chip_smoke.py --profile-training --resnet [--profile-out FILE]
 
 build the kernels and instead trace, with torch.profiler, the h128 B=64
 training step (fused knobs on, then off), with --flagship the flagship's
 B=64 training step (packed data; with --flash the flash flagship's), or 3
 replan periods of each flagship serving lane at B=64 (with --flash the
-flash flagship's cached ddim30 lane): per step or period the host wall
+flash flagship's cached ddim30 lane; with --resnet default_tpu.yaml's
+three lanes; --profile-training --resnet its B=64 training step): per step or period the host wall
 clock, the device busy time (the union of the device ops' intervals), the
 device's idle share, both taken from the same trace, and the largest device
 ops. FILE receives the full tables. None prints the ok line.
@@ -217,7 +239,7 @@ def build_model(cfg, device, seed=1):
     from soccerdiffusion_tpu_torch.utils.jax_params import load_jax_params, random_jax_params
 
     model = DiffusionPolicy(cfg)
-    return load_jax_params(model, random_jax_params(model, seed)).to(device).eval()
+    return load_jax_params(model, *random_jax_params(model, seed)).to(device).eval()
 
 
 def random_batch(cfg, b, device, rng):
@@ -929,7 +951,8 @@ def training_reference_phase(device, cfg, batches, seed):
     """The kernel path's training steps on the card against the same steps of
     the plain versions on the CPU, one per batch of ``batches`` (dicts of CPU
     tensors with the target ``joint_command``), from the same init, t and
-    noise."""
+    noise: the losses, the update norm and the BatchNorm running
+    statistics."""
     from soccerdiffusion_tpu_torch.data import Normalizer
     from soccerdiffusion_tpu_torch.diffusion import make_schedule
     from soccerdiffusion_tpu_torch.models import DiffusionPolicy
@@ -938,7 +961,7 @@ def training_reference_phase(device, cfg, batches, seed):
 
     rng = np.random.default_rng(seed)
     base = DiffusionPolicy(cfg)
-    base = load_jax_params(base, flax_init_params(base, 3))
+    base = load_jax_params(base, *flax_init_params(base, 3))
     runs = {}
     for dev in (device, "cpu"):
         model = copy.deepcopy(base).to(dev)
@@ -972,6 +995,18 @@ def training_reference_phase(device, cfg, batches, seed):
     ok &= upd <= STEP_UPDATE_TOL
     log(f"after {len(batches)} steps: |params(card) - params(cpu)| / |update(cpu)| = {upd:.3e} "
         f"(tol {STEP_UPDATE_TOL}); max |param difference| / max|param| = {max_diff / scale:.3e}")
+    # the BatchNorm running statistics (a model with a ResNet): each within TRAIN_TOL of scale
+    cpu_buffers = dict(cm.named_buffers())
+    worst = 0.0
+    for name, bg in gm.named_buffers():
+        if name.endswith((".mean", ".var")):
+            bc = cpu_buffers[name]
+            rel = (bg.cpu() - bc).abs().max().item() / max(bc.abs().max().item(), 1e-30)
+            worst = max(worst, rel)
+            ok &= rel <= TRAIN_TOL
+    if any(n.endswith((".mean", ".var")) for n in cpu_buffers):
+        log(f"after {len(batches)} steps: BatchNorm running statistics, card vs cpu: max "
+            f"|difference| / max|cpu| = {worst:.3e} (tol {TRAIN_TOL})")
     if not ok:
         raise AssertionError("the kernel training path disagrees with the plain path")
 
@@ -1377,6 +1412,262 @@ def flash_training_path_phase():
     return launches, ms
 
 
+# ------------------------------------------------------- the ResNet / Swin slice
+
+CONFIG_DIR = Path(__file__).resolve().parent / "soccerdiffusion_tpu_torch" / "training" / "configs"
+# the ResNet serving lanes at RESNET_B robots: the chunk sampler or the
+# distilled denoiser and its K/V pack (a launch per decoder layer), no
+# fused encoder (an image config takes the model's context encoder), no
+# ViT block and no fused stack (default_tpu.yaml's knobs are off)
+RESNET_B, RESNET_FRAMES = 64, (128, 640)
+RESNET_LANES = {
+    "ddim30": (dict(fused="chunk"), {"fused_chunk": 1}),
+    "ddim30_raw_frames": (dict(fused="chunk", cache_image_tokens=False), {"fused_chunk": 1}),
+    "distilled1": (dict(distilled=True, fused=True), {"fused_denoise": 1,
+                                                      "fused_denoise_pack": 4}),
+}
+RESNET_TRAIN_B, RESNET_TRAIN_FULL_B = 64, 128
+# ResNet50 / Swin-T forwards on the card against the CPU in float32 (TF32 off):
+# cuDNN's and the CPU's convolution algorithms sum in other orders
+ENCODER_F32_TOL = 1e-3
+# the decoder-only tier's checks (S=0 context tokens) and lanes
+DECODER_ONLY_BATCHES, DECODER_ONLY_B = (64, 256), 64
+
+
+def yaml_config(name: str, **train):
+    """The port's copy of training/configs/<name>.yaml, its train section's
+    fields replaced by ``train``."""
+    from soccerdiffusion_tpu_torch.config import Config
+
+    config = Config.from_yaml(str(CONFIG_DIR / name))
+    return dataclasses.replace(config, train=dataclasses.replace(config.train, **train))
+
+
+def forward_flops(module, x) -> int:
+    """Multiply-add FLOPs (2 per MAC) of the convolutions and dense layers of
+    one forward of ``module`` on ``x``, counted from their shapes by hooks."""
+    total = [0]
+
+    def hook(mod, inputs, out):
+        if isinstance(mod, torch.nn.Conv2d):
+            kh, kw = mod.kernel_size
+            total[0] += 2 * out.numel() * (mod.in_channels // mod.groups) * kh * kw
+        elif isinstance(mod, torch.nn.Linear):
+            total[0] += 2 * out.numel() * mod.in_features
+
+    handles = [m.register_forward_hook(hook) for m in module.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        with torch.no_grad():
+            module(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def image_encoder_phase(model, device) -> dict:
+    """The per-frame image encoder of ``model`` (eval mode, bf16, no grad)
+    timed with CUDA events over RESNET_FRAMES frames, with its convolution
+    and dense FLOPs per ms against the bf16 tensor-core peak."""
+    enc = model.image_sequence_encoder.image_encoder
+    res = model.config.image_resolution
+    rng = np.random.default_rng(600)
+    out = {}
+    with torch.no_grad():
+        for n in RESNET_FRAMES:
+            x = torch.from_numpy(rng.normal(size=(n, res, res, 3)).astype(np.float32)).to(
+                device, torch.bfloat16)
+            flops = forward_flops(enc, x)
+            ms = median_ms(lambda: enc(x))
+            rate = flops / (ms * 1e-3)
+            log(f"{model.config.image_encoder_type} per-frame encoder, {n} frames at {res} px "
+                f"(bf16, eval): {ms:.3f} ms, {flops / n / 1e9:.3f} GFLOP a frame, "
+                f"{rate / 1e12:.1f} TFLOP/s = {rate / BF16_FLOPS:.3f} of 989 TFLOP/s")
+            out[f"N{n}"] = {"ms": ms, "gflop": flops / 1e9, "tflops": rate / 1e12,
+                            "share_of_bf16_peak": rate / BF16_FLOPS}
+    return out
+
+
+def resnet_kernel_phase(model, device) -> dict:
+    """The decoder kernels at the ResNet lanes' shape (head_dim 32, S=311
+    context tokens: 300 proprioceptive, 10 image tokens, the game state)
+    against their plain versions at RESNET_B robots, on the context of a
+    random batch with cached image tokens."""
+    cfg = model.config
+    rng = np.random.default_rng(900)
+    with torch.no_grad():
+        batch = random_batch(cfg, RESNET_B, device, rng)
+        batch["image_tokens"] = torch.from_numpy(rng.normal(
+            size=(RESNET_B, cfg.image_context_length, cfg.hidden_dim)).astype(np.float32)).to(device)
+        context = model.encode_context(batch)
+        noise = torch.from_numpy(rng.normal(size=(RESNET_B, 10, 20)).astype(np.float32)).to(device)
+        r_chunk, r_den, r_pack = decoder_checks(model, context, noise, device, RESNET_B,
+                                                "_resnet")
+    return {"fused_chunk_resnet": r_chunk, "fused_denoise_resnet": r_den,
+            "fused_denoise_pack_resnet": r_pack}
+
+
+def lanes_phase(model, device, lanes, b, label) -> tuple[dict, dict]:
+    """Each lane of ``lanes`` at B=b through RolloutEngine.make_rollout_fn,
+    CHUNKS periods, every counter zeroed just before and read just after;
+    each kernel exactly its count per period, no other kernel."""
+    cfg = model.config
+    periods, launches = {}, {}
+    for lane, (kw, per_period) in lanes.items():
+        eng = engine(model, cfg, device, fused_encoder=False, **kw)
+        eng.make_rollout_fn(1)(eng.init(b, torch.Generator(device=device).manual_seed(0)))
+        ms, got = timed_rollout(eng, device, 1, b, CHUNKS)
+        want = {name: per_period.get(name, 0) * CHUNKS for name in got}
+        log(f"{label} lane {lane} B={b}, {CHUNKS} periods: {ms:.2f} ms/period, "
+            f"{b * 1e3 / ms:.1f} chunks/s; launches {got}")
+        if got != want:
+            raise AssertionError(f"{label} lane {lane}: launches {got}, expected {want}")
+        periods[lane], launches[lane] = ms, got
+    return launches, periods
+
+
+def peak_training(config, tmp, label) -> tuple[float, int]:
+    """3 steps of training/train.py (packed dummy data, a sync each step): the
+    last step's ms and the peak device memory."""
+    from soccerdiffusion_tpu_torch.training.train import RunOptions, train
+
+    config = dataclasses.replace(config, train=dataclasses.replace(config.train, log_every=1))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = f"{tmp}/metrics_{label}.jsonl"
+    state = train(config, RunOptions(output=f"{tmp}/ckpt_{label}", dummy_data=True, packed=True,
+                                     epochs=1, steps_per_epoch=3, seed=1, metrics=metrics))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    last = [json.loads(line) for line in open(metrics)][-1]
+    if state.step != 3 or not np.isfinite(last["loss"]):
+        raise AssertionError(f"{label}: {state.step} steps, last loss {last['loss']}")
+    ms = 1e3 / last["steps_per_sec"]
+    log(f"{label}, 3 steps: the last {ms:.3f} ms, "
+        f"{config.train.batch_size * 1e3 / ms:.1f} samples/s, loss {last['loss']:.6f}; peak "
+        f"device memory {peak / 2**30:.2f} GiB")
+    return ms, peak
+
+
+def resnet_training_phase() -> dict:
+    """training/train.py on default_tpu.yaml (ResNet18 at 224 px, bf16,
+    remat_image_encoder "conv_only") with packed whole-frame uint8 dummy
+    data: TRAIN_STEPS steps at RESNET_TRAIN_B with every counter zeroed
+    before and read after (no kernel of the port runs: the ResNet is
+    cuDNN's, the layers are unfused), then 3 steps at the YAML's own
+    RESNET_TRAIN_FULL_B with "conv_only" and with remat off: the last
+    step's ms and the peak device memory of each."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        zero_counters()
+        config = yaml_config("default_tpu.yaml", batch_size=RESNET_TRAIN_B,
+                             log_every=TRAIN_LOG_EVERY)
+        ms, losses = timed_training(config, tmp, "resnet", packed=True)
+        launches = read_counters()
+        log(f"ResNet training main path (train.py, default_tpu.yaml, --packed whole-frame uint8 "
+            f"dummy data, B={RESNET_TRAIN_B}, {TRAIN_STEPS} steps): {ms:.3f} ms/step, "
+            f"{RESNET_TRAIN_B * 1e3 / ms:.1f} samples/s; logged losses {losses}; launches "
+            f"{launches}")
+        if any(launches.values()):
+            raise AssertionError(f"a kernel of the port ran on the ResNet training path: {launches}")
+        out[f"B{RESNET_TRAIN_B}"] = ms
+        for remat in ("conv_only", False):
+            config = yaml_config("default_tpu.yaml", batch_size=RESNET_TRAIN_FULL_B)
+            config = dataclasses.replace(config, model=dataclasses.replace(
+                config.model, remat_image_encoder=remat))
+            label = f"B{RESNET_TRAIN_FULL_B}_remat_{remat or 'off'}"
+            ms, peak = peak_training(config, tmp, f"default_tpu.yaml {label}")
+            out[label] = {"ms": ms, "peak_bytes": peak}
+    return out
+
+
+def reference_batches(config, b=2, steps=3):
+    """The first shuffled packed batches of ``config``'s dummy data at B=b."""
+    from soccerdiffusion_tpu_torch.data.pipeline import to_tensors
+    from soccerdiffusion_tpu_torch.training.train import build_dataset
+
+    dataset = build_dataset(config, 0, True, packed=True)
+    return [to_tensors(batch) for batch in itertools.islice(dataset.batches(b, seed=0), steps)]
+
+
+def encoders_reference_phase(device) -> dict:
+    """ResNet50 and Swin-T per-frame forwards at 224 px (seeded random
+    params and BatchNorm statistics, eval mode): float32 on the card
+    against the CPU on 4 frames (ENCODER_F32_TOL of scale; TF32 off), and
+    the bf16 forward timed over 128 frames on the card."""
+    from soccerdiffusion_tpu_torch.models.vision import make_image_encoder
+    from soccerdiffusion_tpu_torch.utils.jax_params import load_jax_params, random_jax_params
+
+    out = {}
+    for kind in ("resnet50", "swin_transformer_tiny"):
+        cpu = make_image_encoder(kind, 128, 224, use_final_avgpool=False)
+        load_jax_params(cpu, *random_jax_params(cpu, seed=7))
+        cpu.eval()
+        gpu = copy.deepcopy(cpu).to(device)
+        rng = np.random.default_rng(700)
+        x = torch.from_numpy(rng.normal(size=(4, 224, 224, 3)).astype(np.float32))
+        with torch.no_grad():
+            ref = cpu(x)
+            got = gpu(x.to(device)).cpu()
+        err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+        log(f"{kind} forward, 4 frames at 224 px, float32: card vs cpu max_abs_err={err:.4e} "
+            f"max|cpu|={scale:.4e} (tol {ENCODER_F32_TOL} x max|cpu|)")
+        if not (torch.isfinite(got).all() and err <= ENCODER_F32_TOL * scale):
+            raise AssertionError(f"{kind}: the card's forward disagrees with the CPU's")
+        bf = make_image_encoder(kind, 128, 224, use_final_avgpool=False, dtype=torch.bfloat16)
+        bf.load_state_dict(cpu.state_dict())
+        bf = bf.to(device).eval()
+        x = torch.from_numpy(rng.normal(size=(128, 224, 224, 3)).astype(np.float32)).to(
+            device, torch.bfloat16)
+        flops = forward_flops(bf, x)
+        with torch.no_grad():
+            ms = median_ms(lambda: bf(x))
+        rate = flops / (ms * 1e-3)
+        log(f"{kind} per-frame encoder, 128 frames (bf16, eval): {ms:.3f} ms, "
+            f"{flops / 128 / 1e9:.3f} GFLOP a frame, {rate / 1e12:.1f} TFLOP/s = "
+            f"{rate / BF16_FLOPS:.3f} of 989 TFLOP/s")
+        out[kind] = {"max_abs_err_f32": err, "ms_128_frames_bf16": ms,
+                     "share_of_bf16_peak": rate / BF16_FLOPS}
+    return out
+
+
+def decoder_only_phase(device) -> tuple[dict, dict, dict, float]:
+    """decoder_only.yaml's model (h256, 4 heads of 64, every context
+    modality off; bf16): the chunk sampler, the K/V pack and the denoiser
+    against their plain versions at S=0 context tokens (only the step
+    token's key) at DECODER_ONLY_BATCHES robots; its serving lanes (the
+    chunk sampler, the distilled denoiser) at DECODER_ONLY_B with exact
+    launches per period; then TRAIN_STEPS training steps through
+    training/train.py at TRAIN_BATCH."""
+    cfg = dataclasses.replace(yaml_config("decoder_only.yaml").model, compute_dtype="bfloat16")
+    model = build_model(cfg, device, seed=8)
+    results = {}
+    for b in DECODER_ONLY_BATCHES:
+        rng = np.random.default_rng(800 + b)
+        with torch.no_grad():
+            context = model.encode_context({"joint_command": torch.zeros((b, 0, 0),
+                                                                         device=device)})
+            noise = torch.from_numpy(rng.normal(size=(b, 10, 20)).astype(np.float32)).to(device)
+            r_chunk, r_den, r_pack = decoder_checks(model, context, noise, device, b, "_s0")
+        merge(results, "fused_chunk_s0", r_chunk)
+        merge(results, "fused_denoise_s0", r_den)
+        merge(results, "fused_denoise_pack_s0", r_pack)
+    lanes = {"ddim30": RESNET_LANES["ddim30"], "distilled1": RESNET_LANES["distilled1"]}
+    launches, periods = lanes_phase(model, device, lanes, DECODER_ONLY_B, "decoder-only")
+    with tempfile.TemporaryDirectory() as tmp:
+        config = dataclasses.replace(yaml_config("decoder_only.yaml", batch_size=TRAIN_BATCH,
+                                                 log_every=TRAIN_LOG_EVERY), model=cfg)
+        zero_counters()
+        ms, losses = timed_training(config, tmp, "decoder_only")
+        no_flash(read_counters())
+    log(f"decoder-only training (train.py, decoder_only.yaml in bf16, synthetic data, "
+        f"B={TRAIN_BATCH}, {TRAIN_STEPS} steps): {ms:.3f} ms/step; logged losses {losses}")
+    return results, launches, periods, ms
+
+
 def sass_phase() -> dict:
     """cuobjdump -sass of the built kernel library: every instance of each
     TENSOR_CORE_KERNELS kernel (bf16 only where it says so) must hold
@@ -1458,24 +1749,30 @@ def trace(label, run, steps, out):
             f.write("\n")
 
 
-def profile_serving(device, out, periods=3, flash=False):
+def profile_serving(device, out, periods=3, flash=False, resnet=False):
     """A trace of ``periods`` replan periods of each flagship lane at
-    B=FLAG_B, or (``flash``) of the flash flagship's cached ddim30 lane."""
-    if flash:
+    B=FLAG_B, or (``flash``) of the flash flagship's cached ddim30 lane, or
+    (``resnet``) of each default_tpu.yaml lane at RESNET_B."""
+    if resnet:
+        model = build_model(yaml_config("default_tpu.yaml").model, device, seed=4)
+        lanes = {lane: kw for lane, (kw, _) in RESNET_LANES.items()}
+    elif flash:
         model = build_model(flash_flagship_config(), device, seed=3)
         lanes = {"ddim30 flash (fused=False)": dict(fused=False)}
     else:
         model = build_model(flagship_config(), device, seed=3)
         lanes = {lane: kw for lane, (kw, _) in FLAG_LANES.items()}
     for lane, kw in lanes.items():
+        b = RESNET_B if resnet else FLAG_B
         eng = engine(model, model.config, device, fused_encoder=False, **kw)
-        carry = [eng.init(FLAG_B, torch.Generator(device=device).manual_seed(0))]
+        carry = [eng.init(b, torch.Generator(device=device).manual_seed(0))]
 
         def period():
             carry[0] = eng.replan_period(carry[0])[0]
 
         period()  # warm-up
-        trace(f"flagship lane {lane}, B={FLAG_B}, replan periods", period, periods, out)
+        trace(f"{'ResNet' if resnet else 'flagship'} lane {lane}, B={b}, replan periods", period,
+              periods, out)
 
 
 def profile_training(config, label, out, packed=False, steps=5, warm=5):
@@ -1494,7 +1791,7 @@ def profile_training(config, label, out, packed=False, steps=5, warm=5):
     dataset = build_dataset(config, 0, True, packed)
     normalizer = Normalizer.fit(dataset.sample_targets(tc.num_normalization_samples, seed=0))
     model = DiffusionPolicy(config.model)
-    model = load_jax_params(model, flax_init_params(model, 0)).to(device)
+    model = load_jax_params(model, *flax_init_params(model, 0)).to(device)
     opt = make_optimizer(model, tc.lr, warm + steps, tc.weight_decay, grad_clip_norm=tc.grad_clip_norm)
     state = create_train_state(model, opt, ema=tc.ema_decay > 0.0)
     step = make_train_step(model, make_schedule(tc.train_denoising_timesteps), opt, normalizer,
@@ -1521,6 +1818,9 @@ def main(argv=None) -> int:
                              "flash flagship (every attention through the flash kernel)")
     parser.add_argument("--profile-serving", action="store_true",
                         help="trace the flagship's serving lanes with torch.profiler instead")
+    parser.add_argument("--resnet", action="store_true",
+                        help="with --profile-training or --profile-serving: default_tpu.yaml's "
+                             "ResNet18 model (training step at B=64, serving lanes at B=64)")
     parser.add_argument("--profile-out", default=None, help="file for the full profiler tables")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1546,7 +1846,11 @@ def main(argv=None) -> int:
                 print(line.strip(), file=sys.stderr)
 
     if args.profile_training or args.profile_serving:
-        if args.profile_training and args.flagship and args.flash:
+        if args.profile_training and args.resnet:
+            profile_training(yaml_config("default_tpu.yaml", batch_size=RESNET_TRAIN_B),
+                             "ResNet (default_tpu.yaml, packed whole-frame uint8 dummy data)",
+                             args.profile_out, packed=True)
+        elif args.profile_training and args.flagship and args.flash:
             profile_training(flash_train_config(FLAG_TRAIN_B), "flash flagship (vit_flagship.yaml, "
                              "attention_impl=pallas, fused knobs off, packed dummy data)",
                              args.profile_out, packed=True)
@@ -1558,7 +1862,7 @@ def main(argv=None) -> int:
                 profile_training(train_config(fused), "fused" if fused else "unfused",
                                  args.profile_out)
         if args.profile_serving:
-            profile_serving(device, args.profile_out, flash=args.flash)
+            profile_serving(device, args.profile_out, flash=args.flash, resnet=args.resnet)
         return 0
     tensor_cores = sass_phase()
     cfg = bench_config()
@@ -1591,6 +1895,26 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     flash_train, flash_train_ms = flash_training_path_phase()
     training_reference_phase(device, flash_flagship_config(), flagship_reference_batches(), 13)
+
+    # the ResNet / Swin slice: default_tpu.yaml's model, then the decoder-only tier
+    resnet = build_model(yaml_config("default_tpu.yaml").model, device, seed=4)
+    resnet_encoder = image_encoder_phase(resnet, device)
+    results.update(resnet_kernel_phase(resnet, device))
+    resnet_launches, resnet_periods = lanes_phase(resnet, device, RESNET_LANES, RESNET_B, "ResNet")
+    reference_phase(resnet.config, resnet, device, b=4, fused="chunk", fused_encoder=False)
+    del resnet
+    torch.cuda.empty_cache()
+    resnet_train = resnet_training_phase()
+    # in float32 (TF32 off): no kernel of the port runs on this step, and in bf16
+    # cuDNN's and the CPU's roundings break the ResNet's ReLU / max-pool ties
+    # differently, which AdamW turns into +-lr steps of the entries whose
+    # gradient is rounding noise (update norm 0.23 in bf16, PERF.md)
+    training_reference_phase(device, dataclasses.replace(
+        yaml_config("default_tpu.yaml").model, compute_dtype="float32"),
+        reference_batches(yaml_config("default_tpu.yaml")), 14)
+    other_encoders = encoders_reference_phase(device)
+    s0_results, s0_launches, s0_periods, s0_train_ms = decoder_only_phase(device)
+    results.update(s0_results)
 
     # where each kernel instance ran: (source, the TPU kernel it replaces (the
     # pack: the JAX denoiser's pack_context_kv, whose layout the kernel's
@@ -1644,6 +1968,21 @@ def main(argv=None) -> int:
         "flash_attention_bwd": ("flash_attention.cu", "flash_attention.py:284",
                                 sum(p["flash_attention_bwd"] for p in (flash_serve, flash_train,
                                                                        h128_flash))),
+        # the ResNet lanes (default_tpu.yaml): the decoder kernels at hd32, S=311
+        "fused_chunk_resnet": ("fused_chunk.cu", "fused_chunk.py:518",
+                               sum(n["fused_chunk"] for n in resnet_launches.values())),
+        "fused_denoise_resnet": ("fused_denoise.cu", "fused_denoise.py:382",
+                                 sum(n["fused_denoise"] for n in resnet_launches.values())),
+        "fused_denoise_pack_resnet": ("fused_denoise.cu", "fused_denoise.py:310",
+                                      sum(n["fused_denoise_pack"]
+                                          for n in resnet_launches.values())),
+        # the decoder-only tier's lanes: the decoder kernels at S=0 context tokens
+        "fused_chunk_s0": ("fused_chunk.cu", "fused_chunk.py:518",
+                           sum(n["fused_chunk"] for n in s0_launches.values())),
+        "fused_denoise_s0": ("fused_denoise.cu", "fused_denoise.py:382",
+                             sum(n["fused_denoise"] for n in s0_launches.values())),
+        "fused_denoise_pack_s0": ("fused_denoise.cu", "fused_denoise.py:310",
+                                  sum(n["fused_denoise_pack"] for n in s0_launches.values())),
     }
     kernels = [{"name": name, "route": "cuda", "source": csrc + table[name][0],
                 "replaces": tpu + table[name][1], "launches": table[name][2], **r}
@@ -1662,6 +2001,12 @@ def main(argv=None) -> int:
                     "flash_launches": {"flagship_serving": flash_serve,
                                        "flagship_training": flash_train, "h128_training": h128_flash},
                     "flash_shapes": flash_shapes, "tensor_core_sass": tensor_cores,
+                    "resnet": {"yaml": "default_tpu.yaml", "encoder": resnet_encoder,
+                               "ms_per_replan_period": resnet_periods, "batch": RESNET_B,
+                               "launches": resnet_launches, "train": resnet_train,
+                               "other_encoders": other_encoders},
+                    "decoder_only": {"ms_per_replan_period": s0_periods, "batch": DECODER_ONLY_B,
+                                     "train_ms_per_step": s0_train_ms},
                     "gpu": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

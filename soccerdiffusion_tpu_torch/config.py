@@ -13,7 +13,8 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any
 
-__all__ = ["Config", "ModelConfig", "TrainConfig", "check_supported", "check_serving_supported"]
+__all__ = ["Config", "ModelConfig", "TrainConfig", "check_remat_image_encoder",
+           "check_serving_supported", "check_supported"]
 
 CANONICAL_JOINT_NAMES_22 = (
     "HeadPan", "HeadTilt", "LAnklePitch", "LAnkleRoll", "LElbow", "LElbowYaw", "LHipPitch",
@@ -191,11 +192,18 @@ def check_supported(cfg: ModelConfig) -> None:
     shape (at most 100 x 100) stays on the plain path. The fused stacks and
     blocks ignore ``attention_impl``, as in the JAX package.
 
-    Images: the ViT image encoder (``image_encoder_type="vit"``) with the
-    fused block on or off and exact or quick GELU. ``vit_fused_block_frames``
-    and ``vit_fused_layout`` are the TPU kernel's frame block and attention
+    Images: every image encoder of the JAX package: the ResNet18 / ResNet50
+    encoders (``models/vision.py``, with BatchNorm running statistics), the
+    Swin-T / Swin-S encoders (``models/swin.py``) and the ViT with the fused
+    block on or off and exact or quick GELU. ``vit_fused_block_frames`` and
+    ``vit_fused_layout`` are the TPU kernel's frame block and attention
     formulation; they are accepted and have no effect (the layouts compute
     the same function, and a CUDA grid needs no frame block).
+    ``remat_image_encoder`` is False, True (every encoder) or "conv_only"
+    (the ResNets only); another value raises ``ValueError``.
+
+    The decoder-only tier (every context modality off) conditions the
+    decoder on the diffusion step token alone.
 
     ``encoder_fused_stack`` and ``decoder_fused_block`` are accepted (the
     fused fwd+bwd ops of ``ops/fused_encoder_stack.py`` and
@@ -204,9 +212,6 @@ def check_supported(cfg: ModelConfig) -> None:
     ViT block) is not ported."""
     if not isinstance(cfg, ModelConfig):
         raise TypeError(f"expected soccerdiffusion_tpu_torch.config.ModelConfig, got {type(cfg)}")
-    if not (cfg.use_action_history or cfg.use_imu or cfg.use_joint_states or cfg.use_images
-            or cfg.use_gamestate):
-        raise NotImplementedError(f"the decoder-only tier (no context modality) is {_SEE}")
     if cfg.attention_impl == "ring":
         raise NotImplementedError(
             f"attention_impl='ring': sequence-parallel ring attention (parallel/) is {_SEE}")
@@ -215,16 +220,23 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.encoder_fused_block:
         raise NotImplementedError(f"encoder_fused_block: the proprioceptive fused block is {_SEE}")
     if cfg.use_images:
-        if cfg.image_encoder_type != "vit":
-            raise NotImplementedError(
-                f"image_encoder_type={cfg.image_encoder_type!r}: the ResNet / Swin image "
-                f"encoders are {_SEE}")
-        if cfg.vit_fused_gelu not in ("exact", "quick"):
+        check_remat_image_encoder(cfg.remat_image_encoder, cfg.image_encoder_type)
+        if cfg.image_encoder_type == "vit" and cfg.vit_fused_gelu not in ("exact", "quick"):
             raise NotImplementedError(f"vit_fused_gelu={cfg.vit_fused_gelu!r} is {_SEE}")
-        if cfg.remat_image_encoder:
-            raise NotImplementedError(f"remat_image_encoder (a training knob) is {_SEE}")
         if cfg.aux_cue_head:
             raise NotImplementedError(f"aux_cue_head (a training head) is {_SEE}")
+
+
+def check_remat_image_encoder(remat: bool | str, encoder_type: str) -> None:
+    """``remat_image_encoder``: False, True, or "conv_only" for the ResNets
+    (it names their conv outputs; the ViT and Swin have none)."""
+    if remat in (False, True):
+        return
+    if remat != "conv_only":
+        raise ValueError(f"unknown remat_image_encoder: {remat!r} (False, True or 'conv_only')")
+    if encoder_type not in ("resnet18", "resnet50"):
+        raise ValueError(f"remat_image_encoder='conv_only' names the conv outputs of the ResNet "
+                         f"encoders; {encoder_type!r} has none: use remat_image_encoder: true")
 
 
 def check_serving_supported(group_robots: int = 1, kv_quant: str = "none",

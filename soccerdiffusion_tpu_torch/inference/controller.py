@@ -94,7 +94,9 @@ def observe(state: ControllerState, joint_state: torch.Tensor | None = None,
 
 
 def make_controller_batch(config: ModelConfig, state: ControllerState) -> dict:
-    """The model batch dict, joints shifted into [0, 2 pi)."""
+    """The model batch dict, joints shifted into [0, 2 pi). The decoder-only
+    tier (no context modality) gets a zero-width ``joint_command`` (B, 0, 0)
+    that carries the batch size to ``encode_context``."""
     batch: dict = {}
     if config.use_action_history:
         batch["joint_command_history"] = torch.remainder(
@@ -110,6 +112,9 @@ def make_controller_batch(config: ModelConfig, state: ControllerState) -> dict:
             batch["image_data"] = state.images
     if config.use_gamestate:
         batch["game_state"] = state.game_state
+    if not batch:
+        batch["joint_command"] = state.joint_command_history.new_zeros(
+            (state.joint_command_history.shape[0], 0, 0))
     return batch
 
 

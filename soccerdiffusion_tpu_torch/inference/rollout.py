@@ -16,12 +16,18 @@ rolls their tokens into the controller; the context then runs only the
 frame-sequence encoder over the cached tokens. Without it the raw frames
 roll in, and every period re-encodes the whole frame stack.
 
+The engine serves in eval mode (``model.eval()`` for each period and for
+the zero-frame prefill, the caller's mode restored after), so the ResNets'
+BatchNorm uses its running statistics, as the JAX engine's ``train=False``
+applies do; a model left in train mode by the trainer serves the same.
+
 The plant is the JAX engine's first-order joint-tracking stub; it measures
 serving capacity, it is not a physics simulator.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 
@@ -47,6 +53,17 @@ from soccerdiffusion_tpu_torch.inference.controller import (
 from soccerdiffusion_tpu_torch.ops.fused_chunk import FusedChunkSampler
 from soccerdiffusion_tpu_torch.ops.fused_denoise import FusedDenoiser
 from soccerdiffusion_tpu_torch.ops.fused_encoder import FusedContextEncoder
+
+
+@contextlib.contextmanager
+def eval_mode(model: torch.nn.Module):
+    """``model`` in eval mode inside the block, its own mode restored after."""
+    was_training = model.training
+    model.eval()
+    try:
+        yield model
+    finally:
+        model.train(was_training)
 
 
 @dataclass(frozen=True)
@@ -153,8 +170,9 @@ class RolloutEngine:
                                            cache_image_tokens=self.cache_image_tokens)
         if controller.image_tokens is not None and prefill:
             res = self.cfg.image_resolution
-            zero = self.model.encode_image_frames(
-                torch.zeros((1, 1, res, res, 3), device=self.device))  # (1, 1, hidden)
+            with eval_mode(self.model):
+                zero = self.model.encode_image_frames(
+                    torch.zeros((1, 1, res, res, 3), device=self.device))  # (1, 1, hidden)
             controller = controller.replace(image_tokens=zero.to(torch.float32).expand_as(
                 controller.image_tokens).contiguous())
         return RolloutCarry(
@@ -250,6 +268,11 @@ class RolloutEngine:
         """Sample a chunk, play its first ``replan_every`` ticks and feed the
         observations back. ``noise`` (B, P, J) fp32 replaces the draw from
         the carry's generator. Returns the executed prefix (B, replan_every, J)."""
+        with eval_mode(self.model):
+            return self._replan_period(carry, noise)
+
+    def _replan_period(self, carry: RolloutCarry,
+                       noise: torch.Tensor | None) -> tuple[RolloutCarry, torch.Tensor]:
         if noise is None:
             b = carry.plant.positions.shape[0]
             shape = (b, self.cfg.trajectory_prediction_length, self.cfg.num_joints)

@@ -85,7 +85,8 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = Linear(hidden_dim, hidden_dim)
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
-        return x.reshape(x.shape[0], x.shape[1], self.num_heads, -1)
+        # explicit head_dim: a memory of 0 tokens (the decoder-only tier) reshapes too
+        return x.reshape(x.shape[0], x.shape[1], self.num_heads, x.shape[-1] // self.num_heads)
 
     def compute_kv(self, x_kv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Project memory to (k, v), each (B, S, H, D)."""

@@ -1,7 +1,14 @@
 """The multimodal diffusion policy (counterpart of
 ``soccerdiffusion_tpu/models/policy.py``): proprioceptive encoder stacks,
-the ViT image pathway, the game-state token and the cross-attending
-denoiser.
+the image pathway (ResNet, Swin or ViT frames, then the frame-sequence
+encoder), the game-state token and the cross-attending denoiser; with
+every context modality off (the decoder-only tier) the denoiser conditions
+on the diffusion step token alone.
+
+BatchNorm (the ResNets) follows the module's mode, as flax's ``train``
+argument does: ``model.train()`` normalises with the batch statistics and
+updates the running ones, ``model.eval()`` uses the running ones (what the
+JAX package's serving applies with ``train=False``).
 
 Parameters are float32 masters, as in the JAX package, and are cast to
 ``cfg.compute_dtype`` at use (``models/layers.py``); the inputs (frames and
@@ -54,19 +61,20 @@ class DiffusionPolicy(nn.Module):
                 E, cfg.image_encoder_type, cfg.image_sequence_encoder_type,
                 cfg.num_image_sequence_encoder_layers, cfg.image_context_length,
                 cfg.image_resolution, (cfg.vit_patch_size, cfg.vit_width, cfg.vit_depth),
-                cfg.vit_fused_block, cfg.vit_fused_gelu, fused, _DTYPES[cfg.compute_dtype], attn)
+                cfg.vit_fused_block, cfg.vit_fused_gelu, fused, _DTYPES[cfg.compute_dtype], attn,
+                cfg.image_use_final_avgpool, cfg.remat_image_encoder)
         if cfg.use_gamestate:
             self.game_state_encoder = GameStateEncoder(E)
         self.diffusion_action_generator = DiffusionActionGenerator(
             cfg.num_joints, E, cfg.num_decoder_layers, cfg.trajectory_prediction_length,
             num_heads=cfg.num_decoder_heads, fused_block=cfg.decoder_fused_block,
-            attention_impl=attn)
+            attention_impl=attn, remat=cfg.remat_decoder)
 
     @property
     def dtype(self) -> torch.dtype:
         return _DTYPES[self.config.compute_dtype]
 
-    def encode_context(self, batch: dict[str, torch.Tensor], train: bool = False) -> torch.Tensor:
+    def encode_context(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         """(B, S, hidden) context tokens in canonical order: action history,
         IMU, joint states, images, game state. The image tokens come from
         ``batch["image_tokens"]`` (the serving cache of per-frame encodings,
@@ -74,7 +82,9 @@ class DiffusionPolicy(nn.Module):
         raw uint8 frames ``batch["image_u8"]`` (B, F, H, W, 3) or
         pre-patchified (B, F, patches, P*P*3) with ``batch["image_valid"]``
         (B, F) (the ViT folds their normalisation), or from the normalised
-        frames ``batch["image_data"]``."""
+        frames ``batch["image_data"]``. The decoder-only tier returns (B, 0,
+        hidden), B from the batch's ``joint_command`` (the serving batch
+        carries a zero-width one, ``inference/controller.py``)."""
         cfg = self.config
         context = []
         if cfg.use_action_history:
@@ -95,7 +105,9 @@ class DiffusionPolicy(nn.Module):
         if cfg.use_gamestate:
             context.append(self.game_state_encoder(batch["game_state"]).to(self.dtype))
         if not context:
-            raise ValueError("no context modality enabled")
+            bsz = batch["joint_command"].shape[0]
+            return torch.zeros((bsz, 0, cfg.hidden_dim), dtype=self.dtype,
+                               device=self.step_encoding.token.device)
         return torch.cat(context, dim=1)
 
     def encode_image_frames(self, frames: torch.Tensor,

@@ -20,7 +20,10 @@ launch per layer, config ``vit_fused_block``) and
 config ``decoder_fused_block``). Without grad (serving) the encoder ops take
 their weights packed once in the compute dtype (``packed_weights``).
 ``attention_impl`` (``models/attention.py``) is the attention backend of the
-unfused layers; the fused ones ignore it, as in the JAX package."""
+unfused layers; the fused ones ignore it, as in the JAX package. ``remat``
+recomputes each unfused layer in the backward (``torch.utils.checkpoint``:
+the ViT's ``remat_image_encoder``, the decoder's ``remat_decoder``); a fused
+layer, whose op saves only its inputs, ignores it, as in the JAX package."""
 
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from soccerdiffusion_tpu_torch.models.attention import MultiHeadAttention
-from soccerdiffusion_tpu_torch.models.layers import LN_EPS, LayerNorm, Linear
+from soccerdiffusion_tpu_torch.models.layers import LN_EPS, LayerNorm, Linear, remat
 from soccerdiffusion_tpu_torch.ops.fused_decoder_layer import decoder_layer, layer_weights
 from soccerdiffusion_tpu_torch.ops.fused_encoder_stack import (
     encoder_layer_weights,
@@ -154,7 +157,7 @@ class TransformerEncoder(nn.Module):
 
     def __init__(self, hidden_dim: int, num_heads: int, num_layers: int,
                  ff_dim: int | None = None, fused_stack: bool = False, fused_block: bool = False,
-                 fused_gelu: str = "exact", attention_impl: str = "xla"):
+                 fused_gelu: str = "exact", attention_impl: str = "xla", remat: bool = False):
         super().__init__()
         if fused_stack and fused_gelu != "exact":
             raise ValueError(f"fused_stack computes exact GELU; fused_gelu={fused_gelu!r} is "
@@ -163,6 +166,7 @@ class TransformerEncoder(nn.Module):
             raise NotImplementedError(f"fused_gelu={fused_gelu!r} is not ported yet (see "
                                       "ROADMAP.md, 'H100 port')")
         self.num_heads, self.fused_stack = num_heads, fused_stack
+        self.remat = remat and not (fused_stack or fused_block)
         if fused_block and not fused_stack:
             make = lambda: FusedTransformerEncoderLayer(hidden_dim, num_heads, ff_dim, fused_gelu)
         else:
@@ -176,14 +180,15 @@ class TransformerEncoder(nn.Module):
             w = packed_weights(self, lambda: stack_weights(self.layers), x.dtype)
             return encoder_stack(x, w, self.num_heads)
         for layer in self.layers:
-            x = layer(x)
+            x = remat(layer, x) if self.remat else layer(x)
         return x
 
 
 class TransformerDecoder(nn.Module):
     def __init__(self, hidden_dim: int, num_heads: int, num_layers: int,
-                 fused_block: bool = False, attention_impl: str = "xla"):
+                 fused_block: bool = False, attention_impl: str = "xla", remat: bool = False):
         super().__init__()
+        self.remat = remat and not fused_block
         if fused_block:
             make = lambda: FusedTransformerDecoderLayer(hidden_dim, num_heads)
         else:
@@ -196,5 +201,6 @@ class TransformerDecoder(nn.Module):
     def forward(self, x: torch.Tensor, memory: torch.Tensor | None = None,
                 memory_kv: list | None = None) -> torch.Tensor:
         for i, layer in enumerate(self.layers):
-            x = layer(x, memory, memory_kv[i] if memory_kv is not None else None)
+            kv = memory_kv[i] if memory_kv is not None else None
+            x = remat(layer, x, memory, kv) if self.remat else layer(x, memory, kv)
         return x

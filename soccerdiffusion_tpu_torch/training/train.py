@@ -4,12 +4,18 @@
   python -m soccerdiffusion_tpu_torch.training.train -c config.yaml [-p ckpt_dir]
       [-o out_dir] [--dummy-data] [--packed] [--epochs N] [--steps-per-epoch N]
       [--seed S] [--metrics metrics.jsonl] [--decoder-pretraining] [--device cuda|cpu]
+      [--pretrained-weights resnet.pth]
 
 Config-or-checkpoint hyperparameters (the config wins, with warnings for
 keys that differ), the normaliser fitted on ``num_normalization_samples``
 random target chunks, a checkpoint per epoch with the hyperparameters
-embedded, and resume restoring the model, optimizer and EMA. The model
-starts from flax's default initialisers (``flax_init_params``). ``train``
+embedded, and resume restoring the model, optimizer, EMA and the
+BatchNorm running statistics (``state_dict`` buffers). The model starts
+from flax's default initialisers (``flax_init_params``); with
+``--pretrained-weights`` the ResNet image encoder's backbone is read from a
+local torchvision state dict (``utils/torchvision_weights.py``), without it
+the encoder starts from its random init and the log says so (the JAX
+trainer's outcome where ImageNet weights cannot be fetched). ``train``
 runs the loop from a ``Config`` and needs no YAML. The log reports steps/s
 (host clock, one device sync per logging window) where the JAX package
 reports its TPU MFU meter.
@@ -17,7 +23,8 @@ reports its TPU MFU meter.
 Only the synthetic dataset (``--dummy-data``, frames drawn at the config's
 ``image_resolution``) is ported: the SQLite dataset comes with
 ``WindowedDataset.from_sqlite`` (see ROADMAP.md). ``--packed`` trains from a
-``PackedDataset`` (uint8 frames, pre-patchified for the ViT);
+``PackedDataset`` (uint8 frames: whole frames for the ResNet and Swin
+encoders, pre-patchified for the ViT);
 ``boundary_oversample`` re-draws that share of each epoch's windows from
 those where a camera frame has just arrived, as the JAX trainer does.
 """
@@ -47,6 +54,7 @@ from soccerdiffusion_tpu_torch.training.trainer import (
     make_train_step,
 )
 from soccerdiffusion_tpu_torch.utils.jax_params import flax_init_params, load_jax_params
+from soccerdiffusion_tpu_torch.utils.torchvision_weights import load_imagenet_backbone
 
 logger = logging.getLogger("soccerdiffusion_tpu_torch")
 
@@ -65,6 +73,7 @@ class RunOptions:
     metrics: str | None = None
     decoder_pretraining: bool = False
     device: str = "cuda"  # the card unless the caller asks for the CPU
+    pretrained_weights: str | None = None  # a torchvision ResNet state dict (.pth)
 
 
 def parse_args(argv=None):
@@ -84,6 +93,9 @@ def parse_args(argv=None):
     parser.add_argument("--metrics", type=str, default=None, help="metrics JSONL path")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to train on (default: cuda; 'cpu' runs the plain versions)")
+    parser.add_argument("--pretrained-weights", type=str, default=None,
+                        help="local torchvision resnet18 / resnet50 state dict (.pth) for the "
+                             "ResNet image encoder's backbone")
     return parser.parse_args(argv)
 
 
@@ -150,7 +162,15 @@ def train(config: Config, opts: RunOptions, hyperparams: dict | None = None):
     normalizer = Normalizer.fit(dataset.sample_targets(tc.num_normalization_samples, seed=opts.seed))
 
     model = DiffusionPolicy(config.model)
-    model = load_jax_params(model, flax_init_params(model, opts.seed)).to(device)
+    model = load_jax_params(model, *flax_init_params(model, opts.seed))
+    m = config.model
+    if opts.pretrained_weights:
+        load_imagenet_backbone(model, opts.pretrained_weights)
+        logger.info(f"image encoder backbone initialized from {opts.pretrained_weights}")
+    elif m.use_images and m.image_encoder_type in ("resnet18", "resnet50"):
+        logger.info("no --pretrained-weights: the ResNet image encoder starts from its random "
+                    "init (the reference starts from ImageNet weights)")
+    model = model.to(device)
     optimizer = make_optimizer(model, tc.lr, total_steps, tc.weight_decay,
                                flat=tc.flat_optimizer,
                                module_lr_mults={"image_sequence_encoder": tc.image_encoder_lr_mult},
@@ -214,7 +234,7 @@ def main(argv=None):
                       packed=args.packed, epochs=args.epochs,
                       steps_per_epoch=args.steps_per_epoch, seed=args.seed,
                       metrics=args.metrics, decoder_pretraining=args.decoder_pretraining,
-                      device=args.device)
+                      device=args.device, pretrained_weights=args.pretrained_weights)
     return train(Config.from_dict(params), opts, hyperparams=params)
 
 

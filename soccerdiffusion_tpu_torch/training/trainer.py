@@ -10,6 +10,11 @@ The optimizer matches the JAX package: AdamW with betas 0.9 / 0.999, eps
 ``adamw``), its learning rate set before every update from
 ``lr_at_step`` at the number of updates taken so far, as optax counts.
 
+The step runs the model in train mode, so the ResNets' BatchNorm layers
+normalise with the batch statistics and update their running ones (float32
+buffers: not optimised, and not in the EMA, which covers the parameters as
+the JAX EMA covers ``params``).
+
 The step draws t and the noise from an explicit ``torch.Generator``;
 ``TrainStep.apply`` takes them as arguments, so tests can feed it
 numpy-made values. ``modality_dropout``, ``aux_cue_weight``,

@@ -78,7 +78,7 @@ def _serving_model(E, H, device):
                       trajectory_prediction_length=10, use_images=False,
                       compute_dtype="bfloat16", attention_impl="xla")
     model = DiffusionPolicy(cfg)
-    return cfg, load_jax_params(model, random_jax_params(model, seed=E)).to(device)
+    return cfg, load_jax_params(model, *random_jax_params(model, seed=E)).to(device)
 
 
 def denoise_fingerprints(device="cuda") -> dict:

@@ -64,22 +64,32 @@ def test_yaml_round_trips_like_jax(path):
 
 
 def test_check_supported_takes_the_flagship_and_rejects_resnet():
+    """Every shipped YAML is accepted (the ResNet ones since the ResNet / Swin
+    slice); what still raises: aux_cue_head, encoder_fused_block, "ring"
+    and the unported GELUs (NotImplementedError), and remat_image_encoder
+    "conv_only" on a ViT or Swin or any other string (ValueError)."""
     port.check_supported(port.Config.from_yaml(str(FLAGSHIP)).model)
     resnet = port.Config.from_yaml(str(FLAGSHIP.with_name("default.yaml"))).model
-    with pytest.raises(NotImplementedError, match="ResNet"):
-        port.check_supported(resnet)
+    port.check_supported(resnet)
+    port.check_supported(dataclasses.replace(resnet, remat_image_encoder="conv_only"))
     flagship = port.Config.from_yaml(str(FLAGSHIP)).model
     for kw in (dict(vit_fused_gelu="poly"), dict(vit_fused_gelu="bf16"),
-               dict(remat_image_encoder=True), dict(aux_cue_head=True),
-               dict(encoder_fused_block=True),
-               dict(use_action_history=False, use_imu=False, use_joint_states=False,
-                    use_images=False, use_gamestate=False)):
+               dict(aux_cue_head=True), dict(encoder_fused_block=True),
+               dict(attention_impl="ring", encoder_fused_stack=False,
+                    decoder_fused_block=False)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port.check_supported(dataclasses.replace(flagship, **kw))
+    for cfg, remat in ((flagship, "conv_only"),
+                       (dataclasses.replace(resnet, image_encoder_type="swin_transformer_tiny"),
+                        "conv_only"), (resnet, "everything")):
+        with pytest.raises(ValueError, match="remat_image_encoder"):
+            port.check_supported(dataclasses.replace(cfg, remat_image_encoder=remat))
+    for kw in (dict(remat_image_encoder=True),
+               dict(use_action_history=False, use_imu=False, use_joint_states=False,
+                    use_images=False, use_gamestate=False)):
+        port.check_supported(dataclasses.replace(flagship, **kw))
     port.check_supported(dataclasses.replace(flagship, vit_fused_layout="headloop",
                                              vit_fused_block=False, vit_fused_gelu="exact"))
-    with pytest.raises(TypeError):
-        port.check_supported(jax_config.Config.from_yaml(str(FLAGSHIP)).model)
 
 
 def test_chip_smoke_flagship_config_is_the_yaml():

@@ -15,12 +15,17 @@ one block or in a 2-block cluster over an odd layer count, the serving
 denoiser on the same pass at the same shapes in its eps and DDIM forms and
 its per-step sampler, and the context encoder at T = 24 / 100 / 128, patch
 1 and 2, with and without the game state, all bit-identical over two
-launches).
+launches; the decoder kernels and the pack at S=0 context tokens, the
+decoder-only tier; the ResNet18 / ResNet50 / Swin-T encoders' train and
+eval modes, running statistics and gradients on the card against the CPU
+in float64, with and without remat).
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere. JAX-free, so it runs on a
 machine without jax: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 Tolerance: max |kernel - plain| <= 2e-2 x max |plain| (both round to bf16 at
-the same points; see chip_smoke.py).
+the same points; see chip_smoke.py); the image encoders, float64 on both
+devices (cuDNN's and the CPU's convolutions sum in other orders, and in
+float32 a ReLU or max-pool near-tie may go either way), 1e-9 of scale.
 """
 
 import copy
@@ -35,6 +40,8 @@ from soccerdiffusion_tpu_torch.diffusion import make_schedule, solver_coef_table
 from soccerdiffusion_tpu_torch.models import DiffusionPolicy
 from soccerdiffusion_tpu_torch.ops.fused_chunk import FusedChunkSampler
 from soccerdiffusion_tpu_torch.ops.fused_denoise import FusedDenoiser
+from soccerdiffusion_tpu_torch.models.layers import BatchNorm
+from soccerdiffusion_tpu_torch.models.vision import make_image_encoder
 from soccerdiffusion_tpu_torch.ops.fused_encoder import FusedContextEncoder
 from soccerdiffusion_tpu_torch.utils.jax_params import load_jax_params, random_jax_params
 
@@ -66,7 +73,7 @@ def device():
 def setup(variant, device, b=13):
     cfg = dataclasses.replace(CFG, **variant)
     model = DiffusionPolicy(cfg)
-    model = load_jax_params(model, random_jax_params(model, seed=2)).to(device)
+    model = load_jax_params(model, *random_jax_params(model, seed=2)).to(device)
     rng = np.random.default_rng(0)
     t = lambda a: torch.from_numpy(a).to(device)
     batch = {
@@ -127,7 +134,7 @@ def training_weights(device):
     cfg = dataclasses.replace(CFG, num_action_history_encoder_layers=2, compute_dtype="bfloat16",
                               encoder_fused_stack=True, decoder_fused_block=True)
     model = DiffusionPolicy(cfg)
-    model = load_jax_params(model, random_jax_params(model, seed=4)).to(device)
+    model = load_jax_params(model, *random_jax_params(model, seed=4)).to(device)
     from soccerdiffusion_tpu_torch.ops.fused_decoder_layer import layer_weights
     from soccerdiffusion_tpu_torch.ops.fused_encoder_stack import stack_weights
 
@@ -551,7 +558,7 @@ def serving_model(device, head_dim, **changes):
     cfg = dataclasses.replace(CFG, hidden_dim=E, num_decoder_heads=H, num_joints=20,
                               trajectory_prediction_length=10, **changes)
     model = DiffusionPolicy(cfg)
-    return cfg, load_jax_params(model, random_jax_params(model, seed=head_dim)).to(device)
+    return cfg, load_jax_params(model, *random_jax_params(model, seed=head_dim)).to(device)
 
 
 def chunk_inputs(cfg, model, device, b, S, solver, seed):
@@ -566,7 +573,7 @@ def chunk_inputs(cfg, model, device, b, S, solver, seed):
 @pytest.mark.parametrize("b", [1, 13, 133])
 @pytest.mark.parametrize("solver", ["ddim", "dpmpp"])
 @pytest.mark.parametrize("head_dim", [32, 64])
-@pytest.mark.parametrize("S", [17, 301, 311, 312])
+@pytest.mark.parametrize("S", [0, 17, 301, 311, 312])
 def test_chunk_kernel_matches_plain_version(S, head_dim, solver, b, device):
     cfg, model = serving_model(device, head_dim)
     chunk, args = chunk_inputs(cfg, model, device, b, S, solver, seed=S + b)
@@ -686,7 +693,7 @@ def denoise_inputs(cfg, model, device, b, S, seed):
 
 @pytest.mark.parametrize("b", [1, 13])
 @pytest.mark.parametrize("head_dim", [32, 64])
-@pytest.mark.parametrize("S", [17, 31, 301, 311, 312])
+@pytest.mark.parametrize("S", [0, 17, 31, 301, 311, 312])
 def test_pack_kernel_is_the_plain_pack(S, head_dim, b, device):
     cfg, model = serving_model(device, head_dim)
     rng = np.random.default_rng(S * b)
@@ -704,7 +711,7 @@ def test_pack_kernel_is_the_plain_pack(S, head_dim, b, device):
 @pytest.mark.parametrize("coefs", [None, DDIM_COEFS], ids=["eps", "ddim"])
 @pytest.mark.parametrize("b", [1, 13, 133])
 @pytest.mark.parametrize("head_dim", [32, 64])
-@pytest.mark.parametrize("S", [17, 301, 311, 312])
+@pytest.mark.parametrize("S", [0, 17, 301, 311, 312])
 def test_denoise_kernel_matches_plain_version(S, head_dim, b, coefs, device):
     cfg, model = serving_model(device, head_dim)
     den, packed, noisy, stk, stv = denoise_inputs(cfg, model, device, b, S, seed=S + b)
@@ -785,3 +792,35 @@ def test_denoise_per_step_sampler_matches_plain_version(head_dim, device):
                                stk[4, l, h * D:(h + 1) * D].expand(13, D))
             assert torch.equal(packed.kv[:, l, h, 1, vfrag(S, d, D)],
                                stv[4, l, h * D:(h + 1) * D].expand(13, D))
+
+
+# ------------------------------------------------ the ResNet / Swin encoders
+
+@pytest.mark.parametrize("kind,remat", [("resnet18", False), ("resnet18", "conv_only"),
+                                        ("resnet50", True), ("swin_transformer_tiny", True)])
+def test_image_encoders_on_the_card_match_the_cpu(kind, remat, device):
+    """Train mode (output, input and weight gradients, the updated running
+    statistics) and then eval mode, float64 on the card against the CPU."""
+    res = 224 if kind.startswith("swin") else 64
+    cpu = make_image_encoder(kind, 32, res, use_final_avgpool=False, dtype=torch.float64,
+                             remat=remat).double()
+    load_jax_params(cpu, *random_jax_params(cpu, seed=3))
+    gpu = copy.deepcopy(cpu).to(device)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(2, res, res, 3)))
+    dy = torch.from_numpy(rng.normal(size=(2, 32)))
+    results = []
+    for enc, dev in ((cpu, "cpu"), (gpu, device)):
+        enc.train()
+        xt = x.detach().to(dev).requires_grad_(True)  # a leaf on each device
+        out = enc(xt)
+        (out * dy.to(dev)).sum().backward()
+        enc.eval()
+        with torch.no_grad():
+            evaluated = enc(x.to(dev))
+        stats = [t for m in enc.modules() if isinstance(m, BatchNorm) for t in (m.mean, m.var)]
+        results.append([out, xt.grad, evaluated, *[p.grad for p in enc.parameters()], *stats])
+    for got, ref in zip(results[1], results[0]):
+        got, ref = got.detach().cpu(), ref.detach()
+        assert (got - ref).abs().max().item() <= 1e-9 * max(ref.abs().max().item(), 1e-30)
+

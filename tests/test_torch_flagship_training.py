@@ -127,7 +127,7 @@ def test_flax_init_covers_every_flagship_leaf():
 
     cfg = Config.from_yaml(str(Path(train.__file__).parent / "configs" / "vit_flagship.yaml"))
     model = DiffusionPolicy(cfg.model)
-    load_jax_params(model, flax_init_params(model, 0))
+    load_jax_params(model, *flax_init_params(model, 0))
     vit = model.image_sequence_encoder.image_encoder
     assert tuple(vit.patch_kernel.shape) == (28 * 28 * 3, 256)
     std = vit.patch_kernel.std().item()

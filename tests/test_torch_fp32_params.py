@@ -32,7 +32,7 @@ BF16 = port_config(SMALL, compute_dtype="bfloat16")
 
 def models():
     model = DiffusionPolicy(BF16)
-    model = load_jax_params(model, random_jax_params(model, seed=5))
+    model = load_jax_params(model, *random_jax_params(model, seed=5))
     rounded = copy.deepcopy(model)
     with torch.no_grad():
         for p in rounded.parameters():

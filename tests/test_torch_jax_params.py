@@ -62,7 +62,8 @@ def make_batch(cfg, b, rng):
 
 
 def build_pair(cfg, b=4, seed=0):
-    """(jax model, jax variables, port model with the same params, numpy batch, rng)."""
+    """(jax model, jax variables, port model with the same params and
+    batch_stats, numpy batch, rng)."""
     rng = np.random.default_rng(seed)
     batch = make_batch(cfg, b, rng)
     jmodel = JaxPolicy(cfg)
@@ -71,7 +72,9 @@ def build_pair(cfg, b=4, seed=0):
         jnp.zeros((b, cfg.trajectory_prediction_length, cfg.num_joints)),
         jnp.zeros((b,), jnp.int32))
     params = jax.tree.map(np.asarray, variables["params"])
-    return jmodel, variables, load_jax_params(DiffusionPolicy(port_config(cfg)), params), batch, rng
+    stats = jax.tree.map(np.asarray, variables.get("batch_stats", {}))
+    model = load_jax_params(DiffusionPolicy(port_config(cfg)), params, stats)
+    return jmodel, variables, model, batch, rng
 
 
 def to_jax(batch):
@@ -92,9 +95,9 @@ def test_random_params_have_the_flax_layout():
     """random_jax_params (the chip smoke's init) matches the tree JAX builds."""
     _, variables, model, _, _ = build_pair(SMALL)
     want = {k: v.shape for k, v in _flatten(jax.tree.map(np.asarray, variables["params"])).items()}
-    tree = random_jax_params(model, seed=3)
-    assert {k: v.shape for k, v in _flatten(tree).items()} == want
-    load_jax_params(DiffusionPolicy(port_config(SMALL)), tree)
+    tree, stats = random_jax_params(model, seed=3)
+    assert {k: v.shape for k, v in _flatten(tree).items()} == want and stats == {}
+    load_jax_params(DiffusionPolicy(port_config(SMALL)), tree, stats)
 
 
 def test_wrong_shape_raises():
@@ -139,7 +142,13 @@ def test_unfused_forward_matches_jax(patch):
 def test_non_xla_attention_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DiffusionPolicy(port_config(SMALL, attention_impl="ring"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # ResNet18, the default encoder
-        DiffusionPolicy(port_config(SMALL, use_images=True))
+    # ResNet18, the default encoder, builds and takes the JAX params and batch_stats
+    cfg = ModelConfig(**{**SMALL.__dict__, "use_images": True, "image_resolution": 64,
+                         "image_context_length": 2})
+    _, variables, model, _, _ = build_pair(cfg, b=2)
+    assert variables["batch_stats"] and len(_flatten(variables["params"])) == sum(
+        1 for _ in model.parameters())
+    with pytest.raises(KeyError, match="batch_stats"):
+        load_jax_params(DiffusionPolicy(port_config(cfg)), variables["params"])
     with pytest.raises(TypeError, match="soccerdiffusion_tpu_torch.config.ModelConfig"):
         DiffusionPolicy(SMALL)  # the JAX package's config

@@ -94,9 +94,20 @@ def test_frames_then_sequence_equals_full():
 
 
 def test_unported_inputs_raise():
+    """An unknown mode or encoder type raises ValueError, and so do
+    pre-patchified frames for a non-ViT encoder; the four non-ViT types
+    build (the ResNets and Swin are ported)."""
     _, _, enc, x = seq_pair("none", False, np.random.default_rng(4))
     with pytest.raises(ValueError, match="unknown mode"):
         enc(torch.from_numpy(x), mode="tokens")
-    for kind in ("resnet18", "resnet50", "swin_transformer_tiny"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_image_encoder(kind, HIDDEN, RES)
+    with pytest.raises(ValueError, match="unknown image encoder type"):
+        make_image_encoder("vgg16", HIDDEN, RES)
+    built = {kind: make_image_encoder(kind, HIDDEN, 224 if kind.startswith("swin") else RES)
+             for kind in ("resnet18", "resnet50", "swin_transformer_tiny",
+                          "swin_transformer_small")}
+    assert [type(e).__name__ for e in built.values()] == ["ResNetImageEncoder"] * 2 + [
+        "SwinImageEncoder"] * 2
+    resnet = ImageSequenceEncoder(HIDDEN, "resnet18", "none", 1, FRAMES, RES)
+    with pytest.raises(ValueError, match="ViT-only"):
+        resnet(torch.zeros((1, FRAMES, 16, PATCH * PATCH * 3), dtype=torch.uint8),
+               valid=torch.ones((1, FRAMES)))
