@@ -7,7 +7,8 @@
    and reads the library's SASS (cuobjdump -sass): every instance of the
    ViT-block, encoder-stack, decoder-layer, tdot, chunk-sampler, denoiser
    and context-encoder kernels and every bf16 instance of the flash kernels
-   must hold tensor-core instructions (HMMA / HGMMA); the fp32 flash
+   must hold tensor-core instructions (HMMA / HGMMA), the chunk sampler's
+   and the denoiser's head_dim-128 instances among them; the fp32 flash
    instances are logged as scalar.
 3. Holds each serving kernel against its plain PyTorch version on the card
    at the h128 serving path's shapes (S=301 context tokens, 30 DDIM steps,
@@ -93,7 +94,15 @@
    and the denoiser against their plain versions at S=0 context tokens
    (B=64 and 256), its two serving lanes at B=64 (exact launches) and 20
    training steps.
-11. Prints one JSON line of per-kernel results, then as its last line
+11. larger_model.yaml's model at full width in bf16 (hidden 512, 4 decoder
+   heads of 128, 8 decoder layers, 4-layer stacks, ResNet18 at 224 px,
+   S=311), flax's seeded initial weights: the chunk sampler, the K/V pack
+   and the denoiser at head_dim 128 against their plain versions at B=64;
+   its three serving lanes at B=64 (cached 30-step DDIM and raw frames
+   through the chunk sampler, the distilled student through the denoiser
+   and 8 pack launches; exact launches per period); 2 periods card vs CPU
+   of the chunk lane and of the distilled lane at B=4.
+12. Prints one JSON line of per-kernel results, then as its last line
    {"ok": true, "device": {...}}. Where one torch.nn call computes the
    same function as a kernel (the encoder-stack, ViT-block and
    decoder-layer forwards; one torch.autograd.grad through the same layers
@@ -106,18 +115,25 @@ Exits non-zero, without the last line, when CUDA is unavailable or any
 phase fails. Imports nothing of JAX or of the JAX package.
 
     python3 chip_smoke.py --profile-training [--flagship [--flash]] [--profile-out FILE]
-    python3 chip_smoke.py --profile-serving [--flash | --resnet] [--profile-out FILE]
+    python3 chip_smoke.py --profile-serving [--flash | --resnet | --larger] [--profile-out FILE]
     python3 chip_smoke.py --profile-training --resnet [--profile-out FILE]
+    python3 chip_smoke.py --bisect-resnet-bf16
 
 build the kernels and instead trace, with torch.profiler, the h128 B=64
 training step (fused knobs on, then off), with --flagship the flagship's
 B=64 training step (packed data; with --flash the flash flagship's), or 3
 replan periods of each flagship serving lane at B=64 (with --flash the
 flash flagship's cached ddim30 lane; with --resnet default_tpu.yaml's
-three lanes; --profile-training --resnet its B=64 training step): per step or period the host wall
-clock, the device busy time (the union of the device ops' intervals), the
+three lanes, with --larger larger_model.yaml's; --profile-training
+--resnet its B=64 training step): per step or period the host wall clock,
+the device busy time (the union of the device ops' intervals), the
 device's idle share, both taken from the same trace, and the largest device
-ops. FILE receives the full tables. None prints the ok line.
+ops. FILE receives the full tables. --bisect-resnet-bf16 measures, without
+a gate, default_tpu.yaml's bf16 training steps card vs CPU on seeded noise
+frames and on the dummy frames, then holds the pieces of its ResNet18 (the
+stem convolution, BatchNorm, max pool, a residual block, the whole
+encoder) in bf16 on the card and on the CPU each against float64
+(bisect_resnet_bf16). None prints the ok line.
 """
 
 from __future__ import annotations
@@ -193,6 +209,7 @@ TENSOR_CORE_KERNELS = (
     ("vit_block_fwd_kernel", ""), ("vit_block_bwd_kernel", ""), ("encoder_stack_fwd_kernel", ""),
     ("encoder_stack_bwd_kernel", ""), ("tdot_kernel", ""), ("decoder_layer_fwd_kernel", ""),
     ("decoder_layer_bwd_kernel", ""), ("fused_chunk_kernel", ""), ("fused_denoise_kernel", ""),
+    ("fused_chunk_kernel", "ILi128E"), ("fused_denoise_kernel", "ILi128E"),
     ("fused_encoder_kernel", ""), ("flash_fwd_kernel", "__nv_bfloat16"),
     ("flash_bwd_dq_kernel", "__nv_bfloat16"), ("flash_bwd_dkdv_kernel", "__nv_bfloat16"))
 # kernel instances that stay scalar fp32 FMAs (logged with their counts)
@@ -947,12 +964,13 @@ def training_path_phase():
     return launches, {"fused": ms_fused, "unfused": ms_plain, "unfused_pallas": ms_flash}, flash
 
 
-def training_reference_phase(device, cfg, batches, seed):
+def training_reference_phase(device, cfg, batches, seed, gate=True) -> dict:
     """The kernel path's training steps on the card against the same steps of
     the plain versions on the CPU, one per batch of ``batches`` (dicts of CPU
     tensors with the target ``joint_command``), from the same init, t and
     noise: the losses, the update norm and the BatchNorm running
-    statistics."""
+    statistics, each against its tolerance; raises past one unless ``gate``
+    is False (a measurement, not a check). Returns the measures."""
     from soccerdiffusion_tpu_torch.data import Normalizer
     from soccerdiffusion_tpu_torch.diffusion import make_schedule
     from soccerdiffusion_tpu_torch.models import DiffusionPolicy
@@ -978,9 +996,10 @@ def training_reference_phase(device, cfg, batches, seed):
             metrics = step.apply(state, {k: on(v) for k, v in batch.items()}, on(t), on(noise))
             losses.append(metrics["loss"].item())
     (gm, _, _, gl), (cm, _, _, cl) = runs[device], runs["cpu"]
-    ok = True
+    ok, loss_rel = True, []
     for i, (lg, lc) in enumerate(zip(gl, cl)):
         rel = abs(lg - lc) / abs(lc)
+        loss_rel.append(rel)
         ok &= rel <= STEP_LOSS_TOL
         log(f"training step {i}: loss on {device} (kernels) {lg:.6f}, on cpu (plain versions) "
             f"{lc:.6f}, relative difference {rel:.3e} (tol {STEP_LOSS_TOL})")
@@ -1007,8 +1026,9 @@ def training_reference_phase(device, cfg, batches, seed):
     if any(n.endswith((".mean", ".var")) for n in cpu_buffers):
         log(f"after {len(batches)} steps: BatchNorm running statistics, card vs cpu: max "
             f"|difference| / max|cpu| = {worst:.3e} (tol {TRAIN_TOL})")
-    if not ok:
+    if gate and not ok:
         raise AssertionError("the kernel training path disagrees with the plain path")
+    return {"loss_rel": loss_rel, "update_norm": upd, "running_stats_rel": worst, "within": ok}
 
 
 def h128_reference_batches(b=8, steps=3):
@@ -1593,6 +1613,97 @@ def reference_batches(config, b=2, steps=3):
     return [to_tensors(batch) for batch in itertools.islice(dataset.batches(b, seed=0), steps)]
 
 
+def noise_frame_batches(config, b=2, steps=3, seed=3):
+    """reference_batches with every frame's pixels replaced by seeded uint8
+    noise (the dummy frames hold 4 distinct pixel values, whose ReLU and
+    max-pool ties rounding may break either way), as
+    tests/test_torch_image_configs.py:packed_batches does."""
+    rng = np.random.default_rng(seed)
+    batches = reference_batches(config, b, steps)
+    for batch in batches:
+        batch["image_u8"] = torch.from_numpy(
+            rng.integers(0, 256, tuple(batch["image_u8"].shape), dtype=np.uint8))
+    return batches
+
+
+def bisect_resnet_bf16(device, frames=16, seed=21) -> dict:
+    """Where the bf16 ResNet step departs between the card and the CPU: the
+    pieces of default_tpu.yaml's ResNet18 (train mode, as in the step), each
+    forward and backward in bf16 on the card and on the CPU against the same
+    module in float64 on the CPU (the float32 masters cast at use, as in
+    bf16), on seeded uint8 noise frames normalised as the model's encoder
+    sees them: the stem convolution, its BatchNorm (float32 statistics and
+    casts), the stem's max pool, one residual block (layer2_0: strided, with
+    the downsample skip) and the whole per-frame encoder. Each piece's input
+    is the float64 pipeline's, rounded to bf16 once, so that only the piece
+    differs; the output gradient is seeded normal noise; the running
+    statistics are restored after each call. Per piece and side: max |side
+    - float64| / max |float64| of the output, of the input gradient and
+    (the worst) of the weight gradients; card vs CPU beside."""
+    from torch.nn import functional as F
+
+    from soccerdiffusion_tpu_torch.data.pipeline import device_normalize_images
+
+    cpu_enc = build_model(yaml_config("default_tpu.yaml").model, "cpu", seed=4)
+    cpu_enc = cpu_enc.image_sequence_encoder.image_encoder.train()
+    card_enc = copy.deepcopy(cpu_enc).to(device)
+    rng = np.random.default_rng(seed)
+    u8 = torch.from_numpy(rng.integers(0, 256, (frames, 224, 224, 3), dtype=np.uint8))
+    x64 = device_normalize_images(u8, torch.ones(frames)).double()
+    stem_pool = lambda x: F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+
+    def whole(enc):
+        def fn(x):
+            enc.dtype = x.dtype  # the encoder casts its input to its dtype
+            return enc(x)
+        return fn
+
+    def pieces(enc):  # name -> (function, the modules whose weights it holds)
+        return {"stem conv": (enc.conv1, [enc.conv1]), "stem BatchNorm": (enc.bn1, [enc.bn1]),
+                "stem max pool": (stem_pool, []),
+                "residual block layer2_0": (enc.layer2_0, [enc.layer2_0]),
+                "per-frame encoder": (whole(enc), [enc])}
+
+    saved = copy.deepcopy(cpu_enc.state_dict())
+    with torch.no_grad():  # each piece's float64 input: the float64 pipeline up to it
+        c1 = cpu_enc.conv1(x64)
+        b1 = F.relu(cpu_enc.bn1(c1))
+        inputs = {"stem conv": x64, "stem BatchNorm": c1, "stem max pool": b1,
+                  "residual block layer2_0": cpu_enc.layer1_1(cpu_enc.layer1_0(stem_pool(b1))),
+                  "per-frame encoder": x64}
+    cpu_enc.load_state_dict(saved)
+    err = lambda got, want: ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+    out = {}
+    for name, x in inputs.items():
+        x = x.to(torch.bfloat16).double()  # bf16-representable
+        results = {}
+        for side, enc, dev, dtype in (("float64", cpu_enc, "cpu", torch.float64),
+                                      ("cpu", cpu_enc, "cpu", torch.bfloat16),
+                                      ("card", card_enc, device, torch.bfloat16)):
+            fn, mods = pieces(enc)[name]
+            params = [p for m in mods for p in m.parameters()]
+            state = copy.deepcopy(enc.state_dict())
+            xi = x.to(dev, dtype).requires_grad_(True)
+            y = fn(xi)
+            dy = torch.from_numpy(np.random.default_rng(seed + 1).normal(
+                size=tuple(y.shape))).to(dev, y.dtype)
+            grads = torch.autograd.grad(y, [xi] + params, dy)
+            enc.load_state_dict(state)  # the running statistics as they were
+            results[side] = [t.detach().double().cpu() for t in (y, *grads)]
+        ref, row = results["float64"], {}
+        for side in ("cpu", "card"):
+            got = results[side]
+            row[side] = {"output": err(got[0], ref[0]), "input_grad": err(got[1], ref[1]),
+                         "weight_grads": max((err(g, r) for g, r in zip(got[2:], ref[2:])),
+                                             default=0.0)}
+        row["card_vs_cpu"] = {"output": err(results["card"][0], results["cpu"][0]),
+                              "input_grad": err(results["card"][1], results["cpu"][1])}
+        log(f"bf16 {name}: vs float64 on the cpu: cpu {row['cpu']}, card {row['card']}; "
+            f"card vs cpu {row['card_vs_cpu']}")
+        out[name] = row
+    return out
+
+
 def encoders_reference_phase(device) -> dict:
     """ResNet50 and Swin-T per-frame forwards at 224 px (seeded random
     params and BatchNorm statistics, eval mode): float32 on the card
@@ -1666,6 +1777,62 @@ def decoder_only_phase(device) -> tuple[dict, dict, dict, float]:
     log(f"decoder-only training (train.py, decoder_only.yaml in bf16, synthetic data, "
         f"B={TRAIN_BATCH}, {TRAIN_STEPS} steps): {ms:.3f} ms/step; logged losses {losses}")
     return results, launches, periods, ms
+
+
+# ------------------------------------------------------- larger_model
+
+# larger_model.yaml's serving lanes at LARGER_B robots: the decoder kernels'
+# head_dim-128 instances (hidden 512, 4 heads of 128, 8 decoder layers): the
+# chunk sampler, or the distilled denoiser and its K/V pack (a launch per
+# decoder layer: 8); no fused encoder (an image config takes the model's
+# context encoder)
+LARGER_B = 64
+LARGER_LANES = {
+    "ddim30": (dict(fused="chunk"), {"fused_chunk": 1}),
+    "ddim30_raw_frames": (dict(fused="chunk", cache_image_tokens=False), {"fused_chunk": 1}),
+    "distilled1": (dict(distilled=True, fused=True), {"fused_denoise": 1,
+                                                      "fused_denoise_pack": 8}),
+}
+
+
+def larger_config():
+    """larger_model.yaml's model in bf16 (the YAML serves in the compute
+    dtype it is given; the decoder kernels take bf16)."""
+    return dataclasses.replace(yaml_config("larger_model.yaml").model, compute_dtype="bfloat16")
+
+
+def larger_model(device, seed=5):
+    """larger_model.yaml's policy with flax's seeded initial variables
+    (``flax_init_params``: the random ResNet18 init the YAML starts from)."""
+    from soccerdiffusion_tpu_torch.models import DiffusionPolicy
+    from soccerdiffusion_tpu_torch.utils.jax_params import flax_init_params, load_jax_params
+
+    model = DiffusionPolicy(larger_config())
+    return load_jax_params(model, *flax_init_params(model, seed)).to(device).eval()
+
+
+def larger_model_phase(device) -> tuple[dict, dict, dict]:
+    """larger_model.yaml at full width (``larger_model``'s weights): the
+    chunk sampler, the K/V pack and the denoiser at head_dim 128 against
+    their plain versions at LARGER_B robots on the context of a random batch
+    with cached image tokens; the three serving lanes at LARGER_B with exact
+    launches per period; 2 periods card vs CPU of the chunk lane and of the
+    distilled lane."""
+    model = larger_model(device)
+    cfg = model.config
+    rng = np.random.default_rng(1100)
+    with torch.no_grad():
+        batch = random_batch(cfg, LARGER_B, device, rng)
+        tokens = rng.normal(size=(LARGER_B, cfg.image_context_length, cfg.hidden_dim))
+        batch["image_tokens"] = torch.from_numpy(tokens.astype(np.float32)).to(device)
+        context = model.encode_context(batch)
+        noise = torch.from_numpy(rng.normal(size=(LARGER_B, 10, 20)).astype(np.float32)).to(device)
+        r_chunk, r_den, r_pack = decoder_checks(model, context, noise, device, LARGER_B, "_hd128")
+    launches, periods = lanes_phase(model, device, LARGER_LANES, LARGER_B, "larger_model")
+    for kw in (dict(fused="chunk"), dict(distilled=True, fused=True)):
+        reference_phase(cfg, model, device, b=4, fused_encoder=False, **kw)
+    return ({"fused_chunk_hd128": r_chunk, "fused_denoise_hd128": r_den,
+             "fused_denoise_pack_hd128": r_pack}, launches, periods)
 
 
 def sass_phase() -> dict:
@@ -1749,11 +1916,15 @@ def trace(label, run, steps, out):
             f.write("\n")
 
 
-def profile_serving(device, out, periods=3, flash=False, resnet=False):
+def profile_serving(device, out, periods=3, flash=False, resnet=False, larger=False):
     """A trace of ``periods`` replan periods of each flagship lane at
     B=FLAG_B, or (``flash``) of the flash flagship's cached ddim30 lane, or
-    (``resnet``) of each default_tpu.yaml lane at RESNET_B."""
-    if resnet:
+    (``resnet``) of each default_tpu.yaml lane at RESNET_B, or (``larger``)
+    of each larger_model.yaml lane at LARGER_B."""
+    if larger:
+        model = larger_model(device)
+        lanes = {lane: kw for lane, (kw, _) in LARGER_LANES.items()}
+    elif resnet:
         model = build_model(yaml_config("default_tpu.yaml").model, device, seed=4)
         lanes = {lane: kw for lane, (kw, _) in RESNET_LANES.items()}
     elif flash:
@@ -1763,7 +1934,7 @@ def profile_serving(device, out, periods=3, flash=False, resnet=False):
         model = build_model(flagship_config(), device, seed=3)
         lanes = {lane: kw for lane, (kw, _) in FLAG_LANES.items()}
     for lane, kw in lanes.items():
-        b = RESNET_B if resnet else FLAG_B
+        b = LARGER_B if larger else RESNET_B if resnet else FLAG_B
         eng = engine(model, model.config, device, fused_encoder=False, **kw)
         carry = [eng.init(b, torch.Generator(device=device).manual_seed(0))]
 
@@ -1771,8 +1942,8 @@ def profile_serving(device, out, periods=3, flash=False, resnet=False):
             carry[0] = eng.replan_period(carry[0])[0]
 
         period()  # warm-up
-        trace(f"{'ResNet' if resnet else 'flagship'} lane {lane}, B={b}, replan periods", period,
-              periods, out)
+        name = "larger_model" if larger else "ResNet" if resnet else "flagship"
+        trace(f"{name} lane {lane}, B={b}, replan periods", period, periods, out)
 
 
 def profile_training(config, label, out, packed=False, steps=5, warm=5):
@@ -1821,6 +1992,13 @@ def main(argv=None) -> int:
     parser.add_argument("--resnet", action="store_true",
                         help="with --profile-training or --profile-serving: default_tpu.yaml's "
                              "ResNet18 model (training step at B=64, serving lanes at B=64)")
+    parser.add_argument("--larger", action="store_true",
+                        help="with --profile-serving: larger_model.yaml's serving lanes at B=64")
+    parser.add_argument("--bisect-resnet-bf16", action="store_true",
+                        help="instead of the smoke run: default_tpu.yaml's bf16 training steps "
+                             "card vs CPU on noise and on dummy frames (measured, not gated), "
+                             "then its ResNet18's pieces in bf16, card and CPU each against "
+                             "float64")
     parser.add_argument("--profile-out", default=None, help="file for the full profiler tables")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1845,6 +2023,13 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(line.strip(), file=sys.stderr)
 
+    if args.bisect_resnet_bf16:
+        config = yaml_config("default_tpu.yaml")  # bf16, "conv_only"
+        step = {frames: training_reference_phase(device, config.model, batches, 14, gate=False)
+                for frames, batches in (("noise", noise_frame_batches(config)),
+                                        ("dummy", reference_batches(config)))}
+        log(json.dumps({"bf16_steps_card_vs_cpu": step, "pieces": bisect_resnet_bf16(device)}))
+        return 0
     if args.profile_training or args.profile_serving:
         if args.profile_training and args.resnet:
             profile_training(yaml_config("default_tpu.yaml", batch_size=RESNET_TRAIN_B),
@@ -1862,7 +2047,8 @@ def main(argv=None) -> int:
                 profile_training(train_config(fused), "fused" if fused else "unfused",
                                  args.profile_out)
         if args.profile_serving:
-            profile_serving(device, args.profile_out, flash=args.flash, resnet=args.resnet)
+            profile_serving(device, args.profile_out, flash=args.flash, resnet=args.resnet,
+                            larger=args.larger)
         return 0
     tensor_cores = sass_phase()
     cfg = bench_config()
@@ -1913,6 +2099,10 @@ def main(argv=None) -> int:
         yaml_config("default_tpu.yaml").model, compute_dtype="float32"),
         reference_batches(yaml_config("default_tpu.yaml")), 14)
     other_encoders = encoders_reference_phase(device)
+    # larger_model.yaml: the decoder kernels' head_dim-128 instances
+    larger_results, larger_launches, larger_periods = larger_model_phase(device)
+    results.update(larger_results)
+    torch.cuda.empty_cache()
     s0_results, s0_launches, s0_periods, s0_train_ms = decoder_only_phase(device)
     results.update(s0_results)
 
@@ -1976,6 +2166,14 @@ def main(argv=None) -> int:
         "fused_denoise_pack_resnet": ("fused_denoise.cu", "fused_denoise.py:310",
                                       sum(n["fused_denoise_pack"]
                                           for n in resnet_launches.values())),
+        # larger_model.yaml's lanes: the decoder kernels at head_dim 128, S=311
+        "fused_chunk_hd128": ("fused_chunk.cu", "fused_chunk.py:518",
+                              sum(n["fused_chunk"] for n in larger_launches.values())),
+        "fused_denoise_hd128": ("fused_denoise.cu", "fused_denoise.py:382",
+                                sum(n["fused_denoise"] for n in larger_launches.values())),
+        "fused_denoise_pack_hd128": ("fused_denoise.cu", "fused_denoise.py:310",
+                                     sum(n["fused_denoise_pack"]
+                                         for n in larger_launches.values())),
         # the decoder-only tier's lanes: the decoder kernels at S=0 context tokens
         "fused_chunk_s0": ("fused_chunk.cu", "fused_chunk.py:518",
                            sum(n["fused_chunk"] for n in s0_launches.values())),
@@ -2005,6 +2203,9 @@ def main(argv=None) -> int:
                                "ms_per_replan_period": resnet_periods, "batch": RESNET_B,
                                "launches": resnet_launches, "train": resnet_train,
                                "other_encoders": other_encoders},
+                    "larger_model": {"yaml": "larger_model.yaml",
+                                     "ms_per_replan_period": larger_periods, "batch": LARGER_B,
+                                     "launches": larger_launches},
                     "decoder_only": {"ms_per_replan_period": s0_periods, "batch": DECODER_ONLY_B,
                                      "train_ms_per_step": s0_train_ms},
                     "gpu": smi}))

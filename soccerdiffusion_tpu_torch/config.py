@@ -10,6 +10,7 @@ ROADMAP.md lists when each comes.
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -237,6 +238,19 @@ def check_remat_image_encoder(remat: bool | str, encoder_type: str) -> None:
     if encoder_type not in ("resnet18", "resnet50"):
         raise ValueError(f"remat_image_encoder='conv_only' names the conv outputs of the ResNet "
                          f"encoders; {encoder_type!r} has none: use remat_image_encoder: true")
+
+
+def check_training_supported(tc: TrainConfig) -> None:
+    """Raise ``NotImplementedError`` for a training setting outside the
+    ported slices: ``mesh_shape`` over more than one device (the JAX
+    trainer builds its data / model mesh from it; the port trains on one
+    card until ``parallel/`` is ported). ``{}`` and axes of size 1 train on
+    one device."""
+    devices = math.prod(tc.mesh_shape.values())
+    if devices != 1:
+        raise NotImplementedError(
+            f"train.mesh_shape={tc.mesh_shape!r} asks for {devices} devices: multi-device "
+            f"training (parallel/) is {_SEE}; use {{}} or axes of size 1")
 
 
 def check_serving_supported(group_robots: int = 1, kv_quant: str = "none",

@@ -18,6 +18,24 @@
 // serving weights, transposed (out, in), are read from L2 by every block.
 // A robot runs on one block of 16 warps (kPassThreads), two 8-warp blocks
 // an SM, or a cluster of two blocks that split its heads (CS = 2).
+//
+// Head_dim 128 (hidden 512: the larger_model configuration, kWideHead) has a
+// plan of its own, since the one above needs ~438 KB there (one (layer,
+// head) K or V unit is 80 KB at Sp = 320; the 8 layers' LayerNorm
+// parameters and biases 126 KB; the attention partials of 16 warps 80 KB),
+// against the 227 KB a block has:
+//   * 8 warps a robot (kWideThreads), so that a thread has up to 255
+//     registers: an attention warp's q fragments and D = 128 output
+//     accumulators take 96, rows_product<16>'s weight loads 64;
+//   * no staged parameters: the LayerNorms and the products' epilogues read
+//     the layer's parameters and biases from global memory (L2), where they
+//     are used;
+//   * the cross-attention streams K and V in 32-key chunks (8 KB each, one
+//     bulk copy) into a ring of kChunkRing buffers: a head's whole K is in
+//     flight before its scores, and its first V chunks behind it
+//     (KvStream<D, true>, chunk_cross_attention on it).
+// Shared memory at P = 10, S = 311 (pass_smem_bytes): 201 KiB a robot, 222
+// KiB a block of a 2-block cluster (the chunk sampler; the denoiser 2 KiB less).
 #pragma once
 
 #include "encoder_layer.cuh"
@@ -48,7 +66,7 @@ struct PassArgs {
   const bf16* fc_t;   // (J, E)
   const bf16* fc_b;   // (J)
   int L, E, H, P, J, Jp, B, S, Sp;
-  int nbuf;           // K / V units in the cross-attention's ring (2 .. 4)
+  int nbuf;           // K / V units in the cross-attention's ring (2 .. 4, or kChunkRing)
 };
 constexpr int kPassWeights = 19;  // the pointers of PassArgs, emb_t .. fc_b
 
@@ -58,12 +76,20 @@ constexpr int kPassThreads = 512;
 // S + 1 <= 32 kMaxChunks x 16 warps keys
 constexpr int kMaxChunks = 2;
 
+// head_dim 128: its plan (above), its block, its ring of 32-key chunks
+constexpr int kWideHead = 128;
+constexpr int kWideThreads = 256;
+constexpr int kChunkRing = 12;  // a head's whole K: Sp <= 384, S <= 383
+
+// whether the pass stages the per-layer parameters in shared memory
+__host__ __device__ constexpr bool staged_params(int D) { return D != kWideHead; }
+
 // K / V units (one head's Sp x D keys of K or of V) in the cross-attention's
 // ring of shared-memory buffers: 4 at head_dim 32 with 16 warps (20 KB
 // each at S=301), else 2 (two 41 KB units at head_dim 64; two blocks of 8
-// warps on an SM at head_dim 32)
+// warps on an SM at head_dim 32); at head_dim 128 kChunkRing 32-key chunks
 __host__ __device__ inline int kv_buffers(int D, int threads) {
-  return D == 32 && threads == kPassThreads ? 4 : 2;
+  return D == kWideHead ? kChunkRing : D == 32 && threads == kPassThreads ? 4 : 2;
 }
 
 // Index of element (key s, dim d) of a head's K in score-fragment order:
@@ -119,29 +145,37 @@ __device__ __forceinline__ bf16* cluster_peer(bf16* p, unsigned rank) {
 // buffer G % nb of the ring, G = seq0 + u counting the block's units over
 // every layer and step, with completion on that buffer's mbarrier (phase
 // parity G / nb & 1). Thread 0 issues; every thread keeps the same count.
-template <int D>
+// kChunks (head_dim 128): a unit is a 32-key chunk instead, unit u of the
+// layer chunk u % (Sp / 32) of K or V unit u / (Sp / 32) (a chunk of the
+// fragment orders is 32 D contiguous elements).
+template <int D, bool kChunks = false>
 struct KvStream {
   const bf16* kvl;  // the layer's (H, 2, Sp D) scratch
-  bf16* ring;       // nb buffers of Sp D
+  bf16* ring;       // nb buffers of elems()
   uint64_t* bars;   // nb mbarriers
   int Sp, nb, units, issued;
   unsigned seq0;
 
-  __device__ const bf16* buffer(int u) const { return ring + (size_t)((seq0 + u) % nb) * Sp * D; }
+  __device__ int elems() const { return kChunks ? 32 * D : Sp * D; }
+  __device__ const bf16* buffer(int u) const { return ring + (size_t)((seq0 + u) % nb) * elems(); }
   // issue the next unit, if any
   __device__ void issue() {
     if (issued < units && threadIdx.x == 0) {
       const unsigned G = seq0 + issued;
-      const uint32_t bar = smem_addr(bars + G % nb), bytes = (uint32_t)(Sp * D * sizeof(bf16));
+      const uint32_t bar = smem_addr(bars + G % nb), bytes = (uint32_t)(elems() * sizeof(bf16));
       asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                    : "memory");
       asm volatile(
           "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
               smem_addr(buffer(issued))),
-          "l"(kvl + (size_t)issued * Sp * D), "r"(bytes), "r"(bar)
+          "l"(kvl + (size_t)issued * elems()), "r"(bytes), "r"(bar)
           : "memory");
     }
     ++issued;
+  }
+  // issue every unit before n that is not issued yet
+  __device__ void issue_upto(int n) {
+    while (issued < min(n, units)) issue();
   }
   // wait until unit u has landed
   __device__ void wait(int u) const {
@@ -272,6 +306,23 @@ __host__ __device__ inline int chunk_param_elems(int L, int E, int P, int J) {
   return (chunk_param_offset(kFcB, L, E, P) + J + 7) / 8 * 8;
 }
 
+// tensor k of the list above in global memory (head_dim 128 reads them there)
+__device__ __forceinline__ const bf16* param_src(const PassArgs& a, ChunkParam k) {
+  switch (k) {
+    case kLnS: return a.ln_s;
+    case kLnB: return a.ln_b;
+    case kQkvB: return a.qkv_b;
+    case kSoB: return a.so_b;
+    case kCqB: return a.cq_b;
+    case kCoB: return a.co_b;
+    case kM1B: return a.m1_b;
+    case kM2B: return a.m2_b;
+    case kEmbB: return a.emb_b;
+    case kPe: return a.pe;
+    default: return a.fc_b;
+  }
+}
+
 __device__ inline void stage_params(const PassArgs& a, bf16* dst) {
   const int L = a.L, E = a.E;
   const bf16* src[11] = {a.ln_s, a.ln_b, a.qkv_b, a.so_b, a.cq_b, a.co_b,
@@ -284,6 +335,10 @@ __device__ inline void stage_params(const PassArgs& a, bf16* dst) {
   }
 }
 
+// mbarrier slots at the base of a pass's shared memory: the ring's, rounded
+// up to 16 bytes
+__host__ __device__ constexpr int bar_slots(int D) { return D == kWideHead ? 16 : 4; }
+
 // Shared memory of a pass (carve_pass_smem), for a kernel that keeps
 // `carry` fp32 floats of its own (a multiple of 4) beside the residual.
 __host__ __device__ inline size_t pass_smem_bytes(int L, int P, int E, int H, int J, int Jp,
@@ -291,24 +346,24 @@ __host__ __device__ inline size_t pass_smem_bytes(int L, int P, int E, int H, in
   const int D = E / H;
   const size_t floats = r4((size_t)P * E) + carry + (size_t)(Sp / 32) * 64 +
                         (size_t)(threads / 32) * P * D;
-  const size_t halves = (size_t)chunk_param_elems(L, E, P, J) + (size_t)P * (E + 8) +
-                        (size_t)P * (3 * E + 8) + (size_t)P * (Jp + 8) +
-                        (size_t)kv_buffers(D, threads) * Sp * D +
+  const size_t halves = (staged_params(D) ? (size_t)chunk_param_elems(L, E, P, J) : 0) +
+                        (size_t)P * (E + 8) + (size_t)P * (3 * E + 8) + (size_t)P * (Jp + 8) +
+                        (size_t)kv_buffers(D, threads) * (D == kWideHead ? 32 : Sp) * D +
                         (cs > 1 ? (size_t)2 * P * (E + 8) : 0);
-  return 32 + 4 * floats + 2 * halves;  // 32: the ring's mbarriers
+  return 8 * (size_t)bar_slots(D) + 4 * floats + 2 * halves;
 }
 
 struct PassSmem {
-  uint64_t* bars;  // the ring's mbarriers (4 slots)
+  uint64_t* bars;  // the ring's mbarriers (bar_slots)
   float* h;        // (P, E) fp32 residual
   float* carry;    // the kernel's own floats
   float* red;      // (2, nch, 16, 2) chunk statistics of 1-2 heads
   float* part;     // (warps, P, D) attention partials
-  bf16* params;    // the staged parameters (stage_params)
+  bf16* params;    // the staged parameters (stage_params; none at head_dim 128)
   bf16* act;       // (P, E + 8)
   bf16* wide;      // (P, 3E + 8)
   bf16* xin;       // (P, Jp + 8) bf16 embedding input
-  bf16* ring;      // nbuf K / V units of Sp D
+  bf16* ring;      // nbuf K / V units of Sp D (head_dim 128: 32-key chunks, 32 D)
   bf16* xo;        // cs > 1: 2 (P, E + 8) cross-attention outputs
 };
 
@@ -316,16 +371,16 @@ template <int D>
 __device__ inline PassSmem carve_pass_smem(float4* base, const PassArgs& a, size_t carry) {
   PassSmem s;
   s.bars = reinterpret_cast<uint64_t*>(base);
-  s.h = reinterpret_cast<float*>(s.bars + 4);
+  s.h = reinterpret_cast<float*>(s.bars + bar_slots(D));
   s.carry = s.h + r4((size_t)a.P * a.E);
   s.red = s.carry + carry;
   s.part = s.red + (size_t)(a.Sp / 32) * 64;
   s.params = reinterpret_cast<bf16*>(s.part + (size_t)(blockDim.x / 32) * a.P * D);
-  s.act = s.params + chunk_param_elems(a.L, a.E, a.P, a.J);
+  s.act = s.params + (staged_params(D) ? chunk_param_elems(a.L, a.E, a.P, a.J) : 0);
   s.wide = s.act + (size_t)a.P * (a.E + 8);
   s.xin = s.wide + (size_t)a.P * (3 * a.E + 8);
   s.ring = s.xin + (size_t)a.P * (a.Jp + 8);
-  s.xo = s.ring + (size_t)a.nbuf * a.Sp * D;
+  s.xo = s.ring + (size_t)a.nbuf * (D == kWideHead ? 32 : a.Sp) * D;
   return s;
 }
 
@@ -355,6 +410,118 @@ __device__ inline void write_step_token(bf16* kv, const bf16* stk, const bf16* s
   asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
+// The pieces of the cross-attention over 32-key chunks (both forms below).
+// A warp's scores of chunk ch (keys 32 ch .. 32 ch + 31) of one head against
+// its q fragments, from kc, the chunk's 32 D elements of K in score-fragment
+// order: scaled, -inf at keys past nkeys.
+template <int D>
+__device__ __forceinline__ void score_chunk(float (*s)[4], uint32_t (*qa)[4], const uint4* kc,
+                                            int ch, int nkeys) {
+  const int lane = threadIdx.x & 31, c = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint4 kr[D / 32];
+#pragma unroll
+    for (int u = 0; u < D / 32; ++u) kr[u] = kc[(j * 32 + lane) * (D / 32) + u];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(kr);
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd) {
+      const uint32_t b[2] = {w[2 * kd], w[2 * kd + 1]};
+      mma_bf16(s[j], qa[kd], b);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = 32 * ch + 8 * j + 2 * c + (e & 1);
+      s[j][e] = key < nkeys ? s[j][e] * attn_scale<D>() : -INFINITY;
+    }
+  }
+}
+
+// the chunk's row max and sum of exp of the warp's rows g, g + 8, written to
+// red (32 floats a chunk) by the quad's lane 0
+__device__ __forceinline__ void chunk_stats(const float (*s)[4], float* red, int ch) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float bm = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bm = fmaxf(bm, fmaxf(s[j][2 * hh], s[j][2 * hh + 1]));
+    const float m = quad_max(bm);  // finite: key 32 ch < nkeys is in the chunk
+    float l = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) l += __expf(s[j][2 * hh] - m) + __expf(s[j][2 * hh + 1] - m);
+    l = quad_sum(l);
+    if (c == 0) {
+      red[2 * (ch * 16 + g + 8 * hh)] = m;
+      red[2 * (ch * 16 + g + 8 * hh) + 1] = l;
+    }
+  }
+}
+
+// the rows' max and 1 / sum over every chunk's statistics, in chunk order
+// per lane (the quad's four lanes over every fourth chunk)
+__device__ __forceinline__ void merge_stats(const float* red, int nch, float* mx, float* inv) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float* st = red + 2 * (g + 8 * hh);
+    float m = -INFINITY;
+    for (int ch = c; ch < nch; ch += 4) m = fmaxf(m, st[32 * ch]);
+    m = quad_max(m);
+    float l = 0.f;
+    for (int ch = c; ch < nch; ch += 4) l += st[32 * ch + 1] * __expf(st[32 * ch] - m);
+    mx[hh] = m;
+    inv[hh] = 1.f / quad_sum(l);
+  }
+}
+
+// o += bf16(P) v over one chunk: its scores s normalised in place, rounded
+// to bf16 (the plain version's rounding point), times vc, the chunk's 32 D
+// elements of V in value-fragment order
+template <int D>
+__device__ __forceinline__ void pv_chunk(float (*o)[4], float (*s)[4], const uint4* vc,
+                                         const float* mx, const float* inv) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = __expf(s[j][e] - mx[e >> 1]) * inv[e >> 1];
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    uint4 vr[D / 16];
+#pragma unroll
+    for (int u = 0; u < D / 16; ++u) vr[u] = vc[(kk * 32 + lane) * (D / 16) + u];
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(vr);
+    uint32_t pa[4];
+    acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const uint32_t b[2] = {w[2 * n], w[2 * n + 1]};
+      mma_bf16(o[n], pa, b);
+    }
+  }
+}
+
+// the warp's fp32 partial (rows g, g + 8 < P of its D / 8 accumulator tiles)
+// into part (P, D)
+template <int D>
+__device__ __forceinline__ void store_partial(const float (*o)[4], int P, float* part) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = g + 8 * hh;
+    if (r >= P) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      float* p = part + (size_t)r * D + 8 * n + 2 * c;
+      p[0] = o[n][2 * hh];
+      p[1] = o[n][2 * hh + 1];
+    }
+  }
+}
+
 // Cross-attention of the P rows over the S + 1 keys of one layer for the
 // block's heads hbase .. hbase + Hl - 1, hp heads at a time (hp = 2 when the
 // ring holds their four units and half the warps hold a head's keys, else 1):
@@ -377,8 +544,7 @@ template <int D>
 __device__ void chunk_cross_attention(const bf16* q, int ldq, KvStream<D>& kv, int P, int hbase,
                                       int H, int S, float* red, float* part, bf16* out, int ldo,
                                       bf16* peer) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const int g = lane >> 2, c = lane & 3;
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int Sp = kv.Sp, nch = Sp / 32, nkeys = S + 1;
   const int hp = kv.nb == 4 && H % 2 == 0 && nch <= kMaxChunks * nwarps / 2 ? 2 : 1;
   const int wph = nwarps / hp, hg = warp / wph, sub = warp % wph, nparts = min(nch, wph);
@@ -398,56 +564,14 @@ __device__ void chunk_cross_attention(const bf16* q, int ldq, KvStream<D>& kv, i
     for (int i = 0; i < kMaxChunks; ++i) {
       const int ch = sub + i * wph;
       if (ch >= nch) break;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        uint4 kr[D / 32];
-#pragma unroll
-        for (int u = 0; u < D / 32; ++u) kr[u] = kh[((4 * ch + j) * 32 + lane) * (D / 32) + u];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[i][j][e] = 0.f;
-        const uint32_t* w = reinterpret_cast<const uint32_t*>(kr);
-#pragma unroll
-        for (int kd = 0; kd < D / 16; ++kd) {
-          const uint32_t b[2] = {w[2 * kd], w[2 * kd + 1]};
-          mma_bf16(s[i][j], qa[kd], b);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = 32 * ch + 8 * j + 2 * c + (e & 1);
-          s[i][j][e] = key < nkeys ? s[i][j][e] * attn_scale<D>() : -INFINITY;
-        }
-      }
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        float bm = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bm = fmaxf(bm, fmaxf(s[i][j][2 * hh], s[i][j][2 * hh + 1]));
-        const float m = quad_max(bm);  // finite: key 32 ch < nkeys is in the chunk
-        float l = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) l += __expf(s[i][j][2 * hh] - m) + __expf(s[i][j][2 * hh + 1] - m);
-        l = quad_sum(l);
-        if (c == 0) {
-          red_h[2 * (ch * 16 + g + 8 * hh)] = m;
-          red_h[2 * (ch * 16 + g + 8 * hh) + 1] = l;
-        }
-      }
+      score_chunk<D>(s[i], qa, kh + ch * 4 * D, ch, nkeys);
+      chunk_stats(s[i], red_h, ch);
     }
     for (int hq = 0; hq < hp; ++hq) kv.wait(2 * (h0 + hq) + 1);
     __syncthreads();  // the heads' V has landed; their K is consumed; the chunk statistics are in
-    // pass 2: the rows' max and sum over every chunk, in chunk order per lane
+    // pass 2: the rows' max and sum over every chunk, then P v
     float mx[2], inv[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const float* st = red_h + 2 * (g + 8 * hh);
-      float m = -INFINITY;
-      for (int ch = c; ch < nch; ch += 4) m = fmaxf(m, st[32 * ch]);
-      m = quad_max(m);
-      float l = 0.f;
-      for (int ch = c; ch < nch; ch += 4) l += st[32 * ch + 1] * __expf(st[32 * ch] - m);
-      mx[hh] = m;
-      inv[hh] = 1.f / quad_sum(l);
-    }
+    merge_stats(red_h, nch, mx, inv);
     const uint4* vh = reinterpret_cast<const uint4*>(kv.buffer(2 * h + 1));
     float o[D / 8][4];
 #pragma unroll
@@ -458,38 +582,9 @@ __device__ void chunk_cross_attention(const bf16* q, int ldq, KvStream<D>& kv, i
     for (int i = 0; i < kMaxChunks; ++i) {
       const int ch = sub + i * wph;
       if (ch >= nch) break;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[i][j][e] = __expf(s[i][j][e] - mx[e >> 1]) * inv[e >> 1];
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        uint4 vr[D / 16];
-#pragma unroll
-        for (int u = 0; u < D / 16; ++u) vr[u] = vh[((2 * ch + kk) * 32 + lane) * (D / 16) + u];
-        const uint32_t* w = reinterpret_cast<const uint32_t*>(vr);
-        uint32_t pa[4];
-        acc_to_a(pa, s[i][2 * kk], s[i][2 * kk + 1]);
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          const uint32_t b[2] = {w[2 * n], w[2 * n + 1]};
-          mma_bf16(o[n], pa, b);
-        }
-      }
+      pv_chunk<D>(o, s[i], vh + ch * 4 * D, mx, inv);
     }
-    if (sub < nparts) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = g + 8 * hh;
-        if (r >= P) continue;
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          float* p = part + ((size_t)warp * P + r) * D + 8 * n + 2 * c;
-          p[0] = o[n][2 * hh];
-          p[1] = o[n][2 * hh + 1];
-        }
-      }
-    }
+    if (sub < nparts) store_partial<D>(o, P, part + (size_t)warp * P * D);
     // the next unit, into the first K buffer of these heads (issued here,
     // where a warp would wait)
     kv.issue();
@@ -505,6 +600,65 @@ __device__ void chunk_cross_attention(const bf16* q, int ldq, KvStream<D>& kv, i
     }
     // the units after it, into the buffers of the rest of these heads' units
     for (int u = 1; u < 2 * hp; ++u) kv.issue();
+  }
+}
+
+// The cross-attention at head_dim 128, with the numerics above, one head at
+// a time: the head's K and V arrive as 32-key chunks (KvStream<D, true>:
+// units 2 h nch .. 2 h nch + nch - 1 its K, the next nch its V), and warp w
+// scores and sums chunks w and w + nwarps. A warp waits only on the
+// mbarriers of the chunks it reads (each chunk is read by one warp); a
+// chunk's buffer takes the unit nb after it once the block barrier after
+// its reads is passed (the head's K buffers after its scores, its V after
+// its value sums), so the whole K of a head (nch <= nb) is in flight before
+// its scores and its first V chunks behind it. Two block barriers a head.
+template <int D>
+__device__ void chunk_cross_attention(const bf16* q, int ldq, KvStream<D, true>& kv, int P,
+                                      int hbase, int H, int S, float* red, float* part, bf16* out,
+                                      int ldo, bf16* peer) {
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int nch = kv.Sp / 32, nkeys = S + 1, nparts = min(nch, nwarps);
+  for (int h = 0; h < H; ++h) {
+    const int k0 = 2 * h * nch, v0 = k0 + nch;  // the head's first K and V units
+    uint32_t qa[D / 16][4];
+    load_q<D, true>(qa, q + (hbase + h) * D, ldq, 0, P);
+    float s[kMaxChunks][4][4];
+#pragma unroll
+    for (int i = 0; i < kMaxChunks; ++i) {
+      const int ch = warp + i * nwarps;
+      if (ch >= nch) break;
+      kv.wait(k0 + ch);
+      score_chunk<D>(s[i], qa, reinterpret_cast<const uint4*>(kv.buffer(k0 + ch)), ch, nkeys);
+      chunk_stats(s[i], red, ch);
+    }
+    __syncthreads();  // the head's K is consumed; the chunk statistics are in
+    kv.issue_upto(v0 + kv.nb);
+    float mx[2], inv[2];
+    merge_stats(red, nch, mx, inv);
+    float o[D / 8][4];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kMaxChunks; ++i) {
+      const int ch = warp + i * nwarps;
+      if (ch >= nch) break;
+      kv.wait(v0 + ch);
+      pv_chunk<D>(o, s[i], reinterpret_cast<const uint4*>(kv.buffer(v0 + ch)), mx, inv);
+    }
+    if (warp < nparts) store_partial<D>(o, P, part + (size_t)warp * P * D);
+    __syncthreads();  // the head's V is consumed; the partials are in
+    kv.issue_upto(v0 + nch + kv.nb);
+    for (int i = threadIdx.x; i < P * D; i += blockDim.x) {
+      const int r = i / D, d = i % D;
+      float acc = 0.f;
+      for (int w = 0; w < nparts; ++w) acc += part[((size_t)w * P + r) * D + d];
+      const size_t o = (size_t)r * ldo + (hbase + h) * D + d;
+      const bf16 v = __float2bfloat16(acc);
+      out[o] = v;
+      if (peer) peer[o] = v;
+    }
   }
 }
 
@@ -537,8 +691,14 @@ __device__ __forceinline__ void decoder_pass(const PassArgs& a, const PassSmem& 
   const size_t kv_layer = (size_t)H * 2 * Sp * D;
   float* h = sm.h;
   bf16 *act = sm.act, *wide = sm.wide;
-  // layer l's staged tensor k (per-layer width w)
-  auto prm = [&](ChunkParam k, int l, int w) { return sm.params + chunk_param_offset(k, L, E, P) + l * w; };
+  // layer l's tensor k (per-layer width w): staged, or at head_dim 128 in global memory
+  auto prm = [&](ChunkParam k, int l, int w) -> const bf16* {
+    if constexpr (staged_params(D)) {
+      return sm.params + chunk_param_offset(k, L, E, P) + l * w;
+    } else {
+      return param_src(a, k) + l * w;
+    }
+  };
   // embedding + positional encoding into the fp32 residual stream
   embed_product(sm.xin, ldx, P, Jp, a.emb_t, E, prm(kEmbB, 0, 0), EmbedEpi{h, prm(kPe, 0, 0), E});
   __syncthreads();
@@ -548,9 +708,11 @@ __device__ __forceinline__ void decoder_pass(const PassArgs& a, const PassSmem& 
     const bf16* ln_b = prm(kLnB, l, 3 * E);
     const bf16* kvl = kv + l * kv_layer + (size_t)hbase * 2 * Sp * D;
     // this layer's first K / V units start towards shared memory while
-    // the block works on the self-attention
-    KvStream<D> kvs{kvl, sm.ring, sm.bars, Sp, a.nbuf, 2 * Hl, 0, kv_seq};
-    kv_seq += 2 * Hl;
+    // the block works on the self-attention (head_dim 128: 32-key chunks)
+    constexpr bool chunks = D == kWideHead;
+    KvStream<D, chunks> kvs{kvl, sm.ring, sm.bars, Sp, a.nbuf, 2 * Hl * (chunks ? Sp / 32 : 1), 0,
+                            kv_seq};
+    kv_seq += kvs.units;
     for (int u = 0; u < a.nbuf; ++u) kvs.issue();
     // self-attention
     ln_bf16_rows(h, P, E, ln_s, ln_b, act, lda);
@@ -591,15 +753,25 @@ __device__ __forceinline__ void decoder_pass(const PassArgs& a, const PassSmem& 
   __syncthreads();
 }
 
+// The head dimension of a decoder-pass instance (32, 64 or 128), else 0.
+__host__ inline int pass_head_dim(int E, int H) {
+  return H > 0 && E == kWideHead * H ? kWideHead : head_dim(E, H);
+}
+
 // The shapes both kernels take (the wrappers' check_kernel_shapes raises
 // before a launch gets here): threads 512, or 256 at head_dim 32; blocks a
-// robot 1 or 2.
+// robot 1 or 2; head_dim 128 at hidden 512 only, its 256 threads, at most
+// 10 chunk steps (its shared memory) and kChunkRing 32-key chunks.
 __host__ inline bool pass_shape_ok(const PassArgs& a, int D, int threads, int cs) {
-  return D != 0 && a.P >= 1 && a.P <= 16 && (a.Jp == 32 || a.Jp == 64) && a.Jp >= a.J &&
-         a.J % 2 == 0 && a.Sp == (a.S + 1 + 31) / 32 * 32 &&
-         (threads == kPassThreads || threads == 256) &&
-         a.Sp <= 32 * kMaxChunks * (threads / 32) && (a.E == 128 || a.E == 256) &&
-         (D == 64 || a.E == 128) && (cs == 1 || cs == 2) && a.H % cs == 0;
+  const bool shape = D == kWideHead
+                         ? a.E == 512 && threads == kWideThreads && a.P <= 10 &&
+                               a.Sp <= 32 * kChunkRing
+                         : (threads == kPassThreads || threads == 256) &&
+                               a.Sp <= 32 * kMaxChunks * (threads / 32) &&
+                               (a.E == 128 || a.E == 256) && (D == 64 || a.E == 128);
+  return D != 0 && shape && a.P >= 1 && a.P <= 16 && (a.Jp == 32 || a.Jp == 64) &&
+         a.Jp >= a.J && a.J % 2 == 0 && a.Sp == (a.S + 1 + 31) / 32 * 32 && (cs == 1 || cs == 2) &&
+         a.H % cs == 0;
 }
 
 // Launch `kernel` with a block (CS = 1) or a 2-block cluster (CS = 2) a robot.

@@ -5,8 +5,12 @@
 // (_make_chunk_kernel), its default "kstat", group_robots=1, unquantised
 // form.
 //
-// Instances for head_dim 32 (h128) and 64 (E=128 or 256, the vit_flagship
-// model at 256), templated on the head dim and on E / 32.
+// Instances for head_dim 32 (h128), 64 (E=128 or 256, the vit_flagship
+// model at 256) and 128 (E=512, the larger_model configuration: its own
+// shared-memory plan and 256-thread block, decoder_pass.cuh), templated on
+// the head dim and on E / 32. At E=512 the context K/V scratch is 5.2 MB a
+// robot (L=8, S=311; 335 MB at B=64), the 8 layers' pass weights 33.5 MB,
+// read by every block at every step.
 //
 // Bound on the H100: the context K/V of one robot (L x 2 x S x E bf16 =
 // 616 KB at L=4, S=301, E=128; 1.27 MB at S=311, E=256) do not fit in the
@@ -143,7 +147,8 @@ __device__ void project_context_kv(const ChunkArgs& a, const bf16* ctx, int hbas
 // CS blocks a robot: 1, or a cluster of 2 that splits its heads (hbase ..
 // hbase + Hl - 1 in this block)
 template <int D, int KC, int CS>
-__global__ void __launch_bounds__(kPassThreads) fused_chunk_kernel(ChunkArgs a) {
+__global__ void __launch_bounds__(D == kWideHead ? kWideThreads : kPassThreads)
+    fused_chunk_kernel(ChunkArgs a) {
   extern __shared__ float4 smem4[];
   constexpr int cs = CS;
   const int rank = blockIdx.x % cs, b = blockIdx.x / cs;
@@ -157,7 +162,7 @@ __global__ void __launch_bounds__(kPassThreads) fused_chunk_kernel(ChunkArgs a) 
   bf16* xin = sm.xin;
   bf16* kv = a.kv + (size_t)b * L * H * 2 * Sp * D;
   init_kv_ring(sm.bars, a.nbuf);
-  stage_params(a, sm.params);
+  if constexpr (staged_params(D)) stage_params(a, sm.params);
 
   // once per chunk: this robot's context K/V for every layer and the
   // block's heads, in fragment order; keys past S are zero (key S: the step
@@ -199,8 +204,8 @@ __global__ void __launch_bounds__(kPassThreads) fused_chunk_kernel(ChunkArgs a) 
 // ptrs: the 19 PassArgs weight pointers (declaration order: emb_t ..
 //       fc_b), kv_t, kv_b, noise, context, stk, stv, coef, kv scratch, out
 // ints: L, E, H, P, J, Jp, B, S, Sp, T, threads per block (512, or 256:
-//       two blocks on an SM at head_dim 32), blocks a robot (1, or 2: a
-//       cluster of two splitting the heads)
+//       two blocks on an SM at head_dim 32, or head_dim 128's block), blocks
+//       a robot (1, or 2: a cluster of two splitting the heads)
 extern "C" int sd_fused_chunk(const void* const* ptrs, const int* ints, void* stream) {
   using namespace sd;
   ChunkArgs a;
@@ -225,12 +230,14 @@ extern "C" int sd_fused_chunk(const void* const* ptrs, const int* ints, void* st
   a.S = ints[7];
   a.Sp = ints[8];
   a.T = ints[9];
-  const int threads = ints[10], cs = ints[11], D = head_dim(a.E, a.H);
+  const int threads = ints[10], cs = ints[11], D = pass_head_dim(a.E, a.H);
   if (!pass_shape_ok(a, D, threads, cs)) return (int)cudaErrorInvalidValue;
   a.nbuf = kv_buffers(D, threads);
   void (*kernel)(ChunkArgs);
   if (D == 32) {
     kernel = cs == 1 ? fused_chunk_kernel<32, 4, 1> : fused_chunk_kernel<32, 4, 2>;
+  } else if (D == kWideHead) {
+    kernel = cs == 1 ? fused_chunk_kernel<128, 16, 1> : fused_chunk_kernel<128, 16, 2>;
   } else if (a.E == 128) {
     kernel = cs == 1 ? fused_chunk_kernel<64, 4, 1> : fused_chunk_kernel<64, 4, 2>;
   } else {

@@ -4,9 +4,10 @@
 // Replaces soccerdiffusion_tpu/ops/fused_denoise.py: FusedDenoiser.__call__
 // and FusedDenoiser._call_with_precomputed (_make_kernel). Both call sites
 // share this kernel; `has_coefs` selects the DDIM epilogue (x_prev instead
-// of eps). Instances for head_dim 32 (h128) and 64 (E=128 or 256, the
-// vit_flagship model at 256), templated on the head dim, on E / 32 and on
-// the blocks a robot.
+// of eps). Instances for head_dim 32 (h128), 64 (E=128 or 256, the
+// vit_flagship model at 256) and 128 (E=512, the larger_model
+// configuration, on decoder_pass.cuh's head_dim-128 plan), templated on the
+// head dim, on E / 32 and on the blocks a robot.
 //
 // Bound on the H100: a pass reads the robot's context K/V (L x 2 x S x E
 // bf16 = 616 KB at L=4, S=301, E=128: 631 MB at B=1024, a 0.19 ms floor at
@@ -65,7 +66,8 @@ struct DenoiseEpi {  // eps(m, n) -> out: eps, or the DDIM step in the plain ver
 
 // CS blocks a robot: 1, or a cluster of 2 that splits its heads
 template <int D, int KC, int CS>
-__global__ void __launch_bounds__(kPassThreads) fused_denoise_kernel(DenoiseArgs a) {
+__global__ void __launch_bounds__(D == kWideHead ? kWideThreads : kPassThreads)
+    fused_denoise_kernel(DenoiseArgs a) {
   extern __shared__ float4 smem4[];
   const int rank = blockIdx.x % CS, b = blockIdx.x / CS;
   const int Hl = a.H / CS, hbase = rank * Hl;
@@ -74,7 +76,7 @@ __global__ void __launch_bounds__(kPassThreads) fused_denoise_kernel(DenoiseArgs
   bf16* kv = a.kv + (size_t)b * a.L * a.H * 2 * a.Sp * D;
   const float* x = a.noisy + (size_t)b * PJ;
   init_kv_ring(sm.bars, a.nbuf);
-  stage_params(a, sm.params);
+  if constexpr (staged_params(D)) stage_params(a, sm.params);
   write_step_token<D>(kv, a.stk, a.stv, a.L, a.H, hbase, Hl, a.S, a.Sp);
   for (int i = threadIdx.x; i < P * Jp; i += blockDim.x) {
     const int m = i / Jp, j = i % Jp;
@@ -95,10 +97,12 @@ struct PackArgs {
 };
 
 // Grid (Sp / 32, 2, B): keys 32 x .. 32 x + 31 of layer l's K (y = 0) or V
-// (y = 1) of robot z, zero at keys S .. Sp - 1.
+// (y = 1) of robot z, zero at keys S .. Sp - 1. E <= 256 columns, or 512 at
+// head_dim 128.
 template <int D>
 __global__ void __launch_bounds__(256) pack_context_kv_kernel(PackArgs a) {
-  __shared__ uint4 tile4[32 * 256 / 8];  // 32 keys x E <= 256 columns
+  constexpr int kMaxE = D == kWideHead ? 512 : 256;
+  __shared__ uint4 tile4[32 * kMaxE / 8];  // 32 keys x E <= kMaxE columns
   const bf16* tile = reinterpret_cast<const bf16*>(tile4);
   const int ch = blockIdx.x, sel = blockIdx.y, b = blockIdx.z;
   const int E = a.H * D, E8 = E / 8;
@@ -149,13 +153,16 @@ extern "C" int sd_pack_context_kv(const void* const* ptrs, const int* ints, void
   a.H = ints[3];
   a.S = ints[5];
   a.Sp = ints[6];
-  if ((D != 32 && D != 64) || a.H * D > 256 || a.Sp % 32 != 0 || a.Sp <= a.S)
+  if ((D != 32 && D != 64 && D != kWideHead) || a.H * D > (D == kWideHead ? 512 : 256) ||
+      a.Sp % 32 != 0 || a.Sp <= a.S)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(a.Sp / 32, 2, B);
   if (D == 32) {
     pack_context_kv_kernel<32><<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  } else {
+  } else if (D == 64) {
     pack_context_kv_kernel<64><<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  } else {
+    pack_context_kv_kernel<128><<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -163,7 +170,8 @@ extern "C" int sd_pack_context_kv(const void* const* ptrs, const int* ints, void
 // ptrs: the 19 PassArgs weight pointers (declaration order: emb_t .. fc_b),
 //       noisy, packed K/V, stk, stv, out
 // ints: L, E, H, P, J, Jp, B, S, Sp, has_coefs, threads per block (512, or
-//       256: two blocks on an SM), blocks a robot (1 or 2);  floats: c0..c3
+//       256: two blocks on an SM, or head_dim 128's block), blocks a robot (1
+//       or 2);  floats: c0..c3
 extern "C" int sd_fused_denoise(const void* const* ptrs, const int* ints, const float* floats,
                                 void* stream) {
   using namespace sd;
@@ -189,12 +197,14 @@ extern "C" int sd_fused_denoise(const void* const* ptrs, const int* ints, const 
   a.c1 = floats[1];
   a.c2 = floats[2];
   a.c3 = floats[3];
-  const int threads = ints[10], cs = ints[11], D = head_dim(a.E, a.H);
+  const int threads = ints[10], cs = ints[11], D = pass_head_dim(a.E, a.H);
   if (!pass_shape_ok(a, D, threads, cs)) return (int)cudaErrorInvalidValue;
   a.nbuf = kv_buffers(D, threads);
   void (*kernel)(DenoiseArgs);
   if (D == 32) {
     kernel = cs == 1 ? fused_denoise_kernel<32, 4, 1> : fused_denoise_kernel<32, 4, 2>;
+  } else if (D == kWideHead) {
+    kernel = cs == 1 ? fused_denoise_kernel<128, 16, 1> : fused_denoise_kernel<128, 16, 2>;
   } else if (a.E == 128) {
     kernel = cs == 1 ? fused_denoise_kernel<64, 4, 1> : fused_denoise_kernel<64, 4, 2>;
   } else {

@@ -19,7 +19,12 @@ once per sampler (``kernel_weights``): the denoiser's (the Dense kernels
 transposed to (out, in), the embedding's input columns padded with zeros to
 a multiple of 32) and the context K/V projection ordered by (layer, head,
 K | V). While the card has two SMs for each robot, a robot runs on a
-cluster of two thread blocks that split its heads (``cluster_size``).
+cluster of two thread blocks that split its heads (``cluster_size``). The
+kernel takes head_dim 32 or 64 at hidden 128 / 256 (at most 16 chunk steps
+and 1023 context tokens) and head_dim 128 at hidden 512 (the larger_model
+configuration: 8-warp blocks, at most 10 chunk steps and 383 context
+tokens); its context K/V scratch is (B, L, H, 2, Sp D) bf16, 5.2 MB a robot
+at larger_model's L=8, S=311.
 
 Dispatch as in ``ops/fused_denoise.py``: a CUDA tensor launches the kernel
 or raises, a CPU tensor runs the plain version. ``FusedChunkSampler.launches``

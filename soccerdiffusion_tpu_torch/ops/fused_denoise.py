@@ -22,8 +22,9 @@ kernel of ``csrc/fused_denoise.cu`` packs them, a launch per layer
 (``pack_kernel``); ``pack_plain`` is its plain version (index copies).
 
 Dispatch: a CUDA tensor launches the kernels (bf16 weights, head_dim 32 or
-64) or raises; a CPU tensor runs the plain PyTorch versions below, which round to
-the compute dtype at the kernel's rounding points (``csrc/common.cuh``).
+64, or 128 at hidden 512) or raises; a CPU tensor runs the plain PyTorch
+versions below, which round to the compute dtype at the kernel's rounding
+points (``csrc/common.cuh``).
 ``FusedDenoiser.launches`` counts the denoiser's kernel launches,
 ``FusedDenoiser.pack_launches`` the pack's.
 
@@ -66,6 +67,20 @@ def max_context(threads: int) -> int:
     chunks, at most 2 for each warp (csrc/decoder_pass.cuh:kMaxChunks), hold
     the S keys and the step token."""
     return 32 * 2 * (threads // 32) - 1
+
+
+# head_dim 128 (csrc/decoder_pass.cuh:kWideHead): a plan of its own, at
+# hidden 512 only, in blocks of WIDE_THREADS threads, at most WIDE_STEPS
+# chunk steps (its shared memory) and a head's whole K in the ring of
+# CHUNK_RING 32-key chunks
+WIDE_HEAD, WIDE_THREADS, WIDE_STEPS, CHUNK_RING = 128, 256, 10, 12
+
+
+def kernel_max_context(head_dim: int) -> int:
+    """Most context tokens of the decoder kernels at a head dim: 1023 (a
+    16-warp block's chunks), 383 at head_dim 128 (the ring's chunks hold
+    the S keys and the step token)."""
+    return 32 * CHUNK_RING - 1 if head_dim == WIDE_HEAD else max_context(512)
 
 
 def padded_joints(j: int) -> int:
@@ -365,7 +380,11 @@ class FusedDenoiser:
         barrier waits hide behind the other's work (measured on the chunk
         sampler, an H100 80GB HBM3 at 700 W: h128 B=1024 21.0 against 26.1
         ms, B=64 4.49 against 3.61 ms; PERF.md), unless the context outgrows
-        the 8 warps' scores (``max_context``)."""
+        the 8 warps' scores (``max_context``). Head_dim 128 runs its own
+        8-warp block (WIDE_THREADS: registers for its D = 128 accumulators),
+        one an SM (its shared memory)."""
+        if self.head_dim == WIDE_HEAD:
+            return WIDE_THREADS
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         two_an_sm = self.head_dim == 32 and batch > sms and context_len <= max_context(256)
         return 256 if two_an_sm else 512
@@ -383,24 +402,29 @@ class FusedDenoiser:
     def check_kernel_shapes(self, context_len: int) -> None:
         """Raise for what the CUDA decoder kernels (the denoiser's and the
         chunk sampler's, one pass: csrc/decoder_pass.cuh) do not take:
-        weights other than bf16, head_dim other than 32 or 64 (32 only at
-        hidden 128), hidden other than 128 or 256, more than 16 chunk steps,
-        an odd joint count or more than 64, more than ``max_context(512)``
-        context tokens."""
+        weights other than bf16; head_dim other than 32, 64 or 128; hidden
+        other than 128 (head_dim 32 or 64), 256 (head_dim 64) or 512
+        (head_dim 128); more than 16 chunk steps (10 at head_dim 128); an odd
+        joint count or more than 64; more than ``kernel_max_context``
+        context tokens (1023; 383 at head_dim 128)."""
         cfg, D = self.cfg, self.head_dim
         P, J, E = cfg.trajectory_prediction_length, cfg.num_joints, cfg.hidden_dim
         if self.dtype != torch.bfloat16:
             raise ValueError("the CUDA decoder kernels take bfloat16 weights "
                              "(compute_dtype='bfloat16'); got " + str(self.dtype))
-        if D not in (32, 64):
-            raise ValueError(f"the CUDA decoder kernels take head_dim 32 or 64, got {D}")
-        if P > 16 or J % 2 or J > 64:
-            raise ValueError(f"the CUDA decoder kernels take at most 16 chunk steps and an even "
-                             f"joint count of at most 64; got {P} steps, {J} joints")
-        if E not in (128, 256) or (D == 32 and E != 128):
-            raise ValueError(f"the CUDA decoder kernels take hidden_dim 128 (head_dim 32 or 64) or "
-                             f"256 (head_dim 64); got {E} at head_dim {D}")
-        most = max_context(512)
+        if D not in (32, 64, WIDE_HEAD):
+            raise ValueError(f"the CUDA decoder kernels take head_dim 32 or 64 (hidden 128 / 256) "
+                             f"or 128 (hidden 512), got {D}")
+        steps = WIDE_STEPS if D == WIDE_HEAD else 16
+        if P > steps or J % 2 or J > 64:
+            raise ValueError(f"the CUDA decoder kernels take at most {steps} chunk steps at "
+                             f"head_dim {D} and an even joint count of at most 64; got {P} steps, "
+                             f"{J} joints")
+        hidden_ok = E == 512 if D == WIDE_HEAD else E in (128, 256) and (D == 64 or E == 128)
+        if not hidden_ok:
+            raise ValueError(f"the CUDA decoder kernels take hidden_dim 128 (head_dim 32 or 64), "
+                             f"256 (head_dim 64) or 512 (head_dim 128); got {E} at head_dim {D}")
+        most = kernel_max_context(D)
         if context_len > most:
             raise ValueError(f"the CUDA decoder kernels take at most {most} context tokens; got "
                              f"{context_len}")

@@ -39,7 +39,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from soccerdiffusion_tpu_torch.config import Config
+from soccerdiffusion_tpu_torch.config import Config, check_training_supported
 from soccerdiffusion_tpu_torch.data import Normalizer, WindowedDataset, generate_dummy_arrays
 from soccerdiffusion_tpu_torch.data.packed import PackedDataset
 from soccerdiffusion_tpu_torch.data.pipeline import prefetch_to_device
@@ -148,6 +148,7 @@ def epoch_order(dataset, boundary: np.ndarray | None, frac: float, seed: int) ->
 def train(config: Config, opts: RunOptions, hyperparams: dict | None = None):
     """The training loop on ``opts.device``; returns the final ``TrainState``."""
     tc = config.train
+    check_training_supported(tc)
     epochs = opts.epochs if opts.epochs is not None else tc.epochs
     device = torch.device(opts.device)
     if device.type == "cuda" and not torch.cuda.is_available():

@@ -1,8 +1,8 @@
 """Bit-level fingerprints of the encoder-layer kernels (the fused ViT block
 and the fused encoder stack, forward and backward), of the whole-chunk
-sampler (head_dim 32 and 64, DDIM and DPM-Solver++, a robot in a 2-block
-cluster and two robots an SM) and of the serving denoiser (head_dim 32 and
-64, eps and in-kernel DDIM forms) on fixed seeded inputs.
+sampler (head_dim 32, 64 and 128, DDIM and DPM-Solver++, a robot in a
+2-block cluster and two robots an SM) and of the serving denoiser (head_dim
+32, 64 and 128, eps and in-kernel DDIM forms) on fixed seeded inputs.
 
 The encoder layer's device code (``csrc/encoder_layer.cuh`` over
 ``csrc/mma.cuh``) is shared with the decoder layer, flash attention and the
@@ -14,7 +14,9 @@ holds them to ``tests/data/layer_kernels_golden.json``, which this script
 wrote on an NVIDIA H100: the layer kernels' entries from the kernels before
 the attention tiles took separate q and k / v operands, the chunk sampler's
 from its kernel before its pass moved into ``decoder_pass.cuh``, the
-denoiser's from its kernel on that shared pass:
+denoiser's from its kernel on that shared pass, the head_dim-128 entries
+from the first kernels at that head dim, once they held their plain
+versions at every tested shape:
 
     python tests/cuda_golden.py OUT.json
 
@@ -64,6 +66,8 @@ DENOISE_CASES = [
     ("denoise_hd32_ddim", 128, 4, [1.3, 0.8, 0.9, 0.4]),
     ("denoise_hd64_eps", 256, 4, None),
     ("denoise_hd64_ddim", 256, 4, [1.3, 0.8, 0.9, 0.4]),
+    ("denoise_hd128_eps", 512, 4, None),
+    ("denoise_hd128_ddim", 512, 4, [1.3, 0.8, 0.9, 0.4]),
 ]
 
 
@@ -107,10 +111,12 @@ def denoise_fingerprints(device="cuda") -> dict:
 
 # (label, hidden width, decoder heads, solver, robots, context tokens): a
 # robot in a 2-block cluster (B <= 66) and, at head_dim 32, two 8-warp
-# blocks an SM (B > 132); the h128 and flagship contexts
+# blocks an SM (B > 132); the h128 and flagship contexts, and larger_model's
+# head_dim 128 at S=311
 CHUNK_CASES = [
     (f"chunk_hd{E // 4}_{solver}_b{b}", E, 4, solver, b, S)
-    for E, S in ((128, 301), (256, 311)) for solver in ("ddim", "dpmpp") for b in (13, 133)
+    for E, S in ((128, 301), (256, 311), (512, 311)) for solver in ("ddim", "dpmpp")
+    for b in (13, 133)
 ]
 
 

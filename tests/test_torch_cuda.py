@@ -16,9 +16,11 @@ denoiser on the same pass at the same shapes in its eps and DDIM forms and
 its per-step sampler, and the context encoder at T = 24 / 100 / 128, patch
 1 and 2, with and without the game state, all bit-identical over two
 launches; the decoder kernels and the pack at S=0 context tokens, the
-decoder-only tier; the ResNet18 / ResNet50 / Swin-T encoders' train and
-eval modes, running statistics and gradients on the card against the CPU
-in float64, with and without remat).
+decoder-only tier; their head_dim-128 instances (hidden 512, larger_model)
+at S = 17 / 311 / 312 / 383, B = 1 / 13 / 64 / 133, over 3 and 8 layers;
+the ResNet18 / ResNet50 / Swin-T encoders' train and eval modes, running
+statistics and gradients on the card against the CPU in float64, with and
+without remat).
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere. JAX-free, so it runs on a
 machine without jax: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
@@ -550,7 +552,7 @@ def test_layer_kernels_bit_identical_to_record(device):
 # 2, with and without the game-state token. Both bit-identical over two
 # launches.
 
-SERVING_WIDTHS = {32: (128, 4), 64: (256, 4)}
+SERVING_WIDTHS = {32: (128, 4), 64: (256, 4), 128: (512, 4)}
 
 
 def serving_model(device, head_dim, **changes):
@@ -584,7 +586,8 @@ def test_chunk_kernel_matches_plain_version(S, head_dim, solver, b, device):
         assert_close(got, chunk.sample_plain(*args))
 
 
-@pytest.mark.parametrize("head_dim,b", [(32, 13), (32, 64), (32, 133), (64, 13), (64, 64)])
+@pytest.mark.parametrize("head_dim,b", [(32, 13), (32, 64), (32, 133), (64, 13), (64, 64),
+                                        (128, 13), (128, 64)])
 def test_chunk_kernel_is_deterministic(head_dim, b, device):
     """Bit-identical over two launches, at both block sizes (B=133 runs two
     head_dim-32 robots an SM) and with a robot's heads split over a 2-block
@@ -692,7 +695,7 @@ def denoise_inputs(cfg, model, device, b, S, seed):
 
 
 @pytest.mark.parametrize("b", [1, 13])
-@pytest.mark.parametrize("head_dim", [32, 64])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
 @pytest.mark.parametrize("S", [0, 17, 31, 301, 311, 312])
 def test_pack_kernel_is_the_plain_pack(S, head_dim, b, device):
     cfg, model = serving_model(device, head_dim)
@@ -736,7 +739,8 @@ def test_denoise_kernel_block_split_matches_plain_version(head_dim, cluster, coe
                      den.run_plain(packed, noisy, stk[0], stv[0], coefs))
 
 
-@pytest.mark.parametrize("head_dim,b", [(32, 13), (32, 64), (32, 133), (64, 13), (64, 133)])
+@pytest.mark.parametrize("head_dim,b", [(32, 13), (32, 64), (32, 133), (64, 13), (64, 133),
+                                        (128, 13), (128, 64)])
 def test_denoise_kernel_is_deterministic(head_dim, b, device):
     cfg, model = serving_model(device, head_dim)
     den, packed, noisy, stk, stv = denoise_inputs(cfg, model, device, b, 311, seed=9)
@@ -765,7 +769,7 @@ def test_denoise_kernel_refuses_contexts_past_its_registers(head_dim, b, device)
         den.run_kernel(den.pack_plain(kv), t(b, 10, 20), stk[0], stv[0])
 
 
-@pytest.mark.parametrize("head_dim", [32, 64])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
 def test_denoise_per_step_sampler_matches_plain_version(head_dim, device):
     """FusedDenoiser.sample over 5 DDIM steps, one launch a step, against
     the same loop over the plain pass; each launch rewrites key S of the
@@ -792,6 +796,67 @@ def test_denoise_per_step_sampler_matches_plain_version(head_dim, device):
                                stk[4, l, h * D:(h + 1) * D].expand(13, D))
             assert torch.equal(packed.kv[:, l, h, 1, vfrag(S, d, D)],
                                stv[4, l, h * D:(h + 1) * D].expand(13, D))
+
+
+# ------------------------------- head_dim 128: larger_model.yaml's decoder
+# The decoder kernels' head_dim-128 instances (hidden 512, 4 heads:
+# csrc/decoder_pass.cuh's plan of its own, 8-warp blocks, the K / V in 32-key
+# chunks) against their plain versions: the chunk sampler over S = 17 / 311
+# / 312, B = 1 / 13 / 64 (a 2-block cluster) / 133, DDIM and DPM-Solver++;
+# the denoiser at the same shapes in its eps and DDIM forms; a robot in one
+# block and in a cluster over 3 and 8 layers; the context limit (383
+# tokens: the ring's 12 chunks hold a head's whole K) and S = 383 itself.
+# The pack, the determinism over two launches and the per-step sampler are
+# cases of the tests above.
+
+@pytest.mark.parametrize("b", [1, 13, 64, 133])
+@pytest.mark.parametrize("solver", ["ddim", "dpmpp"])
+@pytest.mark.parametrize("S", [17, 311, 312])
+def test_chunk_kernel_head_dim_128_matches_plain_version(S, solver, b, device):
+    test_chunk_kernel_matches_plain_version(S, 128, solver, b, device)
+
+
+@pytest.mark.parametrize("coefs", [None, DDIM_COEFS], ids=["eps", "ddim"])
+@pytest.mark.parametrize("b", [1, 13, 64, 133])
+@pytest.mark.parametrize("S", [17, 311, 312])
+def test_denoise_kernel_head_dim_128_matches_plain_version(S, b, coefs, device):
+    test_denoise_kernel_matches_plain_version(S, 128, b, coefs, device)
+
+
+@pytest.mark.parametrize("cluster", [1, 2])
+@pytest.mark.parametrize("layers", [3, 8])
+def test_head_dim_128_block_split_matches_plain_version(layers, cluster, device):
+    """A robot in one block or its heads split over a 2-block cluster, over
+    3 layers (the cluster's output buffers in turn) and larger_model's 8."""
+    cfg, model = serving_model(device, 128, num_decoder_layers=layers)
+    chunk, args = chunk_inputs(cfg, model, device, 13, 311, "dpmpp", seed=layers + cluster)
+    den, packed, noisy, stk, stv = denoise_inputs(cfg, model, device, 13, 311, seed=cluster)
+    chunk.cluster_size = den.cluster_size = lambda batch, device: cluster
+    with torch.no_grad():
+        assert_close(chunk.sample_kernel(*args), chunk.sample_plain(*args))
+        for coefs in (None, DDIM_COEFS):
+            assert_close(den.run_kernel(packed, noisy, stk[0], stv[0], coefs),
+                         den.run_plain(packed, noisy, stk[0], stv[0], coefs))
+
+
+def test_head_dim_128_context_limit(device):
+    """S = 383 (12 chunks with the step token) runs; S = 384 is refused by
+    the chunk sampler, the pack and the denoiser."""
+    cfg, model = serving_model(device, 128)
+    chunk, args = chunk_inputs(cfg, model, device, 5, 383, "ddim", seed=2)
+    den, packed, noisy, stk, stv = denoise_inputs(cfg, model, device, 5, 383, seed=3)
+    with torch.no_grad():
+        assert_close(chunk.sample_kernel(*args), chunk.sample_plain(*args))
+        assert_close(den.run_kernel(packed, noisy, stk[0], stv[0]),
+                     den.run_plain(packed, noisy, stk[0], stv[0]))
+    chunk, args = chunk_inputs(cfg, model, device, 5, 384, "ddim", seed=2)
+    with pytest.raises(ValueError, match="at most 383 context tokens"):
+        chunk.sample_kernel(*args)
+    kv = [(args[0].view(5, 384, 4, 128), args[0].view(5, 384, 4, 128))] * cfg.num_decoder_layers
+    with pytest.raises(ValueError, match="at most 383 context tokens"):
+        den.pack_context_kv(kv)
+    with pytest.raises(ValueError, match="at most 383 context tokens"):
+        den.run_kernel(den.pack_plain(kv), noisy, stk[0], stv[0])
 
 
 # ------------------------------------------------ the ResNet / Swin encoders

@@ -1,6 +1,7 @@
 """Plain version of the port's FusedChunkSampler (the CPU path of
 ops/fused_chunk.py) against the JAX FusedChunkSampler in interpret mode,
-DDIM and DPM-Solver++(2M), float32, at 4 heads x 16 and 2 heads x 64.
+DDIM and DPM-Solver++(2M), float32, at 4 heads x 16, 2 heads x 64 and 2
+heads x 128 (larger_model.yaml's head_dim).
 Tolerance 1e-4 absolute: float32
 summation order through a 4-step chunk, where 1/sqrt(abar) amplifies the
 per-pass eps differences."""
@@ -19,8 +20,8 @@ from soccerdiffusion_tpu.ops.fused_chunk import FusedChunkSampler as JaxFusedChu
 from soccerdiffusion_tpu_torch.diffusion import make_schedule, solver_coef_table
 from soccerdiffusion_tpu_torch.models import DiffusionPolicy
 from soccerdiffusion_tpu_torch.ops.fused_chunk import FusedChunkSampler, padded_joints, padded_keys
-from tests.test_torch_jax_params import (SMALL, SMALL_HD64, build_pair, port_config, to_jax,
-                                         to_torch)
+from tests.test_torch_jax_params import (SMALL, SMALL_HD64, SMALL_HD128, build_pair, port_config,
+                                         to_jax, to_torch)
 
 
 @pytest.mark.parametrize("solver", ["ddim", "dpmpp"])
@@ -48,6 +49,11 @@ def test_plain_chunk_matches_jax_kernel(solver, cfg=SMALL):
 @pytest.mark.parametrize("solver", ["ddim", "dpmpp"])
 def test_plain_chunk_head_dim_64_matches_jax_kernel(solver):
     test_plain_chunk_matches_jax_kernel(solver, SMALL_HD64)
+
+
+@pytest.mark.parametrize("solver", ["ddim", "dpmpp"])
+def test_plain_chunk_head_dim_128_matches_jax_kernel(solver):
+    test_plain_chunk_matches_jax_kernel(solver, SMALL_HD128)
 
 
 def test_unported_options_raise():
@@ -78,7 +84,7 @@ def unpacked(sampler):
     return u
 
 
-@pytest.mark.parametrize("cfg", [SMALL, SMALL_HD64], ids=["4x16", "2x64"])
+@pytest.mark.parametrize("cfg", [SMALL, SMALL_HD64, SMALL_HD128], ids=["4x16", "2x64", "2x128"])
 def test_kernel_weights_hold_the_plain_weights(cfg):
     """The layouts the CUDA kernel reads (transposed Dense kernels, the
     zero-padded embedding, the K/V projection ordered by layer, head, K | V)

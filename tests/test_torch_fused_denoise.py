@@ -1,7 +1,7 @@
 """Plain version of the port's FusedDenoiser (the CPU path of
 ops/fused_denoise.py) against the JAX FusedDenoiser in interpret mode, in
 the eps form, the in-kernel DDIM-coefficient form and the per-step sampler,
-float32, at 4 heads x 16 and 2 heads x 64, each side over its own
+float32, at 4 heads x 16, 2 heads x 64 and 2 heads x 128, each side over its own
 ``pack_context_kv``. Tolerances: float32 summation order (2e-5 absolute per
 pass; 1e-4 after a 4-step sample, where 1/sqrt(abar) amplifies eps
 differences). Then, without JAX: the pack into the CUDA kernel's
@@ -22,8 +22,8 @@ from soccerdiffusion_tpu_torch.models import DiffusionPolicy
 from soccerdiffusion_tpu_torch.ops.fused_chunk import FusedChunkSampler
 from soccerdiffusion_tpu_torch.ops.fused_denoise import (FusedDenoiser, kfrag, padded_keys,
                                                          vfrag)
-from tests.test_torch_jax_params import (F32_ATOL, SMALL, SMALL_HD64, build_pair, port_config,
-                                         to_jax, to_torch)
+from tests.test_torch_jax_params import (F32_ATOL, SMALL, SMALL_HD64, SMALL_HD128, build_pair,
+                                         port_config, to_jax, to_torch)
 
 
 def setup(b=4, cfg=SMALL):
@@ -69,8 +69,14 @@ def test_head_dim_64_matches_jax_kernel():
     test_eps_and_ddim_coef_forms_match_jax_kernel(SMALL_HD64, atol=1e-4)
 
 
-def test_per_step_sampler_matches_jax_kernel():
-    jmodel, variables, jkv, jfused, model, fused, packed, noisy = setup()
+def test_head_dim_128_matches_jax_kernel():
+    """larger_model.yaml's head_dim at hidden 256: eps reaches |10| as at
+    head_dim 64, so the same float32 bound (1e-4)."""
+    test_eps_and_ddim_coef_forms_match_jax_kernel(SMALL_HD128, atol=1e-4)
+
+
+def test_per_step_sampler_matches_jax_kernel(cfg=SMALL):
+    jmodel, variables, jkv, jfused, model, fused, packed, noisy = setup(cfg=cfg)
     jpacked = jfused.pack_context_kv(jkv)
     steps = 4
     jsched, sched = jax_make_schedule(100), make_schedule(100)
@@ -85,9 +91,13 @@ def test_per_step_sampler_matches_jax_kernel():
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
 
 
+def test_per_step_sampler_head_dim_128_matches_jax_kernel():
+    test_per_step_sampler_matches_jax_kernel(SMALL_HD128)
+
+
 # ------------------------------------------------ the kernel's K/V layout
 
-@pytest.mark.parametrize("D", [16, 32, 64])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
 def test_fragment_orders_are_permutations(D):
     """kfrag / vfrag map the (Sp, D) keys x dims of a head one to one onto
     its Sp D slots (Sp a multiple of 32)."""
@@ -96,7 +106,7 @@ def test_fragment_orders_are_permutations(D):
         assert np.array_equal(np.sort(frag(s, d, D).ravel()), np.arange(64 * D))
 
 
-@pytest.mark.parametrize("head_dim", [32, 64])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
 @pytest.mark.parametrize("S", [17, 31, 301, 311])
 def test_pack_round_trips(S, head_dim):
     """pack_context_kv writes element (key s, dim d) of layer l, head h's K
@@ -135,6 +145,15 @@ BAD_SHAPES = [
     ({"hidden_dim": 64, "num_decoder_heads": 2}, 301, "hidden_dim 128"),
     ({"hidden_dim": 256, "num_decoder_heads": 8}, 301, "256 \\(head_dim 64\\)"),
     ({}, 1024, "at most 1023 context tokens"),
+    # hidden 512: head_dim 128 only (larger_model.yaml's 4 heads), in its limits
+    ({"hidden_dim": 512, "num_decoder_heads": 8}, 311,
+     "512 \\(head_dim 128\\); got 512 at head_dim 64"),
+    ({"hidden_dim": 512, "num_decoder_heads": 16}, 311, "got 512 at head_dim 32"),
+    ({"hidden_dim": 256, "num_decoder_heads": 2}, 311, "got 256 at head_dim 128"),
+    ({"hidden_dim": 512, "num_decoder_heads": 4}, 384, "at most 383 context tokens"),
+    ({"hidden_dim": 512, "num_decoder_heads": 4, "trajectory_prediction_length": 11}, 311,
+     "at most 10 chunk steps at head_dim 128"),
+    ({"hidden_dim": 512, "num_decoder_heads": 4, "compute_dtype": "float32"}, 311, "bfloat16"),
 ]
 
 
@@ -149,8 +168,9 @@ def test_denoiser_and_chunk_refuse_the_same_shapes(changes, S, message, cls):
 
 
 @pytest.mark.parametrize("cls", [FusedDenoiser, FusedChunkSampler])
-@pytest.mark.parametrize("E,H,S", [(128, 4, 301), (256, 4, 311), (128, 2, 1023)],
-                         ids=["h128", "flagship", "longest"])
+@pytest.mark.parametrize("E,H,S", [(128, 4, 301), (256, 4, 311), (128, 2, 1023), (512, 4, 311),
+                                   (512, 4, 383)],
+                         ids=["h128", "flagship", "longest", "larger_model", "longest_hd128"])
 def test_ported_serving_shapes_fit_the_kernels(E, H, S, cls):
     cfg = port_config(SMALL, hidden_dim=E, num_decoder_heads=H, num_joints=20,
                       trajectory_prediction_length=10, compute_dtype="bfloat16")

@@ -59,6 +59,12 @@ SIM = ModelConfig(**{**DEFAULT.__dict__, "imu_orientation_embedding_method": "fi
                      "encoder_patch_size": 5, "action_context_length": 10,
                      "imu_context_length": 10, "joint_state_context_length": 10,
                      "use_joint_states": False, "use_gamestate": False})
+# larger_model.yaml's: the decoder's head_dim 128 (hidden 256 with 2 decoder
+# heads; the YAML's 512 with 4), 4-layer proprioceptive stacks, 2 decoder
+# layers (the YAML's 8)
+LARGER = ModelConfig(**{**DEFAULT.__dict__, "hidden_dim": 256, "num_decoder_heads": 2,
+                        "num_action_history_encoder_layers": 4, "num_imu_encoder_layers": 4,
+                        "joint_state_encoder_layers": 4})
 CONFIGS = {"default": DEFAULT, "sim_scratch": SIM}
 
 

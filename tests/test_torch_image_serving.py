@@ -1,6 +1,7 @@
 """Serving the ResNet image configurations (tests/test_torch_image_configs.py's
-cut of default.yaml and of sim_scratch.yaml) on the CPU: 2 closed-loop
-periods of the port's RolloutEngine against the JAX engine, float32: 3-step
+cuts of default.yaml, sim_scratch.yaml and larger_model.yaml, whose decoder
+runs at head_dim 128) on the CPU: 2 closed-loop periods of the port's
+RolloutEngine against the JAX engine, float32: 3-step
 DDIM through the whole-chunk sampler with the image-token cache and with raw
 frames, the distilled student through the fused denoiser. The model is left
 in train mode by the caller; the engine serves in eval mode (BatchNorm on
@@ -25,7 +26,7 @@ from soccerdiffusion_tpu.inference import RolloutEngine as JaxEngine
 from soccerdiffusion_tpu_torch.data import Normalizer
 from soccerdiffusion_tpu_torch.diffusion import make_schedule
 from soccerdiffusion_tpu_torch.inference import RolloutEngine
-from tests.test_torch_image_configs import DEFAULT, SIM
+from tests.test_torch_image_configs import DEFAULT, LARGER, SIM
 from tests.test_torch_jax_params import build_pair
 from tests.test_torch_rollout import jax_noise
 
@@ -67,4 +68,14 @@ def test_resnet_rollout_matches_jax(cache, distilled):
 
 def test_sim_scratch_rollout_matches_jax():
     ref, got = run_rollout_pair(SIM, True, False)
+    np.testing.assert_allclose(got, ref, atol=CHUNK_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("cache,distilled", [(True, False), (False, False), (True, True)],
+                         ids=["cached-ddim", "raw-ddim", "cached-distilled"])
+def test_larger_model_rollout_matches_jax(cache, distilled):
+    """larger_model.yaml's cut (the decoder at head_dim 128): the chunk
+    sampler's and the denoiser's plain versions against the JAX kernels."""
+    ref, got = run_rollout_pair(LARGER, cache, distilled)
+    assert got.shape == (PERIODS, B, 10, LARGER.num_joints)
     np.testing.assert_allclose(got, ref, atol=CHUNK_TOL, rtol=0)

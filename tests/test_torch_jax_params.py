@@ -36,6 +36,9 @@ SMALL = ModelConfig(
 
 # the decoder at 2 heads x 64, the CUDA decoder kernels' h256 instance
 SMALL_HD64 = ModelConfig(**{**SMALL.__dict__, "hidden_dim": 128, "num_decoder_heads": 2})
+# the decoder at 2 heads x 128, the head_dim of larger_model.yaml's (the
+# kernels' hidden-512 instance, 4 heads x 128)
+SMALL_HD128 = ModelConfig(**{**SMALL.__dict__, "hidden_dim": 256, "num_decoder_heads": 2})
 
 
 def port_config(cfg: ModelConfig, **changes) -> port.ModelConfig:

@@ -1,6 +1,8 @@
 """The port's training CLI (training/train.py) on the CPU: a few steps on
 the synthetic data with the fused knobs on give finite losses, write a
-checkpoint that loads back equal, and resume from it."""
+checkpoint that loads back equal, and resume from it; a ``train.mesh_shape``
+over more than one device is refused (``parallel/`` is not ported), a
+one-device mesh trains."""
 
 import json
 
@@ -9,6 +11,7 @@ import pytest
 import torch
 import yaml
 
+from soccerdiffusion_tpu_torch.config import Config
 from soccerdiffusion_tpu_torch.training import train
 from soccerdiffusion_tpu_torch.training.checkpoint import load_checkpoint
 
@@ -73,3 +76,36 @@ def test_default_device_is_the_card(run):
     assert train.RunOptions().device == "cuda"
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train.main(["-c", str(tmp / "small.yaml"), "--dummy-data", "-o", str(tmp / "x")])
+
+
+# train.mesh_shape: the JAX trainer builds its device mesh from it; the port
+# trains on one card until parallel/ is ported, so a mesh over more than one
+# device is refused, and {} or axes of size 1 train
+MULTI_DEVICE_MESHES = {"data8": {"data": 8}, "data4-model2": {"data": 4, "model": 2},
+                       "data2-model1": {"data": 2, "model": 1}}
+
+
+@pytest.mark.parametrize("mesh", MULTI_DEVICE_MESHES.values(), ids=MULTI_DEVICE_MESHES.keys())
+def test_multi_device_mesh_is_refused(mesh, tmp_path):
+    config = Config.from_dict({**CONFIG, "mesh_shape": mesh})
+    opts = train.RunOptions(output=str(tmp_path / "ckpt"), dummy_data=True, epochs=1,
+                            steps_per_epoch=1, device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh_shape.*ROADMAP"):
+        train.train(config, opts)
+    path = tmp_path / "mesh.yaml"
+    path.write_text(yaml.safe_dump({**CONFIG, "mesh_shape": mesh}))
+    with pytest.raises(NotImplementedError, match="mesh_shape.*ROADMAP"):
+        train.main(["--config", str(path), "--dummy-data", "--steps-per-epoch", "1",
+                    "-o", str(tmp_path / "ckpt"), "--device", "cpu"])
+    assert not (tmp_path / "ckpt").exists()
+
+
+@pytest.mark.parametrize("mesh", [{}, {"data": 1}, {"data": 1, "model": 1}],
+                         ids=["empty", "data1", "data1-model1"])
+def test_one_device_mesh_trains(mesh, tmp_path):
+    path = tmp_path / "mesh.yaml"
+    path.write_text(yaml.safe_dump({**CONFIG, "mesh_shape": mesh}))
+    state = train.main(["--config", str(path), "--dummy-data", "--epochs", "1",
+                        "--steps-per-epoch", "2", "-o", str(tmp_path / "ckpt"), "--device", "cpu"])
+    assert state.step == 2
+    assert load_checkpoint(tmp_path / "ckpt")["hyperparams"]["mesh_shape"] == mesh

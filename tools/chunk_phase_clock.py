@@ -2,15 +2,17 @@
 denoiser's, spends its time, phase by phase: builds an instrumented copy of
 csrc/ (into build/chunk_phase_clock/) in which every statement of the
 shared pass (csrc/decoder_pass.cuh: decoder_pass's body and its layer loop,
-and chunk_cross_attention's loop over the heads) and of the chunk kernel's
+and the loops over the heads of both forms of chunk_cross_attention) and of
+the chunk kernel's
 step loop is followed by a block barrier and a timestamp (thread 0 of each
 block adds the clock64 cycles since the previous one to that statement's
 counter), and the kernel's prologue (the chunk's K/V projection, the
 denoiser's staging of its parameters and step token) is timed as a whole.
 Prints the cycles per block of each phase, per launch and labelled by the
-statement, for the h128 head_dim-32 kernel over S=301 and the flagship's
-head_dim-64 kernel over S=311 (the chunk: 30 DDIM steps) at B=64 (a robot
-on a 2-block cluster) or another batch.
+statement, for the h128 head_dim-32 kernel over S=301, the flagship's
+head_dim-64 kernel and larger_model's head_dim-128 kernel over S=311 (the
+chunk: 30 DDIM steps) at B=64 (a robot on a 2-block cluster) or another
+batch.
 
     python tools/chunk_phase_clock.py [--kernel chunk|denoise] [--batch B] [--h128-only]
 
@@ -98,7 +100,8 @@ def instrument(kernel: str):
         text = mark_statements(sources[PASS], "__device__ __forceinline__ void decoder_pass(",
                                labels, loops=("for (int l = 0;",), body=True)
         sources[PASS] = mark_statements(text, "__device__ void chunk_cross_attention(", labels,
-                                        prefix="cross: ", loops=("for (int h0 = 0;",))
+                                        prefix="cross: ",
+                                        loops=("for (int h0 = 0;", "for (int h = 0;"))
         return labels
 
     return run
@@ -109,7 +112,8 @@ def main() -> int:
     parser.add_argument("--kernel", choices=tuple(KERNELS), default="chunk",
                         help="the whole-chunk sampler (default) or the denoiser")
     parser.add_argument("--batch", type=int, default=64, help="robots (default 64)")
-    parser.add_argument("--h128-only", action="store_true", help="skip the flagship's kernel")
+    parser.add_argument("--h128-only", action="store_true",
+                        help="skip the flagship's and larger_model's kernels")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chunk_phase_clock: needs an NVIDIA GPU", file=sys.stderr)
@@ -123,7 +127,8 @@ def main() -> int:
     coefs = solver_coef_table(make_schedule(1000), 30, "ddim")
     steps = torch.as_tensor(ddim_timesteps(1000, 30).astype(np.int64), device="cuda")
     B = args.batch
-    configs = [(cs.bench_config(), 301, 1), (cs.flagship_config(), 311, 3)]
+    configs = [(cs.bench_config(), 301, 1), (cs.flagship_config(), 311, 3),
+               (cs.larger_config(), 311, 5)]
     for cfg, S, seed in configs[:1] if args.h128_only else configs:
         model = cs.build_model(cfg, "cuda", seed=seed)
         chunk = FusedChunkSampler(model)

@@ -3,10 +3,12 @@ CUDA-event time of the wrapper call (which adds the host's launch work):
 the serving kernels at chip_smoke.py's main-path shapes (the context
 encoder at h128 B=64 and 1024; the 30-step DDIM chunk sampler and the
 denoiser, beside the denoiser's context K/V pack, at h128 over S=301 at
-B=64 and 1024, and at head_dim 64 (vit_flagship's decoder) over S=311 at
-B=64 and 256), the decoder layer (forward and backward, head_dim 64
-at E=256 over S=312 memory rows and head_dim 32 at E=128 over S=302, T=10,
-B=64 and 256) and flash attention at four of chip_smoke.py's bf16 shapes.
+B=64 and 1024, at head_dim 64 (vit_flagship's decoder) over S=311 at B=64
+and 256 and, in a tree that has them, at head_dim 128 (larger_model.yaml's
+decoder) over S=311 at B=64), the decoder layer (forward and backward,
+head_dim 64 at E=256 over S=312 memory rows and head_dim 32 at E=128 over
+S=302, T=10, B=64 and 256) and flash attention at four of chip_smoke.py's
+bf16 shapes.
 
     python tools/kernel_device_times.py [--only serving|training] [--tree DIR]
         [--chunk-threads auto,512,256] [--chunk-clusters auto,1,2]
@@ -104,8 +106,11 @@ def serving(chunk_threads, chunk_clusters):
             batch = cs.random_batch(h128.config, B, "cuda", np.random.default_rng(B))
             report(f"context encoder h128 B={B}", lambda: enc.encode_kernel(batch))
         flagship = cs.build_model(cs.flagship_config(), "cuda", seed=3)
-        for model, label, S, batches in ((h128, "h128 (head_dim 32)", 301, (64, 1024)),
-                                         (flagship, "flagship (head_dim 64)", 311, (64, 256))):
+        models = [(h128, "h128 (head_dim 32)", 301, (64, 1024)),
+                  (flagship, "flagship (head_dim 64)", 311, (64, 256))]
+        if hasattr(cs, "larger_model"):  # a tree with the head_dim-128 instances
+            models.append((cs.larger_model("cuda"), "larger_model (head_dim 128)", 311, (64,)))
+        for model, label, S, batches in models:
             chunk, den = FusedChunkSampler(model), FusedDenoiser(model)
             stk, stv = chunk.step_tables(model.step_encoding(steps)[:, 0])
             E = model.config.hidden_dim
