@@ -9,7 +9,11 @@
    and context-encoder kernels and every bf16 instance of the flash kernels
    must hold tensor-core instructions (HMMA / HGMMA), the chunk sampler's
    and the denoiser's head_dim-128 instances among them; the fp32 flash
-   instances are logged as scalar.
+   instances are logged as scalar. Holds the Python mirror of the decoder
+   kernels' shared-memory plan (ops/fused_denoise.py:pass_smem_bytes, which
+   their shape checks use) equal to the C function (sd_pass_smem_bytes)
+   over head_dim 32 / 64 / 128, 2 / 4 / 8 layers, S from 0 to 1023, every
+   block size, one block and a cluster, both kernels' carries.
 3. Holds each serving kernel against its plain PyTorch version on the card
    at the h128 serving path's shapes (S=301 context tokens, 30 DDIM steps,
    B=64 and B=1024; bf16 weights from a seeded flax-layout random init) and
@@ -102,7 +106,26 @@
    through the chunk sampler, the distilled student through the denoiser
    and 8 pack launches; exact launches per period); 2 periods card vs CPU
    of the chunk lane and of the distilled lane at B=4.
-12. Prints one JSON line of per-kernel results, then as its last line
+12. Distillation and guidance. larger_model_distill.yaml at full width in
+   bf16 (hidden 512, 8 decoder layers of head_dim 128, ResNet18 at 224 px,
+   its own B=32): training/train.py trains a teacher 2 steps with
+   modality_dropout 0.15, training/distill.py's CLI distills it 2 steps as
+   a 1-step student, a guided 4-step student (3.0@image) and a 1-step
+   student of 2 teacher draws (no kernel of the port runs there: the
+   YAML's fused knobs are off); load_policy_checkpoint decodes each; each
+   mode's step is timed on the teacher (median of 3 after 1); at B=64 the
+   1-step student serves on the head_dim-128 denoiser and its pack, the
+   4-step student on the chunk sampler at T=4, the teacher guided
+   (3.0@image, raw frames) on the plain sampler (exact launches per
+   period); 3 steps of the guided 4-step mode card vs CPU in float32.
+   Then vit_flagship.yaml at B=64: one step of a 4-step student with the
+   counters zeroed before and read after (the teacher's encode on the ViT
+   blocks and the stacks, its 30-step rollout on the decoder layers'
+   forward, the student on their forward and backward; exact launches) and
+   its peak device memory, the 1- and 4-step students' step times, and 3
+   bf16 steps card vs CPU at B=2 (losses, update norm, the frozen
+   parameters bit for bit the teacher's).
+13. Prints one JSON line of per-kernel results, then as its last line
    {"ok": true, "device": {...}}. Where one torch.nn call computes the
    same function as a kernel (the encoder-stack, ViT-block and
    decoder-layer forwards; one torch.autograd.grad through the same layers
@@ -1835,6 +1858,311 @@ def larger_model_phase(device) -> tuple[dict, dict, dict]:
              "fused_denoise_pack_hd128": r_pack}, launches, periods)
 
 
+# ------------------------------------------------------- the decoder kernels' shared memory
+
+def smem_mirror_phase() -> int:
+    """ops/fused_denoise.py:pass_smem_bytes, which the wrappers' shape checks
+    use, against the C function the kernels launch with
+    (sd_pass_smem_bytes) over a grid: head_dim 32 / 64 (hidden 128 and 256)
+    / 128, L in {2, 4, 8}, S in {0, 311, ..., 1023}, every block size each
+    head dim runs, one block and a cluster, the chunk sampler's carry and
+    the denoiser's. Returns the number of cases."""
+    from soccerdiffusion_tpu_torch.ops import _build
+    from soccerdiffusion_tpu_torch.ops.fused_denoise import pass_smem_bytes, padded_keys, r4
+
+    lib, n = _build.library(), 0
+    widths = {32: [(128, 4)], 64: [(128, 2), (256, 4)], 128: [(512, 4)]}
+    threads = {32: (512, 256), 64: (512,), 128: (256,)}
+    P, J, Jp = 10, 20, 32
+    for D, shapes in widths.items():
+        for (E, H), L, S, th, cs, carry in itertools.product(
+                shapes, (2, 4, 8), (0, 311, 415, 447, 543, 575, 639, 1023), threads[D], (1, 2),
+                (0, 2 * r4(P * J))):
+            args = (L, P, E, H, J, Jp, padded_keys(S), th, cs, carry)
+            want, got = lib.sd_pass_smem_bytes(_build.ints(*args)), pass_smem_bytes(*args)
+            if want != got:
+                raise AssertionError(f"pass_smem_bytes{args}: Python mirror {got}, C {want}")
+            n += 1
+    log(f"shared-memory plan: the Python mirror equals sd_pass_smem_bytes in all {n} cases")
+    return n
+
+
+# ------------------------------------------------------- distillation and guidance
+# larger_model_distill.yaml at full width (hidden 512, 8 decoder layers of 4
+# heads of 128, 4-layer stacks, ResNet18 at 224 px) and its own B=32, in bf16
+# (the decoder kernels' dtype) with modality dropout 0.15: a teacher trained
+# 2 steps, three students distilled 2 steps each through the CLI, each
+# served at LARGER_B; the flagship's distillation step at DISTILL_FLAG_B
+DISTILL_YAML = "larger_model_distill.yaml"
+DISTILL_MODES = {
+    "student1": ["--student-steps", "1"],
+    "student4_guided_image": ["--student-steps", "4", "--guidance", "3.0@image"],
+    "student1_draws2": ["--student-steps", "1", "--teacher-draws", "2"],
+}
+DISTILL_STEPS, DISTILL_FLAG_B = 2, 64
+# kernel launches of one flagship distillation step of a K-step student:
+# the teacher's encode (8 ViT blocks, 3 hd64 stacks + the image-frame
+# stack), its 30-step rollout (4 decoder layers a step, forward only), the
+# student's K steps (4 layers each, forward and backward)
+def flag_distill_launches(k: int) -> dict:
+    fwd, bwd = 4 * (30 + k), 4 * k
+    return {"fused_vit_block_fwd": 8, "fused_encoder_stack_fwd": 4,
+            "fused_encoder_stack_fwd_hd64": 3, "fused_decoder_layer_fwd": fwd,
+            "fused_decoder_layer_fwd_hd64": fwd, "fused_decoder_layer_bwd": bwd,
+            "fused_decoder_layer_bwd_hd64": bwd}
+
+
+def distill_setup(teacher, device, **kw):
+    """A student copied from ``teacher`` (on ``device``), its masked
+    optimizer, state and distillation step (30 teacher steps)."""
+    from soccerdiffusion_tpu_torch.diffusion import make_schedule
+    from soccerdiffusion_tpu_torch.training.distill import TRAINABLE, make_distill_step
+    from soccerdiffusion_tpu_torch.training.trainer import create_train_state, make_optimizer
+
+    teacher = teacher.to(device).eval().requires_grad_(False)
+    student = copy.deepcopy(teacher).requires_grad_(True)
+    opt = make_optimizer(student, 1e-3, 10, trainable=TRAINABLE)
+    step = make_distill_step(student, make_schedule(1000), opt, teacher_inference_steps=30, **kw)
+    return teacher, student, create_train_state(student, opt), step
+
+
+def distill_inputs(cfg, batch, device, rng, draws=1):
+    b = batch["joint_command"].shape[0]
+    shape = (b, cfg.trajectory_prediction_length, cfg.num_joints)
+    noise = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device)
+    draw = (torch.from_numpy(rng.normal(size=(draws, *shape)).astype(np.float32)).to(device)
+            if draws > 1 else None)
+    return noise, draw
+
+
+def timed_distill(label, teacher, batch, device, **kw) -> float:
+    """ms of a distillation step on ``device``: the median of 3 after 1, each
+    between device syncs (host clock)."""
+    _, student, state, step = distill_setup(teacher, device, **kw)
+    rng = np.random.default_rng(7)
+    times = []
+    for i in range(4):
+        noise, draw = distill_inputs(student.config, batch, device, rng, kw.get("teacher_draws", 1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step.apply(state, teacher, batch, noise, draw)
+        loss = metrics["loss"].item()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if not np.isfinite(loss):
+            raise AssertionError(f"{label}: distillation step {i} loss {loss}")
+    ms = statistics.median(times[1:])
+    log(f"distillation step {label}: {ms:.2f} ms (median of 3 after 1; steps {times})")
+    return ms
+
+
+def distill_reference_phase(device, cfg, batches, seed, **kw) -> dict:
+    """Distillation steps on the card against the same steps of the plain
+    versions on the CPU, one per batch of ``batches`` (CPU tensors), from the
+    same teacher (flax's seeded init) and noise: the losses within
+    STEP_LOSS_TOL relative, the students' update norm within STEP_UPDATE_TOL,
+    and on both devices every parameter outside the denoiser and the step
+    token bit for bit the teacher's. Raises past a gate."""
+    from soccerdiffusion_tpu_torch.models import DiffusionPolicy
+    from soccerdiffusion_tpu_torch.training.distill import TRAINABLE
+    from soccerdiffusion_tpu_torch.utils.jax_params import flax_init_params, load_jax_params
+
+    base = DiffusionPolicy(cfg)
+    base = load_jax_params(base, *flax_init_params(base, seed))
+    rng = np.random.default_rng(seed)
+    runs = {dev: (*distill_setup(copy.deepcopy(base), dev, **kw), []) for dev in (device, "cpu")}
+    for batch in batches:
+        noise, draw = distill_inputs(cfg, batch, "cpu", rng, kw.get("teacher_draws", 1))
+        for dev, (teacher, _, state, step, losses) in runs.items():
+            on = lambda x: None if x is None else x.to(dev)
+            metrics = step.apply(state, teacher, {k: on(v) for k, v in batch.items()}, on(noise),
+                                 on(draw))
+            losses.append(metrics["loss"].item())
+    (tg, sg, _, _, gl), (tc, sc, _, _, cl) = runs[device], runs["cpu"]
+    loss_rel = [abs(lg - lc) / abs(lc) for lg, lc in zip(gl, cl)]
+    p0 = dict(base.named_parameters())
+    num = den = 0.0
+    for (name, pg), pc in zip(sg.named_parameters(), sc.parameters()):
+        num += ((pg.detach().cpu() - pc.detach()) ** 2).sum().item()
+        den += ((pc.detach() - p0[name].detach()) ** 2).sum().item()
+    upd = (num / den) ** 0.5
+    for teacher, student in ((tg, sg), (tc, sc)):
+        frozen = dict(teacher.named_parameters())
+        for name, p in student.named_parameters():
+            if not name.startswith(TRAINABLE) and not torch.equal(p, frozen[name]):
+                raise AssertionError(f"distillation moved the frozen parameter {name}")
+    log(f"distillation card vs cpu ({cfg.compute_dtype}, {kw}, B={len(batches[0]['joint_command'])}, "
+        f"{len(batches)} steps): losses card {gl}, cpu {cl}, relative differences {loss_rel} "
+        f"(tol {STEP_LOSS_TOL}); update norm {upd:.3e} (tol {STEP_UPDATE_TOL}); frozen "
+        f"parameters bit for bit the teacher's on both")
+    if max(loss_rel) > STEP_LOSS_TOL or upd > STEP_UPDATE_TOL:
+        raise AssertionError("the card's distillation steps disagree with the plain path")
+    return {"loss_rel": loss_rel, "update_norm": upd}
+
+
+def served_period(label, model, device, per_period, b=LARGER_B, **kw) -> tuple[float, dict]:
+    """A checkpoint's policy served at B=b, CHUNKS periods after a warm-up
+    one, every counter zeroed just before and read just after: each kernel
+    exactly its count per period, no other kernel."""
+    from soccerdiffusion_tpu_torch.diffusion import make_schedule
+    from soccerdiffusion_tpu_torch.inference import RolloutEngine
+
+    eng = RolloutEngine(model, make_schedule(1000), kw.pop("normalizer"), device=device, **kw)
+    eng.make_rollout_fn(1)(eng.init(b, torch.Generator(device=device).manual_seed(0)))
+    ms, got = timed_rollout(eng, device, 1, b, CHUNKS)
+    want = {name: per_period.get(name, 0) * CHUNKS for name in got}
+    log(f"served {label} B={b}, {CHUNKS} periods: {ms:.2f} ms/period, {b * 1e3 / ms:.1f} "
+        f"chunks/s; launches {got}")
+    if got != want:
+        raise AssertionError(f"served {label}: launches {got}, expected {want}")
+    return ms, got
+
+
+def load_served(path, device):
+    """A checkpoint's policy as it serves (load_policy_checkpoint) and its
+    normaliser, step count and distilled flag."""
+    from soccerdiffusion_tpu_torch.config import Config
+    from soccerdiffusion_tpu_torch.models import DiffusionPolicy
+    from soccerdiffusion_tpu_torch.training.checkpoint import load_policy_checkpoint
+
+    hp, sd, norm, steps, distilled = load_policy_checkpoint(path)
+    model = DiffusionPolicy(Config.from_dict(hp).model)
+    model.load_state_dict(sd)
+    return model.to(device).eval(), norm, steps, distilled, hp
+
+
+def distill_larger_phase(device) -> dict:
+    """larger_model_distill.yaml at full width in bf16: train() 2 steps with
+    modality dropout 0.15 (packed data), distill.main 2 steps in each of
+    DISTILL_MODES, load_policy_checkpoint on each student; each mode's
+    step timed on the trained teacher; the 1-step student served on the
+    head_dim-128 denoiser and its pack, the 4-step student on the chunk
+    sampler at T=4, the guided teacher (3.0@image, raw frames) on the plain
+    sampler; then 3 float32 steps card vs CPU (the guided 4-step mode)."""
+    import yaml
+
+    from soccerdiffusion_tpu_torch.config import Config
+    from soccerdiffusion_tpu_torch.training import distill
+    from soccerdiffusion_tpu_torch.training.train import RunOptions, build_dataset, train
+    from soccerdiffusion_tpu_torch.data.pipeline import to_tensors
+
+    out = {"launches": {}, "step_ms": {}, "period_ms": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        params = yaml.safe_load(open(CONFIG_DIR / DISTILL_YAML))
+        params.update(compute_dtype="bfloat16", modality_dropout=0.15, log_every=1)
+        yml = Path(tmp) / DISTILL_YAML
+        yml.write_text(yaml.safe_dump(params))
+        config = Config.from_dict(params)
+        teacher_ckpt = f"{tmp}/teacher"
+        t0 = time.perf_counter()
+        state = train(config, RunOptions(output=teacher_ckpt, dummy_data=True, packed=True,
+                                         epochs=1, steps_per_epoch=2, seed=0,
+                                         metrics=f"{tmp}/teacher.jsonl"), hyperparams=params)
+        losses = [json.loads(line)["loss"] for line in open(f"{tmp}/teacher.jsonl")]
+        log(f"{DISTILL_YAML} teacher (bf16, modality_dropout 0.15, B={config.train.batch_size}): "
+            f"train() {state.step} steps in {time.perf_counter() - t0:.1f} s, losses {losses}")
+        if state.step != 2 or not all(np.isfinite(losses)):
+            raise AssertionError(f"teacher training: {state.step} steps, losses {losses}")
+        del state
+        students = {}
+        for mode, flags in DISTILL_MODES.items():
+            path = f"{tmp}/{mode}"
+            t0 = time.perf_counter()
+            zero_counters()
+            st = distill.main([str(yml), teacher_ckpt, "-o", path, "--dummy-data", "--epochs", "1",
+                               "--steps-per-epoch", str(DISTILL_STEPS), "--metrics",
+                               f"{tmp}/{mode}.jsonl", *flags])
+            torch.cuda.synchronize()
+            got = read_counters()
+            records = [json.loads(line) for line in open(f"{tmp}/{mode}.jsonl")]
+            log(f"distill.main {mode} ({' '.join(flags)}): {st.step} steps in "
+                f"{time.perf_counter() - t0:.1f} s, losses {[r['loss'] for r in records]}, "
+                f"grad norms {[r['grad_norm'] for r in records]}; launches {got}")
+            if st.step != DISTILL_STEPS or not all(np.isfinite(r["loss"]) for r in records):
+                raise AssertionError(f"distill.main {mode}: {st.step} steps, {records}")
+            if any(got.values()):  # the YAML turns no fused knob on
+                raise AssertionError(f"a kernel of the port ran on {mode}'s distillation: {got}")
+            students[mode] = load_served(path, device)
+            del st
+        torch.cuda.empty_cache()
+        s1, s4 = students["student1"], students["student4_guided_image"]
+        if (s1[2], s1[3]) != (1, True) or (s4[2], s4[3]) != (4, False):
+            raise AssertionError(f"load_policy_checkpoint: (steps, distilled) {s1[2:4]}, {s4[2:4]}")
+        if s4[4].get("distilled_guidance_null") != ["image"]:
+            raise AssertionError(f"the guided student's flags: {s4[4]}")
+        # each mode's step on the trained teacher (median of 3 after 1)
+        teacher, t_norm, _, _, _ = load_served(teacher_ckpt, device)
+        dataset = build_dataset(config, 0, True)
+        batch = {k: v.to(device) for k, v in to_tensors(next(dataset.batches(
+            config.train.batch_size, seed=0))).items()}
+        for mode, kw in (("student1", {}),
+                         ("student4_guided_image", dict(student_steps=4, guidance_scale=3.0,
+                                                        guidance_null=("image",))),
+                         ("student1_draws2", dict(teacher_draws=2))):
+            out["step_ms"][mode] = timed_distill(f"{DISTILL_YAML} {mode} B="
+                                                 f"{config.train.batch_size}", teacher, batch,
+                                                 device, **kw)
+        del batch
+        # the students served on the head_dim-128 kernels, the teacher guided
+        model, norm, steps, distilled, _ = s1
+        out["period_ms"]["student1"], out["launches"]["student1"] = served_period(
+            "student1 (distilled=True, fused=True)", model, device,
+            {"fused_denoise": 1, "fused_denoise_pack": 8}, normalizer=norm,
+            num_inference_steps=steps, distilled=distilled, fused=True)
+        model, norm, steps, _, _ = s4
+        out["period_ms"]["student4"], out["launches"]["student4"] = served_period(
+            "student4 (fused=\"chunk\", T=4)", model, device, {"fused_chunk": 1}, normalizer=norm,
+            num_inference_steps=steps, fused="chunk")
+        out["period_ms"]["teacher_guided_image"], _ = served_period(
+            "teacher, guided 3.0@image on the plain sampler (raw frames)", teacher, device, {},
+            normalizer=t_norm, num_inference_steps=30, guidance_scale=3.0,
+            guidance_null=("image",), cache_image_tokens=False)
+    del students, teacher
+    torch.cuda.empty_cache()
+    f32 = dataclasses.replace(yaml_config(DISTILL_YAML).model, compute_dtype="float32")
+    out["card_vs_cpu"] = distill_reference_phase(
+        device, f32, reference_batches(yaml_config(DISTILL_YAML)), 15, student_steps=4,
+        guidance_scale=3.0, guidance_null=("image",))
+    return out
+
+
+def distill_flagship_phase(device) -> dict:
+    """vit_flagship.yaml (flax's seeded init) at DISTILL_FLAG_B robots: one
+    distillation step of a 4-step student with every counter zeroed just
+    before and read just after (exactly flag_distill_launches(4): the
+    teacher's encode on the ViT blocks and the stacks, its rollout and the
+    student on the decoder layers) and its peak device memory; the 1- and
+    4-step students' step times; then 3 bf16 steps card vs CPU at B=2."""
+    from soccerdiffusion_tpu_torch.models import DiffusionPolicy
+    from soccerdiffusion_tpu_torch.utils.jax_params import flax_init_params, load_jax_params
+
+    cfg = flagship_config()
+    teacher = DiffusionPolicy(cfg)
+    teacher = load_jax_params(teacher, *flax_init_params(teacher, 16)).to(device)
+    batch = {k: v.to(device) for k, v in flagship_reference_batches(DISTILL_FLAG_B, 1)[0].items()}
+    teacher, _, state, step = distill_setup(teacher, device, student_steps=4)
+    noise, _ = distill_inputs(cfg, batch, device, np.random.default_rng(3))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    metrics = step.apply(state, teacher, batch, noise)
+    torch.cuda.synchronize()
+    launches, peak = read_counters(), torch.cuda.max_memory_allocated()
+    want = {name: flag_distill_launches(4).get(name, 0) for name in launches}
+    log(f"flagship distillation step (4-step student, B={DISTILL_FLAG_B}): loss "
+        f"{metrics['loss'].item():.6f}, grad norm {metrics['grad_norm'].item():.6f}; peak device "
+        f"memory {peak / 2**30:.2f} GiB; launches {launches}")
+    if launches != want:
+        raise AssertionError(f"flagship distillation: launches {launches}, expected {want}")
+    del state, step
+    ms = {f"student{k}": timed_distill(f"vit_flagship.yaml student{k} B={DISTILL_FLAG_B}",
+                                       teacher, batch, device, student_steps=k) for k in (1, 4)}
+    del teacher, batch
+    torch.cuda.empty_cache()
+    ref = distill_reference_phase(device, cfg, flagship_reference_batches(), 16, student_steps=4)
+    return {"launches": launches, "step_ms": ms, "peak_bytes": peak, "card_vs_cpu": ref}
+
+
 def sass_phase() -> dict:
     """cuobjdump -sass of the built kernel library: every instance of each
     TENSOR_CORE_KERNELS kernel (bf16 only where it says so) must hold
@@ -2051,6 +2379,7 @@ def main(argv=None) -> int:
                             larger=args.larger)
         return 0
     tensor_cores = sass_phase()
+    smem_cases = smem_mirror_phase()
     cfg = bench_config()
     model = build_model(cfg, device)
     results = kernel_phase(cfg, model, device)
@@ -2105,6 +2434,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     s0_results, s0_launches, s0_periods, s0_train_ms = decoder_only_phase(device)
     results.update(s0_results)
+    torch.cuda.empty_cache()
+    # distillation and guidance: larger_model_distill.yaml, then the flagship
+    distill_larger = distill_larger_phase(device)
+    torch.cuda.empty_cache()
+    distill_flagship = distill_flagship_phase(device)
 
     # where each kernel instance ran: (source, the TPU kernel it replaces (the
     # pack: the JAX denoiser's pack_context_kv, whose layout the kernel's
@@ -2208,6 +2542,10 @@ def main(argv=None) -> int:
                                      "launches": larger_launches},
                     "decoder_only": {"ms_per_replan_period": s0_periods, "batch": DECODER_ONLY_B,
                                      "train_ms_per_step": s0_train_ms},
+                    "distill": {"larger_model_distill": {**distill_larger,
+                                                         "batch": LARGER_B},
+                                "flagship": {**distill_flagship, "batch": DISTILL_FLAG_B}},
+                    "smem_mirror_cases": smem_cases,
                     "gpu": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

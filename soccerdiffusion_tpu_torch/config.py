@@ -254,11 +254,10 @@ def check_training_supported(tc: TrainConfig) -> None:
 
 
 def check_serving_supported(group_robots: int = 1, kv_quant: str = "none",
-                            cross_orientation: str = "kstat",
-                            guidance_scale: float = 1.0) -> None:
-    """Raise ``NotImplementedError`` for a serving option outside the slice."""
-    if guidance_scale != 1.0:
-        raise NotImplementedError(f"classifier-free guidance is {_SEE}")
+                            cross_orientation: str = "kstat") -> None:
+    """Raise ``NotImplementedError`` for a serving option outside the slice.
+    (Classifier-free guidance is served; ``RolloutEngine`` refuses it where
+    the JAX engine does.)"""
     if kv_quant != "none":
         raise NotImplementedError(f"context_kv_quant={kv_quant!r} is {_SEE}")
     if group_robots != 1:

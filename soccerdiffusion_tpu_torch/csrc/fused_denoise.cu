@@ -213,3 +213,12 @@ extern "C" int sd_fused_denoise(const void* const* ptrs, const int* ints, const 
   const size_t smem = pass_smem_bytes(a.L, a.P, a.E, a.H, a.J, a.Jp, a.Sp, threads, cs, 0);
   return launch_robots(kernel, a, threads, cs, smem, stream);
 }
+
+// The shared memory of one decoder pass (decoder_pass.cuh:pass_smem_bytes),
+// exported so that its Python mirror (ops/fused_denoise.py:pass_smem_bytes,
+// which the wrappers' shape checks use) can be held equal to it.
+// ints: L, P, E, H, J, Jp, Sp, threads per block, blocks a robot, carry floats
+extern "C" long long sd_pass_smem_bytes(const int* ints) {
+  return (long long)sd::pass_smem_bytes(ints[0], ints[1], ints[2], ints[3], ints[4], ints[5],
+                                        ints[6], ints[7], ints[8], (size_t)ints[9]);
+}

@@ -6,7 +6,15 @@
 Packed batches carry frames as uint8 (``image_u8``, whole frames or
 pre-patchified) with an ``image_valid`` mask; they stay uint8 through
 pinning and the host -> device copy, and are normalised on the device.
-``DeviceResidentData`` and ``dropout_modalities`` are not ported yet.
+
+The classifier-free-guidance modality surface (``MODALITY_KEYS``,
+``parse_guidance_spec``, ``inactive_guidance_modalities``,
+``null_modalities``) and the training-time conditioning dropout
+(``dropout_modalities``) follow the JAX module. The dropout is split in two:
+``draw_dropout_masks`` draws the five per-sample masks from an explicit
+``torch.Generator``, ``apply_dropout_masks`` applies given masks, so that a
+test can feed the masks the JAX package draws. ``DeviceResidentData`` is not
+ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -59,6 +67,162 @@ def prepare_batch(batch: dict, keep_u8: bool = False) -> dict:
     u8, valid = batch.pop("image_u8"), batch.pop("image_valid")
     batch["image_data"] = device_normalize_images(u8, valid)
     return batch
+
+
+#: modality name -> the batch keys it covers (the conditioning surface of
+#: DiffusionPolicy.encode_context). "all" nulls every conditioning modality
+#: (the fully unconditional CFG branch).
+MODALITY_KEYS = {
+    "action_history": ("joint_command_history",),
+    "joint_states": ("joint_state",),
+    "imu": ("rotation",),
+    "image": ("image_u8", "image_valid", "image_data"),
+    "game_state": ("game_state",),
+}
+
+# the order of the masks draw_dropout_masks draws (the JAX package's split of
+# the dropout key into five)
+DROPOUT_MODALITIES = ("action_history", "joint_states", "imu", "image", "game_state")
+
+
+def _identity_rotation(rot: torch.Tensor) -> torch.Tensor:
+    """The IMU's "missing data" value: the identity quaternion [0, 0, 0, 1],
+    or [1, 0, 0, 0, 1] in the five-dim encoding."""
+    value = [1.0, 0.0, 0.0, 0.0, 1.0] if rot.shape[-1] == 5 else [0.0, 0.0, 0.0, 1.0]
+    return torch.tensor(value, dtype=rot.dtype, device=rot.device)
+
+
+def _unknown_game_state(gs: torch.Tensor) -> torch.Tensor:
+    from soccerdiffusion_tpu_torch.data.schema import RobotState
+
+    return torch.full_like(gs, int(RobotState.UNKNOWN))
+
+
+def parse_guidance_spec(spec: str) -> tuple[float, tuple[str, ...]]:
+    """The CLI guidance spec ``SCALE[@MODALITY,...]`` (e.g. ``'2.0@image'``)
+    -> ``(scale, null_modalities)``; the modality defaults to ``image``.
+    Raises ``ValueError`` on a scale that is not a number or an unknown
+    modality."""
+    scale_s, _, mods_s = spec.partition("@")
+    try:
+        scale = float(scale_s)
+    except ValueError:
+        raise ValueError(
+            f"bad guidance spec {spec!r}: scale {scale_s!r} is not a number; "
+            "expected SCALE[@MODALITY,...], e.g. '2.0@image'") from None
+    mods = tuple(mods_s.split(",")) if mods_s else ("image",)
+    for mod in mods:
+        if mod != "all" and mod not in MODALITY_KEYS:
+            raise ValueError(
+                f"bad guidance spec {spec!r}: unknown modality {mod!r}; "
+                f"expected one of {sorted(MODALITY_KEYS)} or 'all'")
+    return scale, mods
+
+
+def inactive_guidance_modalities(model_config, modalities) -> list[str]:
+    """The modalities of ``modalities`` that ``model_config`` never conditions
+    on: nulling them changes nothing (eps_u == eps_c), so guidance over them
+    pays the doubled batch for an unguided sample."""
+    names = tuple(MODALITY_KEYS) if "all" in modalities else tuple(modalities)
+    off = {"image": not model_config.use_images, "game_state": not model_config.use_gamestate}
+    return [m for m in names if off.get(m, False)]
+
+
+def null_modalities(batch: dict, modalities) -> dict:
+    """``batch`` with whole modalities replaced, for every sample, by their
+    "missing data" value (the values ``dropout_modalities`` uses): the CFG
+    unconditional branch. ``modalities``: names of ``MODALITY_KEYS``, or
+    ``"all"``. Unknown names raise; modalities the batch lacks are skipped.
+    A batch of cached image encodings (``image_tokens``) cannot null its
+    image modality (the null is the zero frame, whose encoding is not zero)
+    and raises."""
+    if isinstance(modalities, str):
+        modalities = (modalities,)
+    names: tuple[str, ...] = tuple(modalities)
+    if "all" in names:
+        names = tuple(MODALITY_KEYS)
+    for name in names:
+        if name not in MODALITY_KEYS:
+            raise ValueError(f"unknown modality {name!r}; expected one of "
+                             f"{sorted(MODALITY_KEYS)} or 'all'")
+    batch = dict(batch)
+    for name in names:
+        if name in ("action_history", "joint_states"):
+            (key,) = MODALITY_KEYS[name]
+            if key in batch:
+                batch[key] = torch.zeros_like(batch[key])
+        elif name == "imu":
+            if "rotation" in batch:
+                rot = batch["rotation"]
+                batch["rotation"] = _identity_rotation(rot).expand(rot.shape).contiguous()
+        elif name == "image":
+            if "image_tokens" in batch:
+                raise ValueError(
+                    "cannot null the 'image' modality of a cached-token batch (image_tokens are "
+                    "encodings, not frames); serve guidance with cache_image_tokens=False")
+            for key in ("image_u8", "image_data", "image_valid"):
+                if key in batch:
+                    batch[key] = torch.zeros_like(batch[key])
+        elif name == "game_state":
+            if "game_state" in batch:
+                batch["game_state"] = _unknown_game_state(batch["game_state"])
+    return batch
+
+
+def draw_dropout_masks(batch_size: int, p: float, generator: torch.Generator) -> torch.Tensor:
+    """(5, B) bool: per sample, whether each of ``DROPOUT_MODALITIES`` is
+    dropped, each with probability ``p``, drawn on the generator's device."""
+    u = torch.rand((len(DROPOUT_MODALITIES), batch_size), generator=generator,
+                   device=generator.device)
+    return u < p
+
+
+def apply_dropout_masks(batch: dict, masks: torch.Tensor) -> dict:
+    """Per-sample conditioning dropout under given (5, B) masks (the order of
+    ``DROPOUT_MODALITIES``): a dropped sample's modality takes its "missing
+    data" value (zeros for the joint histories, the identity rotation,
+    zeroed and invalid frames, the UNKNOWN game state); where the camera was
+    dropped, the aux cue label ``vision_u`` is marked invalid too. The
+    target chunk is never touched."""
+    batch = dict(batch)
+    masks = masks.to(batch["joint_command"].device, torch.bool)
+    bsz = masks.shape[1]
+    m_hist, m_js, m_imu, m_img, m_gs = masks
+    for name, m in (("joint_command_history", m_hist), ("joint_state", m_js)):
+        if name in batch:
+            batch[name] = torch.where(m[:, None, None], torch.zeros_like(batch[name]), batch[name])
+    if "rotation" in batch:
+        rot = batch["rotation"]
+        batch["rotation"] = torch.where(m_imu[:, None, None], _identity_rotation(rot), rot)
+    if "image_u8" in batch:
+        u8 = batch["image_u8"]
+        batch["image_u8"] = torch.where(m_img.reshape(bsz, *(1,) * (u8.ndim - 1)),
+                                        torch.zeros_like(u8), u8)
+        valid = batch["image_valid"]
+        batch["image_valid"] = torch.where(m_img[:, None], torch.zeros_like(valid), valid)
+    elif "image_data" in batch:
+        img = batch["image_data"]
+        batch["image_data"] = torch.where(m_img.reshape(bsz, *(1,) * (img.ndim - 1)),
+                                          torch.zeros_like(img), img)
+    if "vision_u" in batch:
+        vu = batch["vision_u"]
+        valid = batch.get("vision_u_valid", torch.ones_like(vu))
+        batch["vision_u_valid"] = torch.where(m_img.reshape(bsz, *(1,) * (vu.ndim - 1)),
+                                              torch.zeros_like(valid), valid)
+    if "game_state" in batch:
+        gs = batch["game_state"]
+        batch["game_state"] = torch.where(m_gs, _unknown_game_state(gs), gs)
+    return batch
+
+
+def dropout_modalities(batch: dict, p: float, generator: torch.Generator) -> dict:
+    """Classifier-free-guidance-style conditioning dropout at train time: with
+    probability ``p``, independently per sample and per modality, the
+    modality takes its "missing data" value (``apply_dropout_masks``)."""
+    if p <= 0.0:
+        return batch
+    return apply_dropout_masks(batch, draw_dropout_masks(batch["joint_command"].shape[0], p,
+                                                         generator))
 
 
 def to_tensors(batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:

@@ -16,6 +16,16 @@ rolls their tokens into the controller; the context then runs only the
 frame-sequence encoder over the cached tokens. Without it the raw frames
 roll in, and every period re-encodes the whole frame stack.
 
+With ``guidance_scale`` != 1 the plain iterative sampler serves with
+classifier-free guidance: the conditional context and the context with
+``guidance_null``'s modalities nulled (``data/pipeline.py:null_modalities``),
+both through the same encoder, are stacked along the batch, their K/V
+projected once, and each step is one doubled-batch denoiser pass combined
+as eps_u + w (eps_c - eps_u). The engine refuses guidance with the distilled
+student or a fused sampler, and image guidance against the image-token
+cache (the null is the zero frame, not a zero encoding), as the JAX engine
+does.
+
 The engine serves in eval mode (``model.eval()`` for each period and for
 the zero-frame prefill, the caller's mode restored after), so the ResNets'
 BatchNorm uses its running statistics, as the JAX engine's ``train=False``
@@ -27,7 +37,6 @@ serving capacity, it is not a physics simulator.
 
 from __future__ import annotations
 
-import contextlib
 import math
 from dataclasses import dataclass
 
@@ -43,6 +52,7 @@ from soccerdiffusion_tpu_torch.diffusion import (
     solver_sample,
     solver_timesteps,
 )
+from soccerdiffusion_tpu_torch.data.pipeline import null_modalities
 from soccerdiffusion_tpu_torch.inference.controller import (
     ControllerState,
     init_controller_state,
@@ -50,20 +60,10 @@ from soccerdiffusion_tpu_torch.inference.controller import (
     observe_many,
     push_action_chunk,
 )
+from soccerdiffusion_tpu_torch.inference.sampler import check_guidance, eval_mode, guided_denoise_fn
 from soccerdiffusion_tpu_torch.ops.fused_chunk import FusedChunkSampler
 from soccerdiffusion_tpu_torch.ops.fused_denoise import FusedDenoiser
 from soccerdiffusion_tpu_torch.ops.fused_encoder import FusedContextEncoder
-
-
-@contextlib.contextmanager
-def eval_mode(model: torch.nn.Module):
-    """``model`` in eval mode inside the block, its own mode restored after."""
-    was_training = model.training
-    model.eval()
-    try:
-        yield model
-    finally:
-        model.train(was_training)
 
 
 @dataclass(frozen=True)
@@ -107,8 +107,7 @@ class RolloutEngine:
         if param.device.type != self.device.type:
             raise ValueError(f"the model's parameters are on {param.device}, the engine's "
                              f"device is {self.device}: move the model first")
-        check_serving_supported(group_robots=fused_group_robots, kv_quant=fused_kv_quant,
-                                guidance_scale=guidance_scale)
+        check_serving_supported(group_robots=fused_group_robots, kv_quant=fused_kv_quant)
         if fused not in (False, True, "step", "chunk"):
             raise ValueError(f"unknown fused mode {fused!r}")
         parse_solver(solver)
@@ -130,6 +129,17 @@ class RolloutEngine:
         # rolled in the controller (default on for image configs)
         self.cache_image_tokens = (self.cfg.use_images if cache_image_tokens is None
                                    else bool(cache_image_tokens))
+        self.guidance_scale = float(guidance_scale)
+        self.guidance_null = tuple(guidance_null)
+        if self.guidance_scale != 1.0 and (distilled or fused):
+            raise ValueError("guidance_scale != 1 requires the plain iterative sampler "
+                             "(fused=False, distilled=False)")
+        if (self.guidance_scale != 1.0 and self.cache_image_tokens and self.cfg.use_images
+                and ("image" in self.guidance_null or "all" in self.guidance_null)):
+            raise ValueError("image-modality guidance cannot run against the image-token cache "
+                             "(tokens are encodings, the null is the zero FRAME); pass "
+                             "cache_image_tokens=False")
+        check_guidance(self.cfg, self.guidance_scale, self.guidance_null)
         P = self.cfg.trajectory_prediction_length
         self.replan_every = P if replan_every is None else int(replan_every)
         if not 1 <= self.replan_every <= P:
@@ -190,10 +200,8 @@ class RolloutEngine:
     def _sample_chunk(self, controller: ControllerState, noise: torch.Tensor) -> torch.Tensor:
         model, n = self.model, self.num_inference_steps
         batch = make_controller_batch(self.cfg, controller)
-        if self._encoder_op is not None:
-            context = self._encoder_op.encode(batch)
-        else:
-            context = model.encode_context(batch)
+        encode = self._encoder_op.encode if self._encoder_op is not None else model.encode_context
+        context = encode(batch)
         bsz = context.shape[0]
         if self.distilled and self.fused:
             # one pass at t=0: the student's output is the trajectory
@@ -210,6 +218,13 @@ class RolloutEngine:
             packed = self._sampler_op.pack_context_kv(model.precompute_context_kv(context))
             ts = ddim_timesteps(self.schedule.num_train_timesteps, n)
             traj = self._sampler_op.sample(packed, noise, self._steps_table(ts), self.schedule, n)
+        elif self.guidance_scale != 1.0:
+            # both branches through the same encoder, so that no encoder
+            # difference leaks into eps_c - eps_u
+            ctx2 = torch.cat([context, encode(null_modalities(batch, self.guidance_null))], dim=0)
+            denoise_fn = guided_denoise_fn(model, model.precompute_context_kv(ctx2), bsz,
+                                           self.guidance_scale)
+            traj = solver_sample(self.schedule, denoise_fn, noise, n, solver=self.solver)
         else:
             context_kv = model.precompute_context_kv(context)
 

@@ -44,7 +44,10 @@ _ENTRIES = {
     "sd_vit_block_bwd": [ctypes.POINTER(_P), _I, _P],
     "sd_flash_attention_fwd": [ctypes.POINTER(_P), _I, _P],
     "sd_flash_attention_bwd": [ctypes.POINTER(_P), _I, _P],
+    "sd_pass_smem_bytes": [_I],
 }
+# entries that return something other than a CUDA error code
+_RESTYPES = {"sd_pass_smem_bytes": ctypes.c_longlong}
 
 
 def _nvcc() -> str:
@@ -101,7 +104,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in _ENTRIES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

@@ -21,7 +21,8 @@ a multiple of 32) and the context K/V projection ordered by (layer, head,
 K | V). While the card has two SMs for each robot, a robot runs on a
 cluster of two thread blocks that split its heads (``cluster_size``). The
 kernel takes head_dim 32 or 64 at hidden 128 / 256 (at most 16 chunk steps
-and 1023 context tokens) and head_dim 128 at hidden 512 (the larger_model
+and 1023 context tokens, fewer where its shared memory runs out:
+``check_kernel_shapes``) and head_dim 128 at hidden 512 (the larger_model
 configuration: 8-warp blocks, at most 10 chunk steps and 383 context
 tokens); its context K/V scratch is (B, L, H, 2, Sp D) bf16, 5.2 MB a robot
 at larger_model's L=8, S=311.
@@ -39,7 +40,7 @@ from soccerdiffusion_tpu_torch.config import check_serving_supported
 from soccerdiffusion_tpu_torch.diffusion.dpm_solver import solver_coef_table
 from soccerdiffusion_tpu_torch.ops import _build
 from soccerdiffusion_tpu_torch.ops.fused_denoise import (FusedDenoiser, check_cuda_operand,
-                                                         padded_joints, padded_keys)
+                                                         padded_joints, padded_keys, r4)
 
 
 class FusedChunkSampler(FusedDenoiser):
@@ -54,6 +55,11 @@ class FusedChunkSampler(FusedDenoiser):
         super().__init__(model)
         check_serving_supported(group_robots=group_robots, kv_quant=context_kv_quant,
                                 cross_orientation=cross_orientation)
+
+    def pass_carry(self) -> int:
+        """The solver carry x and the DPM-Solver++ x0 cache, (P, J) fp32 each."""
+        P, J = self.cfg.trajectory_prediction_length, self.cfg.num_joints
+        return 2 * r4(P * J)
 
     def pack_kernel_weights(self) -> list[torch.Tensor]:
         """The 21 tensors ``csrc/fused_chunk.cu:ChunkArgs`` reads, in its
@@ -98,7 +104,7 @@ class FusedChunkSampler(FusedDenoiser):
 
     def sample_kernel(self, context, noise, stk, stv, coefs) -> torch.Tensor:
         """The CUDA kernel (``csrc/fused_chunk.cu``) on CUDA tensors."""
-        self.check_kernel_shapes(context.shape[1])
+        self.check_kernel_shapes(context.shape[1], context.shape[0], context.device)
         for t, name in ((context, "context"), (noise, "noise"), (stk, "step K")):
             check_cuda_operand(t, self.emb_w, name)
         cfg = self.cfg

@@ -95,6 +95,60 @@ def padded_keys(s: int) -> int:
     return -(-(s + 1) // 32) * 32
 
 
+# the opt-in shared memory of a thread block on sm_90 (227 KB), and the SMs of
+# an H100 SXM, which the launch shapes assume where no card is asked (the
+# shape checks of CPU tensors)
+SMEM_LIMIT, H100_SMS = 232448, 132
+
+
+def sm_count(device) -> int:
+    """The SMs of ``device`` when it is a CUDA device, else the H100's."""
+    if device is not None and torch.device(device).type == "cuda":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return H100_SMS
+
+
+# Python mirrors of csrc/decoder_pass.cuh's shared-memory plan (the C
+# function itself is exported as sd_pass_smem_bytes and held equal to this
+# one on the card by chip_smoke.py)
+def r4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def staged_params(D: int) -> bool:
+    return D != WIDE_HEAD
+
+
+def kv_buffers(D: int, threads: int) -> int:
+    return CHUNK_RING if D == WIDE_HEAD else 4 if D == 32 and threads == 512 else 2
+
+
+def bar_slots(D: int) -> int:
+    return 16 if D == WIDE_HEAD else 4
+
+
+def chunk_param_elems(L: int, E: int, P: int, J: int) -> int:
+    """The staged per-layer parameters (ln_s, ln_b, qkv_b, so_b .. m2_b,
+    emb_b, pe, fc_b), rounded up to 8 elements."""
+    return (14 * L * E + E + P * E + J + 7) // 8 * 8
+
+
+def pass_smem_bytes(L: int, P: int, E: int, H: int, J: int, Jp: int, Sp: int, threads: int,
+                    cs: int, carry: int) -> int:
+    """Bytes of shared memory a block of the decoder pass takes, for a kernel
+    that keeps ``carry`` fp32 floats of its own: the mbarriers, the fp32
+    residual, the carry, the attention statistics and partials (floats), the
+    staged parameters, the bf16 activations, the K / V ring and, in a
+    cluster, the two cross-attention outputs (halves)."""
+    D = E // H
+    floats = r4(P * E) + carry + (Sp // 32) * 64 + (threads // 32) * P * D
+    halves = ((chunk_param_elems(L, E, P, J) if staged_params(D) else 0) + P * (E + 8)
+              + P * (3 * E + 8) + P * (Jp + 8)
+              + kv_buffers(D, threads) * (32 if D == WIDE_HEAD else Sp) * D
+              + (2 * P * (E + 8) if cs > 1 else 0))
+    return 8 * bar_slots(D) + 4 * floats + 2 * halves
+
+
 def kfrag(s, d, D: int):
     """Index of element (key s, dim d) of a head's K in score-fragment order
     (the mirror of csrc/decoder_pass.cuh:kfrag; ints or integer arrays)."""
@@ -261,7 +315,7 @@ class FusedDenoiser:
         a launch per layer) on CUDA tensors."""
         k0 = context_kv[0][0]
         B, S = k0.shape[:2]
-        self.check_kernel_shapes(S)
+        self.check_kernel_shapes(S, B, k0.device)
         L, H, D, Sp = self.num_layers, self.num_heads, self.head_dim, padded_keys(S)
         if len(context_kv) != L:
             raise ValueError(f"{len(context_kv)} layers of context K/V for a {L}-layer decoder")
@@ -385,8 +439,8 @@ class FusedDenoiser:
         one an SM (its shared memory)."""
         if self.head_dim == WIDE_HEAD:
             return WIDE_THREADS
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        two_an_sm = self.head_dim == 32 and batch > sms and context_len <= max_context(256)
+        two_an_sm = (self.head_dim == 32 and batch > sm_count(device)
+                     and context_len <= max_context(256))
         return 256 if two_an_sm else 512
 
     def cluster_size(self, batch: int, device) -> int:
@@ -396,17 +450,44 @@ class FusedDenoiser:
         SMs for each robot, else 1 (measured on the chunk sampler, an H100
         80GB HBM3 at 700 W: h128 B=64 3.00 against 3.85 ms, head_dim 64 B=64
         6.92 against 7.73 ms; PERF.md)."""
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        return 2 if 2 * batch <= sms and self.num_heads % 2 == 0 else 1
+        return 2 if 2 * batch <= sm_count(device) and self.num_heads % 2 == 0 else 1
 
-    def check_kernel_shapes(self, context_len: int) -> None:
+    # fp32 floats of a pass's shared memory that the kernel keeps for itself
+    # (the chunk sampler's solver carry; the denoiser keeps none)
+    def pass_carry(self) -> int:
+        return 0
+
+    def smem_bytes(self, context_len: int, batch: int, device=None) -> int:
+        """Shared memory a block of the kernel takes for ``batch`` robots over
+        ``context_len`` tokens, at the launch shape it would get."""
+        cfg = self.cfg
+        return pass_smem_bytes(self.num_layers, cfg.trajectory_prediction_length, cfg.hidden_dim,
+                               self.num_heads, cfg.num_joints, padded_joints(cfg.num_joints),
+                               padded_keys(context_len),
+                               self.block_threads(batch, context_len, device),
+                               self.cluster_size(batch, device), self.pass_carry())
+
+    def longest_context(self, batch: int, device=None) -> int:
+        """The most context tokens whose plan fits ``SMEM_LIMIT`` at ``batch``
+        robots (-1 where none does)."""
+        fits = [s for s in range(31, kernel_max_context(self.head_dim) + 1, 32)
+                if self.smem_bytes(s, batch, device) <= SMEM_LIMIT]
+        return fits[-1] if fits else -1
+
+    def check_kernel_shapes(self, context_len: int, batch: int = 1, device=None) -> None:
         """Raise for what the CUDA decoder kernels (the denoiser's and the
         chunk sampler's, one pass: csrc/decoder_pass.cuh) do not take:
         weights other than bf16; head_dim other than 32, 64 or 128; hidden
         other than 128 (head_dim 32 or 64), 256 (head_dim 64) or 512
         (head_dim 128); more than 16 chunk steps (10 at head_dim 128); an odd
         joint count or more than 64; more than ``kernel_max_context``
-        context tokens (1023; 383 at head_dim 128)."""
+        context tokens (1023; 383 at head_dim 128); a plan whose shared
+        memory (``pass_smem_bytes`` at the launch shape ``batch`` robots get
+        on ``device``: the cluster while the card has two SMs a robot, so
+        the default batch of 1 is the largest plan) exceeds ``SMEM_LIMIT``.
+        At 10 chunk steps and 4 layers that is S <= 639 at head_dim 32,
+        575 / 543 (one block / a cluster) at hidden 128 and head_dim 64, 447
+        / 415 at hidden 256."""
         cfg, D = self.cfg, self.head_dim
         P, J, E = cfg.trajectory_prediction_length, cfg.num_joints, cfg.hidden_dim
         if self.dtype != torch.bfloat16:
@@ -428,13 +509,20 @@ class FusedDenoiser:
         if context_len > most:
             raise ValueError(f"the CUDA decoder kernels take at most {most} context tokens; got "
                              f"{context_len}")
+        smem = self.smem_bytes(context_len, batch, device)
+        if smem > SMEM_LIMIT:
+            raise ValueError(
+                f"the CUDA decoder kernels' shared memory at {context_len} context tokens, "
+                f"{self.num_layers} layers, hidden {E}, {P} chunk steps and {batch} robots is "
+                f"{smem} bytes, past the {SMEM_LIMIT} a block has: they take at most "
+                f"{self.longest_context(batch, device)} context tokens there")
 
     def run_kernel(self, packed_kv: PackedKV, noisy, stk, stv, coefs=None) -> torch.Tensor:
         """The CUDA kernel (``csrc/fused_denoise.cu``) on CUDA tensors; it
         writes the step token into slot S of ``packed_kv`` (see
         ``pack_context_kv``)."""
         kv, S = packed_kv
-        self.check_kernel_shapes(S)
+        self.check_kernel_shapes(S, kv.shape[0], kv.device)
         for t, name in ((noisy, "noisy"), (kv, "context K/V"), (stk, "step K")):
             check_cuda_operand(t, self.emb_w, name)
         cfg = self.cfg

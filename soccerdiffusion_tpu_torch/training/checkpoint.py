@@ -6,7 +6,8 @@ package's embedded-hyperparameters contract: a directory holding
 
 written to a temporary directory and renamed into place. The JAX package's
 msgpack checkpoints are a different format; a reader for them is not
-ported yet (see ROADMAP.md).
+ported yet (see ROADMAP.md). ``load_policy_checkpoint`` decodes a
+checkpoint's serving point, as the JAX function of that name does.
 """
 
 from __future__ import annotations
@@ -64,3 +65,28 @@ def load_checkpoint(path: str | Path, state=None) -> dict[str, Any]:
         state.step = raw["step"]
     return {**raw, "norm": Normalizer(mean=raw["norm"]["mean"], std=raw["norm"]["std"]),
             "hyperparams": meta["hyperparams"], "current_epoch": meta["current_epoch"]}
+
+
+def load_policy_checkpoint(path: str | Path, prefer_ema: bool = True
+                           ) -> tuple[dict, dict[str, torch.Tensor], Normalizer, int, bool]:
+    """A checkpoint for serving or evaluation: ``(hyperparams, state_dict,
+    normalizer, steps, distilled)``.
+
+    ``state_dict`` loads into a ``DiffusionPolicy`` of the hyperparameters'
+    config: the EMA parameters where the checkpoint keeps an average (and
+    ``prefer_ema``), else the raw ones, with the BatchNorm buffers.
+    ``steps`` is the sampler's step count: ``distilled_num_steps`` for a
+    few-step student (``training/distill.py --student-steps K``), 1 for a
+    ``distilled_decoder`` student, else ``distill_teacher_inference_steps``
+    (default 30), the count a teacher's students were distilled against.
+    ``distilled`` is the ``distilled_decoder`` flag (a single forward at
+    t=0)."""
+    ckpt = load_checkpoint(path)
+    params = ckpt["hyperparams"]
+    state_dict = dict(ckpt["params"])
+    if prefer_ema and ckpt["ema"]:
+        state_dict.update(ckpt["ema"])
+    distilled = bool(params.get("distilled_decoder", False))
+    steps = int(params.get("distilled_num_steps", 0)) or (
+        1 if distilled else int(params.get("distill_teacher_inference_steps", 30)))
+    return params, state_dict, ckpt["norm"], steps, distilled

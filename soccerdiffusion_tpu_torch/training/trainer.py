@@ -15,10 +15,17 @@ normalise with the batch statistics and update their running ones (float32
 buffers: not optimised, and not in the EMA, which covers the parameters as
 the JAX EMA covers ``params``).
 
-The step draws t and the noise from an explicit ``torch.Generator``;
+The step draws t, the noise and, with ``modality_dropout`` > 0, the
+per-sample conditioning-dropout masks (``data/pipeline.py:
+dropout_modalities``, applied after ``prepare_batch`` as in the JAX step)
+from an explicit ``torch.Generator``, the masks after t and the noise, so
+that a run at p > 0 draws the same t and noise as one at p = 0;
 ``TrainStep.apply`` takes them as arguments, so tests can feed it
-numpy-made values. ``modality_dropout``, ``aux_cue_weight``,
-``flat_optimizer`` and ``image_encoder_lr_mult`` are not ported yet.
+numpy-made values or the JAX package's draws. ``make_optimizer(...,
+trainable=...)`` is the masked optimizer distillation uses: AdamW over the
+parameters of the named top-level modules only, every other parameter left
+as it is. ``aux_cue_weight``, ``flat_optimizer`` and
+``image_encoder_lr_mult`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import numpy as np
 import torch
 
 from soccerdiffusion_tpu_torch.data.normalizer import Normalizer
-from soccerdiffusion_tpu_torch.data.pipeline import prepare_batch
+from soccerdiffusion_tpu_torch.data.pipeline import apply_dropout_masks, draw_dropout_masks, prepare_batch
 from soccerdiffusion_tpu_torch.diffusion import DiffusionSchedule, add_noise
 
 _SEE = "not ported yet (see ROADMAP.md)"
@@ -58,11 +65,17 @@ def lr_at_step(lr: float, total_steps: int, step: int) -> float:
 
 class Optimizer:
     """AdamW over a model's float32 parameters with the one-cycle schedule
-    and optional clipping by global norm."""
+    and optional clipping by global norm. ``trainable`` names the top-level
+    modules whose parameters it updates (None: all); the others keep their
+    values, weight decay included (optax.masked in the JAX package)."""
 
     def __init__(self, model: torch.nn.Module, lr: float, total_steps: int,
-                 weight_decay: float = 1e-2, grad_clip_norm: float = 0.0):
-        self.params = [p for p in model.parameters()]
+                 weight_decay: float = 1e-2, grad_clip_norm: float = 0.0,
+                 trainable: tuple[str, ...] | None = None):
+        self.params = [p for name, p in model.named_parameters()
+                       if trainable is None or name.split(".")[0] in trainable]
+        if not self.params:
+            raise ValueError(f"no parameter of the model lies in the modules {trainable}")
         if any(p.dtype != torch.float32 for p in self.params):
             raise ValueError("the optimizer updates float32 master parameters")
         self.lr, self.total_steps, self.grad_clip_norm = lr, total_steps, grad_clip_norm
@@ -83,13 +96,15 @@ class Optimizer:
 def make_optimizer(model: torch.nn.Module, lr: float, total_steps: int,
                    weight_decay: float = 1e-2, flat: bool = False,
                    module_lr_mults: dict[str, float] | None = None,
-                   grad_clip_norm: float = 0.0) -> Optimizer:
-    """AdamW + one-cycle, clipping first when ``grad_clip_norm`` > 0."""
+                   grad_clip_norm: float = 0.0,
+                   trainable: tuple[str, ...] | None = None) -> Optimizer:
+    """AdamW + one-cycle, clipping first when ``grad_clip_norm`` > 0; with
+    ``trainable``, over the parameters of those top-level modules only."""
     if flat:
         raise NotImplementedError(f"flat_optimizer is {_SEE}")
     if any(m != 1.0 for m in (module_lr_mults or {}).values()):
         raise NotImplementedError(f"per-module learning-rate multipliers are {_SEE}")
-    return Optimizer(model, lr, total_steps, weight_decay, grad_clip_norm)
+    return Optimizer(model, lr, total_steps, weight_decay, grad_clip_norm, trainable)
 
 
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
@@ -130,19 +145,19 @@ class TrainStep:
     def __init__(self, model, schedule: DiffusionSchedule, optimizer: Optimizer,
                  normalizer: Normalizer, decoder_pretraining: bool = False, ema_decay: float = 0.0,
                  modality_dropout: float = 0.0, aux_cue_weight: float = 0.0):
-        if modality_dropout > 0.0:
-            raise NotImplementedError(f"modality_dropout is {_SEE}")
         if aux_cue_weight > 0.0:
             raise NotImplementedError(f"aux_cue_weight is {_SEE}")
         self.model, self.schedule, self.optimizer = model, schedule, optimizer
         device = next(model.parameters()).device
         self.normalizer = normalizer.to(device)
         self.decoder_pretraining, self.ema_decay = decoder_pretraining, ema_decay
+        self.modality_dropout = modality_dropout
 
     def __call__(self, state: TrainState, batch: dict[str, torch.Tensor],
                  generator: torch.Generator) -> dict:
-        """Draws t (B,), the noise (B, P, J) and, for decoder pretraining, the
-        random context (B, 10, hidden) from ``generator``, on its device."""
+        """Draws t (B,), the noise (B, P, J), for decoder pretraining the
+        random context (B, 10, hidden) and, with modality dropout, the (5, B)
+        masks from ``generator``, in that order, on its device."""
         target = batch["joint_command"]
         bsz, dev = target.shape[0], generator.device
         t = torch.randint(0, self.schedule.num_train_timesteps, (bsz,), generator=generator,
@@ -151,15 +166,21 @@ class TrainStep:
         ctx = None
         if self.decoder_pretraining:
             ctx = torch.randn((bsz, 10, self.model.config.hidden_dim), generator=generator, device=dev)
-        return self.apply(state, batch, t, noise, ctx)
+        masks = None
+        if self.modality_dropout > 0.0:
+            masks = draw_dropout_masks(bsz, self.modality_dropout, generator)
+        return self.apply(state, batch, t, noise, ctx, masks)
 
     def apply(self, state: TrainState, batch: dict[str, torch.Tensor], t: torch.Tensor,
-              noise: torch.Tensor, ctx: torch.Tensor | None = None) -> dict:
-        """The step with given timesteps, noise and (decoder pretraining)
-        random context tokens."""
+              noise: torch.Tensor, ctx: torch.Tensor | None = None,
+              masks: torch.Tensor | None = None) -> dict:
+        """The step with given timesteps, noise, (decoder pretraining) random
+        context tokens and (modality dropout) (5, B) dropout masks."""
         model = self.model
         model.train()
         batch = prepare_batch(batch, keep_u8=model.config.use_images)
+        if masks is not None:
+            batch = apply_dropout_masks(batch, masks)
         targets = self.normalizer.normalize(batch["joint_command"].float())
         noisy = add_noise(self.schedule, targets, noise, t)
         if self.decoder_pretraining:

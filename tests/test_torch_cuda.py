@@ -18,6 +18,8 @@ its per-step sampler, and the context encoder at T = 24 / 100 / 128, patch
 launches; the decoder kernels and the pack at S=0 context tokens, the
 decoder-only tier; their head_dim-128 instances (hidden 512, larger_model)
 at S = 17 / 311 / 312 / 383, B = 1 / 13 / 64 / 133, over 3 and 8 layers;
+the decoder kernels at the shared-memory limits check_kernel_shapes names,
+and refused one 32-key block past them;
 the ResNet18 / ResNet50 / Swin-T encoders' train and eval modes, running
 statistics and gradients on the card against the CPU in float64, with and
 without remat).
@@ -857,6 +859,32 @@ def test_head_dim_128_context_limit(device):
         den.pack_context_kv(kv)
     with pytest.raises(ValueError, match="at most 383 context tokens"):
         den.run_kernel(den.pack_plain(kv), noisy, stk[0], stv[0])
+
+
+@pytest.mark.parametrize("head_dim,layers,b,most", [(32, 4, 1, 639), (64, 4, 1, 415),
+                                                     (64, 4, 100, 447), (64, 8, 100, 351)])
+def test_decoder_kernels_at_their_shared_memory_limit(head_dim, layers, b, most, device):
+    """At the most context tokens check_kernel_shapes lets through (B=1: a
+    2-block cluster; B=100: a block a robot), the chunk sampler, the pack
+    and the denoiser launch and match their plain versions; one 32-key
+    block past it all three raise ValueError, before any launch."""
+    cfg, model = serving_model(device, head_dim, num_decoder_layers=layers)
+    chunk, args = chunk_inputs(cfg, model, device, b, most, "ddim", seed=most)
+    den, packed, noisy, stk, stv = denoise_inputs(cfg, model, device, b, most, seed=most)
+    with torch.no_grad():
+        assert_close(chunk.sample_kernel(*args), chunk.sample_plain(*args))
+        assert_close(den.run_kernel(packed, noisy, stk[0], stv[0]),
+                     den.run_plain(packed, noisy, stk[0], stv[0]))
+    counts = (FusedChunkSampler.launches, FusedDenoiser.launches, FusedDenoiser.pack_launches)
+    chunk, args = chunk_inputs(cfg, model, device, b, most + 32, "ddim", seed=1)
+    kv = [(t.view(b, most + 32, den.num_heads, den.head_dim),) * 2
+          for t in [args[0]] * layers]
+    for run in (lambda: chunk.sample_kernel(*args), lambda: den.pack_context_kv(kv),
+                lambda: den.run_kernel(den.pack_plain(kv), noisy, stk[0], stv[0])):
+        with pytest.raises(ValueError, match=f"at most {most} context tokens there"):
+            run()
+    assert counts == (FusedChunkSampler.launches, FusedDenoiser.launches,
+                      FusedDenoiser.pack_launches)
 
 
 # ------------------------------------------------ the ResNet / Swin encoders

@@ -8,6 +8,8 @@ differences). Then, without JAX: the pack into the CUDA kernel's
 fragment-ordered layout and its inverse, bit for bit, and the shape limits
 the denoiser shares with the chunk sampler."""
 
+import dataclasses
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -168,10 +170,86 @@ def test_denoiser_and_chunk_refuse_the_same_shapes(changes, S, message, cls):
 
 
 @pytest.mark.parametrize("cls", [FusedDenoiser, FusedChunkSampler])
-@pytest.mark.parametrize("E,H,S", [(128, 4, 301), (256, 4, 311), (128, 2, 1023), (512, 4, 311),
+@pytest.mark.parametrize("E,H,S", [(128, 4, 301), (256, 4, 311), (128, 2, 543), (512, 4, 311),
                                    (512, 4, 383)],
                          ids=["h128", "flagship", "longest", "larger_model", "longest_hd128"])
 def test_ported_serving_shapes_fit_the_kernels(E, H, S, cls):
+    """"longest": the most context tokens head_dim 64 at hidden 128 takes
+    at the default batch of one robot (a 2-block cluster), whose shared
+    memory is the largest plan."""
     cfg = port_config(SMALL, hidden_dim=E, num_decoder_heads=H, num_joints=20,
                       trajectory_prediction_length=10, compute_dtype="bfloat16")
     cls(DiffusionPolicy(cfg)).check_kernel_shapes(S)
+
+
+def kernel_cfg(E, H, L=4, **changes):
+    return port_config(SMALL, hidden_dim=E, num_decoder_heads=H, num_decoder_layers=L,
+                       num_joints=20, trajectory_prediction_length=10,
+                       compute_dtype="bfloat16", **changes)
+
+
+# (kernel, hidden, heads, robots, the most context tokens) at 4 layers and 10
+# chunk steps: B=1 runs a robot on a 2-block cluster, B=100 on one block (16
+# warps: fewer robots than the H100's 132 SMs); the chunk sampler keeps its
+# (P, J) solver carry and x0 cache in shared memory, the denoiser none
+SMEM_LIMITS = [
+    (FusedChunkSampler, 128, 4, 100, 639), (FusedChunkSampler, 128, 4, 1, 639),
+    (FusedChunkSampler, 128, 2, 100, 575), (FusedChunkSampler, 128, 2, 1, 543),
+    (FusedChunkSampler, 256, 4, 100, 447), (FusedChunkSampler, 256, 4, 1, 415),
+    (FusedDenoiser, 128, 4, 100, 671), (FusedDenoiser, 128, 4, 1, 639),
+    (FusedDenoiser, 128, 2, 100, 575), (FusedDenoiser, 128, 2, 1, 575),
+    (FusedDenoiser, 256, 4, 100, 447), (FusedDenoiser, 256, 4, 1, 415),
+]
+
+
+@pytest.mark.parametrize("cls,E,H,B,most", SMEM_LIMITS,
+                         ids=[f"{c.__name__}-h{e}x{h}-B{b}" for c, e, h, b, _ in SMEM_LIMITS])
+def test_shared_memory_limits(cls, E, H, B, most):
+    """At the limit the plan fits 227 KB; one 32-key block past it the
+    wrapper refuses with a ValueError (not the launch's CUDA error) that
+    names the limit."""
+    op = cls(DiffusionPolicy(kernel_cfg(E, H)))
+    op.check_kernel_shapes(most, B)
+    assert op.smem_bytes(most, B) <= 232448 < op.smem_bytes(most + 32, B)
+    with pytest.raises(ValueError, match=f"at most {most} context tokens there"):
+        op.check_kernel_shapes(most + 32, B)
+
+
+def test_eight_layers_at_hidden_256_in_a_cluster_is_refused():
+    """E=256 over 8 layers at S=311: a 2-block cluster needs 232,496 bytes,
+    48 past the limit (one block, at B=100, fits)."""
+    op = FusedChunkSampler(DiffusionPolicy(kernel_cfg(256, 4, L=8)))
+    assert op.smem_bytes(311, 1) == 232496
+    with pytest.raises(ValueError, match="232496 bytes"):
+        op.check_kernel_shapes(311, 1)
+    op.check_kernel_shapes(311, 100)
+
+
+YAMLS = sorted((Path(__file__).resolve().parent.parent / "soccerdiffusion_tpu_torch" / "training"
+                / "configs").glob("*.yaml"))
+
+
+def context_tokens(m) -> int:
+    """The context tokens of a config: each proprioceptive stream in patches,
+    a token a frame, the game-state token."""
+    streams = ((m.use_action_history, m.action_context_length),
+               (m.use_imu, m.imu_context_length),
+               (m.use_joint_states, m.joint_state_context_length))
+    return (sum(n // m.encoder_patch_size for on, n in streams if on)
+            + m.use_images * m.image_context_length + int(m.use_gamestate))
+
+
+@pytest.mark.parametrize("cls", [FusedDenoiser, FusedChunkSampler])
+@pytest.mark.parametrize("path", YAMLS, ids=[p.stem for p in YAMLS])
+def test_every_shipped_serving_shape_fits(path, cls):
+    """Every shipped YAML's decoder (in bf16, the kernels' dtype) over its own
+    context, at one robot (the largest plan) and at its batch."""
+    from soccerdiffusion_tpu_torch.config import Config
+
+    config = Config.from_yaml(str(path))
+    m = dataclasses.replace(config.model, compute_dtype="bfloat16", use_images=False)
+    op = cls(DiffusionPolicy(m))
+    S = context_tokens(config.model)
+    assert S == {"decoder_only": 0, "sim_scratch": 50}.get(path.stem, 301 + 10 * config.model.use_images)
+    for b in (1, config.train.batch_size):
+        op.check_kernel_shapes(S, b)

@@ -112,6 +112,7 @@ def test_training_modules_are_covered():
     the training slice's among them."""
     for m in ("soccerdiffusion_tpu_torch.training.train", "soccerdiffusion_tpu_torch.training.trainer",
               "soccerdiffusion_tpu_torch.training.checkpoint", "soccerdiffusion_tpu_torch.training.metrics",
+              "soccerdiffusion_tpu_torch.training.distill", "soccerdiffusion_tpu_torch.inference.sampler",
               "soccerdiffusion_tpu_torch.data.dataset", "soccerdiffusion_tpu_torch.data.pipeline",
               "soccerdiffusion_tpu_torch.data.packed",
               "soccerdiffusion_tpu_torch.ops.fused_encoder_stack",

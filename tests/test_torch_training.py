@@ -191,6 +191,6 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="flat_optimizer"):
         make_optimizer(model, 1e-3, 10, flat=True)
     opt = make_optimizer(model, 1e-3, 10)
-    for kw in (dict(modality_dropout=0.1), dict(aux_cue_weight=0.5)):
-        with pytest.raises(NotImplementedError):
-            make_train_step(model, make_schedule(100), opt, Normalizer.identity(6), **kw)
+    with pytest.raises(NotImplementedError, match="aux_cue_weight"):
+        make_train_step(model, make_schedule(100), opt, Normalizer.identity(6), aux_cue_weight=0.5)
+    make_train_step(model, make_schedule(100), opt, Normalizer.identity(6), modality_dropout=0.1)
