@@ -125,7 +125,29 @@
    its peak device memory, the 1- and 4-step students' step times, and 3
    bf16 steps card vs CPU at B=2 (losses, update norm, the frozen
    parameters bit for bit the teacher's).
-13. Prints one JSON line of per-kernel results, then as its last line
+13. The recorded-data path. Writes a SQLite database with the port's
+   create_schema + insert_dummy_data (2 recordings x 800 rows at 100 Hz, a
+   480 px frame every 10 rows, ~110 MB) and migrates a v1 database beside
+   it. The h128 fused configuration (bench_config with encoder_fused_stack
+   and decoder_fused_block, bf16) from it: DeviceResidentData's batches
+   equal the host-assembled ones moved to the card bit for bit; the packed
+   rows' assemblers (C++ on 1 and 8 threads, numpy) timed on a B=64 batch;
+   train() --db 4 steps at B=64 with --device-data and 4 without (exact
+   launches of the stacks and decoder layers, fwd + bwd; step ms the median
+   of 3 after 1), --decoder-pretraining 2 steps and --pretrained-decoder
+   from it (the decoder equal to the checkpoint's raw parameters before
+   any step), the --device-data checkpoint served at B=64 on the context
+   encoder and the chunk sampler (exact launches). vit_flagship.yaml:
+   from_sqlite, PackedDataset.from_windowed (480 -> 224 px once), save,
+   load (memory-mapped), prepatchify, both assemblers on a B=64 batch;
+   train() --db --packed 4 steps at B=64 (exact ViT / stack / decoder
+   launches) and 3 steps of the loaded shard's batches card vs CPU; the cue
+   head with image_encoder_lr_mult 3 on the "vision" dummy windows: 2 steps
+   at B=64 (aux_cue_loss finite, two AdamW groups) and 3 steps card vs CPU.
+   default_tpu.yaml streamed from the database (frames read and resized
+   per window on the host): one batch's host time and 2 train() steps at
+   B=64. Each time is printed beside the card's name and power limit.
+14. Prints one JSON line of per-kernel results, then as its last line
    {"ok": true, "device": {...}}. Where one torch.nn call computes the
    same function as a kernel (the encoder-stack, ViT-block and
    decoder-layer forwards; one torch.autograd.grad through the same layers
@@ -987,13 +1009,16 @@ def training_path_phase():
     return launches, {"fused": ms_fused, "unfused": ms_plain, "unfused_pallas": ms_flash}, flash
 
 
-def training_reference_phase(device, cfg, batches, seed, gate=True) -> dict:
+def training_reference_phase(device, cfg, batches, seed, gate=True, aux_cue_weight=0.0,
+                             lr_mults=None) -> dict:
     """The kernel path's training steps on the card against the same steps of
     the plain versions on the CPU, one per batch of ``batches`` (dicts of CPU
     tensors with the target ``joint_command``), from the same init, t and
     noise: the losses, the update norm and the BatchNorm running
     statistics, each against its tolerance; raises past one unless ``gate``
-    is False (a measurement, not a check). Returns the measures."""
+    is False (a measurement, not a check). ``aux_cue_weight`` and
+    ``lr_mults`` (module -> learning-rate multiplier) go to the step and the
+    optimizer; the aux cue losses must be finite. Returns the measures."""
     from soccerdiffusion_tpu_torch.data import Normalizer
     from soccerdiffusion_tpu_torch.diffusion import make_schedule
     from soccerdiffusion_tpu_torch.models import DiffusionPolicy
@@ -1006,10 +1031,12 @@ def training_reference_phase(device, cfg, batches, seed, gate=True) -> dict:
     runs = {}
     for dev in (device, "cpu"):
         model = copy.deepcopy(base).to(dev)
-        opt = make_optimizer(model, 1e-3, 10, grad_clip_norm=1.0)
+        opt = make_optimizer(model, 1e-3, 10, grad_clip_norm=1.0, module_lr_mults=lr_mults)
         runs[dev] = (model, create_train_state(model, opt),
                      make_train_step(model, make_schedule(1000), opt,
-                                     Normalizer.identity(cfg.num_joints)), [])
+                                     Normalizer.identity(cfg.num_joints),
+                                     aux_cue_weight=aux_cue_weight), [])
+    aux = {dev: [] for dev in runs}
     for batch in batches:
         target = batch["joint_command"]
         t = torch.from_numpy(rng.integers(0, 1000, (target.shape[0],)))
@@ -1018,6 +1045,12 @@ def training_reference_phase(device, cfg, batches, seed, gate=True) -> dict:
             on = lambda x: x.to(dev)
             metrics = step.apply(state, {k: on(v) for k, v in batch.items()}, on(t), on(noise))
             losses.append(metrics["loss"].item())
+            if aux_cue_weight > 0.0:
+                aux[dev].append(metrics["aux_cue_loss"].item())
+    if aux_cue_weight > 0.0:
+        log(f"aux_cue_loss on {device} {aux[device]}, on cpu {aux['cpu']}")
+        if not all(np.isfinite(aux[device] + aux["cpu"])):
+            raise AssertionError("a non-finite aux cue loss")
     (gm, _, _, gl), (cm, _, _, cl) = runs[device], runs["cpu"]
     ok, loss_rel = True, []
     for i, (lg, lc) in enumerate(zip(gl, cl)):
@@ -1051,7 +1084,8 @@ def training_reference_phase(device, cfg, batches, seed, gate=True) -> dict:
             f"|difference| / max|cpu| = {worst:.3e} (tol {TRAIN_TOL})")
     if gate and not ok:
         raise AssertionError("the kernel training path disagrees with the plain path")
-    return {"loss_rel": loss_rel, "update_norm": upd, "running_stats_rel": worst, "within": ok}
+    return {"loss_rel": loss_rel, "update_norm": upd, "running_stats_rel": worst, "within": ok,
+            **({"aux_cue_loss": aux} if aux_cue_weight > 0.0 else {})}
 
 
 def h128_reference_batches(b=8, steps=3):
@@ -2163,6 +2197,320 @@ def distill_flagship_phase(device) -> dict:
     return {"launches": launches, "step_ms": ms, "peak_bytes": peak, "card_vs_cpu": ref}
 
 
+# ------------------------------------------------------- recorded data (SQLite)
+
+# the recorded-data database: 2 recordings of 800 rows at 100 Hz, a 480 px
+# frame every 10 rows (the schema's default frame size, ~110 MB)
+DB_RECORDINGS, DB_ROWS, DB_IMAGE_STEP, DB_IMAGE_SIZE, RECORDED_B = 2, 800, 10, 480, 64
+# h128 fused training step: 3 stacks and 4 decoder layers (head_dim 32), fwd + bwd
+H128_STEP_LAUNCHES = {"fused_encoder_stack_fwd": 3, "fused_encoder_stack_bwd": 3,
+                      "fused_decoder_layer_fwd": 4, "fused_decoder_layer_bwd": 4}
+
+
+def host_ms(fn, reps=5, warm=1) -> float:
+    """Median host-clock ms of ``fn()`` (work on the host only)."""
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def median_after_first(metrics_path) -> tuple[float, list[float]]:
+    """ms of each step of a log_every=1 run (host clock between the device
+    syncs that end consecutive steps), and the median of those after the first."""
+    steps = [1e3 / json.loads(line)["steps_per_sec"] for line in open(metrics_path)]
+    return statistics.median(steps[1:]), steps
+
+
+def recorded_train(config, tmp, label, steps, device, **opts) -> tuple:
+    """training/train.py's train() for ``steps`` steps (one epoch, a sync
+    each step) with every counter zeroed just before and read just after:
+    (state, launches, median step ms, every step's ms, the metric records)."""
+    from soccerdiffusion_tpu_torch.training.train import RunOptions, train
+
+    config = dataclasses.replace(config, train=dataclasses.replace(config.train, log_every=1))
+    metrics = f"{tmp}/metrics_{label}.jsonl"
+    torch.cuda.synchronize()
+    zero_counters()
+    state = train(config, RunOptions(output=f"{tmp}/ckpt_{label}", epochs=1, steps_per_epoch=steps,
+                                     seed=0, metrics=metrics, device=device, **opts))
+    torch.cuda.synchronize()
+    launches = read_counters()
+    records = [json.loads(line) for line in open(metrics)]
+    if state.step != steps or not all(np.isfinite(r["loss"]) for r in records):
+        raise AssertionError(f"{label}: {state.step} steps, losses {[r['loss'] for r in records]}")
+    ms, each = median_after_first(metrics)
+    return state, launches, ms, each, records
+
+
+def expect_launches(label, got, per_step, steps) -> dict:
+    """Each kernel exactly ``per_step`` launches a step, no other kernel;
+    returns the kernels that ran."""
+    want = {name: per_step.get(name, 0) * steps for name in got}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+    return {name: n for name, n in got.items() if n}
+
+
+def write_recorded_db(path) -> float:
+    """The recorded-data database (the port's create_schema +
+    insert_dummy_data), and a v1 database (no elbow-yaw columns) migrated to
+    v2 beside it; returns the seconds the write took."""
+    import sqlite3
+
+    from soccerdiffusion_tpu_torch.config import CANONICAL_JOINT_NAMES_20
+    from soccerdiffusion_tpu_torch.data.dummy import insert_dummy_data
+    from soccerdiffusion_tpu_torch.data.migrations import migrate, schema_version
+    from soccerdiffusion_tpu_torch.data.schema import connect, create_schema
+
+    t0 = time.perf_counter()
+    conn = connect(path)
+    create_schema(conn)
+    insert_dummy_data(conn, DB_RECORDINGS, DB_ROWS, DB_IMAGE_STEP, seed=0, image_size=DB_IMAGE_SIZE)
+    version = schema_version(conn)
+    conn.close()
+    seconds = time.perf_counter() - t0
+    old = sqlite3.connect(path.with_name("v1.sqlite3"))
+    cols = ", ".join(f'"{n}" FLOAT DEFAULT 0.0' for n in CANONICAL_JOINT_NAMES_20)
+    for table in ("JointStates", "JointCommands"):
+        old.execute(f"CREATE TABLE {table} (_id INTEGER PRIMARY KEY, stamp FLOAT, "
+                    f"recording_id INTEGER, {cols})")
+    old.execute('INSERT INTO JointStates (stamp, recording_id, "HeadPan") VALUES (0, 1, 1.5)')
+    old.commit()
+    before = schema_version(old)
+    after = migrate(old)
+    elbow = old.execute('SELECT "RElbowYaw", "LElbowYaw" FROM JointStates').fetchone()
+    old.close()
+    log(f"recorded-data database: {DB_RECORDINGS} recordings x {DB_ROWS} rows, a "
+        f"{DB_IMAGE_SIZE} px frame every {DB_IMAGE_STEP} rows, {path.stat().st_size} bytes, "
+        f"written in {seconds:.2f} s, schema v{version}; a v1 database migrated v{before} -> "
+        f"v{after} (elbow yaw {elbow})")
+    if version != 2 or (before, after) != (1, 2) or elbow != (0.0, 0.0):
+        raise AssertionError("the schema or its migration is wrong")
+    return seconds
+
+
+def recorded_h128_phase(db, tmp, device, smi) -> dict:
+    """bench_config with the fused stacks and decoder layers (h128, bf16) on
+    the database: DeviceResidentData's batches equal the host-assembled
+    batches moved to the card bit for bit; train() --db 4 steps with
+    --device-data and 4 without (exact launches; step ms: median of 3 after
+    1), --decoder-pretraining 2 steps, --pretrained-decoder from it (the
+    decoder equals the checkpoint's raw parameters before any step), and the
+    --device-data checkpoint served on the context encoder and the chunk
+    sampler at B=64."""
+    from soccerdiffusion_tpu_torch.data import WindowedDataset
+    from soccerdiffusion_tpu_torch.data.packed import PackedDataset
+    from soccerdiffusion_tpu_torch.data.pipeline import DeviceResidentData, to_tensors
+    from soccerdiffusion_tpu_torch.training.checkpoint import load_checkpoint
+
+    out = {"launches": {}, "step_ms": {}}
+    config = train_config(True)
+    config = dataclasses.replace(config, train=dataclasses.replace(config.train,
+                                                                   batch_size=RECORDED_B))
+    t0 = time.perf_counter()
+    dataset = WindowedDataset.from_sqlite(db, config.model)
+    out["db_load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resident = DeviceResidentData(dataset, device)
+    torch.cuda.synchronize()
+    out["device_data_build_s"] = time.perf_counter() - t0
+    for seed in (0, 1):
+        for host, dev in zip(itertools.islice(dataset.batches(RECORDED_B, seed=seed), 3),
+                             resident.batches(RECORDED_B, seed=seed)):
+            for k, v in to_tensors(host).items():
+                if not torch.equal(v.to(device), dev[k]):
+                    raise AssertionError(f"a device-resident batch differs from the host's: {k}")
+    batch_bytes = sum(v.nbytes for v in next(dataset.batches(RECORDED_B, seed=0)).values())
+    out["h2d_bytes_per_step"] = {"device_data": 8 * RECORDED_B, "host_batches": batch_bytes}
+    # the rows alone (no frames): the C++ assembler against the numpy loop
+    idx = np.random.default_rng(1).permutation(len(dataset))[:RECORDED_B]
+    rows = {"native": PackedDataset.from_windowed(dataset),
+            "native_8_threads": PackedDataset.from_windowed(dataset, num_threads=8),
+            "numpy": PackedDataset.from_windowed(dataset, assembler="numpy")}
+    want = rows["numpy"].assemble(idx)
+    for name in ("native", "native_8_threads"):
+        got = rows[name].assemble(idx)
+        if any(not np.array_equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"the {name} assembler's rows differ from the numpy assembler's")
+    out["assemble_rows_ms"] = {name: host_ms(lambda ds=ds: ds.assemble(idx))
+                               for name, ds in rows.items()}
+    log(f"h128 from the database: from_sqlite {out['db_load_s']:.3f} s ({len(dataset)} windows), "
+        f"DeviceResidentData {out['device_data_build_s']:.3f} s; its batches equal the host's "
+        f"moved to the card bit for bit (2 seeds x 3 batches); H2D bytes per step: "
+        f"{8 * RECORDED_B} with --device-data (the epoch's order, uploaded once), "
+        f"{batch_bytes} without; assemble a packed B={RECORDED_B} batch of rows: native (1 "
+        f"thread, the default) {out['assemble_rows_ms']['native']:.3f} ms, native (8 threads) "
+        f"{out['assemble_rows_ms']['native_8_threads']:.3f} ms, numpy "
+        f"{out['assemble_rows_ms']['numpy']:.3f} ms (host, median of 5; equal batches) ({smi})")
+    del resident
+    for label, opts in (("device_data", dict(device_data=True)), ("host_batches", {})):
+        _, got, ms, each, _ = recorded_train(config, tmp, f"h128_{label}", 4, device,
+                                             dummy_data=False, db=str(db), **opts)
+        out["launches"][label] = expect_launches(f"h128 --db {label}", got, H128_STEP_LAUNCHES, 4)
+        out["step_ms"][label] = ms
+        log(f"h128 train --db {'--device-data ' if opts else ''}B={RECORDED_B}, 4 steps: "
+            f"{ms:.3f} ms/step (median of 3 after 1; steps {[round(x, 3) for x in each]}); "
+            f"launches {got} ({smi})")
+    _, got, _, _, _ = recorded_train(config, tmp, "h128_pretraining", 2, device, dummy_data=False,
+                                     db=str(db), device_data=True, decoder_pretraining=True)
+    # the decoder pretraining runs the decoder layers only, against random context tokens
+    out["launches"]["decoder_pretraining"] = expect_launches(
+        "h128 --decoder-pretraining", got,
+        {"fused_decoder_layer_fwd": 4, "fused_decoder_layer_bwd": 4}, 2)
+    from soccerdiffusion_tpu_torch.training.train import RunOptions, train
+
+    raw = load_checkpoint(f"{tmp}/ckpt_h128_pretraining")["params"]
+    state = train(config, RunOptions(output=f"{tmp}/unused", epochs=0, dummy_data=False,
+                                     db=str(db), device=device,
+                                     pretrained_decoder=f"{tmp}/ckpt_h128_pretraining"))
+    copied = 0
+    for name, p in state.model.named_parameters():
+        if name.startswith(("diffusion_action_generator.", "step_encoding.")):
+            copied += 1
+            if not torch.equal(p.detach().cpu(), raw[name]):
+                raise AssertionError(f"--pretrained-decoder: {name} is not the checkpoint's")
+    log(f"--pretrained-decoder: {copied} decoder / step-token tensors equal the pretraining "
+        f"checkpoint's raw parameters before the first step")
+    del state
+    model, norm, steps, _, _ = load_served(f"{tmp}/ckpt_h128_device_data", device)
+    out["served_ms"], served = served_period(
+        "the --db --device-data checkpoint (fused=\"chunk\", fused encoder)", model, device,
+        {"fused_encoder": 1, "fused_chunk": 1}, b=RECORDED_B, normalizer=norm,
+        num_inference_steps=steps, fused="chunk", fused_encoder=True)
+    out["launches"]["served"] = {name: n for name, n in served.items() if n}
+    log(f"served period {out['served_ms']:.3f} ms at B={RECORDED_B} ({smi})")
+    return out
+
+
+def recorded_flagship_phase(db, tmp, device, smi) -> dict:
+    """vit_flagship.yaml on the database: from_sqlite, PackedDataset.from_windowed
+    (480 -> 224 px once), save, load (memory-mapped), prepatchify; the native
+    and the numpy assembler timed on a B=64 batch; train() --db --packed 4
+    steps at B=64 (exact launches; median of 3 after 1); 3 steps of the
+    loaded shard's batches on the card against the CPU. Then the cue head
+    and image_encoder_lr_mult 3 on --dummy-data (the "vision" task's
+    windows): train() 2 steps at B=64 and 3 steps card vs CPU."""
+    from soccerdiffusion_tpu_torch.data import WindowedDataset, generate_dummy_arrays
+    from soccerdiffusion_tpu_torch.data.packed import PackedDataset
+    from soccerdiffusion_tpu_torch.data.pipeline import to_tensors
+
+    out = {"launches": {}}
+    config = flagship_train_config(RECORDED_B)
+    cfg = config.model
+    t0 = time.perf_counter()
+    windows = WindowedDataset.from_sqlite(db, cfg)
+    out["db_load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    packed = PackedDataset.from_windowed(windows)
+    out["pack_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    packed.save(f"{tmp}/shard")
+    out["save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = PackedDataset.load(f"{tmp}/shard", cfg)
+    out["load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded.prepatchify_images(cfg.vit_patch_size)
+    out["prepatchify_s"] = time.perf_counter() - t0
+    numpy_rows = PackedDataset.load(f"{tmp}/shard", cfg, assembler="numpy")
+    numpy_rows.images = loaded.images
+    idx = np.random.default_rng(0).permutation(len(loaded))[:RECORDED_B]
+    want, got = numpy_rows.assemble(idx), loaded.assemble(idx)
+    for k in want:
+        if not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"the native assembler's {k} differs from the numpy one's")
+    out["assemble_ms"] = {name: host_ms(lambda ds=ds: ds.assemble(idx))
+                          for name, ds in (("native", loaded), ("numpy", numpy_rows))}
+    log(f"flagship from the database: from_sqlite {out['db_load_s']:.3f} s; from_windowed (resize "
+        f"{len(packed.images)} frames {DB_IMAGE_SIZE} -> {cfg.image_resolution} px) "
+        f"{out['pack_s']:.3f} s; save {out['save_s']:.3f} s, load (mmap) {out['load_s']:.3f} s, "
+        f"prepatchify {out['prepatchify_s']:.3f} s; assemble a B={RECORDED_B} batch: native "
+        f"{out['assemble_ms']['native']:.3f} ms, numpy {out['assemble_ms']['numpy']:.3f} ms "
+        f"(host, median of 5; equal batches) ({smi})")
+    _, got, ms, each, _ = recorded_train(config, tmp, "flagship_db", 4, device, dummy_data=False,
+                                         db=str(db), packed=True)
+    out["launches"]["db_packed"] = expect_launches("flagship --db --packed", got,
+                                                   FLAG_TRAIN_LAUNCHES, 4)
+    out["step_ms"] = {"db_packed": ms}
+    log(f"flagship train --db --packed B={RECORDED_B}, 4 steps: {ms:.3f} ms/step (median of 3 "
+        f"after 1; steps {[round(x, 3) for x in each]}); launches {got} ({smi})")
+    batches = [to_tensors(b) for b in itertools.islice(loaded.batches(2, seed=0), 3)]
+    out["card_vs_cpu"] = training_reference_phase(device, cfg, batches, 16)
+
+    cue = dataclasses.replace(
+        config, model=dataclasses.replace(cfg, aux_cue_head=True),
+        train=dataclasses.replace(config.train, dummy_task="vision", aux_cue_weight=0.1,
+                                  image_encoder_lr_mult=3.0))
+    state, got, _, each, records = recorded_train(cue, tmp, "flagship_cue", 2, device,
+                                                    dummy_data=True)
+    cue_launches = expect_launches("flagship cue head", got, FLAG_TRAIN_LAUNCHES, 2)
+    aux = [r["aux_cue_loss"] for r in records]
+    groups = [(g["lr_mult"], len(g["params"])) for g in state.optimizer.adamw.param_groups]
+    log(f"flagship --dummy-data (vision) with the cue head and image_encoder_lr_mult 3, "
+        f"B={RECORDED_B}, 2 steps: steps {[round(x, 3) for x in each]} ms, aux_cue_loss {aux}, "
+        f"AdamW groups (lr_mult, tensors) {groups}; launches {got} ({smi})")
+    if not all(np.isfinite(aux)) or sorted(m for m, _ in groups) != [1.0, 3.0]:
+        raise AssertionError(f"cue head run: aux {aux}, groups {groups}")
+    out["launches"]["cue"], out["cue_step_ms"], out["aux_cue_loss"] = cue_launches, each, aux
+    del state
+    torch.cuda.empty_cache()
+    kw = dict(num_recordings=2, num_samples=200, num_joints=cfg.num_joints,
+              image_size=cfg.image_resolution, seed=3, task="vision")
+    vision = WindowedDataset.from_dummy(generate_dummy_arrays(**kw), cue.model)
+    batches = [to_tensors(b) for b in itertools.islice(vision.batches(2, seed=0), 3)]
+    out["cue_card_vs_cpu"] = training_reference_phase(
+        device, cue.model, batches, 17, aux_cue_weight=0.1,
+        lr_mults={"image_sequence_encoder": 3.0})
+    return out
+
+
+def recorded_resnet_phase(db, tmp, device, smi) -> dict:
+    """default_tpu.yaml (ResNet18 at 224 px, bf16) on the database through
+    the streamed path: each window's frames read from SQLite and resized
+    480 -> 224 on the host; one batch's host time, then train() --db 2
+    steps at B=64 (no kernel of the port runs: cuDNN and unfused layers)."""
+    from soccerdiffusion_tpu_torch.data import WindowedDataset
+
+    config = yaml_config("default_tpu.yaml", batch_size=RECORDED_B)
+    dataset = WindowedDataset.from_sqlite(db, config.model)
+    t0 = time.perf_counter()
+    batch = next(dataset.batches(RECORDED_B, seed=0))
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    frames = sum(rec.images.fetch_count for rec in dataset.recordings)
+    _, got, _, each, _ = recorded_train(config, tmp, "default_tpu_db", 2, device, dummy_data=False,
+                                        db=str(db))
+    log(f"default_tpu.yaml streamed from the database: a B={RECORDED_B} batch of "
+        f"{tuple(batch['image_data'].shape)} frames in {host_ms:.1f} ms on the host ({frames} "
+        f"frames read and resized); train --db 2 steps: {[round(x, 3) for x in each]} ms; "
+        f"launches {got} ({smi})")
+    if any(got.values()):
+        raise AssertionError(f"a kernel of the port ran on the ResNet training path: {got}")
+    return {"streamed_batch_host_ms": host_ms, "frames_per_batch": frames, "step_ms": each}
+
+
+def recorded_data_phase(device, smi) -> dict:
+    """The recorded-data path: a SQLite database of 480 px frames, then the
+    h128, flagship and default_tpu phases above on it."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        db = Path(tmp) / "db.sqlite3"
+        out = {"db_write_s": write_recorded_db(db), "db_bytes": db.stat().st_size}
+        out["h128"] = recorded_h128_phase(db, tmp, device, smi)
+        torch.cuda.empty_cache()
+        out["flagship"] = recorded_flagship_phase(db, tmp, device, smi)
+        torch.cuda.empty_cache()
+        out["default_tpu"] = recorded_resnet_phase(db, tmp, device, smi)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"recorded-data phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def sass_phase() -> dict:
     """cuobjdump -sass of the built kernel library: every instance of each
     TENSOR_CORE_KERNELS kernel (bf16 only where it says so) must hold
@@ -2439,6 +2787,9 @@ def main(argv=None) -> int:
     distill_larger = distill_larger_phase(device)
     torch.cuda.empty_cache()
     distill_flagship = distill_flagship_phase(device)
+    torch.cuda.empty_cache()
+    # the recorded-data path: SQLite, the resize, packed shards, device-resident data
+    recorded = recorded_data_phase(device, smi)
 
     # where each kernel instance ran: (source, the TPU kernel it replaces (the
     # pack: the JAX denoiser's pack_context_kv, whose layout the kernel's
@@ -2546,6 +2897,7 @@ def main(argv=None) -> int:
                                                          "batch": LARGER_B},
                                 "flagship": {**distill_flagship, "batch": DISTILL_FLAG_B}},
                     "smem_mirror_cases": smem_cases,
+                    "recorded_data": recorded,
                     "gpu": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,15 @@ unless the caller asks for the CPU.
 
 The package imports torch and numpy and never jax, flax or anything of the
 JAX package: ``config.py`` is its own copy of the configuration.
+
+``DB_PATH`` is the default SQLite dataset of ``training/train.py`` (the
+environment variable ``SOCCERDIFFUSION_TPU_DB_PATH``, which the JAX package
+reads too, else ``db.sqlite3`` in the working directory): a database written
+by either package is read by the other.
 """
 
+import os
+
 __version__ = "0.1.0"
+
+DB_PATH = os.environ.get("SOCCERDIFFUSION_TPU_DB_PATH", os.path.join(os.getcwd(), "db.sqlite3"))

@@ -201,7 +201,9 @@ def check_supported(cfg: ModelConfig) -> None:
     formulation; they are accepted and have no effect (the layouts compute
     the same function, and a CUDA grid needs no frame block).
     ``remat_image_encoder`` is False, True (every encoder) or "conv_only"
-    (the ResNets only); another value raises ``ValueError``.
+    (the ResNets only); another value raises ``ValueError``. ``aux_cue_head``
+    (the training-only cue regression of ``DiffusionPolicy.forward_with_cue``)
+    is accepted.
 
     The decoder-only tier (every context modality off) conditions the
     decoder on the diffusion step token alone.
@@ -224,8 +226,6 @@ def check_supported(cfg: ModelConfig) -> None:
         check_remat_image_encoder(cfg.remat_image_encoder, cfg.image_encoder_type)
         if cfg.image_encoder_type == "vit" and cfg.vit_fused_gelu not in ("exact", "quick"):
             raise NotImplementedError(f"vit_fused_gelu={cfg.vit_fused_gelu!r} is {_SEE}")
-        if cfg.aux_cue_head:
-            raise NotImplementedError(f"aux_cue_head (a training head) is {_SEE}")
 
 
 def check_remat_image_encoder(remat: bool | str, encoder_type: str) -> None:

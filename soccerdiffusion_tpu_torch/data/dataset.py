@@ -1,4 +1,4 @@
-"""Windowed training dataset over in-memory recording arrays (counterpart of
+"""Windowed training dataset over recording arrays (counterpart of
 ``soccerdiffusion_tpu/data/dataset.py``).
 
 Each recording's time series are held as contiguous numpy arrays and
@@ -8,27 +8,32 @@ reference's) padding semantics:
   * history windows are left-padded with zeros;
   * IMU windows are left-padded with the identity quaternion;
   * image windows keep the last <= F frames within (stamp - (F + 1) /
-    max_fps_video, stamp], right-aligned, normalised with the ImageNet
+    max_fps_video, stamp], right-aligned, resized to ``image_resolution``
+    with INTER_AREA (``data/resize.py``), normalised with the ImageNet
     statistics, left-padded with zero images stamped at the context start;
   * the game state is the last state at or before the stamp, UNKNOWN if none.
 
 Index space: per recording (n_commands - future_len) / stride windows,
 concatenated. Given the same seed, ``batches``, ``sample_targets``,
 ``image_boundary_indices`` and ``oversampled_order`` give the same arrays as
-the JAX package. Frames must already be at ``image_resolution`` (the
-resize needs cv2, which the port does not use); ``from_sqlite`` is not
-ported yet (ROADMAP.md).
+the JAX package. ``from_sqlite`` reads every recording of a reference-schema
+database (``data/schema.py``) with the JAX package's queries; its frames
+stay in the database and are fetched per window (``SqliteImageStore``), or
+are decoded up front with ``stream_images=False``.
 """
 
 from __future__ import annotations
 
 import bisect
+import sqlite3
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 
 from soccerdiffusion_tpu_torch.config import ModelConfig
-from soccerdiffusion_tpu_torch.data.schema import RobotState
+from soccerdiffusion_tpu_torch.data.resize import resize_area
+from soccerdiffusion_tpu_torch.data.schema import RobotState, connect
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
@@ -51,14 +56,32 @@ def np_quats_to_5d(quats_xyzw: np.ndarray) -> np.ndarray:
 
 
 def preprocess_image(raw_rgb8: np.ndarray, resolution: int) -> np.ndarray:
-    """uint8 (H, W, 3) RGB at ``resolution`` -> float32 scaled to [0, 1] and
-    normalised with the ImageNet statistics. A frame of another size would
-    need the JAX package's cv2 INTER_AREA resize, which is not ported."""
-    if raw_rgb8.shape[0] != resolution or raw_rgb8.shape[1] != resolution:
-        raise NotImplementedError(
-            f"a {raw_rgb8.shape[1]}x{raw_rgb8.shape[0]} frame needs a resize to {resolution} px, "
-            "which is not ported (cv2 INTER_AREA; see ROADMAP.md, 'H100 port')")
-    return (raw_rgb8.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
+    """uint8 (H, W, 3) RGB -> float32 (resolution, resolution, 3): resized
+    with INTER_AREA where its size differs, scaled to [0, 1], normalised
+    with the ImageNet statistics."""
+    img = resize_area(raw_rgb8, resolution, resolution)
+    return (img.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
+
+
+class SqliteImageStore:
+    """Frames read from the database one at a time: ``store[k]`` is the k-th
+    frame's uint8 (H, W, 3) blob, only rowids are kept in memory, so a
+    recording larger than RAM trains. ``fetch_count`` counts the reads."""
+
+    def __init__(self, conn: sqlite3.Connection, rowids: np.ndarray, height: int, width: int):
+        self._conn = conn
+        self._rowids = np.asarray(rowids, dtype=np.int64)
+        self._hw = (height, width)
+        self.fetch_count = 0
+
+    def __len__(self) -> int:
+        return len(self._rowids)
+
+    def __getitem__(self, k: int) -> np.ndarray:
+        row = self._conn.execute("SELECT data FROM Image WHERE _id=?",
+                                 (int(self._rowids[k]),)).fetchone()
+        self.fetch_count += 1
+        return np.frombuffer(row[0], dtype=np.uint8).reshape(*self._hw, 3)
 
 
 @dataclass
@@ -71,7 +94,7 @@ class RecordingArrays:
     game_states: np.ndarray  # (m,) int32, sorted by stamp
     game_state_stamps: np.ndarray  # (m,) float32
     image_stamps: np.ndarray | None = None  # (k,) float32, sorted
-    images: np.ndarray | None = None  # (k, H, W, 3) uint8
+    images: np.ndarray | SqliteImageStore | None = None  # (k, H, W, 3) uint8, or read lazily
     # the "vision" dummy task's cue latent per frame (data/dummy.py)
     vision_u: np.ndarray | None = None
 
@@ -97,6 +120,58 @@ class WindowedDataset:
             total += count
         self.num_samples = total
         self._starts = [b[0] for b in self.sample_boundaries]
+
+    @classmethod
+    def from_sqlite(cls, db_path: str | Path | sqlite3.Connection, config: ModelConfig,
+                    trajectory_stride: int = 1, sampling_rate: int = 100, max_fps_video: int = 10,
+                    decode_images: bool | None = None,
+                    stream_images: bool = True) -> "WindowedDataset":
+        """Every recording of a reference-schema SQLite database (a path is
+        opened read-only), in ``_id`` order, its series ordered by stamp;
+        the config's joint columns. With ``decode_images`` (default: the
+        config's ``use_images``) the frames come too: with ``stream_images``
+        read from the database per window (``SqliteImageStore``), else all
+        decoded up front."""
+        conn = db_path if isinstance(db_path, sqlite3.Connection) else connect(db_path, read_only=True)
+        decode_images = config.use_images if decode_images is None else decode_images
+        joint_cols = ", ".join(f'"{n}"' for n in config.joint_names)
+        cur = conn.cursor()
+        state_to_int = {s: i for i, s in enumerate(RobotState.values())}
+
+        def series(query: str, rid: int) -> np.ndarray:
+            return np.asarray(cur.execute(query, (rid,)).fetchall(), dtype=np.float32)
+
+        recordings = []
+        for (rid,) in cur.execute("SELECT _id FROM Recording ORDER BY _id").fetchall():
+            cmds = series(f"SELECT {joint_cols} FROM JointCommands WHERE recording_id=? "
+                          "ORDER BY stamp ASC", rid)
+            if cmds.size == 0:
+                continue
+            states = series(f"SELECT {joint_cols} FROM JointStates WHERE recording_id=? "
+                            "ORDER BY stamp ASC", rid)
+            rots = series("SELECT x, y, z, w FROM Rotation WHERE recording_id=? ORDER BY stamp ASC",
+                          rid)
+            gs_rows = cur.execute("SELECT stamp, state FROM GameState WHERE recording_id=? "
+                                  "ORDER BY stamp ASC", (rid,)).fetchall()
+            gs_stamps = np.asarray([r[0] for r in gs_rows], dtype=np.float32)
+            gs_vals = np.asarray([state_to_int.get(r[1], int(RobotState.UNKNOWN)) for r in gs_rows],
+                                 dtype=np.int32)
+            img_stamps, images = np.zeros((0,), dtype=np.float32), None
+            if decode_images:
+                img_index = cur.execute("SELECT _id, stamp FROM Image WHERE recording_id=? "
+                                        "ORDER BY stamp ASC", (rid,)).fetchall()
+                if img_index:
+                    img_stamps = np.asarray([r[1] for r in img_index], dtype=np.float32)
+                    rowids = np.asarray([r[0] for r in img_index], dtype=np.int64)
+                    w, h = cur.execute("SELECT img_width, img_height FROM Recording WHERE _id=?",
+                                       (rid,)).fetchone()
+                    images = SqliteImageStore(conn, rowids, int(h), int(w))
+                    if not stream_images:
+                        images = np.stack([images[k] for k in range(len(rowids))])
+            recordings.append(RecordingArrays(
+                joint_commands=cmds, joint_states=states, rotations=rots, game_states=gs_vals,
+                game_state_stamps=gs_stamps, image_stamps=img_stamps, images=images))
+        return cls(recordings, config, trajectory_stride, sampling_rate, max_fps_video)
 
     @classmethod
     def from_dummy(cls, dummy_recordings, config: ModelConfig, **kwargs) -> "WindowedDataset":
@@ -204,9 +279,16 @@ class WindowedDataset:
         return np.asarray(out, dtype=np.int64)
 
     def sample_targets(self, num_samples: int, seed: int = 0) -> np.ndarray:
-        """Random target chunks stacked along time, for ``Normalizer.fit``."""
+        """Random target chunks stacked along time, for ``Normalizer.fit``
+        (each window's ``joint_command``, without assembling the rest)."""
         idx = np.random.default_rng(seed).integers(0, len(self), size=num_samples)
-        return np.concatenate([self[int(i)]["joint_command"] for i in idx], axis=0)
+        return np.concatenate([self._target(int(i)) for i in idx], axis=0)
+
+    def _target(self, idx: int) -> np.ndarray:
+        start_sample, _, ri = self.sample_boundaries[bisect.bisect_right(self._starts, idx) - 1]
+        cmd_idx = (idx - start_sample) * self.stride
+        return self.recordings[ri].joint_commands[
+            cmd_idx: cmd_idx + self.cfg.trajectory_prediction_length].astype(np.float32)
 
     def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0,
                 drop_remainder: bool = True, order: np.ndarray | None = None):

@@ -8,14 +8,21 @@ uniform game states, and the image stamps of a 10-tick cadence with, when
 ``with_images``, procedural test-pattern frames. The "vision" task: each
 frame previews the next interval's joint target as a bar position, so the
 camera carries the signal. Frames are pure numpy RGB8 at ``image_size``.
+``insert_dummy_data`` writes the SQLite tier: per recording a row of
+``Recording`` and the decorative task's series and frames, the same rows as
+the JAX package for a seed.
 """
 
 from __future__ import annotations
 
 import math
+import sqlite3
 from dataclasses import dataclass
 
 import numpy as np
+
+from soccerdiffusion_tpu_torch.config import CANONICAL_JOINT_NAMES_22
+from soccerdiffusion_tpu_torch.data.schema import RobotState, TeamColor
 
 
 def _sinusoid_joints(n: int, num_joints: int, rng: np.random.Generator, speed: float = 0.2) -> np.ndarray:
@@ -142,3 +149,46 @@ def generate_dummy_arrays(num_recordings: int = 2, num_samples: int = 500, num_j
             game_states=rng.integers(0, 4, size=num_samples).astype(np.int32),
             image_stamps=stamps, images=images))
     return recordings
+
+
+def insert_dummy_data(conn: sqlite3.Connection, num_recordings: int, num_samples_per_rec: int,
+                      image_step: int, seed: int = 0, image_size: int = 480) -> list[int]:
+    """The SQLite tier of the dummy data: ``num_recordings`` recordings of
+    ``num_samples_per_rec`` rows at 100 Hz (all 22 joints), a frame of
+    ``image_size`` px every ``image_step`` rows. Returns the recordings' ids."""
+    rng = np.random.default_rng(seed)
+    cur = conn.cursor()
+    recording_ids = []
+    colors = TeamColor.values()
+    for i in range(num_recordings):
+        cur.execute(
+            "INSERT INTO Recording (allow_public, original_file, team_name, team_color,"
+            " robot_type, location, simulated, img_width, img_height,"
+            " img_width_scaling, img_height_scaling)"
+            " VALUES (1, ?, ?, ?, ?, ?, 1, ?, ?, 1.0, 1.0)",
+            (f"dummy_original_file{i}", f"dummy_team_name{i}",
+             colors[int(rng.integers(len(colors)))], f"dummy_robot_type{i}",
+             f"dummy_location{i}", image_size, image_size))
+        recording_ids.append(cur.lastrowid)
+    joint_cols = ", ".join(f'"{n}"' for n in CANONICAL_JOINT_NAMES_22)
+    joint_ph = ", ".join("?" * len(CANONICAL_JOINT_NAMES_22))
+    states = RobotState.values()
+    for rec_id in recording_ids:
+        data = generate_dummy_arrays(1, num_samples_per_rec, num_joints=len(CANONICAL_JOINT_NAMES_22),
+                                     image_step=image_step, image_size=image_size,
+                                     with_images=True, seed=int(rng.integers(2**31)))[0]
+        for table, rows in (("JointCommands", data.joint_commands),
+                            ("JointStates", data.joint_states)):
+            cur.executemany(
+                f"INSERT INTO {table} (stamp, recording_id, {joint_cols}) VALUES (?, ?, {joint_ph})",
+                [(i / 100, rec_id, *map(float, row)) for i, row in enumerate(rows)])
+        cur.executemany(
+            "INSERT INTO Rotation (stamp, recording_id, x, y, z, w) VALUES (?, ?, ?, ?, ?, ?)",
+            [(i / 100, rec_id, *map(float, row)) for i, row in enumerate(data.rotations)])
+        cur.executemany("INSERT INTO GameState (stamp, recording_id, state) VALUES (?, ?, ?)",
+                        [(i / 100, rec_id, states[s]) for i, s in enumerate(data.game_states)])
+        cur.executemany("INSERT INTO Image (stamp, recording_id, data) VALUES (?, ?, ?)",
+                        [(float(stamp), rec_id, img.tobytes())
+                         for stamp, img in zip(data.image_stamps, data.images)])
+    conn.commit()
+    return recording_ids

@@ -13,8 +13,10 @@ The classifier-free-guidance modality surface (``MODALITY_KEYS``,
 (``dropout_modalities``) follow the JAX module. The dropout is split in two:
 ``draw_dropout_masks`` draws the five per-sample masks from an explicit
 ``torch.Generator``, ``apply_dropout_masks`` applies given masks, so that a
-test can feed the masks the JAX package draws. ``DeviceResidentData`` is not
-ported yet (see ROADMAP.md).
+test can feed the masks the JAX package draws.
+
+``DeviceResidentData`` puts a whole dataset on the device once and gathers
+each batch there by index, in the order of ``WindowedDataset.batches``.
 """
 
 from __future__ import annotations
@@ -223,6 +225,54 @@ def dropout_modalities(batch: dict, p: float, generator: torch.Generator) -> dic
         return batch
     return apply_dropout_masks(batch, draw_dropout_masks(batch["joint_command"].shape[0], p,
                                                          generator))
+
+
+class DeviceResidentData:
+    """A dataset's windows stacked once and put on ``device``; ``batches``
+    gathers each batch there by index, so a step copies nothing from the
+    host: each epoch's window order is uploaded once, and a batch is an
+    ``index_select`` of every tensor by a slice of it.
+
+    Built from ``dataset[i]`` for every window (a ``WindowedDataset``); a
+    ``PackedDataset`` has no per-window items and is refused, as the JAX
+    package's ``DeviceResidentData`` cannot take one either. A CUDA device
+    without a GPU raises."""
+
+    def __init__(self, dataset, device="cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device={device!r} requested but CUDA is not available "
+                               "(pass device='cpu' for the CPU)")
+        if not hasattr(dataset, "__getitem__"):
+            raise ValueError(f"DeviceResidentData stacks dataset[i] for every window; "
+                             f"{type(dataset).__name__} has no per-window items (--device-data "
+                             "cannot be combined with --packed)")
+        n = len(dataset)
+        first = dataset[0]
+        host = {k: np.empty((n,) + np.shape(v), np.asarray(v).dtype) for k, v in first.items()}
+        for i in range(n):
+            for k, v in (first if i == 0 else dataset[i]).items():
+                host[k][i] = v
+        self.num_samples = n
+        self.data = {k: torch.from_numpy(v).to(self.device) for k, v in host.items()}
+
+    def __len__(self) -> int:
+        return self.num_samples
+
+    def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0,
+                drop_remainder: bool = True, order: np.ndarray | None = None):
+        """Yield one epoch of device batches: the windows of ``order`` (the
+        boundary oversampling's), else ``np.random.default_rng(seed)``'s
+        shuffle of all windows (``shuffle``), else their order."""
+        if order is None:
+            order = np.arange(self.num_samples)
+            if shuffle:
+                np.random.default_rng(seed).shuffle(order)
+        limit = len(order) - (len(order) % batch_size if drop_remainder else 0)
+        index = torch.as_tensor(np.asarray(order[:limit], dtype=np.int64)).to(self.device)
+        for i in range(0, limit, batch_size):
+            rows = index[i: i + batch_size]
+            yield {k: v.index_select(0, rows) for k, v in self.data.items()}
 
 
 def to_tensors(batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:

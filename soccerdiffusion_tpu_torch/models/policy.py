@@ -21,7 +21,12 @@ and the decoder layers through the fused fwd+bwd ops
 (``ops/fused_vit_block.py``). ``attention_impl`` picks the attention
 backend of every unfused layer (``models/attention.py``): with all three
 knobs off and "pallas", every attention of the model runs the flash
-kernel (``ops/flash_attention.py``)."""
+kernel (``ops/flash_attention.py``).
+
+With ``aux_cue_head`` (image configs) the policy has ``cue_head``, a
+Linear(hidden, 1) that ``forward_with_cue`` applies, in float32, to the
+newest frame's per-frame image token: the auxiliary cue regression that the
+train step weights in with ``aux_cue_weight``."""
 
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from soccerdiffusion_tpu_torch.config import ModelConfig, check_supported
 from soccerdiffusion_tpu_torch.models.decoder import DiffusionActionGenerator
 from soccerdiffusion_tpu_torch.models.embeddings import StepToken
 from soccerdiffusion_tpu_torch.models.encoders import GameStateEncoder, IMUEncoder, JointEncoder
+from soccerdiffusion_tpu_torch.models.layers import Linear
 from soccerdiffusion_tpu_torch.models.vision import ImageSequenceEncoder
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -65,6 +71,8 @@ class DiffusionPolicy(nn.Module):
                 cfg.image_use_final_avgpool, cfg.remat_image_encoder)
         if cfg.use_gamestate:
             self.game_state_encoder = GameStateEncoder(E)
+        if cfg.use_images and cfg.aux_cue_head:
+            self.cue_head = Linear(E, 1)
         self.diffusion_action_generator = DiffusionActionGenerator(
             cfg.num_joints, E, cfg.num_decoder_layers, cfg.trajectory_prediction_length,
             num_heads=cfg.num_decoder_heads, fused_block=cfg.decoder_fused_block,
@@ -85,7 +93,15 @@ class DiffusionPolicy(nn.Module):
         frames ``batch["image_data"]``. The decoder-only tier returns (B, 0,
         hidden), B from the batch's ``joint_command`` (the serving batch
         carries a zero-width one, ``inference/controller.py``)."""
+        return self._context(batch)[0]
+
+    def _context(self, batch: dict[str, torch.Tensor], want_frame_tokens: bool = False):
+        """(context, per-frame image tokens): with ``want_frame_tokens`` the
+        image pathway runs as its two halves (frames, then the sequence
+        encoder; the same function) and its (B, F, hidden) frame tokens come
+        back, else None."""
         cfg = self.config
+        frame_tokens = None
         context = []
         if cfg.use_action_history:
             context.append(self.action_history_encoder(batch["joint_command_history"].to(self.dtype)))
@@ -95,8 +111,13 @@ class DiffusionPolicy(nn.Module):
             context.append(self.joint_states_encoder(batch["joint_state"].to(self.dtype)))
         if cfg.use_images:
             if "image_tokens" in batch:
-                context.append(self.image_sequence_encoder(batch["image_tokens"].to(self.dtype),
-                                                           mode="sequence"))
+                frame_tokens = batch["image_tokens"].to(self.dtype)
+                context.append(self.image_sequence_encoder(frame_tokens, mode="sequence"))
+            elif want_frame_tokens:
+                frame_tokens = (self.encode_image_frames(batch["image_u8"], batch["image_valid"])
+                                if "image_u8" in batch
+                                else self.encode_image_frames(batch["image_data"]))
+                context.append(self.image_sequence_encoder(frame_tokens, mode="sequence"))
             elif "image_u8" in batch:
                 context.append(self.image_sequence_encoder(batch["image_u8"],
                                                            valid=batch["image_valid"]))
@@ -107,8 +128,8 @@ class DiffusionPolicy(nn.Module):
         if not context:
             bsz = batch["joint_command"].shape[0]
             return torch.zeros((bsz, 0, cfg.hidden_dim), dtype=self.dtype,
-                               device=self.step_encoding.token.device)
-        return torch.cat(context, dim=1)
+                               device=self.step_encoding.token.device), None
+        return torch.cat(context, dim=1), frame_tokens
 
     def encode_image_frames(self, frames: torch.Tensor,
                             valid: torch.Tensor | None = None) -> torch.Tensor:
@@ -118,9 +139,16 @@ class DiffusionPolicy(nn.Module):
         frames = frames if valid is not None else frames.to(self.dtype)  # raw uint8 with valid
         return self.image_sequence_encoder(frames, valid=valid, mode="frames")
 
-    def forward_with_cue(self, *args, **kwargs):
-        raise NotImplementedError("aux_cue_head / forward_with_cue (a training head) is not "
-                                  "ported yet (see ROADMAP.md, 'H100 port')")
+    def forward_with_cue(self, batch: dict[str, torch.Tensor], noisy_chunk: torch.Tensor,
+                         t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(eps, cue)``: the forward, and ``cue_head`` (B,) on the newest
+        frame's per-frame token in float32, from the same image encode as the
+        main pathway. Needs ``aux_cue_head`` (a training head)."""
+        if not hasattr(self, "cue_head"):
+            raise ValueError("forward_with_cue needs an image config with aux_cue_head")
+        context, frame_tokens = self._context(batch, want_frame_tokens=True)
+        cue = self.cue_head(frame_tokens[:, -1].float())[..., 0]
+        return self.denoise(context, noisy_chunk, t), cue
 
     def denoise(self, context: torch.Tensor, noisy_chunk: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """Epsilon for the noisy chunk given context tokens; t is (B,) ints."""

@@ -18,8 +18,8 @@ CLI (the JAX package's arguments, in its order, plus ``--device``):
 
   python -m soccerdiffusion_tpu_torch.training.distill <config.yaml> <teacher_ckpt>
       [-o out] [--student-steps K] [--guidance SCALE@MOD,...] [--teacher-draws K]
-      [--dummy-data] [--epochs N] [--steps-per-epoch N] [--seed S]
-      [--metrics m.jsonl] [--device cuda|cpu]
+      [--dummy-data | --db db.sqlite3] [--device-data] [--epochs N]
+      [--steps-per-epoch N] [--seed S] [--metrics m.jsonl] [--device cuda|cpu]
 
 The teacher is a checkpoint of the port (``training/checkpoint.py``), its
 EMA weights where it keeps an average. The student starts as a separate copy
@@ -28,8 +28,11 @@ of the teacher's weights and buffers and keeps no EMA, so that
 hyperparameters carry ``distilled_decoder: True`` (1 step) or
 ``distilled_num_steps: K``, and with guidance or draws their provenance
 (``distilled_guidance_scale`` / ``distilled_guidance_null`` /
-``distilled_teacher_draws``). Only ``--dummy-data`` is ported; ``--db``,
-``--device-data`` and a ``--mesh`` over more than one device raise.
+``distilled_teacher_draws``). The data are ``training/train.py``'s:
+``--dummy-data``, else the SQLite database at ``--db`` or ``DB_PATH`` (a
+missing one raises before any work); ``--device-data`` puts the dataset on
+the device once (``DeviceResidentData``). A ``--mesh`` over more than one
+device raises.
 """
 
 from __future__ import annotations
@@ -43,7 +46,13 @@ import torch
 import yaml
 
 from soccerdiffusion_tpu_torch.config import Config, check_training_supported
-from soccerdiffusion_tpu_torch.data.pipeline import null_modalities, parse_guidance_spec, prefetch_to_device, prepare_batch
+from soccerdiffusion_tpu_torch.data.pipeline import (
+    DeviceResidentData,
+    null_modalities,
+    parse_guidance_spec,
+    prefetch_to_device,
+    prepare_batch,
+)
 from soccerdiffusion_tpu_torch.diffusion import DiffusionSchedule, ddim_sample, make_schedule
 from soccerdiffusion_tpu_torch.inference.sampler import eval_mode
 from soccerdiffusion_tpu_torch.models import DiffusionPolicy
@@ -188,8 +197,9 @@ def parse_args(argv=None):
                         help="K>1: distill the mean of K independent-noise teacher rollouts")
     parser.add_argument("--dummy-data", action="store_true")
     parser.add_argument("--device-data", action="store_true",
-                        help="the dataset resident on the device (not ported yet)")
-    parser.add_argument("--db", type=str, default=None, help="SQLite dataset (not ported yet)")
+                        help="put the whole dataset on the device once and gather batches there")
+    parser.add_argument("--db", type=str, default=None,
+                        help="SQLite dataset (default: DB_PATH, $SOCCERDIFFUSION_TPU_DB_PATH)")
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--steps-per-epoch", type=int, default=None)
     parser.add_argument("--mesh", type=str, default=None,
@@ -212,12 +222,6 @@ def main(argv=None) -> TrainState:
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     parser, args = parse_args(argv)
-    if args.db is not None:
-        raise NotImplementedError("--db: the SQLite dataset is not ported yet (see ROADMAP.md, "
-                                  "Queue 1 item 1); use --dummy-data")
-    if args.device_data:
-        raise NotImplementedError("--device-data: DeviceResidentData is not ported yet (see "
-                                  "ROADMAP.md, Queue 1 item 1)")
     with open(args.config) as f:
         params = yaml.safe_load(f)
     config = Config.from_dict(params)
@@ -235,7 +239,7 @@ def main(argv=None) -> TrainState:
                            "(pass --device cpu for the CPU)")
     tc = config.train
     epochs = args.epochs if args.epochs is not None else tc.epochs
-    dataset = build_dataset(config, args.seed, args.dummy_data)
+    dataset = build_dataset(config, args.seed, args.dummy_data, db=args.db)
     steps_per_epoch = len(dataset) // tc.batch_size
     if args.steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, args.steps_per_epoch)
@@ -268,13 +272,20 @@ def main(argv=None) -> TrainState:
     if args.teacher_draws > 1:
         params["distilled_teacher_draws"] = args.teacher_draws
 
+    device_data = None
+    if args.device_data:
+        device_data = DeviceResidentData(dataset, device)
+        logger.info(f"dataset resident on {device} ({len(device_data)} windows)")
     generator = torch.Generator(device=device).manual_seed(args.seed)
     metrics_logger = MetricsLogger(args.metrics)
     log_every = max(1, tc.log_every)
     try:
         for epoch in range(epochs):
-            batches = prefetch_to_device(
-                dataset.batches(tc.batch_size, shuffle=True, seed=args.seed + epoch), device)
+            if device_data is not None:
+                batches = device_data.batches(tc.batch_size, shuffle=True, seed=args.seed + epoch)
+            else:
+                batches = prefetch_to_device(
+                    dataset.batches(tc.batch_size, shuffle=True, seed=args.seed + epoch), device)
             for i, batch in enumerate(batches):
                 if i >= steps_per_epoch:
                     batches.close()

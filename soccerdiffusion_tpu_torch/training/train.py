@@ -2,8 +2,9 @@
 ``soccerdiffusion_tpu/training/train.py``):
 
   python -m soccerdiffusion_tpu_torch.training.train -c config.yaml [-p ckpt_dir]
-      [-o out_dir] [--dummy-data] [--packed] [--epochs N] [--steps-per-epoch N]
-      [--seed S] [--metrics metrics.jsonl] [--decoder-pretraining] [--device cuda|cpu]
+      [-o out_dir] [--dummy-data | --db db.sqlite3] [--packed | --device-data]
+      [--epochs N] [--steps-per-epoch N] [--seed S] [--metrics metrics.jsonl]
+      [--decoder-pretraining] [--pretrained-decoder ckpt_dir] [--device cuda|cpu]
       [--pretrained-weights resnet.pth]
 
 Config-or-checkpoint hyperparameters (the config wins, with warnings for
@@ -20,13 +21,23 @@ runs the loop from a ``Config`` and needs no YAML. The log reports steps/s
 (host clock, one device sync per logging window) where the JAX package
 reports its TPU MFU meter.
 
-Only the synthetic dataset (``--dummy-data``, frames drawn at the config's
-``image_resolution``) is ported: the SQLite dataset comes with
-``WindowedDataset.from_sqlite`` (see ROADMAP.md). ``--packed`` trains from a
-``PackedDataset`` (uint8 frames: whole frames for the ResNet and Swin
-encoders, pre-patchified for the ViT);
+Data: ``--dummy-data`` (the synthetic recordings, frames drawn at the
+config's ``image_resolution``), else the SQLite database at ``--db`` or at
+``DB_PATH`` (``WindowedDataset.from_sqlite``, frames streamed per window and
+resized to ``image_resolution``); a missing database raises before any work.
+``--packed`` trains from a ``PackedDataset`` (frames resized once, uint8:
+whole frames for the ResNet and Swin encoders, pre-patchified for the ViT;
+the rows by the C++ assembler); ``--device-data`` puts the whole dataset on
+the device once (``DeviceResidentData``; not with ``--packed``).
 ``boundary_oversample`` re-draws that share of each epoch's windows from
 those where a camera frame has just arrived, as the JAX trainer does.
+``--pretrained-decoder`` copies a checkpoint's raw (not EMA) parameters of
+``diffusion_action_generator`` and ``step_encoding`` into the model after
+any resume: the second half of ``--decoder-pretraining``.
+``image_encoder_lr_mult`` scales the image encoder's AdamW update;
+``aux_cue_weight`` trains the cue head on the dataset's ``vision_u`` labels
+and is switched off, with a warning, where the dataset has none (only the
+dummy "vision" task's windows carry them; a ``PackedDataset`` emits none).
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ import argparse
 import logging
 import time
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -42,7 +54,7 @@ import torch
 from soccerdiffusion_tpu_torch.config import Config, check_training_supported
 from soccerdiffusion_tpu_torch.data import Normalizer, WindowedDataset, generate_dummy_arrays
 from soccerdiffusion_tpu_torch.data.packed import PackedDataset
-from soccerdiffusion_tpu_torch.data.pipeline import prefetch_to_device
+from soccerdiffusion_tpu_torch.data.pipeline import DeviceResidentData, prefetch_to_device
 from soccerdiffusion_tpu_torch.diffusion import make_schedule
 from soccerdiffusion_tpu_torch.models import DiffusionPolicy
 from soccerdiffusion_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
@@ -74,6 +86,9 @@ class RunOptions:
     decoder_pretraining: bool = False
     device: str = "cuda"  # the card unless the caller asks for the CPU
     pretrained_weights: str | None = None  # a torchvision ResNet state dict (.pth)
+    db: str | None = None  # the SQLite dataset without dummy_data (None: DB_PATH)
+    device_data: bool = False
+    pretrained_decoder: str | None = None  # a checkpoint whose decoder and step token to load
 
 
 def parse_args(argv=None):
@@ -82,10 +97,17 @@ def parse_args(argv=None):
     parser.add_argument("--checkpoint", "-p", type=str, default=None)
     parser.add_argument("--output", "-o", type=str, default="trajectory_transformer_model.ckpt")
     parser.add_argument("--decoder-pretraining", action="store_true")
+    parser.add_argument("--pretrained-decoder", type=str, default=None,
+                        help="checkpoint whose raw diffusion_action_generator and step_encoding "
+                             "parameters are loaded (after any resume)")
     parser.add_argument("--dummy-data", action="store_true",
                         help="train on the synthetic array backend")
+    parser.add_argument("--db", type=str, default=None,
+                        help="SQLite dataset (default: DB_PATH, $SOCCERDIFFUSION_TPU_DB_PATH)")
     parser.add_argument("--packed", action="store_true",
                         help="train from the packed dataset (uint8 frames, pre-patchified for the ViT)")
+    parser.add_argument("--device-data", action="store_true",
+                        help="put the whole dataset on the device once and gather batches there")
     parser.add_argument("--epochs", type=int, default=None, help="override epochs")
     parser.add_argument("--steps-per-epoch", type=int, default=None,
                         help="cap steps per epoch (smoke runs)")
@@ -118,22 +140,60 @@ def resolve_params(args) -> dict:
     return params
 
 
-def build_dataset(config: Config, seed: int, dummy_data: bool,
-                  packed: bool = False) -> WindowedDataset | PackedDataset:
-    if not dummy_data:
-        raise NotImplementedError("the SQLite dataset is not ported yet (see ROADMAP.md); "
-                                  "use --dummy-data")
+def database_path(db: str | None) -> str:
+    """``db``, else ``DB_PATH``; raises ``FileNotFoundError`` naming the path
+    where there is no database."""
+    if db is None:
+        from soccerdiffusion_tpu_torch import DB_PATH
+
+        db = DB_PATH
+    if not Path(db).is_file():
+        raise FileNotFoundError(f"no SQLite dataset at {db} (pass --db PATH, set "
+                                "SOCCERDIFFUSION_TPU_DB_PATH, or train with --dummy-data)")
+    return db
+
+
+def build_dataset(config: Config, seed: int, dummy_data: bool, packed: bool = False,
+                  db: str | None = None) -> WindowedDataset | PackedDataset:
+    """The synthetic recordings (``dummy_data``) or the SQLite database at
+    ``db`` (default ``DB_PATH``), packed with ``packed``."""
     m = config.model
-    n = max(600, m.action_context_length + m.trajectory_prediction_length + 200)
-    dummy = generate_dummy_arrays(num_recordings=2, num_samples=n, num_joints=m.num_joints,
-                                  with_images=m.use_images, image_size=m.image_resolution,
-                                  seed=seed, task=config.train.dummy_task)
-    dataset = WindowedDataset.from_dummy(dummy, m)
+    if dummy_data:
+        n = max(600, m.action_context_length + m.trajectory_prediction_length + 200)
+        dummy = generate_dummy_arrays(num_recordings=2, num_samples=n, num_joints=m.num_joints,
+                                      with_images=m.use_images, image_size=m.image_resolution,
+                                      seed=seed, task=config.train.dummy_task)
+        dataset = WindowedDataset.from_dummy(dummy, m)
+    else:
+        dataset = WindowedDataset.from_sqlite(database_path(db), m)
     if packed:
         dataset = PackedDataset.from_windowed(dataset)
         if m.use_images and m.image_encoder_type == "vit":
             dataset.prepatchify_images(m.vit_patch_size)  # batches in the patch layout
     return dataset
+
+
+def has_cue_labels(dataset) -> bool:
+    """Whether the dataset's windows carry ``vision_u`` (the aux cue head's
+    labels: the dummy "vision" task's ``WindowedDataset``)."""
+    return isinstance(dataset, WindowedDataset) and "vision_u" in dataset[0]
+
+
+@torch.no_grad()
+def load_pretrained_decoder(model: torch.nn.Module, path: str) -> list[str]:
+    """Copy the raw (not EMA) ``diffusion_action_generator.*`` and
+    ``step_encoding.*`` parameters of the checkpoint at ``path`` into
+    ``model``; every other parameter stays. Returns the names copied."""
+    raw = load_checkpoint(path)["params"]
+    copied = []
+    for name, p in model.named_parameters():
+        if name.split(".")[0] in ("diffusion_action_generator", "step_encoding") and name in raw:
+            if raw[name].shape != p.shape:
+                raise ValueError(f"{path}: {name} has shape {tuple(raw[name].shape)}, the model's "
+                                 f"{tuple(p.shape)}")
+            p.copy_(raw[name])
+            copied.append(name)
+    return copied
 
 
 def epoch_order(dataset, boundary: np.ndarray | None, frac: float, seed: int) -> np.ndarray | None:
@@ -154,7 +214,10 @@ def train(config: Config, opts: RunOptions, hyperparams: dict | None = None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device={opts.device!r} requested but CUDA is not available "
                            "(pass device='cpu' / --device cpu for the CPU)")
-    dataset = build_dataset(config, opts.seed, opts.dummy_data, opts.packed)
+    if opts.device_data and opts.packed:
+        raise ValueError("--device-data cannot be combined with --packed: DeviceResidentData "
+                         "stacks per-window items, which a PackedDataset does not have")
+    dataset = build_dataset(config, opts.seed, opts.dummy_data, opts.packed, opts.db)
     steps_per_epoch = len(dataset) // tc.batch_size
     if opts.steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, opts.steps_per_epoch)
@@ -172,9 +235,12 @@ def train(config: Config, opts: RunOptions, hyperparams: dict | None = None):
         logger.info("no --pretrained-weights: the ResNet image encoder starts from its random "
                     "init (the reference starts from ImageNet weights)")
     model = model.to(device)
+    lr_mults = None
+    if m.use_images and tc.image_encoder_lr_mult != 1.0:
+        lr_mults = {"image_sequence_encoder": tc.image_encoder_lr_mult}
+        logger.info(f"image_sequence_encoder LR x{tc.image_encoder_lr_mult:g}")
     optimizer = make_optimizer(model, tc.lr, total_steps, tc.weight_decay,
-                               flat=tc.flat_optimizer,
-                               module_lr_mults={"image_sequence_encoder": tc.image_encoder_lr_mult},
+                               flat=tc.flat_optimizer, module_lr_mults=lr_mults,
                                grad_clip_norm=tc.grad_clip_norm)
     state = create_train_state(model, optimizer, ema=tc.ema_decay > 0.0)
     start_epoch = 0
@@ -183,10 +249,22 @@ def train(config: Config, opts: RunOptions, hyperparams: dict | None = None):
         normalizer = ckpt["norm"]
         start_epoch = ckpt["current_epoch"] + 1
         logger.info(f"resumed from {opts.checkpoint} at epoch {start_epoch}")
+    if opts.pretrained_decoder:
+        copied = load_pretrained_decoder(model, opts.pretrained_decoder)
+        logger.info(f"loaded {len(copied)} pretrained decoder tensors from {opts.pretrained_decoder}")
+    aux_cue_weight = tc.aux_cue_weight
+    if aux_cue_weight > 0.0 and not has_cue_labels(dataset):
+        logger.warning("aux_cue_weight set but the dataset exposes no vision_u labels "
+                       "(camera-cued dummy task only); disabling the aux cue loss")
+        aux_cue_weight = 0.0
     step_fn = make_train_step(model, make_schedule(tc.train_denoising_timesteps), optimizer,
                               normalizer, decoder_pretraining=opts.decoder_pretraining,
                               ema_decay=tc.ema_decay, modality_dropout=tc.modality_dropout,
-                              aux_cue_weight=tc.aux_cue_weight)
+                              aux_cue_weight=aux_cue_weight)
+    device_data = None
+    if opts.device_data:
+        device_data = DeviceResidentData(dataset, device)
+        logger.info(f"dataset resident on {device} ({len(device_data)} windows)")
     boundary = None
     if tc.boundary_oversample > 0.0:
         boundary = dataset.image_boundary_indices()
@@ -200,9 +278,12 @@ def train(config: Config, opts: RunOptions, hyperparams: dict | None = None):
         for epoch in range(start_epoch, epochs):
             window, t0 = 0, time.perf_counter()
             order = epoch_order(dataset, boundary, tc.boundary_oversample, opts.seed + epoch)
-            batches = prefetch_to_device(
-                dataset.batches(tc.batch_size, shuffle=True, seed=opts.seed + epoch, order=order),
-                device)
+            if device_data is not None:
+                batches = device_data.batches(tc.batch_size, shuffle=True, seed=opts.seed + epoch,
+                                              order=order)
+            else:
+                batches = prefetch_to_device(dataset.batches(
+                    tc.batch_size, shuffle=True, seed=opts.seed + epoch, order=order), device)
             for i, batch in enumerate(batches):
                 if i >= steps_per_epoch:
                     batches.close()
@@ -214,6 +295,8 @@ def train(config: Config, opts: RunOptions, hyperparams: dict | None = None):
                     now = time.perf_counter()
                     metrics_logger.log(state.step - 1, {
                         "loss": loss, "grad_norm": metrics["grad_norm"],
+                        **({"aux_cue_loss": metrics["aux_cue_loss"]}
+                           if "aux_cue_loss" in metrics else {}),
                         "lr": lr_at_step(tc.lr, total_steps, state.step - 1), "epoch": epoch,
                         "steps_per_sec": window / (now - t0)},
                         grads=metrics["grad_norms_by_layer"])
@@ -235,7 +318,8 @@ def main(argv=None):
                       packed=args.packed, epochs=args.epochs,
                       steps_per_epoch=args.steps_per_epoch, seed=args.seed,
                       metrics=args.metrics, decoder_pretraining=args.decoder_pretraining,
-                      device=args.device, pretrained_weights=args.pretrained_weights)
+                      device=args.device, pretrained_weights=args.pretrained_weights, db=args.db,
+                      device_data=args.device_data, pretrained_decoder=args.pretrained_decoder)
     return train(Config.from_dict(params), opts, hyperparams=params)
 
 

@@ -24,8 +24,14 @@ that a run at p > 0 draws the same t and noise as one at p = 0;
 numpy-made values or the JAX package's draws. ``make_optimizer(...,
 trainable=...)`` is the masked optimizer distillation uses: AdamW over the
 parameters of the named top-level modules only, every other parameter left
-as it is. ``aux_cue_weight``, ``flat_optimizer`` and
-``image_encoder_lr_mult`` are not ported yet.
+as it is. ``module_lr_mults`` ({top-level module: m}, the
+``image_encoder_lr_mult`` knob) scales that module's AdamW update by m (its
+parameter group's learning rate is m times the schedule's, so the decoupled
+weight decay scales too, as optax's ``scale`` of the whole update does);
+clipping stays global, before AdamW. With ``aux_cue_weight`` > 0 the loss
+adds the cue head's masked MSE against the batch's ``vision_u`` labels
+(``DiffusionPolicy.forward_with_cue``), reported as ``aux_cue_loss``.
+``flat_optimizer`` is not ported.
 """
 
 from __future__ import annotations
@@ -67,29 +73,39 @@ class Optimizer:
     """AdamW over a model's float32 parameters with the one-cycle schedule
     and optional clipping by global norm. ``trainable`` names the top-level
     modules whose parameters it updates (None: all); the others keep their
-    values, weight decay included (optax.masked in the JAX package)."""
+    values, weight decay included (optax.masked in the JAX package).
+    ``lr_mults`` ({top-level module: m}) gives a module's parameters a group
+    whose learning rate is m times the schedule's."""
 
     def __init__(self, model: torch.nn.Module, lr: float, total_steps: int,
                  weight_decay: float = 1e-2, grad_clip_norm: float = 0.0,
-                 trainable: tuple[str, ...] | None = None):
-        self.params = [p for name, p in model.named_parameters()
-                       if trainable is None or name.split(".")[0] in trainable]
+                 trainable: tuple[str, ...] | None = None,
+                 lr_mults: dict[str, float] | None = None):
+        named = [(name, p) for name, p in model.named_parameters()
+                 if trainable is None or name.split(".")[0] in trainable]
+        self.params = [p for _, p in named]
         if not self.params:
             raise ValueError(f"no parameter of the model lies in the modules {trainable}")
         if any(p.dtype != torch.float32 for p in self.params):
             raise ValueError("the optimizer updates float32 master parameters")
         self.lr, self.total_steps, self.grad_clip_norm = lr, total_steps, grad_clip_norm
-        # one multi-tensor kernel per update on the card (the same update)
-        self.adamw = torch.optim.AdamW(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                       weight_decay=weight_decay,
-                                       fused=self.params[0].is_cuda or None)
+        groups: dict[float, list[torch.Tensor]] = {}
+        for name, p in named:
+            groups.setdefault(float((lr_mults or {}).get(name.split(".")[0], 1.0)), []).append(p)
+        # one multi-tensor kernel per group and update on the card (the same update)
+        self.adamw = torch.optim.AdamW(
+            [{"params": ps, "lr_mult": m} for m, ps in groups.items()], lr=lr,
+            betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay,
+            fused=self.params[0].is_cuda or None)
 
     def step(self, count: int) -> None:
         """The ``count``-th update (0-based) from the parameters' grads."""
         if self.grad_clip_norm > 0.0:
             clip_by_global_norm([p.grad for p in self.params], self.grad_clip_norm)
+        lr = lr_at_step(self.lr, self.total_steps, count)
+        # a group restored from a checkpoint written before the groups had lr_mult: 1
         for group in self.adamw.param_groups:
-            group["lr"] = lr_at_step(self.lr, self.total_steps, count)
+            group["lr"] = lr * group.get("lr_mult", 1.0)
         self.adamw.step()
 
 
@@ -99,12 +115,12 @@ def make_optimizer(model: torch.nn.Module, lr: float, total_steps: int,
                    grad_clip_norm: float = 0.0,
                    trainable: tuple[str, ...] | None = None) -> Optimizer:
     """AdamW + one-cycle, clipping first when ``grad_clip_norm`` > 0; with
-    ``trainable``, over the parameters of those top-level modules only."""
+    ``trainable``, over the parameters of those top-level modules only; each
+    module of ``module_lr_mults`` at its multiple of the learning rate."""
     if flat:
         raise NotImplementedError(f"flat_optimizer is {_SEE}")
-    if any(m != 1.0 for m in (module_lr_mults or {}).values()):
-        raise NotImplementedError(f"per-module learning-rate multipliers are {_SEE}")
-    return Optimizer(model, lr, total_steps, weight_decay, grad_clip_norm, trainable)
+    return Optimizer(model, lr, total_steps, weight_decay, grad_clip_norm, trainable,
+                     module_lr_mults)
 
 
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
@@ -140,13 +156,13 @@ def create_train_state(model: torch.nn.Module, optimizer: Optimizer, ema: bool =
 class TrainStep:
     """``step(state, batch, generator) -> metrics``: one optimizer update.
     ``metrics`` holds device tensors (reading them waits for the device):
-    ``loss``, ``grad_norm`` and ``grad_norms_by_layer`` (per top-level module)."""
+    ``loss``, ``grad_norm``, ``grad_norms_by_layer`` (per top-level module)
+    and, with ``aux_cue_weight`` > 0, ``aux_cue_loss``."""
 
     def __init__(self, model, schedule: DiffusionSchedule, optimizer: Optimizer,
                  normalizer: Normalizer, decoder_pretraining: bool = False, ema_decay: float = 0.0,
                  modality_dropout: float = 0.0, aux_cue_weight: float = 0.0):
-        if aux_cue_weight > 0.0:
-            raise NotImplementedError(f"aux_cue_weight is {_SEE}")
+        self.aux_cue_weight = aux_cue_weight
         self.model, self.schedule, self.optimizer = model, schedule, optimizer
         device = next(model.parameters()).device
         self.normalizer = normalizer.to(device)
@@ -183,11 +199,19 @@ class TrainStep:
             batch = apply_dropout_masks(batch, masks)
         targets = self.normalizer.normalize(batch["joint_command"].float())
         noisy = add_noise(self.schedule, targets, noise, t)
+        aux = None
         if self.decoder_pretraining:
             pred = model.denoise(ctx, noisy, t)  # unconditional, against random context tokens
+        elif self.aux_cue_weight > 0.0:
+            pred, cue = model.forward_with_cue(batch, noisy, t)
+            label = batch["vision_u"].float()
+            valid = batch.get("vision_u_valid", torch.ones_like(label)).float()
+            aux = torch.sum(valid * (cue - label) ** 2) / torch.clamp(torch.sum(valid), min=1.0)
         else:
             pred = model(batch, noisy, t)
         loss = torch.mean((pred.float() - noise.float()) ** 2)
+        if aux is not None:
+            loss = loss + self.aux_cue_weight * aux
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
@@ -206,6 +230,8 @@ class TrainStep:
                 "grad_norms_by_layer": {k: torch.linalg.vector_norm(torch.stack(v))
                                         for k, v in tops.items()},
             }
+            if aux is not None:
+                metrics["aux_cue_loss"] = aux.detach()
             self.optimizer.step(state.step)
             state.step += 1
             if self.ema_decay > 0.0:

@@ -42,14 +42,20 @@ def test_robot_state_ids():
 
 
 def test_images_raise_and_cpu_prefetch_wraps():
-    """Images are ported (tests/test_torch_flagship_data.py); what still
-    raises is an unknown dummy task and a frame that would need a resize."""
-    from soccerdiffusion_tpu_torch.data.dataset import preprocess_image
+    """Images are ported (tests/test_torch_flagship_data.py); an unknown
+    dummy task raises, and a frame of another size is resized with INTER_AREA
+    (tests/test_torch_resize.py holds the resize to cv2)."""
+    from soccerdiffusion_tpu_torch.data.dataset import IMAGENET_MEAN, IMAGENET_STD, preprocess_image
 
     with pytest.raises(ValueError, match="unknown dummy task"):
         generate_dummy_arrays(task="bogus")
-    with pytest.raises(NotImplementedError, match="resize"):
-        preprocess_image(np.zeros((48, 48, 3), np.uint8), 32)
+    big = np.full((48, 48, 3), 200, np.uint8)
+    big[:24] = 40  # the top half dark: 48 -> 32 maps rows 0-23 onto rows 0-15
+    img = preprocess_image(big, 32)
+    assert img.shape == (32, 32, 3) and img.dtype == np.float32
+    value = lambda v: (np.float32(v) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
+    np.testing.assert_array_equal(img[:16], np.broadcast_to(value(40), (16, 32, 3)))
+    np.testing.assert_array_equal(img[16:], np.broadcast_to(value(200), (16, 32, 3)))
     frames = generate_dummy_arrays(num_samples=30, with_images=True, image_size=8)[0].images
     assert frames.shape == (3, 8, 8, 3)
     batch = {"image_u8": np.zeros(1)}

@@ -16,7 +16,8 @@ the policy checkpoint loader against the JAX package, float32 on the CPU:
   * the CLI end to end: ``train()`` with modality dropout, then
     ``distill.main`` for a 1-step student and a guided 2-step student of 2
     teacher draws, each decoded by ``load_policy_checkpoint`` and served by
-    ``RolloutEngine``; the CLI's refusals.
+    ``RolloutEngine``; the CLI's refusals, and its ``--db`` and
+    ``--device-data``.
 
 An entry whose gradient is at float32 noise level at some step (|g| <
 1e-6 against gradients of 1e-3 .. 1e-1; a key bias's gradient, zero in
@@ -46,6 +47,8 @@ from soccerdiffusion_tpu.training.trainer import make_optimizer as jax_make_opti
 from soccerdiffusion_tpu.training.trainer import make_train_step as jax_make_train_step
 from soccerdiffusion_tpu_torch.config import Config
 from soccerdiffusion_tpu_torch.data import Normalizer
+from soccerdiffusion_tpu_torch.data import dummy as pdummy
+from soccerdiffusion_tpu_torch.data import schema as pschema
 from soccerdiffusion_tpu_torch.diffusion import make_schedule
 from soccerdiffusion_tpu_torch.inference import RolloutEngine
 from soccerdiffusion_tpu_torch.models import DiffusionPolicy
@@ -61,6 +64,7 @@ from soccerdiffusion_tpu_torch.training.trainer import (
 )
 from tests.test_torch_guidance import VIT
 from tests.test_torch_jax_params import SMALL, build_pair, to_jax, to_torch
+from tests.test_torch_sqlite import write_db
 from tests.test_torch_training import grads_as_model
 
 B, STEPS, LR, TOTAL, SEED = 4, 3, 1e-3, 10, 5
@@ -299,19 +303,39 @@ def test_cli_trains_distills_and_serves(tmp_path):
 
 @pytest.mark.parametrize("flags,error,match", [
     (["--device", "cuda"], RuntimeError, "CUDA is not available"),
-    (["--db", "x.sqlite", "--device", "cpu"], NotImplementedError, "SQLite.*ROADMAP"),
-    (["--device-data", "--device", "cpu"], NotImplementedError, "DeviceResidentData.*ROADMAP"),
-    (["--mesh", "data=2", "--device", "cpu"], NotImplementedError, "mesh_shape.*ROADMAP"),
-    (["--device", "cpu"], NotImplementedError, "dummy-data"),
+    (["--db", "DB", "--device", "cpu"], None, None),
+    (["--dummy-data", "--device-data", "--device", "cpu"], None, None),
+    (["--dummy-data", "--mesh", "data=2", "--device", "cpu"], NotImplementedError,
+     "mesh_shape.*ROADMAP"),
+    (["--device", "cpu"], FileNotFoundError, "no SQLite dataset at .*default.sqlite3"),
 ], ids=["cuda", "db", "device_data", "mesh", "no_dummy_data"])
-def test_cli_refusals(tmp_path, flags, error, match):
+def test_cli_refusals(tmp_path, monkeypatch, flags, error, match):
+    """What the CLI refuses (no card, a mesh over two devices, no database
+    at DB_PATH without --dummy-data) and, since the recorded-data slice, the
+    two it takes: a SQLite database (--db) and the dataset resident on the
+    device (--device-data), each distilling a teacher 2 steps."""
+    import soccerdiffusion_tpu_torch
+
     if flags[:2] == ["--device", "cuda"] and torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    monkeypatch.setattr(soccerdiffusion_tpu_torch, "DB_PATH", str(tmp_path / "default.sqlite3"))
     yml = tmp_path / "tiny.yaml"
     yml.write_text(yaml.safe_dump(TINY))
-    extra = [] if "--db" in flags or flags == ["--device", "cpu"] else ["--dummy-data"]
+    flags = [str(write_db(tmp_path / "db.sqlite3", pschema, pdummy)) if f == "DB" else f
+             for f in flags]
+    teacher = tmp_path / "missing"
+    if error is None:
+        teacher = tmp_path / "teacher"
+        train(Config.from_yaml(str(yml)), RunOptions(output=str(teacher), epochs=1,
+                                                     steps_per_epoch=2, device="cpu"))
+        state = distill.main([str(yml), str(teacher), "-o", str(tmp_path / "student"),
+                              "--epochs", "1", "--steps-per-epoch", "2", *flags])
+        assert state.step == 2
+        assert load_checkpoint(tmp_path / "student")["hyperparams"]["distilled_decoder"] is True
+        return
+    extra = ["--dummy-data"] if flags[:2] == ["--device", "cuda"] else []
     with pytest.raises(error, match=match):
-        distill.main([str(yml), str(tmp_path / "missing"), *extra, *flags])
+        distill.main([str(yml), str(teacher), *extra, *flags])
 
 
 def test_cli_rejects_a_bad_guidance_spec(tmp_path):

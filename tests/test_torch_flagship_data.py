@@ -191,12 +191,15 @@ def test_flagship_yaml_equals_the_jax_file():
 
 
 def test_frames_that_need_a_resize_raise():
-    """The port has no cv2: frames at the config's resolution pass, others
-    raise naming ROADMAP."""
+    """Frames at the config's resolution pass unresized; others are resized
+    with the port's numpy INTER_AREA, equal to the JAX package's cv2 resize
+    (the name is kept from when such frames raised)."""
     frame = np.zeros((RES, RES, 3), np.uint8)
     assert pds.preprocess_image(frame, RES).shape == (RES, RES, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pds.preprocess_image(np.zeros((RES + 8, RES + 8, 3), np.uint8), RES)
+    bigger = np.random.default_rng(2).integers(0, 256, (RES + 8, RES + 8, 3), dtype=np.uint8)
+    got = pds.preprocess_image(bigger, RES)
+    assert got.shape == (RES, RES, 3)
+    np.testing.assert_array_equal(got, jds.preprocess_image(bigger, RES))
 
 
 def test_epoch_order_is_the_jax_trainers():

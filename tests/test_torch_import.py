@@ -120,6 +120,19 @@ def test_training_modules_are_covered():
         assert m in MODULES, m
 
 
+def test_recorded_data_modules_are_covered_and_need_no_cv2():
+    """The recorded-data slice's modules are among those imported above, and
+    no module of the port imports cv2 (the resize is numpy's)."""
+    for m in ("soccerdiffusion_tpu_torch.data.schema", "soccerdiffusion_tpu_torch.data.migrations",
+              "soccerdiffusion_tpu_torch.data.resize", "soccerdiffusion_tpu_torch.data.dummy",
+              "soccerdiffusion_tpu_torch.native", "soccerdiffusion_tpu_torch.native.build"):
+        assert m in MODULES, m
+    for src in sorted(PACKAGE.rglob("*.py")):
+        for node in import_statements(src):
+            assert "cv2" not in imported_roots(node), f"{src}: {ast.unparse(node)}"
+    assert (PACKAGE / "native" / "framepack.cpp").exists()
+
+
 def test_cpu_training_step_takes_plain_versions(monkeypatch):
     """A training step with both fused knobs on CPU tensors builds and
     launches no kernel."""

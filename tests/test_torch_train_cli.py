@@ -62,10 +62,21 @@ def test_resume_continues_from_the_checkpoint(run):
     assert state.step == 6 and load_checkpoint(tmp / "ckpt")["current_epoch"] == 1
 
 
-def test_sqlite_data_is_not_ported(run):
+def test_sqlite_data_is_not_ported(run, monkeypatch):
+    """Without --dummy-data the CLI reads the SQLite database at --db, else at
+    DB_PATH; a missing one raises naming its path, before any work (the name
+    is kept from when the SQLite source raised; tests/test_torch_train_options.py
+    trains from a database)."""
+    import soccerdiffusion_tpu_torch
+
     go, tmp = run
-    with pytest.raises(NotImplementedError, match="dummy-data"):
-        train.main(["-c", str(tmp / "small.yaml"), "-o", str(tmp / "x"), "--device", "cpu"])
+    monkeypatch.setattr(soccerdiffusion_tpu_torch, "DB_PATH", str(tmp / "default.sqlite3"))
+    for flags, path in (([], tmp / "default.sqlite3"), (["--db", str(tmp / "given.sqlite3")],
+                                                        tmp / "given.sqlite3")):
+        with pytest.raises(FileNotFoundError, match=f"no SQLite dataset at {path}"):
+            train.main(["-c", str(tmp / "small.yaml"), "-o", str(tmp / "x"), "--device", "cpu",
+                        *flags])
+    assert not (tmp / "x").exists()
 
 
 def test_default_device_is_the_card(run):

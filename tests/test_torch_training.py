@@ -187,10 +187,11 @@ def test_decoder_pretraining_updates_unused_params_like_optax():
 
 
 def test_unported_options_raise():
+    """flat_optimizer still raises; modality dropout and the aux cue loss are
+    ported (tests/test_torch_distill.py, tests/test_torch_train_options.py)."""
     _, _, model, _, _ = build_pair(SMALL, b=2)
     with pytest.raises(NotImplementedError, match="flat_optimizer"):
         make_optimizer(model, 1e-3, 10, flat=True)
     opt = make_optimizer(model, 1e-3, 10)
-    with pytest.raises(NotImplementedError, match="aux_cue_weight"):
-        make_train_step(model, make_schedule(100), opt, Normalizer.identity(6), aux_cue_weight=0.5)
+    make_train_step(model, make_schedule(100), opt, Normalizer.identity(6), aux_cue_weight=0.5)
     make_train_step(model, make_schedule(100), opt, Normalizer.identity(6), modality_dropout=0.1)
