@@ -147,7 +147,35 @@
    default_tpu.yaml streamed from the database (frames read and resized
    per window on the host): one batch's host time and 2 train() steps at
    B=64. Each time is printed beside the card's name and power limit.
-14. Prints one JSON line of per-kernel results, then as its last line
+14. evaluation/ and the CLI on vit_flagship.yaml (the "vision" dummy task),
+   through the port's cli in-process: `db create-schema`, `dummy-data -n 2
+   -s 400` and `migrate` on a fresh database, which from_sqlite reads; a
+   teacher from `cli train` and a 1-step student from `cli distill`, 2 steps
+   each at B=32 (exact launches); `cli report` on the card (the teacher, the
+   student, --solver-row ddim10, --guidance-row 2.0@image; 64 windows, 3
+   chunks, B=32): its wall time, exact ViT / stack / decoder-layer launches
+   (report_launches derives them from run_report), every row finite; the
+   ViT block, the encoder stacks and the decoder layers at this phase's
+   shapes on the checkpoints' weights, each launch captured as the model
+   makes it and held against its plain version: the student's served
+   sampler on a RealtimeController's B=1 batch (10 frames of a window) and
+   the teacher's encode and denoise of the report's first batch (B=32);
+   then whole chunks on the card against a CPU copy of the model (plain
+   versions): both served samplers at B=1 and the teacher's 30-step open
+   loop at B=32; the same report at 16 windows, 2 chunks, B=8 on the card
+   and on the CPU in float32 (fused knobs off: the kernels take bf16), the
+   noise drawn on the CPU, every MSE, MAE and divergence value within 2%;
+   `cli serve` for 3 s at 50 Hz of the teacher (ddim30) and the student on
+   the simulated plant and of the student over UDP loopback against a
+   UdpRobotServer thread (replans, plan p50 / p95 / max and the first
+   plan, commands delivered, tick lateness p50 / p99; exact launches per
+   replan, finite chunks, every tick after the first chunk arrived
+   commanding the plant; each serve in its own interpreter, as deployed);
+   inference.plot.sample_open_loop on the card (exact
+   launches), and `cli plot` / `cli db plot-window` writing PNGs where
+   matplotlib is installed, failing naming it where it is not. The
+   results go under the JSON line's "evaluation" key.
+15. Prints one JSON line of per-kernel results, then as its last line
    {"ok": true, "device": {...}}. Where one torch.nn call computes the
    same function as a kernel (the encoder-stack, ViT-block and
    decoder-layer forwards; one torch.autograd.grad through the same layers
@@ -163,6 +191,8 @@ phase fails. Imports nothing of JAX or of the JAX package.
     python3 chip_smoke.py --profile-serving [--flash | --resnet | --larger] [--profile-out FILE]
     python3 chip_smoke.py --profile-training --resnet [--profile-out FILE]
     python3 chip_smoke.py --bisect-resnet-bf16
+    python3 chip_smoke.py --profile-realtime [--profile-out FILE]
+    python3 chip_smoke.py --quality-ledger [--ledger-out DIR]
 
 build the kernels and instead trace, with torch.profiler, the h128 B=64
 training step (fused knobs on, then off), with --flagship the flagship's
@@ -178,7 +208,13 @@ a gate, default_tpu.yaml's bf16 training steps card vs CPU on seeded noise
 frames and on the dummy frames, then holds the pieces of its ResNet18 (the
 stem convolution, BatchNorm, max pool, a residual block, the whole
 encoder) in bf16 on the card and on the CPU each against float64
-(bisect_resnet_bf16). None prints the ok line.
+(bisect_resnet_bf16). --profile-realtime traces 3 plans of `cli serve`'s
+sampler at B=1 on the flagship (ddim30, then the distilled student).
+--quality-ledger runs examples/quality_ledger.py's proprioceptive ledger
+through the port's CLI on the card (h128, train 2000 steps, 4- and 1-step
+students distilled 400 steps each, the report with dpmpp10@lambda and
+ddim10 rows over 256 windows and 10 chunks; DIR/quality_ledger.{json,md}).
+None prints the ok line.
 """
 
 from __future__ import annotations
@@ -2051,19 +2087,6 @@ def served_period(label, model, device, per_period, b=LARGER_B, **kw) -> tuple[f
     return ms, got
 
 
-def load_served(path, device):
-    """A checkpoint's policy as it serves (load_policy_checkpoint) and its
-    normaliser, step count and distilled flag."""
-    from soccerdiffusion_tpu_torch.config import Config
-    from soccerdiffusion_tpu_torch.models import DiffusionPolicy
-    from soccerdiffusion_tpu_torch.training.checkpoint import load_policy_checkpoint
-
-    hp, sd, norm, steps, distilled = load_policy_checkpoint(path)
-    model = DiffusionPolicy(Config.from_dict(hp).model)
-    model.load_state_dict(sd)
-    return model.to(device).eval(), norm, steps, distilled, hp
-
-
 def distill_larger_phase(device) -> dict:
     """larger_model_distill.yaml at full width in bf16: train() 2 steps with
     modality dropout 0.15 (packed data), distill.main 2 steps in each of
@@ -2076,6 +2099,7 @@ def distill_larger_phase(device) -> dict:
 
     from soccerdiffusion_tpu_torch.config import Config
     from soccerdiffusion_tpu_torch.training import distill
+    from soccerdiffusion_tpu_torch.training.checkpoint import load_policy
     from soccerdiffusion_tpu_torch.training.train import RunOptions, build_dataset, train
     from soccerdiffusion_tpu_torch.data.pipeline import to_tensors
 
@@ -2115,7 +2139,7 @@ def distill_larger_phase(device) -> dict:
                 raise AssertionError(f"distill.main {mode}: {st.step} steps, {records}")
             if any(got.values()):  # the YAML turns no fused knob on
                 raise AssertionError(f"a kernel of the port ran on {mode}'s distillation: {got}")
-            students[mode] = load_served(path, device)
+            students[mode] = load_policy(path, device)
             del st
         torch.cuda.empty_cache()
         s1, s4 = students["student1"], students["student4_guided_image"]
@@ -2124,7 +2148,7 @@ def distill_larger_phase(device) -> dict:
         if s4[4].get("distilled_guidance_null") != ["image"]:
             raise AssertionError(f"the guided student's flags: {s4[4]}")
         # each mode's step on the trained teacher (median of 3 after 1)
-        teacher, t_norm, _, _, _ = load_served(teacher_ckpt, device)
+        teacher, t_norm, _, _, _ = load_policy(teacher_ckpt, device)
         dataset = build_dataset(config, 0, True)
         batch = {k: v.to(device) for k, v in to_tensors(next(dataset.batches(
             config.train.batch_size, seed=0))).items()}
@@ -2306,7 +2330,7 @@ def recorded_h128_phase(db, tmp, device, smi) -> dict:
     from soccerdiffusion_tpu_torch.data import WindowedDataset
     from soccerdiffusion_tpu_torch.data.packed import PackedDataset
     from soccerdiffusion_tpu_torch.data.pipeline import DeviceResidentData, to_tensors
-    from soccerdiffusion_tpu_torch.training.checkpoint import load_checkpoint
+    from soccerdiffusion_tpu_torch.training.checkpoint import load_checkpoint, load_policy
 
     out = {"launches": {}, "step_ms": {}}
     config = train_config(True)
@@ -2377,7 +2401,7 @@ def recorded_h128_phase(db, tmp, device, smi) -> dict:
     log(f"--pretrained-decoder: {copied} decoder / step-token tensors equal the pretraining "
         f"checkpoint's raw parameters before the first step")
     del state
-    model, norm, steps, _, _ = load_served(f"{tmp}/ckpt_h128_device_data", device)
+    model, norm, steps, _, _ = load_policy(f"{tmp}/ckpt_h128_device_data", device)
     out["served_ms"], served = served_period(
         "the --db --device-data checkpoint (fused=\"chunk\", fused encoder)", model, device,
         {"fused_encoder": 1, "fused_chunk": 1}, b=RECORDED_B, normalizer=norm,
@@ -2511,6 +2535,658 @@ def recorded_data_phase(device, smi) -> dict:
     return out
 
 
+# phase 14: evaluation/ and the CLI on vit_flagship.yaml. The checkpoints
+# train at B=32 (cut from the YAML's 256) on the "vision" dummy task, whose
+# windows carry the image-boundary and Bayes-oracle probes
+EVAL_TRAIN_B, EVAL_STEPS = 32, 2
+EVAL_WINDOWS, EVAL_CHUNKS, EVAL_BATCH = 64, 3, 32
+EVAL_SOLVER_STEPS = 10  # the report's --solver-row ddim10
+EVAL_CPU = dict(windows=16, chunks=2, batch_size=8)  # the card-vs-CPU report
+SERVE_S = 3.0  # seconds served
+EVAL_TOL = 2e-2  # PERF.md §2: each MSE, MAE and divergence value card vs CPU, relative
+
+
+def eval_yaml(path: Path, **changes) -> Path:
+    """vit_flagship.yaml on the "vision" dummy task at B=EVAL_TRAIN_B."""
+    import yaml
+
+    params = yaml.safe_load(FLAG_YAML.read_text())
+    params.update(dummy_task="vision", batch_size=EVAL_TRAIN_B, **changes)
+    path.write_text(yaml.safe_dump(params))
+    return path
+
+
+# the flagship's launches per encode of raw frames (8 ViT blocks; the ViT
+# runs per frame, so one launch a block whatever the frame count), per
+# encode of the context from frame tokens (3 proprioceptive stacks at
+# head_dim 64 + the image-frame stack at head_dim 32), and per full
+# model.denoise (4 decoder layers at head_dim 64)
+EVAL_FRAMES = {"fused_vit_block_fwd": 8}
+EVAL_STACKS = {"fused_encoder_stack_fwd": 4, "fused_encoder_stack_fwd_hd64": 3}
+EVAL_DENOISE = {"fused_decoder_layer_fwd": 4, "fused_decoder_layer_fwd_hd64": 4}
+
+
+def launch_sum(*terms) -> dict:
+    """sum of count x launches over (count, launches) pairs."""
+    out: dict = {}
+    for n, launches in terms:
+        for name, k in launches.items():
+            out[name] = out.get(name, 0) + n * k
+    return out
+
+
+def report_launches(nb: int, nbb: int, chunks: int, t: int, s: int) -> dict:
+    """The kernel launches of phase 14's `cli report` on vit_flagship.yaml's
+    fused knobs (evaluation/report.py:run_report with a t-step teacher, a
+    1-step distilled student, one s-step DDIM solver row and one image
+    guidance row; nb batches of held-out windows, nbb of boundary windows).
+
+    Every open-loop pass encodes raw frames (EVAL_FRAMES + EVAL_STACKS) and
+    denoises with full passes (EVAL_DENOISE). Encodes: the teacher's open
+    loop nb, its context / image sensitivity 3 nb, the image-shuffled pass
+    nb, the boundary probes 2 nbb (sensitivity) + 2 nbb (two passes), the
+    guidance row 2 nb + 4 nbb (two encodes a batch, three passes), the
+    student's and the solver row's open loop and agreement 3 nb each: 13 nb
+    + 8 nbb. Full passes: t nb + 9 nb + t nb + (6 + 2 t) nbb + (t nb + 2 t
+    nbb) + (nb + (t + 1) nb) + (s nb + (t + s) nb) = (5 t + 11 + 2 s) nb +
+    (6 + 4 t) nbb. The 6 closed-loop rollouts (two a divergence row, two of
+    the self-consistency) run the engine's token cache: each period encodes
+    its new frames (EVAL_FRAMES) and the context from tokens (EVAL_STACKS);
+    the iterative samplers denoise against cached K/V (the plain layer
+    math), the distilled student's rollout runs one full pass a period."""
+    enc = 13 * nb + 8 * nbb
+    passes = (5 * t + 11 + 2 * s) * nb + (6 + 4 * t) * nbb + chunks
+    periods = 6 * chunks
+    return launch_sum((enc + periods, EVAL_FRAMES), (enc + periods, EVAL_STACKS),
+                      (passes, EVAL_DENOISE))
+
+
+def serve_launches(distilled: bool, steps: int = 0) -> dict:
+    """Launches of one `cli serve` replan (make_chunk_sampler on the
+    controller's raw frames): the encode, and for the distilled student its
+    one full pass; the iterative sampler denoises against cached K/V (no
+    kernel). ``steps`` full passes instead: the open-loop plot's sampler."""
+    return launch_sum((1, EVAL_FRAMES), (1, EVAL_STACKS),
+                      (1 if distilled else steps, EVAL_DENOISE))
+
+
+def numbers(tree, path=""):
+    """(path, value) of every number in a report dict."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from numbers(v, f"{path}.{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from numbers(v, f"{path}[{i}]")
+    elif isinstance(tree, (int, float)) and not isinstance(tree, bool):
+        yield path, float(tree)
+
+
+def cli_ok(argv, label):
+    from soccerdiffusion_tpu_torch import cli
+
+    rc = cli.main(list(map(str, argv)))
+    if rc != 0:
+        raise AssertionError(f"cli {label}: exit code {rc}")
+
+
+def eval_db_phase(tmp: Path) -> dict:
+    """`cli db create-schema | dummy-data -n 2 -s 400 | migrate` on a fresh
+    database, then from_sqlite reads the flagship's windows from it."""
+    from soccerdiffusion_tpu_torch.data import WindowedDataset
+
+    db = tmp / "eval.sqlite3"
+    t0 = time.perf_counter()
+    for verb in (["create-schema"], ["dummy-data", "-n", "2", "-s", "400"], ["migrate"]):
+        cli_ok(["db", *verb, "--db", db], f"db {verb[0]}")
+    seconds = time.perf_counter() - t0
+    ds = WindowedDataset.from_sqlite(str(db), flagship_config())
+    item = ds[len(ds) // 2]
+    log(f"cli db create-schema, dummy-data -n 2 -s 400, migrate: {seconds:.2f} s, "
+        f"{db.stat().st_size} bytes; from_sqlite {len(ds)} windows, frames "
+        f"{item['image_data'].shape}")
+    if len(ds) != 2 * (400 - 10) or not np.isfinite(item["image_data"]).all():
+        raise AssertionError(f"from_sqlite of the CLI's database: {len(ds)} windows")
+    return {"db_s": seconds, "db_bytes": db.stat().st_size, "windows": len(ds)}
+
+
+def eval_checkpoints(tmp: Path, device) -> tuple[Path, Path, Path, dict]:
+    """A teacher (`cli train`, EVAL_STEPS steps) and a 1-step student (`cli
+    distill`, EVAL_STEPS steps), each with its exact launches."""
+    yml = eval_yaml(tmp / "flagship_vision.yaml")
+    teacher, student = tmp / "teacher", tmp / "student"
+    common = ["--dummy-data", "--epochs", 1, "--steps-per-epoch", EVAL_STEPS, "--device", device]
+    out = {}
+    for label, argv, per_step in (
+            ("train", ["train", "-c", yml, "-o", teacher, *common], FLAG_TRAIN_LAUNCHES),
+            ("distill", ["distill", yml, teacher, "-o", student, "--student-steps", 1, *common],
+             flag_distill_launches(1))):
+        torch.cuda.synchronize()
+        zero_counters()
+        t0 = time.perf_counter()
+        cli_ok(argv, label)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = read_counters()
+        out[label] = {"s": seconds,
+                      "launches": expect_launches(f"cli {label}", got, per_step, EVAL_STEPS)}
+        log(f"cli {label} vit_flagship.yaml (vision task) B={EVAL_TRAIN_B}, {EVAL_STEPS} steps: "
+            f"{seconds:.2f} s; launches {out[label]['launches']}")
+    return yml, teacher, student, out
+
+
+def eval_report_phase(tmp: Path, teacher, student, device, smi) -> dict:
+    """`cli report` on the card: the teacher, the student, --solver-row
+    ddim10 and --guidance-row 2.0@image at --windows 64 --chunks 3
+    --batch-size 32; wall time, exact launches, every number finite."""
+    out_path = tmp / "report"
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    cli_ok(["report", "--teacher", teacher, "--student", student, "--solver-row",
+            f"ddim{EVAL_SOLVER_STEPS}", "--guidance-row", "2.0@image", "--dummy-data",
+            "--windows", EVAL_WINDOWS, "--chunks", EVAL_CHUNKS, "--batch-size", EVAL_BATCH,
+            "--out", out_path, "--device", device], "report")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_counters()
+    result = json.loads(out_path.with_suffix(".json").read_text())
+    nb = -(-result["num_windows"] // EVAL_BATCH)
+    nbb = -(-result["image_shuffled_open_loop_boundary"]["num_windows"] // EVAL_BATCH)
+    t_steps = result["checkpoints"][0]["open_loop"]["sampler"]
+    want = report_launches(nb, nbb, EVAL_CHUNKS, int(t_steps.removeprefix("ddim")),
+                           EVAL_SOLVER_STEPS)
+    want = {name: want.get(name, 0) for name in got}
+    markdown = out_path.with_suffix(".md").read_text()
+    log(f"cli report on the card ({nb} + {nbb} batches of {EVAL_BATCH}, {EVAL_CHUNKS} chunks): "
+        f"{wall:.2f} s; launches {got} ({smi})")
+    log(markdown)
+    if got != want:
+        raise AssertionError(f"cli report: launches {got}, expected {want}")
+    bad = [p for p, v in numbers({k: result[k] for k in ("noise_floor_mse", "checkpoints",
+                                                          "guidance")}) if not np.isfinite(v)]
+    if bad or [c["name"] for c in result["checkpoints"]] != [
+            "teacher", "student", f"teacher+ddim{EVAL_SOLVER_STEPS}"]:
+        raise AssertionError(f"cli report: non-finite {bad}, rows {result['checkpoints']}")
+    return {"wall_s": wall, "launches": {k: v for k, v in got.items() if v},
+            "batches": [nb, nbb], "noise_floor_mse": result["noise_floor_mse"],
+            "rows": {c["name"]: c["open_loop"]["mse"] for c in result["checkpoints"]},
+            "oracle": result.get("oracle_open_loop")}
+
+
+class CapturedLaunches:
+    """While entered, records the arguments of the first ``keep[module]``
+    forward launches of rows 4-6 (the ViT block, the encoder stack, the
+    decoder layer) as the model hands them to the kernels' wrappers."""
+
+    def __init__(self, keep: dict):
+        self.keep, self.calls, self.saved = keep, [], {}
+
+    def __enter__(self):
+        for module, limit in self.keep.items():
+            orig = self.saved[module] = module.forward_kernel
+
+            def record(*args, module=module, orig=orig, limit=limit):
+                if sum(m is module for m, _ in self.calls) < limit:
+                    self.calls.append((module, args))
+                return orig(*args)
+
+            record.__dict__ = orig.__dict__  # a wrapper's counter may live on the function
+            module.forward_kernel = record
+        return self
+
+    def __exit__(self, *exc):
+        for module, orig in self.saved.items():
+            module.forward_kernel = orig
+
+
+def path_kernel_checks(model, run, b: int, suffix: str) -> dict:
+    """Runs ``run()`` (one encode and one full denoise of ``model`` on the
+    card) with the launches captured, then holds each captured launch of the
+    ViT block, the encoder stack and the decoder layer against its plain
+    version on the same inputs (compare(): TOL x max|plain|, both timed,
+    and the torch.nn layer on the same weights for library_ms). Returns the
+    instances, named by kernel and head_dim plus ``suffix``,
+    each with its largest error over the launches."""
+    from soccerdiffusion_tpu_torch.ops import fused_decoder_layer as fdl
+    from soccerdiffusion_tpu_torch.ops import fused_encoder_stack as fes
+    from soccerdiffusion_tpu_torch.ops import fused_vit_block as fvb
+
+    cfg = model.config
+    with torch.no_grad(), CapturedLaunches({fvb: 8, fes: 4, fdl: cfg.num_decoder_layers}) as cap:
+        run()
+    torch.cuda.synchronize()
+    saved, results = cap.saved, {}
+    for i, (module, args) in enumerate(cap.calls):
+        if module is fvb:
+            x, w, heads, gelu = args
+            name, flops = "fused_vit_block_fwd", x.shape[0] * enc_layer_flops(
+                x.shape[1], x.shape[2], w[8].shape[-1])
+            inputs, kernel = [x, w], lambda args=args: saved[fvb](*args)
+            plain = lambda x=x, w=w, heads=heads, gelu=gelu: fvb.forward_plain(x, w, heads, gelu)
+            library_fn = lambda x=x, lib=torch_encoder([t[None] for t in w], heads, quick_gelu
+                                                       if gelu == "quick" else "gelu"): lib(x)
+        elif module is fes:
+            x, w, heads = args
+            (_, t, e), layers = x.shape, w[0].shape[0]
+            name = "fused_encoder_stack_fwd_" + ("hd64" if e == 64 * heads else "imgseq")
+            flops = b * layers * enc_layer_flops(t, e, w[8].shape[-1])
+            inputs, kernel = [x, w], lambda args=args: saved[fes](*args)[0]
+            plain = lambda x=x, w=w, heads=heads: fes.forward_plain(x, w, heads)
+            library_fn = lambda x=x, lib=torch_encoder(w, heads): lib(x)
+        else:
+            x, mem, w, heads = args[:4]
+            (_, p, e), s = x.shape, mem.shape[1]
+            name = "fused_decoder_layer_fwd" + ("_hd64" if e == 64 * heads else "")
+            flops = b * (dec_layer_flops(p, s, e, w[18].shape[-1]) + 4 * s * e * e)  # + memory K/V
+            inputs, kernel = [x, mem, w], lambda args=args: saved[fdl](*args)
+            plain = lambda x=x, mem=mem, w=w, heads=heads: fdl.forward_plain(x, mem, w, heads)
+            library_fn = lambda x=x, mem=mem, lib=torch_decoder_layer(w, heads): lib(x, mem)
+        with torch.no_grad():
+            merge(results, name + suffix,
+                  compare(f"{name}{suffix}[{i}]", kernel, plain, b, flops, inputs, library_fn))
+    want = {"fused_vit_block_fwd", "fused_encoder_stack_fwd_hd64",
+            "fused_encoder_stack_fwd_imgseq", "fused_decoder_layer_fwd_hd64"}
+    if {name.removesuffix(suffix) for name in results} != want:
+        raise AssertionError(f"{suffix}: captured {sorted(results)}, expected {sorted(want)}")
+    return results
+
+
+def chunk_vs_cpu(label, card_fn, cpu_fn) -> dict:
+    """One chunk of a phase-14 sampler on the card (kernels) against the same
+    sampler of a CPU copy of the model (plain versions) on the same batch
+    and noise: ROLLOUT_TOL x max|plain|."""
+    got, ref = card_fn().float().cpu(), cpu_fn().float()
+    err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+    log(f"{label}: card (kernels) vs cpu (plain versions) max_abs_err={err:.4e} "
+        f"max|plain|={scale:.4e} (tol {ROLLOUT_TOL} x max|plain|)")
+    if got.shape != ref.shape or not torch.isfinite(got).all() or not err <= ROLLOUT_TOL * scale:
+        raise AssertionError(f"{label}: the card's chunk disagrees with the plain path")
+    return {"max_abs_err": err, "max_abs_plain": scale}
+
+
+def controller_batch(cfg, sampler, frames, device) -> tuple[dict, torch.Tensor]:
+    """The batch and noise of the last replan of a RealtimeController (B=1)
+    run for one virtual second on the simulated plant, with a camera that
+    plays ``frames`` at the image rate, plans inline (plan_in_thread=False)
+    through ``sampler``."""
+    from soccerdiffusion_tpu_torch.inference.realtime import RealtimeController, SimulatedRobotIO
+
+    class Camera(SimulatedRobotIO):
+        shown = 0
+
+        def read_image(self):
+            self.shown += 1
+            return frames[(self.shown - 1) % len(frames)]
+
+    class Clock:
+        t = 0.0
+
+        def __call__(self):
+            return self.t
+
+        def sleep(self, dt):
+            self.t += dt
+
+    seen = []
+
+    def sample_fn(batch, noise):
+        seen[:] = [{k: v.clone() for k, v in batch.items()}, noise.clone()]
+        return sampler(batch, noise)
+
+    clock = Clock()
+    RealtimeController(cfg, sample_fn, Camera(cfg.num_joints), clock=clock, sleep_fn=clock.sleep,
+                       plan_in_thread=False, device=device).run(1.0)
+    return seen[0], seen[1]
+
+
+def eval_kernel_phase(teacher, student, device) -> dict:
+    """Rows 4-6 at the shapes of phase 14's paths, on the checkpoints'
+    weights: the controller's B=1 batch (the student's served sampler: the
+    ViT over 10 frames, the four stacks, the four decoder layers) and the
+    report's first held-out batch of EVAL_BATCH windows (the teacher's
+    encode and a full denoise pass). Each captured launch against its plain
+    version (path_kernel_checks); then whole chunks card vs CPU: the
+    teacher's and the student's served samplers on the controller batch and
+    the teacher's open-loop sampling of the report batch (its ddim steps,
+    the report's noise stream)."""
+    from soccerdiffusion_tpu_torch.config import Config
+    from soccerdiffusion_tpu_torch.diffusion import make_schedule
+    from soccerdiffusion_tpu_torch.evaluation.openloop import (
+        eval_batches,
+        held_out_indices,
+        sample_trajectories,
+    )
+    from soccerdiffusion_tpu_torch.inference import make_chunk_sampler
+    from soccerdiffusion_tpu_torch.training.checkpoint import build_policy, load_policy_checkpoint
+    from soccerdiffusion_tpu_torch.training.train import build_dataset
+
+    models = {}
+    for label, path in (("teacher", teacher), ("student", student)):
+        hp, state, norm, steps, distilled = load_policy_checkpoint(path)
+        config = Config.from_dict(hp)
+        models[label] = {dev: build_policy(config.model, state, dev) for dev in (device, "cpu")}
+        models[label].update(norm=norm, steps=steps, distilled=distilled, config=config)
+    config = models["teacher"]["config"]
+    cfg, schedule = config.model, make_schedule(config.train.train_denoising_timesteps)
+    dataset = build_dataset(config, 0, True)
+    samplers = {(label, dev): make_chunk_sampler(m[dev], schedule, m["norm"], m["steps"],
+                                                 m["distilled"])
+                for label, m in models.items() for dev in (device, "cpu")}
+    frames = dataset[len(dataset) // 2]["image_data"]
+    batch, noise = controller_batch(cfg, samplers[("student", device)], frames, device)
+    on_cpu = lambda d: {k: v.cpu() for k, v in d.items()}
+    student = models["student"][device]
+    results = path_kernel_checks(student, lambda: samplers[("student", device)](batch, noise), 1,
+                                 "_serve")
+    chunks = {f"serve_{label}_B1": chunk_vs_cpu(
+        f"cli serve's {label} sampler on the controller batch (B=1)",
+        lambda label=label: samplers[(label, device)](batch, noise),
+        lambda label=label: samplers[(label, "cpu")](on_cpu(batch), noise.cpu()))
+        for label in ("teacher", "student")}
+
+    indices = held_out_indices(len(dataset), EVAL_WINDOWS, 0)[:EVAL_BATCH]
+    rb = next(eval_batches(dataset, indices, EVAL_BATCH))
+    shape = (len(indices), cfg.trajectory_prediction_length, cfg.num_joints)
+    rnoise = torch.randn(shape, generator=torch.Generator().manual_seed(0))  # stream 0, on the CPU
+    t = models["teacher"]
+
+    def open_loop(dev):
+        model = t[dev]
+        context = model.encode_context({k: torch.from_numpy(v).to(dev) for k, v in rb.items()})
+        return sample_trajectories(model, schedule, context, rnoise.to(dev), t["steps"],
+                                   t["distilled"])
+
+    def encode_and_denoise():
+        model = t[device]
+        context = model.encode_context({k: torch.from_numpy(v).to(device) for k, v in rb.items()})
+        model.denoise(context, rnoise.to(device),
+                      torch.full((len(indices),), 500, dtype=torch.int64, device=device))
+
+    results.update(path_kernel_checks(t[device], encode_and_denoise, len(indices), "_report"))
+    chunks[f"report_teacher_B{len(indices)}"] = chunk_vs_cpu(
+        f"cli report's teacher open loop ({t['steps']} steps, B={len(indices)})",
+        lambda: open_loop(device), lambda: open_loop("cpu"))
+    return {"kernels": results, "chunks": chunks}
+
+
+def eval_card_vs_cpu(teacher, student, device) -> dict:
+    """The same report at EVAL_CPU's size on the card and on the CPU (plain
+    versions) in float32, the noise drawn on the CPU and moved: every MSE,
+    MAE and divergence value within EVAL_TOL relative. The kernels take
+    bf16 only, so this float32 report runs the model with the fused knobs
+    off; eval_kernel_phase holds the kernels at this phase's shapes."""
+    from soccerdiffusion_tpu_torch.config import Config
+    from soccerdiffusion_tpu_torch.evaluation import report
+    from soccerdiffusion_tpu_torch.training.checkpoint import load_policy_checkpoint
+    from soccerdiffusion_tpu_torch.training.train import build_dataset
+
+    hp, state, norm, steps, distilled = load_policy_checkpoint(teacher)
+    hp = {**hp, "compute_dtype": "float32", "vit_fused_block": False,
+          "encoder_fused_stack": False, "decoder_fused_block": False}
+    dataset = build_dataset(Config.from_dict(hp), 0, True)
+
+    def noise_fn(stream_seed, shape):
+        return torch.randn(shape, generator=torch.Generator().manual_seed(stream_seed))
+
+    results, seconds = {}, {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        results[dev] = report.run_report(
+            str(teacher), [str(student)], dataset, teacher_loaded=(hp, state, norm, steps, distilled),
+            solver_rows=[("ddim", EVAL_SOLVER_STEPS)], guidance_rows=[(2.0, ("image",))],
+            noise_fn=noise_fn, device=dev, **EVAL_CPU)
+        seconds[dev] = time.perf_counter() - t0
+    card, cpu = dict(numbers(results[device])), dict(numbers(results["cpu"]))
+    if card.keys() != cpu.keys():
+        raise AssertionError(f"card and CPU reports differ in keys: {card.keys() ^ cpu.keys()}")
+    gated = [p for p in cpu if re.search(r"mse|mae|div", p.rsplit(".", 1)[-1])]
+    rel = {p: abs(card[p] - cpu[p]) / max(abs(cpu[p]), 1e-12) for p in gated}
+    worst = max(rel, key=rel.get)
+    log(f"report card vs cpu (float32, {EVAL_CPU}): {len(gated)} MSE / MAE / divergence values, "
+        f"largest departure {rel[worst]:.3e} at {worst} (card {card[worst]:.6g}, cpu "
+        f"{cpu[worst]:.6g}; tol {EVAL_TOL}); card {seconds[device]:.1f} s, cpu "
+        f"{seconds['cpu']:.1f} s")
+    if rel[worst] > EVAL_TOL or not all(np.isfinite(card[p]) for p in gated):
+        raise AssertionError("the card's report disagrees with the plain path on the CPU")
+    return {"values": len(gated), "max_rel": rel[worst], "at": worst, "s": seconds}
+
+
+# one `cli serve` in its own interpreter, as a deployment runs it (the smoke's
+# own process state does not ride into the plan's host time): the verb's
+# numbers and the launch counters of that process, as a JSON line
+SERVE_CODE = """\
+import json, sys
+import chip_smoke
+from soccerdiffusion_tpu_torch import cli
+
+chip_smoke.zero_counters()
+stats = cli.serve(cli.build_parser().parse_args(json.loads(sys.argv[1])))
+stats["counters"] = chip_smoke.read_counters()
+print("SERVE_STATS " + json.dumps(stats), flush=True)
+"""
+
+
+def serve_process(argv) -> dict:
+    """`cli serve` with ``argv`` in a fresh interpreter; its stats and counters."""
+    proc = subprocess.run([sys.executable, "-c", SERVE_CODE, json.dumps(argv)],
+                          cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                          timeout=600)
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("SERVE_STATS ")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"cli serve {argv}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+    return json.loads(lines[-1].removeprefix("SERVE_STATS "))
+
+
+def eval_serve_phase(teacher, student, device, smi) -> dict:
+    """`cli serve` for SERVE_S seconds, each in its own process: the teacher
+    (ddim30) and the student (distilled1) on the simulated plant, the
+    student over UDP loopback against a UdpRobotServer thread of this
+    process; exact launches per replan (the warm-up replan included),
+    finite chunks, and every tick after the first chunk arrived commanding
+    the plant (over UDP: received by the robot-side server). The first
+    plan's latency and the share of the scheduled ticks that commanded are
+    logged, not gated: the teacher's host-bound plans take about the
+    200 ms replan period, so that share rides on host noise."""
+    import threading
+
+    from soccerdiffusion_tpu_torch.inference.realtime import SimulatedRobotIO
+    from soccerdiffusion_tpu_torch.inference.transport import UdpRobotServer
+
+    out = {}
+    for label, ckpt, distilled, udp in (("teacher_ddim30", teacher, False, False),
+                                        ("student_distilled1", student, True, False),
+                                        ("student_distilled1_udp", student, True, True)):
+        argv = ["serve", str(ckpt), "--duration", str(SERVE_S), "--device", device]
+        server = thread = None
+        if udp:
+            plant = SimulatedRobotIO(flagship_config().num_joints)
+            server = UdpRobotServer(plant, "127.0.0.1:0", rate_hz=50.0)
+            thread = threading.Thread(target=server.serve, args=(None, 600.0), daemon=True)
+            thread.start()
+            argv += ["--udp", "%s:%d" % server.local_addr]
+        try:
+            stats = serve_process(argv)
+            sent = stats["ticks"] - stats["ticks_without_chunk"]
+            deadline = time.monotonic() + 5.0  # the server's receive thread drains the socket
+            while server is not None and server.commands_received < sent and \
+                    time.monotonic() < deadline:
+                time.sleep(0.01)
+        finally:
+            if server is not None:
+                server._stop.set()
+                thread.join(timeout=10.0)
+                server.close()
+        got = stats.pop("counters")
+        if udp:
+            stats["commands_delivered"] = server.commands_received
+            finite = bool(np.isfinite(plant.positions).all())
+        else:
+            finite = True
+        per = serve_launches(distilled)
+        want = {name: per.get(name, 0) * (stats["replans"] + 1) for name in got}
+        stats["launches"] = {k: v for k, v in got.items() if v}
+        out[label] = stats
+        log(f"cli serve {label}, {SERVE_S:g} s at 50 Hz (own process): {stats['replans']} "
+            f"replans, plan p50 {stats['plan_ms']['p50']:.2f} / p95 {stats['plan_ms']['p95']:.2f} "
+            f"/ max {stats['plan_ms']['max']:.2f} ms, first {stats['first_plan_ms']:.2f} ms; "
+            f"commands delivered {stats['commands_delivered']} of {stats['ticks_scheduled']} "
+            f"scheduled, {sent} ticks after the first chunk ({stats['ticks']} run); tick lateness p50 "
+            f"{stats['tick_lateness_ms']['p50']:.3f} / p99 {stats['tick_lateness_ms']['p99']:.3f} "
+            f"ms; overruns {stats['overruns']}; launches {stats['launches']} ({smi})")
+        if got != want:
+            raise AssertionError(f"cli serve {label}: launches {got}, expected {want}")
+        if stats["nonfinite_chunks"] or not finite or not stats["commands_delivered"] == sent >= 1:
+            raise AssertionError(f"cli serve {label}: {stats}")
+    return out
+
+
+def eval_plot_phase(tmp: Path, yml, teacher, device) -> dict:
+    """inference.plot.sample_open_loop on the card (exact launches, finite
+    output); then `cli plot` and `cli db plot-window` write PNGs where
+    matplotlib is installed, or fail naming it where it is not."""
+    import importlib.util
+
+    from soccerdiffusion_tpu_torch import cli
+    from soccerdiffusion_tpu_torch.config import Config
+    from soccerdiffusion_tpu_torch.diffusion import make_schedule
+    from soccerdiffusion_tpu_torch.evaluation.openloop import eval_batches
+    from soccerdiffusion_tpu_torch.inference.plot import sample_open_loop
+    from soccerdiffusion_tpu_torch.training.checkpoint import load_policy
+    from soccerdiffusion_tpu_torch.training.train import build_dataset
+
+    model, norm, steps, distilled, hp = load_policy(teacher, device)
+    config = Config.from_dict(hp)
+    batch = next(eval_batches(build_dataset(config, 0, True), [0, 100, 200, 300], 4))
+    batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    cfg = config.model
+    noise = torch.randn((4, cfg.trajectory_prediction_length, cfg.num_joints),
+                        generator=torch.Generator(device=device).manual_seed(0), device=device)
+    torch.cuda.synchronize()
+    zero_counters()
+    traj, start = sample_open_loop(model, norm, make_schedule(1000), batch, steps, distilled, noise)
+    torch.cuda.synchronize()
+    got = read_counters()
+    want = serve_launches(False, steps)
+    want = {name: want.get(name, 0) for name in got}
+    if got != want or traj.shape != noise.shape or not torch.isfinite(traj).all():
+        raise AssertionError(f"sample_open_loop: launches {got} (expected {want}), "
+                             f"finite={bool(torch.isfinite(traj).all())}")
+    have = importlib.util.find_spec("matplotlib") is not None
+    png = tmp / "window.png"
+    if have:
+        cli_ok(["plot", teacher, "--dummy-data", "--num-samples", 1, "-o", tmp / "plots",
+                "--device", device], "plot")
+        cli_ok(["db", "plot-window", 0, png, "--config", yml, "--dummy-data"], "db plot-window")
+        for path in (tmp / "plots" / "sample_0.png", png):
+            if path.read_bytes()[:8] != b"\x89PNG\r\n\x1a\n":
+                raise AssertionError(f"{path} is not a PNG")
+    else:
+        try:
+            cli.main(["plot", str(teacher), "--dummy-data", "--num-samples", "1", "-o",
+                      str(tmp / "plots"), "--device", device])
+            raise AssertionError("cli plot ran without matplotlib")
+        except ImportError as exc:
+            if "matplotlib" not in str(exc):
+                raise
+        if cli.main(["db", "plot-window", "0", str(png), "--config", str(yml),
+                     "--dummy-data"]) != 1:
+            raise AssertionError("cli db plot-window ran without matplotlib")
+    log(f"sample_open_loop on the card (B=4, {steps} steps): launches {got}; matplotlib "
+        f"{'installed: cli plot and db plot-window wrote PNGs' if have else 'absent: cli plot and db plot-window failed naming it'}")
+    return {"launches": {k: v for k, v in got.items() if v}, "matplotlib": have}
+
+
+def evaluation_phase(device, smi) -> dict:
+    """Phase 14: evaluation/ and the CLI driven on vit_flagship.yaml through
+    the port's cli: the db verbs, a teacher and a student from `cli train` /
+    `cli distill`, `cli report` on the card, rows 4-6 and whole chunks at
+    the serve and report shapes against their plain versions, the report
+    card vs CPU, `cli serve` (simulated plant and UDP), the open-loop plot."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        out = {"db": eval_db_phase(tmp)}
+        yml, teacher, student, out["checkpoints"] = eval_checkpoints(tmp, device)
+        out["report"] = eval_report_phase(tmp, teacher, student, device, smi)
+        out["kernels_on_path"] = eval_kernel_phase(teacher, student, device)
+        torch.cuda.empty_cache()
+        out["report_card_vs_cpu"] = eval_card_vs_cpu(teacher, student, device)
+        torch.cuda.empty_cache()
+        out["serve"] = eval_serve_phase(teacher, student, device, smi)
+        out["plot"] = eval_plot_phase(tmp, yml, teacher, device)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"evaluation phase: {out['phase_s']:.1f} s")
+    return out
+
+
+# examples/quality_ledger.py's proprioceptive run (BENCH_CONFIG: bench.py's
+# h128 architecture, lr 1e-3) through the port's train -> distill -> report
+LEDGER_CONFIG = {
+    "num_joints": 20, "hidden_dim": 128, "trajectory_prediction_length": 10,
+    "action_context_length": 100, "joint_state_context_length": 100, "imu_context_length": 100,
+    "use_action_history": True, "num_action_history_encoder_layers": 2, "use_imu": True,
+    "num_imu_encoder_layers": 2, "use_joint_states": True, "joint_state_encoder_layers": 2,
+    "use_images": False, "use_gamestate": True, "num_decoder_layers": 4, "encoder_patch_size": 1,
+    "train_denoising_timesteps": 1000, "distill_teacher_inference_steps": 30, "batch_size": 64,
+    "lr": 1.0e-3, "epochs": 10,
+}
+LEDGER_TRAIN_STEPS, LEDGER_DISTILL_STEPS, LEDGER_STUDENTS = 2000, 400, (4, 1)
+LEDGER_ROWS, LEDGER_WINDOWS, LEDGER_CHUNKS = ("dpmpp10@lambda", "ddim10"), 256, 10
+
+
+def quality_ledger(device, smi, out_dir: Path) -> dict:
+    """The quality ledger on the card: a teacher trained LEDGER_TRAIN_STEPS
+    steps, students of LEDGER_STUDENTS steps distilled LEDGER_DISTILL_STEPS
+    steps, and the report with the training-free rows; writes
+    ``out_dir``/quality_ledger.{json,md} and returns the result."""
+    import yaml
+
+    from soccerdiffusion_tpu_torch.config import Config
+    from soccerdiffusion_tpu_torch.training.train import build_dataset
+
+    t0 = time.perf_counter()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        yml = tmp / "config.yaml"
+        yml.write_text(yaml.safe_dump(LEDGER_CONFIG))
+        bs = LEDGER_CONFIG["batch_size"]
+        steps_per_epoch = max(1, len(build_dataset(Config.from_dict(LEDGER_CONFIG), 0, True)) // bs)
+        teacher = tmp / "teacher.ckpt"
+        cli_ok(["train", "--config", yml, "--dummy-data", "--epochs",
+                -(-LEDGER_TRAIN_STEPS // steps_per_epoch), "--output", teacher, "--seed", 0,
+                "--metrics", tmp / "teacher_metrics.jsonl", "--device-data", "--device", device],
+               "train")
+        report_argv = ["report", "--teacher", teacher, "--dummy-data", "--windows", LEDGER_WINDOWS,
+                       "--chunks", LEDGER_CHUNKS, "--batch-size", min(64, bs), "--seed", 0,
+                       "--out", out_dir / "quality_ledger", "--device", device]
+        for k in LEDGER_STUDENTS:
+            student = tmp / f"student{k}.ckpt"
+            cli_ok(["distill", yml, teacher, "--student-steps", k, "--dummy-data", "--epochs",
+                    -(-LEDGER_DISTILL_STEPS // steps_per_epoch), "--steps-per-epoch",
+                    steps_per_epoch, "-o", student, "--seed", 0, "--device-data", "--device",
+                    device], f"distill {k}")
+            report_argv += ["--student", student]
+        for row in LEDGER_ROWS:
+            report_argv += ["--solver-row", row]
+        cli_ok(report_argv, "report")
+        losses = [(r["step"], r["loss"]) for r in map(json.loads, open(tmp / "teacher_metrics.jsonl"))
+                  if "loss" in r]
+    md_path = out_dir / "quality_ledger.md"
+    md = md_path.read_text()
+    if losses:
+        md += (f"\nTeacher training loss: {losses[0][1]:.4f} (step {losses[0][0]}) -> "
+               f"{losses[-1][1]:.4f} (step {losses[-1][0]}), {len(losses)} recorded points.\n")
+        md_path.write_text(md)
+    wall = time.perf_counter() - t0
+    log(md)
+    log(f"quality ledger: {wall:.1f} s ({smi}); {md_path}")
+    return {"wall_s": wall, "teacher_loss_curve": losses,
+            "report": json.loads((out_dir / "quality_ledger.json").read_text())}
+
+
 def sass_phase() -> dict:
     """cuobjdump -sass of the built kernel library: every instance of each
     TENSOR_CORE_KERNELS kernel (bf16 only where it says so) must hold
@@ -2622,6 +3298,30 @@ def profile_serving(device, out, periods=3, flash=False, resnet=False, larger=Fa
         trace(f"{name} lane {lane}, B={b}, replan periods", period, periods, out)
 
 
+def profile_realtime(device, out, plans=3):
+    """A trace of ``plans`` replans of `cli serve`'s sampler at B=1 on the
+    flagship (seeded random weights; make_chunk_sampler on the controller's
+    raw-frame batch): the 30-step DDIM teacher, then the distilled student."""
+    from soccerdiffusion_tpu_torch.data import Normalizer
+    from soccerdiffusion_tpu_torch.diffusion import make_schedule
+    from soccerdiffusion_tpu_torch.inference import make_chunk_sampler
+    from soccerdiffusion_tpu_torch.inference.controller import (
+        init_controller_state,
+        make_controller_batch,
+    )
+
+    model = build_model(flagship_config(), device, seed=3)
+    cfg = model.config
+    batch = make_controller_batch(cfg, init_controller_state(cfg, 1, device=device))
+    noise = torch.randn((1, cfg.trajectory_prediction_length, cfg.num_joints), device=device)
+    for label, distilled in (("teacher ddim30", False), ("student distilled1", True)):
+        sampler = make_chunk_sampler(model, make_schedule(1000),
+                                     Normalizer.identity(cfg.num_joints), 30, distilled)
+        sampler(batch, noise)  # warm-up
+        trace(f"flagship cli-serve plan ({label}), B=1", lambda: sampler(batch, noise), plans,
+              out)
+
+
 def profile_training(config, label, out, packed=False, steps=5, warm=5):
     """One torch.profiler trace of ``steps`` steps of training/train.py's step
     (its dataset and data path for ``config``) after ``warm`` steps outside
@@ -2675,7 +3375,16 @@ def main(argv=None) -> int:
                              "card vs CPU on noise and on dummy frames (measured, not gated), "
                              "then its ResNet18's pieces in bf16, card and CPU each against "
                              "float64")
+    parser.add_argument("--profile-realtime", action="store_true",
+                        help="trace the flagship's cli-serve plans at B=1 (ddim30, distilled1) "
+                             "with torch.profiler instead")
     parser.add_argument("--profile-out", default=None, help="file for the full profiler tables")
+    parser.add_argument("--quality-ledger", action="store_true",
+                        help="instead of the smoke run: the h128 quality ledger (train 2000 "
+                             "steps, distill 4- and 1-step students 400 steps each, report) "
+                             "through the port's CLI on the card")
+    parser.add_argument("--ledger-out", default="build/quality_ledger",
+                        help="directory for the ledger's quality_ledger.{json,md}")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke needs an NVIDIA GPU",
@@ -2699,6 +3408,13 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(line.strip(), file=sys.stderr)
 
+    if args.profile_realtime:
+        profile_realtime(device, args.profile_out)
+        return 0
+    if args.quality_ledger:
+        ledger = quality_ledger(device, smi, Path(args.ledger_out))
+        log(json.dumps({"quality_ledger": ledger, "gpu": smi}))
+        return 0
     if args.bisect_resnet_bf16:
         config = yaml_config("default_tpu.yaml")  # bf16, "conv_only"
         step = {frames: training_reference_phase(device, config.model, batches, 14, gate=False)
@@ -2790,6 +3506,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # the recorded-data path: SQLite, the resize, packed shards, device-resident data
     recorded = recorded_data_phase(device, smi)
+    # evaluation/ and the CLI: vit_flagship.yaml through train, distill, report, serve, plot
+    evaluation = evaluation_phase(device, smi)
+    results.update(evaluation["kernels_on_path"].pop("kernels"))
 
     # where each kernel instance ran: (source, the TPU kernel it replaces (the
     # pack: the JAX denoiser's pack_context_kv, whose layout the kernel's
@@ -2798,6 +3517,23 @@ def main(argv=None) -> int:
     csrc, tpu = "soccerdiffusion_tpu_torch/csrc/", "soccerdiffusion_tpu/ops/"
     flag = lambda name, lanes=tuple(FLAG_LANES): sum(flag_launches[lane][name] for lane in lanes)
     hd32_stack = flag("fused_encoder_stack_fwd") - flag("fused_encoder_stack_fwd_hd64")
+    # phase 14: `cli serve`'s three runs (B=1) and `cli report` (batches of EVAL_BATCH)
+    served = lambda name: sum(run["launches"].get(name, 0) for run in evaluation["serve"].values())
+    reported = lambda name: evaluation["report"]["launches"].get(name, 0)
+    eval_rows = {}
+    for path, count in (("serve", served), ("report", reported)):
+        eval_rows.update({
+            f"fused_vit_block_fwd_{path}": ("fused_vit_block.cu", "fused_vit_block.py:703",
+                                            count("fused_vit_block_fwd")),
+            f"fused_encoder_stack_fwd_hd64_{path}": ("fused_encoder_stack.cu",
+                                                     "fused_encoder_stack.py:274",
+                                                     count("fused_encoder_stack_fwd_hd64")),
+            f"fused_encoder_stack_fwd_imgseq_{path}": (
+                "fused_encoder_stack.cu", "fused_encoder_stack.py:274",
+                count("fused_encoder_stack_fwd") - count("fused_encoder_stack_fwd_hd64")),
+            f"fused_decoder_layer_fwd_hd64_{path}": ("fused_decoder_layer.cu",
+                                                     "fused_decoder_layer.py:343",
+                                                     count("fused_decoder_layer_fwd_hd64"))})
     table = {
         "fused_encoder": ("fused_encoder.cu", "fused_encoder.py:319", launches["fused_encoder"]),
         "fused_chunk": ("fused_chunk.cu", "fused_chunk.py:518", launches["fused_chunk"]),
@@ -2866,6 +3602,7 @@ def main(argv=None) -> int:
                              sum(n["fused_denoise"] for n in s0_launches.values())),
         "fused_denoise_pack_s0": ("fused_denoise.cu", "fused_denoise.py:310",
                                   sum(n["fused_denoise_pack"] for n in s0_launches.values())),
+        **eval_rows,
     }
     kernels = [{"name": name, "route": "cuda", "source": csrc + table[name][0],
                 "replaces": tpu + table[name][1], "launches": table[name][2], **r}
@@ -2898,6 +3635,7 @@ def main(argv=None) -> int:
                                 "flagship": {**distill_flagship, "batch": DISTILL_FLAG_B}},
                     "smem_mirror_cases": smem_cases,
                     "recorded_data": recorded,
+                    "evaluation": evaluation,
                     "gpu": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -21,10 +21,17 @@ JAX package: ``config.py`` is its own copy of the configuration.
 environment variable ``SOCCERDIFFUSION_TPU_DB_PATH``, which the JAX package
 reads too, else ``db.sqlite3`` in the working directory): a database written
 by either package is read by the other.
+
+``DEFAULT_RESAMPLE_RATE_HZ`` and ``IMAGE_MAX_RESAMPLE_RATE_HZ`` are the
+reference's operating point: joint rows at 50 Hz (the control rate of
+``inference/realtime.py`` and ``cli serve``), camera frames at most 10 Hz.
 """
 
 import os
 
 __version__ = "0.1.0"
+
+DEFAULT_RESAMPLE_RATE_HZ = 50
+IMAGE_MAX_RESAMPLE_RATE_HZ = 10
 
 DB_PATH = os.environ.get("SOCCERDIFFUSION_TPU_DB_PATH", os.path.join(os.getcwd(), "db.sqlite3"))

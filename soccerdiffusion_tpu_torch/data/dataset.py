@@ -175,7 +175,10 @@ class WindowedDataset:
 
     @classmethod
     def from_dummy(cls, dummy_recordings, config: ModelConfig, **kwargs) -> "WindowedDataset":
-        """Wrap ``generate_dummy_arrays`` output."""
+        """Wrap ``generate_dummy_arrays`` output. The source recordings stay
+        on ``.dummy_recordings``: the "vision" task's carry the cue latents
+        (``vision_u`` / ``vision_dirs``) that the Bayes-oracle calibration
+        reads (``evaluation/oracle.py``)."""
         recs = [RecordingArrays(
             joint_commands=d.joint_commands[:, : config.num_joints],
             joint_states=d.joint_states[:, : config.num_joints],
@@ -184,7 +187,9 @@ class WindowedDataset:
             game_state_stamps=(np.arange(len(d.game_states)) / 100).astype(np.float32),
             image_stamps=d.image_stamps, images=d.images, vision_u=d.vision_u)
             for d in dummy_recordings]
-        return cls(recs, config, **kwargs)
+        dataset = cls(recs, config, **kwargs)
+        dataset.dummy_recordings = list(dummy_recordings)
+        return dataset
 
     def __len__(self) -> int:
         return self.num_samples

@@ -11,6 +11,7 @@ from soccerdiffusion_tpu_torch.diffusion.ddim import (
 from soccerdiffusion_tpu_torch.diffusion.dpm_solver import (
     parse_solver,
     solver_coef_table,
+    solver_label,
     solver_sample,
     solver_timesteps,
 )
@@ -27,6 +28,7 @@ __all__ = [
     "ddpm_sample",
     "parse_solver",
     "solver_coef_table",
+    "solver_label",
     "solver_sample",
     "solver_timesteps",
 ]

@@ -35,6 +35,12 @@ def parse_solver(solver: str) -> tuple[str, str]:
     return name, spacing
 
 
+def solver_label(solver: str, num_steps: int) -> str:
+    """The sampler's row label, e.g. ("dpmpp@lambda", 10) -> "dpmpp10_lambda"."""
+    name, spacing = parse_solver(solver)
+    return f"{name}{num_steps}" + ("" if spacing == "leading" else f"_{spacing}")
+
+
 def solver_timesteps(schedule: DiffusionSchedule, num_inference_steps: int,
                      spacing: str = "leading") -> np.ndarray:
     """Descending int32 timesteps: "leading" (ddim_timesteps) or "lambda"

@@ -7,7 +7,9 @@ package's embedded-hyperparameters contract: a directory holding
 written to a temporary directory and renamed into place. The JAX package's
 msgpack checkpoints are a different format; a reader for them is not
 ported yet (see ROADMAP.md). ``load_policy_checkpoint`` decodes a
-checkpoint's serving point, as the JAX function of that name does.
+checkpoint's serving point, as the JAX function of that name does;
+``build_policy`` builds a policy from a decoded checkpoint and
+``load_policy`` the one a checkpoint serves.
 """
 
 from __future__ import annotations
@@ -90,3 +92,29 @@ def load_policy_checkpoint(path: str | Path, prefer_ema: bool = True
     steps = int(params.get("distilled_num_steps", 0)) or (
         1 if distilled else int(params.get("distill_teacher_inference_steps", 30)))
     return params, state_dict, ckpt["norm"], steps, distilled
+
+
+def build_policy(model_config, state_dict: dict[str, torch.Tensor],
+                 device: str | torch.device = "cuda"):
+    """A ``DiffusionPolicy`` of ``model_config`` holding ``state_dict``, on
+    ``device`` (the card unless the caller asks for the CPU) in eval mode."""
+    from soccerdiffusion_tpu_torch.models import DiffusionPolicy
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={str(device)!r} requested but CUDA is not available "
+                           "(pass --device cpu for the CPU)")
+    model = DiffusionPolicy(model_config)
+    model.load_state_dict(state_dict)
+    return model.to(device).eval()
+
+
+def load_policy(path: str | Path, device: str | torch.device = "cuda", prefer_ema: bool = True):
+    """The policy a checkpoint serves, on ``device`` (the card unless the
+    caller asks for the CPU) in eval mode: ``(model, normalizer, steps,
+    distilled, hyperparams)`` (``load_policy_checkpoint``'s decoding)."""
+    from soccerdiffusion_tpu_torch.config import Config
+
+    hyperparams, state_dict, normalizer, steps, distilled = load_policy_checkpoint(path, prefer_ema)
+    model = build_policy(Config.from_dict(hyperparams).model, state_dict, device)
+    return model, normalizer, steps, distilled, hyperparams

@@ -133,6 +133,32 @@ def test_recorded_data_modules_are_covered_and_need_no_cv2():
     assert (PACKAGE / "native" / "framepack.cpp").exists()
 
 
+def test_evaluation_and_cli_modules_are_covered_and_import_no_matplotlib():
+    """The evaluation / CLI slice's modules are among those imported above,
+    and importing every module of the port loads no matplotlib (the plots
+    import it when they draw)."""
+    for m in ("soccerdiffusion_tpu_torch.cli", "soccerdiffusion_tpu_torch.evaluation",
+              "soccerdiffusion_tpu_torch.evaluation.openloop",
+              "soccerdiffusion_tpu_torch.evaluation.divergence",
+              "soccerdiffusion_tpu_torch.evaluation.oracle",
+              "soccerdiffusion_tpu_torch.evaluation.report",
+              "soccerdiffusion_tpu_torch.inference.player",
+              "soccerdiffusion_tpu_torch.inference.realtime",
+              "soccerdiffusion_tpu_torch.inference.transport",
+              "soccerdiffusion_tpu_torch.inference.plot", "soccerdiffusion_tpu_torch.data.plot"):
+        assert m in MODULES, m
+    code = "\n".join(["import sys", *[f"import {m}" for m in MODULES],
+                      "assert 'matplotlib' not in sys.modules"])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    for src in sorted(PACKAGE.rglob("*.py")):
+        top = ast.parse(src.read_text()).body
+        for node in top:
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                assert "matplotlib" not in imported_roots(node), f"{src}: {ast.unparse(node)}"
+
+
 def test_cpu_training_step_takes_plain_versions(monkeypatch):
     """A training step with both fused knobs on CPU tensors builds and
     launches no kernel."""
