@@ -175,7 +175,29 @@
    launches), and `cli plot` / `cli db plot-window` writing PNGs where
    matplotlib is installed, failing naming it where it is not. The
    results go under the JSON line's "evaluation" key.
-15. Prints one JSON line of per-kernel results, then as its last line
+15. parallel/ on two ranks that share the card over gloo (each rank its own
+   interpreter, `initialize_distributed` on a free local port, NCCL being
+   one rank a card), each path held against the same work in one process
+   on the card: data-parallel training (`TrainStep.__call__`, t / noise
+   drawn for the global batch from the same seed) of proprio_fused.yaml
+   and vit_flagship.yaml at a global B=64 (2 x 32, 3 steps, rows 4-5 and
+   4-6 launching on every rank) and of default_tpu.yaml in float32 at B=8
+   (the synchronised BatchNorm): every rank's losses, parameters and
+   running statistics equal, the losses within STEP_LOSS_TOL, the update
+   within STEP_UPDATE_TOL and the statistics within TRAIN_TOL of one
+   process; the fleet (`RolloutEngine.make_sharded_rollout`, bench_config's
+   model, ddim30 and distilled1, 1024 robots as 2 x 512, 2 periods, rows
+   1-3): each shard bit for bit one process's rollout over its robots with
+   its folded generator; ring attention (seq=2) and tensor parallelism
+   (model=2) on the h128 unfused model in float32: the forward within
+   PAR_F32_TOL of one process's "xla" forward and two steps against one
+   process; `cli train --mesh data=2 --device cuda:0 --dist-backend gloo`
+   under torch.distributed.run for 2 steps (one checkpoint, which loads).
+   Where the machine has two cards or more, the proprio_fused check again
+   over NCCL (one rank a card); with one card it says that it did not run.
+   Each path's times beside the card's name and power limit (gloo through
+   host memory: a record of the path, not of NCCL).
+16. Prints one JSON line of per-kernel results, then as its last line
    {"ok": true, "device": {...}}. Where one torch.nn call computes the
    same function as a kernel (the encoder-stack, ViT-block and
    decoder-layer forwards; one torch.autograd.grad through the same layers
@@ -193,6 +215,7 @@ phase fails. Imports nothing of JAX or of the JAX package.
     python3 chip_smoke.py --bisect-resnet-bf16
     python3 chip_smoke.py --profile-realtime [--profile-out FILE]
     python3 chip_smoke.py --quality-ledger [--ledger-out DIR]
+    python3 chip_smoke.py --nccl
 
 build the kernels and instead trace, with torch.profiler, the h128 B=64
 training step (fused knobs on, then off), with --flagship the flagship's
@@ -214,7 +237,10 @@ sampler at B=1 on the flagship (ddim30, then the distilled student).
 through the port's CLI on the card (h128, train 2000 steps, 4- and 1-step
 students distilled 400 steps each, the report with dpmpp10@lambda and
 ddim10 rows over 256 windows and 10 chunks; DIR/quality_ledger.{json,md}).
-None prints the ok line.
+--nccl (a machine with two cards or more) runs proprio_fused.yaml's
+data-parallel step over NCCL, one rank a card, on 2 ranks and on every
+card, each against one process (phase 15's check). None prints the ok
+line.
 """
 
 from __future__ import annotations
@@ -3121,6 +3147,403 @@ def evaluation_phase(device, smi) -> dict:
     return out
 
 
+# ------------------------------------------------------- parallel/ (phase 15)
+# two ranks share the card over gloo (NCCL refuses two ranks on one device);
+# every rank's work is held against the same work in one process on the card
+PAR_WORLD = 2
+PAR_TRAIN_B, PAR_RESNET_B, PAR_STEPS = 64, 8, 3  # global batches: 2 x 32, 2 x 4
+PAR_FLEET_B, PAR_PERIODS = 1024, 2  # robots: 2 x 512
+PAR_RING_B = 16
+# the float32 ring / TP forward against one process's "xla" forward, as a
+# share of the output's scale (only the order of float32 sums differs)
+PAR_F32_TOL = 1e-4
+PAR_TRAIN_CASES = {  # (config, batches, seed of the init and the generator)
+    "proprio_fused": ("proprio_fused.yaml", "h128", 31),
+    "vit_flagship": ("vit_flagship.yaml", "flagship", 32),
+    "default_tpu_f32": ("default_tpu.yaml", "resnet", 33),
+}
+PAR_FLEET_LANES = {"ddim30": dict(fused="chunk"), "distilled1": dict(distilled=True, fused=True)}
+
+RANK_CODE = """\
+import sys
+import chip_smoke
+sys.exit(chip_smoke.parallel_rank(sys.argv[1:]))
+"""
+
+
+def par_train_config(name: str):
+    config = yaml_config(PAR_TRAIN_CASES[name][0])
+    if name == "default_tpu_f32":  # the synchronised BatchNorm in float32 (TF32 off)
+        config = dataclasses.replace(config, model=dataclasses.replace(
+            config.model, compute_dtype="float32"))
+    return config
+
+
+def par_ring_config(attention_impl: str):
+    """The h128 configuration unfused in float32: "ring" or its "xla" reference."""
+    return dataclasses.replace(bench_config(), compute_dtype="float32",
+                               attention_impl=attention_impl)
+
+
+def par_inputs() -> dict:
+    """The global batches (CPU tensors) every rank and the one-process runs read."""
+    flag = flagship_train_config(PAR_TRAIN_B)
+    h128 = h128_reference_batches(b=PAR_TRAIN_B, steps=PAR_STEPS)
+    rng = np.random.default_rng(34)
+    ring = random_batch(bench_config(), PAR_RING_B, "cpu", rng)
+    ring["joint_command"] = torch.from_numpy(
+        rng.uniform(0, 2 * np.pi, (PAR_RING_B, 10, 20)).astype(np.float32))
+    return {"h128": h128,
+            "flagship": reference_batches(flag, b=PAR_TRAIN_B, steps=PAR_STEPS),
+            "resnet": reference_batches(yaml_config("default_tpu.yaml"), b=PAR_RESNET_B,
+                                        steps=PAR_STEPS),
+            "ring": ring, "ring_noisy": torch.from_numpy(
+                rng.normal(size=(PAR_RING_B, 10, 20)).astype(np.float32)),
+            "ring_t": torch.from_numpy(rng.integers(0, 1000, (PAR_RING_B,)))}
+
+
+def par_model(cfg, device, seed):
+    from soccerdiffusion_tpu_torch.models import DiffusionPolicy
+    from soccerdiffusion_tpu_torch.utils.jax_params import flax_init_params, load_jax_params
+
+    model = DiffusionPolicy(cfg)
+    return load_jax_params(model, *flax_init_params(model, seed)).to(device)
+
+
+def par_train(cfg, batches, device, seed, mesh=None) -> dict:
+    """PAR_STEPS steps of TrainStep.__call__ (t, noise drawn for the global
+    batch from a generator seeded alike everywhere): this rank's share under
+    ``mesh``, else the whole batch in one process. The losses, grad norms,
+    final parameters and buffers, the launches, and ms per step: the host
+    clock from the device sync ending the first step (a rank's process
+    meets its first cuBLAS / cuDNN calls there) to the one ending the last."""
+    from soccerdiffusion_tpu_torch.data import Normalizer
+    from soccerdiffusion_tpu_torch.diffusion import make_schedule
+    from soccerdiffusion_tpu_torch.parallel.mesh import shard_batch
+    from soccerdiffusion_tpu_torch.parallel.tensor_parallel import shard_model
+    from soccerdiffusion_tpu_torch.training.trainer import create_train_state, make_optimizer, make_train_step
+
+    model = par_model(cfg, device, seed)
+    if mesh is not None:
+        shard_model(model, mesh)
+    opt = make_optimizer(model, 1e-3, 10, grad_clip_norm=1.0)
+    state = create_train_state(model, opt)
+    step = make_train_step(model, make_schedule(1000), opt, Normalizer.identity(cfg.num_joints),
+                           mesh=mesh)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    local = [shard_batch(mesh, b) if mesh is not None else b for b in batches]
+    local = [{k: v.to(device) for k, v in b.items()} for b in local]
+    params0 = {n: p.detach().cpu().clone() for n, p in model.named_parameters()} \
+        if mesh is None else None
+    torch.cuda.synchronize()
+    zero_counters()
+    losses, norms, ends = [], [], []
+    for batch in local:
+        metrics = step(state, batch, generator)
+        losses.append(metrics["loss"].item())  # a device sync
+        norms.append(metrics["grad_norm"].item())
+        ends.append(time.perf_counter())
+    ms = (ends[-1] - ends[0]) * 1e3 / (len(local) - 1) if len(local) > 1 else float("nan")
+    launches = read_counters()
+    tp = getattr(model, "tensor_parallel", None)
+    full = lambda n, t: (t if tp is None else tp.full(n, t)).detach().cpu()
+    return {"loss": losses, "grad_norm": norms, "ms_per_step": ms, "launches": launches,
+            "params0": params0, "params": {n: full(n, p) for n, p in model.named_parameters()},
+            "buffers": {n: b.detach().cpu() for n, b in model.named_buffers()}}
+
+
+def par_forward(cfg, inputs, device, seed, mesh=None):
+    from soccerdiffusion_tpu_torch.parallel.mesh import use_mesh
+    from soccerdiffusion_tpu_torch.parallel.tensor_parallel import shard_model
+
+    model = par_model(cfg, device, seed).eval()
+    if mesh is not None:
+        shard_model(model, mesh)
+    on = lambda v: v.to(device)
+    with torch.no_grad(), use_mesh(mesh):
+        out = model({k: on(v) for k, v in inputs["ring"].items() if k != "joint_command"},
+                    on(inputs["ring_noisy"]), on(inputs["ring_t"]))
+    return out.cpu()
+
+
+def par_fleet(device, mesh=None, rank=0) -> dict:
+    """PAR_PERIODS replan periods of each fleet lane on bench_config's model:
+    the sharded rollout of PAR_FLEET_B robots under ``mesh``, else, in one
+    process, an unsharded rollout over the robots of shard ``rank`` with
+    fold_in(the seeded generator, rank)."""
+    from soccerdiffusion_tpu_torch.inference.rollout import fold_in
+    from soccerdiffusion_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = bench_config()
+    model = build_model(cfg, device)
+    out = {}
+    for i, (lane, kw) in enumerate(PAR_FLEET_LANES.items()):
+        eng = engine(model, cfg, device, **kw)
+        generator = torch.Generator(device=device).manual_seed(40 + i)
+        carry = eng.init(PAR_FLEET_B, generator)
+        if mesh is not None:
+            carry, run = eng.shard_carry(carry, mesh), eng.make_sharded_rollout(PAR_PERIODS, mesh)
+        else:
+            # this shard's robots: the rows of rank ``rank`` of a 2-rank mesh (no group)
+            carry = eng.shard_carry(carry, make_mesh({"data": PAR_WORLD}, PAR_WORLD, rank))
+            carry = dataclasses.replace(carry, generator=fold_in(generator, rank))
+            run = eng.make_rollout_fn(PAR_PERIODS)
+        eng.make_rollout_fn(1)(eng.init(8, torch.Generator(device=device).manual_seed(0)))
+        torch.cuda.synchronize()
+        zero_counters()
+        t0 = time.perf_counter()
+        _, chunks = run(carry)
+        torch.cuda.synchronize()
+        out[lane] = {"chunks": chunks.cpu(), "launches": read_counters(),
+                     "ms_per_period": (time.perf_counter() - t0) * 1e3 / PAR_PERIODS}
+    return out
+
+
+def parallel_rank(argv) -> int:
+    """One rank of the parallel phase (in its own interpreter): argv is
+    (work dir, rank, world, port, backend, device). Joins the process group,
+    runs every parallel path and writes its results to <dir>/rank<r>.pt."""
+    from soccerdiffusion_tpu_torch.parallel import comm
+    from soccerdiffusion_tpu_torch.parallel.distributed import initialize_distributed
+    from soccerdiffusion_tpu_torch.parallel.mesh import make_mesh
+
+    work, rank, world, port, backend, device = argv
+    rank, world = int(rank), int(world)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = initialize_distributed(f"tcp://127.0.0.1:{port}", world, rank, backend=backend,
+                                    device=device)
+    inputs = torch.load(Path(work) / "inputs.pt", weights_only=False)
+    out, t0 = {"backend": backend, "device": str(device)}, time.perf_counter()
+    data = make_mesh({"data": world})
+    for name, (_, batches, seed) in PAR_TRAIN_CASES.items():
+        if backend == "nccl" and name != "proprio_fused":
+            continue  # over NCCL: the data-parallel check of proprio_fused.yaml
+        out[name] = par_train(par_train_config(name).model, inputs[batches], device, seed, data)
+        torch.cuda.empty_cache()
+    if backend == "gloo":
+        out["fleet"] = par_fleet(device, data)
+        for axis in ("seq", "model"):  # a "data" axis of 1 carries the (whole) batch
+            mesh = make_mesh({"data": 1, axis: world})
+            cfg = par_ring_config("ring" if axis == "seq" else "xla")
+            out[f"{axis}_forward"] = par_forward(cfg, inputs, device, 35, mesh)
+            out[f"{axis}_step"] = par_train(cfg, [inputs["ring"]] * 2, device, 35, mesh)
+    out["rank_s"] = time.perf_counter() - t0
+    torch.save(out, Path(work) / f"rank{rank}.pt")
+    comm.barrier()
+    return 0
+
+
+def run_ranks(work: Path, backend: str, devices: list[str], timeout=900) -> list[dict]:
+    """Start PAR_WORLD ranks (one interpreter each) and read their results."""
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, "-c", RANK_CODE, str(work), str(r),
+                               str(len(devices)), str(port), backend, devices[r]],
+                              cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(len(devices))]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        raise AssertionError("parallel ranks failed: " + "".join(
+            f"\n--- rank {r} (exit {procs[r].returncode})\n{logs[r][-3000:]}" for r in failed))
+    return [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(len(devices))]
+
+
+def par_check_train(label, ranks, one, batch, smi, rows=None) -> dict:
+    """Every rank's losses and parameters equal (one all-reduced step each),
+    and held against one process: losses (STEP_LOSS_TOL), the parameters'
+    update (STEP_UPDATE_TOL), BatchNorm statistics (TRAIN_TOL of scale)."""
+    first = ranks[0]
+    for r, got in enumerate(ranks[1:], 1):
+        if got["loss"] != first["loss"] or any(not torch.equal(got["params"][n], p)
+                                               for n, p in first["params"].items()):
+            raise AssertionError(f"{label}: rank {r} holds other losses or parameters than rank 0")
+        if any(not torch.equal(got["buffers"][n], b) for n, b in first["buffers"].items()):
+            raise AssertionError(f"{label}: rank {r}'s BatchNorm statistics differ from rank 0's")
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(first["loss"], one["loss"])]
+    p0 = one["params0"]
+    num = sum(((first["params"][n] - p) ** 2).sum().item() for n, p in one["params"].items())
+    den = sum(((p - p0[n]) ** 2).sum().item() for n, p in one["params"].items())
+    upd = (num / den) ** 0.5
+    stats = [(first["buffers"][n] - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+             for n, b in one["buffers"].items() if n.endswith((".mean", ".var"))]
+    worst = max(stats, default=0.0)
+    rows = batch // PAR_WORLD if rows is None else rows
+    log(f"parallel {label}: {len(ranks)} ranks x {rows} rows vs one process at B={batch}: "
+        f"losses {first['loss']} vs {one['loss']} (relative {max(loss_rel):.3e}, tol "
+        f"{STEP_LOSS_TOL}), update {upd:.3e} (tol {STEP_UPDATE_TOL}), BatchNorm statistics "
+        f"{worst:.3e} (tol {TRAIN_TOL}); ms/step ranks {[r['ms_per_step'] for r in ranks]}, one "
+        f"process {one['ms_per_step']:.3f}; launches per rank "
+        f"{[{n: c for n, c in r['launches'].items() if c} for r in ranks]} [{smi}]")
+    if max(loss_rel) > STEP_LOSS_TOL or upd > STEP_UPDATE_TOL or worst > TRAIN_TOL:
+        raise AssertionError(f"parallel {label} disagrees with one process")
+    return {"loss_rel": max(loss_rel), "update_norm": upd, "running_stats_rel": worst,
+            "ms_per_step_ranks": [r["ms_per_step"] for r in ranks],
+            "ms_per_step_one_process": one["ms_per_step"],
+            "launches_per_rank": [r["launches"] for r in ranks]}
+
+
+def par_check_launches(label, launches, names):
+    for r, got in enumerate(launches):
+        missing = [n for n in names if got[n] == 0]
+        if missing:
+            raise AssertionError(f"parallel {label}: rank {r} launched no {missing}: {got}")
+
+
+def par_cli_phase(work: Path, smi) -> dict:
+    """`cli train --mesh data=2 --device cuda:0 --dist-backend gloo
+    --dummy-data` for 2 steps under torch.distributed.run: one checkpoint,
+    which loads."""
+    from soccerdiffusion_tpu_torch.training.checkpoint import load_checkpoint
+
+    out = work / "cli_ckpt"
+    argv = [sys.executable, "-m", "torch.distributed.run", f"--nproc_per_node={PAR_WORLD}",
+            "--master_addr=127.0.0.1", f"--master_port={_free_port()}", "-m",
+            "soccerdiffusion_tpu_torch.cli", "train", "-c", str(CONFIG_DIR / "proprio_fused.yaml"),
+            "--mesh", f"data={PAR_WORLD}", "--device", "cuda:0", "--dist-backend", "gloo",
+            "--dummy-data", "--epochs", "1", "--steps-per-epoch", "2", "-o", str(out)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=Path(__file__).resolve().parent, capture_output=True,
+                          text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cli train --mesh: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+    ckpt = load_checkpoint(out)
+    checkpoints = sorted(p.name for p in work.iterdir() if p.name.startswith("cli_ckpt"))
+    if ckpt["step"] != 2 or checkpoints != ["cli_ckpt"]:
+        raise AssertionError(f"cli train --mesh: step {ckpt['step']}, {checkpoints}")
+    log(f"parallel cli train --mesh data={PAR_WORLD} (torchrun, gloo, one card): 2 steps, one "
+        f"checkpoint, {seconds:.1f} s with start-up [{smi}]")
+    return {"seconds": seconds, "steps": ckpt["step"]}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def nccl_checks(work: Path, batches, device, smi, worlds) -> dict:
+    """The data-parallel check of proprio_fused.yaml over NCCL, one rank a
+    card, on each of ``worlds`` ranks, against one process on ``device``
+    (``batches``: the global h128 batches, already in <work>/inputs.pt)."""
+    one = par_train(par_train_config("proprio_fused").model, batches, device, 31)
+    out = {}
+    for world in worlds:
+        t0 = time.perf_counter()
+        ranks = run_ranks(work, "nccl", [f"cuda:{r}" for r in range(world)])
+        out[world] = par_check_train("proprio_fused (nccl)", [r["proprio_fused"] for r in ranks],
+                                     one, PAR_TRAIN_B, smi, PAR_TRAIN_B // world)
+        out[world]["wall_s"] = time.perf_counter() - t0
+        par_check_launches(f"nccl x {world}", out[world]["launches_per_rank"], (
+            "fused_encoder_stack_fwd", "fused_encoder_stack_bwd", "fused_decoder_layer_fwd",
+            "fused_decoder_layer_bwd"))
+    return out
+
+
+def nccl_phase(device, smi) -> dict:
+    """``--nccl``: nccl_checks on 2 ranks and on every card of the machine."""
+    cards = torch.cuda.device_count()
+    if cards < PAR_WORLD:
+        raise AssertionError(f"--nccl needs {PAR_WORLD} cards or more (one rank a card); this "
+                             f"machine has {cards}")
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as work:
+        batches = h128_reference_batches(b=PAR_TRAIN_B, steps=PAR_STEPS)
+        torch.save({"h128": batches}, Path(work) / "inputs.pt")
+        return nccl_checks(Path(work), batches, device, smi, sorted({PAR_WORLD, cards}))
+
+
+def parallel_phase(device, smi) -> dict:
+    """Phase 15: parallel/ on two ranks sharing the card over gloo, each path
+    held against one process on the card; the NCCL path where there are two
+    cards or more."""
+    t0 = time.perf_counter()
+    out = {}
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as work:
+        work = Path(work)
+        inputs = par_inputs()
+        torch.save(inputs, work / "inputs.pt")
+        t1 = time.perf_counter()
+        shared = "cuda:0" if torch.device(device).type == "cuda" else "cpu"
+        ranks = run_ranks(work, "gloo", [shared] * PAR_WORLD)
+        out["ranks_s"] = time.perf_counter() - t1
+        # the same work in this process, one piece at a time
+        for name, (_, batches, seed) in PAR_TRAIN_CASES.items():
+            one = par_train(par_train_config(name).model, inputs[batches], device, seed)
+            batch = inputs[batches][0]["joint_command"].shape[0]
+            out[name] = par_check_train(name, [r[name] for r in ranks], one, batch, smi)
+            torch.cuda.empty_cache()
+        par_check_launches("proprio_fused", out["proprio_fused"]["launches_per_rank"], (
+            "fused_encoder_stack_fwd", "fused_encoder_stack_bwd", "fused_decoder_layer_fwd",
+            "fused_decoder_layer_bwd"))
+        par_check_launches("vit_flagship", out["vit_flagship"]["launches_per_rank"], (
+            "fused_vit_block_fwd", "fused_vit_block_bwd", "fused_encoder_stack_fwd_hd64",
+            "fused_encoder_stack_bwd_hd64", "fused_decoder_layer_fwd_hd64",
+            "fused_decoder_layer_bwd_hd64"))
+        # the fleet: each shard bit for bit one process's rollout over its robots
+        fleet = {}
+        for r in range(PAR_WORLD):
+            one = par_fleet(device, rank=r)
+            for lane in PAR_FLEET_LANES:
+                shard = slice(r * PAR_FLEET_B // PAR_WORLD, (r + 1) * PAR_FLEET_B // PAR_WORLD)
+                for got in ranks:
+                    if not torch.equal(got["fleet"][lane]["chunks"][:, shard], one[lane]["chunks"]):
+                        raise AssertionError(f"parallel fleet {lane}: shard {r} differs from one "
+                                             "process's rollout over its robots")
+                fleet.setdefault(lane, {"ms_per_period_one_process_512": []})[
+                    "ms_per_period_one_process_512"].append(one[lane]["ms_per_period"])
+        for lane in PAR_FLEET_LANES:
+            launches = [got["fleet"][lane]["launches"] for got in ranks]
+            fleet[lane].update(ms_per_period_ranks=[g["fleet"][lane]["ms_per_period"]
+                                                    for g in ranks], launches_per_rank=launches)
+            log(f"parallel fleet {lane}: {PAR_WORLD} x {PAR_FLEET_B // PAR_WORLD} robots, "
+                f"{PAR_PERIODS} periods, each shard bit for bit one process's; ms/period ranks "
+                f"{fleet[lane]['ms_per_period_ranks']}, one process ({PAR_FLEET_B // PAR_WORLD} "
+                f"robots) "
+                f"{fleet[lane]['ms_per_period_one_process_512']}; launches {launches} [{smi}]")
+        par_check_launches("fleet ddim30", fleet["ddim30"]["launches_per_rank"],
+                           ("fused_encoder", "fused_chunk"))
+        par_check_launches("fleet distilled1", fleet["distilled1"]["launches_per_rank"],
+                           ("fused_encoder", "fused_denoise", "fused_denoise_pack"))
+        out["fleet"] = fleet
+        # ring attention (seq=2) and tensor parallelism (model=2) against "xla"
+        xla = par_ring_config("xla")
+        want = par_forward(xla, inputs, device, 35)
+        one = par_train(xla, [inputs["ring"]] * 2, device, 35)
+        for axis, label in (("seq", "ring"), ("model", "tensor_parallel")):
+            errs = [(r[f"{axis}_forward"] - want).abs().max().item() / want.abs().max().item()
+                    for r in ranks]
+            log(f"parallel {label} ({axis}={PAR_WORLD}) forward vs one process's xla forward: "
+                f"{max(errs):.3e} of scale (tol {PAR_F32_TOL})")
+            if max(errs) > PAR_F32_TOL:
+                raise AssertionError(f"parallel {label}: the forward disagrees with xla")
+            out[label] = {"forward_rel": max(errs), **par_check_train(
+                label, [r[f"{axis}_step"] for r in ranks], one, PAR_RING_B, smi, PAR_RING_B)}
+        out["cli"] = par_cli_phase(work, smi)
+        if torch.cuda.device_count() >= PAR_WORLD:
+            out["nccl"] = nccl_checks(work, inputs["h128"], device, smi, (PAR_WORLD,))
+        else:
+            out["nccl"] = f"not run: {torch.cuda.device_count()} card(s), NCCL takes one rank a card"
+            log(f"parallel: the NCCL path is not run: this machine has "
+                f"{torch.cuda.device_count()} card(s), NCCL takes one rank a card")
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"parallel phase: {out['phase_s']:.1f} s (ranks {out['ranks_s']:.1f} s) [{smi}]")
+    return out
+
+
 # examples/quality_ledger.py's proprioceptive run (BENCH_CONFIG: bench.py's
 # h128 architecture, lr 1e-3) through the port's train -> distill -> report
 LEDGER_CONFIG = {
@@ -3385,6 +3808,10 @@ def main(argv=None) -> int:
                              "through the port's CLI on the card")
     parser.add_argument("--ledger-out", default="build/quality_ledger",
                         help="directory for the ledger's quality_ledger.{json,md}")
+    parser.add_argument("--nccl", action="store_true",
+                        help="instead of the smoke run: proprio_fused.yaml's data-parallel step "
+                             "over NCCL, one rank a card, on 2 ranks and on every card, against "
+                             "one process (needs two cards or more)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke needs an NVIDIA GPU",
@@ -3410,6 +3837,9 @@ def main(argv=None) -> int:
 
     if args.profile_realtime:
         profile_realtime(device, args.profile_out)
+        return 0
+    if args.nccl:
+        log(json.dumps({"nccl": nccl_phase(device, smi), "gpu": smi}))
         return 0
     if args.quality_ledger:
         ledger = quality_ledger(device, smi, Path(args.ledger_out))
@@ -3509,6 +3939,8 @@ def main(argv=None) -> int:
     # evaluation/ and the CLI: vit_flagship.yaml through train, distill, report, serve, plot
     evaluation = evaluation_phase(device, smi)
     results.update(evaluation["kernels_on_path"].pop("kernels"))
+    # parallel/: two ranks on the card over gloo, each path against one process
+    parallel = parallel_phase(device, smi)
 
     # where each kernel instance ran: (source, the TPU kernel it replaces (the
     # pack: the JAX denoiser's pack_context_kv, whose layout the kernel's
@@ -3636,6 +4068,7 @@ def main(argv=None) -> int:
                     "smem_mirror_cases": smem_cases,
                     "recorded_data": recorded,
                     "evaluation": evaluation,
+                    "parallel": parallel,
                     "gpu": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

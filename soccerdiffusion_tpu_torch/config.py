@@ -10,7 +10,6 @@ ROADMAP.md lists when each comes.
 from __future__ import annotations
 
 import dataclasses
-import math
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -185,8 +184,9 @@ def check_supported(cfg: ModelConfig) -> None:
     (``TypeError`` for a config that is not this package's ``ModelConfig``).
 
     ``attention_impl``: "xla" (``plain_attention``), "pallas" (the
-    hand-written flash kernel, ``ops/flash_attention.py``) and "auto" are
-    accepted; "ring" (sequence parallelism, ``parallel/``) is not ported.
+    hand-written flash kernel, ``ops/flash_attention.py``), "auto" and
+    "ring" (sequence parallelism over the ambient mesh's ``seq`` axis,
+    ``parallel/ring_attention.py``) are accepted.
     The port's "auto" takes the flash kernel for CUDA tensors with
     Tq * Tk >= 256^2 scores per head and ``plain_attention`` otherwise (the
     JAX package's rule with the TPU read as the card), so every shipped
@@ -215,10 +215,7 @@ def check_supported(cfg: ModelConfig) -> None:
     ViT block) is not ported."""
     if not isinstance(cfg, ModelConfig):
         raise TypeError(f"expected soccerdiffusion_tpu_torch.config.ModelConfig, got {type(cfg)}")
-    if cfg.attention_impl == "ring":
-        raise NotImplementedError(
-            f"attention_impl='ring': sequence-parallel ring attention (parallel/) is {_SEE}")
-    if cfg.attention_impl not in ("xla", "pallas", "auto"):
+    if cfg.attention_impl not in ("xla", "pallas", "auto", "ring"):
         raise ValueError(f"unknown attention_impl: {cfg.attention_impl!r}")
     if cfg.encoder_fused_block:
         raise NotImplementedError(f"encoder_fused_block: the proprioceptive fused block is {_SEE}")
@@ -238,19 +235,6 @@ def check_remat_image_encoder(remat: bool | str, encoder_type: str) -> None:
     if encoder_type not in ("resnet18", "resnet50"):
         raise ValueError(f"remat_image_encoder='conv_only' names the conv outputs of the ResNet "
                          f"encoders; {encoder_type!r} has none: use remat_image_encoder: true")
-
-
-def check_training_supported(tc: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for a training setting outside the
-    ported slices: ``mesh_shape`` over more than one device (the JAX
-    trainer builds its data / model mesh from it; the port trains on one
-    card until ``parallel/`` is ported). ``{}`` and axes of size 1 train on
-    one device."""
-    devices = math.prod(tc.mesh_shape.values())
-    if devices != 1:
-        raise NotImplementedError(
-            f"train.mesh_shape={tc.mesh_shape!r} asks for {devices} devices: multi-device "
-            f"training (parallel/) is {_SEE}; use {{}} or axes of size 1")
 
 
 def check_serving_supported(group_robots: int = 1, kv_quant: str = "none",

@@ -236,13 +236,21 @@ class DeviceResidentData:
     Built from ``dataset[i]`` for every window (a ``WindowedDataset``); a
     ``PackedDataset`` has no per-window items and is refused, as the JAX
     package's ``DeviceResidentData`` cannot take one either. A CUDA device
-    without a GPU raises."""
+    without a GPU raises, and so does a process group of several ranks: the
+    dataset lives on one device, as the JAX class refuses a multi-device
+    runtime."""
 
     def __init__(self, dataset, device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device={device!r} requested but CUDA is not available "
                                "(pass device='cpu' for the CPU)")
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+            raise ValueError(f"DeviceResidentData holds the whole dataset on one device; under "
+                             f"{dist.get_world_size()} ranks train from host batches (no "
+                             "--device-data)")
         if not hasattr(dataset, "__getitem__"):
             raise ValueError(f"DeviceResidentData stacks dataset[i] for every window; "
                              f"{type(dataset).__name__} has no per-window items (--device-data "

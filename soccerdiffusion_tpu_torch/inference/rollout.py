@@ -33,6 +33,13 @@ applies do; a model left in train mode by the trainer serves the same.
 
 The plant is the JAX engine's first-order joint-tracking stub; it measures
 serving capacity, it is not a physics simulator.
+
+Fleet scale-out (``make_sharded_rollout``): the robots split over a mesh
+axis, each rank runs its own engine (the fused kernels on its card) on its
+shard with no collective inside a period, its chunk noise from a generator
+folded from the replicated one and its rank (``fold_in``), and the chunks
+are all-gathered at the end. A model split by tensor parallelism is not
+served.
 """
 
 from __future__ import annotations
@@ -64,6 +71,7 @@ from soccerdiffusion_tpu_torch.inference.sampler import check_guidance, eval_mod
 from soccerdiffusion_tpu_torch.ops.fused_chunk import FusedChunkSampler
 from soccerdiffusion_tpu_torch.ops.fused_denoise import FusedDenoiser
 from soccerdiffusion_tpu_torch.ops.fused_encoder import FusedContextEncoder
+from soccerdiffusion_tpu_torch.parallel import comm
 
 
 @dataclass(frozen=True)
@@ -77,6 +85,23 @@ class RolloutCarry:
     controller: ControllerState
     plant: PlantState
     generator: torch.Generator  # chunk noise
+
+
+def fold_in(generator: torch.Generator, index: int) -> torch.Generator:
+    """A generator for shard ``index``, on ``generator``'s device, seeded from
+    one draw of ``generator`` and ``index`` (the counterpart of
+    ``jax.random.fold_in`` on the replicated key). ``generator`` advances by
+    that one draw, alike on every rank that holds the same one, so that
+    the next call folds fresh seeds."""
+    draw = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                             device=generator.device).item())
+    words = np.random.SeedSequence([draw, int(index)]).generate_state(2, np.uint32)
+    seed = (int(words[0]) << 31) ^ int(words[1])
+    return torch.Generator(device=generator.device).manual_seed(seed)
+
+
+def _rows(value, start: int, stop: int):
+    return None if value is None else value[start:stop]
 
 
 class RolloutEngine:
@@ -104,6 +129,9 @@ class RolloutEngine:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device={device!r} requested but CUDA is not available")
         param = next(model.parameters())
+        if getattr(model, "tensor_parallel", None) is not None:
+            raise ValueError("the engine serves whole weights; a model split by tensor "
+                             "parallelism is not served (load its checkpoint into a new model)")
         if param.device.type != self.device.type:
             raise ValueError(f"the model's parameters are on {param.device}, the engine's "
                              f"device is {self.device}: move the model first")
@@ -318,5 +346,45 @@ class RolloutEngine:
                 carry, executed = self.replan_period(carry)
                 chunks.append(executed)
             return carry, torch.stack(chunks)
+
+        return rollout
+
+    def shard_carry(self, carry: RolloutCarry, mesh, axis: str = "data") -> RolloutCarry:
+        """This rank's robots of a fleet-wide carry: the rows of its index
+        over ``axis`` (the robots must split evenly); the generator is kept."""
+        n, i = mesh.axis_size(axis), mesh.axis_index(axis)
+        b = carry.plant.positions.shape[0]
+        if b % n:
+            raise ValueError(f"{b} robots do not split over the {n} ranks of {axis!r}")
+        lo, hi = i * (b // n), (i + 1) * (b // n)
+        c = carry.controller
+        controller = c.replace(**{f: _rows(getattr(c, f), lo, hi) for f in (
+            "joint_command_history", "joint_state_history", "imu_history", "game_state",
+            "images", "image_tokens")})
+        plant = PlantState(positions=carry.plant.positions[lo:hi], phase=carry.plant.phase[lo:hi])
+        return RolloutCarry(controller=controller, plant=plant, generator=carry.generator)
+
+    def make_sharded_rollout(self, num_chunks: int, mesh, axis: str = "data"):
+        """Fleet scale-out: ``rollout(carry) -> (carry, chunks)`` on this
+        rank's shard of the robots (``shard_carry``), ``num_chunks`` replan
+        periods of this rank's engine with no collective inside them; the
+        chunks come back gathered over ``axis`` to (num_chunks, B,
+        replan_every, J) on every rank (the JAX ``make_sharded_rollout_fn``).
+
+        The shard's chunk noise comes from ``fold_in(carry.generator,
+        rank's index over axis)``: each shard is bit-identical to an
+        unsharded rollout over its robots with that generator. The
+        returned carry is the shard's, with the replicated generator,
+        advanced by one draw, so that repeated calls fold fresh noise."""
+        base = self.make_rollout_fn(num_chunks)
+        group, index = mesh.group(axis), mesh.axis_index(axis)
+
+        def rollout(carry: RolloutCarry):
+            shard = RolloutCarry(controller=carry.controller, plant=carry.plant,
+                                 generator=fold_in(carry.generator, index))
+            out, chunks = base(shard)
+            out = RolloutCarry(controller=out.controller, plant=out.plant,
+                               generator=carry.generator)
+            return out, comm.all_gather(chunks, group, dim=1)
 
         return rollout

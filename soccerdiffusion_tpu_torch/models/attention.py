@@ -13,7 +13,13 @@ The backend ``f(q, k, v) -> o`` over (B, T, H, D) tensors is chosen by
               ``plain_attention`` (the JAX package's ``flash_attention_auto``
               with the TPU read as the card). No shipped shape reaches the
               threshold (the largest is 100 x 100).
-  * "ring":   sequence-parallel ring attention, not ported yet.
+  * "ring":   ``parallel/ring_attention.auto_ring_attention``: ring or
+              head-sharded attention over the ambient mesh's ``seq`` axis
+              (``parallel/mesh.use_mesh``), plain attention without one.
+
+Under tensor parallelism (``parallel/tensor_parallel.py``) the projections
+hold the rank's heads only: the layer splits and merges heads at the width
+its projections give, not at ``hidden_dim``.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from torch import nn
 
 from soccerdiffusion_tpu_torch.models.layers import Linear
 from soccerdiffusion_tpu_torch.ops.flash_attention import flash_attention
+from soccerdiffusion_tpu_torch.parallel.ring_attention import auto_ring_attention
 
 AttentionFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -64,8 +71,7 @@ def resolve_attention_fn(impl: str) -> AttentionFn:
     if impl == "auto":
         return auto_attention
     if impl == "ring":
-        raise NotImplementedError("attention_impl='ring' (sequence-parallel ring attention) is "
-                                  "not ported yet (see ROADMAP.md, Queue 1, parallel/)")
+        return auto_ring_attention
     raise ValueError(f"unknown attention impl: {impl!r}")
 
 
@@ -105,4 +111,4 @@ class MultiHeadAttention(nn.Module):
         else:
             k, v = self.compute_kv(x_q if x_kv is None else x_kv)
         out = self.attend(q, k, v)
-        return self.out_proj(out.reshape(x_q.shape[0], x_q.shape[1], self.hidden_dim))
+        return self.out_proj(out.reshape(x_q.shape[0], x_q.shape[1], out.shape[2] * out.shape[3]))

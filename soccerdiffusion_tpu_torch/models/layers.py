@@ -17,12 +17,22 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from soccerdiffusion_tpu_torch.ops._train_math import LN_EPS  # noqa: F401 (flax's default)
+from soccerdiffusion_tpu_torch.parallel.comm import all_reduce_sum
+from soccerdiffusion_tpu_torch.parallel.mesh import ambient_mesh, batch_group
 
 
 class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), bias)
+
+    def full_weight(self) -> torch.Tensor:
+        """The whole (out, in) weight, as a fused kernel takes it (a
+        tensor-parallel layer gathers its slices: parallel/tensor_parallel.py)."""
+        return self.weight
+
+    def full_bias(self) -> torch.Tensor | None:
+        return self.bias
 
 
 class LayerNorm(nn.LayerNorm):
@@ -107,6 +117,19 @@ def remat(fn, *args, context_fn=None):
     return checkpoint(body, *args, use_reentrant=False, **kw)
 
 
+def batch_statistics(x32: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(biased variance, mean) over every axis but the last: this rank's
+    rows, or the global batch's under an ambient mesh (``BatchNorm``)."""
+    dims = tuple(range(x32.ndim - 1))
+    group, n, _ = batch_group(ambient_mesh())
+    if n == 1:
+        return torch.var_mean(x32, dim=dims, correction=0)
+    count = float(x32.numel() // x32.shape[-1] * n)  # every rank holds as many rows
+    mean = all_reduce_sum(x32.sum(dims), group) / count
+    var = all_reduce_sum(torch.square(x32 - mean).sum(dims), group) / count
+    return var, mean
+
+
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` over the last (channel) axis, momentum 0.9, eps
     1e-5: params ``weight`` / ``bias`` (flax ``scale`` / ``bias``) and the
@@ -122,7 +145,17 @@ class BatchNorm(nn.Module):
     normalise with the running statistics. The result is (x - mean) *
     rsqrt(var + eps) * weight + bias in float32, cast to the input's dtype.
     The batch statistics come from one ``aten.var_mean`` call, which the
-    "conv_only" remat policy saves (``models/vision.py``)."""
+    "conv_only" remat policy saves (``models/vision.py``).
+
+    Under an ambient mesh (``parallel/mesh.use_mesh``) whose batch axes
+    hold more than one rank, the statistics are the *global* batch's, as
+    flax's BatchNorm reduces over a batch that GSPMD shards: the sums are
+    all-reduced over the batch axes for the mean, then the centred sums of
+    squares for the biased variance (two passes in float32), each
+    all-reduce differentiable (``parallel/comm.all_reduce_sum``: its
+    backward sums the gradient over the ranks). The running statistics are
+    then equal on every rank. A "conv_only" recompute runs these two
+    all-reduces again, on every rank alike."""
 
     def __init__(self, num_features: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -135,7 +168,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))  # at least float32
         if self.training:
-            var, mean = torch.var_mean(x32, dim=tuple(range(x.ndim - 1)), correction=0)
+            var, mean = batch_statistics(x32)
             if not _RECOMPUTE.active:
                 with torch.no_grad():
                     m = self.momentum

@@ -99,6 +99,11 @@ def library() -> ctypes.CDLL:
         if failed:
             cmd, text, rc = failed[0]
             raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{text[-4000:]}")
+        # several processes may build at once (ranks that share a card): each
+        # writes its own pid-tagged objects and library and renames the
+        # library into place atomically, so a loader sees a whole file (a
+        # later rename swaps in an identical one; a process that has it
+        # loaded keeps its mapping); build.log is whichever build wrote last
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _ENTRIES.items():

@@ -55,17 +55,18 @@ def layer_weights(layer) -> list[torch.Tensor]:
     """The float32 master parameters of a ``TransformerDecoderLayer`` in
     ``WEIGHT_NAMES`` order (differentiable)."""
     sa, ca, mlp = layer.self_attn, layer.cross_attn, layer.mlp
-    k = lambda lin: lin.weight.t()
+    k = lambda lin: lin.full_weight().t()
+    b = lambda lin: lin.full_bias()
     return [
         layer.norm1.weight, layer.norm1.bias,
         torch.cat([k(sa.q_proj), k(sa.k_proj), k(sa.v_proj)], dim=1),
-        torch.cat([sa.q_proj.bias, sa.k_proj.bias, sa.v_proj.bias]),
-        k(sa.out_proj), sa.out_proj.bias,
+        torch.cat([b(sa.q_proj), b(sa.k_proj), b(sa.v_proj)]),
+        k(sa.out_proj), b(sa.out_proj),
         layer.norm2.weight, layer.norm2.bias,
-        k(ca.q_proj), ca.q_proj.bias, k(ca.k_proj), ca.k_proj.bias,
-        k(ca.v_proj), ca.v_proj.bias, k(ca.out_proj), ca.out_proj.bias,
+        k(ca.q_proj), b(ca.q_proj), k(ca.k_proj), b(ca.k_proj),
+        k(ca.v_proj), b(ca.v_proj), k(ca.out_proj), b(ca.out_proj),
         layer.norm3.weight, layer.norm3.bias,
-        k(mlp.linear1), mlp.linear1.bias, k(mlp.linear2), mlp.linear2.bias,
+        k(mlp.linear1), b(mlp.linear1), k(mlp.linear2), b(mlp.linear2),
     ]
 
 

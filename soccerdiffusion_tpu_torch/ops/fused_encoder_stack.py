@@ -55,14 +55,14 @@ STACK_WEIGHTS = ("g1", "be1", "wqkv", "bqkv", "wo", "bo", "g2", "be2", "w1", "b1
 def encoder_layer_weights(layer) -> list[torch.Tensor]:
     """The float32 master parameters of one ``TransformerEncoderLayer`` in
     ``STACK_WEIGHTS`` order (differentiable), Dense kernels as (in, out)."""
-    kernel = lambda lin: lin.weight.t()
+    kernel = lambda lin: lin.full_weight().t()
     sa = layer.self_attn
     return [layer.norm1.weight, layer.norm1.bias,
             torch.cat([kernel(sa.q_proj), kernel(sa.k_proj), kernel(sa.v_proj)], dim=1),
-            torch.cat([sa.q_proj.bias, sa.k_proj.bias, sa.v_proj.bias]),
-            kernel(sa.out_proj), sa.out_proj.bias, layer.norm2.weight, layer.norm2.bias,
-            kernel(layer.mlp.linear1), layer.mlp.linear1.bias,
-            kernel(layer.mlp.linear2), layer.mlp.linear2.bias]
+            torch.cat([sa.q_proj.full_bias(), sa.k_proj.full_bias(), sa.v_proj.full_bias()]),
+            kernel(sa.out_proj), sa.out_proj.full_bias(), layer.norm2.weight, layer.norm2.bias,
+            kernel(layer.mlp.linear1), layer.mlp.linear1.full_bias(),
+            kernel(layer.mlp.linear2), layer.mlp.linear2.full_bias()]
 
 
 def stack_weights(layers) -> list[torch.Tensor]:

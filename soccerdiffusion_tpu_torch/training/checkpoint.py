@@ -10,6 +10,13 @@ ported yet (see ROADMAP.md). ``load_policy_checkpoint`` decodes a
 checkpoint's serving point, as the JAX function of that name does;
 ``build_policy`` builds a policy from a decoded checkpoint and
 ``load_policy`` the one a checkpoint serves.
+
+Under a process group every rank calls ``save_checkpoint``: a model split
+over ``"model"`` (``parallel/tensor_parallel.py``) gathers its parameters,
+EMA and AdamW moments to their whole shapes first (a collective), rank 0
+alone writes, and the others wait for it at a barrier; the checkpoint is
+the single-process one. ``load_checkpoint`` into such a model slices the
+whole tensors to the rank's share.
 """
 
 from __future__ import annotations
@@ -23,12 +30,23 @@ from typing import Any
 import torch
 
 from soccerdiffusion_tpu_torch.data.normalizer import Normalizer
+from soccerdiffusion_tpu_torch.parallel import comm, distributed
 
 FORMAT = "soccerdiffusion_tpu_torch/1"
 
 
 def save_checkpoint(path: str | Path, state, normalizer: Normalizer,
                     hyperparams: dict[str, Any], epoch: int) -> None:
+    params, ema = state.model.state_dict(), state.ema
+    optimizer = state.optimizer.adamw.state_dict()
+    tp = getattr(state.model, "tensor_parallel", None)
+    if tp is not None:
+        params = {k: tp.full(k, v) for k, v in params.items()}
+        ema = {k: tp.full(k, v) for k, v in ema.items()}
+        optimizer = _map_moments(optimizer, state.optimizer.state_names, tp.full)
+    if distributed.rank() != 0:
+        comm.barrier()
+        return
     path = Path(path)
     tmp = path.with_name(path.name + ".tmp")
     if tmp.exists():
@@ -38,9 +56,9 @@ def save_checkpoint(path: str | Path, state, normalizer: Normalizer,
     torch.save({
         "format": FORMAT,
         "step": int(state.step),
-        "params": cpu(state.model.state_dict()),
-        "optimizer": state.optimizer.adamw.state_dict(),
-        "ema": cpu(state.ema),
+        "params": cpu(params),
+        "optimizer": optimizer,
+        "ema": cpu(ema),
         "norm": {"mean": normalizer.mean.cpu(), "std": normalizer.std.cpu()},
     }, tmp / "state.pt")
     (tmp / "hyperparams.json").write_text(
@@ -48,6 +66,17 @@ def save_checkpoint(path: str | Path, state, normalizer: Normalizer,
     if path.exists():
         shutil.rmtree(path)
     os.replace(tmp, path)
+    comm.barrier()
+
+
+def _map_moments(optimizer: dict, names: list[str], fn) -> dict:
+    """The AdamW state dict with ``fn(name, tensor)`` applied to each
+    parameter-shaped moment (``exp_avg``, ``exp_avg_sq``)."""
+    state = {}
+    for index, moments in optimizer["state"].items():
+        name = names[int(index)]
+        state[index] = {k: fn(name, v) if k != "step" else v for k, v in moments.items()}
+    return {**optimizer, "state": state}
 
 
 def load_checkpoint(path: str | Path, state=None) -> dict[str, Any]:
@@ -60,10 +89,16 @@ def load_checkpoint(path: str | Path, state=None) -> dict[str, Any]:
         raise ValueError(f"{path} is not a {FORMAT} checkpoint")
     meta = json.loads((path / "hyperparams.json").read_text())
     if state is not None:
-        state.model.load_state_dict(raw["params"])
-        state.optimizer.adamw.load_state_dict(raw["optimizer"])
+        params, ema, optimizer = raw["params"], raw["ema"], raw["optimizer"]
+        tp = getattr(state.model, "tensor_parallel", None)
+        if tp is not None:
+            params = {k: tp.local(k, v) for k, v in params.items()}
+            ema = {k: tp.local(k, v) for k, v in ema.items()}
+            optimizer = _map_moments(optimizer, state.optimizer.state_names, tp.local)
+        state.model.load_state_dict(params)
+        state.optimizer.adamw.load_state_dict(optimizer)
         device = next(state.model.parameters()).device
-        state.ema = {k: v.to(device) for k, v in raw["ema"].items()}
+        state.ema = {k: v.to(device) for k, v in ema.items()}
         state.step = raw["step"]
     return {**raw, "norm": Normalizer(mean=raw["norm"]["mean"], std=raw["norm"]["std"]),
             "hyperparams": meta["hyperparams"], "current_epoch": meta["current_epoch"]}

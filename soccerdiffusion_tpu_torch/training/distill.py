@@ -20,6 +20,7 @@ CLI (the JAX package's arguments, in its order, plus ``--device``):
       [-o out] [--student-steps K] [--guidance SCALE@MOD,...] [--teacher-draws K]
       [--dummy-data | --db db.sqlite3] [--device-data] [--epochs N]
       [--steps-per-epoch N] [--seed S] [--metrics m.jsonl] [--device cuda|cpu]
+      [--mesh data=N] [--dist-backend gloo|nccl]
 
 The teacher is a checkpoint of the port (``training/checkpoint.py``), its
 EMA weights where it keeps an average. The student starts as a separate copy
@@ -31,21 +32,30 @@ hyperparameters carry ``distilled_decoder: True`` (1 step) or
 ``distilled_teacher_draws``). The data are ``training/train.py``'s:
 ``--dummy-data``, else the SQLite database at ``--db`` or ``DB_PATH`` (a
 missing one raises before any work); ``--device-data`` puts the dataset on
-the device once (``DeviceResidentData``). A ``--mesh`` over more than one
-device raises.
+the device once (``DeviceResidentData``, one rank only).
+
+``--mesh`` distils data-parallel over several processes, started as for
+``training/train.py`` (torchrun; ``--dist-backend``): the global
+``batch_size`` splits over the mesh's batch axes, each rank draws the
+global batch's student and teacher noise from the same seed and keeps its
+rows (``DistillStep``), the student's gradients are averaged over the batch
+axes, and the reported loss and gradient norm are the global ones. The
+parameters stay whole on every rank (a ``"model"`` axis replicates them, as
+the JAX distiller does); a ``"seq"`` axis carries ``attention_impl:
+"ring"``. Rank 0 alone writes the metrics and the checkpoint.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
-import dataclasses
 import logging
 
 import torch
 import yaml
 
-from soccerdiffusion_tpu_torch.config import Config, check_training_supported
+from soccerdiffusion_tpu_torch.config import Config
 from soccerdiffusion_tpu_torch.data.pipeline import (
     DeviceResidentData,
     null_modalities,
@@ -56,14 +66,18 @@ from soccerdiffusion_tpu_torch.data.pipeline import (
 from soccerdiffusion_tpu_torch.diffusion import DiffusionSchedule, ddim_sample, make_schedule
 from soccerdiffusion_tpu_torch.inference.sampler import eval_mode
 from soccerdiffusion_tpu_torch.models import DiffusionPolicy
+from soccerdiffusion_tpu_torch.parallel import comm, distributed
+from soccerdiffusion_tpu_torch.parallel.mesh import Mesh, batch_group, shard_batch, use_mesh
 from soccerdiffusion_tpu_torch.training.checkpoint import load_policy_checkpoint, save_checkpoint
 from soccerdiffusion_tpu_torch.training.metrics import MetricsLogger
 from soccerdiffusion_tpu_torch.training.trainer import (
     Optimizer,
     TrainState,
     create_train_state,
+    global_rows,
     lr_at_step,
     make_optimizer,
+    sync_gradients,
 )
 
 logger = logging.getLogger("soccerdiffusion_tpu_torch")
@@ -76,12 +90,13 @@ TRAINABLE = ("diffusion_action_generator", "step_encoding")
 class DistillStep:
     """``step(state, teacher, batch, generator) -> metrics``: one student
     update. ``metrics`` holds device tensors: ``loss`` and ``grad_norm``
-    (over every parameter of the student, the encoders' zero)."""
+    (over every parameter of the student, the encoders' zero). With
+    ``mesh``, the batch is this rank's rows of the global batch."""
 
     def __init__(self, model, schedule: DiffusionSchedule, optimizer: Optimizer,
                  teacher_inference_steps: int = 30, student_steps: int = 1,
                  guidance_scale: float = 1.0, guidance_null: tuple[str, ...] = (),
-                 teacher_draws: int = 1):
+                 teacher_draws: int = 1, mesh: Mesh | None = None):
         if student_steps < 1:
             raise ValueError(f"student_steps must be >= 1, got {student_steps}")
         if teacher_draws < 1:
@@ -91,19 +106,25 @@ class DistillStep:
         self.guidance_scale, self.guidance_null = guidance_scale, tuple(guidance_null)
         self.guided = guidance_scale != 1.0 and bool(guidance_null)
         self.teacher_draws = teacher_draws
+        self.mesh = mesh
+        self.dp_group, self.dp_size, self.dp_index = batch_group(mesh)
 
     def __call__(self, state: TrainState, teacher, batch: dict[str, torch.Tensor],
                  generator: torch.Generator) -> dict:
         """Draws the student's noise (B, P, J) and, for K > 1 teacher draws,
-        the draws' noise (K, B, P, J) from ``generator``, on its device."""
+        the draws' noise (K, B, P, J) from ``generator``, on its device, for
+        the global batch (B = rows x the batch axes' ranks), and keeps this
+        rank's rows."""
         cfg = self.model.config
-        shape = (batch["joint_command"].shape[0], cfg.trajectory_prediction_length, cfg.num_joints)
+        rows, i = batch["joint_command"].shape[0], self.dp_index
+        shape = (rows * self.dp_size, cfg.trajectory_prediction_length, cfg.num_joints)
         noise = torch.randn(shape, generator=generator, device=generator.device)
         draw_noise = None
         if self.teacher_draws > 1:
             draw_noise = torch.randn((self.teacher_draws, *shape), generator=generator,
                                      device=generator.device)
-        return self.apply(state, teacher, batch, noise, draw_noise)
+            draw_noise = global_rows(draw_noise, rows, i, 1)
+        return self.apply(state, teacher, batch, global_rows(noise, rows, i), draw_noise)
 
     @torch.no_grad()
     def teacher_trajectory(self, teacher, batch: dict, noise: torch.Tensor,
@@ -135,7 +156,12 @@ class DistillStep:
 
     def apply(self, state: TrainState, teacher, batch: dict[str, torch.Tensor],
               noise: torch.Tensor, draw_noise: torch.Tensor | None = None) -> dict:
-        """The step with the given student noise and (K > 1 draws) draw noise."""
+        """The step with the given student noise and (K > 1 draws) draw noise,
+        of this rank's rows."""
+        with use_mesh(self.mesh) if self.mesh is not None else contextlib.nullcontext():
+            return self._apply(state, teacher, batch, noise, draw_noise)
+
+    def _apply(self, state, teacher, batch, noise, draw_noise) -> dict:
         model = self.model
         batch = prepare_batch(batch, keep_u8=model.config.use_images)
         context, target = self.teacher_trajectory(teacher, batch, noise, draw_noise)
@@ -158,8 +184,10 @@ class DistillStep:
         with torch.no_grad():
             # the parameters the loss does not reach have zero gradients, as
             # under jax.grad: they add nothing to the norm
-            grads = [p.grad for p in params if p.grad is not None]
-            metrics = {"loss": loss.detach(),
+            reached = [p for p in params if p.grad is not None]
+            sync_gradients(reached, self.dp_group, self.dp_size)
+            grads = [p.grad for p in reached]
+            metrics = {"loss": comm.all_reduce_(loss.detach().clone(), self.dp_group) / self.dp_size,
                        "grad_norm": torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))}
             self.optimizer.step(state.step)
             state.step += 1
@@ -169,7 +197,7 @@ class DistillStep:
 def make_distill_step(model, schedule: DiffusionSchedule, optimizer: Optimizer,
                       teacher_inference_steps: int = 30, student_steps: int = 1,
                       guidance_scale: float = 1.0, guidance_null: tuple[str, ...] = (),
-                      teacher_draws: int = 1) -> DistillStep:
+                      teacher_draws: int = 1, mesh: Mesh | None = None) -> DistillStep:
     """The distillation step of the student ``model`` (its optimizer masked to
     ``TRAINABLE``: ``make_optimizer(..., trainable=TRAINABLE)``).
     ``student_steps=1``: one forward at t=0 is the trajectory; K > 1: a
@@ -177,9 +205,10 @@ def make_distill_step(model, schedule: DiffusionSchedule, optimizer: Optimizer,
     ``guidance_scale != 1`` with ``guidance_null`` runs the teacher with
     classifier-free guidance (guidance distillation: the student bakes it in
     and serves unguided). ``teacher_draws=K > 1`` distils the mean of K
-    teacher rollouts from independent noise."""
+    teacher rollouts from independent noise. ``mesh``: this rank's share of
+    a data-parallel step."""
     return DistillStep(model, schedule, optimizer, teacher_inference_steps, student_steps,
-                       guidance_scale, guidance_null, teacher_draws)
+                       guidance_scale, guidance_null, teacher_draws, mesh)
 
 
 def parse_args(argv=None):
@@ -203,7 +232,9 @@ def parse_args(argv=None):
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--steps-per-epoch", type=int, default=None)
     parser.add_argument("--mesh", type=str, default=None,
-                        help="mesh axes, e.g. 'data=1'; more than one device is not ported yet")
+                        help='mesh shape over the ranks, e.g. "data=4"')
+    parser.add_argument("--dist-backend", type=str, default=None, choices=("nccl", "gloo"),
+                        help="process-group backend (default: nccl on cards, gloo on the CPU)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--metrics", type=str, default=None)
     parser.add_argument("--device", type=str, default="cuda",
@@ -211,21 +242,23 @@ def parse_args(argv=None):
     return parser, parser.parse_args(argv)
 
 
-def parse_mesh(spec: str | None) -> dict[str, int]:
-    if not spec:
-        return {}
-    return {k: int(v) for k, v in (kv.split("=") for kv in spec.split(","))}
-
-
 def main(argv=None) -> TrainState:
-    from soccerdiffusion_tpu_torch.training.train import build_dataset
+    started = not distributed.is_initialized()
+    try:
+        return _main(argv)
+    finally:
+        if started:
+            distributed.shutdown_distributed()
+
+
+def _main(argv=None) -> TrainState:
+    from soccerdiffusion_tpu_torch.training.train import build_dataset, parse_mesh, training_mesh
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     parser, args = parse_args(argv)
     with open(args.config) as f:
         params = yaml.safe_load(f)
     config = Config.from_dict(params)
-    check_training_supported(dataclasses.replace(config.train, mesh_shape=parse_mesh(args.mesh)))
     g_scale, g_null = 1.0, ()
     if args.guidance is not None:
         try:
@@ -233,11 +266,10 @@ def main(argv=None) -> TrainState:
         except ValueError as e:
             parser.error(str(e))
         logger.info(f"guidance distillation: teacher CFG w={g_scale:g} nulling {list(g_null)}")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device={args.device!r} requested but CUDA is not available "
-                           "(pass --device cpu for the CPU)")
     tc = config.train
+    device = distributed.initialize_distributed(backend=args.dist_backend, device=args.device)
+    mesh = training_mesh(parse_mesh(args.mesh), tc.batch_size)
+    rank0 = distributed.rank() == 0
     epochs = args.epochs if args.epochs is not None else tc.epochs
     dataset = build_dataset(config, args.seed, args.dummy_data, db=args.db)
     steps_per_epoch = len(dataset) // tc.batch_size
@@ -260,7 +292,8 @@ def main(argv=None) -> TrainState:
     step_fn = make_distill_step(student, make_schedule(tc.train_denoising_timesteps), optimizer,
                                 teacher_inference_steps=tc.distill_teacher_inference_steps,
                                 student_steps=args.student_steps, guidance_scale=g_scale,
-                                guidance_null=g_null, teacher_draws=args.teacher_draws)
+                                guidance_null=g_null, teacher_draws=args.teacher_draws,
+                                mesh=mesh)
     params = dict(params)
     if args.student_steps == 1:
         params["distilled_decoder"] = True
@@ -277,26 +310,29 @@ def main(argv=None) -> TrainState:
         device_data = DeviceResidentData(dataset, device)
         logger.info(f"dataset resident on {device} ({len(device_data)} windows)")
     generator = torch.Generator(device=device).manual_seed(args.seed)
-    metrics_logger = MetricsLogger(args.metrics)
+    metrics_logger = MetricsLogger(args.metrics if rank0 else None)
     log_every = max(1, tc.log_every)
     try:
         for epoch in range(epochs):
             if device_data is not None:
                 batches = device_data.batches(tc.batch_size, shuffle=True, seed=args.seed + epoch)
             else:
-                batches = prefetch_to_device(
-                    dataset.batches(tc.batch_size, shuffle=True, seed=args.seed + epoch), device)
+                host = dataset.batches(tc.batch_size, shuffle=True, seed=args.seed + epoch)
+                if mesh is not None:
+                    host = (shard_batch(mesh, b) for b in host)
+                batches = prefetch_to_device(host, device)
             for i, batch in enumerate(batches):
                 if i >= steps_per_epoch:
                     batches.close()
                     break
                 metrics = step_fn(state, teacher, batch, generator)
-                if state.step % log_every == 0 or i == steps_per_epoch - 1:
+                if rank0 and (state.step % log_every == 0 or i == steps_per_epoch - 1):
                     metrics_logger.log(state.step - 1, {
                         "loss": metrics["loss"], "grad_norm": metrics["grad_norm"],
                         "lr": lr_at_step(tc.lr, total_steps, state.step - 1), "epoch": epoch})
             save_checkpoint(args.output, state, normalizer, params, epoch)
-            logger.info(f"epoch {epoch} done; distilled checkpoint -> {args.output}")
+            if rank0:
+                logger.info(f"epoch {epoch} done; distilled checkpoint -> {args.output}")
     finally:
         metrics_logger.close()
     return state

@@ -5,7 +5,7 @@
       [-o out_dir] [--dummy-data | --db db.sqlite3] [--packed | --device-data]
       [--epochs N] [--steps-per-epoch N] [--seed S] [--metrics metrics.jsonl]
       [--decoder-pretraining] [--pretrained-decoder ckpt_dir] [--device cuda|cpu]
-      [--pretrained-weights resnet.pth]
+      [--pretrained-weights resnet.pth] [--mesh data=2,model=2] [--dist-backend gloo|nccl]
 
 Config-or-checkpoint hyperparameters (the config wins, with warnings for
 keys that differ), the normaliser fitted on ``num_normalization_samples``
@@ -38,6 +38,24 @@ any resume: the second half of ``--decoder-pretraining``.
 ``aux_cue_weight`` trains the cue head on the dataset's ``vision_u`` labels
 and is switched off, with a warning, where the dataset has none (only the
 dummy "vision" task's windows carry them; a ``PackedDataset`` emits none).
+
+Several processes (``parallel/``): start one per rank with
+``python -m torch.distributed.run --nproc_per_node=N -m
+soccerdiffusion_tpu_torch.training.train ... --mesh data=N``; each joins the
+process group from torchrun's environment (``initialize_distributed``:
+``nccl`` on the cards, one rank a card, ``gloo`` on the CPU;
+``--dist-backend gloo`` with ``--device cuda:0`` puts every rank on one
+card). ``--mesh`` (else ``train.mesh_shape``, JAX's syntax) lays the ranks
+out: ``batch_size`` is the global batch, split over ``"data"`` (and
+``"dcn"``), and must divide by them; a ``"model"`` axis splits the
+transformer projections (``parallel/tensor_parallel.py``); a ``"seq"`` axis
+carries ``attention_impl: "ring"``. Every rank builds the same model and
+iterates the same seeded global batches, keeping its rows
+(``shard_batch``); rank 0 alone writes the metrics JSONL and the
+checkpoints, which are the single-process ones, and resume loads them on
+every rank. ``--device-data`` holds the whole dataset on one device and is
+refused under several ranks. A mesh that does not match the number of
+processes raises.
 """
 
 from __future__ import annotations
@@ -51,12 +69,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from soccerdiffusion_tpu_torch.config import Config, check_training_supported
+from soccerdiffusion_tpu_torch.config import Config
 from soccerdiffusion_tpu_torch.data import Normalizer, WindowedDataset, generate_dummy_arrays
 from soccerdiffusion_tpu_torch.data.packed import PackedDataset
 from soccerdiffusion_tpu_torch.data.pipeline import DeviceResidentData, prefetch_to_device
 from soccerdiffusion_tpu_torch.diffusion import make_schedule
 from soccerdiffusion_tpu_torch.models import DiffusionPolicy
+from soccerdiffusion_tpu_torch.parallel import distributed
+from soccerdiffusion_tpu_torch.parallel.mesh import batch_group, make_mesh, shard_batch
+from soccerdiffusion_tpu_torch.parallel.tensor_parallel import shard_model
 from soccerdiffusion_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
 from soccerdiffusion_tpu_torch.training.metrics import MetricsLogger
 from soccerdiffusion_tpu_torch.training.trainer import (
@@ -89,6 +110,8 @@ class RunOptions:
     db: str | None = None  # the SQLite dataset without dummy_data (None: DB_PATH)
     device_data: bool = False
     pretrained_decoder: str | None = None  # a checkpoint whose decoder and step token to load
+    mesh: dict[str, int] | None = None  # overrides train.mesh_shape
+    dist_backend: str | None = None  # None: nccl on cards, gloo on the CPU
 
 
 def parse_args(argv=None):
@@ -118,7 +141,34 @@ def parse_args(argv=None):
     parser.add_argument("--pretrained-weights", type=str, default=None,
                         help="local torchvision resnet18 / resnet50 state dict (.pth) for the "
                              "ResNet image encoder's backbone")
+    parser.add_argument("--mesh", type=str, default=None,
+                        help='mesh shape over the ranks, e.g. "data=4" or "data=2,model=2" '
+                             "(default: train.mesh_shape)")
+    parser.add_argument("--dist-backend", type=str, default=None, choices=("nccl", "gloo"),
+                        help="process-group backend (default: nccl on cards, gloo on the CPU; "
+                             "gloo lets several ranks share one card)")
     return parser.parse_args(argv)
+
+
+def parse_mesh(spec: str | None) -> dict[str, int]:
+    """``"data=4,model=2"`` -> {"data": 4, "model": 2}; None or "" -> {}."""
+    if not spec:
+        return {}
+    return {k: int(v) for k, v in (kv.split("=") for kv in spec.split(","))}
+
+
+def training_mesh(mesh_shape: dict[str, int] | None, batch_size: int):
+    """The mesh over the process group's ranks (None for one rank); raises
+    where the shape does not match the ranks or the global batch does not
+    split over the batch axes."""
+    mesh = make_mesh(mesh_shape or None)
+    if mesh.size == 1:
+        return None
+    _, ranks, _ = batch_group(mesh)
+    if batch_size % ranks:
+        raise ValueError(f"batch_size {batch_size} (the global batch) does not divide by the "
+                         f"{ranks} ranks of the mesh's batch axes ({mesh.shape})")
+    return mesh
 
 
 def resolve_params(args) -> dict:
@@ -185,13 +235,15 @@ def load_pretrained_decoder(model: torch.nn.Module, path: str) -> list[str]:
     ``step_encoding.*`` parameters of the checkpoint at ``path`` into
     ``model``; every other parameter stays. Returns the names copied."""
     raw = load_checkpoint(path)["params"]
+    tp = getattr(model, "tensor_parallel", None)
     copied = []
     for name, p in model.named_parameters():
         if name.split(".")[0] in ("diffusion_action_generator", "step_encoding") and name in raw:
-            if raw[name].shape != p.shape:
+            value = raw[name] if tp is None else tp.local(name, raw[name])
+            if value.shape != p.shape:
                 raise ValueError(f"{path}: {name} has shape {tuple(raw[name].shape)}, the model's "
                                  f"{tuple(p.shape)}")
-            p.copy_(raw[name])
+            p.copy_(value)
             copied.append(name)
     return copied
 
@@ -206,14 +258,13 @@ def epoch_order(dataset, boundary: np.ndarray | None, frac: float, seed: int) ->
 
 
 def train(config: Config, opts: RunOptions, hyperparams: dict | None = None):
-    """The training loop on ``opts.device``; returns the final ``TrainState``."""
+    """The training loop on ``opts.device`` (this rank's, under several
+    processes); returns the final ``TrainState``."""
     tc = config.train
-    check_training_supported(tc)
     epochs = opts.epochs if opts.epochs is not None else tc.epochs
-    device = torch.device(opts.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device={opts.device!r} requested but CUDA is not available "
-                           "(pass device='cpu' / --device cpu for the CPU)")
+    device = distributed.initialize_distributed(backend=opts.dist_backend, device=opts.device)
+    mesh = training_mesh(opts.mesh if opts.mesh is not None else tc.mesh_shape, tc.batch_size)
+    rank0 = distributed.rank() == 0
     if opts.device_data and opts.packed:
         raise ValueError("--device-data cannot be combined with --packed: DeviceResidentData "
                          "stacks per-window items, which a PackedDataset does not have")
@@ -235,6 +286,8 @@ def train(config: Config, opts: RunOptions, hyperparams: dict | None = None):
         logger.info("no --pretrained-weights: the ResNet image encoder starts from its random "
                     "init (the reference starts from ImageNet weights)")
     model = model.to(device)
+    if mesh is not None:
+        shard_model(model, mesh)
     lr_mults = None
     if m.use_images and tc.image_encoder_lr_mult != 1.0:
         lr_mults = {"image_sequence_encoder": tc.image_encoder_lr_mult}
@@ -260,7 +313,7 @@ def train(config: Config, opts: RunOptions, hyperparams: dict | None = None):
     step_fn = make_train_step(model, make_schedule(tc.train_denoising_timesteps), optimizer,
                               normalizer, decoder_pretraining=opts.decoder_pretraining,
                               ema_decay=tc.ema_decay, modality_dropout=tc.modality_dropout,
-                              aux_cue_weight=aux_cue_weight)
+                              aux_cue_weight=aux_cue_weight, mesh=mesh)
     device_data = None
     if opts.device_data:
         device_data = DeviceResidentData(dataset, device)
@@ -271,7 +324,7 @@ def train(config: Config, opts: RunOptions, hyperparams: dict | None = None):
         logger.info(f"boundary oversampling {tc.boundary_oversample:g}: {len(boundary)} boundary "
                     f"windows of {len(dataset)}")
     generator = torch.Generator(device=device).manual_seed(opts.seed)
-    metrics_logger = MetricsLogger(opts.metrics)
+    metrics_logger = MetricsLogger(opts.metrics if rank0 else None)
     log_every = max(1, tc.log_every)
     hyperparams = config.to_dict() if hyperparams is None else hyperparams
     try:
@@ -282,15 +335,18 @@ def train(config: Config, opts: RunOptions, hyperparams: dict | None = None):
                 batches = device_data.batches(tc.batch_size, shuffle=True, seed=opts.seed + epoch,
                                               order=order)
             else:
-                batches = prefetch_to_device(dataset.batches(
-                    tc.batch_size, shuffle=True, seed=opts.seed + epoch, order=order), device)
+                host = dataset.batches(tc.batch_size, shuffle=True, seed=opts.seed + epoch,
+                                       order=order)
+                if mesh is not None:  # every rank draws the global batch and keeps its rows
+                    host = (shard_batch(mesh, b) for b in host)
+                batches = prefetch_to_device(host, device)
             for i, batch in enumerate(batches):
                 if i >= steps_per_epoch:
                     batches.close()
                     break
                 metrics = step_fn(state, batch, generator)
                 window += 1
-                if state.step % log_every == 0:
+                if state.step % log_every == 0 and rank0:
                     loss = float(metrics["loss"])  # the window's one device sync
                     now = time.perf_counter()
                     metrics_logger.log(state.step - 1, {
@@ -302,7 +358,8 @@ def train(config: Config, opts: RunOptions, hyperparams: dict | None = None):
                         grads=metrics["grad_norms_by_layer"])
                     window, t0 = 0, now
             save_checkpoint(opts.output, state, normalizer, hyperparams, epoch)
-            logger.info(f"epoch {epoch} done; checkpoint -> {opts.output}")
+            if rank0:
+                logger.info(f"epoch {epoch} done; checkpoint -> {opts.output}")
     finally:
         metrics_logger.close()
     return state
@@ -319,8 +376,15 @@ def main(argv=None):
                       steps_per_epoch=args.steps_per_epoch, seed=args.seed,
                       metrics=args.metrics, decoder_pretraining=args.decoder_pretraining,
                       device=args.device, pretrained_weights=args.pretrained_weights, db=args.db,
-                      device_data=args.device_data, pretrained_decoder=args.pretrained_decoder)
-    return train(Config.from_dict(params), opts, hyperparams=params)
+                      device_data=args.device_data, pretrained_decoder=args.pretrained_decoder,
+                      mesh=parse_mesh(args.mesh) if args.mesh else None,
+                      dist_backend=args.dist_backend)
+    started = not distributed.is_initialized()
+    try:
+        return train(Config.from_dict(params), opts, hyperparams=params)
+    finally:
+        if started:
+            distributed.shutdown_distributed()
 
 
 if __name__ == "__main__":

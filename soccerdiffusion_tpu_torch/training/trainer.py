@@ -32,10 +32,28 @@ clipping stays global, before AdamW. With ``aux_cue_weight`` > 0 the loss
 adds the cue head's masked MSE against the batch's ``vision_u`` labels
 (``DiffusionPolicy.forward_with_cue``), reported as ``aux_cue_loss``.
 ``flat_optimizer`` is not ported.
+
+Data parallelism (``mesh``, ``parallel/mesh.py``): ``batch_size`` is the
+global batch and each rank of the mesh's batch axes (``"data"``, or
+``"dcn"`` x ``"data"``) steps on its rows of it. The step draws t, the noise
+and the masks for the *global* batch from the generator (the same seed on
+every rank) and keeps its rows, as the JAX step draws them for the whole
+sharded batch from one key; the loss is each rank's mean, and the gradients
+are averaged over the batch axes (one all-reduce of every gradient), so
+that W ranks step as one process at the global batch. Clipping, the
+reported ``grad_norm`` and ``loss`` (and ``aux_cue_loss``, whose masked mean
+divides by the global count of valid labels) are the global ones; the
+AdamW update and the EMA are then equal on every rank. The forward and
+backward run under the mesh (``use_mesh``): the ResNets' BatchNorm
+normalises with the global batch's statistics and ``attention_impl:
+"ring"`` splits the sequence over ``"seq"``. A model split over ``"model"``
+(``parallel/tensor_parallel.py``) sums the squares of its slices' gradients
+over the model group for the norm.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass, field
 
@@ -45,6 +63,8 @@ import torch
 from soccerdiffusion_tpu_torch.data.normalizer import Normalizer
 from soccerdiffusion_tpu_torch.data.pipeline import apply_dropout_masks, draw_dropout_masks, prepare_batch
 from soccerdiffusion_tpu_torch.diffusion import DiffusionSchedule, add_noise
+from soccerdiffusion_tpu_torch.parallel import comm
+from soccerdiffusion_tpu_torch.parallel.mesh import Mesh, batch_group, use_mesh
 
 _SEE = "not ported yet (see ROADMAP.md)"
 
@@ -89,19 +109,24 @@ class Optimizer:
         if any(p.dtype != torch.float32 for p in self.params):
             raise ValueError("the optimizer updates float32 master parameters")
         self.lr, self.total_steps, self.grad_clip_norm = lr, total_steps, grad_clip_norm
-        groups: dict[float, list[torch.Tensor]] = {}
+        groups: dict[float, list[tuple[str, torch.Tensor]]] = {}
         for name, p in named:
-            groups.setdefault(float((lr_mults or {}).get(name.split(".")[0], 1.0)), []).append(p)
+            groups.setdefault(float((lr_mults or {}).get(name.split(".")[0], 1.0)), []).append(
+                (name, p))
+        # the parameter names in the order of the AdamW state's indices
+        self.state_names = [name for g in groups.values() for name, _ in g]
         # one multi-tensor kernel per group and update on the card (the same update)
         self.adamw = torch.optim.AdamW(
-            [{"params": ps, "lr_mult": m} for m, ps in groups.items()], lr=lr,
+            [{"params": [p for _, p in g], "lr_mult": m} for m, g in groups.items()], lr=lr,
             betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay,
             fused=self.params[0].is_cuda or None)
 
-    def step(self, count: int) -> None:
-        """The ``count``-th update (0-based) from the parameters' grads."""
+    def step(self, count: int, norm: torch.Tensor | None = None) -> None:
+        """The ``count``-th update (0-based) from the parameters' grads;
+        ``norm`` is their global norm where the caller has it (a
+        tensor-parallel model's spans the ranks' slices)."""
         if self.grad_clip_norm > 0.0:
-            clip_by_global_norm([p.grad for p in self.params], self.grad_clip_norm)
+            clip_by_global_norm([p.grad for p in self.params], self.grad_clip_norm, norm)
         lr = lr_at_step(self.lr, self.total_steps, count)
         # a group restored from a checkpoint written before the groups had lr_mult: 1
         for group in self.adamw.param_groups:
@@ -128,14 +153,40 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
-def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float,
+                        norm: torch.Tensor | None = None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: scale every g by max_norm / norm
     when norm >= max_norm (no epsilon, unlike torch's clip_grad_norm_).
+    ``norm`` (default: ``global_norm(grads)``) is the norm to clip by.
     Returns the norm before clipping."""
-    norm = global_norm(grads)
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, scale)
     return norm
+
+
+def sync_gradients(params: list[torch.Tensor], group, size: int) -> None:
+    """Average the parameters' gradients over ``group`` (``size`` ranks) in
+    one all-reduce of their concatenation."""
+    if size == 1:
+        return
+    grads = [p.grad for p in params]
+    flat = comm.all_reduce_(torch.cat([g.reshape(-1) for g in grads]), group)
+    flat.div_(size)
+    parts = flat.split([g.numel() for g in grads])
+    torch._foreach_copy_(grads, [part.view_as(g) for part, g in zip(parts, grads)])
+
+
+def gradient_norms(named: dict[str, torch.Tensor], tp=None) -> torch.Tensor:
+    """The norm of each gradient of ``named`` (a stacked vector); a split
+    parameter's is the whole gradient's, its slices' squares summed over the
+    model group of ``tp`` (a ``TensorParallel``)."""
+    norms = torch.stack(torch._foreach_norm(list(named.values())))
+    if tp is not None and tp.size > 1:
+        split = torch.tensor([n in tp.dims for n in named], device=norms.device)
+        sq = comm.all_reduce_(torch.where(split, norms ** 2, torch.zeros_like(norms)), tp.group)
+        norms = torch.where(split, torch.sqrt(sq), norms)
+    return norms
 
 
 @dataclass
@@ -153,16 +204,25 @@ def create_train_state(model: torch.nn.Module, optimizer: Optimizer, ema: bool =
                       ema={n: p.detach().clone() for n, p in model.named_parameters()} if ema else {})
 
 
+def global_rows(draw: torch.Tensor, rows: int, index: int, dim: int = 0) -> torch.Tensor:
+    """Rank ``index``'s ``rows`` of a draw made for the global batch."""
+    return draw.narrow(dim, index * rows, rows)
+
+
 class TrainStep:
     """``step(state, batch, generator) -> metrics``: one optimizer update.
     ``metrics`` holds device tensors (reading them waits for the device):
     ``loss``, ``grad_norm``, ``grad_norms_by_layer`` (per top-level module)
-    and, with ``aux_cue_weight`` > 0, ``aux_cue_loss``."""
+    and, with ``aux_cue_weight`` > 0, ``aux_cue_loss``. With ``mesh``, the
+    batch is this rank's rows of the global batch (module docstring)."""
 
     def __init__(self, model, schedule: DiffusionSchedule, optimizer: Optimizer,
                  normalizer: Normalizer, decoder_pretraining: bool = False, ema_decay: float = 0.0,
-                 modality_dropout: float = 0.0, aux_cue_weight: float = 0.0):
+                 modality_dropout: float = 0.0, aux_cue_weight: float = 0.0,
+                 mesh: Mesh | None = None):
         self.aux_cue_weight = aux_cue_weight
+        self.mesh = mesh
+        self.dp_group, self.dp_size, self.dp_index = batch_group(mesh)
         self.model, self.schedule, self.optimizer = model, schedule, optimizer
         device = next(model.parameters()).device
         self.normalizer = normalizer.to(device)
@@ -173,26 +233,36 @@ class TrainStep:
                  generator: torch.Generator) -> dict:
         """Draws t (B,), the noise (B, P, J), for decoder pretraining the
         random context (B, 10, hidden) and, with modality dropout, the (5, B)
-        masks from ``generator``, in that order, on its device."""
+        masks from ``generator``, in that order, on its device: for the
+        global batch of B = rows x the batch axes' ranks, of which the step
+        keeps this rank's rows."""
         target = batch["joint_command"]
-        bsz, dev = target.shape[0], generator.device
+        rows, dev, i = target.shape[0], generator.device, self.dp_index
+        bsz = rows * self.dp_size
         t = torch.randint(0, self.schedule.num_train_timesteps, (bsz,), generator=generator,
                           device=dev)
-        noise = torch.randn(target.shape, generator=generator, device=dev)
+        noise = torch.randn((bsz, *target.shape[1:]), generator=generator, device=dev)
         ctx = None
         if self.decoder_pretraining:
             ctx = torch.randn((bsz, 10, self.model.config.hidden_dim), generator=generator, device=dev)
+            ctx = global_rows(ctx, rows, i)
         masks = None
         if self.modality_dropout > 0.0:
-            masks = draw_dropout_masks(bsz, self.modality_dropout, generator)
-        return self.apply(state, batch, t, noise, ctx, masks)
+            masks = global_rows(draw_dropout_masks(bsz, self.modality_dropout, generator), rows, i, 1)
+        return self.apply(state, batch, global_rows(t, rows, i), global_rows(noise, rows, i), ctx,
+                          masks)
 
     def apply(self, state: TrainState, batch: dict[str, torch.Tensor], t: torch.Tensor,
               noise: torch.Tensor, ctx: torch.Tensor | None = None,
               masks: torch.Tensor | None = None) -> dict:
         """The step with given timesteps, noise, (decoder pretraining) random
-        context tokens and (modality dropout) (5, B) dropout masks."""
-        model = self.model
+        context tokens and (modality dropout) (5, B) dropout masks, each of
+        this rank's rows."""
+        with use_mesh(self.mesh) if self.mesh is not None else contextlib.nullcontext():
+            return self._apply(state, batch, t, noise, ctx, masks)
+
+    def _apply(self, state, batch, t, noise, ctx, masks) -> dict:
+        model, group, n = self.model, self.dp_group, self.dp_size
         model.train()
         batch = prepare_batch(batch, keep_u8=model.config.use_images)
         if masks is not None:
@@ -206,7 +276,10 @@ class TrainStep:
             pred, cue = model.forward_with_cue(batch, noisy, t)
             label = batch["vision_u"].float()
             valid = batch.get("vision_u_valid", torch.ones_like(label)).float()
-            aux = torch.sum(valid * (cue - label) ** 2) / torch.clamp(torch.sum(valid), min=1.0)
+            # the masked mean over the global batch: this rank's sum over the
+            # global count, times the ranks (the loss is averaged over them)
+            count = comm.all_reduce_(torch.sum(valid).detach(), group)
+            aux = n * torch.sum(valid * (cue - label) ** 2) / torch.clamp(count, min=1.0)
         else:
             pred = model(batch, noisy, t)
         loss = torch.mean((pred.float() - noise.float()) ** 2)
@@ -220,19 +293,22 @@ class TrainStep:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         with torch.no_grad():
-            norms = torch._foreach_norm([p.grad for p in params.values()])
+            sync_gradients(list(params.values()), group, n)
+            norms = gradient_norms({k: p.grad for k, p in params.items()},
+                                   getattr(model, "tensor_parallel", None))
             tops: dict[str, list[torch.Tensor]] = {}
-            for name, n in zip(params, norms):
-                tops.setdefault(name.split(".")[0], []).append(n)
+            for name, norm in zip(params, norms):
+                tops.setdefault(name.split(".")[0], []).append(norm)
+            grad_norm = torch.linalg.vector_norm(norms)
             metrics = {
-                "loss": loss.detach(),
-                "grad_norm": torch.linalg.vector_norm(torch.stack(norms)),
+                "loss": comm.all_reduce_(loss.detach().clone(), group) / n,
+                "grad_norm": grad_norm,
                 "grad_norms_by_layer": {k: torch.linalg.vector_norm(torch.stack(v))
                                         for k, v in tops.items()},
             }
             if aux is not None:
-                metrics["aux_cue_loss"] = aux.detach()
-            self.optimizer.step(state.step)
+                metrics["aux_cue_loss"] = comm.all_reduce_(aux.detach().clone(), group) / n
+            self.optimizer.step(state.step, grad_norm)
             state.step += 1
             if self.ema_decay > 0.0:
                 step = float(state.step)
@@ -246,9 +322,10 @@ class TrainStep:
 def make_train_step(model, schedule: DiffusionSchedule, optimizer: Optimizer,
                     normalizer: Normalizer, decoder_pretraining: bool = False,
                     ema_decay: float = 0.0, modality_dropout: float = 0.0,
-                    aux_cue_weight: float = 0.0) -> TrainStep:
+                    aux_cue_weight: float = 0.0, mesh: Mesh | None = None) -> TrainStep:
     """The train step. ``ema_decay > 0`` keeps ``state.ema`` (seed it with
     ``create_train_state(ema=True)``), warming the decay up as
-    ``min(ema_decay, (1 + t) / (10 + t))`` at update count t."""
+    ``min(ema_decay, (1 + t) / (10 + t))`` at update count t. ``mesh``:
+    this rank's share of a data / tensor / sequence-parallel step."""
     return TrainStep(model, schedule, optimizer, normalizer, decoder_pretraining, ema_decay,
-                     modality_dropout, aux_cue_weight)
+                     modality_dropout, aux_cue_weight, mesh)

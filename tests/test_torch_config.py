@@ -65,8 +65,9 @@ def test_yaml_round_trips_like_jax(path):
 
 def test_check_supported_takes_the_flagship_and_rejects_resnet():
     """Every shipped YAML is accepted (the ResNet ones since the ResNet / Swin
-    slice), and so is the aux cue head (since the recorded-data slice); what
-    still raises: encoder_fused_block, "ring" and the unported GELUs
+    slice), and so is the aux cue head (since the recorded-data slice) and
+    attention_impl "ring" without the fused knobs (since the parallel/
+    slice); what still raises: encoder_fused_block and the unported GELUs
     (NotImplementedError), and remat_image_encoder "conv_only" on a ViT or
     Swin or any other string (ValueError)."""
     port.check_supported(port.Config.from_yaml(str(FLAGSHIP)).model)
@@ -75,10 +76,10 @@ def test_check_supported_takes_the_flagship_and_rejects_resnet():
     port.check_supported(dataclasses.replace(resnet, remat_image_encoder="conv_only"))
     flagship = port.Config.from_yaml(str(FLAGSHIP)).model
     port.check_supported(dataclasses.replace(flagship, aux_cue_head=True))
+    port.check_supported(dataclasses.replace(flagship, attention_impl="ring",
+                                             encoder_fused_stack=False, decoder_fused_block=False))
     for kw in (dict(vit_fused_gelu="poly"), dict(vit_fused_gelu="bf16"),
-               dict(encoder_fused_block=True),
-               dict(attention_impl="ring", encoder_fused_stack=False,
-                    decoder_fused_block=False)):
+               dict(encoder_fused_block=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port.check_supported(dataclasses.replace(flagship, **kw))
     for cfg, remat in ((flagship, "conv_only"),

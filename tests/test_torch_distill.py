@@ -305,12 +305,13 @@ def test_cli_trains_distills_and_serves(tmp_path):
     (["--device", "cuda"], RuntimeError, "CUDA is not available"),
     (["--db", "DB", "--device", "cpu"], None, None),
     (["--dummy-data", "--device-data", "--device", "cpu"], None, None),
-    (["--dummy-data", "--mesh", "data=2", "--device", "cpu"], NotImplementedError,
-     "mesh_shape.*ROADMAP"),
+    (["--dummy-data", "--mesh", "data=2", "--device", "cpu"], ValueError,
+     "needs 2 ranks, have 1"),
     (["--device", "cpu"], FileNotFoundError, "no SQLite dataset at .*default.sqlite3"),
 ], ids=["cuda", "db", "device_data", "mesh", "no_dummy_data"])
 def test_cli_refusals(tmp_path, monkeypatch, flags, error, match):
-    """What the CLI refuses (no card, a mesh over two devices, no database
+    """What the CLI refuses (no card, a mesh over more ranks than the process
+    group holds (one process here: the parallel/ slice distils over several), no database
     at DB_PATH without --dummy-data) and, since the recorded-data slice, the
     two it takes: a SQLite database (--db) and the dataset resident on the
     device (--device-data), each distilling a teacher 2 steps."""

@@ -133,8 +133,7 @@ def test_resolve_attention_fn():
     assert attention.resolve_attention_fn("xla") is attention.plain_attention
     assert attention.resolve_attention_fn("pallas") is flash_attention
     assert attention.resolve_attention_fn("auto") is attention.auto_attention
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.resolve_attention_fn("ring")
+    assert attention.resolve_attention_fn("ring") is attention.auto_ring_attention
     with pytest.raises(ValueError, match="unknown attention impl"):
         attention.resolve_attention_fn("cudnn")
 

@@ -53,6 +53,8 @@ def _imports_nothing_of_jax(statements):
 
 
 def test_port_imports_without_jax():
+    for module in ("distributed", "mesh", "ring_attention", "comm", "tensor_parallel"):
+        assert f"soccerdiffusion_tpu_torch.parallel.{module}" in MODULES
     _imports_nothing_of_jax([f"import {m}" for m in MODULES])
 
 

@@ -1,7 +1,7 @@
 """The port's training CLI (training/train.py) on the CPU: a few steps on
 the synthetic data with the fused knobs on give finite losses, write a
 checkpoint that loads back equal, and resume from it; a ``train.mesh_shape``
-over more than one device is refused (``parallel/`` is not ported), a
+over more ranks than the process group holds raises (one process here), a
 one-device mesh trains."""
 
 import json
@@ -90,8 +90,9 @@ def test_default_device_is_the_card(run):
 
 
 # train.mesh_shape: the JAX trainer builds its device mesh from it; the port
-# trains on one card until parallel/ is ported, so a mesh over more than one
-# device is refused, and {} or axes of size 1 train
+# lays the process group's ranks out on it (parallel/mesh.py), so a mesh over
+# more ranks than the process holds (one here) raises, and {} or axes of size 1
+# train (several ranks: tests/test_torch_parallel_models.py)
 MULTI_DEVICE_MESHES = {"data8": {"data": 8}, "data4-model2": {"data": 4, "model": 2},
                        "data2-model1": {"data": 2, "model": 1}}
 
@@ -101,11 +102,12 @@ def test_multi_device_mesh_is_refused(mesh, tmp_path):
     config = Config.from_dict({**CONFIG, "mesh_shape": mesh})
     opts = train.RunOptions(output=str(tmp_path / "ckpt"), dummy_data=True, epochs=1,
                             steps_per_epoch=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh_shape.*ROADMAP"):
+    need = int(np.prod(list(mesh.values())))
+    with pytest.raises(ValueError, match=f"needs {need} ranks, have 1"):
         train.train(config, opts)
     path = tmp_path / "mesh.yaml"
     path.write_text(yaml.safe_dump({**CONFIG, "mesh_shape": mesh}))
-    with pytest.raises(NotImplementedError, match="mesh_shape.*ROADMAP"):
+    with pytest.raises(ValueError, match=f"needs {need} ranks, have 1"):
         train.main(["--config", str(path), "--dummy-data", "--steps-per-epoch", "1",
                     "-o", str(tmp_path / "ckpt"), "--device", "cpu"])
     assert not (tmp_path / "ckpt").exists()
