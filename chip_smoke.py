@@ -178,26 +178,53 @@
 15. parallel/ on two ranks that share the card over gloo (each rank its own
    interpreter, `initialize_distributed` on a free local port, NCCL being
    one rank a card), each path held against the same work in one process
-   on the card: data-parallel training (`TrainStep.__call__`, t / noise
-   drawn for the global batch from the same seed) of proprio_fused.yaml
-   and vit_flagship.yaml at a global B=64 (2 x 32, 3 steps, rows 4-5 and
-   4-6 launching on every rank) and of default_tpu.yaml in float32 at B=8
-   (the synchronised BatchNorm): every rank's losses, parameters and
-   running statistics equal, the losses within STEP_LOSS_TOL, the update
-   within STEP_UPDATE_TOL and the statistics within TRAIN_TOL of one
-   process; the fleet (`RolloutEngine.make_sharded_rollout`, bench_config's
-   model, ddim30 and distilled1, 1024 robots as 2 x 512, 2 periods, rows
-   1-3): each shard bit for bit one process's rollout over its robots with
-   its folded generator; ring attention (seq=2) and tensor parallelism
-   (model=2) on the h128 unfused model in float32: the forward within
-   PAR_F32_TOL of one process's "xla" forward and two steps against one
-   process; `cli train --mesh data=2 --device cuda:0 --dist-backend gloo`
-   under torch.distributed.run for 2 steps (one checkpoint, which loads).
-   Where the machine has two cards or more, the proprio_fused check again
-   over NCCL (one rank a card); with one card it says that it did not run.
-   Each path's times beside the card's name and power limit (gloo through
-   host memory: a record of the path, not of NCCL).
-16. Prints one JSON line of per-kernel results, then as its last line
+   on the card (par_checks): data-parallel training (`TrainStep.__call__`,
+   t / noise drawn for the global batch from the same seed) of
+   proprio_fused.yaml and vit_flagship.yaml at a global B=64 (2 x 32, 3
+   steps, rows 4-5 and 4-6 launching on every rank) and of default_tpu.yaml
+   in float32 at B=8 (the synchronised BatchNorm): every rank's losses,
+   parameters and running statistics equal, the losses within
+   STEP_LOSS_TOL, the update within STEP_UPDATE_TOL and the statistics
+   within TRAIN_TOL of one process; default_tpu.yaml's first forward in
+   train mode before any update: every BatchNorm layer's batch mean and
+   biased variance and the running statistics, channel by channel, within
+   the float32 summation bound derived at BN_LAMBDA; the fleet
+   (`RolloutEngine.make_sharded_rollout`, bench_config's model, ddim30 and
+   distilled1, 1024 robots as 2 x 512, 2 periods, rows 1-3): each shard bit
+   for bit one process's rollout over its robots with its folded
+   generator; ring attention (seq=2) and tensor parallelism (model=2) on
+   the h128 unfused model in float32: the forward within PAR_F32_TOL of one
+   process's "xla" forward and two steps against one process; `cli train
+   --mesh data=2 --device cuda:0 --dist-backend gloo` under
+   torch.distributed.run for 2 steps (one checkpoint, which loads). Where
+   the machine has two cards or more, the NCCL paths on two of them (below,
+   --nccl); with one card it says that they did not run. Each path's times
+   beside the card's name and power limit (gloo through host memory: a
+   record of the path, not of NCCL).
+16. Checkpoints the port did not write (checkpoint_phase): a JAX-format
+   (state.msgpack, written by utils/flax_msgpack.pack from seeded
+   flax-layout trees) h128 teacher with params, a different EMA and AdamW
+   moments, served by load_policy: 5 ddim30 periods at B=1024 through the
+   fused encoder and chunk kernels (exactly 5 + 5 launches), bit for bit
+   the chunks of load_jax_params(the EMA tree), not those of the raw
+   params, and the kernel path against its plain versions on the CPU; the
+   same checkpoint as a distilled_decoder student through the fused
+   denoiser (2 periods at B=1024) and `cli serve` at B=1 in its own
+   interpreter (exact launches a replan, every tick after the first chunk
+   commanding); default_tpu.yaml (ResNet18) with batch_stats and opt_state
+   {} (the BatchNorm buffers bit for bit, 2 cached ddim30 periods at B=64);
+   `train.py --checkpoint` from a JAX checkpoint of proprio_fused.yaml for
+   3 steps (rows 4-5 forward and backward) against the same start in the
+   port's format (losses and parameters within CKPT_RESUME_TOL); a
+   reference-layout .pth (tests/torch_reference_policy.py) at h128,
+   standard and legacy ema_model.*, through the port's
+   import_torch_checkpoint (the replica's float32 output within
+   CKPT_REF_TOL of scale of the port's, 2 ddim30 periods through the
+   kernels); an orbax checkpoint, a truncated state.msgpack and a state.pt
+   of another format each refused. Each checkpoint's MB and load seconds
+   and its periods' ms beside phase 4's and the card's name and power
+   limit. The results go under the JSON line's "checkpoints" key.
+17. Prints one JSON line of per-kernel results, then as its last line
    {"ok": true, "device": {...}}. Where one torch.nn call computes the
    same function as a kernel (the encoder-stack, ViT-block and
    decoder-layer forwards; one torch.autograd.grad through the same layers
@@ -237,10 +264,14 @@ sampler at B=1 on the flagship (ddim30, then the distilled student).
 through the port's CLI on the card (h128, train 2000 steps, 4- and 1-step
 students distilled 400 steps each, the report with dpmpp10@lambda and
 ddim10 rows over 256 windows and 10 chunks; DIR/quality_ledger.{json,md}).
---nccl (a machine with two cards or more) runs proprio_fused.yaml's
-data-parallel step over NCCL, one rank a card, on 2 ranks and on every
-card, each against one process (phase 15's check). None prints the ok
-line.
+--nccl (a machine with two cards or more) runs phase 15's paths over NCCL,
+one rank a card, on 2 ranks and on every card, each against one process:
+the data-parallel steps of proprio_fused.yaml and of default_tpu.yaml in
+float32 (the synchronised BatchNorm, with its first-forward statistics),
+the sharded h128 fleet (ddim30, distilled1), ring attention and tensor
+parallelism ({"data": N / 2, "seq" or "model": 2}), and proprio_fused.yaml
+over a "dcn" x "data" mesh over LOCAL_WORLD_SIZE blocks of half the ranks
+(two nodes, as torchrun sets it on two hosts). None prints the ok line.
 """
 
 from __future__ import annotations
@@ -3162,7 +3193,27 @@ PAR_TRAIN_CASES = {  # (config, batches, seed of the init and the generator)
     "vit_flagship": ("vit_flagship.yaml", "flagship", 32),
     "default_tpu_f32": ("default_tpu.yaml", "resnet", 33),
 }
+# over NCCL (--nccl): the data-parallel cases without the flagship
+PAR_NCCL_CASES = ("proprio_fused", "default_tpu_f32")
 PAR_FLEET_LANES = {"ddim30": dict(fused="chunk"), "distilled1": dict(distilled=True, fused=True)}
+# The synchronised BatchNorm's first forward (train mode, before any
+# update): each layer's batch mean and biased variance against one process
+# at the global batch, channel by channel. Both sides sum the same N float32
+# terms of a channel (N = rows x frames x H x W of the global batch) in
+# other orders (the ranks' partial sums and an all-reduce; one process's
+# var_mean). By the probabilistic bound on float32 summation (Higham and
+# Mary 2019: |fl(sum) - sum| <= lambda sqrt(N) u sum|x| in any order, with
+# probability >= 1 - 2 N exp(-lambda^2 / 2); u = 2^-24, lambda = 8: a
+# failure chance under 3e-8 a channel at N = 1e6) each side's mean lies
+# within lambda sqrt(N) u mean|x| of the exact one, the two within twice
+# that. The two-pass variance sums N squares (x - mean)^2 >= 0, each
+# rounded twice (the subtraction and the square) after the mean's error,
+# which enters only at second order (the derivative of sum (x - m)^2 in m
+# vanishes at the mean): 2 (lambda sqrt(N) + 3) u var. The running
+# statistics, 0.9 r + 0.1 batch, take a tenth of that plus their own two
+# roundings: 0.1 tol + 4 u |r|. A count or a sum that misses a rank's rows
+# is off by a share of the batch (1/8 at B=8), far beyond these.
+BN_LAMBDA, F32_U = 8.0, 2.0 ** -24
 
 RANK_CODE = """\
 import sys
@@ -3183,6 +3234,13 @@ def par_ring_config(attention_impl: str):
     """The h128 configuration unfused in float32: "ring" or its "xla" reference."""
     return dataclasses.replace(bench_config(), compute_dtype="float32",
                                attention_impl=attention_impl)
+
+
+def par_axis_shape(world: int, axis: str) -> dict:
+    """The ring ("seq") or tensor-parallel ("model") mesh on ``world`` ranks:
+    the axis over 2 ranks, "data" over the rest (a "data" axis of 1 carries
+    the whole batch)."""
+    return {"data": world // 2, axis: 2}
 
 
 def par_inputs() -> dict:
@@ -3252,6 +3310,100 @@ def par_train(cfg, batches, device, seed, mesh=None) -> dict:
             "buffers": {n: b.detach().cpu() for n, b in model.named_buffers()}}
 
 
+def bn_first_forward(cfg, batch, device, seed, mesh=None) -> dict:
+    """One forward of ``cfg`` in train mode on the global ``batch`` (this
+    rank's rows under ``mesh``), before any update: every BatchNorm layer's
+    batch (variance, mean) as models/layers.py:batch_statistics returns
+    them, in call order, with the channel's global element count and mean
+    |x|, and the running statistics after the forward."""
+    from soccerdiffusion_tpu_torch.data.pipeline import prepare_batch
+    from soccerdiffusion_tpu_torch.models import layers
+    from soccerdiffusion_tpu_torch.parallel.mesh import batch_group, shard_batch, use_mesh
+
+    model = par_model(cfg, device, seed).train()
+    rng = np.random.default_rng(seed)
+    b = batch["joint_command"].shape[0]
+    full = {**batch, "bn_noisy": torch.from_numpy(rng.normal(size=(
+        b, cfg.trajectory_prediction_length, cfg.num_joints)).astype(np.float32)),
+        "bn_t": torch.from_numpy(rng.integers(0, 1000, (b,)))}
+    local = {k: v.to(device) for k, v in (shard_batch(mesh, full) if mesh is not None
+                                          else full).items()}
+    ranks = batch_group(mesh)[1] if mesh is not None else 1
+    noisy, t = local.pop("bn_noisy"), local.pop("bn_t")
+    records, batch_statistics = [], layers.batch_statistics
+
+    def recording(x32):
+        var, mean = batch_statistics(x32)
+        dims = tuple(range(x32.ndim - 1))
+        records.append({"var": var.double().cpu(), "mean": mean.double().cpu(),
+                        "count": x32.numel() // x32.shape[-1] * ranks,
+                        "abs_mean": x32.abs().double().mean(dims).cpu()})
+        return var, mean
+
+    layers.batch_statistics = recording
+    try:
+        with torch.no_grad(), use_mesh(mesh):
+            model(prepare_batch(local, keep_u8=cfg.use_images), noisy, t)
+    finally:
+        layers.batch_statistics = batch_statistics
+    return {"layers": records, "running": {n: v.double().cpu() for n, v in model.named_buffers()
+                                           if n.endswith((".mean", ".var"))}}
+
+
+def bn_check(label, ranks, one, smi) -> dict:
+    """Every rank's first-forward BatchNorm statistics equal, and each
+    layer's batch mean / variance and running statistics within the float32
+    summation bound (BN_LAMBDA above) of one process's, channel by channel."""
+    first = ranks[0]
+    for r, got in enumerate(ranks[1:], 1):
+        if any(not torch.equal(a[k], b[k]) for a, b in zip(got["layers"], first["layers"])
+               for k in ("var", "mean")) or \
+                any(not torch.equal(got["running"][n], v) for n, v in first["running"].items()):
+            raise AssertionError(f"{label}: rank {r}'s BatchNorm statistics differ from rank 0's")
+    if len(first["layers"]) != len(one["layers"]) or not one["layers"]:
+        raise AssertionError(f"{label}: {len(first['layers'])} BatchNorm calls on the ranks, "
+                             f"{len(one['layers'])} in one process")
+    worst, ratio, counts, tols = 0.0, 0.0, set(), []
+    for i, (got, want) in enumerate(zip(first["layers"], one["layers"])):
+        if got["count"] != want["count"]:
+            raise AssertionError(f"{label}: BatchNorm call {i} counts {got['count']} elements a "
+                                 f"channel, one process {want['count']}")
+        n = want["count"]
+        counts.add(n)
+        lam = BN_LAMBDA * n ** 0.5
+        tol = {"mean": 2 * lam * F32_U * want["abs_mean"],
+               "var": 2 * (lam + 3) * F32_U * want["var"]}
+        for k in ("mean", "var"):
+            gap = (got[k] - want[k]).abs()
+            ratio = max(ratio, (gap / tol[k].clamp_min(1e-300)).max().item())
+            worst = max(worst, (gap / want[k].abs().clamp_min(1e-30)).max().item())
+            if not bool((gap <= tol[k]).all()):
+                raise AssertionError(f"{label}: BatchNorm call {i} batch {k} off by "
+                                     f"{gap.max().item():.3e} (tolerance {tol[k].min().item():.3e}"
+                                     f"..{tol[k].max().item():.3e})")
+        tols.append(tol)
+    # the running statistics, by module in call order (each BatchNorm runs once a forward)
+    names = list(dict.fromkeys(n.rsplit(".", 1)[0] for n in one["running"]))
+    if len(names) != len(tols):
+        raise AssertionError(f"{label}: {len(names)} BatchNorm modules, {len(tols)} calls")
+    run_ratio = 0.0
+    for module, tol in zip(names, tols):
+        for k in ("mean", "var"):
+            want, got = one["running"][f"{module}.{k}"], first["running"][f"{module}.{k}"]
+            bound = 0.1 * tol[k] + 4 * F32_U * want.abs()
+            gap = (got - want).abs()
+            run_ratio = max(run_ratio, (gap / bound.clamp_min(1e-300)).max().item())
+            if not bool((gap <= bound).all()):
+                raise AssertionError(f"{label}: running {k} of {module} off by "
+                                     f"{gap.max().item():.3e}")
+    log(f"parallel {label}: first-forward BatchNorm statistics of {len(names)} layers, "
+        f"{len(ranks)} ranks vs one process (elements a channel {min(counts)}..{max(counts)}): "
+        f"batch mean / var largest relative gap {worst:.3e}, largest gap / tolerance "
+        f"{ratio:.3e}; running statistics gap / tolerance {run_ratio:.3e} [{smi}]")
+    return {"layers": len(names), "max_rel_gap": worst, "max_gap_over_tol": ratio,
+            "running_max_gap_over_tol": run_ratio, "counts": [min(counts), max(counts)]}
+
+
 def par_forward(cfg, inputs, device, seed, mesh=None):
     from soccerdiffusion_tpu_torch.parallel.mesh import use_mesh
     from soccerdiffusion_tpu_torch.parallel.tensor_parallel import shard_model
@@ -3266,11 +3418,11 @@ def par_forward(cfg, inputs, device, seed, mesh=None):
     return out.cpu()
 
 
-def par_fleet(device, mesh=None, rank=0) -> dict:
+def par_fleet(device, mesh=None, rank=0, world=PAR_WORLD) -> dict:
     """PAR_PERIODS replan periods of each fleet lane on bench_config's model:
     the sharded rollout of PAR_FLEET_B robots under ``mesh``, else, in one
-    process, an unsharded rollout over the robots of shard ``rank`` with
-    fold_in(the seeded generator, rank)."""
+    process, an unsharded rollout over the robots of shard ``rank`` of
+    ``world`` with fold_in(the seeded generator, rank)."""
     from soccerdiffusion_tpu_torch.inference.rollout import fold_in
     from soccerdiffusion_tpu_torch.parallel.mesh import make_mesh
 
@@ -3284,8 +3436,8 @@ def par_fleet(device, mesh=None, rank=0) -> dict:
         if mesh is not None:
             carry, run = eng.shard_carry(carry, mesh), eng.make_sharded_rollout(PAR_PERIODS, mesh)
         else:
-            # this shard's robots: the rows of rank ``rank`` of a 2-rank mesh (no group)
-            carry = eng.shard_carry(carry, make_mesh({"data": PAR_WORLD}, PAR_WORLD, rank))
+            # this shard's robots: the rows of rank ``rank`` of a data mesh (no group)
+            carry = eng.shard_carry(carry, make_mesh({"data": world}, world, rank))
             carry = dataclasses.replace(carry, generator=fold_in(generator, rank))
             run = eng.make_rollout_fn(PAR_PERIODS)
         eng.make_rollout_fn(1)(eng.init(8, torch.Generator(device=device).manual_seed(0)))
@@ -3302,7 +3454,13 @@ def par_fleet(device, mesh=None, rank=0) -> dict:
 def parallel_rank(argv) -> int:
     """One rank of the parallel phase (in its own interpreter): argv is
     (work dir, rank, world, port, backend, device). Joins the process group,
-    runs every parallel path and writes its results to <dir>/rank<r>.pt."""
+    runs every parallel path and writes its results to <dir>/rank<r>.pt:
+    the data-parallel training cases (over NCCL without the flagship), the
+    synchronised BatchNorm's first forward, the fleet, ring attention and
+    tensor parallelism, and over NCCL a "dcn" x "data" mesh over torchrun's
+    LOCAL_WORLD_SIZE blocks of ranks."""
+    import os
+
     from soccerdiffusion_tpu_torch.parallel import comm
     from soccerdiffusion_tpu_torch.parallel.distributed import initialize_distributed
     from soccerdiffusion_tpu_torch.parallel.mesh import make_mesh
@@ -3314,20 +3472,27 @@ def parallel_rank(argv) -> int:
     device = initialize_distributed(f"tcp://127.0.0.1:{port}", world, rank, backend=backend,
                                     device=device)
     inputs = torch.load(Path(work) / "inputs.pt", weights_only=False)
-    out, t0 = {"backend": backend, "device": str(device)}, time.perf_counter()
+    out, t0 = {"backend": backend, "device": str(device), "world": world}, time.perf_counter()
     data = make_mesh({"data": world})
     for name, (_, batches, seed) in PAR_TRAIN_CASES.items():
-        if backend == "nccl" and name != "proprio_fused":
-            continue  # over NCCL: the data-parallel check of proprio_fused.yaml
+        if backend == "nccl" and name not in PAR_NCCL_CASES:
+            continue
         out[name] = par_train(par_train_config(name).model, inputs[batches], device, seed, data)
         torch.cuda.empty_cache()
-    if backend == "gloo":
-        out["fleet"] = par_fleet(device, data)
-        for axis in ("seq", "model"):  # a "data" axis of 1 carries the (whole) batch
-            mesh = make_mesh({"data": 1, axis: world})
-            cfg = par_ring_config("ring" if axis == "seq" else "xla")
-            out[f"{axis}_forward"] = par_forward(cfg, inputs, device, 35, mesh)
-            out[f"{axis}_step"] = par_train(cfg, [inputs["ring"]] * 2, device, 35, mesh)
+    out["bn_first"] = bn_first_forward(par_train_config("default_tpu_f32").model,
+                                       inputs["resnet"][0], device, 33, data)
+    out["fleet"] = par_fleet(device, data, world=world)
+    for axis in ("seq", "model"):
+        mesh = make_mesh(par_axis_shape(world, axis))
+        cfg = par_ring_config("ring" if axis == "seq" else "xla")
+        out[f"{axis}_forward"] = par_forward(cfg, inputs, device, 35, mesh)
+        out[f"{axis}_step"] = par_train(cfg, [inputs["ring"]] * 2, device, 35, mesh)
+    if backend == "nccl":
+        per_node = int(os.environ["LOCAL_WORLD_SIZE"])
+        mesh = make_mesh({"dcn": world // per_node, "data": per_node})
+        out["dcn_data"] = par_train(par_train_config("proprio_fused").model, inputs["h128"],
+                                    device, 31, mesh)
+        out["dcn_shape"] = mesh.shape
     out["rank_s"] = time.perf_counter() - t0
     torch.save(out, Path(work) / f"rank{rank}.pt")
     comm.barrier()
@@ -3335,12 +3500,17 @@ def parallel_rank(argv) -> int:
 
 
 def run_ranks(work: Path, backend: str, devices: list[str], timeout=900) -> list[dict]:
-    """Start PAR_WORLD ranks (one interpreter each) and read their results."""
+    """Start a rank a device (one interpreter each) and read their results.
+    The ranks see LOCAL_WORLD_SIZE = half of them: two nodes for the "dcn"
+    axis, as torchrun sets it on each of two hosts."""
+    import os
+
     port = _free_port()
+    env = {**os.environ, "LOCAL_WORLD_SIZE": str(max(1, len(devices) // 2))}
     procs = [subprocess.Popen([sys.executable, "-c", RANK_CODE, str(work), str(r),
                                str(len(devices)), str(port), backend, devices[r]],
                               cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
+                              stderr=subprocess.STDOUT, text=True, env=env)
              for r in range(len(devices))]
     try:
         logs = [p.communicate(timeout=timeout)[0] for p in procs]
@@ -3397,6 +3567,109 @@ def par_check_launches(label, launches, names):
             raise AssertionError(f"parallel {label}: rank {r} launched no {missing}: {got}")
 
 
+PROPRIO_TRAIN_KERNELS = ("fused_encoder_stack_fwd", "fused_encoder_stack_bwd",
+                         "fused_decoder_layer_fwd", "fused_decoder_layer_bwd")
+
+
+class ParReferences:
+    """The one-process runs on the card that the ranks' work is held
+    against, each computed once, in the smoke's own process."""
+
+    def __init__(self, inputs, device):
+        self.inputs, self.device, self.cache = inputs, device, {}
+
+    def get(self, key, fn):
+        if key not in self.cache:
+            self.cache[key] = fn()
+            torch.cuda.empty_cache()
+        return self.cache[key]
+
+    def train(self, name):
+        _, batches, seed = PAR_TRAIN_CASES[name]
+        return self.get(name, lambda: par_train(par_train_config(name).model,
+                                                self.inputs[batches], self.device, seed))
+
+    def bn_first(self):
+        return self.get("bn_first", lambda: bn_first_forward(
+            par_train_config("default_tpu_f32").model, self.inputs["resnet"][0], self.device, 33))
+
+    def fleet(self, world, rank):
+        return self.get(("fleet", world, rank),
+                        lambda: par_fleet(self.device, rank=rank, world=world))
+
+    def xla(self):
+        return self.get("xla", lambda: (
+            par_forward(par_ring_config("xla"), self.inputs, self.device, 35),
+            par_train(par_ring_config("xla"), [self.inputs["ring"]] * 2, self.device, 35)))
+
+
+def par_checks(label, ranks, refs: ParReferences, smi) -> dict:
+    """Each path the ranks ran, held against one process: the training
+    cases, the first-forward BatchNorm statistics, the fleet, ring attention
+    and tensor parallelism, and (where run) the "dcn" x "data" mesh."""
+    world, out = len(ranks), {}
+    for name, (_, batches, _) in PAR_TRAIN_CASES.items():
+        if name in ranks[0]:
+            batch = refs.inputs[batches][0]["joint_command"].shape[0]
+            out[name] = par_check_train(f"{name} ({label})", [r[name] for r in ranks],
+                                        refs.train(name), batch, smi, batch // world)
+    par_check_launches(f"proprio_fused ({label})", out["proprio_fused"]["launches_per_rank"],
+                       PROPRIO_TRAIN_KERNELS)
+    if "vit_flagship" in out:
+        par_check_launches(f"vit_flagship ({label})", out["vit_flagship"]["launches_per_rank"], (
+            "fused_vit_block_fwd", "fused_vit_block_bwd", "fused_encoder_stack_fwd_hd64",
+            "fused_encoder_stack_bwd_hd64", "fused_decoder_layer_fwd_hd64",
+            "fused_decoder_layer_bwd_hd64"))
+    out["bn_first"] = bn_check(f"synchronised BatchNorm ({label})",
+                               [r["bn_first"] for r in ranks], refs.bn_first(), smi)
+    # the fleet: each shard bit for bit one process's rollout over its robots
+    fleet, per = {}, PAR_FLEET_B // world
+    for r in range(world):
+        one = refs.fleet(world, r)
+        for lane in PAR_FLEET_LANES:
+            for got in ranks:
+                if not torch.equal(got["fleet"][lane]["chunks"][:, r * per:(r + 1) * per],
+                                   one[lane]["chunks"]):
+                    raise AssertionError(f"parallel fleet {lane} ({label}): shard {r} differs "
+                                         "from one process's rollout over its robots")
+            fleet.setdefault(lane, {"ms_per_period_one_process": []})[
+                "ms_per_period_one_process"].append(one[lane]["ms_per_period"])
+    for lane in PAR_FLEET_LANES:
+        launches = [got["fleet"][lane]["launches"] for got in ranks]
+        fleet[lane].update(ms_per_period_ranks=[g["fleet"][lane]["ms_per_period"]
+                                                for g in ranks], launches_per_rank=launches)
+        log(f"parallel fleet {lane} ({label}): {world} x {per} robots, {PAR_PERIODS} periods, "
+            f"each shard bit for bit one process's; ms/period ranks "
+            f"{fleet[lane]['ms_per_period_ranks']}, one process ({per} robots) "
+            f"{fleet[lane]['ms_per_period_one_process']}; launches {launches} [{smi}]")
+    par_check_launches(f"fleet ddim30 ({label})", fleet["ddim30"]["launches_per_rank"],
+                       ("fused_encoder", "fused_chunk"))
+    par_check_launches(f"fleet distilled1 ({label})", fleet["distilled1"]["launches_per_rank"],
+                       ("fused_encoder", "fused_denoise", "fused_denoise_pack"))
+    out["fleet"] = fleet
+    # ring attention and tensor parallelism against "xla" in one process
+    want, one = refs.xla()
+    for axis, name in (("seq", "ring"), ("model", "tensor_parallel")):
+        shape = par_axis_shape(world, axis)
+        errs = [(r[f"{axis}_forward"] - want).abs().max().item() / want.abs().max().item()
+                for r in ranks]
+        log(f"parallel {name} ({label}, {shape}) forward vs one process's xla forward: "
+            f"{max(errs):.3e} of scale (tol {PAR_F32_TOL})")
+        if max(errs) > PAR_F32_TOL:
+            raise AssertionError(f"parallel {name} ({label}): the forward disagrees with xla")
+        out[name] = {"mesh": shape, "forward_rel": max(errs), **par_check_train(
+            f"{name} ({label}, {shape})", [r[f"{axis}_step"] for r in ranks], one, PAR_RING_B,
+            smi, PAR_RING_B // shape["data"])}
+    if "dcn_data" in ranks[0]:
+        shape = ranks[0]["dcn_shape"]
+        out["dcn_data"] = {"mesh": shape, **par_check_train(
+            f"proprio_fused ({label}, {shape})", [r["dcn_data"] for r in ranks],
+            refs.train("proprio_fused"), PAR_TRAIN_B, smi, PAR_TRAIN_B // world)}
+        par_check_launches(f"dcn x data ({label})", out["dcn_data"]["launches_per_rank"],
+                           PROPRIO_TRAIN_KERNELS)
+    return out
+
+
 def par_cli_phase(work: Path, smi) -> dict:
     """`cli train --mesh data=2 --device cuda:0 --dist-backend gloo
     --dummy-data` for 2 steps under torch.distributed.run: one checkpoint,
@@ -3432,21 +3705,21 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def nccl_checks(work: Path, batches, device, smi, worlds) -> dict:
-    """The data-parallel check of proprio_fused.yaml over NCCL, one rank a
-    card, on each of ``worlds`` ranks, against one process on ``device``
-    (``batches``: the global h128 batches, already in <work>/inputs.pt)."""
-    one = par_train(par_train_config("proprio_fused").model, batches, device, 31)
+def nccl_checks(work: Path, refs: ParReferences, smi, worlds) -> dict:
+    """Every parallel path over NCCL, one rank a card, on each of ``worlds``
+    ranks, against one process (``refs``; the inputs in <work>/inputs.pt):
+    the data-parallel steps of proprio_fused.yaml and of default_tpu.yaml in
+    float32 (the synchronised BatchNorm) with its first-forward statistics,
+    the sharded h128 fleet (ddim30, distilled1), ring attention and tensor
+    parallelism, and proprio_fused.yaml over a "dcn" x "data" mesh."""
     out = {}
     for world in worlds:
         t0 = time.perf_counter()
         ranks = run_ranks(work, "nccl", [f"cuda:{r}" for r in range(world)])
-        out[world] = par_check_train("proprio_fused (nccl)", [r["proprio_fused"] for r in ranks],
-                                     one, PAR_TRAIN_B, smi, PAR_TRAIN_B // world)
-        out[world]["wall_s"] = time.perf_counter() - t0
-        par_check_launches(f"nccl x {world}", out[world]["launches_per_rank"], (
-            "fused_encoder_stack_fwd", "fused_encoder_stack_bwd", "fused_decoder_layer_fwd",
-            "fused_decoder_layer_bwd"))
+        out[world] = par_checks(f"nccl x {world}", ranks, refs, smi)
+        out[world].update(wall_s=time.perf_counter() - t0, rank_s=[r["rank_s"] for r in ranks])
+        log(f"parallel nccl x {world}: every path held, {out[world]['wall_s']:.1f} s "
+            f"(ranks {out[world]['rank_s']}) [{smi}]")
     return out
 
 
@@ -3459,15 +3732,16 @@ def nccl_phase(device, smi) -> dict:
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as work:
-        batches = h128_reference_batches(b=PAR_TRAIN_B, steps=PAR_STEPS)
-        torch.save({"h128": batches}, Path(work) / "inputs.pt")
-        return nccl_checks(Path(work), batches, device, smi, sorted({PAR_WORLD, cards}))
+        inputs = par_inputs()
+        torch.save(inputs, Path(work) / "inputs.pt")
+        return nccl_checks(Path(work), ParReferences(inputs, device), smi,
+                           sorted({PAR_WORLD, cards}))
 
 
 def parallel_phase(device, smi) -> dict:
     """Phase 15: parallel/ on two ranks sharing the card over gloo, each path
-    held against one process on the card; the NCCL path where there are two
-    cards or more."""
+    held against one process on the card (par_checks); the NCCL paths where
+    there are two cards or more."""
     t0 = time.perf_counter()
     out = {}
     build = Path(__file__).resolve().parent / "build"
@@ -3480,67 +3754,477 @@ def parallel_phase(device, smi) -> dict:
         shared = "cuda:0" if torch.device(device).type == "cuda" else "cpu"
         ranks = run_ranks(work, "gloo", [shared] * PAR_WORLD)
         out["ranks_s"] = time.perf_counter() - t1
-        # the same work in this process, one piece at a time
-        for name, (_, batches, seed) in PAR_TRAIN_CASES.items():
-            one = par_train(par_train_config(name).model, inputs[batches], device, seed)
-            batch = inputs[batches][0]["joint_command"].shape[0]
-            out[name] = par_check_train(name, [r[name] for r in ranks], one, batch, smi)
-            torch.cuda.empty_cache()
-        par_check_launches("proprio_fused", out["proprio_fused"]["launches_per_rank"], (
-            "fused_encoder_stack_fwd", "fused_encoder_stack_bwd", "fused_decoder_layer_fwd",
-            "fused_decoder_layer_bwd"))
-        par_check_launches("vit_flagship", out["vit_flagship"]["launches_per_rank"], (
-            "fused_vit_block_fwd", "fused_vit_block_bwd", "fused_encoder_stack_fwd_hd64",
-            "fused_encoder_stack_bwd_hd64", "fused_decoder_layer_fwd_hd64",
-            "fused_decoder_layer_bwd_hd64"))
-        # the fleet: each shard bit for bit one process's rollout over its robots
-        fleet = {}
-        for r in range(PAR_WORLD):
-            one = par_fleet(device, rank=r)
-            for lane in PAR_FLEET_LANES:
-                shard = slice(r * PAR_FLEET_B // PAR_WORLD, (r + 1) * PAR_FLEET_B // PAR_WORLD)
-                for got in ranks:
-                    if not torch.equal(got["fleet"][lane]["chunks"][:, shard], one[lane]["chunks"]):
-                        raise AssertionError(f"parallel fleet {lane}: shard {r} differs from one "
-                                             "process's rollout over its robots")
-                fleet.setdefault(lane, {"ms_per_period_one_process_512": []})[
-                    "ms_per_period_one_process_512"].append(one[lane]["ms_per_period"])
-        for lane in PAR_FLEET_LANES:
-            launches = [got["fleet"][lane]["launches"] for got in ranks]
-            fleet[lane].update(ms_per_period_ranks=[g["fleet"][lane]["ms_per_period"]
-                                                    for g in ranks], launches_per_rank=launches)
-            log(f"parallel fleet {lane}: {PAR_WORLD} x {PAR_FLEET_B // PAR_WORLD} robots, "
-                f"{PAR_PERIODS} periods, each shard bit for bit one process's; ms/period ranks "
-                f"{fleet[lane]['ms_per_period_ranks']}, one process ({PAR_FLEET_B // PAR_WORLD} "
-                f"robots) "
-                f"{fleet[lane]['ms_per_period_one_process_512']}; launches {launches} [{smi}]")
-        par_check_launches("fleet ddim30", fleet["ddim30"]["launches_per_rank"],
-                           ("fused_encoder", "fused_chunk"))
-        par_check_launches("fleet distilled1", fleet["distilled1"]["launches_per_rank"],
-                           ("fused_encoder", "fused_denoise", "fused_denoise_pack"))
-        out["fleet"] = fleet
-        # ring attention (seq=2) and tensor parallelism (model=2) against "xla"
-        xla = par_ring_config("xla")
-        want = par_forward(xla, inputs, device, 35)
-        one = par_train(xla, [inputs["ring"]] * 2, device, 35)
-        for axis, label in (("seq", "ring"), ("model", "tensor_parallel")):
-            errs = [(r[f"{axis}_forward"] - want).abs().max().item() / want.abs().max().item()
-                    for r in ranks]
-            log(f"parallel {label} ({axis}={PAR_WORLD}) forward vs one process's xla forward: "
-                f"{max(errs):.3e} of scale (tol {PAR_F32_TOL})")
-            if max(errs) > PAR_F32_TOL:
-                raise AssertionError(f"parallel {label}: the forward disagrees with xla")
-            out[label] = {"forward_rel": max(errs), **par_check_train(
-                label, [r[f"{axis}_step"] for r in ranks], one, PAR_RING_B, smi, PAR_RING_B)}
+        refs = ParReferences(inputs, device)
+        out.update(par_checks("gloo", ranks, refs, smi))
         out["cli"] = par_cli_phase(work, smi)
         if torch.cuda.device_count() >= PAR_WORLD:
-            out["nccl"] = nccl_checks(work, inputs["h128"], device, smi, (PAR_WORLD,))
+            out["nccl"] = nccl_checks(work, refs, smi, (PAR_WORLD,))
         else:
             out["nccl"] = f"not run: {torch.cuda.device_count()} card(s), NCCL takes one rank a card"
-            log(f"parallel: the NCCL path is not run: this machine has "
+            log(f"parallel: the NCCL paths are not run: this machine has "
                 f"{torch.cuda.device_count()} card(s), NCCL takes one rank a card")
     out["phase_s"] = time.perf_counter() - t0
     log(f"parallel phase: {out['phase_s']:.1f} s (ranks {out['ranks_s']:.1f} s) [{smi}]")
+    return out
+
+
+# ------------------------------------------------------- checkpoints (phase 16)
+# checkpoints the port did not write: the JAX package's state.msgpack (made
+# here with utils/flax_msgpack.pack from seeded flax-layout trees, as the JAX
+# package lays them out) and the reference's .pth (tests/torch_reference_policy.py)
+CKPT_STEP, CKPT_EPOCH, CKPT_PERIODS = 120, 3, 2
+# the reference replica's float32 denoiser output against the port's (TF32
+# off), as a share of its scale: two float32 implementations of the same
+# layers, summing in other orders (3.2e-6 measured on an H100). The replica
+# runs torch.nn's composite layers: torch's fused inference fast path for
+# nn.TransformerEncoderLayer / MultiheadAttention sat 3.4e-5 of scale from
+# them on the card (the port and the composite path agree on the CPU and
+# the card alike), so it is logged, not gated
+CKPT_REF_TOL = 1e-5
+# a resume from the JAX checkpoint against the same start in the port's
+# format: losses and parameters, relative (both start from equal tensors)
+CKPT_RESUME_TOL = 1e-6
+CKPT_RESUME_STEPS = 3
+
+
+def tree_map(fn, tree):
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def jax_opt_state(mu, nu, count) -> dict:
+    """optax.adamw's state under the JAX trainer's one-cycle schedule
+    (chain(scale_by_adam, add_decayed_weights, scale_by_schedule)) as
+    flax's to_state_dict lays it out."""
+    c = np.asarray(count, np.int32)
+    return {"0": {"count": c, "mu": mu, "nu": nu}, "1": {}, "2": {"count": c.copy()}}
+
+
+def write_jax_checkpoint(path: Path, hyperparams, params, norm, batch_stats=None, opt_state=None,
+                         ema=None, step=CKPT_STEP, epoch=CKPT_EPOCH) -> int:
+    """A checkpoint directory in the JAX package's format (soccerdiffusion_tpu/
+    training/checkpoint.py:save_checkpoint's state.msgpack and
+    hyperparams.json) of flax-layout numpy trees; returns its bytes."""
+    from soccerdiffusion_tpu_torch.utils import flax_msgpack
+
+    tree = {"step": np.asarray(step, np.int32), "params": params, "batch_stats": batch_stats or {},
+            "opt_state": {} if opt_state is None else opt_state,
+            "norm": {"mean": norm[0], "std": norm[1]}}
+    if ema:
+        tree["ema_params"] = ema
+    data = flax_msgpack.pack(tree)
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "state.msgpack").write_bytes(data)
+    (path / "hyperparams.json").write_text(
+        json.dumps({"hyperparams": hyperparams, "current_epoch": epoch}, indent=2))
+    return len(data)
+
+
+def ckpt_norm(num_joints: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(2.5, 3.5, num_joints).astype(np.float32),
+            rng.uniform(0.5, 1.5, num_joints).astype(np.float32))
+
+
+def ckpt_moments(model, seed: int):
+    """Seeded AdamW moments (mu, nu) in the flax layout of ``model``'s params."""
+    from soccerdiffusion_tpu_torch.utils.jax_params import random_jax_params
+
+    mu = tree_map(lambda a: 1e-3 * a, random_jax_params(model, seed)[0])
+    nu = tree_map(lambda a: 1e-6 * a * a, random_jax_params(model, seed + 1)[0])
+    return mu, nu
+
+
+def timed_load(path, device, **kw):
+    """load_policy on ``device``, timed to its tensors on the card."""
+    from soccerdiffusion_tpu_torch.training.checkpoint import load_policy
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded = load_policy(path, device, **kw)
+    torch.cuda.synchronize()
+    return loaded, time.perf_counter() - t0
+
+
+def ckpt_size_mb(path: Path) -> float:
+    return sum(f.stat().st_size for f in path.iterdir()) / 1e6
+
+
+def ckpt_rollout(model, normalizer, steps, device, b, periods, seed, **kw):
+    """``periods`` replan periods of a RolloutEngine on the checkpoint's
+    model and normaliser at B=b (a B=8 warm-up first), every counter zeroed
+    just before and read just after: (chunks, ms/period, launches)."""
+    from soccerdiffusion_tpu_torch.diffusion import make_schedule
+    from soccerdiffusion_tpu_torch.inference import RolloutEngine
+
+    eng = RolloutEngine(model, make_schedule(1000), normalizer, num_inference_steps=steps,
+                        device=device, **kw)
+    eng.make_rollout_fn(1)(eng.init(8, torch.Generator(device=device).manual_seed(0)))
+    run = eng.make_rollout_fn(periods)
+    carry = eng.init(b, torch.Generator(device=device).manual_seed(seed))
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    _, chunks = run(carry)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / periods
+    launches = read_counters()
+    if not torch.isfinite(chunks).all():
+        raise AssertionError("a checkpoint's rollout gave non-finite chunks")
+    return chunks.cpu(), ms, launches
+
+
+def expect_exact(label, got, want):
+    full = {name: want.get(name, 0) for name in got}
+    if got != full:
+        raise AssertionError(f"{label}: launches {got}, expected {full}")
+
+
+def ckpt_teacher_phase(work: Path, device, smi, phase4_ms) -> dict:
+    """1. A JAX-format h128 teacher (params and a different EMA, AdamW
+    moments, the normaliser, the step) served by load_policy: 5 ddim30
+    periods at B=1024 through the fused encoder and chunk kernels, bit for
+    bit the chunks of a model filled by load_jax_params from the EMA tree,
+    and not those of the raw params; then the kernel path against its plain
+    versions on the CPU (reference_phase)."""
+    from soccerdiffusion_tpu_torch.config import Config, TrainConfig
+    from soccerdiffusion_tpu_torch.data import Normalizer
+    from soccerdiffusion_tpu_torch.models import DiffusionPolicy
+    from soccerdiffusion_tpu_torch.utils.jax_params import flax_init_params, load_jax_params
+
+    cfg = bench_config()
+    hp = Config(model=cfg, train=TrainConfig()).to_dict()
+    skeleton = DiffusionPolicy(cfg)
+    params, ema = flax_init_params(skeleton, 61)[0], flax_init_params(skeleton, 62)[0]
+    norm = ckpt_norm(cfg.num_joints, 63)
+    mu, nu = ckpt_moments(skeleton, 64)
+    path = work / "jax_teacher"
+    write_jax_checkpoint(path, hp, params, norm, opt_state=jax_opt_state(mu, nu, CKPT_STEP),
+                         ema=ema)
+    # the first load meets the process's first imports of the loader's modules
+    first_s = timed_load(path, device)[1]
+    (model, normalizer, steps, distilled, _), read_s = timed_load(path, device)
+    if (steps, distilled) != (30, False):
+        raise AssertionError(f"JAX teacher: served at {steps} steps, distilled={distilled}")
+    direct = load_jax_params(DiffusionPolicy(cfg), ema).to(device).eval()
+    raw = timed_load(path, device, prefer_ema=False)[0][0]
+    same_norm = Normalizer(mean=torch.from_numpy(norm[0]), std=torch.from_numpy(norm[1]))
+    kw = dict(fused="chunk", fused_encoder=True)
+    got, ms, launches = ckpt_rollout(model, normalizer, steps, device, BENCH_B, CHUNKS, 7, **kw)
+    want = ckpt_rollout(direct, same_norm, steps, device, BENCH_B, CHUNKS, 7, **kw)[0]
+    other = ckpt_rollout(raw, normalizer, steps, device, BENCH_B, CHUNKS, 7, **kw)[0]
+    expect_exact("JAX teacher ddim30", launches, {"fused_encoder": CHUNKS, "fused_chunk": CHUNKS})
+    if not torch.equal(got, want):
+        raise AssertionError("JAX teacher: its chunks differ from load_jax_params(ema)'s")
+    ema_gap = (got - other).abs().max().item()
+    if ema_gap == 0.0:
+        raise AssertionError("JAX teacher: the raw params serve the EMA's chunks")
+    reference_phase(cfg, model, device)
+    mb = ckpt_size_mb(path)
+    log(f"checkpoint JAX teacher (h128, {mb:.2f} MB, params + EMA + AdamW moments): "
+        f"load_policy {read_s:.3f} s (the process's first: {first_s:.3f}); {CHUNKS} ddim30 "
+        f"periods B={BENCH_B}: {ms:.2f} ms/period "
+        f"(phase 4 {phase4_ms:.2f}); bit for bit load_jax_params(ema tree); raw params' chunks "
+        f"differ by {ema_gap:.3e}; launches {nonzero(launches)} [{smi}]")
+    return {"path": path, "hyperparams": hp, "norm": norm, "mb": mb, "read_s": read_s,
+            "first_read_s": first_s,
+            "ms_per_period": ms, "phase4_ms_per_period": phase4_ms, "launches": launches,
+            "ema_vs_raw_max_abs": ema_gap}
+
+
+def ckpt_student_phase(work: Path, teacher: dict, device, smi) -> dict:
+    """2. The teacher's checkpoint as a distilled_decoder student (with
+    proprio_fused.yaml's fused stack and decoder-layer knobs): through
+    RolloutEngine's fused denoiser (2 periods at B=1024: the encoder, one
+    denoiser launch and a pack a layer each period), and through `cli serve`
+    at B=1 for SERVE_S seconds in its own interpreter (the sampler runs the
+    model's own layers: 3 encoder-stack and 4 decoder-layer forwards a
+    replan), every tick after the first chunk commanding the plant."""
+    path = work / "jax_student"
+    shutil.copytree(teacher["path"], path)
+    hp = {**teacher["hyperparams"], "distilled_decoder": True, "encoder_fused_stack": True,
+          "decoder_fused_block": True}
+    (path / "hyperparams.json").write_text(
+        json.dumps({"hyperparams": hp, "current_epoch": CKPT_EPOCH}, indent=2))
+    (model, normalizer, steps, distilled, _), read_s = timed_load(path, device)
+    if (steps, distilled) != (1, True):
+        raise AssertionError(f"JAX student: served at {steps} steps, distilled={distilled}")
+    layers = model.config.num_decoder_layers
+    _, ms, launches = ckpt_rollout(model, normalizer, steps, device, BENCH_B, CKPT_PERIODS, 8,
+                                   distilled=True, fused=True, fused_encoder=True)
+    expect_exact("JAX student distilled1", launches, {
+        "fused_encoder": CKPT_PERIODS, "fused_denoise": CKPT_PERIODS,
+        "fused_denoise_pack": layers * CKPT_PERIODS})
+    del model
+    stats = serve_process(["serve", str(path), "--duration", str(SERVE_S), "--device", device])
+    got = stats.pop("counters")
+    sent = stats["ticks"] - stats["ticks_without_chunk"]
+    per = {"fused_encoder_stack_fwd": 3, "fused_decoder_layer_fwd": layers}
+    expect_exact("JAX student cli serve", got,
+                 {k: n * (stats["replans"] + 1) for k, n in per.items()})
+    if stats["nonfinite_chunks"] or not stats["commands_delivered"] == sent >= 1:
+        raise AssertionError(f"JAX student cli serve: {stats}")
+    log(f"checkpoint JAX student (distilled_decoder): load_policy {read_s:.3f} s; "
+        f"{CKPT_PERIODS} distilled1 periods B={BENCH_B}: {ms:.2f} ms/period, launches "
+        f"{nonzero(launches)}; cli serve {SERVE_S:g} s at B=1: {stats['replans']} replans, plan p50 "
+        f"{stats['plan_ms']['p50']:.2f} ms, {stats['commands_delivered']} commands for "
+        f"{sent} ticks after the first chunk, launches {nonzero(got)} [{smi}]")
+    return {"read_s": read_s, "ms_per_period": ms, "launches": launches,
+            "serve": {**stats, "launches": {k: v for k, v in got.items() if v}}}
+
+
+def ckpt_resnet_phase(work: Path, device, smi) -> dict:
+    """3. default_tpu.yaml (ResNet18) in the JAX format with batch_stats and
+    opt_state {} (the JAX importer's shape): the BatchNorm buffers bit for
+    bit the written statistics, then 2 cached ddim30 periods at B=64."""
+    from soccerdiffusion_tpu_torch.models import DiffusionPolicy
+    from soccerdiffusion_tpu_torch.utils.jax_params import _flatten, random_jax_params
+
+    config = yaml_config("default_tpu.yaml")
+    cfg = config.model
+    params, stats = random_jax_params(DiffusionPolicy(cfg), 66)
+    path = work / "jax_resnet"
+    write_jax_checkpoint(path, config.to_dict(), params, ckpt_norm(cfg.num_joints, 67),
+                         batch_stats=stats, opt_state={})
+    (model, normalizer, steps, _, _), read_s = timed_load(path, device)
+    buffers = dict(model.named_buffers())
+    written = _flatten(stats)
+    for flax_path, value in written.items():
+        name = flax_path.replace("/", ".")
+        if not torch.equal(buffers[name].cpu(), torch.from_numpy(value)):
+            raise AssertionError(f"JAX ResNet checkpoint: buffer {name} differs from the written "
+                                 "batch_stats")
+    _, ms, launches = ckpt_rollout(model, normalizer, steps, device, RESNET_B, CKPT_PERIODS, 9,
+                                   fused="chunk")
+    expect_exact("JAX ResNet ddim30", launches, {"fused_chunk": CKPT_PERIODS})
+    mb = ckpt_size_mb(path)
+    log(f"checkpoint JAX default_tpu (ResNet18, {mb:.2f} MB, batch_stats, opt_state {{}}): "
+        f"load_policy {read_s:.3f} s; {len(written)} BatchNorm buffers bit for bit; "
+        f"{CKPT_PERIODS} cached ddim30 periods B={RESNET_B}: {ms:.2f} ms/period; launches "
+        f"{nonzero(launches)} [{smi}]")
+    return {"mb": mb, "read_s": read_s, "buffers": len(written), "ms_per_period": ms,
+            "launches": launches}
+
+
+def ckpt_resume_phase(work: Path, device, smi) -> dict:
+    """4. `train.py --checkpoint` from a JAX checkpoint of proprio_fused.yaml
+    (params, AdamW moments at count CKPT_STEP) for CKPT_RESUME_STEPS steps
+    (rows 4-5 forward and backward), against the same start written in the
+    port's own format (the moments set on the AdamW state directly):
+    losses and parameters within CKPT_RESUME_TOL relative."""
+    import yaml
+
+    from soccerdiffusion_tpu_torch.config import Config
+    from soccerdiffusion_tpu_torch.data import Normalizer
+    from soccerdiffusion_tpu_torch.models import DiffusionPolicy
+    from soccerdiffusion_tpu_torch.training.checkpoint import save_checkpoint
+    from soccerdiffusion_tpu_torch.training.train import RunOptions, train
+    from soccerdiffusion_tpu_torch.training.trainer import create_train_state, make_optimizer
+    from soccerdiffusion_tpu_torch.utils.jax_params import flax_init_params, flax_parameters, load_jax_params
+
+    raw = yaml.safe_load((CONFIG_DIR / "proprio_fused.yaml").read_text())
+    config = Config.from_dict({**raw, "log_every": 1, "epochs": 2})
+    cfg, tc, hp = config.model, config.train, config.to_dict()
+    skeleton = DiffusionPolicy(cfg)
+    params = flax_init_params(skeleton, 68)[0]
+    mu, nu = ckpt_moments(skeleton, 69)
+    norm = ckpt_norm(cfg.num_joints, 70)
+    count = CKPT_RESUME_STEPS
+    jax_dir, port_dir = work / "resume_jax", work / "resume_port"
+    write_jax_checkpoint(jax_dir, hp, params, norm, opt_state=jax_opt_state(mu, nu, count),
+                         step=count, epoch=0)
+    model = load_jax_params(DiffusionPolicy(cfg), params).to(device)
+    opt = make_optimizer(model, tc.lr, 2 * CKPT_RESUME_STEPS, tc.weight_decay,
+                         grad_clip_norm=tc.grad_clip_norm)
+    moments = [flax_parameters(skeleton, m) for m in (mu, nu)]
+    for name, p in model.named_parameters():
+        opt.adamw.state[p] = {"step": torch.tensor(float(count), device=device),
+                              "exp_avg": moments[0][name].to(device),
+                              "exp_avg_sq": moments[1][name].to(device)}
+    state = create_train_state(model, opt)
+    state.step = count
+    save_checkpoint(port_dir, state, Normalizer(mean=torch.from_numpy(norm[0]),
+                                                std=torch.from_numpy(norm[1])), hp, 0)
+    runs = {}
+    for label, start in (("jax", jax_dir), ("port", port_dir)):
+        metrics = work / f"resume_{label}.jsonl"
+        zero_counters()
+        t0 = time.perf_counter()
+        st = train(config, RunOptions(output=str(work / f"resumed_{label}"), checkpoint=str(start),
+                                      dummy_data=True, epochs=2,
+                                      steps_per_epoch=CKPT_RESUME_STEPS, seed=0,
+                                      metrics=str(metrics), device=device))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        runs[label] = {"step": st.step, "seconds": seconds, "launches": read_counters(),
+                       "loss": [json.loads(line)["loss"] for line in open(metrics)],
+                       "params": {n: p.detach().cpu() for n, p in st.model.named_parameters()}}
+        del st
+    a, b = runs["jax"], runs["port"]
+    if a["step"] != b["step"] or a["step"] != count + CKPT_RESUME_STEPS or \
+            len(a["loss"]) != CKPT_RESUME_STEPS:
+        raise AssertionError(f"resume: steps {a['step']} / {b['step']}, losses {a['loss']}")
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(a["loss"], b["loss"]))
+    param_rel = max((a["params"][n] - p).abs().max().item() / max(p.abs().max().item(), 1e-30)
+                    for n, p in b["params"].items())
+    for label, run in runs.items():
+        missing = [k for k in PROPRIO_TRAIN_KERNELS if run["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"resume from the {label} format launched no {missing}")
+    log(f"checkpoint resume (proprio_fused.yaml, JAX format vs the port's, {CKPT_RESUME_STEPS} "
+        f"steps from step {count}): losses {a['loss']} vs {b['loss']} (largest relative gap "
+        f"{loss_rel:.3e}, tol {CKPT_RESUME_TOL}), parameters largest relative gap "
+        f"{param_rel:.3e}; {a['seconds']:.2f} s / {b['seconds']:.2f} s with the load; launches "
+        f"{ {k: v for k, v in a['launches'].items() if v} } [{smi}]")
+    if loss_rel > CKPT_RESUME_TOL or param_rel > CKPT_RESUME_TOL:
+        raise AssertionError("resume from the JAX format disagrees with the port's format")
+    return {"loss_rel": loss_rel, "param_rel": param_rel, "losses": a["loss"],
+            "seconds": [a["seconds"], b["seconds"]], "launches": a["launches"]}
+
+
+def reference_replica():
+    """tests/torch_reference_policy.py (the reference's architecture in torch,
+    without JAX), loaded from its file: a ``tests`` package installed on
+    the machine would shadow the repository's directory of that name."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tests" / "torch_reference_policy.py"
+    spec = importlib.util.spec_from_file_location("torch_reference_policy", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def nonzero(launches: dict) -> dict:
+    return {name: n for name, n in launches.items() if n}
+
+
+def ckpt_reference_phase(work: Path, device, smi) -> dict:
+    """5. A reference-layout .pth of the h128 architecture (the replica of
+    tests/torch_reference_policy.py), standard and legacy ema_model.* with
+    --hyperparams, through the port's import_torch_checkpoint: both imports
+    hold the same tensors; the replica's own float32 output on the card
+    (torch.nn's composite layers, the MHA fast path off) against the port's
+    float32 model (TF32 off) within CKPT_REF_TOL of scale; 2 ddim30 periods
+    at B=1024 through the kernels."""
+    import yaml
+
+    from soccerdiffusion_tpu_torch.config import Config, TrainConfig
+    from soccerdiffusion_tpu_torch.training.checkpoint import build_policy, load_checkpoint
+    from soccerdiffusion_tpu_torch.utils import import_torch_checkpoint
+
+    replica_module = reference_replica()
+    TorchReferencePolicy = replica_module.TorchReferencePolicy
+    reference_state_dict = replica_module.reference_state_dict
+    cfg = bench_config()
+    hp = Config(model=cfg, train=TrainConfig()).to_dict()
+    torch.manual_seed(71)
+    replica = TorchReferencePolicy(cfg).eval()
+    sd = reference_state_dict(replica)
+    norm = ckpt_norm(cfg.num_joints, 72)
+    sd["mean"], sd["std"] = torch.from_numpy(norm[0]), torch.from_numpy(norm[1])
+    torch.save({"model_state_dict": sd, "hyperparams": hp, "current_epoch": 2}, work / "ref.pth")
+    legacy = {f"ema_model.{k}": v for k, v in sd.items()}
+    legacy.update({"ema_model.initted": torch.tensor(True), "ema_model.step": torch.tensor(100)})
+    torch.save(legacy, work / "ref_ema.pth")
+    (work / "ref.yaml").write_text(yaml.safe_dump(hp))
+    t0 = time.perf_counter()
+    import_torch_checkpoint.main([str(work / "ref.pth"), "-o", str(work / "ref_std")])
+    import_s = time.perf_counter() - t0
+    import_torch_checkpoint.main([str(work / "ref_ema.pth"), "-o", str(work / "ref_legacy"),
+                                  "--hyperparams", str(work / "ref.yaml")])
+    std, old = load_checkpoint(work / "ref_std"), load_checkpoint(work / "ref_legacy")
+    if list(std["params"]) != list(old["params"]) or any(
+            not torch.equal(std["params"][k], v) for k, v in old["params"].items()):
+        raise AssertionError("reference import: the legacy EMA file's tensors differ")
+    model32 = build_policy(dataclasses.replace(cfg, compute_dtype="float32"), std["params"], device)
+    rng = np.random.default_rng(73)
+    batch = random_batch(cfg, 64, device, rng)
+    noisy = torch.from_numpy(rng.normal(size=(64, 10, 20)).astype(np.float32)).to(device)
+    t = torch.from_numpy(rng.integers(0, 1000, (64,))).to(device)
+    replica = replica.to(device)
+    fastpath = torch.backends.mha.get_fastpath_enabled()
+    with torch.no_grad():
+        got, fused = model32(batch, noisy, t), replica(batch, noisy, t)
+        torch.backends.mha.set_fastpath_enabled(False)
+        try:
+            want = replica(batch, noisy, t)
+        finally:
+            torch.backends.mha.set_fastpath_enabled(fastpath)
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    fused_err = (fused - want).abs().max().item() / scale
+    del model32, replica
+    (model, normalizer, steps, _, _), read_s = timed_load(work / "ref_std", device)
+    _, ms, launches = ckpt_rollout(model, normalizer, steps, device, BENCH_B, CKPT_PERIODS, 10,
+                                   fused="chunk", fused_encoder=True)
+    expect_exact("reference import ddim30", launches,
+                 {"fused_encoder": CKPT_PERIODS, "fused_chunk": CKPT_PERIODS})
+    mb = ckpt_size_mb(work / "ref_std")
+    log(f"checkpoint reference .pth (h128) -> import_torch_checkpoint ({import_s:.3f} s) -> "
+        f"state.pt ({mb:.2f} MB): load_policy {read_s:.3f} s; the replica's float32 output vs "
+        f"the port's: {err / scale:.3e} of scale {scale:.3e} (tol {CKPT_REF_TOL}; torch's fused "
+        f"inference fast path of the same replica: {fused_err:.3e}, not gated); standard and legacy "
+        f"EMA imports equal; {CKPT_PERIODS} ddim30 periods B={BENCH_B}: {ms:.2f} ms/period; "
+        f"launches {nonzero(launches)} [{smi}]")
+    if not err <= CKPT_REF_TOL * scale:
+        raise AssertionError("the imported reference model disagrees with the reference's output")
+    return {"import_s": import_s, "mb": mb, "read_s": read_s, "ref_rel_err": err / scale,
+            "ref_fastpath_rel_err": fused_err,
+            "ms_per_period": ms, "launches": launches}
+
+
+def ckpt_refusals(work: Path, teacher: dict) -> dict:
+    """6. An orbax checkpoint, a truncated state.msgpack and a state.pt of
+    another format each raise ValueError naming what is wrong."""
+    from soccerdiffusion_tpu_torch.training.checkpoint import load_checkpoint
+
+    orbax, cut, other = work / "orbax", work / "truncated", work / "other_pt"
+    orbax.mkdir()
+    (orbax / "hyperparams.json").write_text(json.dumps(
+        {"hyperparams": teacher["hyperparams"], "current_epoch": 0, "backend": "orbax"}))
+    shutil.copytree(teacher["path"], cut)
+    data = (cut / "state.msgpack").read_bytes()
+    (cut / "state.msgpack").write_bytes(data[: len(data) // 2])
+    other.mkdir()
+    shutil.copy(teacher["path"] / "hyperparams.json", other / "hyperparams.json")
+    torch.save({"format": "another/1"}, other / "state.pt")
+    out = {}
+    for label, path, text in (("orbax", orbax, "needs orbax and tensorstore"),
+                              ("truncated", cut, "truncated"),
+                              ("other_pt", other, "is not a soccerdiffusion_tpu_torch/1")):
+        try:
+            load_checkpoint(path)
+        except ValueError as e:
+            if text not in str(e):
+                raise AssertionError(f"refusal {label}: {e}") from e
+            out[label] = str(e)
+        else:
+            raise AssertionError(f"refusal {label}: {path} loaded")
+    log(f"checkpoint refusals: {out}")
+    return out
+
+
+def checkpoint_phase(device, smi, phase4_ms) -> dict:
+    """Phase 16: checkpoints the port did not write, served, resumed and
+    refused on the card (ckpt_*_phase above)."""
+    t0 = time.perf_counter()
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as work:
+        work = Path(work)
+        teacher = ckpt_teacher_phase(work, device, smi, phase4_ms)
+        out = {"teacher": {k: v for k, v in teacher.items()
+                           if k not in ("path", "hyperparams", "norm")}}
+        torch.cuda.empty_cache()
+        out["student"] = ckpt_student_phase(work, teacher, device, smi)
+        torch.cuda.empty_cache()
+        out["resnet"] = ckpt_resnet_phase(work, device, smi)
+        torch.cuda.empty_cache()
+        out["resume"] = ckpt_resume_phase(work, device, smi)
+        torch.cuda.empty_cache()
+        out["reference"] = ckpt_reference_phase(work, device, smi)
+        out["refusals"] = ckpt_refusals(work, teacher)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"checkpoint phase: {out['phase_s']:.1f} s [{smi}]")
     return out
 
 
@@ -3809,9 +4493,10 @@ def main(argv=None) -> int:
     parser.add_argument("--ledger-out", default="build/quality_ledger",
                         help="directory for the ledger's quality_ledger.{json,md}")
     parser.add_argument("--nccl", action="store_true",
-                        help="instead of the smoke run: proprio_fused.yaml's data-parallel step "
-                             "over NCCL, one rank a card, on 2 ranks and on every card, against "
-                             "one process (needs two cards or more)")
+                        help="instead of the smoke run: phase 15's parallel paths (data-parallel "
+                             "steps, the synchronised BatchNorm, the fleet, ring, TP, dcn x data) "
+                             "over NCCL, one rank a card, on 2 ranks and on every card, each "
+                             "against one process (needs two cards or more)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke needs an NVIDIA GPU",
@@ -3941,6 +4626,8 @@ def main(argv=None) -> int:
     results.update(evaluation["kernels_on_path"].pop("kernels"))
     # parallel/: two ranks on the card over gloo, each path against one process
     parallel = parallel_phase(device, smi)
+    # checkpoints the port did not write: the JAX package's and the reference's
+    checkpoints = checkpoint_phase(device, smi, periods["ddim30"])
 
     # where each kernel instance ran: (source, the TPU kernel it replaces (the
     # pack: the JAX denoiser's pack_context_kv, whose layout the kernel's
@@ -4069,6 +4756,7 @@ def main(argv=None) -> int:
                     "recorded_data": recorded,
                     "evaluation": evaluation,
                     "parallel": parallel,
+                    "checkpoints": checkpoints,
                     "gpu": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

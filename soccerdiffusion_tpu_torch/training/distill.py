@@ -22,8 +22,9 @@ CLI (the JAX package's arguments, in its order, plus ``--device``):
       [--steps-per-epoch N] [--seed S] [--metrics m.jsonl] [--device cuda|cpu]
       [--mesh data=N] [--dist-backend gloo|nccl]
 
-The teacher is a checkpoint of the port (``training/checkpoint.py``), its
-EMA weights where it keeps an average. The student starts as a separate copy
+The teacher is a checkpoint of the port or of the JAX package
+(``training/checkpoint.py`` reads both), its EMA weights where it keeps an
+average. The student starts as a separate copy
 of the teacher's weights and buffers and keeps no EMA, so that
 ``load_policy_checkpoint`` serves its own parameters. The saved
 hyperparameters carry ``distilled_decoder: True`` (1 step) or

@@ -22,7 +22,9 @@ port's ``layers.i``. Per leaf module:
 
 Every leaf of both trees is used exactly once and every shape is checked: a
 missing or a leftover leaf raises ``KeyError``, a wrong shape
-``ValueError``. ``flax_init_params`` (flax's initialisers) and
+``ValueError``. ``flax_state_dict`` makes the same mapping without filling
+a model (the port's state dict of a flax checkpoint), ``flax_parameters``
+for one params-shaped tree (the EMA, an AdamW moment). ``flax_init_params`` (flax's initialisers) and
 ``random_jax_params`` (a seeded random draw) make ``(params, batch_stats)``
 of that layout, for runs without a checkpoint.
 """
@@ -47,6 +49,8 @@ def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
         path = f"{prefix}/{key}" if prefix else str(key)
         if isinstance(val, dict) or hasattr(val, "items"):
             out.update(_flatten(val, path))
+        elif isinstance(val, torch.Tensor):  # a bfloat16 leaf of utils/flax_msgpack.py
+            out[path] = val.float().numpy()
         else:
             out[path] = np.asarray(val)
     return out
@@ -79,11 +83,13 @@ def _leaves(mod: nn.Module, table=_LEAVES):
     return tuple(leaf for leaf in leaves if getattr(mod, leaf[0]) is not None)
 
 
-def _fill(model: nn.Module, tree, table, what: str) -> int:
-    """Copy the leaves of ``tree`` into ``model``'s tensors of ``table``;
-    every leaf used once. Returns the number of tensors filled."""
+def _map(model: nn.Module, tree, table, what: str) -> dict[str, torch.Tensor]:
+    """The leaves of ``tree`` laid out as ``model``'s tensors of ``table``:
+    {torch name: contiguous float32 CPU tensor}, every leaf used once and
+    every shape checked against the model's (which may lie on the meta
+    device)."""
     flat = _flatten(tree)
-    used = set()
+    out, used = {}, set()
     for name, mod in model.named_modules():
         base = _flax_path(name)
         for attr, leaf, transform in _leaves(mod, table):
@@ -97,12 +103,39 @@ def _fill(model: nn.Module, tree, table, what: str) -> int:
             if tuple(arr.shape) != tuple(target.shape):
                 raise ValueError(f"{path}: flax shape {flat[path].shape} does not map onto "
                                  f"{name}.{attr} of shape {tuple(target.shape)}")
-            target.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+            # a contiguous copy: a transposed kernel would keep numpy's
+            # transposed strides, which fused AdamW refuses in a moment
+            out[f"{name}.{attr}" if name else attr] = torch.from_numpy(
+                np.array(arr, dtype=np.float32, order="C"))
             used.add(path)
     leftover = sorted(set(flat) - used)
     if leftover:
         raise KeyError(f"flax {what} hold leaves the port does not use: {leftover}")
-    return len(used)
+    return out
+
+
+def flax_parameters(model: nn.Module, tree, what: str = "params") -> dict[str, torch.Tensor]:
+    """A params-shaped flax tree (``params``, ``ema_params``, an AdamW
+    moment) as {parameter name of ``model``: float32 CPU tensor}, in the
+    torch layout; raises unless it fills every parameter."""
+    mapped = _map(model, tree, _LEAVES, what)
+    n_params = sum(1 for _ in model.parameters())
+    if len(mapped) != n_params:
+        raise KeyError(f"flax {what} fill {len(mapped)} of the model's {n_params} parameters")
+    return mapped
+
+
+def flax_state_dict(model: nn.Module, params, batch_stats=None) -> dict[str, torch.Tensor]:
+    """The state dict of a model of ``model``'s architecture holding flax
+    ``params`` and ``batch_stats`` (required when the model has BatchNorm
+    layers): every parameter and BatchNorm statistic, float32 CPU tensors.
+    ``model`` only lends the names and shapes (the meta device will do)."""
+    out = flax_parameters(model, params)
+    n_stats = sum(len(_leaves(m, _STATS)) for m in model.modules())
+    if n_stats and batch_stats is None:
+        raise KeyError(f"the model holds {n_stats} BatchNorm statistics: pass batch_stats")
+    out.update(_map(model, batch_stats or {}, _STATS, "batch_stats"))
+    return out
 
 
 @torch.no_grad()
@@ -110,14 +143,9 @@ def load_jax_params(model: nn.Module, params, batch_stats=None) -> nn.Module:
     """Copy flax ``params`` (and ``batch_stats``, required when the model
     has BatchNorm layers) into ``model`` in place, onto the model's device
     (the parameters and statistics are float32), and return it."""
-    filled = _fill(model, params, _LEAVES, "params")
-    n_params = sum(1 for _ in model.parameters())
-    if filled != n_params:
-        raise KeyError(f"filled {filled} of the model's {n_params} parameters")
-    n_stats = sum(len(_leaves(m, _STATS)) for m in model.modules())
-    if n_stats and batch_stats is None:
-        raise KeyError(f"the model holds {n_stats} BatchNorm statistics: pass batch_stats")
-    _fill(model, batch_stats or {}, _STATS, "batch_stats")
+    tensors = dict(model.named_parameters()) | dict(model.named_buffers())
+    for name, value in flax_state_dict(model, params, batch_stats).items():
+        tensors[name].copy_(value)
     return model
 
 

@@ -22,7 +22,9 @@ MODULES = sorted(
     for p in PACKAGE.rglob("*.py"))
 
 
-FORBIDDEN = ("jax", "flax", "jaxlib", "soccerdiffusion_tpu")
+# the JAX stack, the JAX package, and the packages that read its checkpoints
+# (the port carries its own msgpack decoder, utils/flax_msgpack.py)
+FORBIDDEN = ("jax", "flax", "jaxlib", "soccerdiffusion_tpu", "msgpack", "orbax")
 
 
 def import_statements(path: Path) -> list:
@@ -42,10 +44,11 @@ def imported_roots(node) -> list:
 
 def _imports_nothing_of_jax(statements):
     """Run the import ``statements`` in a fresh interpreter; no module of
-    jax, flax or the JAX package (its root included) may be loaded after."""
+    jax, flax, msgpack, orbax or the JAX package (its root included) may be
+    loaded after."""
     code = "\n".join(["import sys", *statements,
                        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-                       "('jax', 'flax', 'jaxlib', 'soccerdiffusion_tpu'))",
+                       f"{FORBIDDEN!r})",
                        "assert not bad, bad"])
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
@@ -55,6 +58,8 @@ def _imports_nothing_of_jax(statements):
 def test_port_imports_without_jax():
     for module in ("distributed", "mesh", "ring_attention", "comm", "tensor_parallel"):
         assert f"soccerdiffusion_tpu_torch.parallel.{module}" in MODULES
+    for module in ("flax_msgpack", "torch_port", "import_torch_checkpoint", "jax_params"):
+        assert f"soccerdiffusion_tpu_torch.utils.{module}" in MODULES
     _imports_nothing_of_jax([f"import {m}" for m in MODULES])
 
 
@@ -74,7 +79,7 @@ def test_each_module_imports_first():
 def test_no_jax_import_in_sources():
     """No import statement anywhere in the port's sources, inside function
     bodies too (which importing a module does not run), names jax, flax,
-    jaxlib or the JAX package."""
+    jaxlib, msgpack, orbax or the JAX package."""
     for src in sorted(PACKAGE.rglob("*.py")):
         for node in import_statements(src):
             assert not set(imported_roots(node)) & set(FORBIDDEN), f"{src}: {ast.unparse(node)}"
