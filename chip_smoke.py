@@ -13,7 +13,8 @@
    kernels' shared-memory plan (ops/fused_denoise.py:pass_smem_bytes, which
    their shape checks use) equal to the C function (sd_pass_smem_bytes)
    over head_dim 32 / 64 / 128, 2 / 4 / 8 layers, S from 0 to 1023, every
-   block size, one block and a cluster, both kernels' carries.
+   block size, one block and a cluster, both kernels' carries; and the int8
+   chunk kernel's (fused_chunk.py:int8_smem_bytes, sd_int8_smem_bytes).
 3. Holds each serving kernel against its plain PyTorch version on the card
    at the h128 serving path's shapes (S=301 context tokens, 30 DDIM steps,
    B=64 and B=1024; bf16 weights from a seeded flax-layout random init) and
@@ -224,7 +225,37 @@
    of another format each refused. Each checkpoint's MB and load seconds
    and its periods' ms beside phase 4's and the card's name and power
    limit. The results go under the JSON line's "checkpoints" key.
-17. Prints one JSON line of per-kernel results, then as its last line
+17. The JAX kernels' other forms (variants_phase, ~50-90 s): the int8
+   context K/V chunk kernel (csrc/fused_chunk_int8.cu) against its plain
+   version at h128 (S=301, 30 DDIM steps) for B=64 at R = 8, 16, 1, 2, 4
+   and 32 robots a block and B=1024 at R = 8 and 16, at the flagship's
+   head_dim 64 (B=64) and larger_model's head_dim 128 (B=64), R = 8 and 16:
+   the kernel's record of every (step, layer) held against the plain
+   quantiser and cross-attention on its own inputs (query scales bit for
+   bit the block's, int8 queries exact, K/V scales and elements, the
+   cross-attention's output bit for bit in CROSS_EQUAL_SHARE of it, with a
+   per-robot query scale and unrounded probabilities as controls that must
+   fail), the chunk after one step and 30 within INT8_RMS_SHARE of the int8
+   form's own quantisation error (RMS; the bf16 kernel the control that
+   must fail), and the int8 and bf16 kernels' times on the same inputs; the
+   engine with fused_kv_quant="int8", fused_block_robots=16 for 5 ddim30
+   periods at B=1024 (exact launches) and 2 periods card vs CPU at B=8
+   (blocks of 4); fused_group_robots=4 rollouts bit for bit those of 1;
+   "qstat" at h128 B=64 (kernel vs plain, one sample() launch); the
+   flagship's cached ddim30 lane with int8 K/V
+   and, with vit_fused_gelu "poly", 5 periods each at B=64 (exact
+   launches); the ViT block under "poly" and "bf16", forward and backward
+   at 128 and 640 frames against the plain versions, beside exact GELU's
+   times and torch.nn's quick-GELU layer (for "bf16"); 20 flagship
+   training steps with "bf16" and 4 with "poly" (exact launches a step);
+   encoder_fused_block at h128: the ViT block at the proprioceptive stacks'
+   shape (B=64, T=100, 4 heads of 32) forward and backward, 20 train.py
+   steps (6 ViT-block forwards and 6 backwards a step) and 3 steps card vs
+   CPU; larger_model's cached lane with int8 K/V (5 periods at B=64). Step
+   2's SASS check also requires IMMA in every int8 instance and 8 ViT-block
+   instances each way (head_dim 32 / 64 x four GELUs). The results go under
+   the JSON line's "variants" key.
+18. Prints one JSON line of per-kernel results, then as its last line
    {"ok": true, "device": {...}}. Where one torch.nn call computes the
    same function as a kernel (the encoder-stack, ViT-block and
    decoder-layer forwards; one torch.autograd.grad through the same layers
@@ -348,8 +379,14 @@ TENSOR_CORE_KERNELS = (
     ("encoder_stack_bwd_kernel", ""), ("tdot_kernel", ""), ("decoder_layer_fwd_kernel", ""),
     ("decoder_layer_bwd_kernel", ""), ("fused_chunk_kernel", ""), ("fused_denoise_kernel", ""),
     ("fused_chunk_kernel", "ILi128E"), ("fused_denoise_kernel", "ILi128E"),
+    ("fused_chunk_int8_kernel", ""),
     ("fused_encoder_kernel", ""), ("flash_fwd_kernel", "__nv_bfloat16"),
     ("flash_bwd_dq_kernel", "__nv_bfloat16"), ("flash_bwd_dkdv_kernel", "__nv_bfloat16"))
+# kernels whose every instance must hold IMMA (mma.sync on the int8 tensor
+# cores): the int8 chunk's scores and value sums
+IMMA_KERNELS = ("fused_chunk_int8_kernel",)
+# the ViT block's instances: head_dim 32 / 64 x the four GELUs, forward and backward
+VIT_INSTANCES = {"vit_block_fwd_kernel": 8, "vit_block_bwd_kernel": 8}
 # kernel instances that stay scalar fp32 FMAs (logged with their counts)
 SCALAR_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
 # H100 SXM fp32 peak outside the tensor cores (NVIDIA data sheet): the bound
@@ -665,10 +702,11 @@ def median_ms(fn, reps=5, warm=2):
     return statistics.median(times)
 
 
-def compare(name, kernel_fn, plain_fn, b, flops, inputs, library_fn=None):
-    """Kernel vs plain version: the error, both CUDA-event times, the bound
-    (``flops`` and the bytes of ``inputs`` and the kernel's output) and the
-    time of ``library_fn``, one PyTorch call computing the same function."""
+def compare(name, kernel_fn, plain_fn, b, flops, inputs, library_fn=None, tol=TOL, bnd=None):
+    """Kernel vs plain version: the error (within ``tol`` x max|plain|),
+    both CUDA-event times, the bound (``bnd``, or ``flops`` and the bytes of
+    ``inputs`` and the kernel's output) and the time of ``library_fn``, one
+    PyTorch call computing the same function."""
     got, ref = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     out_bytes = nbytes(got)  # the output as the kernel writes it (bf16 or fp32)
@@ -678,11 +716,11 @@ def compare(name, kernel_fn, plain_fn, b, flops, inputs, library_fn=None):
                              "or non-finite output")
     max_abs = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
-    ok = max_abs <= TOL * scale
+    ok = max_abs <= tol * scale
     k_ms, p_ms = median_ms(kernel_fn), median_ms(plain_fn)
-    bnd = bound(flops, nbytes(inputs) + out_bytes)
+    bnd = bnd or bound(flops, nbytes(inputs) + out_bytes)
     log(f"{name} B={b}: max_abs_err={max_abs:.4e} max|plain|={scale:.4e} "
-        f"(tol {TOL} x max|plain|) kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+        f"(tol {tol} x max|plain|) kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
         f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} B={b} disagrees with its plain version")
@@ -782,7 +820,7 @@ def zero_counters():
 
     for c in (FusedContextEncoder, FusedChunkSampler, FusedDenoiser):
         c.launches = 0
-    FusedDenoiser.pack_launches = 0
+    FusedDenoiser.pack_launches = FusedChunkSampler.int8_launches = 0
     for c in (FusedEncoderStack, FusedDecoderLayer):
         c.fwd_launches = c.bwd_launches = c.fwd_launches_hd64 = c.bwd_launches_hd64 = 0
     fused_vit_block.forward_kernel.launches = fused_vit_block.backward_kernel.launches = 0
@@ -799,6 +837,7 @@ def read_counters() -> dict:
     from soccerdiffusion_tpu_torch.ops.flash_attention import FlashAttention
 
     return {"fused_encoder": FusedContextEncoder.launches, "fused_chunk": FusedChunkSampler.launches,
+            "fused_chunk_int8": FusedChunkSampler.int8_launches,
             "fused_denoise": FusedDenoiser.launches,
             "fused_denoise_pack": FusedDenoiser.pack_launches,
             "fused_encoder_stack_fwd": FusedEncoderStack.fwd_launches,
@@ -883,11 +922,11 @@ def to_device(carry, device):
                                generator=torch.Generator(device=device))
 
 
-def reference_phase(cfg, model, device, b=8, **kw):
+def reference_phase(cfg, model, device, b=8, tol=ROLLOUT_TOL, **kw):
     """Closed-loop periods of the kernel path, each held against the same
     engine's plain versions on the CPU from the same state and noise (the
     untrained model's loop is chaotic, so the states are re-synchronised
-    every period)."""
+    every period), each within ``tol`` x max|plain|."""
     rng = np.random.default_rng(5)
     kw = kw or dict(fused="chunk")
     gpu = engine(model, cfg, device, **kw)
@@ -900,8 +939,8 @@ def reference_phase(cfg, model, device, b=8, **kw):
         carry, got = gpu.replan_period(carry, noise)
         err, scale = (got.cpu() - ref).abs().max().item(), ref.abs().max().item()
         log(f"serving loop B={b} period {period}: kernels on {device} vs plain versions on cpu: "
-            f"max_abs_err={err:.4e} max|plain|={scale:.4e} (tol {ROLLOUT_TOL} x max|plain|)")
-        if not err <= ROLLOUT_TOL * scale:
+            f"max_abs_err={err:.4e} max|plain|={scale:.4e} (tol {tol} x max|plain|)")
+        if not err <= tol * scale:
             raise AssertionError("the kernel path disagrees with the plain path")
 
 
@@ -2011,7 +2050,19 @@ def smem_mirror_phase() -> int:
                 raise AssertionError(f"pass_smem_bytes{args}: Python mirror {got}, C {want}")
             n += 1
     log(f"shared-memory plan: the Python mirror equals sd_pass_smem_bytes in all {n} cases")
-    return n
+    from soccerdiffusion_tpu_torch.ops.fused_chunk import int8_keys, int8_smem_bytes
+
+    m = 0
+    for D, shapes in widths.items():
+        for (E, H), L, S in itertools.product(shapes, (2, 4, 8), (1, 301, 311, 447, 575, 1023)):
+            args = (L, P, E, H, J, Jp, int8_keys(S))
+            want, got = lib.sd_int8_smem_bytes(_build.ints(*args)), int8_smem_bytes(*args)
+            if want != got:
+                raise AssertionError(f"int8_smem_bytes{args}: Python mirror {got}, C {want}")
+            m += 1
+    log(f"int8 chunk's shared memory: the Python mirror equals sd_int8_smem_bytes in all {m} "
+        "cases")
+    return n + m
 
 
 # ------------------------------------------------------- distillation and guidance
@@ -4230,6 +4281,540 @@ def checkpoint_phase(device, smi, phase4_ms) -> dict:
 
 # examples/quality_ledger.py's proprioceptive run (BENCH_CONFIG: bench.py's
 # h128 architecture, lr 1e-3) through the port's train -> distill -> report
+# ------------------------------------------------------- the kernel variants (phase 17)
+# int8 context K/V. Both the kernel and its plain version compute the same
+# integers, so they differ only where an fp32 value lands on the other side
+# of a quantisation boundary in one and not the other; over a 30-step chunk
+# such flips grow as any rounding does, so the chunks alone cannot show the
+# mechanism. It is held instead on the kernel's own record of every (step,
+# layer) (sample_int8_kernel(record=True)), from the inputs it had there:
+#   * the query scales: each equal, bit for bit, to the max |q| / 127 of the
+#     kernel's bf16 queries over the R robots of its block (a per-robot
+#     scale, the control, differs wherever a robot is not its block's max);
+#   * the int8 queries: each equal to the plain quantiser at that scale;
+#   * the K / V scales: one per block, within KV_SCALE_RTOL of the plain
+#     quantiser's over the fp32 projections (summation order), and the int8
+#     K/V off the plain quantiser in at most KV_FLIP_SHARE of the elements;
+#   * the cross-attention's bf16 output: at least CROSS_EQUAL_SHARE of it
+#     bit for bit the plain int8 cross-attention (int8_cross) of the
+#     kernel's own queries and K/V, where two controls on the same inputs,
+#     the probabilities left unrounded (not in 1/127 steps) and a per-robot
+#     query scale, must each come out below it.
+# The chunks: the kernel's RMS distance from the plain int8 chunk, at one
+# step and at 30, at most INT8_RMS_SHARE of the RMS of the int8 form's own
+# quantisation error (plain int8 - plain bf16) on the same inputs, where the
+# bf16 kernel's chunk, the control, must come out above it; and the max
+# distance within that whole error (max|plain int8 - plain bf16|).
+# The limits sit between the kernel's readings and the controls' (a
+# calibration on an H100 at 700 W, every R and head dim of phase 17): the
+# cross-attention bit for bit in 0.9972-0.9994 of the elements, the
+# controls in 0.16-0.18 (unrounded probabilities) and 0.25-0.63 (per-robot
+# scales, R >= 2); the chunks' RMS distance 0.25-0.62 of the quantisation's,
+# the bf16 kernel's 0.998-1.007.
+INT8_TOL = 2 * TOL  # the int8 closed loop, card vs CPU (reference_phase)
+KV_FLIP_SHARE, KV_SCALE_RTOL = 1e-4, 1e-5
+CROSS_EQUAL_SHARE, INT8_RMS_SHARE = 0.99, 0.8
+INT8_BLOCKS, INT8_ENGINE_BLOCK, INT8_REF_BLOCK = (8, 16), 16, 4
+# the other cluster shapes (R robots a block on C = 1, 2, 4, 8 blocks of 1 to
+# 4 robots), held at B=64 (error only)
+INT8_OTHER_BLOCKS = (1, 2, 4, 32)
+# H100 SXM dense int8 tensor-core peak (NVIDIA data sheet), ops/s
+INT8_OPS = 1979e12
+VARIANT_GELUS = ("poly", "bf16")
+POLY_TRAIN_STEPS = 4
+# launches per h128 training step with encoder_fused_block (and the decoder's
+# fused layers): the 3 proprioceptive stacks' 2 layers each as ViT blocks
+PROPRIO_BLOCK_LAUNCHES = {"fused_vit_block_fwd": 6, "fused_vit_block_bwd": 6,
+                          "fused_decoder_layer_fwd": 4, "fused_decoder_layer_bwd": 4}
+
+
+def int8_bound(cfg, b, S, T, io_bytes) -> dict:
+    """The int8 chunk's least time: its bytes (``io_bytes``: the inputs, the
+    output and the int8 K/V written once) over the HBM rate, against its
+    operations at their rates: the cross-attention's scores and value sums
+    (int8) at the int8 peak, the rest (the K/V projection, every other
+    product of the T passes) at the bf16 peak."""
+    p, e, L = cfg.trajectory_prediction_length, cfg.hidden_dim, cfg.num_decoder_layers
+    int8_ops = b * T * L * attn_flops(p, S, e)
+    bf16_ops = b * (2 * S * e * 2 * L * e + T * decoder_pass_flops(cfg, S)) - b * T * L * attn_flops(
+        p, S + 1, e)
+    t_bytes, t_ops = io_bytes / HBM_BYTES_PER_S, bf16_ops / BF16_FLOPS + int8_ops / INT8_OPS
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def rms(x: torch.Tensor) -> float:
+    return x.float().pow(2).mean().sqrt().item()
+
+
+def int8_cross_unrounded_p(smp, q2, kv, stk_l, stv_l, robots: int) -> torch.Tensor:
+    """A control of int8_coupling_checks: the plain int8 cross-attention
+    (FusedChunkSampler.int8_cross) with its probabilities left unrounded
+    instead of in 1/127 steps."""
+    from soccerdiffusion_tpu_torch.ops.fused_chunk import block_scale, quantise
+
+    kq, vq, sk, sv = kv
+    H, D = smp.num_heads, smp.head_dim
+    heads = lambda t: t.reshape(t.shape[0], t.shape[1], H, D).transpose(1, 2)
+    scale = 1.0 / D ** 0.5
+    sq = block_scale(q2, robots)
+    s = (heads(quantise(q2, sq)) @ heads(kq).transpose(-1, -2)) * ((sq * sk) * scale)[..., None]
+    s_x = (heads(q2) * stk_l.float().reshape(H, 1, D)).sum(-1, keepdim=True) * scale
+    m = torch.maximum(s.amax(-1, keepdim=True), s_x)
+    p, p_x = torch.exp(s - m), torch.exp(s_x - m)
+    o = (p @ heads(vq)) * sv[..., None] + p_x * stv_l.float().reshape(H, 1, D)
+    o = o / (p.sum(-1, keepdim=True) + p_x)
+    return smp._round(o.transpose(1, 2).reshape(q2.shape))
+
+
+def int8_coupling_checks(smp, context, noise, stk, stv, coefs, R, name) -> dict:
+    """The int8 kernel's record of every (step, layer) against the plain
+    quantiser and cross-attention on the kernel's own inputs (the comment
+    above INT8_TOL), with their controls. Returns the readings."""
+    from soccerdiffusion_tpu_torch.ops.fused_chunk import int8_scale, quantise, unpack_int8_kv
+
+    S = context.shape[1]
+    _, rec = smp.sample_int8_kernel(context, noise, stk, stv, coefs, R, record=True)
+    B, T, L = rec["sq"].shape
+    q2 = rec["q2"].float()
+    amax = q2.abs().amax((3, 4))  # (B, T, L)
+    block = int8_scale(amax.view(B // R, R, T, L).amax(1)).repeat_interleave(R, 0)
+    own = int8_scale(amax)
+    sq_off, sq_own_off = int((rec["sq"] != block).sum()), int((rec["sq"] != own).sum())
+    qq_off = int((rec["qq"].float() != quantise(q2, rec["sq"][..., None, None])).sum())
+    plain_kv = smp.int8_context_kv(context, R)
+    k, v = unpack_int8_kv(rec["kv"], S)
+    kv_off = kv_scale_err = 0
+    for l, (kq, vq, sk, sv) in enumerate(plain_kv):
+        kv_off += int((k[:, l].float() != kq).sum() + (v[:, l].float() != vq).sum())
+        for got, want in ((rec["sk"][:, l], sk[:, 0, 0]), (rec["sv"][:, l], sv[:, 0, 0])):
+            kv_scale_err = max(kv_scale_err, ((got - want).abs() / want).max().item())
+    one_scale = all(bool((x.view(B // R, R, L) == x.view(B // R, R, L)[:, :1]).all())
+                    for x in (rec["sk"], rec["sv"]))
+    forms = {"kernel": R, "per_robot_sq": 1, "unrounded_p": None}
+    equal, err = dict.fromkeys(forms, 0), 0.0
+    for l in range(L):
+        kvl = (k[:, l].float(), v[:, l].float(), rec["sk"][:, l, None, None],
+               rec["sv"][:, l, None, None])
+        for t in range(T):
+            q, got = q2[:, t, l], rec["cross"][:, t, l].float()
+            for form, robots in forms.items():
+                want = (int8_cross_unrounded_p(smp, q, kvl, stk[t, l], stv[t, l], R)
+                        if robots is None else smp.int8_cross(q, kvl, stk[t, l], stv[t, l], robots))
+                equal[form] += int((got == want).sum())
+                if form == "kernel":
+                    err = max(err, (got - want).abs().max().item())
+    share = {form: n / rec["cross"].numel() for form, n in equal.items()}
+    out = {"query_scales_off": sq_off, "per_robot_scales_off": sq_own_off,
+           "query_ints_off": qq_off, "kv_elements_differing": kv_off,
+           "kv_elements": 2 * k.numel(), "kv_scale_rel_err": kv_scale_err,
+           "cross_equal_share": share["kernel"], "cross_max_abs_err": err,
+           "control_per_robot_sq_equal_share": share["per_robot_sq"],
+           "control_unrounded_p_equal_share": share["unrounded_p"]}
+    log(f"{name} B={B} R={R} record of {T} steps x {L} layers: query scales off the block's "
+        f"{sq_off} (a per-robot scale: {sq_own_off} of {rec['sq'].numel()} off), int8 queries "
+        f"off {qq_off}; K/V scales one per block {one_scale}, rel err {kv_scale_err:.3e} (at most "
+        f"{KV_SCALE_RTOL}); int8 K/V elements off {kv_off} of {2 * k.numel()} (at most "
+        f"{KV_FLIP_SHARE} of them); cross-attention bit for bit the plain one in "
+        f"{share['kernel']:.6f} (at least {CROSS_EQUAL_SHARE}; max_abs_err {err:.4e}), controls: "
+        f"a per-robot query scale {share['per_robot_sq']:.6f}, probabilities unrounded "
+        f"{share['unrounded_p']:.6f}")
+    if sq_off or qq_off or not one_scale or kv_scale_err > KV_SCALE_RTOL \
+            or kv_off > KV_FLIP_SHARE * 2 * k.numel() or share["kernel"] < CROSS_EQUAL_SHARE:
+        raise AssertionError(f"{name} R={R}: the int8 kernel's record disagrees with its plain "
+                             "quantiser and cross-attention")
+    if share["unrounded_p"] >= CROSS_EQUAL_SHARE or (R > 1 and (
+            not sq_own_off or share["per_robot_sq"] >= CROSS_EQUAL_SHARE)):
+        raise AssertionError(f"{name} R={R}: a control passes the record's gate")
+    return out
+
+
+def int8_checks(model, context, noise, device, b, name, blocks=INT8_BLOCKS,
+                timed=INT8_BLOCKS) -> tuple[dict, list]:
+    """The int8 chunk kernel at each R of ``blocks`` robots a block on one
+    context, against its plain version: one step and the 30-step DDIM chunk
+    (RMS within INT8_RMS_SHARE of the int8 form's own quantisation error,
+    max within the whole of it, the bf16 kernel's chunk the control) and
+    its record (int8_coupling_checks); at R in ``timed`` its
+    time, the plain version's and the bf16 kernel's on the same inputs.
+    Returns the merged result (the last timed R's times) and one record
+    per R."""
+    from soccerdiffusion_tpu_torch.diffusion import make_schedule, solver_coef_table
+    from soccerdiffusion_tpu_torch.diffusion.ddim import ddim_timesteps
+    from soccerdiffusion_tpu_torch.ops.fused_chunk import FusedChunkSampler, int8_keys
+
+    cfg, S = model.config, context.shape[1]
+    coefs = solver_coef_table(make_schedule(1000), 30, "ddim")
+    table = model.step_encoding(torch.as_tensor(ddim_timesteps(1000, 30).astype(np.int64),
+                                                device=device))[:, 0]
+    bf16_chunk = FusedChunkSampler(model)
+    stk, stv = bf16_chunk.step_tables(table)
+    bf16_ms = median_ms(lambda: bf16_chunk.sample_kernel(context, noise, stk, stv, coefs))
+    unquantised = {T: bf16_chunk.sample_plain(context, noise, stk, stv, coefs[:T]) for T in (1, 30)}
+    control = {T: bf16_chunk.sample_kernel(context, noise, stk, stv, coefs[:T]) for T in (1, 30)}
+    results, records = {}, []
+    for R in blocks:
+        smp = FusedChunkSampler(model, block_robots=R, context_kv_quant="int8")
+        rec = {"batch": b, "block_robots": R}
+        for T in (1, 30):
+            got = smp.sample_kernel(context, noise, stk, stv, coefs[:T], R)
+            plain = smp.sample_plain(context, noise, stk, stv, coefs[:T], R)
+            quant = plain - unquantised[T]
+            read = {"max_abs_err": (got - plain).abs().max().item(), "rms_err": rms(got - plain),
+                    "quant_max": quant.abs().max().item(), "quant_rms": rms(quant),
+                    "control_rms_err": rms(control[T] - plain),
+                    "max_plain": plain.abs().max().item()}
+            limit = INT8_RMS_SHARE * read["quant_rms"]
+            log(f"{name} B={b} R={R} {T} step(s): kernel vs plain int8 RMS {read['rms_err']:.4e} "
+                f"max {read['max_abs_err']:.4e}; the int8 form's quantisation error (plain int8 - "
+                f"plain bf16) RMS {read['quant_rms']:.4e} max {read['quant_max']:.4e}; the "
+                f"control (the bf16 kernel) RMS {read['control_rms_err']:.4e}; limit RMS "
+                f"{limit:.4e} ({INT8_RMS_SHARE} of the quantisation's), max {read['quant_max']:.4e}"
+                f"; max|plain| {read['max_plain']:.4e}")
+            if not (torch.isfinite(got).all() and read["rms_err"] <= limit
+                    and read["max_abs_err"] <= read["quant_max"]):
+                raise AssertionError(f"{name} R={R}: {T} step(s) disagree with the plain version")
+            if read["control_rms_err"] <= limit:
+                raise AssertionError(f"{name} R={R}: the control (bf16 kernel) passes the gate")
+            rec.update({f"{key}_{T}": value for key, value in read.items()})
+        if R in timed:
+            kv_bytes = b * cfg.num_decoder_layers * 2 * int8_keys(S) * cfg.hidden_dim
+            io = nbytes(smp.kernel_weights, context.to(torch.bfloat16), noise, stk, stv) + \
+                nbytes(noise) + kv_bytes
+            r = compare(f"{name} R={R}",
+                        lambda: smp.sample_kernel(context, noise, stk, stv, coefs, R),
+                        lambda: smp.sample_plain(context, noise, stk, stv, coefs, R), b, 0, [],
+                        tol=rec["quant_max_30"] / rec["max_plain_30"],
+                        bnd=int8_bound(cfg, b, S, 30, io))
+            log(f"{name} B={b} R={R}: int8 kernel {r['ms']:.3f} ms against the bf16 kernel's "
+                f"{bf16_ms:.3f} ms on the same inputs")
+            merge(results, name, r)
+            rec.update({"ms": r["ms"], "bf16_ms": bf16_ms})
+        else:
+            merge(results, name, {**results[name], "max_abs_err": rec["max_abs_err_30"]})
+        rec.update(int8_coupling_checks(smp, context, noise, stk, stv, coefs, R, name))
+        records.append(rec)
+    return results, records
+
+
+def variant_serving_phase(model, device) -> tuple[dict, dict, dict]:
+    """h128 (bench_config): the int8 chunk at B=64 and BENCH_B
+    (int8_checks) and at INT8_OTHER_BLOCKS at B=64, "qstat" at B=64 (its
+    sampler driven once through sample(), its launch counted), the
+    engine's 5 int8 ddim30 periods at BENCH_B (fused_block_robots=16: exact
+    launches) and 2 periods card vs CPU at B=8 (blocks of 4), groups of 4
+    robots bit for bit the ungrouped engine's chunks."""
+    from soccerdiffusion_tpu_torch.diffusion import make_schedule, solver_coef_table
+    from soccerdiffusion_tpu_torch.diffusion.ddim import ddim_timesteps
+    from soccerdiffusion_tpu_torch.ops.fused_chunk import FusedChunkSampler
+    from soccerdiffusion_tpu_torch.ops.fused_encoder import FusedContextEncoder
+
+    cfg = model.config
+    enc = FusedContextEncoder(model)
+    results, records, launches = {}, [], {}
+    for b in (64, BENCH_B):
+        rng = np.random.default_rng(1700 + b)
+        with torch.no_grad():
+            context = enc.encode_plain(random_batch(cfg, b, device, rng))
+            noise = torch.from_numpy(rng.normal(size=(b, 10, 20)).astype(np.float32)).to(device)
+            r, rec = int8_checks(model, context, noise, device, b, "fused_chunk_int8",
+                                 INT8_BLOCKS + (INT8_OTHER_BLOCKS if b == 64 else ()))
+        merge(results, "fused_chunk_int8", r["fused_chunk_int8"])
+        records += rec
+        if b == 64:  # "qstat", the JAX package's experiment-only orientation
+            qs = FusedChunkSampler(model, cross_orientation="qstat")
+            table = model.step_encoding(torch.as_tensor(
+                ddim_timesteps(1000, 30).astype(np.int64), device=device))[:, 0]
+            stk, stv = qs.step_tables(table)
+            coefs = solver_coef_table(make_schedule(1000), 30, "ddim")
+            S, e, L = context.shape[1], cfg.hidden_dim, cfg.num_decoder_layers
+            with torch.no_grad():
+                results["fused_chunk_qstat"] = compare(
+                    "fused_chunk_qstat", lambda: qs.sample_kernel(context, noise, stk, stv, coefs),
+                    lambda: qs.sample_plain(context, noise, stk, stv, coefs), b,
+                    b * (2 * S * e * 2 * L * e + 30 * decoder_pass_flops(cfg, S)),
+                    [qs.kernel_weights, context, noise, stk, stv])
+                torch.cuda.synchronize()
+                zero_counters()
+                out = qs.sample(context, noise, table, make_schedule(1000), 30)
+                torch.cuda.synchronize()
+                got = nonzero(read_counters())
+            if got != {"fused_chunk": 1} or not torch.isfinite(out).all():
+                raise AssertionError(f"qstat sample(): launches {got}")
+            launches["fused_chunk_qstat"] = got["fused_chunk"]
+    eng = engine(model, cfg, device, fused="chunk", fused_kv_quant="int8",
+                 fused_block_robots=INT8_ENGINE_BLOCK)
+    eng.make_rollout_fn(1)(eng.init(BENCH_B, torch.Generator(device=device).manual_seed(0)))
+    ms, got = timed_rollout(eng, device, 1)
+    want = {name: 0 for name in got} | {"fused_encoder": CHUNKS, "fused_chunk_int8": CHUNKS}
+    log(f"int8 K/V serving (RolloutEngine fused='chunk', fused_kv_quant='int8', "
+        f"fused_block_robots={INT8_ENGINE_BLOCK}) B={BENCH_B}, {CHUNKS} periods: {ms:.2f} "
+        f"ms/period; launches {nonzero(got)}")
+    if got != want:
+        raise AssertionError(f"int8 serving: launches {got}, expected {want}")
+    launches["fused_chunk_int8"] = got["fused_chunk_int8"]
+    reference_phase(cfg, model, device, b=8, tol=INT8_TOL, fused="chunk", fused_kv_quant="int8",
+                    fused_block_robots=INT8_REF_BLOCK)
+    # groups of robots compute the ungrouped function: the same chunks bit for bit
+    chunks = {}
+    for g in (1, 4):
+        e = engine(model, cfg, device, fused="chunk", fused_group_robots=g)
+        _, chunks[g] = e.make_rollout_fn(2)(e.init(64, torch.Generator(device=device).manual_seed(3)))
+    if not torch.equal(chunks[1], chunks[4]):
+        raise AssertionError("fused_group_robots=4 changed the chunks")
+    log("fused_group_robots=4: B=64, 2 periods, the chunks bit for bit those of 1")
+    return results, launches, {"int8_records": records, "int8_ms_per_replan_period": ms}
+
+
+def vit_variant_checks(model, device) -> dict:
+    """The flagship's ViT block (block 0's weights) under "poly" and "bf16",
+    forward and backward at FLAG_VIT_FRAMES frames, against their plain
+    versions, timed beside exact GELU's kernel on the same inputs and, for
+    "bf16" (quick-GELU in bf16), torch.nn's quick-GELU layer."""
+    from soccerdiffusion_tpu_torch.ops import fused_encoder_stack as fes
+    from soccerdiffusion_tpu_torch.ops import fused_vit_block as fvb
+
+    cfg = model.config
+    vit = model.image_sequence_encoder.image_encoder
+    T, W, H = (cfg.image_resolution // cfg.vit_patch_size) ** 2, cfg.vit_width, vit.num_heads
+    vit_w = [t.detach().to(torch.bfloat16) for t in fes.encoder_layer_weights(vit.blocks.layers[0])]
+    rng = np.random.default_rng(1717)
+    t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        device, torch.bfloat16)
+    results, exact = {}, {}
+    for n in FLAG_VIT_FRAMES:
+        x, dy = t(n, T, W), t(n, T, W)
+        exact[n] = (median_ms(lambda: fvb.forward_kernel(x, vit_w, H, "exact")),
+                    median_ms(lambda: fvb.backward_kernel(x, dy, vit_w, H, "exact")))
+        log(f"fused ViT block N={n} exact GELU: forward {exact[n][0]:.3f} ms, backward "
+            f"{exact[n][1]:.3f} ms")
+        for gelu in VARIANT_GELUS:
+            lib = torch_encoder([w[None] for w in vit_w], H, quick_gelu) if gelu == "bf16" else None
+            with torch.no_grad():
+                merge(results, f"fused_vit_block_fwd_{gelu}", compare(
+                    f"fused_vit_block_fwd_{gelu} N={n}",
+                    lambda g=gelu: fvb.forward_kernel(x, vit_w, H, g),
+                    lambda g=gelu: fvb.forward_plain(x, vit_w, H, g), n,
+                    n * enc_layer_flops(T, W, 4 * W), [x, vit_w],
+                    None if lib is None else (lambda: lib(x))))
+            log(f"fused ViT block backward N={n} ({gelu} GELU):")
+            dx, grads = fvb.backward_kernel(x, dy, vit_w, H, gelu)
+            dx_ref, grads_ref = fvb.backward_plain(x, dy, vit_w, H, gelu)
+            err = max(err_line("dx", dx, dx_ref),
+                      grads_check(fes.STACK_WEIGHTS, grads, grads_ref, {"bqkv": slice(W, 2 * W)}))
+            time_checked(results, f"N={n} frames", {f"fused_vit_block_bwd_{gelu}": (
+                err, lambda g=gelu: fvb.backward_kernel(x, dy, vit_w, H, g),
+                lambda g=gelu: fvb.backward_plain(x, dy, vit_w, H, g),
+                3 * n * enc_layer_flops(T, W, 4 * W), [x, dy, vit_w, dx, grads],
+                None if gelu == "poly" else LibraryGrad(
+                    encoder_grad_fn([w[None] for w in vit_w], H, x, dy, quick_gelu,
+                                    stacked=False), fes.STACK_WEIGHTS, {"bqkv": slice(W, 2 * W)}))})
+    return results, {f"N{n}": {"fwd_ms": f, "bwd_ms": b} for n, (f, b) in exact.items()}
+
+
+def gelu_flagship_config(gelu: str):
+    return dataclasses.replace(flagship_config(), vit_fused_gelu=gelu)
+
+
+def gelu_train_config(gelu: str, batch: int):
+    config = flagship_train_config(batch)
+    return dataclasses.replace(config, model=dataclasses.replace(config.model,
+                                                                 vit_fused_gelu=gelu))
+
+
+def variant_flagship_phase(device) -> tuple[dict, dict, dict]:
+    """The flagship (vit_flagship.yaml's model): the int8 chunk at head_dim
+    64 (B=64) and its cached ddim30 lane with int8 K/V (5 periods, blocks of
+    16); under "poly" 5 cached ddim30 periods; the ViT block's variants
+    (vit_variant_checks); 20 training steps under "bf16" and
+    POLY_TRAIN_STEPS under "poly" through train.py (packed dummy data, exact
+    launches a step)."""
+    from soccerdiffusion_tpu_torch.training.train import RunOptions, train
+
+    flag = build_model(flagship_config(), device, seed=3)
+    cfg = flag.config
+    rng = np.random.default_rng(1764)
+    b = FLAG_B
+    batch = random_batch(cfg, b, device, rng)
+    batch["image_tokens"] = torch.from_numpy(
+        rng.normal(size=(b, cfg.image_context_length, cfg.hidden_dim)).astype(np.float32)).to(device)
+    with torch.no_grad():
+        context = flag.encode_context(batch)
+        noise = torch.from_numpy(rng.normal(size=(b, 10, 20)).astype(np.float32)).to(device)
+        r, records = int8_checks(flag, context, noise, device, b, "fused_chunk_int8_hd64")
+    results, launches = dict(r), {}
+    lane = FLAG_LANES["ddim30"][1]
+    for label, model, kw, per_period in (
+            ("int8", flag, dict(fused_kv_quant="int8", fused_block_robots=INT8_ENGINE_BLOCK),
+             {**lane, "fused_chunk": 0, "fused_chunk_int8": 1}),
+            ("poly", None, {}, lane)):
+        if model is None:
+            model = build_model(gelu_flagship_config("poly"), device, seed=3)
+        eng = engine(model, model.config, device, fused="chunk", fused_encoder=False, **kw)
+        eng.make_rollout_fn(1)(eng.init(FLAG_B, torch.Generator(device=device).manual_seed(0)))
+        ms, got = timed_rollout(eng, device, 1, FLAG_B, CHUNKS)
+        want = {name: per_period.get(name, 0) * CHUNKS for name in got}
+        log(f"flagship cached ddim30 lane ({label}) B={FLAG_B}, {CHUNKS} periods: {ms:.2f} "
+            f"ms/period; launches {nonzero(got)}")
+        if got != want:
+            raise AssertionError(f"flagship {label} lane: launches {got}, expected {want}")
+        launches[label] = (got, ms)
+    vit, exact = vit_variant_checks(flag, device)
+    results.update(vit)
+    del flag, model
+    torch.cuda.empty_cache()
+    train_launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        zero_counters()
+        ms_bf16, losses = timed_training(gelu_train_config("bf16", FLAG_TRAIN_B), tmp, "bf16",
+                                         packed=True)
+        got = read_counters()
+        log(f"flagship training with vit_fused_gelu bf16 (train.py, packed dummy data, "
+            f"B={FLAG_TRAIN_B}, {TRAIN_STEPS} steps): {ms_bf16:.3f} ms/step; losses {losses}")
+        train_launches["bf16"] = expect_launches("bf16 flagship training", got,
+                                                 FLAG_TRAIN_LAUNCHES, TRAIN_STEPS)
+        zero_counters()
+        state = train(gelu_train_config("poly", FLAG_TRAIN_B), RunOptions(
+            output=f"{tmp}/ckpt_poly", dummy_data=True, packed=True, epochs=1,
+            steps_per_epoch=POLY_TRAIN_STEPS, seed=0, metrics=f"{tmp}/metrics_poly.jsonl"))
+        torch.cuda.synchronize()
+        got = read_counters()
+        if state.step != POLY_TRAIN_STEPS or not all(torch.isfinite(p).all()
+                                                     for p in state.model.parameters()):
+            raise AssertionError("the poly flagship training did not run its steps")
+        train_launches["poly"] = expect_launches("poly flagship training", got,
+                                                 FLAG_TRAIN_LAUNCHES, POLY_TRAIN_STEPS)
+        log(f"flagship training with vit_fused_gelu poly, {POLY_TRAIN_STEPS} steps: launches "
+            f"{train_launches['poly']}")
+    return results, {"serving": launches, "training": train_launches}, {
+        "int8_hd64_records": records, "vit_exact": exact, "bf16_train_ms_per_step": ms_bf16,
+        "flagship_int8_ms_per_replan_period": launches["int8"][1],
+        "flagship_poly_ms_per_replan_period": launches["poly"][1]}
+
+
+def encoder_fused_block_config():
+    """The h128 training configuration with encoder_fused_block: the stacks'
+    layers as ViT blocks (the fused stack off, which would win), the
+    decoder's fused layers on."""
+    config = train_config(True)
+    return dataclasses.replace(config, model=dataclasses.replace(
+        config.model, encoder_fused_block=True, encoder_fused_stack=False))
+
+
+def encoder_fused_block_phase(device) -> tuple[dict, dict, float]:
+    """encoder_fused_block at h128: the ViT block at the proprioceptive
+    stacks' shape (B=64 robots, T=100, W=128, 4 heads of 32, exact GELU)
+    forward and backward against the plain versions and torch.nn; 20
+    train.py steps at B=64 (exact launches: 6 ViT-block forwards and 6
+    backwards a step, the decoder's 4 + 4); 3 steps card vs CPU."""
+    from soccerdiffusion_tpu_torch.ops import fused_encoder_stack as fes
+    from soccerdiffusion_tpu_torch.ops import fused_vit_block as fvb
+
+    config = encoder_fused_block_config()
+    model = build_model(config.model, device, seed=2)
+    layer = model.action_history_encoder.seq.encoder.layers[0]
+    w = [t.detach().to(torch.bfloat16) for t in fes.encoder_layer_weights(layer)]
+    E, T, H = config.model.hidden_dim, config.model.action_context_length, layer.num_heads
+    rng = np.random.default_rng(1777)
+    t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        device, torch.bfloat16)
+    x, dy = t(TRAIN_BATCH, T, E), t(TRAIN_BATCH, T, E)
+    results = {}
+    with torch.no_grad():
+        results["fused_vit_block_fwd_proprio"] = compare(
+            "fused_vit_block_fwd_proprio", lambda: fvb.forward_kernel(x, w, H, "exact"),
+            lambda: fvb.forward_plain(x, w, H, "exact"), TRAIN_BATCH,
+            TRAIN_BATCH * enc_layer_flops(T, E, E), [x, w],
+            lambda lib=torch_encoder([a[None] for a in w], H): lib(x))
+    log(f"fused ViT block backward at the proprioceptive stacks' shape B={TRAIN_BATCH}:")
+    dx, grads = fvb.backward_kernel(x, dy, w, H, "exact")
+    dx_ref, grads_ref = fvb.backward_plain(x, dy, w, H, "exact")
+    err = max(err_line("dx", dx, dx_ref),
+              grads_check(fes.STACK_WEIGHTS, grads, grads_ref, {"bqkv": slice(E, 2 * E)}))
+    time_checked(results, f"B={TRAIN_BATCH}", {"fused_vit_block_bwd_proprio": (
+        err, lambda: fvb.backward_kernel(x, dy, w, H, "exact"),
+        lambda: fvb.backward_plain(x, dy, w, H, "exact"), 3 * TRAIN_BATCH * enc_layer_flops(T, E, E),
+        [x, dy, w, dx, grads],
+        LibraryGrad(encoder_grad_fn([a[None] for a in w], H, x, dy, stacked=False),
+                    fes.STACK_WEIGHTS, {"bqkv": slice(E, 2 * E)}))})
+    del model
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        zero_counters()
+        ms, losses = timed_training(config, tmp, "encoder_fused_block")
+        got = read_counters()
+    log(f"h128 training with encoder_fused_block (train.py, synthetic data, B={TRAIN_BATCH}, "
+        f"{TRAIN_STEPS} steps): {ms:.3f} ms/step; losses {losses}")
+    launches = expect_launches("encoder_fused_block training", got, PROPRIO_BLOCK_LAUNCHES,
+                               TRAIN_STEPS)
+    training_reference_phase(device, config.model, h128_reference_batches(), 17)
+    return results, launches, ms
+
+
+def variant_larger_phase(device) -> tuple[dict, int, dict]:
+    """larger_model.yaml (head_dim 128, 8 decoder layers): the int8 chunk at
+    LARGER_B against its plain version (int8_checks) and its cached ddim30
+    lane with int8 K/V (blocks of 16, exact launches)."""
+    model = larger_model(device)
+    cfg = model.config
+    rng = np.random.default_rng(1791)
+    with torch.no_grad():
+        batch = random_batch(cfg, LARGER_B, device, rng)
+        tokens = rng.normal(size=(LARGER_B, cfg.image_context_length, cfg.hidden_dim))
+        batch["image_tokens"] = torch.from_numpy(tokens.astype(np.float32)).to(device)
+        context = model.encode_context(batch)
+        noise = torch.from_numpy(rng.normal(size=(LARGER_B, 10, 20)).astype(np.float32)).to(device)
+        results, records = int8_checks(model, context, noise, device, LARGER_B,
+                                       "fused_chunk_int8_hd128")
+    eng = engine(model, cfg, device, fused="chunk", fused_encoder=False, fused_kv_quant="int8",
+                 fused_block_robots=INT8_ENGINE_BLOCK)
+    eng.make_rollout_fn(1)(eng.init(LARGER_B, torch.Generator(device=device).manual_seed(0)))
+    ms, got = timed_rollout(eng, device, 1, LARGER_B, CHUNKS)
+    want = {name: 0 for name in got} | {"fused_chunk_int8": CHUNKS}
+    log(f"larger_model cached ddim30 lane with int8 K/V B={LARGER_B}, {CHUNKS} periods: "
+        f"{ms:.2f} ms/period; launches {nonzero(got)}")
+    if got != want:
+        raise AssertionError(f"larger_model int8 lane: launches {got}, expected {want}")
+    return results, got["fused_chunk_int8"], {"int8_hd128_records": records,
+                                              "larger_int8_ms_per_replan_period": ms}
+
+
+def variants_phase(device) -> tuple[dict, dict, dict]:
+    """Phase 17: every kernel variant of the slice (module docstring)."""
+    t0 = time.perf_counter()
+    model = build_model(bench_config(), device)
+    results, serving, info = variant_serving_phase(model, device)
+    del model
+    torch.cuda.empty_cache()
+    flag_results, flag_launches, flag_info = variant_flagship_phase(device)
+    results.update(flag_results)
+    torch.cuda.empty_cache()
+    efb_results, efb_launches, efb_ms = encoder_fused_block_phase(device)
+    results.update(efb_results)
+    torch.cuda.empty_cache()
+    larger_results, larger_launches, larger_info = variant_larger_phase(device)
+    results.update(larger_results)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    log(f"phase 17 (kernel variants): {seconds:.1f} s")
+    launches = {
+        "fused_chunk_int8": serving["fused_chunk_int8"],
+        "fused_chunk_qstat": serving["fused_chunk_qstat"],
+        "fused_chunk_int8_hd64": flag_launches["serving"]["int8"][0]["fused_chunk_int8"],
+        "fused_chunk_int8_hd128": larger_launches,
+        "fused_vit_block_fwd_poly": flag_launches["serving"]["poly"][0]["fused_vit_block_fwd"]
+        + flag_launches["training"]["poly"]["fused_vit_block_fwd"],
+        "fused_vit_block_bwd_poly": flag_launches["training"]["poly"]["fused_vit_block_bwd"],
+        "fused_vit_block_fwd_bf16": flag_launches["training"]["bf16"]["fused_vit_block_fwd"],
+        "fused_vit_block_bwd_bf16": flag_launches["training"]["bf16"]["fused_vit_block_bwd"],
+        "fused_vit_block_fwd_proprio": efb_launches["fused_vit_block_fwd"],
+        "fused_vit_block_bwd_proprio": efb_launches["fused_vit_block_bwd"]}
+    return results, launches, {**info, **flag_info, **larger_info,
+                               "encoder_fused_block_train_ms_per_step": efb_ms,
+                               "seconds": seconds}
+
+
 LEDGER_CONFIG = {
     "num_joints": 20, "hidden_dim": 128, "trajectory_prediction_length": 10,
     "action_context_length": 100, "joint_state_context_length": 100, "imu_context_length": 100,
@@ -4320,6 +4905,18 @@ def sass_phase() -> dict:
             raise AssertionError(f"{label}: an instance without tensor-core instructions "
                                  f"(HMMA/HGMMA counts {n})")
         found[label] = {"instances": len(n), "min_mma_instructions": min(n)}
+    for kernel in IMMA_KERNELS:
+        n = [len(re.findall(r"\bIMMA\b", chunk)) for chunk in sass.split("Function : ")[1:]
+             if kernel in chunk.split(None, 1)[0]]
+        log(f"SASS {kernel}: {len(n)} instance(s), IMMA instructions {n}")
+        if not n or min(n) == 0:
+            raise AssertionError(f"{kernel}: an instance without int8 tensor-core instructions "
+                                 f"(IMMA counts {n})")
+        found[f"{kernel} (IMMA)"] = {"instances": len(n), "min_mma_instructions": min(n)}
+    for kernel, want in VIT_INSTANCES.items():
+        if found[kernel]["instances"] != want:
+            raise AssertionError(f"{kernel}: {found[kernel]['instances']} instances, expected "
+                                 f"{want} (head_dim 32 / 64 x four GELUs)")
     for kernel in SCALAR_KERNELS:
         n = {fn: c for fn, c in counts.items() if kernel in fn and "__nv_bfloat16" not in fn}
         log(f"SASS {kernel} (float instances, scalar fp32): {len(n)} instance(s), HMMA/HGMMA "
@@ -4628,6 +5225,9 @@ def main(argv=None) -> int:
     parallel = parallel_phase(device, smi)
     # checkpoints the port did not write: the JAX package's and the reference's
     checkpoints = checkpoint_phase(device, smi, periods["ddim30"])
+    # the kernel variants: int8 K/V, qstat, groups, the poly / bf16 GELUs, encoder_fused_block
+    variant_results, variant_launches, variants = variants_phase(device)
+    results.update(variant_results)
 
     # where each kernel instance ran: (source, the TPU kernel it replaces (the
     # pack: the JAX denoiser's pack_context_kv, whose layout the kernel's
@@ -4642,7 +5242,7 @@ def main(argv=None) -> int:
     eval_rows = {}
     for path, count in (("serve", served), ("report", reported)):
         eval_rows.update({
-            f"fused_vit_block_fwd_{path}": ("fused_vit_block.cu", "fused_vit_block.py:703",
+            f"fused_vit_block_fwd_{path}": ("vit_block.cuh", "fused_vit_block.py:703",
                                             count("fused_vit_block_fwd")),
             f"fused_encoder_stack_fwd_hd64_{path}": ("fused_encoder_stack.cu",
                                                      "fused_encoder_stack.py:274",
@@ -4667,9 +5267,9 @@ def main(argv=None) -> int:
                                     train_launches["fused_decoder_layer_fwd"]),
         "fused_decoder_layer_bwd": ("fused_decoder_layer.cu", "fused_decoder_layer.py:371",
                                     train_launches["fused_decoder_layer_bwd"]),
-        "fused_vit_block_fwd": ("fused_vit_block.cu", "fused_vit_block.py:703",
+        "fused_vit_block_fwd": ("vit_block.cuh", "fused_vit_block.py:703",
                                 flag("fused_vit_block_fwd", ("ddim30", "distilled1"))),
-        "fused_vit_block_fwd_raw_frames": ("fused_vit_block.cu", "fused_vit_block.py:703",
+        "fused_vit_block_fwd_raw_frames": ("vit_block.cuh", "fused_vit_block.py:703",
                                            flag("fused_vit_block_fwd", ("ddim30_raw_frames",))),
         "fused_chunk_hd64": ("fused_chunk.cu", "fused_chunk.py:518", flag("fused_chunk")),
         "fused_denoise_hd64": ("fused_denoise.cu", "fused_denoise.py:382", flag("fused_denoise")),
@@ -4680,7 +5280,7 @@ def main(argv=None) -> int:
         "fused_encoder_stack_fwd_imgseq": ("fused_encoder_stack.cu", "fused_encoder_stack.py:274",
                                            hd32_stack),
         # the flagship's training path
-        "fused_vit_block_bwd": ("fused_vit_block.cu", "fused_vit_block.py:722",
+        "fused_vit_block_bwd": ("vit_block.cuh", "fused_vit_block.py:722",
                                 flag_train_launches["fused_vit_block_bwd"]),
         "fused_encoder_stack_bwd_hd64": ("fused_encoder_stack.cu", "fused_encoder_stack.py:300",
                                          flag_train_launches["fused_encoder_stack_bwd_hd64"]),
@@ -4722,6 +5322,19 @@ def main(argv=None) -> int:
         "fused_denoise_pack_s0": ("fused_denoise.cu", "fused_denoise.py:310",
                                   sum(n["fused_denoise_pack"] for n in s0_launches.values())),
         **eval_rows,
+        # phase 17: the JAX kernels' other forms
+        "fused_chunk_int8": ("fused_chunk_int8.cu", "fused_chunk.py:518",
+                             variant_launches["fused_chunk_int8"]),
+        "fused_chunk_int8_hd64": ("fused_chunk_int8.cu", "fused_chunk.py:518",
+                                  variant_launches["fused_chunk_int8_hd64"]),
+        "fused_chunk_int8_hd128": ("fused_chunk_int8.cu", "fused_chunk.py:518",
+                                   variant_launches["fused_chunk_int8_hd128"]),
+        "fused_chunk_qstat": ("fused_chunk.cu", "fused_chunk.py:518",
+                              variant_launches["fused_chunk_qstat"]),
+        **{name: ("vit_block.cuh",
+                  "fused_vit_block.py:703" if "_fwd_" in name else "fused_vit_block.py:722",
+                  variant_launches[name])
+           for name in variant_launches if name.startswith("fused_vit_block")},
     }
     kernels = [{"name": name, "route": "cuda", "source": csrc + table[name][0],
                 "replaces": tpu + table[name][1], "launches": table[name][2], **r}
@@ -4757,6 +5370,7 @@ def main(argv=None) -> int:
                     "evaluation": evaluation,
                     "parallel": parallel,
                     "checkpoints": checkpoints,
+                    "variants": variants,
                     "gpu": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

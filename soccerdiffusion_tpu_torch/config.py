@@ -176,11 +176,8 @@ class Config:
             return cls.from_dict(yaml.safe_load(f))
 
 
-_SEE = "not ported yet (see ROADMAP.md, 'H100 port')"
-
-
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a setting outside the ported slices
+    """Raise ``ValueError`` for a setting the port does not take
     (``TypeError`` for a config that is not this package's ``ModelConfig``).
 
     ``attention_impl``: "xla" (``plain_attention``), "pallas" (the
@@ -196,9 +193,12 @@ def check_supported(cfg: ModelConfig) -> None:
     Images: every image encoder of the JAX package: the ResNet18 / ResNet50
     encoders (``models/vision.py``, with BatchNorm running statistics), the
     Swin-T / Swin-S encoders (``models/swin.py``) and the ViT with the fused
-    block on or off and exact or quick GELU. ``vit_fused_block_frames`` and
-    ``vit_fused_layout`` are the TPU kernel's frame block and attention
-    formulation; they are accepted and have no effect (the layouts compute
+    block on or off and every ``vit_fused_gelu`` ("exact", "quick", and
+    "poly" / "bf16": the minimax polynomial of exact GELU and quick-GELU
+    evaluated in bf16, both on the fused block only; the unfused layers run
+    exact and quick-GELU for them, as in the JAX package).
+    ``vit_fused_block_frames`` and ``vit_fused_layout`` are the TPU kernel's
+    frame block and attention formulation; they are accepted and have no effect (the layouts compute
     the same function, and a CUDA grid needs no frame block).
     ``remat_image_encoder`` is False, True (every encoder) or "conv_only"
     (the ResNets only); another value raises ``ValueError``. ``aux_cue_head``
@@ -211,18 +211,18 @@ def check_supported(cfg: ModelConfig) -> None:
     ``encoder_fused_stack`` and ``decoder_fused_block`` are accepted (the
     fused fwd+bwd ops of ``ops/fused_encoder_stack.py`` and
     ``ops/fused_decoder_layer.py``); their ``*_rows`` robot blocks have no
-    effect. ``encoder_fused_block`` (the proprioceptive stacks through the
-    ViT block) is not ported."""
+    effect. ``encoder_fused_block`` runs each layer of the three
+    proprioceptive stacks as one fused ViT block (exact GELU;
+    ``encoder_fused_block_rows`` has no effect); ``encoder_fused_stack``
+    wins where both are set, as in the JAX package. ``ModelConfig`` itself
+    raises ``ValueError`` where the JAX config does (an unknown GELU, a fused
+    knob with ``attention_impl: "ring"``)."""
     if not isinstance(cfg, ModelConfig):
         raise TypeError(f"expected soccerdiffusion_tpu_torch.config.ModelConfig, got {type(cfg)}")
     if cfg.attention_impl not in ("xla", "pallas", "auto", "ring"):
         raise ValueError(f"unknown attention_impl: {cfg.attention_impl!r}")
-    if cfg.encoder_fused_block:
-        raise NotImplementedError(f"encoder_fused_block: the proprioceptive fused block is {_SEE}")
     if cfg.use_images:
         check_remat_image_encoder(cfg.remat_image_encoder, cfg.image_encoder_type)
-        if cfg.image_encoder_type == "vit" and cfg.vit_fused_gelu not in ("exact", "quick"):
-            raise NotImplementedError(f"vit_fused_gelu={cfg.vit_fused_gelu!r} is {_SEE}")
 
 
 def check_remat_image_encoder(remat: bool | str, encoder_type: str) -> None:
@@ -237,14 +237,30 @@ def check_remat_image_encoder(remat: bool | str, encoder_type: str) -> None:
                          f"encoders; {encoder_type!r} has none: use remat_image_encoder: true")
 
 
+# most robots of one int8 chunk block: a thread-block cluster of at most 8
+# blocks, each holding at most 4 of them (csrc/fused_chunk_int8.cu)
+INT8_MAX_BLOCK = 32
+
+
 def check_serving_supported(group_robots: int = 1, kv_quant: str = "none",
-                            cross_orientation: str = "kstat") -> None:
-    """Raise ``NotImplementedError`` for a serving option outside the slice.
-    (Classifier-free guidance is served; ``RolloutEngine`` refuses it where
-    the JAX engine does.)"""
-    if kv_quant != "none":
-        raise NotImplementedError(f"context_kv_quant={kv_quant!r} is {_SEE}")
-    if group_robots != 1:
-        raise NotImplementedError(f"group_robots={group_robots} is {_SEE}")
-    if cross_orientation != "kstat":
-        raise NotImplementedError(f"cross_orientation={cross_orientation!r} is {_SEE}")
+                            cross_orientation: str = "kstat",
+                            block_robots: int | None = None) -> None:
+    """Raise ``ValueError`` for a chunk-sampler option the JAX package
+    refuses: what ``FusedChunkSampler.__init__`` checks there (an unknown
+    orientation or quantisation, ``block_robots`` not a multiple of
+    ``group_robots``, "qstat" with groups) and what its kernel's build
+    refuses at the first sample, int8 K/V with "qstat" or with groups (here
+    at once, on the configured values). (Classifier-free guidance is
+    served; ``RolloutEngine`` refuses it where the JAX engine does.)"""
+    if block_robots is not None and block_robots % group_robots != 0:
+        raise ValueError(f"block_robots {block_robots} not divisible by group_robots "
+                         f"{group_robots}")
+    if cross_orientation not in ("kstat", "qstat"):
+        raise ValueError(f"unknown cross_orientation {cross_orientation!r}")
+    if cross_orientation == "qstat" and group_robots != 1:
+        raise ValueError("cross_orientation='qstat' requires group_robots=1")
+    if kv_quant not in ("none", "int8"):
+        raise ValueError(f"unknown context_kv_quant {kv_quant!r}")
+    if kv_quant == "int8" and (cross_orientation == "qstat" or group_robots != 1):
+        raise ValueError("kv_quant='int8' supports the default kstat, group_robots=1 "
+                         "orientation only")

@@ -147,22 +147,23 @@ __device__ __forceinline__ bf16* cluster_peer(bf16* p, unsigned rank) {
 // parity G / nb & 1). Thread 0 issues; every thread keeps the same count.
 // kChunks (head_dim 128): a unit is a 32-key chunk instead, unit u of the
 // layer chunk u % (Sp / 32) of K or V unit u / (Sp / 32) (a chunk of the
-// fragment orders is 32 D contiguous elements).
-template <int D, bool kChunks = false>
+// fragment orders is 32 D contiguous elements). T: the scratch's element
+// (bf16, or int8 in fused_chunk_int8.cu).
+template <int D, bool kChunks = false, class T = bf16>
 struct KvStream {
-  const bf16* kvl;  // the layer's (H, 2, Sp D) scratch
-  bf16* ring;       // nb buffers of elems()
+  const T* kvl;  // the layer's (H, 2, Sp D) scratch
+  T* ring;       // nb buffers of elems()
   uint64_t* bars;   // nb mbarriers
   int Sp, nb, units, issued;
   unsigned seq0;
 
   __device__ int elems() const { return kChunks ? 32 * D : Sp * D; }
-  __device__ const bf16* buffer(int u) const { return ring + (size_t)((seq0 + u) % nb) * elems(); }
+  __device__ const T* buffer(int u) const { return ring + (size_t)((seq0 + u) % nb) * elems(); }
   // issue the next unit, if any
   __device__ void issue() {
     if (issued < units && threadIdx.x == 0) {
       const unsigned G = seq0 + issued;
-      const uint32_t bar = smem_addr(bars + G % nb), bytes = (uint32_t)(elems() * sizeof(bf16));
+      const uint32_t bar = smem_addr(bars + G % nb), bytes = (uint32_t)(elems() * sizeof(T));
       asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                    : "memory");
       asm volatile(
@@ -460,9 +461,9 @@ __device__ __forceinline__ void chunk_stats(const float (*s)[4], float* red, int
   }
 }
 
-// the rows' max and 1 / sum over every chunk's statistics, in chunk order
+// the rows' max and sum of exp over every chunk's statistics, in chunk order
 // per lane (the quad's four lanes over every fourth chunk)
-__device__ __forceinline__ void merge_stats(const float* red, int nch, float* mx, float* inv) {
+__device__ __forceinline__ void merge_stats(const float* red, int nch, float* mx, float* den) {
   const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -473,13 +474,14 @@ __device__ __forceinline__ void merge_stats(const float* red, int nch, float* mx
     float l = 0.f;
     for (int ch = c; ch < nch; ch += 4) l += st[32 * ch + 1] * __expf(st[32 * ch] - m);
     mx[hh] = m;
-    inv[hh] = 1.f / quad_sum(l);
+    den[hh] = quad_sum(l);
   }
 }
 
-// o += bf16(P) v over one chunk: its scores s normalised in place, rounded
-// to bf16 (the plain version's rounding point), times vc, the chunk's 32 D
-// elements of V in value-fragment order
+// o += bf16(P) v over one chunk: its scores s turned into exp(s - mx) x sc
+// in place (sc: 1 / the rows' sum, or 1 for the unnormalised P of "qstat"),
+// rounded to bf16 (the plain version's rounding point), times vc, the
+// chunk's 32 D elements of V in value-fragment order
 template <int D>
 __device__ __forceinline__ void pv_chunk(float (*o)[4], float (*s)[4], const uint4* vc,
                                          const float* mx, const float* inv) {
@@ -502,6 +504,22 @@ __device__ __forceinline__ void pv_chunk(float (*o)[4], float (*s)[4], const uin
       mma_bf16(o[n], pa, b);
     }
   }
+}
+
+// the probability scales of pv_chunk from the rows' sums: 1 / den, or 1
+// where the value sum is divided by den afterwards ("qstat": div_rows)
+__device__ __forceinline__ void prob_scale(const float* den, float* sc, bool qstat) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) sc[hh] = qstat ? 1.f : 1.f / den[hh];
+}
+
+// "qstat": the warp's fp32 value sums of the unnormalised P over the rows' sums
+template <int D>
+__device__ __forceinline__ void div_rows(float (*o)[4], const float* den) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = o[n][e] / den[e >> 1];
 }
 
 // the warp's fp32 partial (rows g, g + 8 < P of its D / 8 accumulator tiles)
@@ -539,11 +557,13 @@ __device__ __forceinline__ void store_partial(const float (*o)[4], int P, float*
 // once. Unit u + NB is issued into a buffer once unit u in it is consumed,
 // at the end of the phase after it (where a warp would wait at the
 // barrier). red: hp (Sp / 32) 32 floats, part: nwarps P D floats of shared
-// memory. Three block barriers per hp heads.
+// memory. Three block barriers per hp heads. qstat: the JAX kernel's "qstat"
+// numerics, the unnormalised P rounded to bf16 and the value sums divided
+// by the rows' fp32 sums (each warp's, before they are summed).
 template <int D>
 __device__ void chunk_cross_attention(const bf16* q, int ldq, KvStream<D>& kv, int P, int hbase,
                                       int H, int S, float* red, float* part, bf16* out, int ldo,
-                                      bf16* peer) {
+                                      bf16* peer, bool qstat) {
   const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int Sp = kv.Sp, nch = Sp / 32, nkeys = S + 1;
   const int hp = kv.nb == 4 && H % 2 == 0 && nch <= kMaxChunks * nwarps / 2 ? 2 : 1;
@@ -570,8 +590,9 @@ __device__ void chunk_cross_attention(const bf16* q, int ldq, KvStream<D>& kv, i
     for (int hq = 0; hq < hp; ++hq) kv.wait(2 * (h0 + hq) + 1);
     __syncthreads();  // the heads' V has landed; their K is consumed; the chunk statistics are in
     // pass 2: the rows' max and sum over every chunk, then P v
-    float mx[2], inv[2];
-    merge_stats(red_h, nch, mx, inv);
+    float mx[2], den[2], sc[2];
+    merge_stats(red_h, nch, mx, den);
+    prob_scale(den, sc, qstat);
     const uint4* vh = reinterpret_cast<const uint4*>(kv.buffer(2 * h + 1));
     float o[D / 8][4];
 #pragma unroll
@@ -582,8 +603,9 @@ __device__ void chunk_cross_attention(const bf16* q, int ldq, KvStream<D>& kv, i
     for (int i = 0; i < kMaxChunks; ++i) {
       const int ch = sub + i * wph;
       if (ch >= nch) break;
-      pv_chunk<D>(o, s[i], vh + ch * 4 * D, mx, inv);
+      pv_chunk<D>(o, s[i], vh + ch * 4 * D, mx, sc);
     }
+    if (qstat) div_rows<D>(o, den);
     if (sub < nparts) store_partial<D>(o, P, part + (size_t)warp * P * D);
     // the next unit, into the first K buffer of these heads (issued here,
     // where a warp would wait)
@@ -615,7 +637,7 @@ __device__ void chunk_cross_attention(const bf16* q, int ldq, KvStream<D>& kv, i
 template <int D>
 __device__ void chunk_cross_attention(const bf16* q, int ldq, KvStream<D, true>& kv, int P,
                                       int hbase, int H, int S, float* red, float* part, bf16* out,
-                                      int ldo, bf16* peer) {
+                                      int ldo, bf16* peer, bool qstat) {
   const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int nch = kv.Sp / 32, nkeys = S + 1, nparts = min(nch, nwarps);
   for (int h = 0; h < H; ++h) {
@@ -633,8 +655,9 @@ __device__ void chunk_cross_attention(const bf16* q, int ldq, KvStream<D, true>&
     }
     __syncthreads();  // the head's K is consumed; the chunk statistics are in
     kv.issue_upto(v0 + kv.nb);
-    float mx[2], inv[2];
-    merge_stats(red, nch, mx, inv);
+    float mx[2], den[2], sc[2];
+    merge_stats(red, nch, mx, den);
+    prob_scale(den, sc, qstat);
     float o[D / 8][4];
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -645,8 +668,9 @@ __device__ void chunk_cross_attention(const bf16* q, int ldq, KvStream<D, true>&
       const int ch = warp + i * nwarps;
       if (ch >= nch) break;
       kv.wait(v0 + ch);
-      pv_chunk<D>(o, s[i], reinterpret_cast<const uint4*>(kv.buffer(v0 + ch)), mx, inv);
+      pv_chunk<D>(o, s[i], reinterpret_cast<const uint4*>(kv.buffer(v0 + ch)), mx, sc);
     }
+    if (qstat) div_rows<D>(o, den);
     if (warp < nparts) store_partial<D>(o, P, part + (size_t)warp * P * D);
     __syncthreads();  // the head's V is consumed; the partials are in
     kv.issue_upto(v0 + nch + kv.nb);
@@ -680,10 +704,12 @@ __device__ void embed_product(const bf16* xin, int ldx, int P, int Jp, const bf1
 // CS, hbase = rank Hl); kv_seq counts the K / V units the block has
 // streamed (over every pass of the launch); `pass` picks, in a 2-block
 // cluster, which of the two cross-attention output buffers each layer
-// writes (the other block may still read the last layer's).
+// writes (the other block may still read the last layer's). qstat: the
+// cross-attention's "qstat" numerics (chunk_cross_attention).
 template <int D, int KC, int CS, class Epi>
 __device__ __forceinline__ void decoder_pass(const PassArgs& a, const PassSmem& sm, const bf16* kv,
-                                             int rank, unsigned& kv_seq, int pass, Epi epi) {
+                                             int rank, unsigned& kv_seq, int pass, Epi epi,
+                                             bool qstat = false) {
   constexpr int cs = CS;
   const int E = 32 * KC, L = a.L, H = a.H, Hl = H / cs, hbase = rank * Hl;
   const int P = a.P, Jp = a.Jp, S = a.S, Sp = a.Sp;
@@ -733,14 +759,14 @@ __device__ __forceinline__ void decoder_pass(const PassArgs& a, const PassSmem& 
     // buffers in turn (the other block may still read the last layer's)
     bf16* xa = cs > 1 ? sm.xo + (size_t)((pass * L + l) & 1) * P * lda : act;
     chunk_cross_attention<D>(wide, ldw, kvs, P, hbase, Hl, S, sm.red, sm.part, xa, lda,
-                             cs > 1 ? cluster_peer(xa, rank ^ 1) : nullptr);
+                             cs > 1 ? cluster_peer(xa, rank ^ 1) : nullptr, qstat);
     robot_sync(cs);
     rows_product<KC>(xa, lda, P, a.co_t + l * EE, E, prm(kCoB, l, E), AddTo{h, E});
     __syncthreads();
     // MLP
     ln_bf16_rows(h, P, E, ln_s + 2 * E, ln_b + 2 * E, act, lda);
     __syncthreads();
-    rows_product<KC>(act, lda, P, a.m1_t + l * EE, E, prm(kM1B, l, E), GeluBf16<false>{wide, ldw});
+    rows_product<KC>(act, lda, P, a.m1_t + l * EE, E, prm(kM1B, l, E), GeluBf16<kGeluExact>{wide, ldw});
     __syncthreads();
     rows_product<KC>(wide, ldw, P, a.m2_t + l * EE, E, prm(kM2B, l, E), AddTo{h, E});
     __syncthreads();
@@ -752,6 +778,25 @@ __device__ __forceinline__ void decoder_pass(const PassArgs& a, const PassSmem& 
   rows_product<KC>(act, lda, P, a.fc_t, a.J, prm(kFcB, 0, 0), epi);
   __syncthreads();
 }
+
+// The chunk samplers' output epilogue: eps(m, n) -> the solver update of
+// the carry x and the DPM-Solver++ x0 cache (fp32) and the next pass's bf16
+// embedding input
+struct SolverEpi {
+  float* x;
+  float* x0c;
+  bf16* xin;
+  int J, Jp;
+  float cA, cB, cC, cP, cQ;
+  __device__ void operator()(int m, int n, float eps) const {
+    const int i = m * J + n;
+    const float xi = x[i];
+    const float xn = cA * xi + cB * eps + cC * x0c[i];
+    x[i] = xn;
+    x0c[i] = cP * xi + cQ * eps;
+    xin[m * Jp + n] = __float2bfloat16(xn);
+  }
+};
 
 // The head dimension of a decoder-pass instance (32, 64 or 128), else 0.
 __host__ inline int pass_head_dim(int E, int H) {

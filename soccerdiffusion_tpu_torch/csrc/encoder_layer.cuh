@@ -1,9 +1,9 @@
 // One pre-norm encoder layer for one thread block, forward and backward,
 // shared by the fused encoder stack (fused_encoder_stack.cu, exact GELU, L
-// layers) and the fused ViT block (fused_vit_block.cu, one layer, exact or
-// quick GELU):
+// layers) and the fused ViT block (fused_vit_block.cu, one layer, any of
+// train_common.cuh's GELUs):
 //   x2 = x + attn(LN1(x)) @ wo + bo;  y = x2 + gelu(LN2(x2) @ w1 + b1) @ w2 + b2
-// D is the head dimension, kQuick selects quick-GELU. Two forms:
+// D is the head dimension, G the GELU (train_common.cuh:Gelu). Two forms:
 //   * layer_fwd_smem, the forward kernels' layer: every bf16 operand in
 //     shared memory (A fragments and k / v^T by ldmatrix), the fp32 residual
 //     where the caller keeps it;
@@ -62,12 +62,12 @@ struct EncLayer {
   const bf16 *wqkv_t, *wo_t, *w1_t, *w2_t;
 };
 
-template <bool kQuick>
-struct GeluBf16 {  // bf16 out[m][n] = z * cdf(z) of the fp32 sum z
+template <int G>
+struct GeluBf16 {  // bf16 out[m][n] = GELU(z) of the fp32 sum z
   bf16* out;
   int ld;
   __device__ void operator()(int m, int n, float z) const {
-    out[m * ld + n] = __float2bfloat16(z * gelu_gate<kQuick>(z));
+    out[m * ld + n] = __float2bfloat16(gelu_value<G>(z));
   }
 };
 
@@ -123,7 +123,7 @@ __host__ __device__ inline size_t fwd_smem_bytes(int T, int E) {
 // mma_dense over 64-row x 16-column warp items (each weight read from L2
 // once per 64 rows), attention per (head, 16-query tile) with the scores in
 // registers. Ends with __syncthreads.
-template <int D, bool kQuick>
+template <int D, int G>
 __device__ void layer_fwd_smem(const EncLayer& w, const float* x, float* h, bf16* act, bf16* qkv,
                                int T, int E, int FF, int H) {
   const int lda = E + 8, ldq = 3 * E + 8, fc = mlp_chunk(E, FF), ldh = fc + 8;
@@ -140,7 +140,7 @@ __device__ void layer_fwd_smem(const EncLayer& w, const float* x, float* h, bf16
   for (int f0 = 0; f0 < FF; f0 += fc) {
     const int n = min(fc, FF - f0);
     mma_dense<4, 2>(act, lda, T, E, w.w1_t + (size_t)f0 * E, E, n, w.b1 + f0,
-                          GeluBf16<kQuick>{qkv, ldh});
+                          GeluBf16<G>{qkv, ldh});
     __syncthreads();
     if (f0 == 0) {
       mma_dense<4, 2>(qkv, ldh, T, n, w.w2_t, FF, E, w.b2, AddTo{h, E});
@@ -154,7 +154,7 @@ __device__ void layer_fwd_smem(const EncLayer& w, const float* x, float* h, bf16
 // One layer's forward for one block: x (T, E) fp32 -> y (T, E) fp32,
 // leaving n1 / om / n2 / hg in the saved row `sv` (stride WS) and q|k|v,
 // xhat, rstd, x2, z in the workspace for the backward.
-template <int D, bool kQuick>
+template <int D, int G>
 __device__ void layer_fwd(const EncLayer& w, const EncWs& s, bf16* sv, int WS, const float* x,
                           float* y, int T, int E, int FF, int H) {
   bf16 *n1 = sv, *om = sv + 4 * E, *n2 = sv + 6 * E, *hg = sv + 7 * E + FF;
@@ -166,7 +166,7 @@ __device__ void layer_fwd(const EncLayer& w, const EncWs& s, bf16* sv, int WS, c
   mma_dense_rows(om, WS, T, E, w.wo_t, E, E, w.bo, AddStore{x, s.x2, E});
   __syncthreads();
   ln_rows(s.x2, T, E, w.g2, w.be2, n2, WS, s.xh2, s.r2);
-  mma_dense_rows(n2, WS, T, E, w.w1_t, E, FF, w.b1, GeluStore<kQuick>{s.z, FF, hg, WS});
+  mma_dense_rows(n2, WS, T, E, w.w1_t, E, FF, w.b1, GeluStore<G>{s.z, FF, hg, WS});
   __syncthreads();
   mma_dense_rows(hg, WS, T, FF, w.w2_t, FF, E, w.b2, AddStore{s.x2, y, E});
   __syncthreads();
@@ -177,7 +177,7 @@ __device__ void layer_fwd(const EncLayer& w, const EncWs& s, bf16* sv, int WS, c
 // products into the saved row and this block's bias / LN partials to vp
 // (g1 0, be1 E, bqkv 2E, bo 5E, g2 6E, be2 7E, b1 8E, b2 8E + FF); stats:
 // 3 H T floats of shared memory.
-template <int D, bool kQuick>
+template <int D, int G>
 __device__ void layer_bwd(const EncLayer& w, const EncWs& s, bf16* sv, int WS, float* stats,
                           float* vp, int T, int E, int FF, int H) {
   bf16 *dqkv = sv + E, *da = sv + 5 * E, *dzc = sv + 7 * E, *gc = sv + 7 * E + 2 * FF;
@@ -185,7 +185,7 @@ __device__ void layer_bwd(const EncLayer& w, const EncWs& s, bf16* sv, int WS, f
   to_bf16(s.g, E, T, E, gc, WS);
   colsum(s.g, E, T, E, nullptr, 0, vp + 8 * E + FF);
   __syncthreads();
-  mma_dense_rows(gc, WS, T, E, w.w2, E, FF, nullptr, GeluBwd<kQuick>{s.z, s.dz, FF, dzc, WS});
+  mma_dense_rows(gc, WS, T, E, w.w2, E, FF, nullptr, GeluBwd<G>{s.z, s.dz, FF, dzc, WS});
   __syncthreads();
   colsum(s.dz, FF, T, FF, nullptr, 0, vp + 8 * E);
   mma_dense_rows(dzc, WS, T, FF, w.w1, FF, E, nullptr, StoreF32{s.tmp, E});

@@ -2,8 +2,11 @@
 // for one robot in one thread block, in one launch, on the tensor cores.
 //
 // Replaces soccerdiffusion_tpu/ops/fused_chunk.py: FusedChunkSampler.sample
-// (_make_chunk_kernel), its default "kstat", group_robots=1, unquantised
-// form.
+// (_make_chunk_kernel), its unquantised forms: the default "kstat" (and
+// group_robots > 1, whose block-diagonal masks give the same function), and
+// "qstat" (ChunkArgs::qstat, at run time: the step token's K / V as key S
+// as ever, the unnormalised probabilities rounded to bf16 before the value
+// product, the fp32 divide after it). The int8 form is fused_chunk_int8.cu.
 //
 // Instances for head_dim 32 (h128), 64 (E=128 or 256, the vit_flagship
 // model at 256) and 128 (E=512, the larger_model configuration: its own
@@ -98,6 +101,7 @@ struct ChunkArgs : PassArgs {
   bf16* kv;             // scratch (B, L, H, 2, Sp D) in fragment order
   float* out;           // (B, P, J) fp32
   int T;
+  int qstat;            // 1: the "qstat" cross-attention numerics
 };
 
 struct KvFragEpi {  // projected column n of context row m -> the scratch
@@ -107,22 +111,6 @@ struct KvFragEpi {  // projected column n of context row m -> the scratch
     const int d = n % D, lhs = lhs0 + n / D;  // lhs = (l H + h) 2 + sel
     bf16* blk = kv + (size_t)lhs * Sp * D;
     blk[(lhs & 1) ? vfrag(m, d, D) : kfrag(m, d, D)] = __float2bfloat16(v);
-  }
-};
-
-struct SolverEpi {  // eps(m, n) -> the solver update of x, x0c and the next bf16 input
-  float* x;
-  float* x0c;
-  bf16* xin;
-  int J, Jp;
-  float cA, cB, cC, cP, cQ;
-  __device__ void operator()(int m, int n, float eps) const {
-    const int i = m * J + n;
-    const float xi = x[i];
-    const float xn = cA * xi + cB * eps + cC * x0c[i];
-    x[i] = xn;
-    x0c[i] = cP * xi + cQ * eps;
-    xin[m * Jp + n] = __float2bfloat16(xn);
   }
 };
 
@@ -193,7 +181,8 @@ __global__ void __launch_bounds__(D == kWideHead ? kWideThreads : kPassThreads)
     // the pass; the solver update in its output product's epilogue
     const float* cf = a.coef + 5 * t;
     decoder_pass<D, KC, CS>(a, sm, kv, rank, kv_seq, t,
-                            SolverEpi{x, x0c, xin, J, ldx, cf[0], cf[1], cf[2], cf[3], cf[4]});
+                            SolverEpi{x, x0c, xin, J, ldx, cf[0], cf[1], cf[2], cf[3], cf[4]},
+                            a.qstat != 0);
   }
   if (rank == 0)
     for (int i = threadIdx.x; i < PJ; i += blockDim.x) a.out[(size_t)b * PJ + i] = x[i];
@@ -205,7 +194,7 @@ __global__ void __launch_bounds__(D == kWideHead ? kWideThreads : kPassThreads)
 //       fc_b), kv_t, kv_b, noise, context, stk, stv, coef, kv scratch, out
 // ints: L, E, H, P, J, Jp, B, S, Sp, T, threads per block (512, or 256:
 //       two blocks on an SM at head_dim 32, or head_dim 128's block), blocks
-//       a robot (1, or 2: a cluster of two splitting the heads)
+//       a robot (1, or 2: a cluster of two splitting the heads), qstat (0 / 1)
 extern "C" int sd_fused_chunk(const void* const* ptrs, const int* ints, void* stream) {
   using namespace sd;
   ChunkArgs a;
@@ -233,6 +222,7 @@ extern "C" int sd_fused_chunk(const void* const* ptrs, const int* ints, void* st
   const int threads = ints[10], cs = ints[11], D = pass_head_dim(a.E, a.H);
   if (!pass_shape_ok(a, D, threads, cs)) return (int)cudaErrorInvalidValue;
   a.nbuf = kv_buffers(D, threads);
+  a.qstat = ints[12];
   void (*kernel)(ChunkArgs);
   if (D == 32) {
     kernel = cs == 1 ? fused_chunk_kernel<32, 4, 1> : fused_chunk_kernel<32, 4, 2>;

@@ -207,7 +207,7 @@ __device__ void dec_fwd_smem(const DecLayer& w, const DecArgs& a, const bf16* xi
   // MLP
   ln_bf16_rows(x, T, E, w.g3, w.be3, act, lda);
   __syncthreads();
-  mma_dense_rows<1, 2>(act, lda, T, E, w.w1_t, E, FF, w.b1, GeluBf16<false>{wide, ldw});
+  mma_dense_rows<1, 2>(act, lda, T, E, w.w1_t, E, FF, w.b1, GeluBf16<kGeluExact>{wide, ldw});
   __syncthreads();
   mma_dense_rows<1, 2>(wide, ldw, T, FF, w.w2_t, FF, E, w.b2, AddTo{x, E});
   __syncthreads();

@@ -99,7 +99,7 @@ __global__ void __launch_bounds__(kFwdThreads) fused_encoder_kernel(EncoderArgs 
   mma_dense<4, 2>(qkv, Cp, T, Cp, st.emb_t, Cp, E, st.emb_b, EmbedEpi{h, st.pos, E});
   __syncthreads();
   for (int l = 0; l < st.layers; ++l)
-    layer_fwd_smem<32, false>(encoder_layer(st, l, E), h, h, act, qkv, T, E, E, a.H);
+    layer_fwd_smem<32, kGeluExact>(encoder_layer(st, l, E), h, h, act, qkv, T, E, E, a.H);
   bf16* out = a.out + ((size_t)b * a.S + st.offset) * E;
   for (int i = threadIdx.x; i < T * E; i += blockDim.x) out[i] = __float2bfloat16(h[i]);
   if (blockIdx.y == 0 && a.gs_table != nullptr) {

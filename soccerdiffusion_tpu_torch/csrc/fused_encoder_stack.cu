@@ -107,7 +107,7 @@ __global__ void __launch_bounds__(kFwdThreads) encoder_stack_fwd_kernel(EncStack
   for (int l = 0; l < a.L; ++l) {
     const float* in = a.acts_out + ((size_t)l * a.B + b) * te;
     float* out = l + 1 < a.L ? a.acts_out + ((size_t)(l + 1) * a.B + b) * te : last;
-    layer_fwd_smem<D, false>(layer_weights(a, l), in, out, act, qkv, T, E, a.FF, a.H);
+    layer_fwd_smem<D, kGeluExact>(layer_weights(a, l), in, out, act, qkv, T, E, a.FF, a.H);
   }
   bf16* y = a.out + b * te;
   for (int i = threadIdx.x; i < T * E; i += blockDim.x) y[i] = __float2bfloat16(last[i]);
@@ -127,9 +127,9 @@ __global__ void __launch_bounds__(kThreads) encoder_stack_bwd_kernel(EncStackArg
     const EncLayer w = layer_weights(a, l);
     bf16* sv = a.saved + ((size_t)l * a.B + b) * T * WS;
     // recompute the layer's internals (its output is not needed: into tmp)
-    layer_fwd<D, false>(w, s, sv, WS, a.acts + ((size_t)l * a.B + b) * te, s.tmp, T, E, a.FF,
+    layer_fwd<D, kGeluExact>(w, s, sv, WS, a.acts + ((size_t)l * a.B + b) * te, s.tmp, T, E, a.FF,
                         a.H);
-    layer_bwd<D, false>(w, s, sv, WS, stats, a.vpart + ((size_t)b * a.L + l) * V, T, E, a.FF, a.H);
+    layer_bwd<D, kGeluExact>(w, s, sv, WS, stats, a.vpart + ((size_t)b * a.L + l) * V, T, E, a.FF, a.H);
   }
   bf16* dx = a.out + b * te;
   for (int i = threadIdx.x; i < T * E; i += blockDim.x) dx[i] = __float2bfloat16(s.g[i]);

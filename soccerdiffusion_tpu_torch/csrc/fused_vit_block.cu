@@ -1,162 +1,9 @@
-// Fused pre-norm ViT block, forward and backward: one thread block per frame.
-//
-// Replaces soccerdiffusion_tpu/ops/fused_vit_block.py: make_vit_block_fn's
-// forward (_fwd_impl; _make_fwd_kernel over _block_core, or the
-// "headloop" layout's kernel, which computes the same function) and its
-// backward (_bwd_impl; _make_bwd_kernel / _make_headloop_bwd_kernel).
-//
-// FORWARD (vit_block_fwd_kernel)
-//
-// Per frame of T tokens and width W, with H heads of D = W / H and an MLP of
-// width FF:
-//   x2 = x + attn(LN1(x)) @ wo + bo;  y = x2 + gelu(LN2(x2) @ w1 + b1) @ w2 + b2
-// at the TPU kernel's rounding points: bf16 input and output, fp32
-// LayerNorm (eps 1e-6), q|k|v rounded to bf16 after the bias, fp32 scores
-// x 1/sqrt(D) and softmax with the probabilities rounded to bf16 before the
-// value sum, the head outputs rounded to bf16, the out-projection added to
-// the fp32 residual, z = LN2(x2) @ w1 + b1 in fp32 and hg = z * cdf(z)
-// rounded to bf16, where cdf is the exact normal CDF (erff) or quick-GELU's
-// sigmoid(1.702 z); the output rounded once.
-//
-// Bound on the H100: 2 T (3 W^2 + W^2 + 2 W FF) + 4 T^2 W FLOP per frame =
-// 105 MFLOP at T=64, W=256, FF=1024 (67 GFLOP per launch at N=640 frames),
-// against 2 x 32 KB of frame bytes and 1.5 MB of weights that stay
-// L2-resident: compute-bound, 0.068 ms at the 989 TFLOP/s bf16 tensor-core
-// peak. The first port did its products as scalar fp32 FMAs (~14 TFLOP/s,
-// 4.676 ms at N=640 on an H100 80GB HBM3 at 700 W; PERF.md); every product
-// now runs on the tensor cores (mma.sync m16n8k16 bf16, mma.cuh). What bounds
-// it now: one frame per block (16 warps a SM, 194 KB of shared memory), B
-// fragments read from L2 with 32-bit loads (each weight once per frame), and
-// the scalar LayerNorm passes.
-//
-// Design: the whole frame lives in shared memory -- the fp32 residual
-// (T, W) here, and the bf16 operands of encoder_layer.cuh:layer_fwd_smem,
-// which the encoder stack's forward shares: the LayerNorm / attention output
-// (T, W + 8) and q|k|v (T, 3W + 8); 194 KB at the flagship shape. Rows are
-// padded by 8 elements so that the 8 rows of an ldmatrix hit 8 different
-// bank quads. The products are mma_dense over 64-row x 16-column warp items
-// (the frame's 64 rows are 4 m16 tiles, the block's 16 warps split the
-// output columns, so each weight is read from L2 once per frame), A read
-// with ldmatrix; the weights are read transposed, (out, in), so that a B
-// fragment is two adjacent bf16. Attention runs per (head, 16-query tile)
-// warp item with the scores in registers: row max and sum by quad shuffles,
-// the probabilities normalised, rounded to bf16 and fed as the A fragment of
-// the value product (the rounding point of the scalar kernel, no (T, T)
-// tile in shared memory); k and v^T fragments by ldmatrix. The MLP runs over
-// FF-column chunks of 256: hidden chunk -> GELU -> bf16 into the q|k|v
-// region -> its share of the second product added into the fp32 residual
-// (b2 with the first chunk). Not carried over from the TPU kernel: the
-// lane-masked head stacking (_masks/_mask4), the (F, HT, T) score layout,
-// the frame-block grid (one block per frame), the polynomial erf.
-#include "encoder_layer.cuh"
-
-namespace sd {
-
-struct VitArgs {
-  const bf16* x;  // (N, T, W)
-  // g1 be1 wqkv (W, 3W) bqkv wo (W, W) bo g2 be2 w1 (W, FF) b1 w2 (FF, W) b2
-  const bf16* w[12];
-  const bf16* wt[4];  // transposed wqkv (3W, W), wo (W, W), w1 (FF, W), w2 (W, FF)
-  bf16* y;            // (N, T, W)
-  int N, T, W, H, FF;
-};
-
-// shared-memory bytes of one frame: the fp32 residual and layer_fwd_smem's
-// bf16 operands
-__host__ __device__ inline size_t vit_smem_bytes(int T, int W) {
-  return 4 * (size_t)T * W + fwd_smem_bytes(T, W);
-}
-
-template <int D, bool kQuick>
-__global__ void __launch_bounds__(kFwdThreads) vit_block_fwd_kernel(VitArgs a) {
-  extern __shared__ float4 smem4[];
-  const int T = a.T, W = a.W;
-  float* h = reinterpret_cast<float*>(smem4);      // (T, W) fp32 residual
-  bf16* act = reinterpret_cast<bf16*>(h + T * W);  // (T, W + 8)
-  bf16* qkv = act + T * (W + 8);                   // (T, 3W + 8)
-  const bf16* x = a.x + (size_t)blockIdx.x * T * W;
-  for (int i = threadIdx.x; i < T * W; i += blockDim.x) h[i] = tof(x[i]);
-  __syncthreads();
-  const EncLayer w{a.w[0], a.w[1], a.w[2],  a.w[3],  a.w[4],  a.w[5],  a.w[6],  a.w[7],
-                   a.w[8], a.w[9], a.w[10], a.w[11], a.wt[0], a.wt[1], a.wt[2], a.wt[3]};
-  layer_fwd_smem<D, kQuick>(w, h, h, act, qkv, T, W, a.FF, a.H);
-  bf16* y = a.y + (size_t)blockIdx.x * T * W;
-  for (int i = threadIdx.x; i < T * W; i += blockDim.x) y[i] = __float2bfloat16(h[i]);
-}
-
-// BACKWARD (vit_block_bwd_kernel)
-//
-// The block is one pre-norm encoder layer, so the backward is the encoder
-// stack's layer (encoder_layer.cuh) at L = 1 with the block's GELU: one
-// thread block per frame recomputes the frame's forward internals from x
-// (the only residual, as in the JAX custom_vjp) and runs the hand-derived
-// backward at the TPU kernel's rounding points -- dhg and the GELU gradient
-// (erff, or quick-GELU's s (1 + 1.702 z (1 - s))) in fp32, dzc, dq / dk /
-// dv and dom rounded to bf16, fp32 LayerNorm backwards, dx rounded once.
-// Its intermediates (the (T, FF) MLP hidden does not fit shared memory
-// beside the rest: 256 KB fp32 at the flagship shape) live in a per-frame
-// global workspace that stays L2-resident while the block runs; the
-// attention backward's softmax statistics (3 H T floats) sit in shared
-// memory. It writes dx, the bf16
-// operands of the four weight-gradient products per row, (n1, dqkv) (om,
-// da) (n2, dzc) (hg, gc), and per-frame fp32 partials of the eight vector
-// gradients; weight_grads.cu then sums both over the N T rows and N frames
-// in a fixed order (no atomics: the TPU kernel's `+=` into the weight
-// gradients across its sequential grid would race across thread blocks).
-//
-// Bound on the H100: the recompute, the input gradients and the four
-// weight-gradient products are ~3x the forward's FLOPs, ~315 MFLOP per frame
-// at T=64, W=256, FF=1024 (202 GFLOP at N=640 frames): compute-bound at the
-// bf16 tensor-core peak (0.2 ms). Every product now runs on the tensor cores
-// (encoder_layer.cuh's mma products and attention, weight_grads.cu's
-// tdot_kernel); what bounds it now is the ~1 MB per frame of workspace and
-// saved rows written and read back through L2 by one 8-warp block per SM
-// (255 registers a thread for the attention tiles), and the scalar
-// LayerNorm and column-sum passes (PERF.md).
-struct VitBwdArgs {
-  const bf16* x;   // (N, T, W)
-  const bf16* dy;  // (N, T, W)
-  const bf16* w[12];
-  const bf16* wt[4];  // transposed wqkv (3W, W), wo (W, W), w1 (FF, W), w2 (W, FF)
-  bf16* dx;           // (N, T, W)
-  float* ws32;        // (N, ws32_stride) per-frame fp32 workspace
-  bf16* wsbf;         // (N, wsbf_stride) per-frame bf16 workspace
-  bf16* saved;        // (N T, 8W + 2FF) weight-gradient operand rows
-  float* vpart;       // (N, 9W + FF) per-frame vector-gradient partials
-  int N, T, W, H, FF, ws32_stride, wsbf_stride;
-};
-
-template <int D, bool kQuick>
-__global__ void __launch_bounds__(kThreads) vit_block_bwd_kernel(VitBwdArgs a) {
-  extern __shared__ float4 smem4[];
-  float* stats = reinterpret_cast<float*>(smem4);
-  const int f = blockIdx.x, T = a.T, W = a.W, FF = a.FF, WS = 8 * W + 2 * FF;
-  EncWs s;
-  size_t n32, nbf;
-  carve(T, W, FF, a.ws32 + (size_t)f * a.ws32_stride, a.wsbf + (size_t)f * a.wsbf_stride, &s,
-        &n32, &nbf);
-  const size_t tw = (size_t)T * W;
-  const bf16 *x = a.x + f * tw, *dy = a.dy + f * tw;
-  // the frame's fp32 input goes to dx2, which the backward writes only after
-  // its last read; dL/dy to g
-  for (int i = threadIdx.x; i < T * W; i += blockDim.x) {
-    s.dx2[i] = tof(x[i]);
-    s.g[i] = tof(dy[i]);
-  }
-  __syncthreads();
-  const EncLayer w{a.w[0], a.w[1], a.w[2],  a.w[3],  a.w[4],  a.w[5],  a.w[6],  a.w[7],
-                   a.w[8], a.w[9], a.w[10], a.w[11], a.wt[0], a.wt[1], a.wt[2], a.wt[3]};
-  bf16* sv = a.saved + (size_t)f * T * WS;
-  layer_fwd<D, kQuick>(w, s, sv, WS, s.dx2, s.tmp, T, W, FF, a.H);
-  layer_bwd<D, kQuick>(w, s, sv, WS, stats, a.vpart + (size_t)f * (9 * W + FF), T, W, FF, a.H);
-  bf16* dx = a.dx + f * tw;
-  for (int i = threadIdx.x; i < T * W; i += blockDim.x) dx[i] = __float2bfloat16(s.g[i]);
-}
-
-}  // namespace sd
+// The fused ViT block's C entries (forward and backward); the device code is
+// vit_block.cuh, its instances fused_vit_block_hd32.cu and _hd64.cu.
+#include "vit_block.cuh"
 
 // ptrs: x, 12 weights (VitArgs order), y, 4 transposed (wqkv, wo, w1, w2)
-// ints: N, T, W, H, FF, quick (0: exact GELU, 1: quick-GELU)
+// ints: N, T, W, H, FF, GELU (train_common.cuh:Gelu: 0 exact, 1 quick, 2 poly, 3 bf16)
 extern "C" int sd_vit_block_fwd(const void* const* ptrs, const int* ints, void* stream) {
   using namespace sd;
   VitArgs a;
@@ -169,25 +16,21 @@ extern "C" int sd_vit_block_fwd(const void* const* ptrs, const int* ints, void* 
   a.W = ints[2];
   a.H = ints[3];
   a.FF = ints[4];
-  const bool quick = ints[5] != 0;
+  const int gelu = ints[5];
   const int D = head_dim(a.W, a.H);
-  if (D == 0 || a.T < 1 || a.W % 8 || a.FF % 8) return (int)cudaErrorInvalidValue;
-  auto kernel = D == 32
-                     ? (quick ? vit_block_fwd_kernel<32, true> : vit_block_fwd_kernel<32, false>)
-                     : (quick ? vit_block_fwd_kernel<64, true> : vit_block_fwd_kernel<64, false>);
+  if (D == 0 || a.T < 1 || a.W % 8 || a.FF % 8 || gelu < 0 || gelu > 3)
+    return (int)cudaErrorInvalidValue;
   // refused when a frame does not fit one block's shared memory
   const size_t smem = vit_smem_bytes(a.T, a.W);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<a.N, kFwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(D == 32 ? launch_vit_fwd_hd32(a, gelu, smem, st)
+                       : launch_vit_fwd_hd64(a, gelu, smem, st));
 }
 
 // ptrs: x, dy, 12 weights, 4 transposed (wqkv, wo, w1, w2), dx,
 //       dwqkv (W,3W), dwo (W,W), dw1 (W,FF), dw2 (FF,W), gvec (9W+FF),
 //       ws32, wsbf, saved (N*T, 8W+2FF), vpart (N, 9W+FF), tpart
-// ints: N, T, W, H, FF, quick, ws32_stride, wsbf_stride, rows_per_split
+// ints: N, T, W, H, FF, GELU, ws32_stride, wsbf_stride, rows_per_split
 extern "C" int sd_vit_block_bwd(const void* const* ptrs, const int* ints, void* stream) {
   using namespace sd;
   VitBwdArgs a = {};
@@ -210,26 +53,20 @@ extern "C" int sd_vit_block_bwd(const void* const* ptrs, const int* ints, void* 
   a.W = ints[2];
   a.H = ints[3];
   a.FF = ints[4];
-  const bool quick = ints[5] != 0;
+  const int gelu = ints[5];
   a.ws32_stride = ints[6];
   a.wsbf_stride = ints[7];
   const int rows_per_split = ints[8];
   const int D = head_dim(a.W, a.H);
   size_t n32, nbf;
   carve(a.T, a.W, a.FF, nullptr, nullptr, nullptr, &n32, &nbf);
-  if (D == 0 || a.T < 1 || a.W % 8 || a.FF % 8 || n32 > (size_t)a.ws32_stride ||
-      nbf > (size_t)a.wsbf_stride)
+  if (D == 0 || a.T < 1 || a.W % 8 || a.FF % 8 || gelu < 0 || gelu > 3 ||
+      n32 > (size_t)a.ws32_stride || nbf > (size_t)a.wsbf_stride)
     return (int)cudaErrorInvalidValue;
-  auto kernel = D == 32
-                    ? (quick ? vit_block_bwd_kernel<32, true> : vit_block_bwd_kernel<32, false>)
-                    : (quick ? vit_block_bwd_kernel<64, true> : vit_block_bwd_kernel<64, false>);
   const size_t smem = (size_t)3 * a.H * a.T * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<a.N, kThreads, smem, st>>>(a);
-  err = cudaGetLastError();
+  cudaError_t err = D == 32 ? launch_vit_bwd_hd32(a, gelu, smem, st)
+                            : launch_vit_bwd_hd64(a, gelu, smem, st);
   if (err != cudaSuccess) return (int)err;
   // weight gradients: (n1, dqkv) (om, da) (n2, dzc) (hg, gc) over the N T rows
   TdotJob jobs[4];

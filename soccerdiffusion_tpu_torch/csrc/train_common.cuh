@@ -16,8 +16,8 @@
 // every gradient that feeds a LayerNorm backward or a bias sum in fp32;
 // LN outputs, q/k/v, attention outputs, the GELU output and every operand
 // of a backward product rounded to bf16; probabilities rounded to bf16
-// before a value sum. The GELU epilogues take the activation (exact, or
-// quick-GELU z * sigmoid(1.702 z) for the ViT block); the products and the
+// before a value sum. The GELU epilogues take the activation (exact, or for
+// the ViT block one of the Gelu forms below); the products and the
 // attention tiles are mma.cuh's.
 #pragma once
 
@@ -33,16 +33,79 @@ __device__ __forceinline__ float gelu_cdf(float z) {
   return 0.5f * (1.0f + erff(z * 0.7071067811865476f));
 }
 
-// cdf(z) of GELU(z) = z * cdf(z): the normal CDF, or sigmoid(1.702 z) for
-// quick-GELU; and d GELU / dz given cdf(z)
-template <bool kQuick>
-__device__ __forceinline__ float gelu_gate(float z) {
-  return kQuick ? 1.f / (1.f + expf(-1.702f * z)) : gelu_cdf(z);
+// The GELUs of the ViT block, in the order of ops/_train_math.py:GELUS
+// (the wrappers pass the index): exact (erff), quick-GELU z sigmoid(1.702 z)
+// in fp32, "poly" (the JAX package's minimax polynomial of exact GELU: on
+// |z| <= 3.75, z / 2 + G(z^2) and its gradient 1 / 2 + z H(z^2) as Horner
+// chains of FMAs on the clipped z; z (1) above, 0 below) and "bf16"
+// (quick-GELU on z rounded to bf16 with every elementary op rounded to bf16,
+// as XLA evaluates the JAX kernel's bf16 chain; its constant is bf16(1.702)
+// = 1.703125; the gradient dz = bf16(bf16(dhg) s (1 + 1.702 z (1 - s))) in
+// the same ops, whose fp32 column sum is the JAX kernel's db1).
+enum Gelu { kGeluExact = 0, kGeluQuick = 1, kGeluPoly = 2, kGeluBf16 = 3 };
+
+__device__ __forceinline__ float bround(float v) { return __bfloat162float(__float2bfloat16(v)); }
+
+__device__ __forceinline__ float gelu_poly_core(float z, bool grad) {
+  const float kG[8] = {7.7387867635e-05f, 3.9815118597e-01f, -6.5148636098e-02f,
+                       9.0873994758e-03f, -8.8830326732e-04f, 5.6548416021e-05f,
+                       -2.0787433172e-06f, 3.3143120958e-08f};
+  const float kH[7] = {7.9546119838e-01f, -2.5856087522e-01f, 5.3150608964e-02f,
+                       -6.7156793228e-03f, 5.1222947652e-04f, -2.1502364740e-05f,
+                       3.7926810910e-07f};
+  const float zc = fminf(fmaxf(z, -3.75f), 3.75f), u = zc * zc;
+  float acc;
+  if (grad) {
+    acc = kH[6];
+#pragma unroll
+    for (int k = 5; k >= 0; --k) acc = fmaf(acc, u, kH[k]);
+    return z > 3.75f ? 1.f : z < -3.75f ? 0.f : fmaf(zc, acc, 0.5f);
+  }
+  acc = kG[7];
+#pragma unroll
+  for (int k = 6; k >= 0; --k) acc = fmaf(acc, u, kG[k]);
+  return z > 3.75f ? z : z < -3.75f ? 0.f : fmaf(0.5f, zc, acc);
 }
-template <bool kQuick>
-__device__ __forceinline__ float gelu_slope(float z, float cdf) {
-  return kQuick ? cdf * (1.f + 1.702f * z * (1.f - cdf))
-                : cdf + z * (expf(-0.5f * z * z) * 0.3989422804014327f);
+
+constexpr float kQuickBf16 = 1.703125f;  // bf16(1.702)
+
+__device__ __forceinline__ float quick_gate_bf16(float zb) {  // zb: a bf16 value
+  return bround(1.f / bround(1.f + bround(expf(bround(-kQuickBf16 * zb)))));
+}
+__device__ __forceinline__ float quick_slope_bf16(float zb, float s) {
+  return bround(s * bround(1.f + bround(bround(kQuickBf16 * zb) * bround(1.f - s))));
+}
+
+// GELU(z) of the fp32 sum z, before its rounding to bf16
+template <int G>
+__device__ __forceinline__ float gelu_value(float z) {
+  if constexpr (G == kGeluPoly) {
+    return gelu_poly_core(z, false);
+  } else if constexpr (G == kGeluBf16) {
+    const float zb = bround(z);
+    return zb * quick_gate_bf16(zb);
+  } else if constexpr (G == kGeluQuick) {
+    return z * (1.f / (1.f + expf(-1.702f * z)));
+  } else {
+    return z * gelu_cdf(z);
+  }
+}
+
+// dL/dz of dhg = dL/dGELU(z)
+template <int G>
+__device__ __forceinline__ float gelu_dz(float dhg, float z) {
+  if constexpr (G == kGeluPoly) {
+    return dhg * gelu_poly_core(z, true);
+  } else if constexpr (G == kGeluBf16) {
+    const float zb = bround(z), s = quick_gate_bf16(zb);
+    return bround(bround(dhg) * quick_slope_bf16(zb, s));
+  } else if constexpr (G == kGeluQuick) {
+    const float s = 1.f / (1.f + expf(-1.702f * z));
+    return dhg * (s * (1.f + 1.702f * z * (1.f - s)));
+  } else {
+    const float cdf = gelu_cdf(z);
+    return dhg * (cdf + z * (expf(-0.5f * z * z) * 0.3989422804014327f));
+  }
 }
 
 // ---------------------------------------------------------------- epilogues
@@ -66,19 +129,19 @@ struct AddRoundBf16 {  // bf16 out[m][n] = base[m][n] + v
     out[m * ldo + n] = __float2bfloat16(base[m * ldb + n] + v);
   }
 };
-template <bool kQuick = false>
-struct GeluStore {  // z = v (fp32), bf16 hg = z * cdf(z)
+template <int G = kGeluExact>
+struct GeluStore {  // z = v (fp32), bf16 hg = GELU(z)
   float* z;
   int ldz;
   bf16* hg;
   int ldh;
   __device__ void operator()(int m, int n, float v) const {
     z[m * ldz + n] = v;
-    hg[m * ldh + n] = __float2bfloat16(v * gelu_gate<kQuick>(v));
+    hg[m * ldh + n] = __float2bfloat16(gelu_value<G>(v));
   }
 };
-template <bool kQuick = false>
-struct GeluBwd {  // dz = v * GELU'(z) (fp32) and its bf16 copy
+template <int G = kGeluExact>
+struct GeluBwd {  // dz = v * GELU'(z) (fp32; bf16-valued for kGeluBf16) and its bf16 copy
   const float* z;
   float* dz;
   int ld;
@@ -86,7 +149,7 @@ struct GeluBwd {  // dz = v * GELU'(z) (fp32) and its bf16 copy
   int ldc;
   __device__ void operator()(int m, int n, float v) const {
     const float zz = z[m * ld + n];
-    const float d = v * gelu_slope<kQuick>(zz, gelu_gate<kQuick>(zz));
+    const float d = gelu_dz<G>(v, zz);
     dz[m * ld + n] = d;
     dzc[m * ldc + n] = __float2bfloat16(d);
   }

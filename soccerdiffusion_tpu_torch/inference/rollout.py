@@ -100,6 +100,15 @@ def fold_in(generator: torch.Generator, index: int) -> torch.Generator:
     return torch.Generator(device=generator.device).manual_seed(seed)
 
 
+def largest_dividing_block(configured: int, batch: int) -> int:
+    """The largest block size <= ``configured`` that divides ``batch`` (the
+    JAX engine's rule for the fused samplers' robot blocks)."""
+    block = min(configured, batch)
+    while batch % block:
+        block -= 1
+    return block
+
+
 def _rows(value, start: int, stop: int):
     return None if value is None else value[start:stop]
 
@@ -109,7 +118,12 @@ class RolloutEngine:
     caller asks for the CPU (whose tensors take the kernels' plain versions).
 
     The engine packs the model's weights for the fused kernels when it is
-    built, so load the weights first. ``fused_block_robots``,
+    built, so load the weights first. ``fused_kv_quant="int8"`` serves the
+    chunk sampler's int8 context K/V form over blocks of
+    ``largest_dividing_block(fused_block_robots, B)`` robots, which share
+    its quantisation scales, as the JAX engine does; ``fused_group_robots``
+    computes the ungrouped function (``ops/fused_chunk.py``), and with int8
+    K/V it must be 1. Otherwise ``fused_block_robots``,
     ``fused_encoder_block_robots`` and ``fused_interpret`` are accepted for
     the JAX signature and have no effect: the CUDA kernels run one thread
     block per robot (a CUDA grid masks its own ragged edge, so no block
@@ -135,7 +149,6 @@ class RolloutEngine:
         if param.device.type != self.device.type:
             raise ValueError(f"the model's parameters are on {param.device}, the engine's "
                              f"device is {self.device}: move the model first")
-        check_serving_supported(group_robots=fused_group_robots, kv_quant=fused_kv_quant)
         if fused not in (False, True, "step", "chunk"):
             raise ValueError(f"unknown fused mode {fused!r}")
         parse_solver(solver)
@@ -151,6 +164,7 @@ class RolloutEngine:
         self.distilled = distilled
         self.tracking_alpha = tracking_alpha
         self.fused = fused
+        self.fused_block_robots, self.fused_group_robots = fused_block_robots, fused_group_robots
         self.fused_encoder = bool(fused_encoder)
         self.solver = solver
         # per-frame image encodings computed once per frame arrival and
@@ -183,7 +197,9 @@ class RolloutEngine:
                 "must use the model's context encoder (fused_encoder=False)")
         self._encoder_op = FusedContextEncoder(model) if self.fused_encoder else None
         if fused == "chunk" and not distilled:
-            self._sampler_op = FusedChunkSampler(model)
+            check_serving_supported(fused_group_robots, fused_kv_quant)
+            self._sampler_op = FusedChunkSampler(model, block_robots=fused_block_robots,
+                                                 context_kv_quant=fused_kv_quant)
         elif fused:
             self._sampler_op = FusedDenoiser(model)
         else:
@@ -240,8 +256,10 @@ class RolloutEngine:
                                  torch.zeros((bsz,), dtype=torch.int64, device=self.device))
         elif self.fused == "chunk":
             ts = solver_timesteps(self.schedule, n, parse_solver(self.solver)[1])
-            traj = self._sampler_op.sample(context, noise, self._steps_table(ts), self.schedule,
-                                           n, solver=self.solver)
+            # the JAX engine's robot block, fitted to the batch
+            block = largest_dividing_block(self.fused_block_robots, bsz)
+            traj = self._sampler_op.sample(context, noise, self._steps_table(ts), self.schedule, n,
+                                           solver=self.solver, block_robots=block)
         elif self.fused:
             packed = self._sampler_op.pack_context_kv(model.precompute_context_kv(context))
             ts = ddim_timesteps(self.schedule.num_train_timesteps, n)

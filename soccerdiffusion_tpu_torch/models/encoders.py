@@ -16,16 +16,19 @@ NUM_ROBOT_STATES = 4
 
 
 class SequenceEncoder(nn.Module):
-    """(B, T, input_dim) -> (B, T // patch_size, hidden_dim) context tokens."""
+    """(B, T, input_dim) -> (B, T // patch_size, hidden_dim) context tokens.
+    ``fused_stack`` runs the stack as one fused op, ``fused_block`` each
+    layer as one fused ViT block (exact GELU; the config's
+    ``encoder_fused_block``); the stack wins where both are set."""
 
     def __init__(self, input_dim: int, hidden_dim: int, patch_size: int, num_layers: int,
                  num_heads: int, max_seq_len: int, fused_stack: bool = False,
-                 attention_impl: str = "xla"):
+                 attention_impl: str = "xla", fused_block: bool = False):
         super().__init__()
         self.embedding = PatchConvEmbed(input_dim, hidden_dim, patch_size)
         self.pos = PositionalEncoding(hidden_dim, max_seq_len)
         self.encoder = TransformerEncoder(hidden_dim, num_heads, num_layers, fused_stack=fused_stack,
-                                          attention_impl=attention_impl)
+                                          fused_block=fused_block, attention_impl=attention_impl)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.encoder(self.pos(self.embedding(x)))
@@ -37,11 +40,13 @@ class JointEncoder(nn.Module):
     num_heads = 4
 
     def __init__(self, num_joints: int, hidden_dim: int, patch_size: int, num_layers: int,
-                 max_seq_len: int, fused_stack: bool = False, attention_impl: str = "xla"):
+                 max_seq_len: int, fused_stack: bool = False, attention_impl: str = "xla",
+                 fused_block: bool = False):
         super().__init__()
         self.num_joints = num_joints
         self.seq = SequenceEncoder(num_joints, hidden_dim, patch_size, num_layers,
-                                   self.num_heads, max_seq_len, fused_stack, attention_impl)
+                                   self.num_heads, max_seq_len, fused_stack, attention_impl,
+                                   fused_block)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[-1] != self.num_joints:
@@ -55,11 +60,13 @@ class IMUEncoder(nn.Module):
     num_heads = 4
 
     def __init__(self, input_dim: int, hidden_dim: int, patch_size: int, num_layers: int,
-                 max_seq_len: int, fused_stack: bool = False, attention_impl: str = "xla"):
+                 max_seq_len: int, fused_stack: bool = False, attention_impl: str = "xla",
+                 fused_block: bool = False):
         super().__init__()
         self.input_dim = input_dim
         self.seq = SequenceEncoder(input_dim, hidden_dim, patch_size, num_layers,
-                                   self.num_heads, max_seq_len, fused_stack, attention_impl)
+                                   self.num_heads, max_seq_len, fused_stack, attention_impl,
+                                   fused_block)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[-1] != self.input_dim:

@@ -18,7 +18,9 @@ route the encoder stacks (the image-frame sequence encoder's among them)
 and the decoder layers through the fused fwd+bwd ops
 (``ops/fused_encoder_stack.py``, ``ops/fused_decoder_layer.py``);
 ``vit_fused_block`` runs each ViT block as one fused op
-(``ops/fused_vit_block.py``). ``attention_impl`` picks the attention
+(``ops/fused_vit_block.py``), ``encoder_fused_block`` each layer of the
+three proprioceptive stacks as one such op (exact GELU; the fused stack
+wins where both are set). ``attention_impl`` picks the attention
 backend of every unfused layer (``models/attention.py``): with all three
 knobs off and "pallas", every attention of the model runs the flash
 kernel (``ops/flash_attention.py``).
@@ -50,18 +52,22 @@ class DiffusionPolicy(nn.Module):
         cfg = self.config = config
         E, ps = cfg.hidden_dim, cfg.encoder_patch_size
         fused, attn = cfg.encoder_fused_stack, cfg.attention_impl
+        # the proprioceptive stacks: one fused op a stack, or one fused ViT
+        # block a layer (encoder_fused_block; the image sequence stack takes
+        # only encoder_fused_stack, as in the JAX package)
+        prop = dict(fused_stack=fused, attention_impl=attn, fused_block=cfg.encoder_fused_block)
         self.step_encoding = StepToken(E)
         if cfg.use_action_history:
             self.action_history_encoder = JointEncoder(
                 cfg.num_joints, E, ps, cfg.num_action_history_encoder_layers,
-                cfg.action_context_length, fused, attn)
+                cfg.action_context_length, **prop)
         if cfg.use_imu:
             self.imu_encoder = IMUEncoder(cfg.imu_input_dim, E, ps, cfg.num_imu_encoder_layers,
-                                          cfg.imu_context_length, fused, attn)
+                                          cfg.imu_context_length, **prop)
         if cfg.use_joint_states:
             self.joint_states_encoder = JointEncoder(
                 cfg.num_joints, E, ps, cfg.joint_state_encoder_layers,
-                cfg.joint_state_context_length, fused, attn)
+                cfg.joint_state_context_length, **prop)
         if cfg.use_images:
             self.image_sequence_encoder = ImageSequenceEncoder(
                 E, cfg.image_encoder_type, cfg.image_sequence_encoder_type,

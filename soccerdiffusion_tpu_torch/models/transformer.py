@@ -6,8 +6,9 @@
                  x += cross_attn(LN2(x), memory); x += mlp(LN3(x))
 
 The MLP width defaults to hidden (the ViT's is 4x). GELU is exact (erf)
-except where the ViT stack opts into quick-GELU (z * sigmoid(1.702 z)) with
-``fused_gelu="quick"``, which its fused and unfused paths both honour.
+except where the ViT stack sets ``fused_gelu`` (``vit_fused_gelu``): its
+fused blocks then run that GELU, its unfused layers quick-GELU (z *
+sigmoid(1.702 z)) for "quick" and "bf16" and exact GELU for "poly".
 LayerNorm eps is ``LN_EPS`` = 1e-6, flax's default (torch's 1e-5 would be
 a silent mismatch).
 
@@ -39,6 +40,7 @@ from soccerdiffusion_tpu_torch.ops.fused_encoder_stack import (
     encoder_stack,
     stack_weights,
 )
+from soccerdiffusion_tpu_torch.ops._train_math import GELUS
 from soccerdiffusion_tpu_torch.ops.fused_vit_block import vit_block
 
 
@@ -92,15 +94,22 @@ class TransformerEncoderLayer(nn.Module):
         return x + self.mlp(self.norm2(x))
 
 
+def unfused_activation(fused_gelu: str) -> str:
+    """The unfused layers' activation for a ``vit_fused_gelu``: quick-GELU
+    for "quick" and "bf16", exact GELU for "exact" and "poly" (its
+    approximation), as in the JAX package, so that a checkpoint serves the
+    same with the fused block off."""
+    return "quick_gelu" if fused_gelu in ("quick", "bf16") else "gelu"
+
+
 class FusedTransformerEncoderLayer(TransformerEncoderLayer):
     """The encoder layer as one fused ViT-block launch
-    (``ops/fused_vit_block.py``), on the plain layer's parameters;
-    ``gelu`` is "exact" or "quick"."""
+    (``ops/fused_vit_block.py``), on the plain layer's parameters; ``gelu``
+    is "exact", "quick", "poly" or "bf16"."""
 
     def __init__(self, hidden_dim: int, num_heads: int, ff_dim: int | None = None,
                  gelu: str = "exact"):
-        super().__init__(hidden_dim, num_heads, ff_dim,
-                         "quick_gelu" if gelu == "quick" else "gelu")
+        super().__init__(hidden_dim, num_heads, ff_dim, unfused_activation(gelu))
         self.gelu = gelu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -149,9 +158,11 @@ class FusedTransformerDecoderLayer(TransformerDecoderLayer):
 class TransformerEncoder(nn.Module):
     """``fused_stack=True`` runs all layers as one fused op with a
     hand-written backward (exact GELU only); ``fused_block=True`` runs each
-    layer as one fused ViT block. ``fused_gelu`` is the JAX package's
-    ``vit_fused_gelu``: "exact" or "quick" (the unfused layers honour it
-    too, so a checkpoint serves the same either way). ``attention_impl``
+    layer as one fused ViT block (``fused_stack`` wins where both are set,
+    as in the JAX package). ``fused_gelu`` is the JAX package's
+    ``vit_fused_gelu``: "exact", "quick", "poly" or "bf16" on the fused
+    block; the unfused layers run quick-GELU for "quick" and "bf16" and
+    exact GELU for "exact" and "poly" (``unfused_activation``). ``attention_impl``
     (``models/attention.py``) is the unfused layers' attention backend; the
     fused stack and blocks ignore it, as in the JAX package."""
 
@@ -162,17 +173,15 @@ class TransformerEncoder(nn.Module):
         if fused_stack and fused_gelu != "exact":
             raise ValueError(f"fused_stack computes exact GELU; fused_gelu={fused_gelu!r} is "
                              "not supported there")
-        if fused_gelu not in ("exact", "quick"):
-            raise NotImplementedError(f"fused_gelu={fused_gelu!r} is not ported yet (see "
-                                      "ROADMAP.md, 'H100 port')")
+        if fused_gelu not in GELUS:
+            raise ValueError(f"unknown vit_fused_gelu: {fused_gelu!r}")
         self.num_heads, self.fused_stack = num_heads, fused_stack
         self.remat = remat and not (fused_stack or fused_block)
         if fused_block and not fused_stack:
             make = lambda: FusedTransformerEncoderLayer(hidden_dim, num_heads, ff_dim, fused_gelu)
         else:
-            activation = "quick_gelu" if fused_gelu == "quick" else "gelu"
-            make = lambda: TransformerEncoderLayer(hidden_dim, num_heads, ff_dim, activation,
-                                                   attention_impl)
+            make = lambda: TransformerEncoderLayer(hidden_dim, num_heads, ff_dim,
+                                                   unfused_activation(fused_gelu), attention_impl)
         self.layers = nn.ModuleList([make() for _ in range(num_layers)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

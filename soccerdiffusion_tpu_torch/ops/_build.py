@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
 ``nvcc`` compiles every ``csrc/*.cu`` for sm_90a (one process per source,
-all started together) and links the objects into one shared library with a
-plain C interface, loaded with ``ctypes``. The library goes to
+all started together; ``build.log`` has each one's output and seconds) and
+links the objects into one shared library with a plain C interface, loaded
+with ``ctypes``. The library goes to
 ``build/kernels/<hash>/`` at the repository root, keyed by a hash of the
 sources and flags, and is built at first use (so the first kernel call, or
 ``python3 chip_smoke.py``, builds everything from the checkout).
@@ -15,6 +16,7 @@ PyTorch's headers makes a build take minutes instead of seconds.)
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -36,6 +38,7 @@ _ENTRIES = {
     "sd_fused_denoise": [ctypes.POINTER(_P), _I, _F, _P],
     "sd_pack_context_kv": [ctypes.POINTER(_P), _I, _P],
     "sd_fused_chunk": [ctypes.POINTER(_P), _I, _P],
+    "sd_fused_chunk_int8": [ctypes.POINTER(_P), _I, _P],
     "sd_encoder_stack_fwd": [ctypes.POINTER(_P), _I, _P],
     "sd_encoder_stack_bwd": [ctypes.POINTER(_P), _I, _P],
     "sd_decoder_layer_fwd": [ctypes.POINTER(_P), _I, _P],
@@ -45,9 +48,11 @@ _ENTRIES = {
     "sd_flash_attention_fwd": [ctypes.POINTER(_P), _I, _P],
     "sd_flash_attention_bwd": [ctypes.POINTER(_P), _I, _P],
     "sd_pass_smem_bytes": [_I],
+    "sd_int8_smem_bytes": [_I],
 }
 # entries that return something other than a CUDA error code
-_RESTYPES = {"sd_pass_smem_bytes": ctypes.c_longlong}
+_RESTYPES = {"sd_pass_smem_bytes": ctypes.c_longlong,
+             "sd_int8_smem_bytes": ctypes.c_longlong}
 
 
 def _nvcc() -> str:
@@ -84,9 +89,14 @@ def library() -> ctypes.CDLL:
         objs = [out / f"{src.stem}.{tag}.o" for src in srcs]
         cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(srcs, objs)]
         tmp = out / f"libsd_kernels.{tag}.so"
-        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                 for cmd in cmds]
-        logs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in zip(cmds, procs)]
+
+        def compile_one(cmd):  # (cmd, output with its seconds, exit code)
+            start = time.perf_counter()
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            return cmd, proc.stdout + f"{time.perf_counter() - start:.1f} s\n", proc.returncode
+
+        with concurrent.futures.ThreadPoolExecutor(len(cmds)) as pool:
+            logs = list(pool.map(compile_one, cmds))
         link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
                 *map(str, objs)]
         if all(rc == 0 for _, _, rc in logs):

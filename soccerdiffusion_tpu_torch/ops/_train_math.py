@@ -46,23 +46,99 @@ def ln_bwd(dn, xhat, rstd, g):
     return rstd * (dxhat - m1 - xhat * m2)
 
 
-GELUS = ("exact", "quick")
+GELUS = ("exact", "quick", "poly", "bf16")
+
+# "poly": the JAX package's minimax fit of exact GELU (ops/fused_vit_block.py
+# _GELU_R / _GELU_G / _GELU_H): on |z| <= GELU_R, gelu(z) = z / 2 + G(z^2)
+# and gelu'(z) = 1 / 2 + z H(z^2) by Horner in fp32; past it z (or 1) above
+# and 0 below
+GELU_R = 3.75
+GELU_G = (7.7387867635e-05, 3.9815118597e-01, -6.5148636098e-02,
+          9.0873994758e-03, -8.8830326732e-04, 5.6548416021e-05,
+          -2.0787433172e-06, 3.3143120958e-08)
+GELU_H = (7.9546119838e-01, -2.5856087522e-01, 5.3150608964e-02,
+          -6.7156793228e-03, 5.1222947652e-04, -2.1502364740e-05,
+          3.7926810910e-07)
 
 
-def gelu_gate(z, gelu="exact"):
-    """cdf(z) of GELU(z) = z * cdf(z), fp32: the normal CDF Phi(z), or
-    sigmoid(1.702 z) for quick-GELU."""
+def _horner(coeffs, u):
+    acc = torch.full_like(u, coeffs[-1])
+    for c in coeffs[-2::-1]:
+        acc = acc * u + c
+    return acc
+
+
+def gelu_poly(z):
+    """The "poly" GELU of fp32 z."""
+    zc = z.clamp(-GELU_R, GELU_R)
+    core = 0.5 * zc + _horner(GELU_G, zc * zc)
+    return torch.where(z > GELU_R, z, torch.where(z < -GELU_R, torch.zeros_like(z), core))
+
+
+def gelu_poly_grad(z):
+    """d gelu_poly / dz of fp32 z."""
+    zc = z.clamp(-GELU_R, GELU_R)
+    core = 0.5 + zc * _horner(GELU_H, zc * zc)
+    return torch.where(z > GELU_R, torch.ones_like(z),
+                       torch.where(z < -GELU_R, torch.zeros_like(z), core))
+
+
+def _quick_constant(dtype):
+    # the JAX chain's weak-typed 1.702 takes the array's dtype: bf16(1.702) =
+    # 1.703125 in bf16 (a Python scalar would multiply in fp32 in torch)
+    return torch.tensor(1.702, dtype=dtype)
+
+
+def gelu_gate(z, gelu="exact", dtype=torch.float32):
+    """The factor of GELU(z) that its gradient reuses, as a float32 tensor:
+    the normal CDF Phi(z) ("exact"), sigmoid(1.702 z) ("quick"), or for
+    "bf16" the same sigmoid evaluated on z rounded to ``dtype`` with every
+    elementary op rounded to ``dtype`` (as XLA evaluates a bf16 chain; in
+    float32 it is "quick"); "poly" keeps none (None)."""
+    if gelu == "poly":
+        return None
+    if gelu == "bf16":
+        zd = z.to(dtype)
+        return (1.0 / (1.0 + torch.exp(-_quick_constant(dtype) * zd))).float()
     if gelu == "quick":
         return 1.0 / (1.0 + torch.exp(-1.702 * z))
     return 0.5 * (1.0 + torch.erf(z * (1.0 / math.sqrt(2.0))))
 
 
-def gelu_grad(z, cdf, gelu="exact"):
-    """d GELU(z) / dz given ``cdf`` = gelu_gate(z): Phi(z) + z phi(z), or
-    s (1 + 1.702 z (1 - s)) for quick-GELU."""
+def gelu_value(z, cdf, gelu="exact", dtype=torch.float32):
+    """GELU(z) of fp32 z before its rounding to the compute dtype, given
+    ``cdf`` = gelu_gate(z): z cdf, the polynomial itself for "poly", and
+    for "bf16" z rounded to ``dtype`` times the gate (the caller's rounding
+    is the chain's last)."""
+    if gelu == "poly":
+        return gelu_poly(z)
+    if gelu == "bf16":
+        return rnd(z, dtype) * cdf
+    return z * cdf
+
+
+def gelu_grad(z, cdf, gelu="exact", dtype=torch.float32):
+    """d GELU(z) / dz given ``cdf`` = gelu_gate(z): Phi(z) + z phi(z),
+    s (1 + 1.702 z (1 - s)) for quick-GELU (for "bf16" on z rounded to
+    ``dtype``, each op rounded to ``dtype``), the polynomial's gradient for
+    "poly"."""
+    if gelu == "poly":
+        return gelu_poly_grad(z)
+    if gelu == "bf16":
+        zd, s = z.to(dtype), cdf.to(dtype)
+        return (s * (1.0 + _quick_constant(dtype) * zd * (1.0 - s))).float()
     if gelu == "quick":
         return cdf * (1.0 + 1.702 * z * (1.0 - cdf))
     return cdf + z * torch.exp(-0.5 * z * z) * (1.0 / math.sqrt(2.0 * math.pi))
+
+
+def gelu_dz(dhg, z, cdf, gelu="exact", dtype=torch.float32):
+    """dL/dz from dhg = dL/dGELU(z) (fp32): dhg GELU'(z) in fp32, or for
+    "bf16" dhg rounded to ``dtype`` times the gradient, rounded to ``dtype``
+    (its fp32 column sum is then the JAX kernel's ones-row db1 product)."""
+    if gelu == "bf16":
+        return rnd(rnd(dhg, dtype) * gelu_grad(z, cdf, gelu, dtype), dtype)
+    return dhg * gelu_grad(z, cdf, gelu, dtype)
 
 
 def _heads(t, num_heads):  # (B, T, E) -> (B, H, T, D)

@@ -404,10 +404,12 @@ class FusedDenoiser:
         return c2 * ((x - c1 * eps) * c0) + c3 * eps
 
     def plain_pass(self, x: torch.Tensor, ctx_k, ctx_v, stk: torch.Tensor,
-                   stv: torch.Tensor) -> torch.Tensor:
+                   stv: torch.Tensor, cross=None) -> torch.Tensor:
         """Plain PyTorch decoder pass: x (B, P, J) fp32, ctx_k[l] / ctx_v[l]
         (B, S, E), stk / stv (L, E) -> eps (B, P, J) fp32. The step-token
-        column joins the context keys in one softmax."""
+        column joins the context keys in one softmax; ``cross(l, q2)``, given,
+        computes the cross-attention of layer l's bf16-valued queries (B, P,
+        E) in its place (the chunk sampler's other forms)."""
         r, H, E = self._round, self.num_heads, self.cfg.hidden_dim
         f = lambda t: t.float()
         b = x.shape[0]
@@ -418,9 +420,13 @@ class FusedDenoiser:
             h = h + (heads_attention(q, k, v, H, self.dtype) @ f(self.so_w[l]) + f(self.so_b[l]))
             n2 = r(layer_norm(h, self.ln_s[l, 1], self.ln_b[l, 1]))
             q2 = r(n2 @ f(self.cq_w[l]) + f(self.cq_b[l]))
-            keys = torch.cat([f(ctx_k[l]), f(stk[l]).expand(b, 1, E)], dim=1)
-            vals = torch.cat([f(ctx_v[l]), f(stv[l]).expand(b, 1, E)], dim=1)
-            h = h + (heads_attention(q2, keys, vals, H, self.dtype) @ f(self.co_w[l]) + f(self.co_b[l]))
+            if cross is None:
+                keys = torch.cat([f(ctx_k[l]), f(stk[l]).expand(b, 1, E)], dim=1)
+                vals = torch.cat([f(ctx_v[l]), f(stv[l]).expand(b, 1, E)], dim=1)
+                o = heads_attention(q2, keys, vals, H, self.dtype)
+            else:
+                o = cross(l, q2)
+            h = h + (o @ f(self.co_w[l]) + f(self.co_b[l]))
             n3 = r(layer_norm(h, self.ln_s[l, 2], self.ln_b[l, 2]))
             m1 = r(F.gelu(n3 @ f(self.m1_w[l]) + f(self.m1_b[l]), approximate="none"))
             h = h + (m1 @ f(self.m2_w[l]) + f(self.m2_b[l]))

@@ -37,8 +37,9 @@ from soccerdiffusion_tpu_torch.ops._train_math import (
     attention,
     attention_bwd,
     check_operands,
+    gelu_dz,
     gelu_gate,
-    gelu_grad,
+    gelu_value,
     ln_bwd,
     ln_fwd,
     r4,
@@ -90,8 +91,8 @@ def _layer(x32, w, num_heads, dtype, gelu="exact"):
     n2_32, xh2, r2 = ln_fwd(x2, g2, be2)
     n2 = rnd(n2_32, dtype)
     z = n2 @ w1 + b1
-    cdf = gelu_gate(z, gelu)
-    hg = rnd(z * cdf, dtype)
+    cdf = gelu_gate(z, gelu, dtype)
+    hg = rnd(gelu_value(z, cdf, gelu, dtype), dtype)
     y = x2 + hg @ w2 + b2
     return dict(xh1=xh1, r1=r1, n1=n1, q=q, k=k, v=v, p=p, om=om, xh2=xh2, r2=r2, n2=n2,
                 z=z, cdf=cdf, hg=hg, y=y)
@@ -123,7 +124,7 @@ def backward_plain(x: torch.Tensor, dy: torch.Tensor, w: list[torch.Tensor], num
         # MLP
         gc = rnd(g, dtype)
         dw2, db2 = tdot(c["hg"], gc), rsum(g)
-        dz = (gc @ w2.t()) * gelu_grad(c["z"], c["cdf"], gelu)
+        dz = gelu_dz(gc @ w2.t(), c["z"], c["cdf"], gelu, dtype)
         dzc = rnd(dz, dtype)
         dw1, db1 = tdot(c["n2"], dzc), rsum(dz)
         dn2 = dzc @ w1.t()

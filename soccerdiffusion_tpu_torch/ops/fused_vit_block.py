@@ -1,10 +1,14 @@
 """Fused pre-norm ViT block, forward and backward
-(``csrc/fused_vit_block.cu``), the op behind ``vit_fused_block``.
+(``csrc/fused_vit_block.cu``, its device code ``csrc/vit_block.cuh``), the
+op behind ``vit_fused_block``.
 
 Counterpart of ``soccerdiffusion_tpu/ops/fused_vit_block.py``
 (``make_vit_block_fn``): over (N frames, T tokens, W) one block
-``x2 = x + attn(LN1(x)); y = x2 + mlp(LN2(x2))`` with exact (erf) or quick
-(z * sigmoid(1.702 z)) GELU, rounded to the compute dtype at the points of
+``x2 = x + attn(LN1(x)); y = x2 + mlp(LN2(x2))`` with the block's GELU
+(``vit_fused_gelu``: "exact" (erf), "quick" (z * sigmoid(1.702 z)), "poly"
+(the JAX package's minimax polynomial of exact GELU, fp32) or "bf16"
+(quick-GELU evaluated on z rounded to bf16, each op rounded to bf16, with
+an fp32 sum of the bf16 dz for db1)), rounded to the compute dtype at the points of
 the TPU kernel's ``_block_core``: bf16 input and output, fp32 LayerNorm,
 q|k|v rounded after the bias, fp32 softmax with the probabilities rounded
 before the value product, the head outputs rounded, fp32 residual, the GELU
@@ -43,8 +47,15 @@ from soccerdiffusion_tpu_torch.ops._train_math import (
 
 def _check_gelu(gelu: str) -> None:
     if gelu not in GELUS:
-        raise NotImplementedError(f"vit_fused_gelu={gelu!r}: the fused ViT block takes "
-                                  f"{' or '.join(GELUS)} (see ROADMAP.md, 'H100 port')")
+        raise ValueError(f"unknown vit_fused_gelu: {gelu!r} (the fused ViT block takes "
+                         f"{', '.join(GELUS)})")
+
+
+def gelu_code(gelu: str) -> int:
+    """The kernels' GELU parameter (csrc/train_common.cuh:Gelu): its index in
+    GELUS."""
+    _check_gelu(gelu)
+    return GELUS.index(gelu)
 
 
 def forward_plain(x: torch.Tensor, w: list[torch.Tensor], num_heads: int,
@@ -66,7 +77,7 @@ def backward_plain(x: torch.Tensor, dy: torch.Tensor, w: list[torch.Tensor], num
 
 def smem_bytes(T: int, W: int) -> int:
     """Shared memory of one frame's forward thread block
-    (``csrc/fused_vit_block.cu:vit_smem_bytes``): the fp32 residual, the
+    (``csrc/vit_block.cuh:vit_smem_bytes``): the fp32 residual, the
     bf16 LayerNorm / attention output and q|k|v, rows padded by 8."""
     return 4 * T * W + fes.fwd_smem_bytes(T, W)
 
@@ -92,7 +103,7 @@ def forward_kernel(x: torch.Tensor, w: list[torch.Tensor], num_heads: int,
     y = torch.empty_like(x)
     err = _build.library().sd_vit_block_fwd(
         _build.pointers(x, *w, y, *transposed_weights(w)),
-        _build.ints(N, T, W, num_heads, w[8].shape[-1], int(gelu == "quick")),
+        _build.ints(N, T, W, num_heads, w[8].shape[-1], gelu_code(gelu)),
         _build.stream(x.device))
     _build.check("sd_vit_block_fwd", err)
     forward_kernel.launches += 1
@@ -113,7 +124,7 @@ def backward_kernel(x: torch.Tensor, dy: torch.Tensor, w: list[torch.Tensor], nu
     dx = torch.empty_like(x)
     err = _build.library().sd_vit_block_bwd(
         _build.pointers(x, dy, *w, *wt, dx, *outs, *scratch),
-        _build.ints(N, T, W, num_heads, FF, int(gelu == "quick"), s32, sbf, ROWS_PER_SPLIT),
+        _build.ints(N, T, W, num_heads, FF, gelu_code(gelu), s32, sbf, ROWS_PER_SPLIT),
         _build.stream(x.device))
     _build.check("sd_vit_block_bwd", err)
     backward_kernel.launches += 1

@@ -67,9 +67,11 @@ def test_check_supported_takes_the_flagship_and_rejects_resnet():
     """Every shipped YAML is accepted (the ResNet ones since the ResNet / Swin
     slice), and so is the aux cue head (since the recorded-data slice) and
     attention_impl "ring" without the fused knobs (since the parallel/
-    slice); what still raises: encoder_fused_block and the unported GELUs
-    (NotImplementedError), and remat_image_encoder "conv_only" on a ViT or
-    Swin or any other string (ValueError)."""
+    slice), the "poly" and "bf16" GELUs and encoder_fused_block (since the
+    kernel-variants slice); what raises is what the JAX package refuses: an
+    unknown GELU, encoder_fused_block with "ring" (ValueError, from the
+    config itself), and remat_image_encoder "conv_only" on a ViT or Swin or
+    any other string (ValueError)."""
     port.check_supported(port.Config.from_yaml(str(FLAGSHIP)).model)
     resnet = port.Config.from_yaml(str(FLAGSHIP.with_name("default.yaml"))).model
     port.check_supported(resnet)
@@ -79,9 +81,15 @@ def test_check_supported_takes_the_flagship_and_rejects_resnet():
     port.check_supported(dataclasses.replace(flagship, attention_impl="ring",
                                              encoder_fused_stack=False, decoder_fused_block=False))
     for kw in (dict(vit_fused_gelu="poly"), dict(vit_fused_gelu="bf16"),
-               dict(encoder_fused_block=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port.check_supported(dataclasses.replace(flagship, **kw))
+               dict(encoder_fused_block=True),
+               dict(encoder_fused_block=True, encoder_fused_stack=False)):
+        port.check_supported(dataclasses.replace(flagship, **kw))
+    for kw, match in ((dict(vit_fused_gelu="relu"), "unknown vit_fused_gelu"),
+                      (dict(encoder_fused_block=True, encoder_fused_stack=False,
+                            decoder_fused_block=False, attention_impl="ring"),
+                       "encoder_fused_block")):
+        with pytest.raises(ValueError, match=match):
+            dataclasses.replace(flagship, **kw)
     for cfg, remat in ((flagship, "conv_only"),
                        (dataclasses.replace(resnet, image_encoder_type="swin_transformer_tiny"),
                         "conv_only"), (resnet, "everything")):

@@ -18,6 +18,9 @@ its per-step sampler, and the context encoder at T = 24 / 100 / 128, patch
 launches; the decoder kernels and the pack at S=0 context tokens, the
 decoder-only tier; their head_dim-128 instances (hidden 512, larger_model)
 at S = 17 / 311 / 312 / 383, B = 1 / 13 / 64 / 133, over 3 and 8 layers;
+the chunk sampler's int8 form at every cluster shape (R = 1 to 32 robots a
+block) and head dim, and its "qstat" form in one block and in a cluster;
+the ViT block's "poly" and "bf16" GELUs at ragged shapes;
 the decoder kernels at the shared-memory limits check_kernel_shapes names,
 and refused one 32-key block past them;
 the ResNet18 / ResNet50 / Swin-T encoders' train and eval modes, running
@@ -42,7 +45,7 @@ import torch
 from soccerdiffusion_tpu_torch.config import ModelConfig
 from soccerdiffusion_tpu_torch.diffusion import make_schedule, solver_coef_table, solver_timesteps
 from soccerdiffusion_tpu_torch.models import DiffusionPolicy
-from soccerdiffusion_tpu_torch.ops.fused_chunk import FusedChunkSampler
+from soccerdiffusion_tpu_torch.ops.fused_chunk import FusedChunkSampler, int8_scale, quantise
 from soccerdiffusion_tpu_torch.ops.fused_denoise import FusedDenoiser
 from soccerdiffusion_tpu_torch.models.layers import BatchNorm
 from soccerdiffusion_tpu_torch.models.vision import make_image_encoder
@@ -337,7 +340,8 @@ def test_encoder_stack_head_dim_64(device):
 # 256-wide frame fits shared memory up to T=74.
 RAGGED = [(1, 1), (10, 5), (49, 7), (64, 1), (100, 3)]
 VIT_CASES = [(W, H, gelu, T, n) for W, H, gelu in ((128, 4, "quick"), (128, 4, "exact"),
-                                                   (256, 4, "exact"), (256, 4, "quick"))
+                                                   (256, 4, "exact"), (256, 4, "quick"),
+                                                   (128, 4, "poly"), (256, 4, "bf16"))
              for T, n in RAGGED if W * T <= 256 * 74]
 
 
@@ -634,6 +638,56 @@ def test_chunk_kernel_takes_long_contexts_past_the_sms(device):
     assert chunk.block_threads(133, 600, device) == 512
     with torch.no_grad():
         assert_close(chunk.sample_kernel(*args), chunk.sample_plain(*args))
+
+
+# int8 context K/V (csrc/fused_chunk_int8.cu) at every cluster shape: R = 1,
+# 2, 3, 4, 6, 8, 32 robots a block run C = 1, 2, 1, 4, 2, 8, 8 blocks of 1
+# to 4 robots each; within chip_smoke.py's INT8_TOL (a quantisation flip moves
+# a value by 1/127 of its range, twice a bf16 rounding step) and bit-identical
+# over two launches (integer sums, fixed orders); the kernel's record of every
+# (step, layer): its query scales bit for bit the block's max |q| / 127 over
+# its own queries, and its int8 queries the plain quantiser's at that scale
+INT8_TOL = 2 * TOL
+INT8_CASES = [(32, 13, 1), (32, 24, 3), (32, 24, 6), (32, 64, 32), (64, 16, 2), (64, 16, 4),
+              (64, 16, 8), (128, 16, 8), (128, 32, 32)]
+
+
+@pytest.mark.parametrize("head_dim,b,robots", INT8_CASES)
+def test_int8_chunk_kernel_matches_plain_version(head_dim, b, robots, device):
+    cfg, model = serving_model(device, head_dim)
+    sampler = FusedChunkSampler(model, block_robots=robots, context_kv_quant="int8")
+    _, args = chunk_inputs(cfg, model, device, b, 311, "ddim", seed=b + robots)
+    n = FusedChunkSampler.int8_launches
+    with torch.no_grad():
+        got = sampler.sample_kernel(*args, robots)
+        again = sampler.sample_kernel(*args, robots)
+        assert FusedChunkSampler.int8_launches == n + 2
+        ref = sampler.sample_plain(*args, robots)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+    assert err <= INT8_TOL * scale, (err, scale)
+    with torch.no_grad():
+        _, rec = sampler.sample_int8_kernel(*args, robots, record=True)
+    q2 = rec["q2"].float()
+    B, T, L = rec["sq"].shape
+    amax = q2.abs().amax((3, 4))
+    block = int8_scale(amax.view(B // robots, robots, T, L).amax(1)).repeat_interleave(robots, 0)
+    assert torch.equal(rec["sq"], block)
+    assert torch.equal(rec["qq"].float(), quantise(q2, rec["sq"][..., None, None]))
+
+
+@pytest.mark.parametrize("cluster", [1, 2])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+@pytest.mark.parametrize("S", [17, 311])
+def test_qstat_chunk_kernel_matches_plain_version(S, head_dim, cluster, device):
+    """The "qstat" numerics in one block and in a 2-block cluster."""
+    cfg, model = serving_model(device, head_dim)
+    chunk, args = chunk_inputs(cfg, model, device, 13, S, "dpmpp", seed=S + head_dim)
+    sampler = FusedChunkSampler(model, cross_orientation="qstat")
+    sampler.cluster_size = lambda batch, device: cluster
+    with torch.no_grad():
+        assert_close(sampler.sample_kernel(*args), sampler.sample_plain(*args))
 
 
 def encoder_case(device, tokens, patch, gamestate, b=13):

@@ -57,10 +57,23 @@ def test_plain_chunk_head_dim_128_matches_jax_kernel(solver):
 
 
 def test_unported_options_raise():
+    """The options the port once refused (groups, int8 K/V, "qstat") are
+    taken; what raises now is what the JAX sampler refuses (ValueError),
+    and int8 over more robots a block than its kernel holds."""
     _, _, model, _, _ = build_pair(SMALL, b=2)
     for kw in ({"group_robots": 2}, {"context_kv_quant": "int8"}, {"cross_orientation": "qstat"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sampler = FusedChunkSampler(model, **kw)
+        assert sampler.robots_per_block(64) == 32
+    for kw, match in (({"block_robots": 6, "group_robots": 4}, "not divisible"),
+                      ({"cross_orientation": "vstat"}, "unknown cross_orientation"),
+                      ({"cross_orientation": "qstat", "group_robots": 2}, "requires group_robots=1"),
+                      ({"context_kv_quant": "int4"}, "unknown context_kv_quant")):
+        with pytest.raises(ValueError, match=match):
             FusedChunkSampler(model, **kw)
+    for kw, match in (({"context_kv_quant": "int8", "group_robots": 2}, "group_robots=1"),
+                      ({"context_kv_quant": "int8", "block_robots": 64}, "at most 32")):
+        with pytest.raises(ValueError, match=match):
+            FusedChunkSampler(model, **kw).robots_per_block(64)
 
 
 def unpacked(sampler):

@@ -92,13 +92,23 @@ def test_serving_weights_are_packed_once(kind):
 
 
 def test_unported_gelus_raise():
+    """The GELUs the port once refused ("poly", "bf16") are taken by the op
+    and by both encoder paths (the unfused layers map "poly" to exact GELU
+    and "bf16" to quick-GELU, as the JAX package does); what raises now is
+    what the JAX package refuses: an unknown GELU, and a GELU other than
+    exact on the fused stack."""
     w = [torch.from_numpy(a) for a in weights()]
-    x = torch.zeros(2, 9, W)
-    for gelu in ("poly", "bf16"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fvb.vit_block(x, w, H, gelu)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TransformerEncoder(W, H, 1, fused_block=True, fused_gelu=gelu)
+    x = torch.randn(2, 9, W, generator=torch.Generator().manual_seed(3))
+    for gelu, activation in (("poly", "gelu"), ("bf16", "quick_gelu")):
+        y = fvb.vit_block(x, w, H, gelu)
+        assert torch.isfinite(y).all()
+        torch.testing.assert_close(y, fvb.forward_plain(x, w, H, gelu), atol=0, rtol=0)
+        assert TransformerEncoder(W, H, 1, fused_block=True, fused_gelu=gelu).layers[0].gelu == gelu
+        assert TransformerEncoder(W, H, 1, fused_gelu=gelu).layers[0].mlp.activation == activation
+    for make in (lambda: fvb.vit_block(x, w, H, "relu"),
+                 lambda: TransformerEncoder(W, H, 1, fused_block=True, fused_gelu="relu")):
+        with pytest.raises(ValueError, match="unknown vit_fused_gelu"):
+            make()
     with pytest.raises(ValueError, match="exact GELU"):
         TransformerEncoder(W, H, 1, fused_stack=True, fused_gelu="quick")
 

@@ -211,5 +211,7 @@ def test_kernel_build_dir_is_keyed_by_sources():
     assert d.parent == REPO / "build" / "kernels"
     assert len(d.name) == 16
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-        "fused_encoder.cu", "fused_denoise.cu", "fused_chunk.cu", "fused_encoder_stack.cu",
-        "fused_decoder_layer.cu", "weight_grads.cu", "fused_vit_block.cu", "flash_attention.cu"}
+        "fused_encoder.cu", "fused_denoise.cu", "fused_chunk.cu", "fused_chunk_int8.cu",
+        "fused_encoder_stack.cu", "fused_decoder_layer.cu", "weight_grads.cu",
+        "fused_vit_block.cu", "fused_vit_block_hd32.cu", "fused_vit_block_hd64.cu",
+        "flash_attention.cu"}
