@@ -255,7 +255,25 @@
    2's SASS check also requires IMMA in every int8 instance and 8 ViT-block
    instances each way (head_dim 32 / 64 x four GELUs). The results go under
    the JSON line's "variants" key.
-18. Prints one JSON line of per-kernel results, then as its last line
+18. Recorded data through the port's ingest/ and the flat optimizer
+   (ingest_phase, ~150-250 s): a 60 s Bit-Bots bag written by the port's
+   MCAP writer without zstd (joint states, commands and IMU at 100 Hz, a 10
+   Hz 640 x 480 bgr8 camera, the game state every 0.5 s; the committed zstd
+   fixture imported too where zstandard imports), `cli import`, `cli pack`
+   at the flagship's 224 px and `cli db recording2mcap` (exit 0, the rows
+   the rates give within one, every frame the port's resize of the frame
+   written; import s and rows/s, pack and export s, DB and shard MB); h128
+   proprio_fused.yaml `train --db --device-data` from the imported database
+   and the flagship `train --packed DIR` from the shards, 20 steps at B=64
+   each with flat_optimizer on and off: the parameters bit for bit, the
+   training kernels' launches a step as steps 6 and 8 count them, ms/step
+   (host clock, steps 12-20) and one optimizer step's device ops
+   (torch.profiler); a JAX-format flat_optimizer checkpoint and a masked
+   distillation one written from seeded trees, each resumed bit for bit
+   what the same start in the port's format gives; the h128 checkpoint
+   trained flat from the imported data served for 5 periods at B=1024
+   (exact launches). The results go under the JSON line's "ingest" key.
+19. Prints one JSON line of per-kernel results, then as its last line
    {"ok": true, "device": {...}}. Where one torch.nn call computes the
    same function as a kernel (the encoder-stack, ViT-block and
    decoder-layer forwards; one torch.autograd.grad through the same layers
@@ -4815,6 +4833,475 @@ def variants_phase(device) -> tuple[dict, dict, dict]:
                                "seconds": seconds}
 
 
+# phase 18: recorded data through the port's ingest/ (a Bit-Bots bag written,
+# imported, packed and exported by the port), training from it with the flat
+# optimizer (flat_optimizer) beside the per-tensor one, the two resumes the
+# flat optimizer brings, and the trained checkpoint served
+INGEST_SECONDS = 60  # of play in the synthesised bag
+INGEST_HZ, INGEST_CAMERA_EVERY, INGEST_GAMESTATE_EVERY = 100, 10, 50  # 100 / 10 / 2 Hz
+INGEST_FRAME = (480, 640)  # bgr8, INTER_AREA to the schema's 480 x 480
+INGEST_T0 = 1_700_000_000 * 10 ** 9
+INGEST_STEPS, INGEST_B = 20, 64
+FLAT_RESUME_STEPS = 2
+# the Bit-Bots messages the bag carries beyond ros2_schemas' (the topics and
+# schemas of tests/test_mcap_io.py:synthesize_bitbots_bag)
+_HEADER = ("=" * 80 + "\nMSG: std_msgs/Header\nbuiltin_interfaces/Time stamp\nstring frame_id\n"
+           + "=" * 80 + "\nMSG: builtin_interfaces/Time\nint32 sec\nuint32 nanosec\n")
+JOINT_COMMAND_SCHEMA = ("std_msgs/Header header\nstring[] joint_names\nfloat64[] positions\n"
+                        "float64[] velocities\nfloat64[] accelerations\nfloat64[] max_currents\n"
+                        + _HEADER)
+IMU_SCHEMA = ("std_msgs/Header header\ngeometry_msgs/Quaternion orientation\n"
+              "float64[9] orientation_covariance\ngeometry_msgs/Vector3 angular_velocity\n"
+              "float64[9] angular_velocity_covariance\ngeometry_msgs/Vector3 linear_acceleration\n"
+              "float64[9] linear_acceleration_covariance\n" + "=" * 80
+              + "\nMSG: geometry_msgs/Quaternion\nfloat64 x\nfloat64 y\nfloat64 z\nfloat64 w\n"
+              + "=" * 80 + "\nMSG: geometry_msgs/Vector3\nfloat64 x\nfloat64 y\nfloat64 z\n"
+              + _HEADER)
+GAMESTATE_SCHEMA = ("std_msgs/Header header\nuint8 game_state\nuint8 secondary_state\n"
+                    "bool first_half\nuint8 own_score\nuint8 rival_score\nbool penalized\n"
+                    "uint16 seconds_till_unpenalized\nuint8 team_color\n" + _HEADER)
+
+
+def ingest_frame(k: int) -> np.ndarray:
+    """The bag's k-th camera frame (bgr8), from its own seed."""
+    return np.random.default_rng(1000 + k).integers(0, 256, (*INGEST_FRAME, 3), dtype=np.uint8)
+
+
+def write_ingest_bag(path: Path, seconds: int) -> dict:
+    """A Bit-Bots bag written by the port's MCAP writer (no zstd: the card's
+    machine may lack zstandard): joint states, commands and IMU at 100 Hz, a
+    10 Hz 640 x 480 bgr8 camera, the game state every 0.5 s."""
+    from types import SimpleNamespace
+
+    from soccerdiffusion_tpu_torch.config import CANONICAL_JOINT_NAMES_22
+    from soccerdiffusion_tpu_torch.ingest import ros2_schemas
+    from soccerdiffusion_tpu_torch.ingest.mcap_io import McapWriter, encode_cdr
+
+    joints = list(CANONICAL_JOINT_NAMES_22)
+    header = lambda sec, frame="base_link": SimpleNamespace(
+        stamp=SimpleNamespace(sec=sec, nanosec=0), frame_id=frame)
+    types = {"/joint_states": ("sensor_msgs/msg/JointState", ros2_schemas.JOINT_STATE_SCHEMA),
+             "/DynamixelController/command": ("bitbots_msgs/msg/JointCommand",
+                                              JOINT_COMMAND_SCHEMA),
+             "/imu/data": ("sensor_msgs/msg/Imu", IMU_SCHEMA),
+             "/camera/image_proc": ("sensor_msgs/msg/Image", ros2_schemas.IMAGE_SCHEMA),
+             "/gamestate": ("bitbots_msgs/msg/GameState", GAMESTATE_SCHEMA)}
+    t0 = time.perf_counter()
+    ticks = seconds * INGEST_HZ
+    with open(path, "wb") as f:
+        w = McapWriter(f)
+        w.start()
+        channel = {topic: w.register_channel(topic, "cdr", w.register_schema(
+            name, "ros2msg", text.encode())) for topic, (name, text) in types.items()}
+
+        def put(topic, t, msg):
+            w.add_message(channel[topic], t, t, encode_cdr(types[topic][1], types[topic][0], msg))
+
+        for i in range(ticks):
+            t = INGEST_T0 + i * (10 ** 9 // INGEST_HZ)
+            pos = (0.3 * np.sin(i / 25.0 + np.arange(22) * 0.1)).tolist()
+            put("/joint_states", t, SimpleNamespace(header=header(i), name=joints, position=pos,
+                                                    velocity=[], effort=[]))
+            put("/DynamixelController/command", t + 1000, SimpleNamespace(
+                header=header(i), joint_names=joints, positions=(np.asarray(pos) + 0.01).tolist(),
+                velocities=[], accelerations=[], max_currents=[]))
+            ang = 0.05 * np.sin(i / 10.0)
+            zero = SimpleNamespace(x=0.0, y=0.0, z=0.0)
+            put("/imu/data", t + 2000, SimpleNamespace(
+                header=header(i, "imu"), orientation=SimpleNamespace(
+                    x=float(np.sin(ang / 2)), y=0.0, z=0.0, w=float(np.cos(ang / 2))),
+                orientation_covariance=[0.0] * 9, angular_velocity=zero,
+                angular_velocity_covariance=[0.0] * 9,
+                linear_acceleration=SimpleNamespace(x=0.0, y=0.0, z=9.8),
+                linear_acceleration_covariance=[0.0] * 9))
+            if i % INGEST_CAMERA_EVERY == 0:
+                h, wd = INGEST_FRAME
+                put("/camera/image_proc", t + 3000, SimpleNamespace(
+                    header=header(i, "camera"), height=h, width=wd, encoding="bgr8",
+                    is_bigendian=0, step=3 * wd,
+                    data=ingest_frame(i // INGEST_CAMERA_EVERY).tobytes()))
+            if i % INGEST_GAMESTATE_EVERY == 0:
+                put("/gamestate", t + 4000, SimpleNamespace(
+                    header=header(i), game_state=3, secondary_state=0, first_half=True,
+                    own_score=1, rival_score=0, penalized=False, seconds_till_unpenalized=0,
+                    team_color=1))
+        w.finish()
+    return {"ticks": ticks, "write_s": time.perf_counter() - t0,
+            "bytes": path.stat().st_size}
+
+
+def mb(path: Path) -> float:
+    files = [path] if path.is_file() else [p for p in path.rglob("*") if p.is_file()]
+    return sum(p.stat().st_size for p in files) / 1e6
+
+
+def ingest_cli_phase(work: Path, seconds: int, smi) -> dict:
+    """The bag through `cli import`, `cli pack` (the flagship's 224 px) and
+    `cli db recording2mcap` on the card's host. Gates: exit 0; the rows the
+    rates give (joint rows at 50 Hz over the recording, a frame each 0.1 s,
+    a game state each 0.5 s; within one row, the resamplers' float grid);
+    every imported frame equal to the port's resize of the frame written."""
+    import sqlite3
+
+    from soccerdiffusion_tpu_torch import cli
+    from soccerdiffusion_tpu_torch.data.resize import resize_area
+    from soccerdiffusion_tpu_torch.ingest.mcap_io import McapReader
+
+    bag, db = work / "game.mcap", work / "ingest.sqlite3"
+    out = {"seconds_of_play": seconds, "bag": write_ingest_bag(bag, seconds)}
+    try:
+        import zstandard  # noqa: F401 -- only whether it imports
+
+        out["zstandard"] = True
+    except ImportError:
+        out["zstandard"] = False
+    log(f"ingest: a {seconds} s Bit-Bots bag written by the port ({out['bag']['ticks']} ticks, "
+        f"{out['bag']['bytes'] / 1e6:.1f} MB, {out['bag']['write_s']:.2f} s); zstandard "
+        f"{'imports' if out['zstandard'] else 'does not import'} here [{smi}]")
+
+    def run(label, argv):
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        seconds = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"cli {label}: exit {rc}")
+        return seconds
+
+    out["import_s"] = run("import", ["import", "bit-bots", str(bag), "lab", "--db", str(db)])
+    conn = sqlite3.connect(db)
+    counts = {t: conn.execute(f"SELECT COUNT(*) FROM {t}").fetchone()[0]
+              for t in ("JointStates", "JointCommands", "Rotation", "Image", "GameState")}
+    ticks = out["bag"]["ticks"]
+    span = (ticks - 1) / INGEST_HZ  # from the first complete sample to the last IMU message
+    want = {"JointStates": 1 + int(span * 50), "JointCommands": 1 + int(span * 50),
+            "Rotation": 1 + int(span * 50), "Image": ticks // INGEST_CAMERA_EVERY,
+            "GameState": ticks // INGEST_GAMESTATE_EVERY}
+    off = {t: counts[t] - want[t] for t in counts}
+    out["rows"], out["rows_expected"] = counts, want
+    out["import_rows_per_s"] = sum(counts.values()) / out["import_s"]
+    if any(abs(d) > 1 for d in off.values()):
+        raise AssertionError(f"imported rows {counts}, the rates give {want}")
+    # the frames: the first complete sample (the tick-0 IMU message) is time zero
+    first = INGEST_T0 + 2000
+    checked = 0
+    for stamp, data in conn.execute("SELECT stamp, data FROM Image ORDER BY _id"):
+        tick = round((stamp * 1e9 + first - INGEST_T0 - 3000) / (10 ** 9 // INGEST_HZ))
+        if tick % INGEST_CAMERA_EVERY:
+            raise AssertionError(f"an imported frame at {stamp} s lies on no camera tick")
+        want_frame = resize_area(ingest_frame(tick // INGEST_CAMERA_EVERY), 480, 480)[:, :, ::-1]
+        if bytes(data) != np.ascontiguousarray(want_frame).tobytes():
+            raise AssertionError(f"the frame imported at {stamp} s is not the port's resize of "
+                                 "the frame written")
+        checked += 1
+    conn.close()
+    out["frames_checked"] = checked
+    out["db_mb"] = mb(db)
+    out["pack_s"] = run("pack", ["pack", "bit-bots", str(bag), "lab", str(work / "shards"),
+                                 "--config", str(FLAG_YAML)])
+    out["shards_mb"] = mb(work / "shards")
+    out["export_s"] = run("db recording2mcap", ["db", "recording2mcap", "1",
+                                                str(work / "export.mcap"), "--db", str(db)])
+    exported = McapReader.from_file(work / "export.mcap")
+    per_topic: dict[str, int] = {}
+    for ch, _, _ in exported.iter_messages():
+        per_topic[ch.topic] = per_topic.get(ch.topic, 0) + 1
+    if per_topic.get("/image") != counts["Image"] or \
+            per_topic.get("/joint_states") != counts["JointStates"]:
+        raise AssertionError(f"the export holds {per_topic}, the database {counts}")
+    out["export_mb"] = mb(work / "export.mcap")
+    if out["zstandard"]:
+        fixture = Path(__file__).resolve().parent / "tests" / "fixtures" / "bitbots_synth.mcap"
+        out["fixture_import_s"] = run("import (the committed zstd bag)", [
+            "import", "bit-bots", str(fixture), "lab", "--db", str(work / "fixture.sqlite3")])
+    log(f"ingest: cli import {out['import_s']:.2f} s ({out['import_rows_per_s']:.0f} rows/s; rows "
+        f"{counts}, the rates give {want}), {checked} frames equal the port's resize of the "
+        f"frames written; DB {out['db_mb']:.1f} MB; cli pack (224 px) {out['pack_s']:.2f} s, "
+        f"shards {out['shards_mb']:.1f} MB; cli db recording2mcap {out['export_s']:.2f} s, "
+        f"{out['export_mb']:.1f} MB ({per_topic}) [{smi}]")
+    return out
+
+
+def flat_training_run(config, work: Path, label, device, **opts) -> tuple:
+    """train() for INGEST_STEPS steps in one epoch (a sync every
+    TRAIN_LOG_EVERY), every counter zeroed just before and read just after:
+    (state, launches, ms/step on the host clock between the syncs that end
+    steps 12 and 20)."""
+    from soccerdiffusion_tpu_torch.training.train import RunOptions, train
+
+    metrics = work / f"metrics_{label}.jsonl"
+    torch.cuda.synchronize()
+    zero_counters()
+    state = train(config, RunOptions(output=str(work / f"ckpt_{label}"), epochs=1,
+                                     steps_per_epoch=INGEST_STEPS, seed=0, metrics=str(metrics),
+                                     device=device, dummy_data=False, **opts))
+    torch.cuda.synchronize()
+    launches = read_counters()
+    records = [json.loads(line) for line in open(metrics)]
+    if state.step != INGEST_STEPS or not all(np.isfinite(r["loss"]) for r in records):
+        raise AssertionError(f"{label}: {state.step} steps, losses {[r['loss'] for r in records]}")
+    # a record's step is 0-based: 11 ends the 12th step
+    timed = [(b["step"] - a["step"], b) for a, b in zip(records, records[1:]) if a["step"] >= 11]
+    ms = 1e3 * sum(n / r["steps_per_sec"] for n, r in timed) / sum(n for n, _ in timed)
+    return state, launches, ms
+
+
+def optimizer_launches(cfg, flat: bool, device) -> tuple[int, float, float]:
+    """Device ops of one optimizer step (torch.profiler) on ``cfg``'s model,
+    flat or per-tensor, their device-busy ms, and the step's host-clock ms
+    to a device sync (median of 5, outside the profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from soccerdiffusion_tpu_torch.training.trainer import make_optimizer
+
+    model = build_model(cfg, device, seed=7)
+    opt = make_optimizer(model, 1e-4, 100, flat=flat)
+    for p in model.parameters():
+        p.grad = 1e-3 * torch.randn_like(p)
+    opt.step(0)  # AdamW's state is made at the first step
+    torch.cuda.synchronize()
+    wall = []
+    for count in range(1, 6):
+        t0 = time.perf_counter()
+        opt.step(count)
+        torch.cuda.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t0))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        opt.step(6)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        raise AssertionError("the optimizer's trace holds no device ops")
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in dev) / 1e3
+    return len(dev), busy, statistics.median(wall)
+
+
+def ingest_training_phase(work: Path, device, smi) -> dict:
+    """h128 proprio_fused.yaml `train --db --device-data` from the imported
+    database and the flagship `train --packed DIR` from `cli pack`'s shards,
+    20 steps at B=64 each with flat_optimizer on and off. Gates: the
+    parameters bit for bit between the two (AdamW is elementwise), and the
+    training kernels' launches per step as phases 6 and 8 count them."""
+    import yaml
+
+    from soccerdiffusion_tpu_torch.config import Config
+
+    raw = yaml.safe_load((CONFIG_DIR / "proprio_fused.yaml").read_text())
+    cases = {"h128": (Config.from_dict({**raw, "batch_size": INGEST_B,
+                                        "log_every": TRAIN_LOG_EVERY}),
+                      dict(db=str(work / "ingest.sqlite3"), device_data=True), H128_STEP_LAUNCHES),
+             "flagship": (flagship_train_config(INGEST_B), dict(packed=str(work / "shards")),
+                          FLAG_TRAIN_LAUNCHES)}
+    out = {}
+    for name, (config, opts, per_step) in cases.items():
+        runs = {}
+        for flat in (False, True):
+            cfg = dataclasses.replace(config, train=dataclasses.replace(config.train,
+                                                                        flat_optimizer=flat))
+            label = f"{name}_{'flat' if flat else 'per_tensor'}"
+            state, got, ms = flat_training_run(cfg, work, label, device, **opts)
+            expect_launches(label, got, per_step, INGEST_STEPS)
+            if flat and not state.optimizer.in_buffer():
+                raise AssertionError(f"{label}: a parameter left the flat buffer")
+            runs[flat] = {"ms": ms, "params": {n: p.detach().clone()
+                                               for n, p in state.model.named_parameters()}}
+            del state
+            torch.cuda.empty_cache()
+        differ = [n for n, p in runs[False]["params"].items()
+                  if not torch.equal(p, runs[True]["params"][n])]
+        launches = {flat: optimizer_launches(config.model, flat, device) for flat in (False, True)}
+        out[name] = {"ms_per_step": {"per_tensor": runs[False]["ms"], "flat": runs[True]["ms"]},
+                     "optimizer_device_ops": {"per_tensor": launches[False][0],
+                                              "flat": launches[True][0]},
+                     "optimizer_busy_ms": {"per_tensor": launches[False][1],
+                                           "flat": launches[True][1]},
+                     "optimizer_host_ms": {"per_tensor": launches[False][2],
+                                           "flat": launches[True][2]},
+                     "params_equal": not differ}
+        log(f"{name} from the imported data, {INGEST_STEPS} steps at B={INGEST_B}: per-tensor "
+            f"{runs[False]['ms']:.3f} ms/step, flat {runs[True]['ms']:.3f} ms/step (host clock, "
+            f"steps 12-20); one optimizer step: {launches[False][0]} device ops "
+            f"({launches[False][1]:.3f} ms busy, {launches[False][2]:.3f} ms host clock) "
+            f"per-tensor, {launches[True][0]} ({launches[True][1]:.3f} ms, "
+            f"{launches[True][2]:.3f} ms) flat; parameters bit for bit: {not differ} [{smi}]")
+        if differ:
+            raise AssertionError(f"{name}: flat and per-tensor parameters differ in {differ[:5]}")
+    return out
+
+
+def ravel_tree(tree) -> np.ndarray:
+    """jax.flatten_util.ravel_pytree's vector of a flax tree: the leaves in
+    sorted-key order, each in C order, float32."""
+    leaves = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k])
+        else:
+            leaves.append(np.asarray(node, np.float32).reshape(-1))
+
+    walk(tree)
+    return np.concatenate(leaves)
+
+
+def jax_masked_opt_state(mu, nu, count, trainable) -> dict:
+    """optax.masked(adamw chain)'s state over ``trainable`` top-level modules,
+    as flax's to_state_dict lays it out: the frozen modules' moments are
+    empty maps (optax's MaskedNode)."""
+    mask = lambda tree: {k: tree[k] if k in trainable else {} for k in sorted(tree)}
+    return {"inner_state": jax_opt_state(mask(mu), mask(nu), count)}
+
+
+def moments_state(opt, mu, nu, skeleton, count, device) -> dict:
+    """The port optimizer's state by parameter holding flax-layout moments
+    mapped straight from their trees (no unravel, no mask)."""
+    from soccerdiffusion_tpu_torch.utils.jax_params import flax_parameters
+
+    moments = [flax_parameters(skeleton, m) for m in (mu, nu)]
+    return {"state": {i: {"step": torch.tensor(float(count)),
+                          "exp_avg": moments[0][name].to(device),
+                          "exp_avg_sq": moments[1][name].to(device)}
+                      for i, name in enumerate(opt.state_names)},
+            "param_groups": opt.state_dict()["param_groups"]}
+
+
+def flat_resume_phase(work: Path, device, smi) -> dict:
+    """JAX-format checkpoints written from seeded trees (flax_msgpack, as
+    phase 16): proprio_fused.yaml with flat_optimizer (one flat mu / nu in
+    ravel_pytree's order) and a distillation student (optax.masked moments
+    over distill.TRAINABLE). Gate: each resumed for FLAT_RESUME_STEPS steps
+    gives, bit for bit, what the same start written in the port's format
+    gives (`train.py -p` for the first, the distill step for the second)."""
+    import yaml
+
+    from soccerdiffusion_tpu_torch.config import Config
+    from soccerdiffusion_tpu_torch.data import Normalizer
+    from soccerdiffusion_tpu_torch.data.pipeline import to_tensors
+    from soccerdiffusion_tpu_torch.diffusion import make_schedule
+    from soccerdiffusion_tpu_torch.models import DiffusionPolicy
+    from soccerdiffusion_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
+    from soccerdiffusion_tpu_torch.training.distill import TRAINABLE, make_distill_step
+    from soccerdiffusion_tpu_torch.training.train import RunOptions, build_dataset, train
+    from soccerdiffusion_tpu_torch.training.trainer import create_train_state, make_optimizer
+    from soccerdiffusion_tpu_torch.utils.jax_params import flax_init_params, load_jax_params
+
+    raw = yaml.safe_load((CONFIG_DIR / "proprio_fused.yaml").read_text())
+    config = Config.from_dict({**raw, "log_every": 1, "epochs": 2, "flat_optimizer": True})
+    cfg, tc, hp = config.model, config.train, config.to_dict()
+    skeleton = DiffusionPolicy(cfg)
+    params = flax_init_params(skeleton, 71)[0]
+    mu, nu = ckpt_moments(skeleton, 72)
+    norm = ckpt_norm(cfg.num_joints, 73)
+    normalizer = Normalizer(mean=torch.from_numpy(norm[0]), std=torch.from_numpy(norm[1]))
+    count, out = 5, {}
+
+    # 1. flat_optimizer: the JAX package's one flat mu / nu
+    dirs = {"jax": work / "flat_jax", "port": work / "flat_port"}
+    write_jax_checkpoint(dirs["jax"], hp, params, norm, step=count, epoch=0,
+                         opt_state=jax_opt_state(ravel_tree(mu), ravel_tree(nu), count))
+    model = load_jax_params(DiffusionPolicy(cfg), params).to(device)
+    opt = make_optimizer(model, tc.lr, 2 * FLAT_RESUME_STEPS, tc.weight_decay, flat=True)
+    opt.load_state_dict(moments_state(opt, mu, nu, skeleton, count, device))
+    state = create_train_state(model, opt)
+    state.step = count
+    save_checkpoint(dirs["port"], state, normalizer, hp, 0)
+    del state, model, opt
+    runs = {}
+    for label, start in dirs.items():
+        zero_counters()
+        st = train(config, RunOptions(output=str(work / f"flat_resumed_{label}"),
+                                      checkpoint=str(start), dummy_data=True, epochs=2,
+                                      steps_per_epoch=FLAT_RESUME_STEPS, seed=0, device=device))
+        if not st.optimizer.in_buffer() or st.step != count + FLAT_RESUME_STEPS:
+            raise AssertionError(f"flat resume from the {label} format: step {st.step}, "
+                                 f"in the buffer {st.optimizer.in_buffer()}")
+        runs[label] = ({n: p.detach().clone() for n, p in st.model.named_parameters()},
+                       read_counters())
+        del st
+    differ = [n for n, p in runs["jax"][0].items() if not torch.equal(p, runs["port"][0][n])]
+    out["flat"] = {"params_equal": not differ,
+                   "launches": {k: v for k, v in runs["jax"][1].items() if v}}
+    log(f"flat_optimizer resume (proprio_fused.yaml, {FLAT_RESUME_STEPS} steps from step "
+        f"{count}): the JAX format's flat mu / nu against the port's state.pt, parameters bit "
+        f"for bit: {not differ}; launches {out['flat']['launches']} [{smi}]")
+    if differ:
+        raise AssertionError(f"flat resume: the JAX format's parameters differ in {differ[:5]}")
+
+    # 2. distillation: optax.masked moments over TRAINABLE only
+    dconfig = Config.from_dict({**raw, "log_every": 1})
+    dhp = {**dconfig.to_dict(), "distilled_num_steps": 2}
+    dirs = {"jax": work / "distill_jax", "port": work / "distill_port"}
+    write_jax_checkpoint(dirs["jax"], dhp, params, norm, step=count, epoch=0,
+                         opt_state=jax_masked_opt_state(mu, nu, count, TRAINABLE))
+    student = load_jax_params(DiffusionPolicy(cfg), params).to(device)
+    opt = make_optimizer(student, tc.lr, 10, tc.weight_decay, trainable=TRAINABLE)
+    opt.load_state_dict(moments_state(opt, mu, nu, skeleton, count, device))
+    st = create_train_state(student, opt)
+    st.step = count
+    save_checkpoint(dirs["port"], st, normalizer, dhp, 0)
+    del st, student, opt
+    teacher = load_jax_params(DiffusionPolicy(cfg), flax_init_params(skeleton, 74)[0])
+    teacher = teacher.to(device).eval().requires_grad_(False)
+    dataset = build_dataset(dconfig, 0, True)
+    batches = [to_tensors(b) for b in itertools.islice(dataset.batches(INGEST_B, seed=0),
+                                                       FLAT_RESUME_STEPS)]
+    results = {}
+    for label, start in dirs.items():
+        student = DiffusionPolicy(cfg).to(device)
+        opt = make_optimizer(student, tc.lr, 10, tc.weight_decay, trainable=TRAINABLE)
+        st = create_train_state(student, opt)
+        load_checkpoint(start, st)
+        step = make_distill_step(student, make_schedule(tc.train_denoising_timesteps), opt,
+                                 teacher_inference_steps=10, student_steps=2)
+        gen = torch.Generator(device=device).manual_seed(5)
+        zero_counters()
+        losses = [step(st, teacher, {k: v.to(device) for k, v in b.items()}, gen)["loss"].item()
+                  for b in batches]
+        results[label] = (losses, {n: p.detach().clone() for n, p in student.named_parameters()},
+                          read_counters())
+        del st, student, opt
+    differ = [n for n, p in results["jax"][1].items() if not torch.equal(p, results["port"][1][n])]
+    out["distill"] = {"params_equal": not differ and results["jax"][0] == results["port"][0],
+                      "losses": results["jax"][0],
+                      "launches": {k: v for k, v in results["jax"][2].items() if v}}
+    log(f"distillation resume (proprio_fused.yaml's student, optax.masked moments over "
+        f"{TRAINABLE}, {FLAT_RESUME_STEPS} steps): losses {results['jax'][0]} vs "
+        f"{results['port'][0]}, parameters bit for bit: {not differ}; launches "
+        f"{out['distill']['launches']} [{smi}]")
+    if not out["distill"]["params_equal"]:
+        raise AssertionError(f"distillation resume: the JAX format differs ({differ[:5]})")
+    return out
+
+
+def ingest_phase(device, smi) -> dict:
+    """Phase 18: the port's ingest/ on the card's host, training from what it
+    wrote with the flat optimizer and without, the flat and distillation
+    resumes, and the h128 checkpoint trained from the imported data served
+    at B=1024 (rows 1-2, exact launches)."""
+    from soccerdiffusion_tpu_torch.training.checkpoint import load_policy
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        out = {"cli": ingest_cli_phase(work, INGEST_SECONDS, smi)}
+        out["training"] = ingest_training_phase(work, device, smi)
+        torch.cuda.empty_cache()
+        out["resumes"] = flat_resume_phase(work, device, smi)
+        torch.cuda.empty_cache()
+        model, norm, steps, _, _ = load_policy(work / "ckpt_h128_flat", device)
+        out["served_ms"], served = served_period(
+            "the h128 checkpoint trained flat from the imported data (fused=\"chunk\", fused "
+            "encoder)", model, device, {"fused_encoder": 1, "fused_chunk": 1}, b=BENCH_B,
+            normalizer=norm, num_inference_steps=steps, fused="chunk", fused_encoder=True)
+        out["served_launches"] = {k: v for k, v in served.items() if v}
+        del model
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"ingest phase: {out['phase_s']:.1f} s [{smi}]")
+    return out
+
+
 LEDGER_CONFIG = {
     "num_joints": 20, "hidden_dim": 128, "trajectory_prediction_length": 10,
     "action_context_length": 100, "joint_state_context_length": 100, "imu_context_length": 100,
@@ -5228,6 +5715,8 @@ def main(argv=None) -> int:
     # the kernel variants: int8 K/V, qstat, groups, the poly / bf16 GELUs, encoder_fused_block
     variant_results, variant_launches, variants = variants_phase(device)
     results.update(variant_results)
+    # recorded data through the port's ingest/, trained with the flat optimizer
+    ingest = ingest_phase(device, smi)
 
     # where each kernel instance ran: (source, the TPU kernel it replaces (the
     # pack: the JAX denoiser's pack_context_kv, whose layout the kernel's
@@ -5371,6 +5860,7 @@ def main(argv=None) -> int:
                     "parallel": parallel,
                     "checkpoints": checkpoints,
                     "variants": variants,
+                    "ingest": ingest,
                     "gpu": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

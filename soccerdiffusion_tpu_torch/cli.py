@@ -1,6 +1,10 @@
 """Top-level CLI of the PyTorch port (counterpart of
 ``soccerdiffusion_tpu/cli.py``):
 
+  python -m soccerdiffusion_tpu_torch.cli import bit-bots <file.mcap> <location> [--db PATH]
+  python -m soccerdiffusion_tpu_torch.cli import b-human <file.log> <location> [--caching] [--video]
+  python -m soccerdiffusion_tpu_torch.cli pack bit-bots <file.mcap> <location> <out_dir> [--config Y]
+  python -m soccerdiffusion_tpu_torch.cli db recording2mcap <recording_id> <output.mcap> [--db PATH]
   python -m soccerdiffusion_tpu_torch.cli db create-schema [--db PATH]
   python -m soccerdiffusion_tpu_torch.cli db dummy-data [-n N] [-s S] [-i I] [--db PATH]
   python -m soccerdiffusion_tpu_torch.cli db migrate [--db PATH]
@@ -17,9 +21,12 @@ and the training, evaluation and deployment entry points:
 ``serve`` drives a robot at the 50 Hz control rate with a checkpoint's
 sampler (``inference/realtime.py``), on the built-in simulated plant or a
 robot-side UDP bridge (``inference/transport.py``), on the card unless
-``--device cpu``. The recording verbs ``import``, ``pack`` and ``db
-recording2mcap`` parse as in the JAX package and exit with code 1: they
-read recordings through ``ingest/``, which the port does not carry.
+``--device cpu``. The recording verbs run on the host through the port's
+``ingest/``: ``import`` writes a recording into the SQLite dataset, ``pack``
+streams it into ``PackedDataset`` shards, ``db recording2mcap`` exports one
+back to a typed MCAP file; each exits 0, or 1 with the error logged on a
+bad recording (an ``AssertionError``, ``ImportError`` or ``ValueError``, e.g.
+a truncated bag), as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -32,7 +39,9 @@ import threading
 import numpy as np
 import torch
 
-from soccerdiffusion_tpu_torch import DEFAULT_RESAMPLE_RATE_HZ
+from pathlib import Path
+
+from soccerdiffusion_tpu_torch import DEFAULT_RESAMPLE_RATE_HZ, IMAGE_MAX_RESAMPLE_RATE_HZ
 
 logger = logging.getLogger("soccerdiffusion_tpu_torch")
 
@@ -42,9 +51,6 @@ DELEGATED = {
     "plot": "soccerdiffusion_tpu_torch.inference.plot",
     "report": "soccerdiffusion_tpu_torch.evaluation.report",
 }
-NOT_PORTED = ("{verb} reads recordings through ingest/, which soccerdiffusion_tpu_torch does not "
-              "port (ROADMAP.md, 'Not ported'); this CLI reads a SQLite dataset that the "
-              "reference package's import wrote (--db)")
 
 
 def _add_import_source_args(p):
@@ -60,19 +66,26 @@ def _add_import_source_args(p):
 
 
 def _build_import_parser(sub):
-    p = sub.add_parser("import", help="import a recording into the dataset db (not ported)")
+    p = sub.add_parser("import", help="import a recording into the dataset db")
     _add_import_source_args(p)
     p.add_argument("--db", type=str, default=None)
-    p.add_argument("--flush-rows", type=int, default=50_000)
+    p.add_argument("--flush-rows", type=int, default=50_000,
+                   help="bounded-memory streaming insert interval; 0 = materialize the whole "
+                        "bag first (the reference's behaviour)")
 
 
 def _build_pack_parser(sub):
-    p = sub.add_parser("pack", help="stream a recording into packed training shards (not ported)")
+    p = sub.add_parser("pack", help="stream a recording straight into packed training shards "
+                                    "(mcap -> .npy, no SQLite hop)")
     _add_import_source_args(p)
     p.add_argument("out_dir", type=str)
-    p.add_argument("--config", type=str, default=None)
+    p.add_argument("--config", type=str, default=None,
+                   help="training config yaml fixing joint count, image resolution and IMU "
+                        "embedding (default: default.yaml's geometry)")
     p.add_argument("--flush-rows", type=int, default=50_000)
-    p.add_argument("--sampling-rate", type=int, default=DEFAULT_RESAMPLE_RATE_HZ)
+    p.add_argument("--sampling-rate", type=int, default=DEFAULT_RESAMPLE_RATE_HZ,
+                   help="rate the import resampler produced rows at (the packed index's "
+                        "stamp grid)")
 
 
 def _build_db_parser(sub):
@@ -83,7 +96,7 @@ def _build_db_parser(sub):
     d.add_argument("-n", "--num-recordings", type=int, default=10)
     d.add_argument("-s", "--num-samples", type=int, default=2000)
     d.add_argument("-i", "--image-step", type=int, default=10)
-    r = db_sub.add_parser("recording2mcap", help="export a recording as MCAP (not ported)")
+    r = db_sub.add_parser("recording2mcap", help="export a recording as a typed MCAP file")
     r.add_argument("recording_id", type=int)
     r.add_argument("output", type=str)
     m = db_sub.add_parser("migrate")
@@ -134,6 +147,100 @@ def build_parser() -> argparse.ArgumentParser:
     _build_db_parser(sub)
     _build_serve_parser(sub)
     return parser
+
+
+def _validate_source(args) -> Path | None:
+    file_path = Path(args.file)
+    if not file_path.exists():
+        logger.error(f"file not found: {file_path}")
+        return None
+    if args.type == "bit-bots" and file_path.suffix != ".mcap":
+        logger.error("bit-bots imports expect an .mcap file")
+        return None
+    if args.type == "b-human" and file_path.suffix != ".log":
+        logger.error("b-human imports expect a .log file")
+        return None
+    return file_path
+
+
+def _build_strategy(args):
+    """The import strategy of ``args.type``: joint rows resampled at 50 Hz,
+    camera frames at most 10 Hz, game states as they come."""
+    from soccerdiffusion_tpu_torch.ingest import (
+        BHumanGameStateConverter,
+        BHumanImageConverter,
+        BitBotsGameStateConverter,
+        BitbotsImageConverter,
+        ImportMetadata,
+        MaxRateResampler,
+        OriginalRateResampler,
+        PreviousInterpolationResampler,
+        SyncedDataConverter,
+    )
+
+    bitbots = args.type == "bit-bots"
+    metadata = ImportMetadata(
+        allow_public=args.public,
+        team_name=args.team_name or ("Bit-Bots" if bitbots else "B-Human"),
+        robot_type=args.robot_type or ("Wolfgang-OP" if bitbots else "NAO6"),
+        location=args.location,
+        simulated=args.simulated,
+    )
+    synced = SyncedDataConverter(PreviousInterpolationResampler(DEFAULT_RESAMPLE_RATE_HZ))
+    if bitbots:
+        from soccerdiffusion_tpu_torch.ingest.bitbots import BitBotsImportStrategy
+
+        return BitBotsImportStrategy(
+            metadata, BitbotsImageConverter(MaxRateResampler(IMAGE_MAX_RESAMPLE_RATE_HZ)),
+            BitBotsGameStateConverter(OriginalRateResampler()), synced)
+    from soccerdiffusion_tpu_torch.ingest.bhuman import BHumanImportStrategy
+
+    return BHumanImportStrategy(
+        metadata, BHumanImageConverter(MaxRateResampler(IMAGE_MAX_RESAMPLE_RATE_HZ)),
+        BHumanGameStateConverter(OriginalRateResampler()), synced, caching=args.caching,
+        video=args.video)
+
+
+def cmd_import(args) -> int:
+    from soccerdiffusion_tpu_torch import DB_PATH
+    from soccerdiffusion_tpu_torch.data.schema import connect, create_schema
+    from soccerdiffusion_tpu_torch.ingest import ModelImporter
+
+    file_path = _validate_source(args)
+    if file_path is None:
+        return 1
+    strategy = _build_strategy(args)
+    conn = connect(args.db or DB_PATH)
+    try:
+        create_schema(conn)
+        try:
+            rec_id = ModelImporter(conn, strategy).import_to_db(
+                file_path, flush_rows=args.flush_rows or None)
+        except (AssertionError, ImportError, ValueError) as exc:
+            logger.error(f"import failed: {exc}")
+            return 1
+        logger.info(f"imported recording {rec_id}")
+        return 0
+    finally:
+        conn.close()
+
+
+def cmd_pack(args) -> int:
+    from soccerdiffusion_tpu_torch.config import Config, ModelConfig
+    from soccerdiffusion_tpu_torch.ingest.streaming import pack_from_stream
+
+    file_path = _validate_source(args)
+    if file_path is None:
+        return 1
+    config = Config.from_yaml(args.config).model if args.config else ModelConfig()
+    try:
+        stats = pack_from_stream(_build_strategy(args), file_path, config, args.out_dir,
+                                 flush_rows=args.flush_rows, sampling_rate=args.sampling_rate)
+    except (AssertionError, ImportError, ValueError) as exc:
+        logger.error(f"pack failed: {exc}")
+        return 1
+    logger.info(f"packed {stats['rows']} rows -> {stats['out_dir']}")
+    return 0
 
 
 def serve(args) -> dict:
@@ -296,8 +403,14 @@ def cmd_db(args) -> int:
         logger.info(f"wrote {out}")
         return 0
     if args.db_command == "recording2mcap":
-        logger.error(NOT_PORTED.format(verb="db recording2mcap"))
-        return 1
+        from soccerdiffusion_tpu_torch.ingest.recording2mcap import recording2mcap
+
+        try:
+            recording2mcap(db, args.recording_id, args.output)
+        except (ImportError, ValueError) as exc:
+            logger.error(str(exc))
+            return 1
+        return 0
     return 1
 
 
@@ -310,9 +423,10 @@ def main(argv=None) -> int:
         importlib.import_module(DELEGATED[argv[0]]).main(argv[1:])
         return 0
     args = build_parser().parse_args(argv)
-    if args.command in ("import", "pack"):
-        logger.error(NOT_PORTED.format(verb=args.command))
-        return 1
+    if args.command == "import":
+        return cmd_import(args)
+    if args.command == "pack":
+        return cmd_pack(args)
     if args.command == "db":
         return cmd_db(args)
     if args.command == "serve":

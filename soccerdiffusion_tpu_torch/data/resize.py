@@ -1,6 +1,7 @@
-"""The INTER_AREA resize of uint8 frames, in numpy (the JAX package calls
-``cv2.resize(..., interpolation=cv2.INTER_AREA)``; the port does not use
-cv2). It follows OpenCV's three INTER_AREA paths, with their arithmetic:
+"""The INTER_AREA and INTER_CUBIC resizes of uint8 frames, in numpy (the JAX
+package calls ``cv2.resize(..., interpolation=cv2.INTER_AREA)`` and, where
+``ingest/`` upscales a camera frame, ``cv2.INTER_CUBIC``; the port does not
+use cv2). INTER_AREA follows OpenCV's three paths, with their arithmetic:
 
   * integer factors (e.g. 448 -> 224): each output pixel is the sum of its
     block in integers, then ``(sum + 2) >> 2`` for 2 x 2 blocks and
@@ -15,6 +16,18 @@ cv2). It follows OpenCV's three INTER_AREA paths, with their arithmetic:
 
 On random frames this equals cv2 5.0 pixel for pixel, non-square frames
 and upscales included (tests/test_torch_resize.py).
+
+INTER_CUBIC follows OpenCV's own 8-bit path (``resize_cubic``): Keys' cubic
+with A = -0.75, the coefficients in float32 at the source position
+``(d + 0.5) * (1 / (dsize / ssize)) - 0.5`` and then in 11-bit fixed point
+(``INTER_RESIZE_COEF_SCALE`` = 2048), border indices clamped; the horizontal
+pass sums into integers, the vertical pass is OpenCV's vector path, in
+float32 (no fused multiply-add) over the first multiple of 8 values of each
+output row and in integers with rounding over the rest, both saturated.
+It equals cv2 5.0 pixel for pixel where cv2 runs that path
+(``cv2.ipp.setUseIPP(False)``); a cv2 built with Intel's IPP hands the
+resize to IPP by default, whose float arithmetic lands ~4% of the pixels one
+level away (tests/test_torch_resize.py).
 """
 
 from __future__ import annotations
@@ -122,3 +135,99 @@ def resize_area(img: np.ndarray, height: int, width: int) -> np.ndarray:
             return _integer_downscale(img, height, width)
         return _downscale(img, height, width)
     return _upscale(img, height, width)
+
+
+def _cubic_weights(x: np.float32) -> list[np.float32]:
+    """OpenCV's interpolateCubic at the fraction ``x``, in float32."""
+    a, one = np.float32(-0.75), np.float32(1.0)
+    c0 = ((a * (x + one) - np.float32(5) * a) * (x + one) + np.float32(8) * a) * (x + one) \
+        - np.float32(4) * a
+    c1 = ((a + np.float32(2)) * x - (a + np.float32(3))) * x * x + one
+    c2 = ((a + np.float32(2)) * (one - x) - (a + np.float32(3))) * (one - x) * (one - x) + one
+    return [c0, c1, c2, one - c0 - c1 - c2]
+
+
+@functools.lru_cache(maxsize=64)
+def _cubic_taps(ssize: int, dsize: int) -> tuple[np.ndarray, np.ndarray]:
+    """(source index, 11-bit weight) (dsize, 4) of OpenCV's INTER_CUBIC, the
+    indices clamped to the frame (read-only arrays)."""
+    scale = 1.0 / (dsize / ssize)
+    index = np.empty((dsize, 4), np.int64)
+    weight = np.empty((dsize, 4), np.int64)
+    for d in range(dsize):
+        f = np.float32((d + 0.5) * scale - 0.5)
+        s = math.floor(f)
+        for k, c in enumerate(_cubic_weights(np.float32(f - np.float32(s)))):
+            index[d, k] = min(max(s - 1 + k, 0), ssize - 1)
+            weight[d, k] = int(np.rint(c * np.float32(2048)))
+    index.setflags(write=False)
+    weight.setflags(write=False)
+    return index, weight
+
+
+def resize_cubic(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """uint8 (H, W, C) -> uint8 (height, width, C), OpenCV's INTER_CUBIC."""
+    if img.dtype != np.uint8 or img.ndim != 3:
+        raise ValueError(f"resize_cubic takes uint8 (H, W, C) frames, got {img.dtype} {img.shape}")
+    if img.shape[:2] == (height, width):
+        return img
+    xi, xw = _cubic_taps(img.shape[1], width)
+    yi, yw = _cubic_taps(img.shape[0], height)
+    src = img.astype(np.int64)
+    rows = sum(src[:, xi[:, k]] * xw[None, :, k, None] for k in range(4))  # (H, width, C)
+    taps = [rows[yi[:, k]] for k in range(4)]  # (height, width, C) each
+    n = width * img.shape[2]
+    vec = n - n % 8  # the vector path's share of each output row
+    fixed = sum(t * yw[:, k, None, None] for k, t in enumerate(taps))
+    out = ((fixed + (1 << 21)) >> 22).reshape(height, n)
+    beta = [(yw[:, k].astype(np.float32) * np.float32(1.0 / (1 << 22)))[:, None] for k in range(4)]
+    flat = [t.reshape(height, n)[:, :vec].astype(np.float32) for t in taps]
+    acc = flat[3] * beta[3]  # OpenCV's order: ((s3 b3 + s2 b2) + s1 b1) + s0 b0
+    for k in (2, 1, 0):
+        acc = flat[k] * beta[k] + acc
+    out[:, :vec] = np.rint(acc)
+    return np.clip(out, 0, 255).astype(np.uint8).reshape(height, width, img.shape[2])
+
+
+@functools.lru_cache(maxsize=64)
+def _linear_taps(ssize: int, dsize: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(source index, near weight, far weight) (dsize,) of OpenCV's
+    INTER_LINEAR in 11-bit fixed point, the border taps held at the edge
+    pixel (read-only arrays)."""
+    scale = 1.0 / (dsize / ssize)
+    index = np.empty(dsize, np.int64)
+    frac = np.empty(dsize, np.float32)
+    for d in range(dsize):
+        f = np.float32((d + 0.5) * scale - 0.5)
+        s = math.floor(f)
+        f = np.float32(f - np.float32(s))
+        if s < 0:
+            f, s = np.float32(0.0), 0
+        if s >= ssize - 1:
+            f, s = np.float32(0.0), ssize - 1
+        index[d], frac[d] = s, f
+    near = np.rint((np.float32(1.0) - frac) * np.float32(2048)).astype(np.int64)
+    far = np.rint(frac * np.float32(2048)).astype(np.int64)
+    for a in (index, near, far):
+        a.setflags(write=False)
+    return index, near, far
+
+
+def resize_linear(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """uint8 (H, W, C) -> uint8 (height, width, C), OpenCV's INTER_LINEAR:
+    11-bit weights, the rows combined as its vector path does (as
+    ``_upscale``). Exact along one axis; in two, cv2 5.0 lands <= 0.3% of
+    the pixels one level away (its tail of each row rounds otherwise)."""
+    if img.dtype != np.uint8 or img.ndim != 3:
+        raise ValueError(f"resize_linear takes uint8 (H, W, C) frames, got {img.dtype} {img.shape}")
+    if img.shape[:2] == (height, width):
+        return img
+    xi, xa0, xa1 = _linear_taps(img.shape[1], width)
+    yi, yb0, yb1 = _linear_taps(img.shape[0], height)
+    src = img.astype(np.int64)
+    rows = (src[:, xi] * xa0[None, :, None]
+            + src[:, np.minimum(xi + 1, img.shape[1] - 1)] * xa1[None, :, None])
+    s0, s1 = rows[yi], rows[np.minimum(yi + 1, img.shape[0] - 1)]
+    b0, b1 = yb0[:, None, None], yb1[:, None, None]
+    out = (((b0 * (s0 >> 4)) >> 16) + ((b1 * (s1 >> 4)) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8)

@@ -6,9 +6,10 @@ epoch, beside the arrays in one of two formats. ``load_checkpoint`` picks
 the format from the files the directory holds, never by trying one:
 
   state.pt       the port's: ``torch.save`` of params (the model's state
-                 dict), the AdamW state dict, the EMA, the normaliser and
-                 the step; ``save_checkpoint`` writes it, to a temporary
-                 directory renamed into place.
+                 dict), the AdamW state by parameter, whether the flat
+                 optimizer (``flat_optimizer``) wrote it, the EMA, the
+                 normaliser and the step; ``save_checkpoint`` writes it, to a
+                 temporary directory renamed into place.
   state.msgpack  the JAX package's (``soccerdiffusion_tpu/training/
                  checkpoint.py``): flax's msgpack of params, batch_stats,
                  opt_state (optax's), norm, step and, with EMA, ema_params;
@@ -29,10 +30,19 @@ and the checkpoint does not, as the JAX package does), the step and the
 AdamW moments: from a JAX checkpoint, optax's ``ScaleByAdamState`` (found
 by its keys ``count`` / ``mu`` / ``nu`` wherever the optimizer chain put
 it) gives each parameter's ``exp_avg`` / ``exp_avg_sq`` through the same
-layout transform as the parameter, and ``count`` its ``step``. An empty
+layout transform as the parameter, and ``count`` its ``step``. A JAX
+``flat_optimizer`` checkpoint's one flat mu / nu is unravelled first, in
+``jax.flatten_util.ravel_pytree``'s order: the checkpoint's params tree's
+leaves, dict keys sorted, each in flax's layout. A JAX distillation
+checkpoint's ``optax.masked`` moments hold the trainable modules' leaves
+only (the frozen ones are empty maps): they fill an optimizer over those
+modules (``make_optimizer(..., trainable=...)``, ``distill.TRAINABLE``). The
+moments go into the port's optimizer, flat or per-tensor as its config
+says. The port's own ``state.pt`` resumes only into the optimizer kind that
+wrote it (``flat_optimizer`` on or off; the JAX package does not
+interchange them either: its ``make_optimizer`` docstring). An empty
 optimizer state (an imported reference checkpoint, in either format)
-starts fresh moments, and says so in the log; the one flat mu / nu of
-``flat_optimizer`` is refused.
+starts fresh moments, and says so in the log.
 
 ``load_policy_checkpoint`` decodes a checkpoint's serving point, as the
 JAX function of that name does; ``build_policy`` builds a policy from a
@@ -71,7 +81,7 @@ ADAM_KEYS = {"count", "mu", "nu"}
 def save_checkpoint(path: str | Path, state, normalizer: Normalizer,
                     hyperparams: dict[str, Any], epoch: int) -> None:
     params, ema = state.model.state_dict(), state.ema
-    optimizer = state.optimizer.adamw.state_dict()
+    optimizer = state.optimizer.state_dict()
     tp = getattr(state.model, "tensor_parallel", None)
     if tp is not None:
         params = {k: tp.full(k, v) for k, v in params.items()}
@@ -81,17 +91,17 @@ def save_checkpoint(path: str | Path, state, normalizer: Normalizer,
         comm.barrier()
         return
     write_checkpoint(path, params, optimizer, ema, normalizer, int(state.step), hyperparams,
-                     epoch)
+                     epoch, flat_optimizer=state.optimizer.flat)
     comm.barrier()
 
 
 def write_checkpoint(path: str | Path, params: dict[str, torch.Tensor], optimizer: dict,
                      ema: dict[str, torch.Tensor], normalizer: Normalizer, step: int,
-                     hyperparams: dict[str, Any], epoch: int) -> None:
+                     hyperparams: dict[str, Any], epoch: int, flat_optimizer: bool = False) -> None:
     """Write a checkpoint of the port's format at ``path`` (through a
     temporary directory renamed into place): ``params`` the model's state
-    dict, ``optimizer`` the AdamW state dict ({} for none), ``ema`` by
-    parameter name ({} for none)."""
+    dict, ``optimizer`` the AdamW state by parameter ({} for none) of the
+    flat optimizer or not, ``ema`` by parameter name ({} for none)."""
     path = Path(path)
     tmp = path.with_name(path.name + ".tmp")
     if tmp.exists():
@@ -103,6 +113,7 @@ def write_checkpoint(path: str | Path, params: dict[str, torch.Tensor], optimize
         "step": int(step),
         "params": cpu(params),
         "optimizer": optimizer,
+        "flat_optimizer": bool(flat_optimizer),
         "ema": cpu(ema),
         "norm": {"mean": normalizer.mean.cpu(), "std": normalizer.std.cpu()},
     }, tmp / "state.pt")
@@ -152,10 +163,10 @@ def _skeleton(hyperparams: dict):
         return DiffusionPolicy(Config.from_dict(hyperparams).model)
 
 
-def _read_jax(path: Path, hyperparams: dict) -> tuple[dict[str, Any], Any]:
+def _read_jax(path: Path, hyperparams: dict) -> tuple[dict[str, Any], Any, dict]:
     """The raw fields of a JAX checkpoint in the port's layout (the optimizer
-    stays optax's tree, mapped by ``_adamw_state`` on a restore), and the
-    skeleton they were mapped onto."""
+    stays optax's tree, mapped by ``_adamw_state`` on a restore), the
+    skeleton they were mapped onto and the flax params tree."""
     from soccerdiffusion_tpu_torch.utils import flax_msgpack
     from soccerdiffusion_tpu_torch.utils.jax_params import flax_parameters, flax_state_dict
 
@@ -168,7 +179,8 @@ def _read_jax(path: Path, hyperparams: dict) -> tuple[dict[str, Any], Any]:
     return {"format": JAX_FORMAT, "step": int(np.asarray(raw["step"])), "params": params,
             "optimizer": raw.get("opt_state") or {},
             "ema": flax_parameters(skeleton, ema, "ema_params") if ema else {},
-            "norm": {"mean": f32(raw["norm"]["mean"]), "std": f32(raw["norm"]["std"])}}, skeleton
+            "norm": {"mean": f32(raw["norm"]["mean"]), "std": f32(raw["norm"]["std"])}}, skeleton, \
+        raw["params"]
 
 
 def _adam_states(tree) -> list[dict]:
@@ -181,13 +193,60 @@ def _adam_states(tree) -> list[dict]:
     return [found for value in tree.values() for found in _adam_states(value)]
 
 
-def _adamw_state(opt_state: dict, skeleton, optimizer, path: Path) -> dict | None:
-    """The AdamW state dict of ``optimizer`` (a port ``Optimizer``) holding a
-    JAX checkpoint's optax moments: mu -> exp_avg, nu -> exp_avg_sq, count ->
-    each parameter's step, every moment in its parameter's torch layout.
-    None for an empty opt_state (the JAX importer's)."""
-    from soccerdiffusion_tpu_torch.utils.jax_params import flax_parameters
+def unravel(flat, template: dict) -> dict:
+    """A 1-D array laid out as the flax tree ``template``: its leaves in
+    ``jax.flatten_util.ravel_pytree``'s order (dict keys sorted at every
+    level), each taking its shape's count of values in C order."""
+    flat = np.asarray(flat)
+    offset = 0
 
+    def fill(node):
+        nonlocal offset
+        if isinstance(node, dict):
+            return {k: fill(node[k]) for k in sorted(node)}
+        shape = np.shape(node)
+        n = int(np.prod(shape, dtype=np.int64))
+        if offset + n > flat.size:
+            raise ValueError(f"a flat vector of {flat.size} values does not ravel the params "
+                             "tree: it ends inside a leaf")
+        out = flat[offset:offset + n].reshape(shape)
+        offset += n
+        return out
+
+    tree = fill(template)
+    if offset != flat.size:
+        raise ValueError(f"a flat vector of {flat.size} values does not ravel a params tree of "
+                         f"{offset}")
+    return tree
+
+
+def _moments(skeleton, tree, optimizer, what: str) -> dict[str, torch.Tensor]:
+    """A params-shaped flax moment as {parameter name: tensor} over the
+    parameters ``optimizer`` updates: every parameter, or (``trainable``)
+    the named top-level modules', the others' subtrees holding no leaf (an
+    ``optax.masked`` state's empty ``MaskedNode`` maps)."""
+    from soccerdiffusion_tpu_torch.utils.jax_params import _flatten, flax_parameters
+
+    if optimizer.trainable is None:
+        return flax_parameters(skeleton, tree, what)
+    out = {}
+    for top in optimizer.trainable:
+        mapped = flax_parameters(getattr(skeleton, top), tree.get(top, {}), f"{what} {top}")
+        out.update({f"{top}.{name}": value for name, value in mapped.items()})
+    frozen = sorted(k for k in tree if k not in optimizer.trainable and _flatten(tree[k]))
+    if frozen:
+        raise KeyError(f"flax {what} hold leaves of {frozen}, which the optimizer does not "
+                       f"update (trainable {optimizer.trainable})")
+    return out
+
+
+def _adamw_state(opt_state: dict, skeleton, optimizer, path: Path, template: dict) -> dict | None:
+    """The AdamW state by parameter of ``optimizer`` (a port ``Optimizer``,
+    flat or not) holding a JAX checkpoint's optax moments: mu -> exp_avg, nu
+    -> exp_avg_sq, count -> each parameter's step, every moment in its
+    parameter's torch layout; a flat mu / nu unravelled as ``template`` (the
+    checkpoint's params tree) first. None for an empty opt_state (the JAX
+    importer's)."""
     if not opt_state:
         return None
     adam = _adam_states(opt_state)
@@ -195,17 +254,16 @@ def _adamw_state(opt_state: dict, skeleton, optimizer, path: Path) -> dict | Non
         raise ValueError(f"{path}: the optimizer state holds {len(adam)} Adam states (keys "
                          f"{sorted(ADAM_KEYS)}), the port's AdamW restores one")
     adam = adam[0]
-    if not isinstance(adam["mu"], dict):
-        raise ValueError(f"{path} was written with flat_optimizer (one flat mu / nu over the "
-                         "raveled parameters), which the port does not port; resume it with "
-                         "flat_optimizer: false in the JAX package, or serve it")
-    mu = flax_parameters(skeleton, adam["mu"], "opt_state mu")
-    nu = flax_parameters(skeleton, adam["nu"], "opt_state nu")
+    mu, nu = adam["mu"], adam["nu"]
+    if not isinstance(mu, dict):  # flat_optimizer: one vector over the raveled params
+        mu, nu = unravel(mu, template), unravel(nu, template)
+    mu = _moments(skeleton, mu, optimizer, "opt_state mu")
+    nu = _moments(skeleton, nu, optimizer, "opt_state nu")
     count = float(np.asarray(adam["count"]))
     return {"state": {i: {"step": torch.tensor(count), "exp_avg": mu[name],
                           "exp_avg_sq": nu[name]}
                       for i, name in enumerate(optimizer.state_names)},
-            "param_groups": optimizer.adamw.state_dict()["param_groups"]}
+            "param_groups": optimizer.state_dict()["param_groups"]}
 
 
 def load_checkpoint(path: str | Path, state=None) -> dict[str, Any]:
@@ -218,27 +276,33 @@ def load_checkpoint(path: str | Path, state=None) -> dict[str, Any]:
     path = Path(path)
     fmt = checkpoint_format(path)
     meta = json.loads((path / "hyperparams.json").read_text())
-    skeleton = None
+    skeleton = template = None
     if fmt == FORMAT:
         raw = torch.load(path / "state.pt", map_location="cpu", weights_only=True)
         if raw.get("format") != FORMAT:
             raise ValueError(f"{path}/state.pt is not a {FORMAT} checkpoint "
                              f"(format {raw.get('format')!r})")
+        raw.setdefault("flat_optimizer", False)
     else:
-        raw, skeleton = _read_jax(path, meta["hyperparams"])
+        raw, skeleton, template = _read_jax(path, meta["hyperparams"])
     if state is not None:
         params, ema, optimizer = raw["params"], raw["ema"], raw["optimizer"]
         if fmt == JAX_FORMAT:
-            optimizer = _adamw_state(optimizer, skeleton, state.optimizer, path)
+            optimizer = _adamw_state(optimizer, skeleton, state.optimizer, path, template)
+        elif optimizer and raw["flat_optimizer"] != state.optimizer.flat:
+            raise ValueError(
+                f"{path} holds the AdamW state of flat_optimizer: {raw['flat_optimizer']}, and "
+                f"this run has flat_optimizer: {state.optimizer.flat}; the two optimizers' "
+                "checkpoints do not interchange (set flat_optimizer as the run that wrote it)")
         tp = getattr(state.model, "tensor_parallel", None)
         if tp is not None:
             params = {k: tp.local(k, v) for k, v in params.items()}
             ema = {k: tp.local(k, v) for k, v in ema.items()}
             if optimizer:
                 optimizer = _map_moments(optimizer, state.optimizer.state_names, tp.local)
-        state.model.load_state_dict(params)
+        state.model.load_state_dict(params)  # copies into the parameters (the flat buffer)
         if optimizer:
-            state.optimizer.adamw.load_state_dict(optimizer)
+            state.optimizer.load_state_dict(optimizer)
         else:
             logger.info(f"{path} holds no optimizer state (an imported checkpoint): the "
                         "parameters are restored, AdamW starts with fresh moments")

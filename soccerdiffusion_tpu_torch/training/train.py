@@ -2,7 +2,7 @@
 ``soccerdiffusion_tpu/training/train.py``):
 
   python -m soccerdiffusion_tpu_torch.training.train -c config.yaml [-p ckpt_dir]
-      [-o out_dir] [--dummy-data | --db db.sqlite3] [--packed | --device-data]
+      [-o out_dir] [--dummy-data | --db db.sqlite3] [--packed [shard_dir] | --device-data]
       [--epochs N] [--steps-per-epoch N] [--seed S] [--metrics metrics.jsonl]
       [--decoder-pretraining] [--pretrained-decoder ckpt_dir] [--device cuda|cpu]
       [--pretrained-weights resnet.pth] [--mesh data=2,model=2] [--dist-backend gloo|nccl]
@@ -27,7 +27,9 @@ config's ``image_resolution``), else the SQLite database at ``--db`` or at
 resized to ``image_resolution``); a missing database raises before any work.
 ``--packed`` trains from a ``PackedDataset`` (frames resized once, uint8:
 whole frames for the ResNet and Swin encoders, pre-patchified for the ViT;
-the rows by the C++ assembler); ``--device-data`` puts the whole dataset on
+the rows by the C++ assembler); ``--packed DIR`` reads the shards ``cli
+pack`` wrote there instead (``PackedDataset.load``, memory-mapped; a config
+of the pack's geometry); ``--device-data`` puts the whole dataset on
 the device once (``DeviceResidentData``; not with ``--packed``).
 ``boundary_oversample`` re-draws that share of each epoch's windows from
 those where a camera frame has just arrived, as the JAX trainer does.
@@ -99,7 +101,7 @@ class RunOptions:
     output: str = "trajectory_transformer_model.ckpt"
     checkpoint: str | None = None
     dummy_data: bool = True
-    packed: bool = False
+    packed: bool | str = False  # or the directory of `cli pack`'s shards
     epochs: int | None = None
     steps_per_epoch: int | None = None
     seed: int = 0
@@ -127,8 +129,9 @@ def parse_args(argv=None):
                         help="train on the synthetic array backend")
     parser.add_argument("--db", type=str, default=None,
                         help="SQLite dataset (default: DB_PATH, $SOCCERDIFFUSION_TPU_DB_PATH)")
-    parser.add_argument("--packed", action="store_true",
-                        help="train from the packed dataset (uint8 frames, pre-patchified for the ViT)")
+    parser.add_argument("--packed", nargs="?", const=True, default=False, metavar="SHARD_DIR",
+                        help="train from the packed dataset (uint8 frames, pre-patchified for "
+                             "the ViT); with a directory, from the shards `cli pack` wrote there")
     parser.add_argument("--device-data", action="store_true",
                         help="put the whole dataset on the device once and gather batches there")
     parser.add_argument("--epochs", type=int, default=None, help="override epochs")
@@ -203,11 +206,17 @@ def database_path(db: str | None) -> str:
     return db
 
 
-def build_dataset(config: Config, seed: int, dummy_data: bool, packed: bool = False,
+def build_dataset(config: Config, seed: int, dummy_data: bool, packed: bool | str = False,
                   db: str | None = None) -> WindowedDataset | PackedDataset:
     """The synthetic recordings (``dummy_data``) or the SQLite database at
-    ``db`` (default ``DB_PATH``), packed with ``packed``."""
+    ``db`` (default ``DB_PATH``), packed with ``packed``; or, where
+    ``packed`` is a directory, the shards ``cli pack`` wrote there."""
     m = config.model
+    if isinstance(packed, str):
+        dataset = PackedDataset.load(packed, m)
+        if m.use_images and m.image_encoder_type == "vit":
+            dataset.prepatchify_images(m.vit_patch_size)
+        return dataset
     if dummy_data:
         n = max(600, m.action_context_length + m.trajectory_prediction_length + 200)
         dummy = generate_dummy_arrays(num_recordings=2, num_samples=n, num_joints=m.num_joints,

@@ -31,7 +31,9 @@ weight decay scales too, as optax's ``scale`` of the whole update does);
 clipping stays global, before AdamW. With ``aux_cue_weight`` > 0 the loss
 adds the cue head's masked MSE against the batch's ``vision_u`` labels
 (``DiffusionPolicy.forward_with_cue``), reported as ``aux_cue_loss``.
-``flat_optimizer`` is not ported.
+``make_optimizer(..., flat=True)`` (the ``flat_optimizer`` knob) is the same
+update over one flat float32 buffer that the parameters are views of
+(``training/flat_optim.py``); it clips by the flat gradient's own norm.
 
 Data parallelism (``mesh``, ``parallel/mesh.py``): ``batch_size`` is the
 global batch and each rank of the mesh's batch axes (``"data"``, or
@@ -66,8 +68,6 @@ from soccerdiffusion_tpu_torch.diffusion import DiffusionSchedule, add_noise
 from soccerdiffusion_tpu_torch.parallel import comm
 from soccerdiffusion_tpu_torch.parallel.mesh import Mesh, batch_group, use_mesh
 
-_SEE = "not ported yet (see ROADMAP.md)"
-
 
 def lr_at_step(lr: float, total_steps: int, step: int) -> float:
     """optax.cosine_onecycle_schedule(transition_steps=total_steps,
@@ -95,7 +95,10 @@ class Optimizer:
     modules whose parameters it updates (None: all); the others keep their
     values, weight decay included (optax.masked in the JAX package).
     ``lr_mults`` ({top-level module: m}) gives a module's parameters a group
-    whose learning rate is m times the schedule's."""
+    whose learning rate is m times the schedule's. ``state_dict()`` holds
+    the AdamW state by parameter, in ``state_names`` order."""
+
+    flat = False
 
     def __init__(self, model: torch.nn.Module, lr: float, total_steps: int,
                  weight_decay: float = 1e-2, grad_clip_norm: float = 0.0,
@@ -109,17 +112,26 @@ class Optimizer:
         if any(p.dtype != torch.float32 for p in self.params):
             raise ValueError("the optimizer updates float32 master parameters")
         self.lr, self.total_steps, self.grad_clip_norm = lr, total_steps, grad_clip_norm
+        self.trainable = trainable
         groups: dict[float, list[tuple[str, torch.Tensor]]] = {}
         for name, p in named:
             groups.setdefault(float((lr_mults or {}).get(name.split(".")[0], 1.0)), []).append(
                 (name, p))
         # the parameter names in the order of the AdamW state's indices
         self.state_names = [name for g in groups.values() for name, _ in g]
+        self.adamw = self._make_adamw(groups, lr, weight_decay)
+
+    def _make_adamw(self, groups: dict[float, list[tuple[str, torch.Tensor]]], lr: float,
+                    weight_decay: float) -> torch.optim.AdamW:
         # one multi-tensor kernel per group and update on the card (the same update)
-        self.adamw = torch.optim.AdamW(
-            [{"params": [p for _, p in g], "lr_mult": m} for m, g in groups.items()], lr=lr,
-            betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay,
-            fused=self.params[0].is_cuda or None)
+        return adamw([{"params": [p for _, p in g], "lr_mult": m} for m, g in groups.items()],
+                     lr, weight_decay, self.params[0].is_cuda)
+
+    def state_dict(self) -> dict:
+        return self.adamw.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adamw.load_state_dict(state)
 
     def step(self, count: int, norm: torch.Tensor | None = None) -> None:
         """The ``count``-th update (0-based) from the parameters' grads;
@@ -134,6 +146,13 @@ class Optimizer:
         self.adamw.step()
 
 
+def adamw(groups: list[dict], lr: float, weight_decay: float, fused: bool) -> torch.optim.AdamW:
+    """torch's AdamW with optax.adamw's constants: betas 0.9 / 0.999, eps
+    1e-8, decoupled weight decay; fused on the card."""
+    return torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=weight_decay, fused=fused or None)
+
+
 def make_optimizer(model: torch.nn.Module, lr: float, total_steps: int,
                    weight_decay: float = 1e-2, flat: bool = False,
                    module_lr_mults: dict[str, float] | None = None,
@@ -141,9 +160,15 @@ def make_optimizer(model: torch.nn.Module, lr: float, total_steps: int,
                    trainable: tuple[str, ...] | None = None) -> Optimizer:
     """AdamW + one-cycle, clipping first when ``grad_clip_norm`` > 0; with
     ``trainable``, over the parameters of those top-level modules only; each
-    module of ``module_lr_mults`` at its multiple of the learning rate."""
+    module of ``module_lr_mults`` at its multiple of the learning rate.
+    ``flat``: the same update on one flat buffer (``FlatOptimizer``; make it
+    after the model is on its device and split over its ranks: it rebinds
+    the parameters as views of the buffer)."""
     if flat:
-        raise NotImplementedError(f"flat_optimizer is {_SEE}")
+        from soccerdiffusion_tpu_torch.training.flat_optim import FlatOptimizer
+
+        return FlatOptimizer(model, lr, total_steps, weight_decay, grad_clip_norm, trainable,
+                             module_lr_mults)
     return Optimizer(model, lr, total_steps, weight_decay, grad_clip_norm, trainable,
                      module_lr_mults)
 
@@ -308,7 +333,11 @@ class TrainStep:
             }
             if aux is not None:
                 metrics["aux_cue_loss"] = comm.all_reduce_(aux.detach().clone(), group) / n
-            self.optimizer.step(state.step, grad_norm)
+            # the flat optimizer clips by the flat gradient's norm, as JAX's flat_wrap
+            # does, unless the norm spans the ranks' slices of a split model
+            tp = getattr(model, "tensor_parallel", None)
+            split = tp is not None and tp.size > 1
+            self.optimizer.step(state.step, None if self.optimizer.flat and not split else grad_norm)
             state.step += 1
             if self.ema_decay > 0.0:
                 step = float(state.step)

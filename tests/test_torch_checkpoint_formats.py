@@ -21,8 +21,9 @@
     arithmetic, within 2 lr a step, as tests/test_torch_training.py);
   * ``train.py --checkpoint`` / ``--pretrained-decoder`` on a JAX checkpoint;
   * the refusals: an orbax checkpoint, a truncated ``state.msgpack``, an
-    unknown extension type, trailing bytes, a ``flat_optimizer`` checkpoint,
-    a leftover leaf, neither or both files.
+    unknown extension type, trailing bytes, a leftover leaf, neither or both
+    files; a ``flat_optimizer`` checkpoint, refused until the port had the
+    flat optimizer, resumes (its moments unravelled onto the parameters).
 """
 
 import dataclasses
@@ -32,6 +33,7 @@ from types import SimpleNamespace
 
 import flax.serialization as flax_serialization
 import jax
+import jax.flatten_util
 import jax.numpy as jnp
 import numpy as np
 import optax
@@ -384,15 +386,32 @@ def test_format_is_chosen_by_the_files_and_refusals(checkpoints, tmp_path):
 
 
 def test_flat_optimizer_checkpoint_is_refused_on_resume(checkpoints, tmp_path):
+    """A ``flat_optimizer`` checkpoint (one flat mu / nu) is no longer
+    refused: it resumes into the port's per-tensor and flat optimizers, its
+    moments unravelled onto the parameters (tests/test_torch_flat_optim.py
+    holds the resumed steps to the JAX trainer's)."""
     run = checkpoints["runs"]["small"]
     params = run.fresh_state().params
+    rng = np.random.default_rng(4)
     opt_state = flat_wrap(optax.adamw(1e-3)).init(params)
+    n = opt_state[0].mu.size
+    mu, nu = rng.normal(size=n).astype(np.float32), rng.uniform(size=n).astype(np.float32)
+    opt_state = (opt_state[0]._replace(count=jnp.asarray(7, jnp.int32), mu=mu, nu=nu),
+                 *opt_state[1:])
     state = SimpleNamespace(step=np.zeros((), np.int32), params=params, batch_stats={},
                             opt_state=opt_state)
     jax_checkpoint.save_checkpoint(tmp_path / "flat", state, run.norm,
                                    hyperparams(TINY, flat_optimizer=True), 0)
     load_policy(tmp_path / "flat", "cpu")  # serving needs no optimizer state
     model = DiffusionPolicy(port_config(TINY))
-    state = create_train_state(model, make_optimizer(model, LR, TOTAL))
-    with pytest.raises(ValueError, match="flat_optimizer"):
-        load_checkpoint(tmp_path / "flat", state)
+    want_mu = flax_parameters(model, jax.tree.map(np.asarray, jax.flatten_util.ravel_pytree(
+        params)[1](jnp.asarray(mu))))
+    for flat in (False, True):
+        model = DiffusionPolicy(port_config(TINY))
+        opt = make_optimizer(model, LR, TOTAL, flat=flat)
+        load_checkpoint(tmp_path / "flat", create_train_state(model, opt))
+        moments = opt.state_dict()["state"]
+        assert len(moments) == len(opt.state_names)
+        for i, name in enumerate(opt.state_names):
+            assert float(moments[i]["step"]) == 7.0
+            assert torch.equal(moments[i]["exp_avg"], want_mu[name]), (flat, name)

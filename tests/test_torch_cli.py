@@ -1,8 +1,9 @@
 """The port's CLI on the CPU: the ``db`` verbs (a database written by either
 package read by the other), the verbs handed to their modules (train ->
 distill -> report -> plot on a tiny "vision" config), ``serve`` on the
-simulated plant and over UDP, the recording verbs that need ``ingest/``
-(exit 1), and the PNGs of ``plot`` and ``db plot-window``."""
+simulated plant and over UDP, the recording verbs through the port's
+``ingest/`` (exit 0; tests/test_torch_ingest*.py hold them to the JAX
+package), and the PNGs of ``plot`` and ``db plot-window``."""
 
 import logging
 import subprocess
@@ -190,15 +191,24 @@ def test_serve_defaults_to_the_card(checkpoints):
         cli.main(["serve", str(teacher), "--duration", "0.1"])
 
 
-@pytest.mark.parametrize("argv", [
-    ["import", "bit-bots", "rec.mcap", "field"],
-    ["pack", "b-human", "rec.log", "field", "out_dir"],
-    ["db", "recording2mcap", "1", "out.mcap"],
-], ids=["import", "pack", "recording2mcap"])
-def test_recording_verbs_need_ingest(argv, caplog):
+@pytest.mark.parametrize("verb", ["import", "pack", "recording2mcap"])
+def test_recording_verbs_need_ingest(verb, tmp_path, caplog):
+    """The recording verbs run through the port's ingest/ and exit 0 on the
+    committed Bit-Bots bag."""
+    bag, db = REPO / "tests" / "fixtures" / "bitbots_synth.mcap", tmp_path / "db.sqlite3"
+    if verb != "pack":
+        assert cli.main(["import", "bit-bots", str(bag), "field", "--db", str(db)]) == 0
     with caplog.at_level(logging.ERROR, logger="soccerdiffusion_tpu_torch"):
-        assert cli.main(argv) == 1
-    assert "ingest/" in caplog.text and "not port" in caplog.text
+        if verb == "pack":
+            assert cli.main(["pack", "bit-bots", str(bag), "field", str(tmp_path / "out")]) == 0
+            assert (tmp_path / "out" / "index.json").is_file()
+        elif verb == "recording2mcap":
+            out = tmp_path / "out.mcap"
+            assert cli.main(["db", "recording2mcap", "1", str(out), "--db", str(db)]) == 0
+            assert out.read_bytes()[:8] == b"\x89MCAP0\r\n"
+        else:
+            assert connect(db, read_only=True).execute("SELECT COUNT(*) FROM Image").fetchone()[0]
+    assert not caplog.text
 
 
 def test_recording_verbs_parse_as_in_jax():

@@ -305,6 +305,7 @@ def four_ranks(train_case, tmp_path_factory):
                                           steps=train_case["steps"], path=str(ckpt))),
         ("dcn", "train", dict(train_case, shape={"dcn": 2, "data": 2})),
         ("tp", "train", dict(train_case, shape={"data": 2, "model": 2})),
+        ("tp_flat", "train", dict(train_case, shape={"data": 2, "model": 2}, flat=True)),
         ("tp_fused", "train", dict(fused, shape={"data": 2, "model": 2})),
         ("attention", "attention", dict(q=q, k=k, v=v, dout=dout, shape={"seq": 4})),
         ("rollout", "rollout", dict(cfg=dataclasses.asdict(port_config(SMALL)),
@@ -323,6 +324,7 @@ def two_ranks(train_case, tmp_path_factory):
                    batch={**train_case["batch"], "joint_command": target}, noise=noise,
                    teacher_steps=5)
     results = run_ranks([("dp2", "train", dict(train_case, shape={"data": 2})),
+                         ("dp2_flat", "train", dict(train_case, shape={"data": 2}, flat=True)),
                          ("distill", "distill", dict(distill, shape={"data": 2})),
                          ("device_data", "device_data", dict(cfg=train_case["cfg"])),
                          ("call", "call", dict(cue_call_case(), shape={"data": 2}))], 2,
@@ -352,10 +354,12 @@ def assert_trajectory(ranks, name, want):
                                                rtol=0, err_msg=f"{where}: {kind} {pname}")
 
 
-@pytest.mark.parametrize("name", ["dp2", "dp4", "dcn", "tp"])
+@pytest.mark.parametrize("name", ["dp2", "dp4", "dcn", "tp", "dp2_flat", "tp_flat"])
 def test_parallel_steps_equal_the_jax_single_device_step(name, two_ranks, four_ranks,
                                                          jax_trajectory):
-    ranks = (two_ranks if name == "dp2" else four_ranks)["results"]
+    """``*_flat``: with the flat optimizer (``flat_optimizer: true``), whose
+    global norm sums in another order: the same bounds."""
+    ranks = (two_ranks if name.startswith("dp2") else four_ranks)["results"]
     assert_trajectory(ranks, name, jax_trajectory)
 
 

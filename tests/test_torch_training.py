@@ -187,11 +187,14 @@ def test_decoder_pretraining_updates_unused_params_like_optax():
 
 
 def test_unported_options_raise():
-    """flat_optimizer still raises; modality dropout and the aux cue loss are
-    ported (tests/test_torch_distill.py, tests/test_torch_train_options.py)."""
+    """Every training option is ported now: flat_optimizer builds the flat
+    optimizer (tests/test_torch_flat_optim.py), modality dropout and the aux
+    cue loss build their steps (tests/test_torch_distill.py,
+    tests/test_torch_train_options.py)."""
     _, _, model, _, _ = build_pair(SMALL, b=2)
-    with pytest.raises(NotImplementedError, match="flat_optimizer"):
-        make_optimizer(model, 1e-3, 10, flat=True)
+    flat = make_optimizer(model, 1e-3, 10, flat=True)
+    assert flat.flat and flat.in_buffer()
+    make_train_step(model, make_schedule(100), flat, Normalizer.identity(6))
     opt = make_optimizer(model, 1e-3, 10)
     make_train_step(model, make_schedule(100), opt, Normalizer.identity(6), aux_cue_weight=0.5)
     make_train_step(model, make_schedule(100), opt, Normalizer.identity(6), modality_dropout=0.1)

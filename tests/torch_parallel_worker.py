@@ -55,13 +55,16 @@ def full_named(model, values: dict) -> dict:
             for k, v in values.items()}
 
 
-def check_train(cfg, shape, params, batch, steps, lr, total, clip, ema_decay, stats=None):
+def check_train(cfg, shape, params, batch, steps, lr, total, clip, ema_decay, stats=None,
+                flat=False):
     """Three (or len(steps)) AdamW steps of this rank's share: loss,
-    grad_norm, the clipped gradients, the parameters and the EMA after each."""
+    grad_norm, the clipped gradients, the parameters and the EMA after each;
+    ``flat``: with the flat optimizer (its clipped gradients are its flat
+    buffer's)."""
     model = load_jax_params(DiffusionPolicy(ModelConfig(**cfg)), params, stats)
     mesh = make_mesh(shape)
     shard_model(model, mesh)
-    opt = make_optimizer(model, lr, total, weight_decay=1e-2, grad_clip_norm=clip)
+    opt = make_optimizer(model, lr, total, weight_decay=1e-2, grad_clip_norm=clip, flat=flat)
     state = create_train_state(model, opt, ema=True)
     step = make_train_step(model, make_schedule(100), opt, Normalizer.identity(cfg["num_joints"]),
                            ema_decay=ema_decay, mesh=mesh)
@@ -74,7 +77,12 @@ def check_train(cfg, shape, params, batch, steps, lr, total, clip, ema_decay, st
         out["loss"].append(metrics["loss"].item())
         out["grad_norm"].append(metrics["grad_norm"].item())
         named = dict(model.named_parameters())
-        out["grads"].append(full_named(model, {k: p.grad for k, p in named.items()}))
+        grads = {k: p.grad for k, p in named.items()}
+        if flat:
+            assert opt.in_buffer()
+            grads = {k: opt.grads[a:b].view_as(named[k])
+                     for k, (a, b) in zip(opt.state_names, opt.slices)}
+        out["grads"].append(full_named(model, grads))
         out["params"].append(full_named(model, named))
         out["ema"].append(full_named(model, state.ema))
     out["buffers"] = {k: v.numpy().copy() for k, v in model.named_buffers()}
