@@ -114,7 +114,8 @@
    a 1-step student, a guided 4-step student (3.0@image) and a 1-step
    student of 2 teacher draws (no kernel of the port runs there: the
    YAML's fused knobs are off); load_policy_checkpoint decodes each; each
-   mode's step is timed on the teacher (median of 3 after 1); at B=64 the
+   mode's step is timed on the teacher (median of 3 after 1, with the
+   peak device memory of one step); at B=64 the
    1-step student serves on the head_dim-128 denoiser and its pack, the
    4-step student on the chunk sampler at T=4, the teacher guided
    (3.0@image, raw frames) on the plain sampler (exact launches per
@@ -273,7 +274,22 @@
    what the same start in the port's format gives; the h128 checkpoint
    trained flat from the imported data served for 5 periods at B=1024
    (exact launches). The results go under the JSON line's "ingest" key.
-19. Prints one JSON line of per-kernel results, then as its last line
+19. The camera ledger (ledger_phase, evaluation/ledger.py): its --fast
+   --vision run at run F's widths and shapes (h128, 100-step contexts, 96
+   px frames in 36 patches, the width-128 ViT of 4 heads of 32, 5 frames,
+   B=64; --fast's depths and steps) in bf16 through the fused ViT-block,
+   encoder-stack and decoder-layer kernels: teacher training, a guided
+   (5.0@image) 2-draw 1-step student, the report with a cfg5 row and
+   posterior means of 2, with every launch counter zeroed before and read
+   after (rows 4-6 each launched forward and backward, no other kernel);
+   the JSON holds every top-level key of docs/quality_ledger_vision_r5f.json,
+   every value finite, the JAX report's sampler labels; then on the
+   teacher's weights the ViT block over 320 frames (T=36, W=128), the
+   T=100 and T=5 (image-sequence) stacks and the decoder layer over S=307
+   at B=64, each forward and backward against its plain version and timed
+   beside its torch.nn layers. The results go under the JSON line's
+   "ledger" key.
+20. Prints one JSON line of per-kernel results, then as its last line
    {"ok": true, "device": {...}}. Where one torch.nn call computes the
    same function as a kernel (the encoder-stack, ViT-block and
    decoder-layer forwards; one torch.autograd.grad through the same layers
@@ -290,7 +306,7 @@ phase fails. Imports nothing of JAX or of the JAX package.
     python3 chip_smoke.py --profile-training --resnet [--profile-out FILE]
     python3 chip_smoke.py --bisect-resnet-bf16
     python3 chip_smoke.py --profile-realtime [--profile-out FILE]
-    python3 chip_smoke.py --quality-ledger [--ledger-out DIR]
+    python3 chip_smoke.py --quality-ledger [--vision [--fused]] [--ledger-out DIR]
     python3 chip_smoke.py --nccl
 
 build the kernels and instead trace, with torch.profiler, the h128 B=64
@@ -309,10 +325,19 @@ stem convolution, BatchNorm, max pool, a residual block, the whole
 encoder) in bf16 on the card and on the CPU each against float64
 (bisect_resnet_bf16). --profile-realtime traces 3 plans of `cli serve`'s
 sampler at B=1 on the flagship (ddim30, then the distilled student).
---quality-ledger runs examples/quality_ledger.py's proprioceptive ledger
-through the port's CLI on the card (h128, train 2000 steps, 4- and 1-step
-students distilled 400 steps each, the report with dpmpp10@lambda and
-ddim10 rows over 256 windows and 10 chunks; DIR/quality_ledger.{json,md}).
+--quality-ledger runs evaluation/ledger.py on the card: its defaults (the
+h128 ledger: train 2000 steps, 4- and 1-step students distilled 400 steps
+each, the report with dpmpp10@lambda and ddim10 rows over 256 windows and
+10 chunks); with --vision run F's camera recipe (ledger.RUN_F: 24k teacher
+steps of the depth-6 ViT model in bf16, 4- and 1-step students of the
+7.0@image 8-draw teacher, 1200 steps each, the cfg5 / 7 / 9 rows and
+posterior means of 8; --fused adds the three training kernels), then 4-
+and 1-step students distilled from the 5.0@image 8-draw teacher and
+reported beside it (DIR/quality_ledger{,_cfg5}.{json,md}, the checkpoints
+in DIR/work; about 45 min on one H100). It exits 1, naming why, where a
+value is not finite or, with --vision, the teacher's open-loop MSE is not
+under 0.1 of the noise floor or its cfg5 posterior-mean boundary ratio
+under 2x.
 --nccl (a machine with two cards or more) runs phase 15's paths over NCCL,
 one rank a card, on 2 ranks and on every card, each against one process:
 the data-parallel steps of proprio_fused.yaml and of default_tpu.yaml in
@@ -841,6 +866,7 @@ def zero_counters():
     FusedDenoiser.pack_launches = FusedChunkSampler.int8_launches = 0
     for c in (FusedEncoderStack, FusedDecoderLayer):
         c.fwd_launches = c.bwd_launches = c.fwd_launches_hd64 = c.bwd_launches_hd64 = 0
+    FusedEncoderStack.fwd_launches_hd16 = FusedEncoderStack.bwd_launches_hd16 = 0
     fused_vit_block.forward_kernel.launches = fused_vit_block.backward_kernel.launches = 0
     FlashAttention.launches = FlashAttention.backward_launches = 0
 
@@ -862,6 +888,8 @@ def read_counters() -> dict:
             "fused_encoder_stack_fwd_hd64": FusedEncoderStack.fwd_launches_hd64,
             "fused_encoder_stack_bwd": FusedEncoderStack.bwd_launches,
             "fused_encoder_stack_bwd_hd64": FusedEncoderStack.bwd_launches_hd64,
+            "fused_encoder_stack_fwd_hd16": FusedEncoderStack.fwd_launches_hd16,
+            "fused_encoder_stack_bwd_hd16": FusedEncoderStack.bwd_launches_hd16,
             "fused_decoder_layer_fwd": FusedDecoderLayer.fwd_launches,
             "fused_decoder_layer_fwd_hd64": FusedDecoderLayer.fwd_launches_hd64,
             "fused_decoder_layer_bwd": FusedDecoderLayer.bwd_launches,
@@ -2131,24 +2159,30 @@ def distill_inputs(cfg, batch, device, rng, draws=1):
     return noise, draw
 
 
-def timed_distill(label, teacher, batch, device, **kw) -> float:
-    """ms of a distillation step on ``device``: the median of 3 after 1, each
-    between device syncs (host clock)."""
+def timed_distill(label, teacher, batch, device, **kw) -> tuple[float, int]:
+    """(ms of a distillation step on ``device``: the median of 3 after 1, each
+    between device syncs (host clock); the device's peak memory in bytes
+    during the second step)."""
     _, student, state, step = distill_setup(teacher, device, **kw)
     rng = np.random.default_rng(7)
     times = []
     for i in range(4):
         noise, draw = distill_inputs(student.config, batch, device, rng, kw.get("teacher_draws", 1))
         torch.cuda.synchronize()
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         metrics = step.apply(state, teacher, batch, noise, draw)
         loss = metrics["loss"].item()
         times.append((time.perf_counter() - t0) * 1e3)
+        if i == 1:
+            peak = torch.cuda.max_memory_allocated()
         if not np.isfinite(loss):
             raise AssertionError(f"{label}: distillation step {i} loss {loss}")
     ms = statistics.median(times[1:])
-    log(f"distillation step {label}: {ms:.2f} ms (median of 3 after 1; steps {times})")
-    return ms
+    log(f"distillation step {label}: {ms:.2f} ms (median of 3 after 1; steps {times}); peak "
+        f"device memory {peak / 2**30:.2f} GiB")
+    return ms, peak
 
 
 def distill_reference_phase(device, cfg, batches, seed, **kw) -> dict:
@@ -2229,7 +2263,7 @@ def distill_larger_phase(device) -> dict:
     from soccerdiffusion_tpu_torch.training.train import RunOptions, build_dataset, train
     from soccerdiffusion_tpu_torch.data.pipeline import to_tensors
 
-    out = {"launches": {}, "step_ms": {}, "period_ms": {}}
+    out = {"launches": {}, "step_ms": {}, "peak_bytes": {}, "period_ms": {}}
     with tempfile.TemporaryDirectory() as tmp:
         params = yaml.safe_load(open(CONFIG_DIR / DISTILL_YAML))
         params.update(compute_dtype="bfloat16", modality_dropout=0.15, log_every=1)
@@ -2282,9 +2316,8 @@ def distill_larger_phase(device) -> dict:
                          ("student4_guided_image", dict(student_steps=4, guidance_scale=3.0,
                                                         guidance_null=("image",))),
                          ("student1_draws2", dict(teacher_draws=2))):
-            out["step_ms"][mode] = timed_distill(f"{DISTILL_YAML} {mode} B="
-                                                 f"{config.train.batch_size}", teacher, batch,
-                                                 device, **kw)
+            out["step_ms"][mode], out["peak_bytes"][mode] = timed_distill(
+                f"{DISTILL_YAML} {mode} B={config.train.batch_size}", teacher, batch, device, **kw)
         del batch
         # the students served on the head_dim-128 kernels, the teacher guided
         model, norm, steps, distilled, _ = s1
@@ -2340,7 +2373,7 @@ def distill_flagship_phase(device) -> dict:
         raise AssertionError(f"flagship distillation: launches {launches}, expected {want}")
     del state, step
     ms = {f"student{k}": timed_distill(f"vit_flagship.yaml student{k} B={DISTILL_FLAG_B}",
-                                       teacher, batch, device, student_steps=k) for k in (1, 4)}
+                                       teacher, batch, device, student_steps=k)[0] for k in (1, 4)}
     del teacher, batch
     torch.cuda.empty_cache()
     ref = distill_reference_phase(device, cfg, flagship_reference_batches(), 16, student_steps=4)
@@ -4297,8 +4330,6 @@ def checkpoint_phase(device, smi, phase4_ms) -> dict:
     return out
 
 
-# examples/quality_ledger.py's proprioceptive run (BENCH_CONFIG: bench.py's
-# h128 architecture, lr 1e-3) through the port's train -> distill -> report
 # ------------------------------------------------------- the kernel variants (phase 17)
 # int8 context K/V. Both the kernel and its plain version compute the same
 # integers, so they differ only where an fp32 value lands on the other side
@@ -5302,68 +5333,243 @@ def ingest_phase(device, smi) -> dict:
     return out
 
 
-LEDGER_CONFIG = {
-    "num_joints": 20, "hidden_dim": 128, "trajectory_prediction_length": 10,
-    "action_context_length": 100, "joint_state_context_length": 100, "imu_context_length": 100,
-    "use_action_history": True, "num_action_history_encoder_layers": 2, "use_imu": True,
-    "num_imu_encoder_layers": 2, "use_joint_states": True, "joint_state_encoder_layers": 2,
-    "use_images": False, "use_gamestate": True, "num_decoder_layers": 4, "encoder_patch_size": 1,
-    "train_denoising_timesteps": 1000, "distill_teacher_inference_steps": 30, "batch_size": 64,
-    "lr": 1.0e-3, "epochs": 10,
-}
-LEDGER_TRAIN_STEPS, LEDGER_DISTILL_STEPS, LEDGER_STUDENTS = 2000, 400, (4, 1)
-LEDGER_ROWS, LEDGER_WINDOWS, LEDGER_CHUNKS = ("dpmpp10@lambda", "ddim10"), 256, 10
+# ------------------------------------------------------- the camera ledger (phase 19)
+# evaluation/ledger.py --fast --vision on the card: --fast's depths (a layer
+# a stack, one ViT block, one decoder layer) and step counts at run F's
+# widths and shapes (h128, 100-step contexts, 96 px frames in 36 patches of
+# 16 px, the width-128 ViT with 4 heads of 32, 5 frames, B=64), bf16,
+# through the three training kernels; a guided 2-draw 1-step student, a cfg5
+# guidance row, posterior means of 2
+LEDGER_SHAPES = ("hidden_dim=128", "action_context_length=100", "imu_context_length=100",
+                 "joint_state_context_length=100", "image_resolution=96", "vit_patch_size=16",
+                 "vit_width=128", "image_context_length=5", "batch_size=64",
+                 "compute_dtype=bfloat16")
+LEDGER_B, LEDGER_FRAMES = 64, 5
+LEDGER_SMOKE_K = 2  # the student's teacher draws and the posterior means
+# rows 4-6: the path's kernels (the report's samplers are the plain ones);
+# the image-sequence stack (8 heads) at head_dim 16
+LEDGER_KERNELS = ("fused_vit_block_fwd", "fused_vit_block_bwd", "fused_encoder_stack_fwd",
+                  "fused_encoder_stack_bwd", "fused_encoder_stack_fwd_hd16",
+                  "fused_encoder_stack_bwd_hd16", "fused_decoder_layer_fwd",
+                  "fused_decoder_layer_bwd")
+# the recorded run F ledger, whose top-level keys a ledger's JSON must hold
+R5F_JSON = Path(__file__).resolve().parent / "docs" / "quality_ledger_vision_r5f.json"
+# --quality-ledger --vision: run F's students distilled from the cfg5 teacher
+# (docs/quality_ledger_vision_r5f2.md, r5f3.md) beside the ledger's own cfg7 ones
+CFG5_GUIDANCE = "5.0@image"
 
 
-def quality_ledger(device, smi, out_dir: Path) -> dict:
-    """The quality ledger on the card: a teacher trained LEDGER_TRAIN_STEPS
-    steps, students of LEDGER_STUDENTS steps distilled LEDGER_DISTILL_STEPS
-    steps, and the report with the training-free rows; writes
-    ``out_dir``/quality_ledger.{json,md} and returns the result."""
-    import yaml
+def ledger_smoke_argv(device, tmp: Path) -> list[str]:
+    from soccerdiffusion_tpu_torch.evaluation import ledger
 
+    return (ledger.FUSED + [a for kv in LEDGER_SHAPES for a in ("--set", kv)]
+            + ["--fast", "--vision", "--student-steps", "1", "--student-guidance", CFG5_GUIDANCE,
+               "--student-teacher-draws", str(LEDGER_SMOKE_K), "--guidance-rows", CFG5_GUIDANCE,
+               "--posterior-mean", str(LEDGER_SMOKE_K), "--out", str(tmp / "ledger"),
+               "--workdir", str(tmp / "work"), "--device", device])
+
+
+def ledger_kernel_checks(model, device) -> dict:
+    """Rows 4-6 at the camera ledger's shapes on ``model``'s weights against
+    their plain versions (every output, input gradient and weight gradient
+    within TRAIN_TOL of scale), timed beside their torch.nn layers: the ViT
+    block (block 0; T=36 tokens, W=128, 4 heads of 32, exact GELU) over a
+    step's LEDGER_B x LEDGER_FRAMES = 320 frames, the action-history stack
+    (T=100) and the image-sequence stack (T=5) at B=64, and decoder layer 0
+    (T=10 over S=307 memory rows: the 306 context tokens and the step token)
+    at B=64, each forward and backward."""
+    from soccerdiffusion_tpu_torch.ops import fused_decoder_layer as fdl
+    from soccerdiffusion_tpu_torch.ops import fused_encoder_stack as fes
+    from soccerdiffusion_tpu_torch.ops import fused_vit_block as fvb
+
+    cfg = model.config
+    vit = model.image_sequence_encoder.image_encoder
+    T, W, H = (cfg.image_resolution // cfg.vit_patch_size) ** 2, cfg.vit_width, vit.num_heads
+    E, gelu, b = cfg.hidden_dim, cfg.vit_fused_gelu, LEDGER_B
+    bf16 = lambda ts: [t.detach().to(torch.bfloat16) for t in ts]
+    vit_w = bf16(fes.encoder_layer_weights(vit.blocks.layers[0]))
+    seq_enc = model.image_sequence_encoder.seq.encoder
+    stacks = {"": (bf16(fes.stack_weights(model.action_history_encoder.seq.encoder.layers)), 4,
+                   cfg.action_context_length),
+              "_imgseq": (bf16(fes.stack_weights(seq_enc.layers)), seq_enc.num_heads,
+                          cfg.image_context_length)}
+    layer = model.diffusion_action_generator.decoder.layers[0]
+    dec_w, Hd, FF = bf16(fdl.layer_weights(layer)), layer.num_heads, layer.mlp.linear1.out_features
+    S = (cfg.action_context_length + cfg.imu_context_length + cfg.joint_state_context_length
+         + cfg.image_context_length + 2)
+    rng = np.random.default_rng(1919)
+    t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        device, torch.bfloat16)
+    zero = lambda n: {"bqkv": slice(n, 2 * n)}
+    results = {}
+    n = b * LEDGER_FRAMES
+    x, dy = t(n, T, W), t(n, T, W)
+    vit_flops = n * enc_layer_flops(T, W, 4 * W)
+    act = quick_gelu if gelu == "quick" else "gelu"
+    vit_lib = torch_encoder([w[None] for w in vit_w], H, act)
+    log(f"camera ledger: fused ViT block N={n} frames T={T} W={W} {H} heads ({gelu} GELU):")
+    with torch.no_grad():
+        results["fused_vit_block_fwd_ledger"] = compare(
+            "fused_vit_block_fwd_ledger", lambda: fvb.forward_kernel(x, vit_w, H, gelu),
+            lambda: fvb.forward_plain(x, vit_w, H, gelu), b, vit_flops, [x, vit_w],
+            lambda: vit_lib(x))
+    dx, grads = fvb.backward_kernel(x, dy, vit_w, H, gelu)
+    dx_ref, grads_ref = fvb.backward_plain(x, dy, vit_w, H, gelu)
+    err = max(err_line("dx", dx, dx_ref), grads_check(fes.STACK_WEIGHTS, grads, grads_ref, zero(W)))
+    times = {"fused_vit_block_bwd_ledger": (
+        err, lambda: fvb.backward_kernel(x, dy, vit_w, H, gelu),
+        lambda: fvb.backward_plain(x, dy, vit_w, H, gelu), 3 * vit_flops,
+        [x, dy, vit_w, dx, grads],
+        LibraryGrad(encoder_grad_fn([w[None] for w in vit_w], H, x, dy, act, stacked=False),
+                    fes.STACK_WEIGHTS, zero(W)))}
+    for suffix, (w, heads, tt) in stacks.items():
+        name, layers = f"fused_encoder_stack_%s_ledger{suffix}", w[0].shape[0]
+        xs, dys = t(b, tt, E), t(b, tt, E)
+        flops = b * layers * enc_layer_flops(tt, E, E)
+        log(f"camera ledger: encoder stack{suffix} B={b} T={tt} L={layers} {heads} heads:")
+        lib = torch_encoder(w, heads)
+        with torch.no_grad():
+            results[name % "fwd"] = compare(
+                name % "fwd", lambda x=xs, w=w, h=heads: fes.forward_kernel(x, w, h)[0],
+                lambda x=xs, w=w, h=heads: fes.forward_plain(x, w, h), b, flops, [xs, w],
+                lambda x=xs, lib=lib: lib(x))
+        _, acts = fes.forward_kernel(xs, w, heads)
+        dxs, g = fes.backward_kernel(acts, dys, w, heads)
+        dxs_ref, g_ref = fes.backward_plain(xs, dys, w, heads)
+        err = max(err_line("dx", dxs, dxs_ref), grads_check(fes.STACK_WEIGHTS, g, g_ref, zero(E)))
+        times[name % "bwd"] = (
+            err, lambda a=acts, dy=dys, w=w, h=heads: fes.backward_kernel(a, dy, w, h),
+            lambda x=xs, dy=dys, w=w, h=heads: fes.backward_plain(x, dy, w, h), 3 * flops,
+            [acts, dys, w, dxs, g],
+            LibraryGrad(encoder_grad_fn(w, heads, xs, dys), fes.STACK_WEIGHTS, zero(E)))
+    xd, mem, dyd = t(b, 10, E), t(b, S, E), t(b, 10, E)
+    dec_flops = b * (dec_layer_flops(10, S, E, FF) + 4 * S * E * E)  # + the memory's K/V
+    dec_lib = torch_decoder_layer(dec_w, Hd)
+    log(f"camera ledger: decoder layer B={b} T=10 S={S} E={E} {Hd} heads:")
+    with torch.no_grad():
+        results["fused_decoder_layer_fwd_ledger"] = compare(
+            "fused_decoder_layer_fwd_ledger", lambda: fdl.forward_kernel(xd, mem, dec_w, Hd),
+            lambda: fdl.forward_plain(xd, mem, dec_w, Hd), b, dec_flops, [xd, mem, dec_w],
+            lambda: dec_lib(xd, mem))
+    ddx, dmem, dgrads = fdl.backward_kernel(xd, mem, dyd, dec_w, Hd)
+    ddx_ref, dmem_ref, dgrads_ref = fdl.backward_plain(xd, mem, dyd, dec_w, Hd)
+    err = max(err_line("dx", ddx, ddx_ref), err_line("dmem", dmem, dmem_ref),
+              grads_check(fdl.WEIGHT_NAMES, dgrads, dgrads_ref, dec_zero(E)))
+    times["fused_decoder_layer_bwd_ledger"] = (
+        err, lambda: fdl.backward_kernel(xd, mem, dyd, dec_w, Hd),
+        lambda: fdl.backward_plain(xd, mem, dyd, dec_w, Hd), 3 * dec_flops,
+        [xd, mem, dyd, dec_w, ddx, dmem, dgrads],
+        LibraryGrad(decoder_grad_fn(dec_w, Hd, xd, mem, dyd), fdl.WEIGHT_NAMES, dec_zero(E)))
+    time_checked(results, f"B={b}", times)
+    return results
+
+
+def check_ledger_json(result: dict, k: int) -> None:
+    """A ledger's JSON: every top-level key of the run F ledger, every value
+    finite, and the guidance and posterior-mean rows labelled as the JAX
+    report labels them (``k`` draws; one cfg5 guidance row, one 1-step student)."""
+    missing = sorted(set(json.loads(R5F_JSON.read_text())) - set(result))
+    bad = [p for p, v in numbers(result) if not np.isfinite(v)]
+    teacher = result["checkpoints"][0]["open_loop"]["sampler"]
+    labels = ([r["sampler"] for r in result["guidance"]],
+              [r["sampler"] for r in result["posterior_mean_boundary"]["rows"]])
+    want = ([f"{teacher}+cfg5(image)"], [f"{teacher}xmean{k}", f"{teacher}+cfg5(image)xmean{k}",
+                                         "distilled1", f"distilled1xmean{k}"])
+    log(f"ledger JSON: {len(result)} keys, missing {missing}; not finite {bad[:5]}; samplers "
+        f"{labels}")
+    if missing or bad or labels != want:
+        raise AssertionError(f"ledger JSON: missing keys {missing}, values not finite {bad[:5]}, "
+                             f"samplers {labels} (want {want})")
+
+
+def ledger_phase(device, smi) -> tuple[dict, dict, dict]:
+    """Phase 19: evaluation/ledger.py's smoke run (ledger_smoke_argv: train,
+    distill, report) with every launch counter zeroed just before and read
+    just after: each of rows 4-6 forward and backward launched, no other
+    kernel; the JSON checked (check_ledger_json); then the kernels at the
+    run's shapes on its teacher's weights (ledger_kernel_checks). Returns
+    (the kernels' results, the run's launches, the phase's record)."""
     from soccerdiffusion_tpu_torch.config import Config
-    from soccerdiffusion_tpu_torch.training.train import build_dataset
+    from soccerdiffusion_tpu_torch.evaluation import ledger
+    from soccerdiffusion_tpu_torch.training.checkpoint import build_policy, load_policy_checkpoint
 
     t0 = time.perf_counter()
-    out_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        yml = tmp / "config.yaml"
-        yml.write_text(yaml.safe_dump(LEDGER_CONFIG))
-        bs = LEDGER_CONFIG["batch_size"]
-        steps_per_epoch = max(1, len(build_dataset(Config.from_dict(LEDGER_CONFIG), 0, True)) // bs)
-        teacher = tmp / "teacher.ckpt"
-        cli_ok(["train", "--config", yml, "--dummy-data", "--epochs",
-                -(-LEDGER_TRAIN_STEPS // steps_per_epoch), "--output", teacher, "--seed", 0,
-                "--metrics", tmp / "teacher_metrics.jsonl", "--device-data", "--device", device],
-               "train")
-        report_argv = ["report", "--teacher", teacher, "--dummy-data", "--windows", LEDGER_WINDOWS,
-                       "--chunks", LEDGER_CHUNKS, "--batch-size", min(64, bs), "--seed", 0,
-                       "--out", out_dir / "quality_ledger", "--device", device]
-        for k in LEDGER_STUDENTS:
-            student = tmp / f"student{k}.ckpt"
-            cli_ok(["distill", yml, teacher, "--student-steps", k, "--dummy-data", "--epochs",
-                    -(-LEDGER_DISTILL_STEPS // steps_per_epoch), "--steps-per-epoch",
-                    steps_per_epoch, "-o", student, "--seed", 0, "--device-data", "--device",
-                    device], f"distill {k}")
-            report_argv += ["--student", student]
-        for row in LEDGER_ROWS:
-            report_argv += ["--solver-row", row]
-        cli_ok(report_argv, "report")
-        losses = [(r["step"], r["loss"]) for r in map(json.loads, open(tmp / "teacher_metrics.jsonl"))
-                  if "loss" in r]
-    md_path = out_dir / "quality_ledger.md"
-    md = md_path.read_text()
-    if losses:
-        md += (f"\nTeacher training loss: {losses[0][1]:.4f} (step {losses[0][0]}) -> "
-               f"{losses[-1][1]:.4f} (step {losses[-1][0]}), {len(losses)} recorded points.\n")
-        md_path.write_text(md)
-    wall = time.perf_counter() - t0
-    log(md)
-    log(f"quality ledger: {wall:.1f} s ({smi}); {md_path}")
-    return {"wall_s": wall, "teacher_loss_curve": losses,
-            "report": json.loads((out_dir / "quality_ledger.json").read_text())}
+        zero_counters()
+        result = ledger.main(ledger_smoke_argv(device, tmp))
+        launches = read_counters()
+        wall = time.perf_counter() - t0
+        params, state, *_ = load_policy_checkpoint(tmp / "work" / "teacher.ckpt")
+    log(f"camera ledger (--fast at run F's widths): {wall:.1f} s [{smi}]; stages "
+        f"{result['wall_s']}; launches {nonzero(launches)}")
+    idle = [k for k in LEDGER_KERNELS if not launches[k]]
+    other = {k: v for k, v in nonzero(launches).items() if k not in LEDGER_KERNELS}
+    if idle or other or 3 * launches["fused_encoder_stack_fwd_hd16"] != (
+            launches["fused_encoder_stack_fwd"] - launches["fused_encoder_stack_fwd_hd16"]):
+        raise AssertionError(f"camera ledger launches: {idle} never launched, {other} launched "
+                             "off the path, or not three proprioceptive stacks an image stack")
+    check_ledger_json(result, LEDGER_SMOKE_K)
+    model = build_policy(Config.from_dict(params).model, state, device)
+    results = ledger_kernel_checks(model, device)
+    record = {"wall_s": wall, "stages_s": result["wall_s"], "launches": nonzero(launches),
+              "teacher_open_loop_mse": result["checkpoints"][0]["open_loop"]["mse"],
+              "noise_floor_mse": result["noise_floor_mse"]}
+    log(f"camera ledger phase: {time.perf_counter() - t0:.1f} s [{smi}]")
+    return results, launches, record
+
+
+def quality_ledger(device, smi, out_dir: Path, vision: bool, fused: bool) -> int:
+    """evaluation/ledger.py on the card: its defaults (the h128 ledger), or
+    with ``vision`` run F's camera recipe (ledger.RUN_F, and with ``fused``
+    ledger.FUSED) followed by its 4- and 1-step students distilled from the
+    same teacher under CFG5_GUIDANCE and reported beside it, without
+    guidance rows. Every launch counter is zeroed before and read after
+    each stage. Writes ``out_dir``/quality_ledger{,_cfg5}.{json,md} and the
+    checkpoints under ``out_dir``/work (the cfg5 students under its cfg5/);
+    returns 1 where ledger.ledger_faults (``vision``) or a value that is
+    not finite says the ledger failed, else 0."""
+    from soccerdiffusion_tpu_torch.evaluation import ledger
+    from soccerdiffusion_tpu_torch.evaluation import report as report_mod
+
+    work = out_dir / "work"
+    argv = ((ledger.RUN_F + (ledger.FUSED if fused else []) if vision else [])
+            + ["--out", str(out_dir / "quality_ledger"), "--workdir", str(work),
+               "--device", device])
+    log(f"quality ledger: evaluation/ledger.py {' '.join(argv)}")
+    t0 = time.perf_counter()
+    zero_counters()
+    result = ledger.main(argv)
+    record = {"wall_s": time.perf_counter() - t0, "stages_s": result["wall_s"],
+              "launches": nonzero(read_counters())}
+    log(f"quality ledger: {record['wall_s']:.1f} s ({smi}); stages {result['wall_s']}; "
+        f"launches {record['launches']}")
+    log((out_dir / "quality_ledger.md").read_text())
+    faults = (ledger.ledger_faults(result) if vision else
+              [f"{p} = {v}" for p, v in numbers(result) if not np.isfinite(v)])
+    if vision:
+        args = ledger.parse_args(argv)
+        args.student_guidance, args.guidance_rows = CFG5_GUIDANCE, []
+        config = ledger.ledger_config(args)
+        (work / "cfg5").mkdir(exist_ok=True)
+        cfg_path = work / "cfg5" / "config.yaml"
+        shutil.copyfile(work / "config.yaml", cfg_path)
+        zero_counters()
+        seconds = ledger.distill_students(args, cfg_path, work / "teacher.ckpt",
+                                          ledger.steps_per_epoch(config, args.seed))
+        record["cfg5_distill"] = {"stages_s": {Path(k).stem: v for k, v in seconds.items()},
+                                  "launches": nonzero(read_counters())}
+        t0 = time.perf_counter()
+        cfg5 = report_mod.main(ledger.report_argv(args, config, work / "teacher.ckpt", seconds,
+                                                  str(out_dir / "quality_ledger_cfg5")))
+        record["cfg5_report_s"] = time.perf_counter() - t0
+        log(f"cfg5 students: {record['cfg5_distill']}; report {record['cfg5_report_s']:.1f} s")
+        log((out_dir / "quality_ledger_cfg5.md").read_text())
+        faults += [f"cfg5 report: {p} = {v}" for p, v in numbers(cfg5) if not np.isfinite(v)]
+    log(json.dumps({"quality_ledger": record, "gpu": smi}))
+    for fault in faults:
+        log(f"quality ledger FAILED: {fault}")
+    return 1 if faults else 0
 
 
 def sass_phase() -> dict:
@@ -5571,9 +5777,15 @@ def main(argv=None) -> int:
                              "with torch.profiler instead")
     parser.add_argument("--profile-out", default=None, help="file for the full profiler tables")
     parser.add_argument("--quality-ledger", action="store_true",
-                        help="instead of the smoke run: the h128 quality ledger (train 2000 "
-                             "steps, distill 4- and 1-step students 400 steps each, report) "
-                             "through the port's CLI on the card")
+                        help="instead of the smoke run: evaluation/ledger.py on the card, the "
+                             "h128 ledger (train 2000 steps, distill 4- and 1-step students 400 "
+                             "steps each, report)")
+    parser.add_argument("--vision", action="store_true",
+                        help="with --quality-ledger: run F's camera recipe (ledger.RUN_F, bf16), "
+                             "then its students of the cfg5 teacher")
+    parser.add_argument("--fused", action="store_true",
+                        help="with --quality-ledger --vision: through the fused ViT-block, "
+                             "encoder-stack and decoder-layer kernels (ledger.FUSED)")
     parser.add_argument("--ledger-out", default="build/quality_ledger",
                         help="directory for the ledger's quality_ledger.{json,md}")
     parser.add_argument("--nccl", action="store_true",
@@ -5611,9 +5823,7 @@ def main(argv=None) -> int:
         log(json.dumps({"nccl": nccl_phase(device, smi), "gpu": smi}))
         return 0
     if args.quality_ledger:
-        ledger = quality_ledger(device, smi, Path(args.ledger_out))
-        log(json.dumps({"quality_ledger": ledger, "gpu": smi}))
-        return 0
+        return quality_ledger(device, smi, Path(args.ledger_out), args.vision, args.fused)
     if args.bisect_resnet_bf16:
         config = yaml_config("default_tpu.yaml")  # bf16, "conv_only"
         step = {frames: training_reference_phase(device, config.model, batches, 14, gate=False)
@@ -5717,6 +5927,9 @@ def main(argv=None) -> int:
     results.update(variant_results)
     # recorded data through the port's ingest/, trained with the flat optimizer
     ingest = ingest_phase(device, smi)
+    # the camera ledger: train, distill and report through rows 4-6
+    ledger_results, ledger_launches, ledger = ledger_phase(device, smi)
+    results.update(ledger_results)
 
     # where each kernel instance ran: (source, the TPU kernel it replaces (the
     # pack: the JAX denoiser's pack_context_kv, whose layout the kernel's
@@ -5824,6 +6037,22 @@ def main(argv=None) -> int:
                   "fused_vit_block.py:703" if "_fwd_" in name else "fused_vit_block.py:722",
                   variant_launches[name])
            for name in variant_launches if name.startswith("fused_vit_block")},
+        # phase 19: the camera ledger (the proprioceptive stacks at head_dim 32,
+        # the image-sequence stack at 16)
+        "fused_vit_block_fwd_ledger": ("vit_block.cuh", "fused_vit_block.py:703",
+                                       ledger_launches["fused_vit_block_fwd"]),
+        "fused_vit_block_bwd_ledger": ("vit_block.cuh", "fused_vit_block.py:722",
+                                       ledger_launches["fused_vit_block_bwd"]),
+        **{f"fused_encoder_stack_{way}_ledger{suffix}": (
+            "fused_encoder_stack.cu", f"fused_encoder_stack.py:{line}",
+            ledger_launches[f"fused_encoder_stack_{way}_hd16"] if suffix else
+            ledger_launches[f"fused_encoder_stack_{way}"]
+            - ledger_launches[f"fused_encoder_stack_{way}_hd16"])
+           for way, line in (("fwd", 274), ("bwd", 300)) for suffix in ("", "_imgseq")},
+        "fused_decoder_layer_fwd_ledger": ("fused_decoder_layer.cu", "fused_decoder_layer.py:343",
+                                           ledger_launches["fused_decoder_layer_fwd"]),
+        "fused_decoder_layer_bwd_ledger": ("fused_decoder_layer.cu", "fused_decoder_layer.py:371",
+                                           ledger_launches["fused_decoder_layer_bwd"]),
     }
     kernels = [{"name": name, "route": "cuda", "source": csrc + table[name][0],
                 "replaces": tpu + table[name][1], "launches": table[name][2], **r}
@@ -5861,6 +6090,7 @@ def main(argv=None) -> int:
                     "checkpoints": checkpoints,
                     "variants": variants,
                     "ingest": ingest,
+                    "ledger": ledger,
                     "gpu": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

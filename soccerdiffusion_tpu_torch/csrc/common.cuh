@@ -12,7 +12,8 @@
 //   * attention: fp32 scores and softmax, probabilities rounded to bf16
 //     after normalisation, fp32 value sums;
 //   * the head dimension D is a template parameter, 32 or 64 (head_dim()
-//     below; the decoder pass also 128, decoder_pass.cuh:pass_head_dim); the
+//     below; the decoder pass also 128, decoder_pass.cuh:pass_head_dim; the
+//     encoder stack also 16, fused_encoder_stack.cu:stack_head_dim); the
 //     attention scale is 1 / sqrt(D).
 #pragma once
 
@@ -33,8 +34,10 @@ constexpr float kLnEps = 1e-6f;
 // 1 / sqrt(D), the attention scale at head_dim D
 template <int D>
 __host__ __device__ constexpr float attn_scale() {
-  static_assert(D == 32 || D == 64 || D == 128, "the kernels take head_dim 32, 64 or 128");
-  return D == 32 ? 0.17677669529663687f : D == 64 ? 0.125f : 0.08838834764831845f;
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
+                "the kernels take head_dim 16 (the encoder stack), 32, 64 or 128");
+  return D == 16 ? 0.25f : D == 32 ? 0.17677669529663687f : D == 64 ? 0.125f
+                                                                  : 0.08838834764831845f;
 }
 
 // The head dimension E / H if a kernel instance exists for it (32 or 64), else 0.

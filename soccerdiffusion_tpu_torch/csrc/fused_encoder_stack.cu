@@ -37,13 +37,20 @@
 //     tile edges), no lane-masked head stacking, erff for the exact GELU;
 //   * forward and backward have instances for head_dim 32 and 64 (the h256
 //     configs' 4-head proprioceptive stacks; their 8-head image-sequence
-//     stack is head_dim 32);
+//     stack is head_dim 32) and 16 (that stack at hidden 128: the camera
+//     ledger's model);
 //   * the products of the forward and of the recompute read the weights
 //     transposed, (out, in) (wt, made by the wrapper), the input-gradient
 //     products the (in, out) originals: the reduction axis is contiguous.
 #include "encoder_layer.cuh"
 
 namespace sd {
+
+// The head dimension E / H if the stack has an instance for it (16, 32 or
+// 64), else 0
+__host__ inline int stack_head_dim(int E, int H) {
+  return H > 0 && E == 16 * H ? 16 : head_dim(E, H);
+}
 
 struct EncStackArgs {
   const bf16* x;      // fwd: (B, T, E) input
@@ -135,7 +142,7 @@ __global__ void __launch_bounds__(kThreads) encoder_stack_bwd_kernel(EncStackArg
   for (int i = threadIdx.x; i < T * E; i += blockDim.x) dx[i] = __float2bfloat16(s.g[i]);
 }
 
-// The backward's argument checks (head_dim 32 or 64, widths multiples of 8,
+// The backward's argument checks (head_dim 16, 32 or 64, widths multiples of 8,
 // the workspace strides); returns its shared memory (softmax stats).
 static int setup(EncStackArgs& a, const int* ints, size_t* smem) {
   a.B = ints[0];
@@ -148,7 +155,7 @@ static int setup(EncStackArgs& a, const int* ints, size_t* smem) {
   a.wsbf_stride = ints[7];
   size_t n32, nbf;
   carve(a.T, a.E, a.FF, nullptr, nullptr, nullptr, &n32, &nbf);
-  if (head_dim(a.E, a.H) == 0 || a.E % 8 || a.FF % 8 || n32 > (size_t)a.ws32_stride ||
+  if (stack_head_dim(a.E, a.H) == 0 || a.E % 8 || a.FF % 8 || n32 > (size_t)a.ws32_stride ||
       nbf > (size_t)a.wsbf_stride)
     return (int)cudaErrorInvalidValue;
   *smem = (size_t)3 * a.H * a.T * sizeof(float);
@@ -170,7 +177,7 @@ extern "C" int sd_encoder_stack_fwd(const void* const* ptrs, const int* ints, vo
   a.FF = ints[4];
   a.L = ints[5];
   a.ws32_stride = ints[6];
-  if (head_dim(a.E, a.H) == 0 || a.T < 1 || a.E % 8 || a.FF % 8 ||
+  if (stack_head_dim(a.E, a.H) == 0 || a.T < 1 || a.E % 8 || a.FF % 8 ||
       (size_t)a.T * a.E > (size_t)a.ws32_stride)
     return (int)cudaErrorInvalidValue;
   a.x = static_cast<const bf16*>(ptrs[0]);
@@ -179,8 +186,10 @@ extern "C" int sd_encoder_stack_fwd(const void* const* ptrs, const int* ints, vo
   a.acts_out = static_cast<float*>(const_cast<void*>(ptrs[14]));
   a.ws32 = static_cast<float*>(const_cast<void*>(ptrs[15]));
   for (int i = 0; i < 4; ++i) a.wt[i] = static_cast<const bf16*>(ptrs[18 + i]);
-  auto kernel =
-      head_dim(a.E, a.H) == 32 ? encoder_stack_fwd_kernel<32> : encoder_stack_fwd_kernel<64>;
+  const int D = stack_head_dim(a.E, a.H);
+  auto kernel = D == 16   ? encoder_stack_fwd_kernel<16>
+                : D == 32 ? encoder_stack_fwd_kernel<32>
+                          : encoder_stack_fwd_kernel<64>;
   // refused when a robot's operands do not fit one block's shared memory
   const size_t smem = fwd_smem_bytes(a.T, a.E);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -215,8 +224,10 @@ extern "C" int sd_encoder_stack_bwd(const void* const* ptrs, const int* ints, vo
   a.vpart = static_cast<float*>(P(27));
   float* tpart = static_cast<float*>(P(28));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto kernel =
-      head_dim(a.E, a.H) == 32 ? encoder_stack_bwd_kernel<32> : encoder_stack_bwd_kernel<64>;
+  const int D = stack_head_dim(a.E, a.H);
+  auto kernel = D == 16   ? encoder_stack_bwd_kernel<16>
+                : D == 32 ? encoder_stack_bwd_kernel<32>
+                          : encoder_stack_bwd_kernel<64>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -274,7 +274,15 @@ __device__ __forceinline__ void scores(float (*s)[4], uint32_t (*a)[4], const bf
   for (int j = 0; j < NB; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    if constexpr (kSm) {
+    if constexpr (kSm && D == 16) {
+      // one k16 step: matrices 0 and 1 of the x4 load (lanes 16-31 repeat
+      // the addresses of lanes 0-15)
+      const int n = min(j0 + 8 * j + (lane & 7), nvalid - 1);
+      uint32_t r[4];
+      ldsm_x4(r, Bt + (size_t)n * ld + 8 * ((lane >> 3) & 1));
+      const uint32_t b0[2] = {r[0], r[1]};
+      mma_bf16(s[j], a[0], b0);
+    } else if constexpr (kSm) {
       const int n = min(j0 + 8 * j + (lane & 7), nvalid - 1);
 #pragma unroll
       for (int kd = 0; kd < D / 32; ++kd) {

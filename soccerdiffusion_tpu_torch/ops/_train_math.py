@@ -195,17 +195,19 @@ def transposed_weights(w: list[torch.Tensor]) -> list[torch.Tensor]:
 
 
 def check_operands(x: torch.Tensor, w: list[torch.Tensor], num_heads: int, ff: int,
-                   tile: int) -> None:
+                   tile: int, head_dims: tuple[int, ...] = (32, 64)) -> None:
     """Raise ``ValueError`` for what a CUDA kernel of the training ops does
-    not take: a non-bf16 dtype, a head_dim other than 32 or 64, an MLP width
-    ``ff`` that is no multiple of 8, or attention state (``tile`` fp32
-    values: scores, or softmax statistics) over one block's shared memory."""
+    not take: a non-bf16 dtype, a head_dim not in ``head_dims`` (the
+    kernel's instances), an MLP width ``ff`` that is no multiple of 8, or
+    attention state (``tile`` fp32 values: scores, or softmax statistics)
+    over one block's shared memory."""
     if x.dtype != torch.bfloat16:
         raise ValueError("the CUDA training kernels take bfloat16 (compute_dtype='bfloat16'); "
                          f"got {x.dtype}")
     E = x.shape[-1]
-    if E not in (32 * num_heads, 64 * num_heads):
-        raise ValueError(f"the CUDA training kernels take head_dim 32 or 64, got {E / num_heads:g}")
+    if E not in [d * num_heads for d in head_dims]:
+        raise ValueError(f"this CUDA training kernel takes head_dim "
+                         f"{' or '.join(map(str, head_dims))}, got {E / num_heads:g}")
     if any(t.device != x.device for t in w):
         raise ValueError("weights and activations must be on one CUDA device")
     if ff % 8:

@@ -14,7 +14,8 @@ float32 master weights and casts them to the compute dtype (the dtype of
 x) inside, so the weight gradients it returns, float32, reach the
 parameters unrounded (a bf16 input would have its float32 gradient rounded
 to bf16 by the autograd engine). A CUDA tensor launches the kernels (bf16,
-head_dim 32 or 64) or raises; a CPU tensor runs the plain versions below,
+head_dim 16, 32 or 64: ``STACK_HEAD_DIMS``; 16 is the 8-head
+image-sequence stack at hidden 128) or raises; a CPU tensor runs the plain versions below,
 which follow the TPU kernel's casts line by line: ``forward_plain`` is
 ``_stack_core`` over the layers, ``backward_plain`` the hand-derived
 backward of ``_make_bwd_kernel`` (not autograd), so that on the card
@@ -22,8 +23,9 @@ kernel and plain version differ by summation order only. Both take the
 GELU as an argument for the fused ViT block (``ops/fused_vit_block.py``),
 which is one such layer; the stack itself is exact GELU.
 ``FusedEncoderStack.fwd_launches`` / ``.bwd_launches`` count kernel launches;
-``.fwd_launches_hd64`` / ``.bwd_launches_hd64`` count the head_dim-64
-launches among them.
+``.fwd_launches_hd64`` / ``.bwd_launches_hd64`` and ``.fwd_launches_hd16`` /
+``.bwd_launches_hd16`` count the head_dim-64 and head_dim-16 launches among
+them.
 """
 
 from __future__ import annotations
@@ -51,6 +53,8 @@ from soccerdiffusion_tpu_torch.ops._train_math import (
 )
 
 STACK_WEIGHTS = ("g1", "be1", "wqkv", "bqkv", "wo", "bo", "g2", "be2", "w1", "b1", "w2", "b2")
+# the kernels' instances (csrc/fused_encoder_stack.cu: stack_head_dim)
+STACK_HEAD_DIMS = (16, 32, 64)
 
 
 def encoder_layer_weights(layer) -> list[torch.Tensor]:
@@ -165,7 +169,7 @@ def forward_kernel(x: torch.Tensor, w: list[torch.Tensor],
     """The forward kernel on CUDA tensors: y (B, T, E) bf16 and the fp32
     input of every layer, acts (L, B, T, E), kept for the backward."""
     (B, T, E), L, FF = x.shape, w[0].shape[0], w[8].shape[-1]
-    check_operands(x, w, num_heads, FF, 3 * num_heads * T)
+    check_operands(x, w, num_heads, FF, 3 * num_heads * T, STACK_HEAD_DIMS)
     if fwd_smem_bytes(T, E) > MAX_SMEM:
         raise ValueError(f"a robot's {T} tokens x {E} do not fit one thread block's shared "
                          "memory")
@@ -182,6 +186,7 @@ def forward_kernel(x: torch.Tensor, w: list[torch.Tensor],
     _build.check("sd_encoder_stack_fwd", err)
     FusedEncoderStack.fwd_launches += 1
     FusedEncoderStack.fwd_launches_hd64 += E == 64 * num_heads
+    FusedEncoderStack.fwd_launches_hd16 += E == 16 * num_heads
     return y, acts
 
 
@@ -217,7 +222,7 @@ def backward_kernel(acts: torch.Tensor, dy: torch.Tensor, w: list[torch.Tensor],
     float32 weight gradients, summed over the batch in a fixed order."""
     L, B, T, E = acts.shape
     FF = w[8].shape[-1]
-    check_operands(dy, w, num_heads, FF, 3 * num_heads * T)
+    check_operands(dy, w, num_heads, FF, 3 * num_heads * T, STACK_HEAD_DIMS)
     dy = dy.contiguous()
     w = [t.contiguous() for t in w]
     wt = transposed_weights(w)
@@ -229,6 +234,7 @@ def backward_kernel(acts: torch.Tensor, dy: torch.Tensor, w: list[torch.Tensor],
     _build.check("sd_encoder_stack_bwd", err)
     FusedEncoderStack.bwd_launches += 1
     FusedEncoderStack.bwd_launches_hd64 += E == 64 * num_heads
+    FusedEncoderStack.bwd_launches_hd16 += E == 16 * num_heads
     return dx, stacked_grads(outs, E, FF)
 
 
@@ -237,8 +243,10 @@ class FusedEncoderStack(torch.autograd.Function):
 
     fwd_launches = 0
     fwd_launches_hd64 = 0
+    fwd_launches_hd16 = 0
     bwd_launches = 0
     bwd_launches_hd64 = 0
+    bwd_launches_hd16 = 0
 
     @staticmethod
     def forward(ctx, x, num_heads, *weights):

@@ -6,10 +6,10 @@ ResNets' BatchNorm on its running statistics) and rolls out
 ``distill_teacher_inference_steps`` DDIM steps without autograd, optionally
 with classifier-free guidance (two ``denoise`` calls a step, the second on
 the context with the guided modalities nulled) or as the mean of K rollouts
-from independent noise (``teacher_draws``, one after another). The student
-takes the teacher's context, detached: with ``student_steps=1`` its one
-``denoise`` at t=0 is the trajectory, with K > 1 it runs its own K-step DDIM
-rollout with gradients through every step. The loss is the MSE against the
+from independent noise (``teacher_draws``, rolled out as one batch of K x
+B rows). The student takes the teacher's context, detached: with
+``student_steps=1`` its one ``denoise`` at t=0 is the trajectory, with K > 1
+it runs its own K-step DDIM rollout with gradients through every step. The loss is the MSE against the
 teacher's trajectory; AdamW updates only the student's denoiser and step
 token (``TRAINABLE``), so its encoders and BatchNorm buffers stay the
 teacher's bit for bit.
@@ -131,16 +131,24 @@ class DistillStep:
     def teacher_trajectory(self, teacher, batch: dict, noise: torch.Tensor,
                            draw_noise: torch.Tensor | None):
         """(the teacher's context, its DDIM trajectory): from ``noise``, or the
-        mean of the rollouts from each of ``draw_noise``."""
-        bsz = noise.shape[0]
+        mean of the rollouts from each of ``draw_noise``. The K draws roll
+        out as one batch of K x B rows (the JAX distiller maps over them in
+        turn to bound its memory; a row's rollout is the same function
+        either way), summed in draw order."""
         with eval_mode(teacher):
             context = teacher.encode_context(batch)
             if self.guided:
                 context_u = teacher.encode_context(null_modalities(batch, self.guidance_null))
+            draws = 1 if draw_noise is None else len(draw_noise)
+            if draws > 1:
+                context_k = context.repeat(draws, 1, 1)
+                context_u = context_u.repeat(draws, 1, 1) if self.guided else None
+            else:
+                context_k = context
 
             def denoise_fn(x, t):
-                tt = torch.full((bsz,), t, dtype=torch.int64, device=x.device)
-                eps_c = teacher.denoise(context, x, tt)
+                tt = torch.full((x.shape[0],), t, dtype=torch.int64, device=x.device)
+                eps_c = teacher.denoise(context_k, x, tt)
                 if not self.guided:
                     return eps_c
                 eps_u = teacher.denoise(context_u, x, tt)
@@ -150,10 +158,11 @@ class DistillStep:
                                             self.teacher_inference_steps)
             if draw_noise is None:
                 return context, rollout(noise)
-            total = rollout(draw_noise[0])
-            for n in draw_noise[1:]:
-                total = total + rollout(n)
-            return context, total / len(draw_noise)
+            trajs = rollout(draw_noise.reshape(-1, *draw_noise.shape[2:])).view(draw_noise.shape)
+            total = trajs[0]
+            for traj in trajs[1:]:
+                total = total + traj
+            return context, total / draws
 
     def apply(self, state: TrainState, teacher, batch: dict[str, torch.Tensor],
               noise: torch.Tensor, draw_noise: torch.Tensor | None = None) -> dict:

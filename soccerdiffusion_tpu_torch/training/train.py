@@ -114,6 +114,9 @@ class RunOptions:
     pretrained_decoder: str | None = None  # a checkpoint whose decoder and step token to load
     mesh: dict[str, int] | None = None  # overrides train.mesh_shape
     dist_backend: str | None = None  # None: nccl on cards, gloo on the CPU
+    # end the run after this many optimizer steps, the schedule still that of
+    # ``epochs`` (the first steps of a longer run); None runs every epoch
+    max_steps: int | None = None
 
 
 def parse_args(argv=None):
@@ -350,7 +353,7 @@ def train(config: Config, opts: RunOptions, hyperparams: dict | None = None):
                     host = (shard_batch(mesh, b) for b in host)
                 batches = prefetch_to_device(host, device)
             for i, batch in enumerate(batches):
-                if i >= steps_per_epoch:
+                if i >= steps_per_epoch or state.step == opts.max_steps:
                     batches.close()
                     break
                 metrics = step_fn(state, batch, generator)
@@ -369,6 +372,8 @@ def train(config: Config, opts: RunOptions, hyperparams: dict | None = None):
             save_checkpoint(opts.output, state, normalizer, hyperparams, epoch)
             if rank0:
                 logger.info(f"epoch {epoch} done; checkpoint -> {opts.output}")
+            if state.step == opts.max_steps:
+                break
     finally:
         metrics_logger.close()
     return state

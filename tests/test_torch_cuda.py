@@ -21,6 +21,9 @@ at S = 17 / 311 / 312 / 383, B = 1 / 13 / 64 / 133, over 3 and 8 layers;
 the chunk sampler's int8 form at every cluster shape (R = 1 to 32 robots a
 block) and head dim, and its "qstat" form in one block and in a cluster;
 the ViT block's "poly" and "bf16" GELUs at ragged shapes;
+the ViT block, the encoder stack and the decoder layer at the camera
+ledger's shapes (T=36 x W=128 frames, the head_dim-16 image-sequence stack
+at T=5 and ragged T, T=100 stacks, S=307);
 the decoder kernels at the shared-memory limits check_kernel_shapes names,
 and refused one 32-key block past them;
 the ResNet18 / ResNet50 / Swin-T encoders' train and eval modes, running
@@ -205,7 +208,9 @@ def test_decoder_layer_kernels_match_plain_versions(device):
 def test_training_kernels_at_head_dim_64(device):
     """The training kernels take head_dim 32 and 64 (the flagship's): at 64
     the encoder-stack backward and the decoder layer's forward and backward
-    agree with their plain versions; head_dim 16 is refused."""
+    agree with their plain versions; head_dim 16 is refused by the decoder
+    layer (the stack takes it: test_encoder_stack_kernels_at_the_ledger_shapes)
+    and head_dim 8 by the stack."""
     from soccerdiffusion_tpu_torch.ops import fused_decoder_layer as fdl
     from soccerdiffusion_tpu_torch.ops import fused_encoder_stack as fes
 
@@ -231,10 +236,10 @@ def test_training_kernels_at_head_dim_64(device):
                        {"bqkv": slice(128, 256), "bck": slice(None)})
     assert (fes.FusedEncoderStack.bwd_launches_hd64, fdl.FusedDecoderLayer.fwd_launches_hd64,
             fdl.FusedDecoderLayer.bwd_launches_hd64) == tuple(k + 1 for k in n)
+    with pytest.raises(ValueError, match="head_dim 16 or 32 or 64, got 8"):
+        fes.forward_kernel(x, enc, 16)
     with pytest.raises(ValueError, match="head_dim 32"):
-        fes.forward_kernel(x, enc, 8)  # head_dim 16
-    with pytest.raises(ValueError, match="head_dim 32"):
-        fdl.forward_kernel(x, mem, dec, 8)
+        fdl.forward_kernel(x, mem, dec, 8)  # head_dim 16
 
 
 def test_decoder_layer_kernels_reject_an_mlp_width_off_8(device):
@@ -510,6 +515,74 @@ def test_decoder_layer_kernels_at_ragged_shapes(T, S, E, H, device):
     assert_close(dmem, dmem_ref)
     assert_grads_close(fdl.WEIGHT_NAMES, grads, grads_ref,
                        {"bqkv": slice(E, 2 * E), "bck": slice(None)})
+
+
+# ------------------------------------------ the camera ledger's bf16 shapes
+# evaluation/ledger.py's run F model (96 px frames in patches of 16: T=36
+# tokens; the width-128 ViT of 4 heads of 32, exact GELU; 5 frames a window;
+# hidden 128): the ViT block over a B=64 step's 320 frames, a report batch's
+# and one frame; the image-sequence stack (8 heads of 16: the stack's
+# head_dim-16 instances) at T=5 and ragged T, a proprioceptive stack (4
+# heads of 32) at T=100, one layer (--fast's depth) and two; the decoder
+# layer at T=10 over S=307 memory rows (300 proprioceptive tokens, 5 image
+# tokens, the game state and the step token).
+LEDGER_FRAMES = [320, 13, 1]
+LEDGER_STACKS = [(5, 64, 1, 8), (5, 13, 1, 8), (5, 64, 2, 8), (1, 3, 1, 8), (49, 7, 2, 8),
+                 (100, 3, 1, 8), (100, 64, 1, 4), (100, 3, 2, 4)]
+LEDGER_ROBOTS = [64, 13, 1]
+
+
+@pytest.mark.parametrize("n", LEDGER_FRAMES)
+def test_vit_block_kernels_at_the_ledger_shapes(n, device):
+    from soccerdiffusion_tpu_torch.ops import fused_encoder_stack as fes
+    from soccerdiffusion_tpu_torch.ops import fused_vit_block as fvb
+
+    w = [t.to(torch.bfloat16) for t in vit_weights(device, 128, 512, seed=36)]
+    rng = np.random.default_rng(n)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device, torch.bfloat16)
+    x, dy = t(n, 36, 128), t(n, 36, 128)
+    assert_close(fvb.forward_kernel(x, w, 4, "exact"), fvb.forward_plain(x, w, 4, "exact"))
+    dx, grads = fvb.backward_kernel(x, dy, w, 4, "exact")
+    dx_ref, grads_ref = fvb.backward_plain(x, dy, w, 4, "exact")
+    torch.cuda.synchronize()
+    assert_close(dx, dx_ref)
+    assert_grads_close(fes.STACK_WEIGHTS, grads, grads_ref, {"bqkv": slice(128, 256)})
+
+
+@pytest.mark.parametrize("T,b,layers,H", LEDGER_STACKS)
+def test_encoder_stack_kernels_at_the_ledger_shapes(T, b, layers, H, device):
+    from soccerdiffusion_tpu_torch.ops import fused_encoder_stack as fes
+
+    w, _ = training_weights(device)
+    w = [t[:layers] for t in w]
+    rng = np.random.default_rng(T * b + layers + H)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device, torch.bfloat16)
+    x, dy = t(b, T, 128), t(b, T, 128)
+    y, acts = fes.forward_kernel(x, w, H)
+    assert_close(y, fes.forward_plain(x, w, H))
+    dx, grads = fes.backward_kernel(acts, dy, w, H)
+    dx_ref, grads_ref = fes.backward_plain(x, dy, w, H)
+    torch.cuda.synchronize()
+    assert_close(dx, dx_ref)
+    assert_grads_close(fes.STACK_WEIGHTS, grads, grads_ref, {"bqkv": slice(128, 256)})
+
+
+@pytest.mark.parametrize("b", LEDGER_ROBOTS)
+def test_decoder_layer_kernels_at_the_ledger_shapes(b, device):
+    from soccerdiffusion_tpu_torch.ops import fused_decoder_layer as fdl
+
+    w = decoder_weights(device, 128, 128, seed=307)
+    rng = np.random.default_rng(b)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device, torch.bfloat16)
+    x, mem, dy = t(b, 10, 128), t(b, 307, 128), t(b, 10, 128)
+    assert_close(fdl.forward_kernel(x, mem, w, 4), fdl.forward_plain(x, mem, w, 4))
+    dx, dmem, grads = fdl.backward_kernel(x, mem, dy, w, 4)
+    dx_ref, dmem_ref, grads_ref = fdl.backward_plain(x, mem, dy, w, 4)
+    torch.cuda.synchronize()
+    assert_close(dx, dx_ref)
+    assert_close(dmem, dmem_ref)
+    assert_grads_close(fdl.WEIGHT_NAMES, grads, grads_ref,
+                       {"bqkv": slice(128, 256), "bck": slice(None)})
 
 
 def test_decoder_layer_backward_is_deterministic_at_head_dim_64(device):

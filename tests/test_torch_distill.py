@@ -8,8 +8,9 @@ the policy checkpoint loader against the JAX package, float32 on the CPU:
     and the parameters within 1e-5 after each of 3 AdamW steps;
   * ``make_distill_step`` at 1 and 3 student steps, guided
     (2.0@action_history on a camera-free config, 3.0@image on a small ViT),
-    with 2 teacher draws and with the fused decoder layers (the JAX kernel
-    in interpret mode), fed JAX's noise (``fold_in(key(seed), step)``,
+    with 2 teacher draws, guided (3.0@image) with 2 teacher draws (rolled
+    out as one batch of 2 x B rows) and with the fused decoder layers (the
+    JAX kernel in interpret mode), fed JAX's noise (``fold_in(key(seed), step)``,
     ``fold_in(., 1)`` for the draws): loss and grad_norm within 1e-4
     relative and the parameters within 1e-5 after each of 3 steps, the
     encoders' parameters and buffers bit for bit the teacher's;
@@ -181,6 +182,8 @@ DISTILL = {
                                    guidance_null=("action_history",))),
     "guided_image": (VIT, dict(student_steps=3, guidance_scale=3.0, guidance_null=("image",))),
     "draws2": (SMALL, dict(student_steps=1, teacher_draws=2)),
+    "guided_draws": (VIT, dict(student_steps=1, guidance_scale=3.0, guidance_null=("image",),
+                               teacher_draws=2)),
     "fused_decoder": (FUSED, dict(student_steps=3)),
 }
 TEACHER_STEPS = 4

@@ -96,10 +96,10 @@ def test_forward_head_dims_match_jax(e, h):
 
 
 def test_head_dim_64_backward_kernel_raises(monkeypatch):
-    """The CUDA backward takes head_dim 32 and 64: at 64 its operand check
-    passes and the call goes on to the kernel library (stubbed here to
-    raise); head_dim 16 raises ValueError before any build or launch (so on
-    CPU tensors too)."""
+    """The CUDA backward takes head_dim 16, 32 and 64: at 64 and at 16 (the
+    8-head image-sequence stack at hidden 128) its operand check passes and
+    the call goes on to the kernel library (stubbed here to raise); head_dim
+    8 raises ValueError before any build or launch (so on CPU tensors too)."""
     from soccerdiffusion_tpu_torch.ops import _build
     from soccerdiffusion_tpu_torch.ops.fused_encoder_stack import backward_kernel
 
@@ -110,10 +110,32 @@ def test_head_dim_64_backward_kernel_raises(monkeypatch):
     x, w, dy, _ = setup(7, 128, 2)
     bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)
     acts = torch.zeros((L, B, T, 128))
-    with pytest.raises(LookupError, match="kernel library"):
-        backward_kernel(acts, bf(dy), [bf(a) for a in w], 2)
-    with pytest.raises(ValueError, match="head_dim 32 or 64, got 16"):
-        backward_kernel(acts, bf(dy), [bf(a) for a in w], 8)
+    for heads in (2, 8):
+        with pytest.raises(LookupError, match="kernel library"):
+            backward_kernel(acts, bf(dy), [bf(a) for a in w], heads)
+    with pytest.raises(ValueError, match="head_dim 16 or 32 or 64, got 8"):
+        backward_kernel(acts, bf(dy), [bf(a) for a in w], 16)
+
+
+def test_head_dim_16_stack_matches_jax():
+    """The camera ledger's image-sequence stack (hidden 128, 8 heads of 16,
+    T=5 frames, one layer), which the CUDA stack takes since its head_dim-16
+    instances: the plain forward and backward against the JAX kernel and
+    jax.grad in float32."""
+    x, w, dy, _ = setup(16, 128, 8)
+    x, dy = x[:, :5], dy[:, :5]
+    w = [a[:1] for a in w]
+    fn = make_encoder_stack_fn(8, 1, block_rows=2, interpret=True)
+    loss = lambda ws, xx: jnp.sum(fn(xx, *ws) * jnp.asarray(dy))
+    y_j = np.asarray(fn(jnp.asarray(x), *map(jnp.asarray, w)))
+    dw_j, dx_j = jax.grad(loss, argnums=(0, 1))([jnp.asarray(a) for a in w], jnp.asarray(x))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    y_p = forward_plain(t(x), [t(a) for a in w], 8)
+    dx_p, dw_p = backward_plain(t(x), t(dy), [t(a) for a in w], 8)
+    np.testing.assert_allclose(y_p.numpy(), y_j, atol=2e-4, rtol=0)
+    np.testing.assert_allclose(dx_p.numpy(), np.asarray(dx_j), atol=2e-3, rtol=0)
+    for name, g_p, g_j in zip(STACK_WEIGHTS, dw_p, dw_j):
+        np.testing.assert_allclose(g_p.numpy(), np.asarray(g_j), atol=2e-3, rtol=0, err_msg=name)
 
 
 def test_backward_matches_jax_grad_float32():

@@ -64,6 +64,7 @@ def test_port_imports_without_jax():
                    "bitbots", "bhuman", "streaming", "recording2mcap"):
         assert f"soccerdiffusion_tpu_torch.ingest.{module}" in MODULES
     assert "soccerdiffusion_tpu_torch.training.flat_optim" in MODULES
+    assert "soccerdiffusion_tpu_torch.evaluation.ledger" in MODULES
     _imports_nothing_of_jax([f"import {m}" for m in MODULES])
 
 
