@@ -289,7 +289,24 @@
    at B=64, each forward and backward against its plain version and timed
    beside its torch.nn layers. The results go under the JSON line's
    "ledger" key.
-20. Prints one JSON line of per-kernel results, then as its last line
+20. The last modules of the JAX package (mfu_phase, examples_phase):
+   training/train.py on proprio_fused.yaml and vit_flagship.yaml at B=64
+   in bf16 with --device-data, 20 steps each in 4 logging windows, through
+   rows 4-6 (each counter exactly the YAML's launches a step); the step's
+   FLOPs the trainer logged must equal utils/profiling.py:estimate_flops of
+   the config with its fused knobs off, and every metrics line's mfu lie in
+   (0, 1) (against the card's bf16 peak). One flagship step under
+   profiling.trace writes a Chrome trace whose CUDA kernels name the
+   decoder-layer, encoder-stack and ViT-block kernels, forward and
+   backward. Then every example of soccerdiffusion_tpu_torch/examples/ runs
+   its main() on the card at its default arguments (fetch_data on the
+   fixture bag feeding preliminary_context_robot --csv; realtime_demo also
+   with --udp) to its PASS line, launching no kernel (their tiny configs
+   set no fused knob); where matplotlib is missing, the two plotting
+   examples must fail naming it after their data work. The launches of
+   rows 4-6 in the JSON line include phase 20's; its record goes under the
+   "mfu" and "examples" keys.
+21. Prints one JSON line of per-kernel results, then as its last line
    {"ok": true, "device": {...}}. Where one torch.nn call computes the
    same function as a kernel (the encoder-stack, ViT-block and
    decoder-layer forwards; one torch.autograd.grad through the same layers
@@ -355,6 +372,7 @@ import copy
 import dataclasses
 import itertools
 import json
+import logging
 import re
 import shutil
 import statistics
@@ -5572,6 +5590,239 @@ def quality_ledger(device, smi, out_dir: Path, vision: bool, fused: bool) -> int
     return 1 if faults else 0
 
 
+# ------------------------------------------------------- phase 20
+# The last modules of the JAX package: utils/profiling.py's MFU meter and
+# trace through the training kernels, and the example zoo.
+
+# two epochs of 10 steps (the dummy data holds 18 batches of 64 an epoch):
+# 4 logging windows, each closed by one sync
+MFU_B, MFU_STEPS, MFU_LOG_EVERY = 64, 20, 5
+MFU_CONFIGS = {"proprio_fused": ("proprio_fused.yaml", H128_STEP_LAUNCHES),
+               "vit_flagship": ("vit_flagship.yaml", FLAG_TRAIN_LAUNCHES)}
+# the kernels a flagship training step must show by name in its trace
+# (csrc/: sd::decoder_layer_{fwd,bwd}_kernel<D>, sd::encoder_stack_{fwd,bwd}_kernel,
+# sd::vit_block_{fwd,bwd}_kernel<D, gelu>)
+TRACED_KERNELS = ("decoder_layer_fwd_kernel", "decoder_layer_bwd_kernel",
+                  "encoder_stack_fwd_kernel", "encoder_stack_bwd_kernel",
+                  "vit_block_fwd_kernel", "vit_block_bwd_kernel")
+
+
+class LogLines(logging.Handler):
+    """Keeps the messages of the port's logger that hold ``needle``."""
+
+    def __init__(self, needle: str):
+        super().__init__()
+        self.needle, self.lines = needle, []
+
+    def emit(self, record):
+        if self.needle in record.getMessage():
+            self.lines.append(record.getMessage())
+
+
+def mfu_run(name: str, tmp: Path, smi) -> tuple[dict, dict, object]:
+    """``train`` on ``name``'s YAML at MFU_B, MFU_STEPS steps in two epochs
+    with --device-data, the launch counters zeroed just before and read just
+    after (exactly the YAML's per-step launches), the FLOPs the trainer
+    logged equal to ``estimate_flops`` of the config with its fused knobs
+    off, and every metrics line's mfu finite in (0, 1). Returns (record,
+    launches, the final TrainState)."""
+    from soccerdiffusion_tpu_torch.config import Config
+    from soccerdiffusion_tpu_torch.training.train import RunOptions, train
+    from soccerdiffusion_tpu_torch.utils import profiling
+
+    yaml_name, per_step = MFU_CONFIGS[name]
+    config = Config.from_yaml(str(CONFIG_DIR / yaml_name))
+    config = dataclasses.replace(config, train=dataclasses.replace(
+        config.train, batch_size=MFU_B, log_every=MFU_LOG_EVERY))
+    metrics = tmp / f"metrics_{name}.jsonl"
+    flops_log = LogLines("train step FLOPs")
+    port_logger = logging.getLogger("soccerdiffusion_tpu_torch")
+    level = port_logger.level
+    port_logger.addHandler(flops_log)
+    port_logger.setLevel(logging.INFO)
+    t0 = time.perf_counter()
+    try:
+        torch.cuda.synchronize()
+        zero_counters()
+        state = train(config, RunOptions(output=str(tmp / f"ckpt_{name}"), dummy_data=True,
+                                         device_data=True, epochs=2,
+                                         steps_per_epoch=MFU_STEPS // 2, seed=0,
+                                         metrics=str(metrics)))
+        torch.cuda.synchronize()
+        launches = read_counters()
+    finally:
+        port_logger.removeHandler(flops_log)
+        port_logger.setLevel(level)
+    wall = time.perf_counter() - t0
+    want = {k: per_step.get(k, 0) * MFU_STEPS for k in launches}
+    if state.step != MFU_STEPS or launches != want:
+        raise AssertionError(f"{name}: {state.step} steps, launches {launches}, expected {want}")
+    if len(flops_log.lines) != 1:
+        raise AssertionError(f"{name}: the trainer logged the step's FLOPs {len(flops_log.lines)} "
+                             f"times: {flops_log.lines}")
+    logged = int(flops_log.lines[0].rsplit("(", 1)[1].rstrip(")"))
+    unfused = dataclasses.replace(config.model, **profiling.UNFUSED)
+    counted = profiling.estimate_flops(state.model, unfused, MFU_B)
+    if logged != counted:
+        raise AssertionError(f"{name}: the trainer logged {logged} FLOPs a step, estimate_flops "
+                             f"of the unfused config counts {counted}")
+    records = [json.loads(line) for line in open(metrics)]
+    mfus = [r["mfu"] for r in records]
+    if len(records) < 2 or not all(m is not None and np.isfinite(m) and 0 < m < 1 for m in mfus):
+        raise AssertionError(f"{name}: metrics lines' mfu {mfus} (want >= 2 lines, each in (0, 1))")
+    peak = profiling.device_peak_flops("cuda", config.model.compute_dtype)
+    last_window = logged * records[-1]["steps_per_sec"] / peak
+    log(f"phase 20 {name} (B={MFU_B}, bf16, --device-data, {MFU_STEPS} steps through rows 4-6): "
+        f"{logged:.4e} FLOPs a step (the unfused layers), mfu over the run {mfus[-1]:.4f}, "
+        f"last window {last_window:.4f} ({1e3 / records[-1]['steps_per_sec']:.3f} ms/step) "
+        f"against {peak:.3g} FLOP/s; lines {[round(m, 4) for m in mfus]}; {wall:.1f} s [{smi}]")
+    return ({"flops_per_step": logged, "mfu": mfus, "mfu_last_window": last_window,
+             "ms_per_step_last_window": 1e3 / records[-1]["steps_per_sec"], "peak_flops": peak,
+             "wall_s": wall, "launches": nonzero(launches)}, launches, state)
+
+
+def traced_step_check(state, tmp: Path) -> dict:
+    """One flagship training step under utils/profiling.py's ``trace``: the
+    Chrome trace it writes must name the decoder-layer, encoder-stack and
+    ViT-block kernels, forward and backward, among its CUDA events."""
+    from soccerdiffusion_tpu_torch.data import Normalizer
+    from soccerdiffusion_tpu_torch.diffusion import make_schedule
+    from soccerdiffusion_tpu_torch.inference.controller import (
+        init_controller_state,
+        make_controller_batch,
+    )
+    from soccerdiffusion_tpu_torch.training.trainer import make_train_step
+    from soccerdiffusion_tpu_torch.utils import profiling
+
+    cfg = state.model.config
+    batch = make_controller_batch(cfg, init_controller_state(cfg, MFU_B, device="cuda"))
+    batch["joint_command"] = torch.zeros((MFU_B, cfg.trajectory_prediction_length,
+                                          cfg.num_joints), device="cuda")
+    step = make_train_step(state.model, make_schedule(1000), state.optimizer,
+                           Normalizer.identity(cfg.num_joints))
+    generator = torch.Generator(device="cuda").manual_seed(0)
+    with profiling.trace(tmp / "trace"):
+        step(state, batch, generator)
+    events = json.loads((tmp / "trace" / profiling.TRACE_FILE).read_text())["traceEvents"]
+    kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    named = {k: [n for n in kernels if k in n] for k in TRACED_KERNELS}
+    if not all(named.values()):
+        raise AssertionError(f"the traced step names no {[k for k, v in named.items() if not v]} "
+                             f"among its {len(kernels)} CUDA kernels: {kernels[:40]}")
+    log(f"phase 20 trace: one flagship step, {len(events)} events, {len(kernels)} CUDA kernel "
+        f"names; {named}")
+    return {"events": len(events), "cuda_kernel_names": len(kernels), "kernels": named}
+
+
+def mfu_phase(smi) -> tuple[dict, dict]:
+    """Phase 20 (a) and (b): the trainer's MFU on proprio_fused.yaml and
+    vit_flagship.yaml through rows 4-6 (mfu_run), then one traced flagship
+    step (traced_step_check). Returns (the record, the launches by config)."""
+    record, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for name in MFU_CONFIGS:
+            record[name], launches[name], state = mfu_run(name, tmp, smi)
+        record["trace"] = traced_step_check(state, tmp)
+    del state
+    torch.cuda.empty_cache()
+    return record, launches
+
+
+def run_example(name: str, *argv) -> tuple[int | None, str, str]:
+    """``soccerdiffusion_tpu_torch.examples.<name>.main([*argv, "--device",
+    "cuda"])`` in this process: (its return code, or None where it raised
+    ImportError; what it printed; the ImportError's message or "")."""
+    import contextlib
+    import importlib
+    import io
+
+    main_fn = importlib.import_module(f"soccerdiffusion_tpu_torch.examples.{name}").main
+    out, error, rc = io.StringIO(), "", None
+    with contextlib.redirect_stdout(out):
+        try:
+            rc = main_fn([*argv, "--device", "cuda"])
+        except ImportError as exc:
+            error = str(exc)
+    return rc, out.getvalue(), error
+
+
+def examples_phase(smi) -> dict:
+    """Phase 20 (c): every ported example's main() on the card at its default
+    arguments (fetch_data on the fixture bag, its CSV feeding
+    preliminary_context_robot --csv, as tests/test_examples.py does) with
+    the launch counters zeroed just before and read just after: each prints
+    its PASS line, and none reaches a kernel of the port (their tiny
+    configs set no fused knob, as the JAX scripts run without Pallas).
+    Where a module an example needs is missing, the example must fail
+    naming it: matplotlib for the two plotting examples, after their data
+    work (preliminary_context_robot: after the open-loop MSE), zstandard for
+    the fixture bag's zstd chunks; fetch_data then reads a bag of the same
+    topics that the port's writer writes without compression
+    (write_ingest_bag, 6 s)."""
+    import importlib.util
+
+    have = {m: importlib.util.find_spec(m) is not None for m in ("matplotlib", "zstandard")}
+    fixture = Path(__file__).resolve().parent / "tests" / "fixtures" / "bitbots_synth.mcap"
+    record = {"modules": have}
+    saved_tempdir = tempfile.tempdir
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        tempfile.tempdir = str(tmp)  # the examples' throwaway databases and checkpoint
+        bag = fixture
+        if not have["zstandard"]:
+            bag = tmp / "legs.mcap"
+            record["uncompressed_bag"] = write_ingest_bag(bag, 6)
+        fetch = ("fetch_data", (str(bag), "-o", str(tmp / "legs.csv")),
+                 "wrote 600 rows x 12 joints", None)
+        cases = [
+            ("sine_diffusion_toy", (), "SINE TOY PASSED", None),
+            ("ar_bin_baseline", (), "AR BIN BASELINE PASSED", None),
+            ("mlp_denoiser_multijoint", (), "MLP MULTI-JOINT PASSED", None),
+            *([] if bag == fixture else [("fetch_data", (str(fixture), "-o", str(tmp / "x.csv")),
+                                          "", "zstandard")]),
+            fetch,
+            ("preliminary_context_robot", ("--out", str(tmp / "prelim_db.png")),
+             f"wrote {tmp / 'prelim_db.png'}", "matplotlib"),
+            ("preliminary_context_robot", ("--csv", str(tmp / "legs.csv"),
+                                           "--out", str(tmp / "prelim_csv.png")),
+             f"wrote {tmp / 'prelim_csv.png'}", "matplotlib"),
+            ("e2e_smoke", (), "E2E SMOKE PASSED", None),
+            ("realtime_demo", (), "REALTIME DEMO PASSED", None),
+            ("realtime_demo", ("--udp",), "REALTIME UDP DEMO PASSED", None),
+            ("visualize_dataset", ("--dummy", "-o", str(tmp / "viz")),
+             f"wrote plots to {tmp / 'viz'}/", "matplotlib"),
+        ]
+        try:
+            for name, argv, line, needs in cases:
+                label = " ".join([name, *(Path(a).name if "/" in a else a for a in argv)])
+                t0 = time.perf_counter()
+                torch.cuda.synchronize()
+                zero_counters()
+                rc, out, error = run_example(name, *argv)
+                launches = nonzero(read_counters())
+                seconds = time.perf_counter() - t0
+                if needs and not have[needs]:
+                    ok = (rc is None and needs in error
+                          and (name != "preliminary_context_robot" or "open-loop MSE" in out))
+                    verdict = f"ImportError naming {needs}: {error!r}"
+                else:
+                    ok = rc == 0 and line in out
+                    verdict = line
+                tail = out.strip().splitlines()[-3:]
+                log(f"phase 20 example {label}: {seconds:.1f} s, rc {rc}, {verdict if ok else '?'}; "
+                    f"launches {launches}; {tail}")
+                if not ok or launches:
+                    raise AssertionError(f"example {label}: rc {rc}, error {error!r}, launches "
+                                         f"{launches}, output:\n{out[-3000:]}")
+                record[label] = {"s": seconds, "last_lines": tail,
+                                 **({"import_error": error} if error else {})}
+        finally:
+            tempfile.tempdir = saved_tempdir
+    log(f"phase 20 examples: {sum(r['s'] for r in record.values() if 's' in r):.1f} s [{smi}]")
+    return record
+
+
 def sass_phase() -> dict:
     """cuobjdump -sass of the built kernel library: every instance of each
     TENSOR_CORE_KERNELS kernel (bf16 only where it says so) must hold
@@ -5930,6 +6181,11 @@ def main(argv=None) -> int:
     # the camera ledger: train, distill and report through rows 4-6
     ledger_results, ledger_launches, ledger = ledger_phase(device, smi)
     results.update(ledger_results)
+    # the last modules of the JAX package: the trainer's MFU through rows 4-6,
+    # the trace, the example zoo
+    mfu, mfu_launches = mfu_phase(smi)
+    examples = examples_phase(smi)
+    h128_mfu, flag_mfu = mfu_launches["proprio_fused"], mfu_launches["vit_flagship"]
 
     # where each kernel instance ran: (source, the TPU kernel it replaces (the
     # pack: the JAX denoiser's pack_context_kv, whose layout the kernel's
@@ -5961,38 +6217,47 @@ def main(argv=None) -> int:
         "fused_denoise": ("fused_denoise.cu", "fused_denoise.py:382", launches["fused_denoise"]),
         "fused_denoise_pack": ("fused_denoise.cu", "fused_denoise.py:310",
                                launches["fused_denoise_pack"]),
-        "fused_encoder_stack_fwd": ("fused_encoder_stack.cu", "fused_encoder_stack.py:274",
-                                    train_launches["fused_encoder_stack_fwd"]),
-        "fused_encoder_stack_bwd": ("fused_encoder_stack.cu", "fused_encoder_stack.py:300",
-                                    train_launches["fused_encoder_stack_bwd"]),
-        "fused_decoder_layer_fwd": ("fused_decoder_layer.cu", "fused_decoder_layer.py:343",
-                                    train_launches["fused_decoder_layer_fwd"]),
-        "fused_decoder_layer_bwd": ("fused_decoder_layer.cu", "fused_decoder_layer.py:371",
-                                    train_launches["fused_decoder_layer_bwd"]),
+        # the h128 training path: phase 6 and phase 20's proprio_fused.yaml
+        **{name: ("fused_encoder_stack.cu" if "stack" in name else "fused_decoder_layer.cu", line,
+                  train_launches[name] + h128_mfu[name])
+           for name, line in (("fused_encoder_stack_fwd", "fused_encoder_stack.py:274"),
+                              ("fused_encoder_stack_bwd", "fused_encoder_stack.py:300"),
+                              ("fused_decoder_layer_fwd", "fused_decoder_layer.py:343"),
+                              ("fused_decoder_layer_bwd", "fused_decoder_layer.py:371"))},
         "fused_vit_block_fwd": ("vit_block.cuh", "fused_vit_block.py:703",
                                 flag("fused_vit_block_fwd", ("ddim30", "distilled1"))),
+        # 640 frames a launch: the raw-frame lane and phase 20's B=64 flagship steps
         "fused_vit_block_fwd_raw_frames": ("vit_block.cuh", "fused_vit_block.py:703",
-                                           flag("fused_vit_block_fwd", ("ddim30_raw_frames",))),
+                                           flag("fused_vit_block_fwd", ("ddim30_raw_frames",))
+                                           + flag_mfu["fused_vit_block_fwd"]),
         "fused_chunk_hd64": ("fused_chunk.cu", "fused_chunk.py:518", flag("fused_chunk")),
         "fused_denoise_hd64": ("fused_denoise.cu", "fused_denoise.py:382", flag("fused_denoise")),
         "fused_denoise_pack_hd64": ("fused_denoise.cu", "fused_denoise.py:310",
                                     flag("fused_denoise_pack")),
         "fused_encoder_stack_fwd_hd64": ("fused_encoder_stack.cu", "fused_encoder_stack.py:274",
-                                         flag("fused_encoder_stack_fwd_hd64")),
+                                         flag("fused_encoder_stack_fwd_hd64")
+                                         + flag_mfu["fused_encoder_stack_fwd_hd64"]),
         "fused_encoder_stack_fwd_imgseq": ("fused_encoder_stack.cu", "fused_encoder_stack.py:274",
-                                           hd32_stack),
-        # the flagship's training path
+                                           hd32_stack + flag_mfu["fused_encoder_stack_fwd"]
+                                           - flag_mfu["fused_encoder_stack_fwd_hd64"]),
+        # the flagship's training path: phase 8 and phase 20's vit_flagship.yaml
         "fused_vit_block_bwd": ("vit_block.cuh", "fused_vit_block.py:722",
-                                flag_train_launches["fused_vit_block_bwd"]),
+                                flag_train_launches["fused_vit_block_bwd"]
+                                + flag_mfu["fused_vit_block_bwd"]),
         "fused_encoder_stack_bwd_hd64": ("fused_encoder_stack.cu", "fused_encoder_stack.py:300",
-                                         flag_train_launches["fused_encoder_stack_bwd_hd64"]),
+                                         flag_train_launches["fused_encoder_stack_bwd_hd64"]
+                                         + flag_mfu["fused_encoder_stack_bwd_hd64"]),
         "fused_encoder_stack_bwd_imgseq": ("fused_encoder_stack.cu", "fused_encoder_stack.py:300",
                                            flag_train_launches["fused_encoder_stack_bwd"]
-                                           - flag_train_launches["fused_encoder_stack_bwd_hd64"]),
+                                           - flag_train_launches["fused_encoder_stack_bwd_hd64"]
+                                           + flag_mfu["fused_encoder_stack_bwd"]
+                                           - flag_mfu["fused_encoder_stack_bwd_hd64"]),
         "fused_decoder_layer_fwd_hd64": ("fused_decoder_layer.cu", "fused_decoder_layer.py:343",
-                                         flag_train_launches["fused_decoder_layer_fwd_hd64"]),
+                                         flag_train_launches["fused_decoder_layer_fwd_hd64"]
+                                         + flag_mfu["fused_decoder_layer_fwd_hd64"]),
         "fused_decoder_layer_bwd_hd64": ("fused_decoder_layer.cu", "fused_decoder_layer.py:371",
-                                         flag_train_launches["fused_decoder_layer_bwd_hd64"]),
+                                         flag_train_launches["fused_decoder_layer_bwd_hd64"]
+                                         + flag_mfu["fused_decoder_layer_bwd_hd64"]),
         # the flash paths: flagship serving and training, the h128 unfused step
         "flash_attention_fwd": ("flash_attention.cu", "flash_attention.py:228",
                                 sum(p["flash_attention_fwd"] for p in (flash_serve, flash_train,
@@ -6091,6 +6356,8 @@ def main(argv=None) -> int:
                     "variants": variants,
                     "ingest": ingest,
                     "ledger": ledger,
+                    "mfu": mfu,
+                    "examples": examples,
                     "gpu": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -17,9 +17,14 @@ from flax's default initialisers (``flax_init_params``); with
 local torchvision state dict (``utils/torchvision_weights.py``), without it
 the encoder starts from its random init and the log says so (the JAX
 trainer's outcome where ImageNet weights cannot be fetched). ``train``
-runs the loop from a ``Config`` and needs no YAML. The log reports steps/s
-(host clock, one device sync per logging window) where the JAX package
-reports its TPU MFU meter.
+runs the loop from a ``Config`` and needs no YAML. The log gives the
+step's model FLOPs once at the start (``utils/profiling.py:estimate_flops``:
+counted on the unfused layers, the same whatever implements the step), and
+every metrics line ``steps_per_sec`` (the logging window's, on the host
+clock between the window's device syncs: one per window) and ``mfu``, the
+run's ``MFUMeter`` over every window so far against the peak of the
+device's ``compute_dtype`` times the ranks (one a device), as the JAX
+package's; ``null`` on a card without a published peak.
 
 Data: ``--dummy-data`` (the synthetic recordings, frames drawn at the
 config's ``image_resolution``), else the SQLite database at ``--db`` or at
@@ -89,6 +94,7 @@ from soccerdiffusion_tpu_torch.training.trainer import (
     make_train_step,
 )
 from soccerdiffusion_tpu_torch.utils.jax_params import flax_init_params, load_jax_params
+from soccerdiffusion_tpu_torch.utils.profiling import MFUMeter, device_peak_flops, estimate_flops
 from soccerdiffusion_tpu_torch.utils.torchvision_weights import load_imagenet_backbone
 
 logger = logging.getLogger("soccerdiffusion_tpu_torch")
@@ -336,12 +342,19 @@ def train(config: Config, opts: RunOptions, hyperparams: dict | None = None):
         logger.info(f"boundary oversampling {tc.boundary_oversample:g}: {len(boundary)} boundary "
                     f"windows of {len(dataset)}")
     generator = torch.Generator(device=device).manual_seed(opts.seed)
+    # MFU accounting (a north-star metric; BASELINE.md), over the global batch
+    flops_per_step = estimate_flops(model, m, tc.batch_size)
+    meter = MFUMeter(flops_per_step, num_devices=distributed.world_size(),
+                     peak_flops=device_peak_flops(device, m.compute_dtype))
+    logger.info(f"train step FLOPs (counted on the unfused layers, B={tc.batch_size}): "
+                f"{flops_per_step:.3e} ({flops_per_step})")
     metrics_logger = MetricsLogger(opts.metrics if rank0 else None)
     log_every = max(1, tc.log_every)
     hyperparams = config.to_dict() if hyperparams is None else hyperparams
     try:
         for epoch in range(start_epoch, epochs):
             window, t0 = 0, time.perf_counter()
+            meter.start()
             order = epoch_order(dataset, boundary, tc.boundary_oversample, opts.seed + epoch)
             if device_data is not None:
                 batches = device_data.batches(tc.batch_size, shuffle=True, seed=opts.seed + epoch,
@@ -361,14 +374,21 @@ def train(config: Config, opts: RunOptions, hyperparams: dict | None = None):
                 if state.step % log_every == 0 and rank0:
                     loss = float(metrics["loss"])  # the window's one device sync
                     now = time.perf_counter()
+                    meter.stop(window)
                     metrics_logger.log(state.step - 1, {
                         "loss": loss, "grad_norm": metrics["grad_norm"],
                         **({"aux_cue_loss": metrics["aux_cue_loss"]}
                            if "aux_cue_loss" in metrics else {}),
                         "lr": lr_at_step(tc.lr, total_steps, state.step - 1), "epoch": epoch,
-                        "steps_per_sec": window / (now - t0)},
+                        "mfu": meter.mfu, "steps_per_sec": window / (now - t0)},
                         grads=metrics["grad_norms_by_layer"])
                     window, t0 = 0, now
+                    meter.start()
+            if window and rank0:
+                float(metrics["loss"])  # the epoch's last, partial window ends in a sync too
+                meter.stop(window)
+            else:
+                meter.cancel()
             save_checkpoint(opts.output, state, normalizer, hyperparams, epoch)
             if rank0:
                 logger.info(f"epoch {epoch} done; checkpoint -> {opts.output}")

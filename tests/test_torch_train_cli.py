@@ -122,3 +122,33 @@ def test_one_device_mesh_trains(mesh, tmp_path):
                         "--steps-per-epoch", "2", "-o", str(tmp_path / "ckpt"), "--device", "cpu"])
     assert state.step == 2
     assert load_checkpoint(tmp_path / "ckpt")["hyperparams"]["mesh_shape"] == mesh
+
+
+def test_metrics_carry_mfu_against_the_nominal_cpu_peak(run, caplog):
+    """Every metrics line has ``mfu`` beside ``steps_per_sec``: the meter's
+    share of the CPU's nominal 1e11 FLOP/s (utils/profiling.py), as the JAX
+    trainer's lines have; the step's FLOPs are logged once."""
+    from soccerdiffusion_tpu_torch.utils.profiling import CPU_PEAK_FLOPS
+
+    go, tmp = run
+    with caplog.at_level("INFO", logger="soccerdiffusion_tpu_torch"):
+        go("--epochs", "1")
+    lines = [r.getMessage() for r in caplog.records if "train step FLOPs" in r.getMessage()]
+    assert len(lines) == 1, lines
+    flops = int(lines[0].rsplit("(", 1)[1].rstrip(")"))
+    assert flops > 0
+    records = [json.loads(line) for line in (tmp / "m.jsonl").read_text().splitlines()]
+    assert all(0 < r["mfu"] < 1 for r in records)
+    # the first window is the meter's only one so far: the same steps over the same time
+    assert records[0]["mfu"] == pytest.approx(flops * records[0]["steps_per_sec"] / CPU_PEAK_FLOPS,
+                                              rel=1e-2)
+
+
+def test_mfu_is_null_without_a_peak(run, monkeypatch):
+    """On a card with no published peak the metrics lines carry ``"mfu": null``,
+    never a CPU figure."""
+    go, tmp = run
+    monkeypatch.setattr(train, "device_peak_flops", lambda device, dtype: None)
+    go("--epochs", "1")
+    records = [json.loads(line) for line in (tmp / "m.jsonl").read_text().splitlines()]
+    assert records and all(r["mfu"] is None for r in records)
