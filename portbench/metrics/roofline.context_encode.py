@@ -1,0 +1,19 @@
+"""The context encoder in serving: the fused proprioceptive encoder kernel.
+
+The share, in %, of the least time the card could take for the layer's
+work in the traced periods or steps (``work.py``, at the cell's shapes)
+over the device time of the layer's kernels in the trace."""
+
+from portbench import work
+from portbench.harness import roofline
+
+PATTERNS = ('fused_encoder_kernel',)
+OWNERS = ()
+
+
+def layer_work(cfg, cell):
+    return work.context_encode_work(cfg, cell["robots"])
+
+
+def read(run):
+    return roofline(run, PATTERNS, OWNERS, layer_work)
