@@ -7,6 +7,13 @@ distilled student), feed the executed prefix back into the action history,
 play the plant over it in closed form and observe. With ``fused="chunk"``
 and ``fused_encoder=True`` (the proprioceptive serving path) a period is two
 kernel launches: the fused context encoder and the whole-chunk sampler.
+Under ``torch.profiler`` the period's three stages are spans
+(``utils/profiling.py:span``): ``sd.rollout.encode`` (the batch and the
+context, the null-modality context too under guidance),
+``sd.rollout.sample`` (the steps table, the K/V, the sampler, the
+denormalised chunk and its executed prefix) and ``sd.rollout.feedback``
+(the buffers, the plant, the stub camera and its frame tokens); the noise
+draw lies outside them.
 
 Image configs add the stub camera: one frame per 5 plant ticks (10 Hz at the
 50 Hz control rate). With the image-token cache (the default for image
@@ -72,6 +79,7 @@ from soccerdiffusion_tpu_torch.ops.fused_chunk import FusedChunkSampler
 from soccerdiffusion_tpu_torch.ops.fused_denoise import FusedDenoiser
 from soccerdiffusion_tpu_torch.ops.fused_encoder import FusedContextEncoder
 from soccerdiffusion_tpu_torch.parallel import comm
+from soccerdiffusion_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -241,12 +249,22 @@ class RolloutEngine:
         ts = torch.as_tensor(timesteps.astype(np.int64), device=self.device)
         return self.model.step_encoding(ts)[:, 0]  # (T, E)
 
-    def _sample_chunk(self, controller: ControllerState, noise: torch.Tensor) -> torch.Tensor:
-        model, n = self.model, self.num_inference_steps
+    def _encode_context(self, controller: ControllerState) -> torch.Tensor:
+        """The context of the controller's batch (B, S, hidden); with
+        guidance, the null-modality context stacked under it (2B, S, hidden)."""
         batch = make_controller_batch(self.cfg, controller)
-        encode = self._encoder_op.encode if self._encoder_op is not None else model.encode_context
+        op = self._encoder_op
+        encode = op.encode if op is not None else self.model.encode_context
         context = encode(batch)
-        bsz = context.shape[0]
+        if self.guidance_scale != 1.0:
+            # both branches through the same encoder, so that no encoder
+            # difference leaks into eps_c - eps_u
+            null = encode(null_modalities(batch, self.guidance_null))
+            context = torch.cat([context, null], dim=0)
+        return context
+
+    def _sample_chunk(self, context: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        model, n, bsz = self.model, self.num_inference_steps, noise.shape[0]
         if self.distilled and self.fused:
             # one pass at t=0: the student's output is the trajectory
             packed = self._sampler_op.pack_context_kv(model.precompute_context_kv(context))
@@ -265,10 +283,7 @@ class RolloutEngine:
             ts = ddim_timesteps(self.schedule.num_train_timesteps, n)
             traj = self._sampler_op.sample(packed, noise, self._steps_table(ts), self.schedule, n)
         elif self.guidance_scale != 1.0:
-            # both branches through the same encoder, so that no encoder
-            # difference leaks into eps_c - eps_u
-            ctx2 = torch.cat([context, encode(null_modalities(batch, self.guidance_null))], dim=0)
-            denoise_fn = guided_denoise_fn(model, model.precompute_context_kv(ctx2), bsz,
+            denoise_fn = guided_denoise_fn(model, model.precompute_context_kv(context), bsz,
                                            self.guidance_scale)
             traj = solver_sample(self.schedule, denoise_fn, noise, n, solver=self.solver)
         else:
@@ -338,18 +353,23 @@ class RolloutEngine:
             b = carry.plant.positions.shape[0]
             shape = (b, self.cfg.trajectory_prediction_length, self.cfg.num_joints)
             noise = torch.randn(shape, generator=carry.generator, device=self.device)
-        chunk = self._sample_chunk(carry.controller, noise.to(self.device, torch.float32))
-        executed = chunk[:, : self.replan_every]
-        controller = push_action_chunk(carry.controller, executed)
-        plant, js_rows, imu_rows = self._plant_play_chunk(carry.plant, executed)
-        frames = tokens = None
-        if self.cfg.use_images:
-            frames = self._camera_frames(plant)
-            if controller.image_tokens is not None:
-                # the token cache: encode only the frames that arrived
-                tokens, frames = self.model.encode_image_frames(frames), None
-        controller = observe_many(controller, joint_states=js_rows, imus=imu_rows,
-                                  images=frames, image_tokens=tokens)
+        noise = noise.to(self.device, torch.float32)
+        # the stages, each a top-level span of a torch.profiler trace
+        with span("sd.rollout.encode"):
+            context = self._encode_context(carry.controller)
+        with span("sd.rollout.sample"):
+            executed = self._sample_chunk(context, noise)[:, : self.replan_every]
+        with span("sd.rollout.feedback"):
+            controller = push_action_chunk(carry.controller, executed)
+            plant, js_rows, imu_rows = self._plant_play_chunk(carry.plant, executed)
+            frames = tokens = None
+            if self.cfg.use_images:
+                frames = self._camera_frames(plant)
+                if controller.image_tokens is not None:
+                    # the token cache: encode only the frames that arrived
+                    tokens, frames = self.model.encode_image_frames(frames), None
+            controller = observe_many(controller, joint_states=js_rows, imus=imu_rows,
+                                      images=frames, image_tokens=tokens)
         return RolloutCarry(controller=controller, plant=plant, generator=carry.generator), executed
 
     # --------------------------------------------------------------- rollout

@@ -5,6 +5,10 @@ One step: normalise the target chunk, draw per-element timesteps and
 noise, run forward diffusion, predict epsilon, take the MSE, backpropagate
 into the float32 master parameters, clip by global norm (optional), AdamW
 under optax's one-cycle cosine schedule, and update the EMA (optional).
+Under ``torch.profiler`` its stages are spans on the calling thread
+(``utils/profiling.py:span``): ``sd.train.draw`` (``__call__``'s draws),
+``sd.train.forward`` (through the loss), ``sd.train.backward`` (the grads)
+and ``sd.train.optimizer`` (gradient sync and norms, AdamW, the EMA).
 The optimizer matches the JAX package: AdamW with betas 0.9 / 0.999, eps
 1e-8 and decoupled weight decay (torch's AdamW update is optax's
 ``adamw``), its learning rate set before every update from
@@ -67,6 +71,7 @@ from soccerdiffusion_tpu_torch.data.pipeline import apply_dropout_masks, draw_dr
 from soccerdiffusion_tpu_torch.diffusion import DiffusionSchedule, add_noise
 from soccerdiffusion_tpu_torch.parallel import comm
 from soccerdiffusion_tpu_torch.parallel.mesh import Mesh, batch_group, use_mesh
+from soccerdiffusion_tpu_torch.utils.profiling import span
 
 
 def lr_at_step(lr: float, total_steps: int, step: int) -> float:
@@ -264,18 +269,21 @@ class TrainStep:
         target = batch["joint_command"]
         rows, dev, i = target.shape[0], generator.device, self.dp_index
         bsz = rows * self.dp_size
-        t = torch.randint(0, self.schedule.num_train_timesteps, (bsz,), generator=generator,
-                          device=dev)
-        noise = torch.randn((bsz, *target.shape[1:]), generator=generator, device=dev)
-        ctx = None
-        if self.decoder_pretraining:
-            ctx = torch.randn((bsz, 10, self.model.config.hidden_dim), generator=generator, device=dev)
-            ctx = global_rows(ctx, rows, i)
-        masks = None
-        if self.modality_dropout > 0.0:
-            masks = global_rows(draw_dropout_masks(bsz, self.modality_dropout, generator), rows, i, 1)
-        return self.apply(state, batch, global_rows(t, rows, i), global_rows(noise, rows, i), ctx,
-                          masks)
+        with span("sd.train.draw"):
+            t = torch.randint(0, self.schedule.num_train_timesteps, (bsz,), generator=generator,
+                              device=dev)
+            noise = torch.randn((bsz, *target.shape[1:]), generator=generator, device=dev)
+            ctx = None
+            if self.decoder_pretraining:
+                ctx = torch.randn((bsz, 10, self.model.config.hidden_dim), generator=generator,
+                                  device=dev)
+                ctx = global_rows(ctx, rows, i)
+            masks = None
+            if self.modality_dropout > 0.0:
+                masks = global_rows(draw_dropout_masks(bsz, self.modality_dropout, generator), rows,
+                                    i, 1)
+            t, noise = global_rows(t, rows, i), global_rows(noise, rows, i)
+        return self.apply(state, batch, t, noise, ctx, masks)
 
     def apply(self, state: TrainState, batch: dict[str, torch.Tensor], t: torch.Tensor,
               noise: torch.Tensor, ctx: torch.Tensor | None = None,
@@ -288,36 +296,40 @@ class TrainStep:
 
     def _apply(self, state, batch, t, noise, ctx, masks) -> dict:
         model, group, n = self.model, self.dp_group, self.dp_size
-        model.train()
-        batch = prepare_batch(batch, keep_u8=model.config.use_images)
-        if masks is not None:
-            batch = apply_dropout_masks(batch, masks)
-        targets = self.normalizer.normalize(batch["joint_command"].float())
-        noisy = add_noise(self.schedule, targets, noise, t)
-        aux = None
-        if self.decoder_pretraining:
-            pred = model.denoise(ctx, noisy, t)  # unconditional, against random context tokens
-        elif self.aux_cue_weight > 0.0:
-            pred, cue = model.forward_with_cue(batch, noisy, t)
-            label = batch["vision_u"].float()
-            valid = batch.get("vision_u_valid", torch.ones_like(label)).float()
-            # the masked mean over the global batch: this rank's sum over the
-            # global count, times the ranks (the loss is averaged over them)
-            count = comm.all_reduce_(torch.sum(valid).detach(), group)
-            aux = n * torch.sum(valid * (cue - label) ** 2) / torch.clamp(count, min=1.0)
-        else:
-            pred = model(batch, noisy, t)
-        loss = torch.mean((pred.float() - noise.float()) ** 2)
-        if aux is not None:
-            loss = loss + self.aux_cue_weight * aux
-        params = dict(model.named_parameters())
-        for p in params.values():
-            p.grad = None
-        loss.backward()
-        for p in params.values():  # unused parameters get zero grads, as under jax.grad
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        with torch.no_grad():
+        # the stages, each a top-level span of a torch.profiler trace
+        with span("sd.train.forward"):
+            model.train()
+            batch = prepare_batch(batch, keep_u8=model.config.use_images)
+            if masks is not None:
+                batch = apply_dropout_masks(batch, masks)
+            targets = self.normalizer.normalize(batch["joint_command"].float())
+            noisy = add_noise(self.schedule, targets, noise, t)
+            aux = None
+            if self.decoder_pretraining:
+                # unconditional, against random context tokens
+                pred = model.denoise(ctx, noisy, t)
+            elif self.aux_cue_weight > 0.0:
+                pred, cue = model.forward_with_cue(batch, noisy, t)
+                label = batch["vision_u"].float()
+                valid = batch.get("vision_u_valid", torch.ones_like(label)).float()
+                # the masked mean over the global batch: this rank's sum over the
+                # global count, times the ranks (the loss is averaged over them)
+                count = comm.all_reduce_(torch.sum(valid).detach(), group)
+                aux = n * torch.sum(valid * (cue - label) ** 2) / torch.clamp(count, min=1.0)
+            else:
+                pred = model(batch, noisy, t)
+            loss = torch.mean((pred.float() - noise.float()) ** 2)
+            if aux is not None:
+                loss = loss + self.aux_cue_weight * aux
+        with span("sd.train.backward"):
+            params = dict(model.named_parameters())
+            for p in params.values():
+                p.grad = None
+            loss.backward()
+            for p in params.values():  # unused parameters get zero grads, as under jax.grad
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        with span("sd.train.optimizer"), torch.no_grad():
             sync_gradients(list(params.values()), group, n)
             norms = gradient_norms({k: p.grad for k, p in params.items()},
                                    getattr(model, "tensor_parallel", None))

@@ -1,10 +1,11 @@
 """Profiling and MFU accounting (counterpart of
 ``soccerdiffusion_tpu/utils/profiling.py``).
 
-A ``torch.profiler`` trace context that writes a Chrome trace, a FLOP count
-of one training step that does not depend on how the step is implemented,
-and the trainer's MFU meter against the card's published peak (MFU is a
-north-star metric; BASELINE.md).
+A ``torch.profiler`` trace context that writes a Chrome trace, the named
+stage spans that the serving period and the training step open in it, a
+FLOP count of one training step that does not depend on how the step is
+implemented, and the trainer's MFU meter against the card's published peak
+(MFU is a north-star metric; BASELINE.md).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ PEAK_FLOPS = {
 }
 CPU_PEAK_FLOPS = 1e11  # nominal, for smoke runs (the JAX package's figure)
 TRACE_FILE = "trace.json"
+_NO_SPAN = contextlib.nullcontext()
 
 # every knob that changes how the step is implemented but not what it
 # computes: the fused kernels, recomputation in the backward, the attention
@@ -124,6 +126,22 @@ def trace(log_dir: str | Path):
         if torch.cuda.is_initialized():
             torch.cuda.synchronize()  # the body's kernels end inside the trace
     prof.export_chrome_trace(str(log_dir / TRACE_FILE))
+
+
+def span(name: str):
+    """A context that marks one stage of the program, ``name``, in a
+    ``torch.profiler`` trace: a CPU op on the calling thread, on the same
+    clock as the card's kernels, whose children are the ops the stage
+    issues. Without a recording profile it is a shared null context, and
+    the stage pays one flag check.
+
+    The span is a function-scope record, not ``record_function``'s user
+    annotation: CUPTI copies a user annotation's range onto the stream of
+    the kernels it launched, and a reader of the trace would take that copy
+    for a device op (a launch, and busy time across the stage's gaps)."""
+    if torch.autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _NO_SPAN
 
 
 def default_peak_flops() -> float | None:

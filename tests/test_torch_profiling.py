@@ -2,7 +2,9 @@
 meter against the JAX package's on one fake clock, the step's FLOP count
 against an analytic count of its products and against XLA's cost analysis
 of the JAX step, its independence of the fused knobs and its linearity in
-the batch, the card's peaks, and the trace file."""
+the batch, the card's peaks, the trace file, and the stage spans: free
+without a profile, top-level CPU ops under one, the training step's four in
+order."""
 
 import dataclasses
 import json
@@ -207,3 +209,104 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert any(e.key == "aten::mm" for e in prof.key_averages())
     events = json.loads((tmp_path / "run" / profiling.TRACE_FILE).read_text())["traceEvents"]
     assert any(e.get("name") == "aten::mm" for e in events)
+
+
+# ------------------------------------------------------------ stage spans
+
+ROLLOUT_STAGES = ("sd.rollout.encode", "sd.rollout.sample", "sd.rollout.feedback")
+TRAIN_STAGES = ("sd.train.draw", "sd.train.forward", "sd.train.backward", "sd.train.optimizer")
+
+
+def profiled(fn):
+    """``fn()`` under a CPU ``torch.profiler`` profile; returns the profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return prof
+
+
+def assert_stages(prof, names, repeats=1):
+    """The profile's ``sd.*`` spans are ``names`` (``repeats`` times over), each
+    top-level, none a user annotation, one after another without overlap."""
+    spans = sorted((e for e in prof.events() if e.name.startswith("sd.")),
+                   key=lambda e: e.time_range.start)
+    assert [e.name for e in spans] == list(names) * repeats
+    assert all(e.cpu_parent is None and not e.is_user_annotation for e in spans)
+    assert all(a.time_range.end <= b.time_range.start for a, b in zip(spans, spans[1:]))
+    return spans
+
+
+def test_span_records_only_under_a_profile(monkeypatch):
+    """Without a profile, span() opens no record of any kind (every record
+    constructor patched to raise) and hands out one shared null context;
+    under a profile it is a top-level CPU op around the ops it issues."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a record opened with no profile recording")
+
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", refuse)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    assert not torch.autograd._profiler_enabled()
+    with profiling.span("sd.a"):
+        with profiling.span("sd.b"):
+            pass
+    assert profiling.span("sd.a") is profiling.span("sd.b")
+    monkeypatch.undo()
+    a = torch.ones((16, 16))
+
+    def stages():
+        with profiling.span("sd.a"):
+            pass
+        with profiling.span("sd.b"):
+            a @ a
+
+    (_, outer) = assert_stages(profiled(stages), ("sd.a", "sd.b"))
+    assert "aten::matmul" in {c.name for c in outer.cpu_children}
+
+
+@pytest.mark.parametrize("cfg", [SMALL, FUSED], ids=["plain", "fused"])
+def test_train_step_opens_its_stage_spans(cfg):
+    """A profiled TrainStep (two steps) holds draw, forward, backward and
+    optimizer as top-level spans in that order; the loss is computed inside
+    the forward span."""
+    from soccerdiffusion_tpu_torch.data import Normalizer
+    from soccerdiffusion_tpu_torch.diffusion import make_schedule
+    from soccerdiffusion_tpu_torch.training.trainer import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    model = DiffusionPolicy(port_config(cfg))
+    state = create_train_state(model, make_optimizer(model, 1e-3, 10))
+    step = make_train_step(model, make_schedule(100), state.optimizer,
+                           Normalizer.identity(cfg.num_joints))
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(v) for k, v in make_batch(cfg, B, rng).items()}
+    batch["joint_command"] = torch.from_numpy(rng.uniform(
+        0, 2 * np.pi, (B, cfg.trajectory_prediction_length, cfg.num_joints)).astype(np.float32))
+    gen = torch.Generator().manual_seed(0)
+    prof = profiled(lambda: [step(state, batch, gen) for _ in range(2)])
+    spans = assert_stages(prof, TRAIN_STAGES, repeats=2)
+    assert state.step == 2
+    forward = spans[1]
+    assert any(c.name == "aten::mean" for c in forward.cpu_children)
+
+
+def test_no_stage_span_names_a_roofline_owner():
+    """portbench's rooflines take a kernel by the name of a CPU op above it
+    (its OWNERS); a stage span above every op must contain none of them."""
+    import ast
+    from pathlib import Path
+
+    owners = set()
+    for path in (Path(__file__).resolve().parents[1] / "portbench" / "metrics").glob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Assign) and any(
+                    getattr(t, "id", None) == "OWNERS" for t in node.targets):
+                owners |= set(ast.literal_eval(node.value))
+    assert {"FusedVitBlock", "FusedEncoderStack", "FusedDecoderLayer"} <= owners
+    for name in ROLLOUT_STAGES + TRAIN_STAGES:
+        assert name == name.lower() and name.startswith("sd.")
+        assert not any(o in name for o in owners), name

@@ -6,6 +6,9 @@ The port's fused paths run their plain versions here (CPU tensors); the
 JAX fused paths run the Pallas kernels in interpret mode. Tolerance 1e-3
 absolute on chunks in [0, 2 pi): float32 summation order through 2 closed-loop
 periods, where the first period's differences re-enter as context.
+
+Every sampler path's period, profiled on the CPU, opens the engine's three
+stage spans in order (``utils/profiling.py:span``).
 """
 
 import jax
@@ -20,9 +23,11 @@ from soccerdiffusion_tpu.inference import RolloutEngine as JaxEngine
 from soccerdiffusion_tpu_torch.data import Normalizer
 from soccerdiffusion_tpu_torch.diffusion import make_schedule
 from soccerdiffusion_tpu_torch.inference import RolloutEngine
+from soccerdiffusion_tpu_torch.models import DiffusionPolicy
 from soccerdiffusion_tpu_torch.ops.fused_chunk import FusedChunkSampler
 from soccerdiffusion_tpu_torch.ops.fused_encoder import FusedContextEncoder
-from tests.test_torch_jax_params import SMALL, build_pair
+from tests.test_torch_jax_params import SMALL, build_pair, port_config
+from tests.test_torch_profiling import ROLLOUT_STAGES, assert_stages, profiled
 
 B, STEPS, PERIODS = 4, 3, 2
 
@@ -97,3 +102,38 @@ def test_own_generator_draws_and_rollout_fn():
     assert a.shape == (3, B, SMALL.trajectory_prediction_length, SMALL.num_joints)
     assert torch.isfinite(a).all()
     torch.testing.assert_close(a, b, rtol=0, atol=0)  # same seed, same rollout
+
+
+TINY_CAMERA = dict(use_images=True, hidden_dim=64, image_resolution=32, vit_patch_size=8,
+                   vit_width=64, vit_depth=1, image_encoder_type="vit", image_context_length=2,
+                   vit_fused_block=True)
+PROPRIO, CAMERA = port_config(SMALL), port_config(SMALL, **TINY_CAMERA)
+SAMPLER_PATHS = {
+    "chunk": (PROPRIO, dict(fused="chunk", fused_encoder=True)),
+    "distilled-fused": (PROPRIO, dict(distilled=True, fused=True)),
+    "distilled": (PROPRIO, dict(distilled=True)),
+    "step": (PROPRIO, dict(fused="step")),
+    "plain": (PROPRIO, {}),
+    "guided": (PROPRIO, dict(guidance_scale=2.0, guidance_null=("imu",))),
+    "camera-cached": (CAMERA, dict(fused="chunk")),
+}
+
+
+@pytest.mark.parametrize("path", list(SAMPLER_PATHS))
+def test_period_opens_its_stage_spans(path):
+    """A profiled replan period of every sampler path holds encode, sample
+    and feedback as top-level spans in that order; the noise the engine draws
+    itself lies outside them, the camera config's frame tokens inside
+    feedback."""
+    cfg, kw = SAMPLER_PATHS[path]
+    engine = RolloutEngine(DiffusionPolicy(cfg), make_schedule(100), Normalizer.identity(cfg.num_joints),
+                           num_inference_steps=STEPS, device="cpu", **kw)
+    carry = engine.init(B, torch.Generator().manual_seed(0))
+    prof = profiled(lambda: engine.replan_period(carry))
+    encode, sample, feedback = assert_stages(prof, ROLLOUT_STAGES)
+    draws = [e for e in prof.events() if e.name == "aten::randn"]
+    assert draws and all(e.cpu_parent is None for e in draws)
+    assert draws[0].time_range.end <= encode.time_range.start
+    # the stub camera's frames and the image encoder's blocks run in feedback
+    children = {c.name for c in feedback.cpu_children}
+    assert ({"aten::linspace", "aten::layer_norm"} <= children) == cfg.use_images
