@@ -51,8 +51,10 @@
    before and read after each; then 2 cached DDIM periods on the card
    against the same engine's plain versions on the CPU.
 8. The flagship's training (soccerdiffusion_tpu_torch/training/configs/
-   vit_flagship.yaml): holds the ViT block's backward (N=128 and N=640
-   frames), the head_dim-64 encoder-stack backward (T=100, L=2), the
+   vit_flagship.yaml): holds the ViT block's backward (N=128, N=640 and
+   N=2560 frames, the last the benchmark's step of 256 robots; the
+   row-tiled kernels at W=256), the head_dim-64 encoder-stack backward
+   (T=100, L=2), the
    image-frame stack's backward (head_dim 32, 8 heads, T=10, L=1) and the
    head_dim-64 decoder layer's forward and backward (T=10 over S=312 memory
    rows) against their plain versions at B=64 and B=256 robots (every
@@ -417,6 +419,9 @@ STEP_LOSS_TOL, STEP_UPDATE_TOL = 2e-2, 0.1
 # the flagship's training: the ViT backward's frames (2 and 10 per robot at
 # B=64), the training path's batch (the benchmark's cell) and the YAML's own
 FLAG_VIT_FRAMES, FLAG_TRAIN_B, FLAG_TRAIN_FULL_B = (128, 640), 64, 256
+# the frames at which the flagship phase times the ViT backward: those, and
+# the benchmark cell's 256 robots x 10 frames
+FLAG_VIT_BWD_FRAMES = (*FLAG_VIT_FRAMES, 10 * FLAG_TRAIN_FULL_B)
 FLAG_YAML = (Path(__file__).resolve().parent / "soccerdiffusion_tpu_torch" / "training" / "configs"
              / "vit_flagship.yaml")
 # kernel launches per flagship training step: 8 ViT blocks, 3 proprioceptive
@@ -442,7 +447,9 @@ TENSOR_CORE_KERNELS = (
     ("fused_chunk_kernel", "ILi128E"), ("fused_denoise_kernel", "ILi128E"),
     ("fused_chunk_int8_kernel", ""),
     ("fused_encoder_kernel", ""), ("flash_fwd_kernel", "__nv_bfloat16"),
-    ("flash_bwd_dq_kernel", "__nv_bfloat16"), ("flash_bwd_dkdv_kernel", "__nv_bfloat16"))
+    ("flash_bwd_dq_kernel", "__nv_bfloat16"), ("flash_bwd_dkdv_kernel", "__nv_bfloat16"),
+    ("vit_rows_gemm_kernel", ""), ("vit_rows_wgrad_kernel", ""), ("vit_rows_attn_fwd", ""),
+    ("vit_rows_attn_bwd", ""))
 # kernels whose every instance must hold IMMA (mma.sync on the int8 tensor
 # cores): the int8 chunk's scores and value sums
 IMMA_KERNELS = ("fused_chunk_int8_kernel",)
@@ -886,6 +893,7 @@ def zero_counters():
         c.fwd_launches = c.bwd_launches = c.fwd_launches_hd64 = c.bwd_launches_hd64 = 0
     FusedEncoderStack.fwd_launches_hd16 = FusedEncoderStack.bwd_launches_hd16 = 0
     fused_vit_block.forward_kernel.launches = fused_vit_block.backward_kernel.launches = 0
+    fused_vit_block.backward_kernel.row_tiled = 0
     FlashAttention.launches = FlashAttention.backward_launches = 0
 
 
@@ -1418,7 +1426,7 @@ def flagship_path_phase(model, device):
 def flagship_training_kernel_phase(model, device):
     """The flagship training step's kernels against their plain versions:
     the ViT block's backward (block 0's weights, quick GELU) at
-    FLAG_VIT_FRAMES frames; at B=64 and B=256 robots the head_dim-64
+    FLAG_VIT_BWD_FRAMES frames; at B=64 and B=256 robots the head_dim-64
     encoder-stack backward (the action-history stack, T=100, L=2), the
     image-frame stack's backward (head_dim 32, 8 heads, T=10, L=1) and the
     head_dim-64 decoder layer (layer 0) forward and backward over the
@@ -1448,7 +1456,7 @@ def flagship_training_kernel_phase(model, device):
     t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
         device, torch.bfloat16)
     results = {}
-    for n in FLAG_VIT_FRAMES:
+    for n in FLAG_VIT_BWD_FRAMES:
         x, dy = t(n, T, W), t(n, T, W)
         log(f"fused ViT block backward N={n} frames T={T} W={W} ({gelu} GELU):")
         dx, grads = fvb.backward_kernel(x, dy, vit_w, H, gelu)
@@ -1508,9 +1516,11 @@ def flagship_training_path_phase():
     """training/train.py on vit_flagship.yaml with packed dummy data: TRAIN_STEPS
     steps at FLAG_TRAIN_B with every launch counter zeroed just before and
     read just after (each kernel exactly its FLAG_TRAIN_LAUNCHES per step, no
-    other kernel), then 3 steps at the YAML's FLAG_TRAIN_FULL_B: the last
-    step's host time between device syncs and the peak device memory.
+    other kernel, every ViT backward on the row-tiled path), then 3 steps at
+    the YAML's FLAG_TRAIN_FULL_B: the last step's host time between device
+    syncs and the peak device memory.
     Returns the launches, ms per step at both batches and the peak bytes."""
+    from soccerdiffusion_tpu_torch.ops import fused_vit_block
     from soccerdiffusion_tpu_torch.training.train import RunOptions, train
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1519,12 +1529,18 @@ def flagship_training_path_phase():
         ms, losses = timed_training(flagship_train_config(FLAG_TRAIN_B), tmp, "flagship",
                                     packed=True)
         launches = read_counters()
+        row_tiled = fused_vit_block.backward_kernel.row_tiled
         want = {name: FLAG_TRAIN_LAUNCHES.get(name, 0) * TRAIN_STEPS for name in launches}
         log(f"flagship training main path (train.py, vit_flagship.yaml, --packed dummy data, "
             f"B={FLAG_TRAIN_B}, {TRAIN_STEPS} steps): {ms:.3f} ms/step, "
-            f"{FLAG_TRAIN_B * 1e3 / ms:.1f} samples/s; logged losses {losses}; launches {launches}")
+            f"{FLAG_TRAIN_B * 1e3 / ms:.1f} samples/s; logged losses {losses}; launches {launches}, "
+            f"{row_tiled} of the ViT backwards row-tiled")
         if launches != want:
             raise AssertionError(f"flagship training: launches {launches}, expected {want}")
+        # every ViT block backward at the flagship's W=256 takes the row-tiled kernels
+        if row_tiled != launches["fused_vit_block_bwd"]:
+            raise AssertionError(f"flagship training: {row_tiled} row-tiled ViT backwards of "
+                                 f"{launches['fused_vit_block_bwd']}")
         config = flagship_train_config(FLAG_TRAIN_FULL_B)
         config = dataclasses.replace(config, train=dataclasses.replace(config.train, log_every=1))
         torch.cuda.empty_cache()
@@ -5601,10 +5617,12 @@ MFU_CONFIGS = {"proprio_fused": ("proprio_fused.yaml", H128_STEP_LAUNCHES),
                "vit_flagship": ("vit_flagship.yaml", FLAG_TRAIN_LAUNCHES)}
 # the kernels a flagship training step must show by name in its trace
 # (csrc/: sd::decoder_layer_{fwd,bwd}_kernel<D>, sd::encoder_stack_{fwd,bwd}_kernel,
-# sd::vit_block_{fwd,bwd}_kernel<D, gelu>)
+# sd::vit_block_fwd_kernel<D, gelu>, and the ViT backward at W=256 as
+# vit_block_rows.cu's sd::vit_rows_gemm_kernel<...> and
+# sd::vit_rows_attn_bwd_kernel<D>)
 TRACED_KERNELS = ("decoder_layer_fwd_kernel", "decoder_layer_bwd_kernel",
                   "encoder_stack_fwd_kernel", "encoder_stack_bwd_kernel",
-                  "vit_block_fwd_kernel", "vit_block_bwd_kernel")
+                  "vit_block_fwd_kernel", "vit_rows_gemm_kernel", "vit_rows_attn_bwd_kernel")
 
 
 class LogLines(logging.Handler):
@@ -6241,7 +6259,7 @@ def main(argv=None) -> int:
                                            hd32_stack + flag_mfu["fused_encoder_stack_fwd"]
                                            - flag_mfu["fused_encoder_stack_fwd_hd64"]),
         # the flagship's training path: phase 8 and phase 20's vit_flagship.yaml
-        "fused_vit_block_bwd": ("vit_block.cuh", "fused_vit_block.py:722",
+        "fused_vit_block_bwd": ("vit_block_rows.cu", "fused_vit_block.py:722",
                                 flag_train_launches["fused_vit_block_bwd"]
                                 + flag_mfu["fused_vit_block_bwd"]),
         "fused_encoder_stack_bwd_hd64": ("fused_encoder_stack.cu", "fused_encoder_stack.py:300",
@@ -6298,7 +6316,10 @@ def main(argv=None) -> int:
                                    variant_launches["fused_chunk_int8_hd128"]),
         "fused_chunk_qstat": ("fused_chunk.cu", "fused_chunk.py:518",
                               variant_launches["fused_chunk_qstat"]),
-        **{name: ("vit_block.cuh",
+        # the flagship's backwards (W=256) on the row-tiled kernels, the
+        # proprioceptive block's (W=128) on the per-frame kernel
+        **{name: ("vit_block_rows.cu" if "_bwd_" in name and not name.endswith("_proprio")
+                  else "vit_block.cuh",
                   "fused_vit_block.py:703" if "_fwd_" in name else "fused_vit_block.py:722",
                   variant_launches[name])
            for name in variant_launches if name.startswith("fused_vit_block")},

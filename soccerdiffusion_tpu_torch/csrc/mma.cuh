@@ -581,29 +581,27 @@ __device__ void attn_fwd_split(const bf16* q, int ldq, int Tq, const bf16* k, co
 //   rs = rowsum(dp P) with fp32 P;  ds = bf16(P (dp - rs) / sqrt(D));
 //   dq = bf16(ds k)
 // and the rows' softmax max, sum and rs into stats (3 floats a row) for the
-// second half.
-template <int D>
+// second half. kSm: q, k, v and dom in shared memory, read with ldmatrix
+// (the same products).
+template <int D, bool kSm = false>
 __device__ void attn_bwd_dq_tile(const bf16* q, int ldq, int Tq, const bf16* k, const bf16* v,
                                  int ldk, int Tk, const bf16* dom, int ldd, int m0, bf16* dq,
                                  int lddq, float* stats) {
   constexpr int KB = 32, NB = KB / 8;
   const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
   uint32_t qa[D / 16][4], da[D / 16][4];
-#pragma unroll
-  for (int kd = 0; kd < D / 16; ++kd) {
-    load_a(qa[kd], q, ldq, m0, 16 * kd, Tq, D);
-    load_a(da[kd], dom, ldd, m0, 16 * kd, Tq, D);
-  }
+  load_q<D, kSm>(qa, q, ldq, m0, Tq);
+  load_q<D, kSm>(da, dom, ldd, m0, Tq);
   float mx[2], sum[2];
-  softmax_stats<D, KB>(qa, k, ldk, Tk, mx, sum);
+  softmax_stats<D, KB, kSm>(qa, k, ldk, Tk, mx, sum);
   // P and dp of one key block (fp32)
   auto block = [&](int j0, float (*p)[4], float (*dp)[4]) {
-    scores<D, NB>(p, qa, k, ldk, j0, Tk);
+    scores<D, NB, true, kSm>(p, qa, k, ldk, j0, Tk);
 #pragma unroll
     for (int j = 0; j < NB; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) p[j][e] = expf(p[j][e] - mx[e >> 1]) / sum[e >> 1];
-    scores<D, NB, false>(dp, da, v, ldk, j0, Tk);
+    scores<D, NB, false, kSm>(dp, da, v, ldk, j0, Tk);
   };
   float part[2] = {0.f, 0.f};
   for (int j0 = 0; j0 < Tk; j0 += KB) {
@@ -629,7 +627,7 @@ __device__ void attn_bwd_dq_tile(const bf16* q, int ldq, int Tq, const bf16* k, 
       for (int e = 0; e < 4; ++e) p[j][e] = p[j][e] * (dp[j][e] - rs[e >> 1]) * attn_scale<D>();
 #pragma unroll
     for (int kk = 0; kk < NB / 2; ++kk)  // ds, rounded to bf16, times k
-      pv_step<D, false>(acc, p[2 * kk], p[2 * kk + 1], k, ldk, j0 + 16 * kk, Tk);
+      pv_step<D, kSm>(acc, p[2 * kk], p[2 * kk + 1], k, ldk, j0 + 16 * kk, Tk);
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {

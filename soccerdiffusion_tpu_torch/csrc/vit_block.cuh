@@ -93,6 +93,8 @@ __global__ void __launch_bounds__(kFwdThreads) vit_block_fwd_kernel(VitArgs a) {
 
 // BACKWARD (vit_block_bwd_kernel)
 //
+// At W = 256 the wrapper takes vit_block_rows.cu's row-tiled kernels instead
+// (ops/fused_vit_block.py:row_tiled); this kernel serves the other widths.
 // The block is one pre-norm encoder layer, so the backward is the encoder
 // stack's layer (encoder_layer.cuh) at L = 1 with the block's GELU: one
 // thread block per frame recomputes the frame's forward internals from x

@@ -45,14 +45,17 @@ _ENTRIES = {
     "sd_decoder_layer_bwd": [ctypes.POINTER(_P), _I, _P],
     "sd_vit_block_fwd": [ctypes.POINTER(_P), _I, _P],
     "sd_vit_block_bwd": [ctypes.POINTER(_P), _I, _P],
+    "sd_vit_block_bwd_rows": [ctypes.POINTER(_P), _I, _P],
     "sd_flash_attention_fwd": [ctypes.POINTER(_P), _I, _P],
     "sd_flash_attention_bwd": [ctypes.POINTER(_P), _I, _P],
     "sd_pass_smem_bytes": [_I],
     "sd_int8_smem_bytes": [_I],
+    "sd_vit_block_bwd_rows_partials": [_I],
 }
 # entries that return something other than a CUDA error code
 _RESTYPES = {"sd_pass_smem_bytes": ctypes.c_longlong,
-             "sd_int8_smem_bytes": ctypes.c_longlong}
+             "sd_int8_smem_bytes": ctypes.c_longlong,
+             "sd_vit_block_bwd_rows_partials": ctypes.c_longlong}
 
 
 def _nvcc() -> str:

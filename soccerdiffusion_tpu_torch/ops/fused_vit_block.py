@@ -28,6 +28,12 @@ custom_vjp saves ``(x, w)``) and returns float32 weight gradients; without
 grad it takes the weights as given (packed once in the compute dtype by
 ``models/transformer.py:packed_weights``). ``forward_kernel.launches`` and
 ``backward_kernel.launches`` count kernel launches.
+
+The backward has two paths, picked by the frame's shape (``row_tiled``):
+the row-tiled kernels of ``csrc/vit_block_rows.cu`` (warpgroup products over
+128-row tiles of all N T rows) at W = 256, and the per-frame kernel (one
+thread block a frame) at the other widths; ``backward_kernel.row_tiled``
+counts the launches of the first.
 """
 
 from __future__ import annotations
@@ -110,11 +116,77 @@ def forward_kernel(x: torch.Tensor, w: list[torch.Tensor], num_heads: int,
     return y
 
 
+# The row-tiled backward (csrc/vit_block_rows.cu): the rows of a product
+# tile, the one width its LayerNorm epilogues take (a 256-column tile spans a
+# row) and the MLP columns of a weight-gradient tile (dw1's output columns;
+# the GELU tile takes 128). At that width it is the faster path at every
+# frame count measured on the card (PERF.md), so the shape alone picks the
+# path.
+ROW_TILE = 128
+ROW_TILED_WIDTH = 256
+ROW_TILED_FF_TILE = 256
+
+
+def row_tiled_smem_bytes(T: int, W: int, H: int) -> int:
+    """Shared memory of the row-tiled path's attention backward, one head of
+    one frame a block (``csrc/vit_block_rows.cu:head_attn_smem``): the
+    head's q|k|v and dom columns, rows padded by 8, and 3 T fp32 softmax
+    statistics."""
+    D = W // H
+    return 2 * T * (3 * D + 8) + 2 * T * (D + 8) + 12 * T
+
+
+def row_tiled(T: int, W: int, H: int, FF: int) -> bool:
+    """Whether the backward over frames of T tokens x W (H heads, MLP width
+    FF) takes the row-tiled kernels: W = 256, FF a multiple of 256 and a
+    frame's attention operands within one block's shared memory; else the
+    per-frame kernel."""
+    return (W == ROW_TILED_WIDTH and FF % ROW_TILED_FF_TILE == 0
+            and row_tiled_smem_bytes(T, W, H) <= MAX_SMEM)
+
+
+def row_tiled_scratch(N: int, T: int, W: int, FF: int,
+                      partials: int) -> list[tuple[tuple, torch.dtype]]:
+    """(shape, dtype) of each scratch buffer of the row-tiled backward, in the
+    order of ``sd_vit_block_bwd_rows``' pointers: the row operands n1, q|k|v,
+    om, x2, n2, hg, dzc, dx2, da, dom, dq|dk|dv (R = N T rows); the vector
+    gradients' partials: bqkv a frame, [g1|be1], [bo|g2|be2], b1 and b2 a row
+    tile; the weight-gradient products' ``partials`` floats, which the C side
+    sizes from the device (``sd_vit_block_bwd_rows_partials``)."""
+    R, tiles = N * T, -(-N * T // ROW_TILE)
+    bf, f32 = torch.bfloat16, torch.float32
+    return [((R, W), bf), ((R, 3 * W), bf), ((R, W), bf), ((R, W), f32), ((R, W), bf),
+            ((R, FF), bf), ((R, FF), bf), ((R, W), f32), ((R, W), bf), ((R, W), bf),
+            ((R, 3 * W), bf),
+            ((N, 3 * W), f32), ((tiles, 2 * W), f32), ((tiles, 3 * W), f32), ((tiles, FF), f32),
+            ((tiles, W), f32),
+            ((partials,), f32)]
+
+
+def _check_backward(x: torch.Tensor, dy: torch.Tensor, w: list[torch.Tensor], num_heads: int,
+                    gelu: str) -> None:
+    _check(x, w, num_heads, gelu)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy must match x: got {tuple(dy.shape)} {dy.dtype} on {dy.device}, x "
+                         f"{tuple(x.shape)} {x.dtype} on {x.device}")
+
+
 def backward_kernel(x: torch.Tensor, dy: torch.Tensor, w: list[torch.Tensor], num_heads: int,
                     gelu: str = "exact") -> tuple[torch.Tensor, list[torch.Tensor]]:
-    """The backward kernel on CUDA tensors: dx (bf16) and the 12 float32
-    weight gradients, summed over the frames in a fixed order."""
-    _check(x, w, num_heads, gelu)
+    """The backward kernels on CUDA tensors: dx (bf16) and the 12 float32
+    weight gradients, summed over the frames in a fixed order; the row-tiled
+    kernels where ``row_tiled`` takes the shape, else the per-frame kernel."""
+    _check_backward(x, dy, w, num_heads, gelu)
+    if row_tiled(x.shape[1], x.shape[2], num_heads, w[8].shape[-1]):
+        return backward_row_tiled(x, dy, w, num_heads, gelu)
+    return backward_per_frame(x, dy, w, num_heads, gelu)
+
+
+def backward_per_frame(x: torch.Tensor, dy: torch.Tensor, w: list[torch.Tensor], num_heads: int,
+                       gelu: str = "exact") -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """The per-frame backward kernel (``vit_block_bwd_kernel``, one thread
+    block a frame) at any shape the kernels take."""
+    _check_backward(x, dy, w, num_heads, gelu)
     N, T, W = x.shape
     FF = w[8].shape[-1]
     x, dy = x.contiguous(), dy.contiguous()
@@ -131,8 +203,45 @@ def backward_kernel(x: torch.Tensor, dy: torch.Tensor, w: list[torch.Tensor], nu
     return dx, [g[0] for g in fes.stacked_grads(outs, W, FF)]
 
 
+def backward_row_tiled(x: torch.Tensor, dy: torch.Tensor, w: list[torch.Tensor], num_heads: int,
+                       gelu: str = "exact") -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """The row-tiled backward kernels (``csrc/vit_block_rows.cu``) at any
+    frame count of a shape that ``row_tiled`` takes."""
+    _check_backward(x, dy, w, num_heads, gelu)
+    N, T, W = x.shape
+    FF = w[8].shape[-1]
+    if not row_tiled(T, W, num_heads, FF):
+        raise ValueError(f"the row-tiled ViT backward takes W={ROW_TILED_WIDTH}, an MLP width that "
+                         f"is a multiple of {ROW_TILED_FF_TILE} and a frame's attention operands "
+                         f"in {MAX_SMEM} bytes; got T={T}, W={W}, FF={FF}")
+    dev = x.device
+    x, dy = x.contiguous(), dy.contiguous()
+    w = [t.contiguous() for t in w]
+    # wqkv, wo and w1 as (out, in); the dhg product reads w2 as it lies
+    wt = [w[i].transpose(-1, -2).contiguous() for i in (2, 4, 8)]
+    outs = [torch.empty((1, W, 3 * W), device=dev), torch.empty((1, W, W), device=dev),
+            torch.empty((1, W, FF), device=dev), torch.empty((1, FF, W), device=dev),
+            torch.empty((1, 9 * W + FF), device=dev)]
+    lib = _build.library()
+    dx = torch.empty_like(x)
+    with torch.cuda.device(dev):  # the C side sizes the splits from this device's SMs
+        partials = lib.sd_vit_block_bwd_rows_partials(_build.ints(N, T, W, FF))
+        if partials < 0:
+            raise RuntimeError(f"sd_vit_block_bwd_rows_partials could not read {dev}")
+        scratch = [torch.empty(shape, dtype=dtype, device=dev)
+                   for shape, dtype in row_tiled_scratch(N, T, W, FF, partials)]
+        err = lib.sd_vit_block_bwd_rows(_build.pointers(x, dy, *w, *wt, dx, *outs, *scratch),
+                                        _build.ints(N, T, W, num_heads, FF, gelu_code(gelu)),
+                                        _build.stream(dev))
+    _build.check("sd_vit_block_bwd_rows", err)
+    backward_kernel.launches += 1
+    backward_kernel.row_tiled += 1
+    return dx, [g[0] for g in fes.stacked_grads(outs, W, FF)]
+
+
 forward_kernel.launches = 0
 backward_kernel.launches = 0
+backward_kernel.row_tiled = 0
 
 
 class FusedVitBlock(torch.autograd.Function):

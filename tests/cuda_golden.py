@@ -154,8 +154,10 @@ def fingerprints(device="cuda") -> dict:
         x, dy = (torch.from_numpy(rng.normal(size=(n, T, W)).astype(np.float32)).to(
             device, torch.bfloat16) for _ in range(2))
         if op == "vit":
+            # the per-frame backward kernel, which the record holds at both
+            # widths (at W=256 backward_kernel takes the row-tiled kernels)
             y = fvb.forward_kernel(x, w, H, gelu)
-            dx, grads = fvb.backward_kernel(x, dy, w, H, gelu)
+            dx, grads = fvb.backward_per_frame(x, dy, w, H, gelu)
         else:
             y, acts = fes.forward_kernel(x, w, H)
             dx, grads = fes.backward_kernel(acts, dy, w, H)

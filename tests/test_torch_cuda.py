@@ -21,6 +21,10 @@ at S = 17 / 311 / 312 / 383, B = 1 / 13 / 64 / 133, over 3 and 8 layers;
 the chunk sampler's int8 form at every cluster shape (R = 1 to 32 robots a
 block) and head dim, and its "qstat" form in one block and in a cluster;
 the ViT block's "poly" and "bf16" GELUs at ragged shapes;
+the ViT block's row-tiled backward at the flagship's frame over N=301
+frames (a ragged last row tile), head_dim 64 and 32, bit-identical over two
+launches, its path counter, and the per-frame backward at the W=256 ragged
+shapes that backward_kernel now hands to the row-tiled path;
 the ViT block, the encoder stack and the decoder layer at the camera
 ledger's shapes (T=36 x W=128 frames, the head_dim-16 image-sequence stack
 at T=5 and ragged T, T=100 stacks, S=307);
@@ -365,6 +369,88 @@ def test_vit_block_kernels_at_ragged_shapes(W, H, gelu, T, n, device):
     torch.cuda.synchronize()
     assert_close(dx, dx_ref)
     assert_grads_close(fes.STACK_WEIGHTS, grads, grads_ref, {"bqkv": slice(W, 2 * W)})
+
+
+@pytest.mark.parametrize("W,H,gelu,T,n", [c for c in VIT_CASES if c[0] == 256])
+def test_vit_block_per_frame_backward_at_ragged_shapes(W, H, gelu, T, n, device):
+    """The per-frame backward kernel at the width whose shapes backward_kernel
+    hands to the row-tiled kernels: both paths stay held to the plain
+    version there."""
+    from soccerdiffusion_tpu_torch.ops import fused_encoder_stack as fes
+    from soccerdiffusion_tpu_torch.ops import fused_vit_block as fvb
+
+    w = [t.to(torch.bfloat16) for t in vit_weights(device, W, 4 * W, seed=T)]
+    rng = np.random.default_rng(T + n)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device, torch.bfloat16)
+    x, dy = t(n, T, W), t(n, T, W)
+    assert fvb.row_tiled(T, W, H, 4 * W)
+    n0 = fvb.backward_kernel.row_tiled
+    dx, grads = fvb.backward_per_frame(x, dy, w, H, gelu)
+    dx_ref, grads_ref = fvb.backward_plain(x, dy, w, H, gelu)
+    torch.cuda.synchronize()
+    assert fvb.backward_kernel.row_tiled == n0
+    assert_close(dx, dx_ref)
+    assert_grads_close(fes.STACK_WEIGHTS, grads, grads_ref, {"bqkv": slice(W, 2 * W)})
+
+
+@pytest.mark.parametrize("H", [4, 8])  # head_dim 64 (the flagship), 32
+def test_vit_block_row_tiled_backward_at_the_flagship_shape(H, device):
+    """The row-tiled backward at the flagship's frame (T=64, W=256, quick
+    GELU) over N=301 frames, 150.5 row tiles of 128: dx and every weight
+    gradient against backward_plain, the path counter one up a launch, and
+    a second launch bit-identical."""
+    from soccerdiffusion_tpu_torch.ops import fused_encoder_stack as fes
+    from soccerdiffusion_tpu_torch.ops import fused_vit_block as fvb
+
+    w = [t.to(torch.bfloat16) for t in vit_weights(device, 256, 1024, seed=64)]
+    rng = np.random.default_rng(301)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device, torch.bfloat16)
+    x, dy = t(301, 64, 256), t(301, 64, 256)
+    n0, r0 = fvb.backward_kernel.launches, fvb.backward_kernel.row_tiled
+    dx, grads = fvb.backward_kernel(x, dy, w, H, "quick")
+    torch.cuda.synchronize()
+    assert (fvb.backward_kernel.launches, fvb.backward_kernel.row_tiled) == (n0 + 1, r0 + 1)
+    dx_ref, grads_ref = fvb.backward_plain(x, dy, w, H, "quick")
+    assert_close(dx, dx_ref)
+    assert_grads_close(fes.STACK_WEIGHTS, grads, grads_ref, {"bqkv": slice(256, 512)})
+    dx2, grads2 = fvb.backward_row_tiled(x, dy, w, H, "quick")
+    torch.cuda.synchronize()
+    assert fvb.backward_kernel.row_tiled == r0 + 2
+    for a, b in zip([dx, *grads], [dx2, *grads2]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("N", [1, 65, 301, 2560])
+def test_vit_block_row_tiled_partials(N, device):
+    """The row-tiled backward's weight-gradient partials as the C side sizes
+    them (sd_vit_block_bwd_rows_partials): a split of the N T rows for each
+    4096 begun, no more than the card's SMs hold blocks of the 24 output
+    tiles once, each split's 4 products over 128 x 256 tiles."""
+    from soccerdiffusion_tpu_torch.ops import _build
+
+    T, W, FF = 64, 256, 1024
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    splits = max(1, min(sms // 24, -(-N * T // 4096)))
+    rows = 64 * -(-N * T // (64 * splits))
+    got = _build.library().sd_vit_block_bwd_rows_partials(_build.ints(N, T, W, FF))
+    assert got == -(-N * T // rows) * (4 * W * W + 2 * W * FF)
+
+
+def test_vit_block_backward_path_counter(device):
+    """backward_kernel counts a row-tiled launch at W=256 and none at the
+    camera ledger's W=128, through FusedVitBlock as in training."""
+    from soccerdiffusion_tpu_torch.ops import fused_vit_block as fvb
+
+    rng = np.random.default_rng(5)
+    for W, T, expect in ((256, 64, 1), (128, 36, 0)):
+        masters = [m.requires_grad_(True) for m in vit_weights(device, W, 4 * W, seed=W)]
+        x = torch.from_numpy(rng.normal(size=(3, T, W)).astype(np.float32)).to(device, torch.bfloat16)
+        n0, r0 = fvb.backward_kernel.launches, fvb.backward_kernel.row_tiled
+        fvb.vit_block(x.requires_grad_(True), masters, 4, "quick").float().sum().backward()
+        torch.cuda.synchronize()
+        assert fvb.backward_kernel.launches == n0 + 1
+        assert fvb.backward_kernel.row_tiled == r0 + expect
+        assert all(torch.isfinite(m.grad).all() for m in masters)
 
 
 @pytest.mark.parametrize("T,b", RAGGED)

@@ -128,3 +128,69 @@ def test_kernel_wrapper_checks_before_launch():
     with pytest.raises(ValueError, match="shared memory"):  # 128 tokens x 256
         fvb.forward_kernel(torch.zeros(2, 128, 256, dtype=torch.bfloat16),
                            [torch.zeros(s, dtype=torch.bfloat16) for s in shapes], 4)
+    # the backward: dy as x, and the row-tiled path's shapes
+    flag = [torch.zeros(s, dtype=torch.bfloat16) for s in shapes]
+    xf = torch.zeros(2, 64, 256, dtype=torch.bfloat16)
+    for dy in (torch.zeros(2, 63, 256, dtype=torch.bfloat16), xf.float()):
+        for backward in (fvb.backward_kernel, fvb.backward_row_tiled, fvb.backward_per_frame):
+            with pytest.raises(ValueError, match="dy must match x"):
+                backward(xf, dy, flag, 4, "quick")
+    with pytest.raises(ValueError, match="row-tiled"):  # W=64
+        fvb.backward_row_tiled(x, x, w, 2)
+    with pytest.raises(ValueError, match="row-tiled"):  # 419 tokens: a head's attention operands
+        fvb.backward_row_tiled(torch.zeros(1, 419, 256, dtype=torch.bfloat16),  # past 227 KB
+                               torch.zeros(1, 419, 256, dtype=torch.bfloat16), flag, 4)
+
+
+# (T, W, H, FF) -> whether the backward takes the row-tiled kernels
+ROW_TILED_SHAPES = [((64, 256, 4, 1024), True),    # the flagship's frame
+                    ((64, 256, 8, 1024), True),    # head_dim 32
+                    ((1, 256, 4, 1024), True),
+                    ((418, 256, 4, 1024), True),   # a head's attention operands: 232,408 bytes
+                    ((419, 256, 4, 1024), False),  # 232,964: past one block's 232,448
+                    ((64, 256, 4, 1000), False),   # the GELU tile's 128 columns
+                    ((64, 256, 4, 640), False),    # dw1's 256-column tiles
+                    ((64, 256, 4, 512), True),
+                    ((36, 128, 4, 512), False),    # the camera ledger
+                    ((100, 128, 4, 512), False)]   # encoder_fused_block's stacks
+
+
+@pytest.mark.parametrize("shape,expect", ROW_TILED_SHAPES)
+def test_backward_path_by_shape(shape, expect):
+    """The path the backward wrapper takes, from the frame's shape alone."""
+    assert fvb.row_tiled(*shape) is expect
+    T, W, H, _ = shape
+    D = W // H
+    assert fvb.row_tiled_smem_bytes(T, W, H) == 2 * T * (3 * D + 8) + 2 * T * (D + 8) + 12 * T
+
+
+# the weight-gradient partials of 5 row splits and of 1 (the C side's split
+# count on an H100 at 2560 and at one frame)
+PARTIALS_5, PARTIALS_1 = 5 * (4 * 256 * 256 + 2 * 256 * 1024), 4 * 256 * 256 + 2 * 256 * 1024
+
+
+@pytest.mark.parametrize("N,tiles,partials", [(301, 151, PARTIALS_5), (300, 150, PARTIALS_5),
+                                              (2560, 1280, PARTIALS_5), (1, 1, PARTIALS_1),
+                                              (2, 1, PARTIALS_1), (3, 2, PARTIALS_1),
+                                              (640, 320, PARTIALS_5), (65, 33, PARTIALS_1)])
+def test_row_tiled_scratch(N, tiles, partials):
+    """The row-tiled backward's scratch at T=64, W=256, FF=1024: the row
+    operands over N T rows, the vector-gradient partials a frame (bqkv) and
+    a 128-row tile (the ragged last tile counts whole), and the
+    weight-gradient partials as the C side sizes them."""
+    T, W, FF = 64, 256, 1024
+    R = N * T
+    got = fvb.row_tiled_scratch(N, T, W, FF, partials)
+    bf, f32 = torch.bfloat16, torch.float32
+    assert [d for _, d in got] == [bf, bf, bf, f32, bf, bf, bf, f32, bf, bf, bf] + [f32] * 6
+    assert [s[0] for s, _ in got[:11]] == [R] * 11
+    assert [s[1] for s, _ in got[:11]] == [W, 3 * W, W, W, W, FF, FF, W, W, W, 3 * W]
+    assert [s for s, _ in got[11:16]] == [(N, 3 * W), (tiles, 2 * W), (tiles, 3 * W),
+                                          (tiles, FF), (tiles, W)]
+    assert got[16][0] == (partials,)
+    rows = 2 * R * (W + 3 * W + W + W + 2 * FF + W + W + 3 * W) + 4 * R * 2 * W
+    parts = 4 * (N * 3 * W + tiles * (6 * W + FF) + partials)
+    total = sum(torch.Size(s).numel() * torch.empty(0, dtype=d).element_size() for s, d in got)
+    assert total == rows + parts
+    if N == 2560:  # the flagship step's 2560 frames: 1.97 GB a launch
+        assert total == 1_966_080_000

@@ -229,4 +229,4 @@ def test_kernel_build_dir_is_keyed_by_sources():
         "fused_encoder.cu", "fused_denoise.cu", "fused_chunk.cu", "fused_chunk_int8.cu",
         "fused_encoder_stack.cu", "fused_decoder_layer.cu", "weight_grads.cu",
         "fused_vit_block.cu", "fused_vit_block_hd32.cu", "fused_vit_block_hd64.cu",
-        "flash_attention.cu"}
+        "vit_block_rows.cu", "flash_attention.cu"}
